@@ -1,0 +1,61 @@
+"""The port imports torch, never jax, and nothing of the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _is_jax_package(name: str) -> bool:
+    # motionbert_tpu_torch starts with "motionbert_tpu": match the module
+    # name itself or its submodules, not the prefix
+    return name in ("jax", "motionbert_tpu") or name.startswith(
+        ("jax.", "jaxlib", "flax", "optax", "motionbert_tpu."))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, json\n"
+        "import motionbert_tpu_torch, motionbert_tpu_torch.api, "
+        "motionbert_tpu_torch.serve\n"
+        "import motionbert_tpu_torch.ops.fused_pair, "
+        "motionbert_tpu_torch.core.checkpoint\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import json
+
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "motionbert_tpu_torch.api" in mods
+    bad = [m for m in mods if _is_jax_package(m)]
+    assert not bad, bad
+
+
+def _imported_names(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_sources_and_chip_smoke_import_no_jax():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "motionbert_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    for path in files:
+        bad = [m for m in _imported_names(path) if _is_jax_package(m)]
+        assert not bad, (path, bad)
+
+
+def test_name_check_tells_the_packages_apart():
+    assert _is_jax_package("motionbert_tpu")
+    assert _is_jax_package("motionbert_tpu.ops.fused_pair")
+    assert _is_jax_package("jax.numpy")
+    assert not _is_jax_package("motionbert_tpu_torch")
+    assert not _is_jax_package("motionbert_tpu_torch.ops")
