@@ -18,6 +18,17 @@ Phases, each of which passes or ends the run with a non-zero exit code:
   5. profile: one more lift under torch.profiler; device time by kernel.
   6. serving: MotionBERTServer answers concurrent requests of 243 and 81
      frames from several threads; each answer is held against a direct lift.
+  7. backward kernels: the pair backward (plain and gated, temporal and
+     spatial) at the phase-3 shape against its plain backward, per gradient
+     tensor, twice for bitwise equality, with times, bound and a library
+     yardstick (PyTorch's own operators, forward plus autograd).
+  8. train step: the flagship pose3d training config with the anchor weights,
+     a seeded (8, 243, 17, 3) batch and a smooth root-relative target; the
+     first step's loss and gradients against the fp32 plain path (batch 4),
+     then 10 AdamW steps through the kernels with the launch counts per step,
+     ms per step, clips/s, peak memory, and one step under torch.profiler.
+  9. driver: train_with_config on the synthetic smoke set at the flagship
+     widths, 2 epochs with evaluation, then a resumed third epoch.
 Then a JSON line of per-kernel numbers, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}.
 
@@ -31,8 +42,10 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -40,6 +53,9 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "pose3d", "MB_ft_h36m.yaml")
+TRAIN_CONFIG = os.path.join(ROOT, "configs", "pose3d", "MB_train_h36m.yaml")
+SMOKE_CONFIG = os.path.join(ROOT, "configs", "pose3d",
+                            "MB_train_synth_smoke.yaml")
 ANCHOR = os.path.join(ROOT, "data", "anchors", "flagship_synth_trained.npz")
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
@@ -48,8 +64,27 @@ PEAK_HBM_BYTES = 3.35e12
 
 KERNEL_TOL = 2e-2   # max|kernel - plain| / max|plain|, bf16 vs bf16
 PATH_TOL = 2e-2     # max|bf16 kernels - fp32 plain| / max|fp32 plain|
+# first train step, bf16 kernels vs fp32 plain: the cosine of all gradients
+# as one vector, the loss (relative), and each tensor's max|d| / max|ref|.
+# Two kinds of tensor get a wider bar: their gradient is a sum of bf16 terms
+# that cancel, so its relative error is the terms' rounding over a small net
+# sum (temp_embed: the input stream's gradient summed over the batch and the
+# 17 joints; the gate biases: dsg0 = -dsg1 on every row). Set from a chip
+# run recorded in PERF.md: cosine 0.99977, worst 0.276 (temp_embed), then
+# 0.167 (a gate bias), every other tensor <= 0.064.
+GRAD_COSINE_MIN = 0.999
+LOSS_TOL = 2e-2
+GRAD_TENSOR_TOL = 0.1
+CANCELLING_SUM_TOL = 0.5
+
+
+def grad_tensor_tol(name: str) -> float:
+    cancelling = name == "temp_embed" or (
+        name.startswith("ts_attn.") and name.endswith(".bias"))
+    return CANCELLING_SUM_TOL if cancelling else GRAD_TENSOR_TOL
 B, FRAMES, J, C, HEADS, HIDDEN = 4, 243, 17, 512, 8, 1024
 LIFT_BATCH = 8
+TRAIN_BATCH, REF_BATCH, TRAIN_STEPS = 8, 4, 10
 
 
 def log(msg: str) -> None:
@@ -295,6 +330,18 @@ def phase_main_path(fp, records: list):
     return mb, x
 
 
+def device_rows(prof) -> list:
+    """(name, device ms, count) of the kernels in a profile: only events
+    that ran on the device, so host-side ranges that enclose kernels (aten
+    ops, the autograd Functions) do not count their time again."""
+    from torch.autograd import DeviceType
+
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
 def phase_profile(mb, x):
     """One more lift under torch.profiler: device time by kernel and the
     device's busy share of the wall time (the profiler's own overhead is in
@@ -307,10 +354,7 @@ def phase_profile(mb, x):
         mb.lift(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side rows only: an aten:: row repeats the time of its kernels
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
+    rows = device_rows(prof)
     busy_ms = sum(ms for _, ms, _ in rows)
     log(f"profile: one lift ({LIFT_BATCH}, {FRAMES}) under the profiler: "
         f"{wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy "
@@ -364,6 +408,313 @@ def phase_serving(mb):
         f"direct lift {worst:.3e}; shutdown returned")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 7: backward kernels
+# ---------------------------------------------------------------------------
+
+def pair_bwd_cost(mode: str, gated: bool) -> tuple:
+    """(FLOPs, bytes) of the pair backward at the phase-3 shape. Its inputs
+    are x (+ other), g and the weights, so the forward's recompute counts:
+    each product runs three times (forward, input gradient, weight
+    gradient), and the attention core three times (the forward, then dP/dv
+    and dq/dk at twice the work, as one backward). Bytes: x, g (+ other)
+    read, dx (+ dother) written, the weights read and their gradients
+    written once."""
+    flops, nbytes = pair_cost(mode, gated)
+    M = B * FRAMES * J
+    weight_bytes = nbytes - 2 * M * C * 2 - (M * C * 2 if gated else 0)
+    grad_bytes = (3 * C * C + C * C + 2 * C * HIDDEN) * 2 \
+        + (3 * C + C + HIDDEN + C) * 2 + 4 * C * 4 \
+        + ((2 * 2 * C + 2) * 2 if gated else 0)
+    act = (2 if gated else 1) * M * C * 2
+    return 3 * flops, 2 * act + M * C * 2 + weight_bytes + grad_bytes
+
+
+def grad_errors(got, want) -> list:
+    return [rel_err(a, b) for a, b in zip(got, want)]
+
+
+def phase_backward(fp) -> list:
+    scale = (C // HEADS) ** -0.5
+    dev = torch.device("cuda")
+    records = []
+    for name, kernel, plain, gated, main_mode in (
+            ("fused_pair_block_bwd", fp.fused_pair_block_bwd,
+             fp.pair_block_bwd_plain, False, "temporal"),
+            ("fused_gated_pair_block_bwd", fp.fused_gated_pair_block_bwd,
+             fp.gated_pair_block_bwd_plain, True, "spatial")):
+        modes = {}
+        for mode in ("temporal", "spatial"):
+            p = pair_inputs(3 if mode == "temporal" else 4, gated, dev)
+            g = pair_inputs(5, False, dev)["x"]
+            fwd = pair_args(p, gated)
+            args = fwd[:2 if gated else 1] + [g] + fwd[2 if gated else 1:]
+            got = kernel(*args, HEADS, scale, mode)
+            torch.cuda.synchronize()
+            again = kernel(*args, HEADS, scale, mode)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            want = plain(*args, HEADS, scale, mode)
+            if any(not torch.isfinite(t.float()).all() for t in got):
+                fail(f"{name}/{mode}: non-finite gradient")
+            errs = grad_errors(got, want)
+            names = ["dx"] + (["dother"] if gated else []) \
+                + [f"d{k}" for k in fp.PAIR_PARAMS] \
+                + (["dwg", "dbg"] if gated else [])
+
+            leaves = [t.detach().clone().requires_grad_() for t in fwd]
+            lib_p = dict(zip((["x"] + (["other"] if gated else [])
+                              + list(PAIR_KEYS)
+                              + (["wg", "bg"] if gated else [])), leaves))
+
+            def library():
+                out = pair_library(lib_p, gated, scale, mode)
+                return torch.autograd.grad(out, leaves, g)
+
+            flops, nbytes = pair_bwd_cost(mode, gated)
+            t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+            rec = dict(
+                rel_err={n: e[1] for n, e in zip(names, errs)},
+                max_abs_err=max(e[0] for e in errs), tol=KERNEL_TOL,
+                bitwise_repeatable=bitwise,
+                ms=time_ms(lambda: kernel(*args, HEADS, scale, mode)),
+                plain_ms=time_ms(lambda: plain(*args, HEADS, scale, mode),
+                                 runs=5, warmup=1),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                library_ms=time_ms(library, runs=10),
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            log(f"backward {name}/{mode}: " + json.dumps(rec))
+            worst = max(rec["rel_err"].items(), key=lambda kv: kv[1])
+            if not worst[1] <= KERNEL_TOL:
+                fail(f"{name}/{mode}: {worst[0]} max|d|/max|ref| "
+                     f"{worst[1]:.3e} > {KERNEL_TOL}")
+            if not bitwise:
+                fail(f"{name}/{mode}: two runs gave different bits")
+            modes[mode] = rec
+            del p, g, fwd, args, got, again, want, leaves, lib_p
+        main = modes[main_mode]
+        records.append(dict(
+            name=name, route="cuda",
+            source="motionbert_tpu_torch/ops/csrc/pair_bwd_kernels.cu",
+            replaces="motionbert_tpu/ops/fused_pair.py:486", launches=None,
+            max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], mode=main_mode,
+            shape=[B, FRAMES, J, C], modes=modes))
+    torch.cuda.empty_cache()
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the flagship train step
+# ---------------------------------------------------------------------------
+
+def smooth_target(rs, n: int, frames: int) -> np.ndarray:
+    """(n, frames, 17, 3) root-relative 3D poses moving smoothly: a rest
+    pose per clip plus slow sinusoids per joint and axis."""
+    t = np.arange(frames, dtype=np.float64)[None, :, None, None] / frames
+    rest = rs.normal(scale=0.3, size=(n, 1, 17, 3))
+    amp = rs.normal(scale=0.1, size=(n, 1, 17, 3))
+    freq = rs.uniform(0.5, 2.0, size=(n, 1, 17, 3))
+    phase = rs.uniform(0.0, 2 * np.pi, size=(n, 1, 17, 3))
+    y = rest + amp * np.sin(2 * np.pi * freq * t + phase)
+    return (y - y[:, :, :1]).astype(np.float32)
+
+
+def train_batch(n: int) -> tuple:
+    rs = np.random.RandomState(11)
+    y = smooth_target(rs, n, FRAMES)
+    xy = y[..., :2] + rs.normal(scale=0.01, size=y[..., :2].shape)
+    x = np.concatenate([xy, np.ones_like(y[..., :1])], -1).astype(np.float32)
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+
+
+def loss_and_grads(model, x, y, lambdas) -> tuple:
+    from motionbert_tpu_torch.losses.pose import pose3d_total_loss
+    from motionbert_tpu_torch.train.pose3d import preprocess_batch
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    xb, yb = preprocess_batch(x, y, rootrel=True, no_conf=False)
+    total, _ = pose3d_total_loss(model(xb).float(), yb, lambdas)
+    total.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return total.item(), grads
+
+
+def phase_train(fp, fwd_records: list, bwd_records: list):
+    from motionbert_tpu_torch.core.checkpoint import load_state_dict
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.losses.pose import LAMBDA_KEYS, pose3d_total_loss
+    from motionbert_tpu_torch.models.factory import load_backbone
+    from motionbert_tpu_torch.train.pose3d import (
+        make_train_step, preprocess_batch)
+    from motionbert_tpu_torch.train.state import make_adamw
+
+    args = get_config(TRAIN_CONFIG)
+    lambdas = {k: args.get(k, 0.0) for k in LAMBDA_KEYS}
+    sd = load_state_dict(ANCHOR)
+    model = load_backbone(args, device="cuda")
+    model.load_state_dict(sd, strict=True)
+    log(f"train: {os.path.basename(TRAIN_CONFIG)} dim {args.dim_feat} depth "
+        f"{args.depth} heads {args.num_heads} mlp_ratio {args.mlp_ratio}, "
+        f"compute dtype {model.compute_dtype}, flip {args.flip}, lr "
+        f"{args.learning_rate}, lambdas {json.dumps(lambdas)}")
+
+    # first step against the fp32 plain path, batch REF_BATCH (the fp32
+    # reference keeps every intermediate for autograd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x, y = train_batch(REF_BATCH)
+    loss, grads = loss_and_grads(model, x, y, lambdas)
+    ref_model = load_backbone(args, dtype=torch.float32, device="cuda",
+                              attn_impl="plain")
+    ref_model.load_state_dict(sd, strict=True)
+    ref_loss, ref_grads = loss_and_grads(ref_model, x, y, lambdas)
+    del ref_model
+    torch.cuda.empty_cache()
+    per = {n: rel_err(grads[n], ref_grads[n])[1] for n in ref_grads}
+    flat = torch.cat([grads[n].flatten() for n in ref_grads])
+    ref_flat = torch.cat([ref_grads[n].flatten() for n in ref_grads])
+    cosine = F.cosine_similarity(flat, ref_flat, dim=0).item()
+    worst = sorted(per.items(), key=lambda kv: -kv[1])
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    log(f"train: first step, batch {REF_BATCH}: loss {loss:.6f} (bf16 "
+        f"kernels) vs {ref_loss:.6f} (fp32 plain), rel {loss_rel:.3e}; "
+        f"gradient cosine {cosine:.6f}; median tensor max|d|/max|ref| "
+        f"{statistics.median(per.values()):.3e}; worst "
+        + ", ".join(f"{n} {e:.3e}" for n, e in worst[:12]))
+    over = [(n, e) for n, e in worst if not e <= grad_tensor_tol(n)]
+    if not (loss_rel <= LOSS_TOL and cosine >= GRAD_COSINE_MIN) or over:
+        fail(f"first train step disagrees with the fp32 plain path: loss "
+             f"rel {loss_rel:.3e}, cosine {cosine:.6f}, over the bar: {over}")
+    del grads, ref_grads, flat, ref_flat
+
+    # TRAIN_STEPS steps through the kernels on one fixed batch
+    x, y = train_batch(TRAIN_BATCH)
+    opt = make_adamw(model.parameters(), args.learning_rate,
+                     args.weight_decay)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = make_train_step(model, opt, lambdas, rootrel=args.rootrel,
+                           no_conf=args.no_conf, flip_aug=bool(args.flip),
+                           generator=gen)
+
+    def eval_loss():
+        with torch.no_grad():
+            xb, yb = preprocess_batch(x, y, rootrel=True, no_conf=False)
+            return pose3d_total_loss(model(xb).float(), yb, lambdas)[0].item()
+
+    before = eval_loss()
+    counters = (fp.fused_pair_block, fp.fused_gated_pair_block,
+                fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd)
+    for c in counters:
+        c.launches = 0
+    # the first step warms the allocator up; the other steps are timed
+    losses = [step(x, y)["total"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses += [step(x, y)["total"] for _ in range(TRAIN_STEPS - 1)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (TRAIN_STEPS - 1)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    after = eval_loss()
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    log(f"train: launches per step {json.dumps(per_step)}")
+    expect = {"fused_pair_block": 15, "fused_gated_pair_block": 5,
+              "fused_pair_block_bwd": 15, "fused_gated_pair_block_bwd": 5}
+    if per_step != expect:
+        fail(f"train step launched {per_step}, expected {expect}")
+    losses = [v.item() for v in losses]
+    log(f"train: ({TRAIN_BATCH}, {FRAMES}, 17, 3) AdamW steps: "
+        f"{dt * 1e3:.2f} ms per step, {TRAIN_BATCH / dt:.3f} clips/s, peak "
+        f"memory {peak / 2**30:.3f} GiB; fixed-batch loss {before:.6f} "
+        f"before, {after:.6f} after {TRAIN_STEPS} steps; step losses "
+        + " ".join(f"{v:.5f}" for v in losses))
+    if not (np.isfinite(losses).all() and np.isfinite(after)
+            and after < before):
+        fail(f"loss did not fall: {before} -> {after}")
+    for rec in fwd_records:
+        rec["launches_train"] = launches[rec["name"]]
+    for rec in bwd_records:
+        rec["launches"] = launches[rec["name"]]
+
+    # one more step under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy_ms = sum(ms for _, ms, _ in rows)
+    log(f"train profile: one step ({TRAIN_BATCH}, {FRAMES}) under the "
+        f"profiler: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy "
+        f"({100 * busy_ms / wall_ms:.1f}%)")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:16]:
+        log(f"train profile: {ms:9.3f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% "
+            f"{n:5d}x {key[:100]}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the epoch driver
+# ---------------------------------------------------------------------------
+
+def phase_driver():
+    from motionbert_tpu_torch.core.checkpoint import load_checkpoint
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.train.pose3d import train_with_config
+
+    def smoke_args(epochs):
+        args = get_config(SMOKE_CONFIG)
+        args.update(dim_feat=512, dim_rep=512, num_heads=8, depth=5,
+                    mlp_ratio=2, epochs=epochs)
+        args.data_root = os.path.join(ROOT, args.data_root)
+        args.dt_root = os.path.join(ROOT, args.dt_root)
+        return args
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        opts = lambda: types.SimpleNamespace(
+            checkpoint=ckpt, pretrained="", resume="", evaluate="",
+            selection="", seed=0)
+        t0 = time.perf_counter()
+        first = train_with_config(smoke_args(2), opts())
+        t1 = time.perf_counter()
+        resumed = train_with_config(smoke_args(3), opts())
+        t2 = time.perf_counter()
+        roles = sorted(os.listdir(ckpt))
+        latest = load_checkpoint(os.path.join(ckpt, "latest_epoch.ckpt"))
+    hist = first["history"] + resumed["history"]
+    log("driver: " + json.dumps([dict(epoch=h["epoch"], lr=h["lr"],
+                                      loss=h["losses"]["total"], e1=h["e1"],
+                                      e2=h["e2"]) for h in hist]))
+    log(f"driver: 2 epochs in {t1 - t0:.2f} s, resumed third in "
+        f"{t2 - t1:.2f} s; files {roles}")
+    lr0 = smoke_args(1).learning_rate
+    if [h["epoch"] for h in hist] != [0, 1, 2]:
+        fail(f"driver ran epochs {[h['epoch'] for h in hist]}")
+    if not all(np.isfinite([h["e1"], h["e2"], h["losses"]["total"]]).all()
+               for h in hist):
+        fail("driver: non-finite loss or error")
+    if abs(resumed["history"][0]["lr"] - lr0 * 0.99 ** 2) > 1e-12:
+        fail(f"driver: resumed at lr {resumed['history'][0]['lr']}")
+    for role in ("latest_epoch.ckpt", "best_epoch.ckpt", "epoch_1.ckpt"):
+        if role not in roles:
+            fail(f"driver: {role} missing from {roles}")
+    if latest["epoch"] != 3:
+        fail(f"driver: latest checkpoint records epoch {latest['epoch']}")
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -392,6 +743,12 @@ def main() -> int:
     mb, x = phase_main_path(fp, records)
     phase_profile(mb, x)
     phase_serving(mb)
+    del mb, x
+    torch.cuda.empty_cache()
+    bwd_records = phase_backward(fp)
+    phase_train(fp, records, bwd_records)
+    phase_driver()
+    records += bwd_records
 
     log(json.dumps({"kernels": records}))
     log(f"device: {smi}")

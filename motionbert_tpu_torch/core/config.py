@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import IO, Any
 
 import yaml
@@ -80,3 +81,9 @@ def get_config(config_path: str) -> ConfigDict:
     cfg = ConfigDict(raw or {})
     cfg.name = os.path.splitext(os.path.basename(config_path))[0]
     return cfg
+
+
+def read_pkl(path: str):
+    """Unpickle a file of this repository's datasets (trusted input)."""
+    with open(path, "rb") as f:
+        return pickle.load(f)

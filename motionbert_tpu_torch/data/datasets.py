@@ -1,0 +1,201 @@
+"""The pose3d clip dataset and a threaded batch loader.
+
+The port's own copy of ``motionbert_tpu/data/datasets.py``'s
+``EpochSeededRNG``, ``MotionDataset3D``, ``_collate`` and ``BatchLoader``
+(reference dataset_motion_3d.py): one pickle per clip, decoded on a thread
+pool, shuffled with ``np.random.RandomState(seed)`` and per-item RNGs hashed
+from (seed, epoch, index), so that batch order and augmentation draws match
+the JAX package's loader. The random flip runs on the device in the train
+step (``train/pose3d.py``), not here. The JAX package's native clip store
+(``train.mbcs``) is not wrapped: the port reads the per-clip pickles of the
+same set.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+import queue
+import threading
+from typing import Iterator, Sequence
+
+import numpy as np
+
+from motionbert_tpu_torch.core.config import read_pkl
+from motionbert_tpu_torch.geometry.transforms import crop_scale_3d
+
+DECODE_THREADS = 8   # items decoded in parallel
+PREFETCH_BATCHES = 4  # ready batches the loader holds ahead of the consumer
+
+
+class EpochSeededRNG:
+    """Deterministic, thread-safe per-item augmentation RNG: each item draws
+    from a RandomState seeded with a hash of (seed, epoch, index), so the
+    draws do not depend on which loader thread decodes the item. Trainers
+    pass the true epoch through BatchLoader.set_epoch, so a resumed run draws
+    what the uninterrupted run would have."""
+
+    _seed = 0
+    _epoch = 0
+
+    def set_seed(self, seed: int):
+        self._seed = int(seed)
+
+    def set_epoch(self, epoch: int):
+        self._epoch = int(epoch)
+
+    def item_rng(self, index: int) -> np.random.RandomState:
+        # boost-style hash_combine: a linear combination would alias
+        # (epoch, index + stride) with (epoch + 1, index)
+        h = self._seed & 0xFFFFFFFF
+        for v in (self._epoch, int(index)):
+            h ^= (v + 0x9E3779B9 + ((h << 6) & 0xFFFFFFFF) + (h >> 2)) \
+                & 0xFFFFFFFF
+        return np.random.RandomState(h & 0xFFFFFFFF)
+
+
+class MotionDataset3D(EpochSeededRNG):
+    """File-per-clip dataset: <data_root>/<subset>/<split>/*.pkl, each
+    {"data_input": (T, 17, 3) or None, "data_label": (T, 17, 3)}. Items are
+    (motion_2d, motion_3d) float32."""
+
+    def __init__(self, args, subset_list: Sequence[str], data_split: str):
+        self.data_root = args.data_root
+        self.data_split = data_split
+        self.synthetic = bool(args.get("synthetic", False))
+        self.gt_2d = bool(args.get("gt_2d", False))
+        self.scale_range_pretrain = args.get("scale_range_pretrain", None)
+        self.file_list = []
+        for subset in subset_list:
+            path = os.path.join(self.data_root, subset, data_split)
+            for name in sorted(os.listdir(path)):
+                self.file_list.append(os.path.join(path, name))
+
+    def __len__(self):
+        return len(self.file_list)
+
+    def __getitem__(self, index):
+        motion_file = read_pkl(self.file_list[index])
+        motion_3d = np.asarray(motion_file["data_label"], np.float32)
+        if self.data_split == "train":
+            if self.synthetic or self.gt_2d:
+                if self.scale_range_pretrain:
+                    motion_3d = crop_scale_3d(
+                        motion_3d, self.scale_range_pretrain,
+                        rng=self.item_rng(index)).astype(np.float32)
+                motion_2d = np.zeros(motion_3d.shape, dtype=np.float32)
+                motion_2d[:, :, :2] = motion_3d[:, :, :2]
+                motion_2d[:, :, 2] = 1.0  # no detection: GT xy, conf 1
+            elif motion_file["data_input"] is not None:
+                motion_2d = np.asarray(motion_file["data_input"], np.float32)
+            else:
+                raise ValueError("Training illegal.")
+        elif self.data_split == "test":
+            motion_2d = np.asarray(motion_file["data_input"], np.float32)
+            if self.gt_2d:
+                motion_2d = motion_2d.copy()
+                motion_2d[:, :, :2] = motion_3d[:, :, :2]
+                motion_2d[:, :, 2] = 1.0
+        else:
+            raise ValueError("Data split unknown.")
+        return motion_2d, motion_3d
+
+
+def _collate(items):
+    """Stack samples into batched arrays, recursing into tuples and dicts
+    (torch default_collate semantics)."""
+    first = items[0]
+    if isinstance(first, tuple):
+        return tuple(_collate([it[c] for it in items])
+                     for c in range(len(first)))
+    if isinstance(first, dict):
+        return {k: _collate([it[k] for it in items]) for k in first}
+    return np.stack(items)
+
+
+class BatchLoader:
+    """Shuffling, batching, prefetching loader yielding tuples of stacked
+    numpy arrays: items decode on a thread pool (pickle and numpy release the
+    interpreter lock on I/O) and a bounded queue holds ready batches."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.RandomState(seed)
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int):
+        """Pin the augmentation epoch of the next iteration."""
+        self._epoch = int(epoch)
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _batches(self):
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        for i in range(0, len(idx), self.batch_size):
+            b = idx[i:i + self.batch_size]
+            if self.drop_last and len(b) < self.batch_size:
+                return
+            yield b
+
+    def __iter__(self) -> Iterator:
+        q: "queue.Queue" = queue.Queue(maxsize=PREFETCH_BATCHES)
+        stop = threading.Event()
+        set_epoch = getattr(self.dataset, "set_epoch", None)
+        if set_epoch is not None:
+            set_epoch(self._epoch)
+        self._epoch += 1
+
+        def put(item) -> bool:
+            # a bounded put that gives up once the consumer has gone away
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            pool = cf.ThreadPoolExecutor(DECODE_THREADS)
+            try:
+                for b in self._batches():
+                    if stop.is_set():
+                        return
+                    batch = _collate(list(pool.map(self.dataset.__getitem__, b)))
+                    if not put(batch):
+                        return
+            except BaseException as e:  # raised again in the consumer: a
+                put(e)                  # swallowed error would silently
+                return                  # cut the epoch short
+            finally:
+                pool.shutdown(wait=False)
+                put(None)
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            while not q.empty():  # drain so the producer's last put lands
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=10)

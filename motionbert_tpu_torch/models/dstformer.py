@@ -1,7 +1,7 @@
-"""DSTformer, the MotionBERT backbone, for inference in PyTorch.
+"""DSTformer, the MotionBERT backbone, in PyTorch.
 
-The port of ``motionbert_tpu/models/dstformer.py`` on its serving path
-(reference DSTformer.py:269-361). Input (B, F, J, 3) is embedded, gets a
+The port of ``motionbert_tpu/models/dstformer.py`` on its pair path
+(reference DSTformer.py:269-361), for inference and training. Input (B, F, J, 3) is embedded, gets a
 spatial pos-embed (1, J, C) and a temporal embed (1, maxlen, 1, C) cut to F,
 and passes ``depth`` dual blocks. In each, the S->T stream runs the spatial
 then the temporal attention+MLP pair, the T->S stream the temporal then the
@@ -13,8 +13,10 @@ pre_logits (Linear + Tanh) -> head.
 Module and parameter names are the reference PyTorch ones, so a MotionBERT
 state_dict loads with ``load_state_dict(strict=True)``. Parameters stay
 fp32; ``compute_dtype`` (bf16 on the card) sets the activation dtype, with
-LayerNorm and softmax statistics in fp32. Dropout and drop-path are not part
-of this port yet: it is inference only.
+LayerNorm and softmax statistics in fp32. Gradients flow through the pair
+Functions (``ops/fused_pair.py``): on the card through the hand-written
+backward kernels. Dropout, attention dropout and drop-path are not ported
+(ROADMAP A1): training with any of their rates above 0 raises.
 """
 
 from __future__ import annotations
@@ -129,9 +131,15 @@ class DSTformer(nn.Module):
                  dim_rep: int = 512, depth: int = 5, num_heads: int = 8,
                  mlp_ratio: float = 4.0, num_joints: int = 17,
                  maxlen: int = 243, attn_impl: str = "kernel",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.compute_dtype = compute_dtype
+        # kept to refuse training with them: the port has no dropout yet
+        self.drop_rates = dict(drop_rate=drop_rate,
+                               attn_drop_rate=attn_drop_rate,
+                               drop_path_rate=drop_path_rate)
         self.joints_embed = nn.Linear(dim_in, dim_feat)
         kw = dict(dim=dim_feat, num_heads=num_heads, mlp_ratio=mlp_ratio,
                   attn_impl=attn_impl)
@@ -176,6 +184,11 @@ class DSTformer(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor, return_rep: bool = False) -> torch.Tensor:
+        active = {k: v for k, v in self.drop_rates.items() if v > 0}
+        if self.training and active and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"training with {active} needs dropout and drop-path, which "
+                f"the port has not got yet (ROADMAP A1); set them to 0")
         F = x.shape[1]
         dt = self.compute_dtype
         x = _linear(x.to(dt), self.joints_embed)

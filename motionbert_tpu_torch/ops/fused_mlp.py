@@ -11,11 +11,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from motionbert_tpu_torch.ops.attention import layer_norm, linear
+from motionbert_tpu_torch.ops.attention import layer_norm, linear, wide
 
 
 def mlp_block(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
     """Pre-LN MLP sub-block with residual, returned in fp32."""
     h = layer_norm(x, ln_w, ln_b)
     z = F.gelu(linear(h, w1, b1)).to(x.dtype)
-    return linear(z, w2, b2) + x.float()
+    return linear(z, w2, b2) + wide(x)

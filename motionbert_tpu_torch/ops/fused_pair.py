@@ -1,31 +1,43 @@
-"""The DSTformer attention+MLP pair, and the pair with the att_fuse gate.
+"""The DSTformer attention+MLP pair, and the pair with the att_fuse gate,
+with their backward.
 
     y   = x + proj(attn(qkv(LN1 x)))      yb = y rounded to x's dtype
     out = yb + fc2(GELU(fc1(LN2 yb)))
     gated: out <- other * a0 + out * a1,  (a0, a1) = softmax(other.wg[:, :C]
                                                    + out.wg[:, C:] + bg)
 
-``fused_pair_block`` and ``fused_gated_pair_block`` take x (B, F, J, C). On a
-CUDA tensor they launch the hand-written kernel chain in
-``csrc/pair_kernels.cu`` (bf16, fp32 accumulation) or raise; on a CPU tensor
-they run the plain PyTorch version beside them (``pair_block_plain``,
-``gated_pair_block_plain``). Each wrapper counts its kernel launches in its
-``launches`` attribute.
+``fused_pair_block`` and ``fused_gated_pair_block`` take x (B, F, J, C) and
+are differentiable (``torch.autograd.Function``s ``FusedPair`` and
+``FusedGatedPair``). On a CUDA tensor the forward launches the hand-written
+kernel chain in ``csrc/pair_kernels.cu`` and the backward the chain in
+``csrc/pair_bwd_kernels.cu`` (bf16, fp32 accumulation), or they raise; on a
+CPU tensor they run the plain PyTorch versions beside them
+(``pair_block_plain``, ``gated_pair_block_plain``, ``pair_block_bwd_plain``,
+``gated_pair_block_bwd_plain``). The forward saves only its inputs and the
+backward recomputes the pair, as the JAX package's custom VJP does, so a
+pair keeps one (B, F, J, C) activation for its backward; a ``remat`` switch
+(the JAX package's ``nn.remat``) would change nothing here and the port has
+none. Each public wrapper counts its kernel launches in its ``launches``
+attribute; the backward's recompute counts as a backward launch only.
 
-Source note. The CUDA chain replaces the TPU kernels
-``motionbert_tpu/ops/fused_pair.py:_pair_pallas`` (``_pair_kernel``) and
+Source note. The CUDA chains replace the TPU kernels
+``motionbert_tpu/ops/fused_pair.py:_pair_pallas`` (``_pair_kernel``),
 ``motionbert_tpu/ops/fused_pair.py:fused_gated_pair_block``
-(``_gated_pair_kernel`` + ``_gate_rows``). On the H100 the pair is bound by
-tensor-core operations (~4.7 MFLOP per token against 2 KB of token I/O at
-the flagship shape). The TPU design keeps every weight resident on chip,
-which 227 KB of shared memory cannot; the port runs five GEMM/attention
-launches over the flattened rows (six when gated) and pays for qkv, attn, y
-and the hidden activation in device memory; see the note at the top of the
-``.cu`` file.
+(``_gated_pair_kernel`` + ``_gate_rows``) and
+``motionbert_tpu/ops/fused_pair.py:_pair_bwd_pallas`` (``_pair_bwd_body``).
+On the H100 the pair is bound by tensor-core operations (~4.7 MFLOP per
+token against 2 KB of token I/O at the flagship shape; its backward, with the
+recompute, about three times that). The TPU design keeps every weight
+resident on chip, which 227 KB of shared memory cannot; the port runs chains
+of GEMM, attention and row launches over the flattened rows and pays for the
+intermediates in device memory; see the notes at the top of the ``.cu``
+files.
 
 Weights use nn.Linear's layout: wqkv (3C, C), wproj (C, C), w1 (hidden, C),
 w2 (C, hidden), wg (2, 2C). LayerNorm weights stay fp32; everything else is
-in the compute dtype. Activations keep the JAX package's (B, F, J, C) layout.
+in the compute dtype. Gradients come back in their tensor's dtype: weights
+and biases in the compute dtype, LayerNorm parameters in fp32. Activations
+keep the JAX package's (B, F, J, C) layout.
 """
 
 from __future__ import annotations
@@ -35,13 +47,19 @@ import ctypes
 import torch
 
 from motionbert_tpu_torch.ops import _build
-from motionbert_tpu_torch.ops.attention import attention_block
+from motionbert_tpu_torch.ops.attention import (
+    attention_block, from_groups, linear, ln_bwd_rows, ln_fwd_stats,
+    to_groups, wide)
 from motionbert_tpu_torch.ops.fused_mlp import mlp_block
 
 MAX_FRAMES = 243   # the kernel keeps one temporal group's K and V in shared memory
 NUM_JOINTS = 17
 HEAD_DIMS = (32, 64)
 MAX_ROWS = 65535 * 64  # the GEMM grid's y extent times its 64-row tile
+
+# the 12 parameters of a pair, in argument order
+PAIR_PARAMS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj", "ln2_w",
+               "ln2_b", "w1", "b1", "w2", "b2")
 
 
 # ---------------------------------------------------------------------------
@@ -61,8 +79,8 @@ def gate_plain(other: torch.Tensor, out: torch.Tensor, wg: torch.Tensor,
     """att_fuse gate: fp32 logits, weights rounded to the compute dtype, mix
     in the compute dtype. wg[:, :C] scores ``other`` (the S->T stream)."""
     C = other.shape[-1]
-    s = (torch.matmul(other.float(), wg[:, :C].float().t())
-         + torch.matmul(out.float(), wg[:, C:].float().t()) + bg.float())
+    s = (torch.matmul(wide(other), wide(wg[:, :C]).t())
+         + torch.matmul(wide(out), wide(wg[:, C:]).t()) + wide(bg))
     a = torch.softmax(s, dim=-1).to(out.dtype)
     return other * a[..., 0:1] + out * a[..., 1:2]
 
@@ -74,6 +92,130 @@ def gated_pair_block_plain(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
     out = pair_block_plain(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
                            ln2_b, w1, b1, w2, b2, num_heads, scale, mode)
     return gate_plain(other, out, wg, bg)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return wide(t.reshape(-1, t.shape[-1]))
+
+
+def _weight_grad(dy: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """sum over token rows of dy^T a, fp32: an nn.Linear weight's gradient."""
+    return torch.matmul(_rows(dy).t(), _rows(a))
+
+
+def _pair_bwd_plain(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
+                    ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads, scale,
+                    mode) -> tuple:
+    """The pair backward written out step by step at the rounding points of
+    the JAX package's ``_pair_bwd_body``: the forward is recomputed (h1, qkv,
+    P in fp32, attn, yb, h2, z in fp32, a), the gate's dsg is fp32 and
+    rounded for its products, and dz, dyb, dattn, ds and dqkv are rounded to
+    the compute dtype where the kernel rounds them (dbqkv sums fp32 dqkv)."""
+    dt = x.dtype
+    C = x.shape[-1]
+    gated = other is not None
+    # ---- forward recompute ----
+    xhat1, rstd1, h1f = ln_fwd_stats(x, ln1_w, ln1_b)
+    h1 = h1f.to(dt)
+    qkv = linear(h1, wqkv, bqkv)
+    q, k, v = (wide(to_groups(qkv[..., i * C:(i + 1) * C].to(dt), mode,
+                              num_heads)) for i in range(3))
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    pb = wide(p.to(dt))
+    attn = from_groups(torch.matmul(pb, v).to(dt), mode)
+    yb = (linear(attn, wproj, bproj) + wide(x)).to(dt)
+    xhat2, rstd2, h2f = ln_fwd_stats(yb, ln2_w, ln2_b)
+    h2 = h2f.to(dt)
+    z = linear(h2, w1, b1)
+    cdf = 0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+    a = (z * cdf).to(dt)
+
+    # ---- att_fuse gate backward ----
+    if gated:
+        out_b = (linear(a, w2, b2) + wide(yb)).to(dt)
+        sg = (torch.matmul(wide(other), wide(wg[:, :C]).t())
+              + torch.matmul(wide(out_b), wide(wg[:, C:]).t()) + wide(bg))
+        e = torch.exp(sg - sg.amax(-1, keepdim=True))
+        alpha = e / e.sum(-1, keepdim=True)
+        ga = wide(g)
+        dal = torch.stack([(ga * wide(other)).sum(-1),
+                           (ga * wide(out_b)).sum(-1)], -1)
+        dsg = alpha * (dal - (dal * alpha).sum(-1, keepdim=True))
+        dsgb = dsg.to(dt)
+        dother = ga * alpha[..., 0:1] + torch.matmul(wide(dsgb),
+                                                     wide(wg[:, :C]))
+        dout = ga * alpha[..., 1:2] + torch.matmul(wide(dsgb),
+                                                   wide(wg[:, C:]))
+        dwg = torch.cat([_weight_grad(dsgb, other),
+                         _weight_grad(dsgb, out_b)], -1)
+        dbg = _rows(dsg).sum(0)
+        gmlp = dout.to(dt)
+    else:
+        gmlp = g
+
+    # ---- MLP backward ----
+    dw2 = _weight_grad(gmlp, a)
+    db2 = _rows(gmlp).sum(0)
+    da = torch.matmul(wide(gmlp), wide(w2))
+    pdf = torch.exp(-0.5 * z * z) * 0.3989422804014327
+    dz = (da * (cdf + z * pdf)).to(dt)
+    dw1 = _weight_grad(dz, h2)
+    db1 = _rows(dz).sum(0)
+    dh2 = torch.matmul(wide(dz), wide(w1))
+    dy, dln2_w, dln2_b = ln_bwd_rows(dh2, xhat2, rstd2, ln2_w)
+    dyb = (dy + wide(gmlp)).to(dt)
+
+    # ---- attention backward ----
+    dattn = torch.matmul(wide(dyb), wide(wproj))
+    dwproj = _weight_grad(dyb, attn)
+    dbproj = _rows(dyb).sum(0)
+    dah = wide(to_groups(dattn.to(dt), mode, num_heads))
+    dv = torch.matmul(pb.transpose(-1, -2), dah)
+    dp = torch.matmul(dah, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = wide((ds * scale).to(dt))
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dqkv = torch.cat([from_groups(t, mode) for t in (dq, dk, dv)], -1)
+    dqkvb = dqkv.to(dt)
+    dwqkv = _weight_grad(dqkvb, h1)
+    dbqkv = _rows(dqkv).sum(0)
+    dh1 = torch.matmul(wide(dqkvb), wide(wqkv))
+    dx, dln1_w, dln1_b = ln_bwd_rows(dh1, xhat1, rstd1, ln1_w)
+    dx = (dx + wide(dyb)).to(dt)
+
+    grads = [dx] + ([dother.to(dt)] if gated else [])
+    grads += [t.to(ref.dtype) for t, ref in (
+        (dln1_w, ln1_w), (dln1_b, ln1_b), (dwqkv, wqkv), (dbqkv, bqkv),
+        (dwproj, wproj), (dbproj, bproj), (dln2_w, ln2_w), (dln2_b, ln2_b),
+        (dw1, w1), (db1, b1), (dw2, w2), (db2, b2))]
+    if gated:
+        grads += [dwg.to(wg.dtype), dbg.to(bg.dtype)]
+    return tuple(grads)
+
+
+def pair_block_bwd_plain(x, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
+                         ln2_w, ln2_b, w1, b1, w2, b2, num_heads: int,
+                         scale: float, mode: str) -> tuple:
+    """Gradients of ``pair_block_plain`` at x for the output gradient g:
+    (dx, dln1_w, dln1_b, dwqkv, dbqkv, dwproj, dbproj, dln2_w, dln2_b, dw1,
+    db1, dw2, db2)."""
+    return _pair_bwd_plain(x, None, g, ln1_w, ln1_b, wqkv, bqkv, wproj,
+                           bproj, ln2_w, ln2_b, w1, b1, w2, b2, None, None,
+                           num_heads, scale, mode)
+
+
+def gated_pair_block_bwd_plain(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj,
+                               bproj, ln2_w, ln2_b, w1, b1, w2, b2, wg, bg,
+                               num_heads: int, scale: float,
+                               mode: str) -> tuple:
+    """Gradients of ``gated_pair_block_plain``: (dx, dother, the 12 pair
+    parameter gradients, dwg, dbg)."""
+    return _pair_bwd_plain(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj,
+                           bproj, ln2_w, ln2_b, w1, b1, w2, b2, wg, bg,
+                           num_heads, scale, mode)
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +237,7 @@ def _check(name, t, shape, dtype, device):
 def check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
                       ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads: int,
                       mode: str) -> None:
-    """Raise ValueError on anything the CUDA pair kernel does not take."""
+    """Raise ValueError on anything the CUDA pair kernels do not take."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, F, J, C), got shape {tuple(x.shape)}")
     B, F, J, C = x.shape
@@ -135,6 +277,16 @@ def check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
 _ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
+# mbt_pair_block_bwd's pointer array, in the order of the Slot enum in
+# csrc/pair_bwd_kernels.cu: inputs, outputs, scratch
+BWD_SLOTS = (
+    "x", "other", "g", *PAIR_PARAMS, "wg", "bg",
+    "dx", "dother", *(f"d{k}" for k in PAIR_PARAMS), "dwg", "dbg",
+    "h1", "st1", "qkv", "attn", "yb", "h2", "st2", "z", "a", "outb", "gmlp",
+    "dsg", "dh", "dyb", "dqkv", "dqkvb", "work")
+_BWD_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("pair_kernels")
@@ -142,6 +294,22 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load("pair_bwd_kernels")
+    fn = lib.mbt_pair_block_bwd
+    if fn.argtypes is None:
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.mbt_pair_bwd_slot_count.argtypes = []
+        lib.mbt_pair_bwd_slot_count.restype = ctypes.c_int
+        lib.mbt_pair_bwd_work_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.mbt_pair_bwd_work_floats.restype = ctypes.c_longlong
+        if lib.mbt_pair_bwd_slot_count() != len(BWD_SLOTS):
+            raise RuntimeError("pair_bwd_kernels.cu and BWD_SLOTS disagree "
+                               "on the pointer slots")
     return lib
 
 
@@ -173,26 +341,157 @@ def _launch(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
     return out
 
 
+def _launch_bwd(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
+                ln2_b, w1, b1, w2, b2, wg, bg, num_heads, scale,
+                mode) -> tuple:
+    check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
+                      ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads, mode)
+    _check("g", g, x.shape, x.dtype, x.device)
+    B, F, J, C = x.shape
+    hidden = w1.shape[0]
+    M = B * F * J
+    gated = other is not None
+    lib = _bwd_library()
+    dev = x.device
+    with torch.cuda.device(dev):
+        bf = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+        when = lambda t: t if gated else None
+        t = dict(zip(("x", "other", "g", *PAIR_PARAMS, "wg", "bg"),
+                     (x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
+                      ln2_w, ln2_b, w1, b1, w2, b2, wg, bg)))
+        t.update(
+            dx=torch.empty_like(x), dother=when(torch.empty_like(x)),
+            dln1_w=f32(C), dln1_b=f32(C), dwqkv=bf(3 * C, C), dbqkv=bf(3 * C),
+            dwproj=bf(C, C), dbproj=bf(C), dln2_w=f32(C), dln2_b=f32(C),
+            dw1=bf(hidden, C), db1=bf(hidden), dw2=bf(C, hidden), db2=bf(C),
+            dwg=when(bf(2, 2 * C)), dbg=when(bf(2)),
+            h1=bf(M, C), st1=f32(M, 2), qkv=bf(M, 3 * C), attn=bf(M, C),
+            yb=bf(M, C), h2=bf(M, C), st2=f32(M, 2), z=f32(M, hidden),
+            a=bf(M, hidden), outb=when(bf(M, C)), gmlp=when(bf(M, C)),
+            dsg=when(f32(M, 2)), dh=f32(M, C), dyb=bf(M, C),
+            dqkv=f32(M, 3 * C), dqkvb=bf(M, 3 * C),
+            work=f32(lib.mbt_pair_bwd_work_floats(C, hidden)))
+        ptrs = (ctypes.c_void_p * len(BWD_SLOTS))(
+            *(None if t[k] is None else t[k].data_ptr() for k in BWD_SLOTS))
+        rc = lib.mbt_pair_block_bwd(
+            ptrs, B, F, J, C, num_heads, hidden, float(scale),
+            int(mode == "temporal"), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pair backward kernel launch failed with CUDA "
+                           f"error {rc}")
+    names = ["dx"] + (["dother"] if gated else []) \
+        + [f"d{k}" for k in PAIR_PARAMS] + (["dwg", "dbg"] if gated else [])
+    return tuple(t[n] for n in names)
+
+
+def _device_kind(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no pair kernel for device {x.device}")
+    return x.device.type
+
+
 # ---------------------------------------------------------------------------
 # public wrappers
 # ---------------------------------------------------------------------------
+
+def fused_pair_block_bwd(x, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
+                         ln2_b, w1, b1, w2, b2, num_heads: int, scale: float,
+                         mode: str) -> tuple:
+    """The pair's gradients (as ``pair_block_bwd_plain`` orders them): the
+    CUDA backward chain for a CUDA tensor, the plain backward for a CPU
+    tensor."""
+    args = (x, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1,
+            b1, w2, b2, num_heads, scale, mode)
+    if _device_kind(x) == "cpu":
+        return pair_block_bwd_plain(*args)
+    grads = _launch_bwd(x, None, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
+                        ln2_w, ln2_b, w1, b1, w2, b2, None, None, num_heads,
+                        scale, mode)
+    fused_pair_block_bwd.launches += 1
+    return grads
+
+
+fused_pair_block_bwd.launches = 0
+
+
+def fused_gated_pair_block_bwd(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj,
+                               bproj, ln2_w, ln2_b, w1, b1, w2, b2, wg, bg,
+                               num_heads: int, scale: float,
+                               mode: str) -> tuple:
+    """The gated pair's gradients (as ``gated_pair_block_bwd_plain`` orders
+    them): the CUDA backward chain for a CUDA tensor, the plain backward for
+    a CPU tensor."""
+    args = (x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
+            ln2_b, w1, b1, w2, b2, wg, bg, num_heads, scale, mode)
+    if _device_kind(x) == "cpu":
+        return gated_pair_block_bwd_plain(*args)
+    grads = _launch_bwd(*args)
+    fused_gated_pair_block_bwd.launches += 1
+    return grads
+
+
+fused_gated_pair_block_bwd.launches = 0
+
+
+class FusedPair(torch.autograd.Function):
+    """``fused_pair_block`` with its backward. Saves only the inputs; the
+    backward recomputes the pair."""
+
+    @staticmethod
+    def forward(ctx, x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
+                w1, b1, w2, b2, num_heads, scale, mode):
+        params = (ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1,
+                  b1, w2, b2)
+        ctx.save_for_backward(x, *params)
+        ctx.cfg = (num_heads, scale, mode)
+        if _device_kind(x) == "cpu":
+            return pair_block_plain(x, *params, num_heads, scale, mode)
+        out = _launch(x, None, *params, None, None, num_heads, scale, mode)
+        fused_pair_block.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        grads = fused_pair_block_bwd(x, g.contiguous(), *params, *ctx.cfg)
+        return (*grads, None, None, None)
+
+
+class FusedGatedPair(torch.autograd.Function):
+    """``fused_gated_pair_block`` with its backward. Saves only the inputs;
+    the backward recomputes the pair and the gate."""
+
+    @staticmethod
+    def forward(ctx, x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
+                ln2_b, w1, b1, w2, b2, wg, bg, num_heads, scale, mode):
+        params = (ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1,
+                  b1, w2, b2)
+        ctx.save_for_backward(x, other, *params, wg, bg)
+        ctx.cfg = (num_heads, scale, mode)
+        if _device_kind(x) == "cpu":
+            return gated_pair_block_plain(x, other, *params, wg, bg,
+                                          num_heads, scale, mode)
+        out = _launch(x, other, *params, wg, bg, num_heads, scale, mode)
+        fused_gated_pair_block.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, other, *rest = ctx.saved_tensors
+        grads = fused_gated_pair_block_bwd(x, other, g.contiguous(), *rest,
+                                           *ctx.cfg)
+        return (*grads, None, None, None)
+
 
 def fused_pair_block(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
                      w1, b1, w2, b2, num_heads: int, scale: float,
                      mode: str) -> torch.Tensor:
     """LN1 -> qkv -> attention -> proj -> +x -> LN2 -> fc1 -> GELU -> fc2
-    -> +y on x (B, F, J, C): the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
-    if x.device.type == "cpu":
-        return pair_block_plain(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
-                                ln2_w, ln2_b, w1, b1, w2, b2, num_heads,
-                                scale, mode)
-    if x.device.type != "cuda":
-        raise ValueError(f"no pair kernel for device {x.device}")
-    out = _launch(x, None, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
-                  ln2_b, w1, b1, w2, b2, None, None, num_heads, scale, mode)
-    fused_pair_block.launches += 1
-    return out
+    -> +y on x (B, F, J, C), differentiable: the CUDA kernels for a CUDA
+    tensor, the plain versions for a CPU tensor."""
+    return FusedPair.apply(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
+                           ln2_b, w1, b1, w2, b2, num_heads, scale, mode)
 
 
 fused_pair_block.launches = 0
@@ -202,19 +501,13 @@ def fused_gated_pair_block(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
                            ln2_w, ln2_b, w1, b1, w2, b2, wg, bg,
                            num_heads: int, scale: float,
                            mode: str) -> torch.Tensor:
-    """fused_pair_block followed by the att_fuse gate against ``other``:
-    the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
-    wg (2, 2C) with columns [:C] scoring ``other``; bg (2,)."""
-    if x.device.type == "cpu":
-        return gated_pair_block_plain(x, other, ln1_w, ln1_b, wqkv, bqkv,
-                                      wproj, bproj, ln2_w, ln2_b, w1, b1,
-                                      w2, b2, wg, bg, num_heads, scale, mode)
-    if x.device.type != "cuda":
-        raise ValueError(f"no pair kernel for device {x.device}")
-    out = _launch(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
-                  ln2_b, w1, b1, w2, b2, wg, bg, num_heads, scale, mode)
-    fused_gated_pair_block.launches += 1
-    return out
+    """fused_pair_block followed by the att_fuse gate against ``other``,
+    differentiable in x, other and every parameter: the CUDA kernels for a
+    CUDA tensor, the plain versions for a CPU tensor. wg (2, 2C) with
+    columns [:C] scoring ``other``; bg (2,)."""
+    return FusedGatedPair.apply(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj,
+                                bproj, ln2_w, ln2_b, w1, b1, w2, b2, wg, bg,
+                                num_heads, scale, mode)
 
 
 fused_gated_pair_block.launches = 0

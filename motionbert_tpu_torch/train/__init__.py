@@ -1,1 +1,1 @@
-"""Task steps (pose3d evaluation)."""
+"""Task steps and drivers (pose3d training and evaluation)."""

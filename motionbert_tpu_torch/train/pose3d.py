@@ -1,22 +1,94 @@
-"""Pose3D task: the flip-averaged evaluation step (reference train.py:66-72).
+"""Pose3D task: the train step, the flip-averaged eval step, the H36M
+evaluation protocol and the epoch driver, with its command line:
 
-Training and the H36M evaluation protocol are not ported yet.
+    python -m motionbert_tpu_torch.train.pose3d \\
+        --config configs/pose3d/MB_train_synth_smoke.yaml -c ckpt_dir [--device cpu]
+
+The port of ``motionbert_tpu/train/pose3d.py`` and the root ``train.py``
+(reference train.py). Flags as there (--config -c -p -r -e -ms -sd) plus
+--device, which defaults to the card. Batch conditioning (root-relative
+targets, the confidence split) and the random horizontal flip run on the
+device inside the step, the flip from a ``torch.Generator`` on the model's
+device whose state the checkpoints keep. Not ported yet (ROADMAP A3): the 2D
+datasets and pretraining (``train_2d``), and the noise and masking
+corruption of ``data/augment.py`` (``noise``, ``mask_ratio``); configs that
+ask for them raise.
 """
 
 from __future__ import annotations
 
+import argparse
+import os
+import random
+import time
 from typing import Callable
 
+import numpy as np
 import torch
 
+from motionbert_tpu_torch.geometry.procrustes import mpjpe, p_mpjpe
 from motionbert_tpu_torch.geometry.skeleton import flip_data
+from motionbert_tpu_torch.losses.pose import LAMBDA_KEYS, pose3d_total_loss
+
+# H36M test videos excluded from evaluation (reference train.py:109-111)
+BLOCK_LIST = ("s_09_act_05_subact_02", "s_09_act_10_subact_02",
+              "s_09_act_13_subact_01")
+
+
+def preprocess_batch(batch_input: torch.Tensor, batch_gt: torch.Tensor, *,
+                     rootrel: bool, no_conf: bool) -> tuple:
+    """Input and target conditioning (reference train.py:163-170): drop the
+    confidence channel with no_conf; root-relative targets with rootrel,
+    else the first frame's root depth is zeroed across the clip."""
+    if no_conf:
+        batch_input = batch_input[..., :2]
+    if rootrel:
+        batch_gt = batch_gt - batch_gt[:, :, 0:1, :]
+    else:
+        anchor = batch_gt[:, 0:1, 0:1, 2:3]
+        batch_gt = torch.cat([batch_gt[..., :2], batch_gt[..., 2:3] - anchor],
+                             dim=-1)
+    return batch_input, batch_gt
+
+
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    lambdas: dict, *, rootrel: bool, no_conf: bool,
+                    flip_aug: bool = False,
+                    generator: torch.Generator = None) -> Callable:
+    """step(batch_input (B, F, J, 3), batch_gt (B, F, J, 3)) -> the loss
+    terms as 0-d fp32 tensors on the device, after one AdamW update. With
+    flip_aug each clip and its label are mirrored together with probability
+    1/2, drawn from ``generator`` (on the batches' device)."""
+    if flip_aug and generator is None:
+        raise ValueError("flip_aug needs a generator")
+    lambdas = {k: float(lambdas.get(k, 0.0)) for k in LAMBDA_KEYS}
+
+    def train_step(batch_input: torch.Tensor, batch_gt: torch.Tensor) -> dict:
+        model.train()
+        if flip_aug:
+            do = torch.rand((batch_input.shape[0], 1, 1, 1),
+                            generator=generator,
+                            device=generator.device) < 0.5
+            batch_input = torch.where(do, flip_data(batch_input), batch_input)
+            batch_gt = torch.where(do, flip_data(batch_gt), batch_gt)
+        batch_input, batch_gt = preprocess_batch(
+            batch_input, batch_gt, rootrel=rootrel, no_conf=no_conf)
+        pred = model(batch_input).float()
+        total, terms = pose3d_total_loss(pred, batch_gt.float(), lambdas)
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in terms.items()}
+
+    return train_step
 
 
 def make_eval_step(model: torch.nn.Module, *, no_conf: bool,
                    flip_tta: bool) -> Callable[[torch.Tensor], torch.Tensor]:
     """step(batch_input (B, F, J, 3)) -> fp32 prediction (B, F, J, 3). With
     flip_tta the clip is also run mirrored, as a second forward, and the two
-    are averaged in fp32: (pred + flip(pred_flip)) / 2."""
+    are averaged in fp32: (pred + flip(pred_flip)) / 2 (reference
+    train.py:66-72)."""
 
     @torch.inference_mode()
     def eval_step(batch_input: torch.Tensor) -> torch.Tensor:
@@ -29,3 +101,271 @@ def make_eval_step(model: torch.nn.Module, *, no_conf: bool,
         return pred
 
     return eval_step
+
+
+def evaluate(args, model: torch.nn.Module, test_loader, datareader,
+             return_results: bool = False):
+    """The H36M protocol (reference train.py:56-153): flip-TTA inference over
+    the test loader, then ``evaluate_predictions``. Returns (e1, e2,
+    results_all[, per_action])."""
+    model.eval()
+    device = next(model.parameters()).device
+    eval_step = make_eval_step(model, no_conf=args.get("no_conf", False),
+                               flip_tta=args.get("flip", False))
+    results_all = []
+    for batch_input, _ in test_loader:
+        pred = eval_step(torch.from_numpy(batch_input).to(device))
+        pred = pred.cpu().numpy()
+        if args.get("rootrel", False):
+            pred[:, :, 0, :] = 0
+        if args.get("gt_2d", False):
+            pred[..., :2] = batch_input[..., :2]
+        results_all.append(pred)
+    results_all = np.concatenate(results_all)
+    e1, e2, per_action = evaluate_predictions(results_all, datareader)
+    if return_results:
+        return e1, e2, results_all, per_action
+    return e1, e2, results_all
+
+
+def evaluate_predictions(results_all, datareader):
+    """Score normalised per-clip predictions with the H36M protocol:
+    denormalise to pixels, scale each clip by its 2.5d factor, make it
+    root-relative, accumulate per-frame P1 (MPJPE) and P2 (P-MPJPE) errors
+    over overlapping clips, and average per action. Returns (e1, e2,
+    {action: (p1, p2)})."""
+    results_all = datareader.denormalize(results_all)
+    _, split_id_test = datareader.get_split_id()
+    test = datareader.dt_dataset["test"]
+    actions = np.array(test["action"])
+    factors = np.array(test["2.5d_factor"])
+    gts = np.array(test["joints_2.5d_image"])
+    sources = np.array(test["source"])
+
+    num_test_frames = len(actions)
+    frames = np.arange(num_test_frames)
+    action_clips = actions[split_id_test]
+    factor_clips = factors[split_id_test]
+    source_clips = sources[split_id_test]
+    frame_clips = frames[split_id_test]
+    gt_clips = gts[split_id_test]
+    assert len(results_all) == len(action_clips)
+
+    e1_all = np.zeros(num_test_frames)
+    e2_all = np.zeros(num_test_frames)
+    oc = np.zeros(num_test_frames)
+    action_names = sorted(set(test["action"]))
+    results = {a: [] for a in action_names}
+    results_procrustes = {a: [] for a in action_names}
+    for idx in range(len(action_clips)):
+        if source_clips[idx][0][:-6] in BLOCK_LIST:
+            continue
+        frame_list = frame_clips[idx]
+        factor = factor_clips[idx][:, None, None]
+        gt = gt_clips[idx]
+        pred = results_all[idx] * factor
+        pred = pred - pred[:, 0:1, :]
+        gt = gt - gt[:, 0:1, :]
+        e1_all[frame_list] += mpjpe(pred, gt)
+        e2_all[frame_list] += p_mpjpe(pred, gt)
+        oc[frame_list] += 1
+
+    for idx in np.nonzero(e1_all > 0)[0]:
+        results[actions[idx]].append(e1_all[idx] / oc[idx])
+        results_procrustes[actions[idx]].append(e2_all[idx] / oc[idx])
+    final = [np.mean(results[a]) for a in action_names]
+    final_procrustes = [np.mean(results_procrustes[a]) for a in action_names]
+    per_action = {a: (float(p1), float(p2)) for a, p1, p2 in
+                  zip(action_names, final, final_procrustes)}
+    return float(np.mean(final)), float(np.mean(final_procrustes)), per_action
+
+
+def _print_eval_table(per_action, e1, e2):
+    names = list(per_action)
+    w = max([len(n) for n in names] + [8])
+    print(" ".join(["test_name".ljust(w)] + [n.ljust(w) for n in names]))
+    print(" ".join(["P1".ljust(w)] +
+                   [f"{per_action[n][0]:.2f}".ljust(w) for n in names]))
+    print(" ".join(["P2".ljust(w)] +
+                   [f"{per_action[n][1]:.2f}".ljust(w) for n in names]))
+    print("Protocol #1 Error (MPJPE):", e1, "mm")
+    print("Protocol #2 Error (P-MPJPE):", e2, "mm")
+    print("----------")
+
+
+def _refuse_unported(args) -> None:
+    if args.get("train_2d", False):
+        raise NotImplementedError(
+            "train_2d (the 2D datasets and pretraining) is not ported yet "
+            "(ROADMAP A3)")
+    if args.get("noise", False) or args.get("mask_ratio", 0) > 0:
+        raise NotImplementedError(
+            "noise and mask corruption (data/augment.py) are not ported yet "
+            "(ROADMAP A3)")
+
+
+def train_with_config(args, opts, device=None) -> dict:
+    """The epoch driver (reference train.py:208-377) on ``device`` (None:
+    the card). opts: checkpoint, pretrained, resume, evaluate, selection,
+    seed. Resumes from the checkpoint directory's latest_epoch.ckpt when
+    there is one. Returns {"e1": best P1, "history": one dict per epoch run
+    (epoch, lr, mean loss terms, e1, e2)}."""
+    from motionbert_tpu_torch.core.checkpoint import (
+        CheckpointManager, is_port_checkpoint, load_checkpoint,
+        load_state_dict)
+    from motionbert_tpu_torch.core.logging import MetricsWriter
+    from motionbert_tpu_torch.core.metrics import AverageMeter
+    from motionbert_tpu_torch.data.datasets import BatchLoader, MotionDataset3D
+    from motionbert_tpu_torch.data.readers import DataReaderH36M
+    from motionbert_tpu_torch.models.factory import load_backbone, resolve_device
+    from motionbert_tpu_torch.train.state import (
+        freeze_except, make_adamw, scale_lr, set_lr)
+
+    _refuse_unported(args)
+    dev = resolve_device(device)
+    os.makedirs(opts.checkpoint, exist_ok=True)
+    writer = MetricsWriter(os.path.join(opts.checkpoint, "logs"))
+
+    print("Loading dataset...")
+    train_dataset = MotionDataset3D(args, args.subset_list, "train")
+    test_dataset = MotionDataset3D(args, args.subset_list, "test")
+    train_loader = BatchLoader(train_dataset, args.batch_size, shuffle=True,
+                               drop_last=True, seed=opts.seed)
+    test_loader = BatchLoader(test_dataset, args.batch_size, shuffle=False)
+    datareader = DataReaderH36M(
+        n_frames=args.clip_len, sample_stride=args.sample_stride,
+        data_stride_train=args.data_stride, data_stride_test=args.clip_len,
+        dt_root=args.get("dt_root", "data/motion3d"), dt_file=args.dt_file)
+
+    model = load_backbone(args, device=dev)
+    model.init_weights(torch.Generator().manual_seed(opts.seed))
+    print("INFO: Trainable parameter count:",
+          sum(p.numel() for p in model.parameters()))
+
+    ckpt_mgr = CheckpointManager(opts.checkpoint,
+                                 args.get("checkpoint_frequency", 1))
+    min_loss = 1e5
+    lr = args.learning_rate
+    st = 0
+    resume_payload = None
+    if args.get("finetune", False):
+        chk = opts.evaluate or opts.resume or os.path.join(
+            opts.pretrained, opts.selection)
+        resume = bool(opts.resume)
+    else:
+        if ckpt_mgr.has_latest() and not opts.resume and not opts.evaluate:
+            opts.resume = ckpt_mgr.latest_path
+        chk = opts.evaluate or opts.resume
+        resume = True
+    if chk:
+        print("Loading checkpoint", chk)
+        model.load_state_dict(load_state_dict(chk), strict=True)
+        if resume and not opts.evaluate and is_port_checkpoint(chk):
+            resume_payload = load_checkpoint(chk)
+
+    if opts.evaluate:
+        e1, e2, _, per_action = evaluate(args, model, test_loader, datareader,
+                                         return_results=True)
+        _print_eval_table(per_action, e1, e2)
+        writer.close()
+        return {"e1": e1, "e2": e2, "history": []}
+
+    params = model.parameters()
+    if args.get("partial_train", None):
+        params = freeze_except(model, args.partial_train)
+    optimizer = make_adamw(params, lr, args.weight_decay)
+    generator = torch.Generator(device=dev).manual_seed(opts.seed)
+    if resume_payload is not None:
+        st = resume_payload["epoch"]
+        if resume_payload.get("optimizer") is not None:
+            optimizer.load_state_dict(resume_payload["optimizer"])
+        lr = resume_payload.get("lr", lr)
+        if resume_payload.get("best_metric") is not None:
+            min_loss = resume_payload["best_metric"]
+        if resume_payload.get("rng") is not None:
+            generator.set_state(resume_payload["rng"])
+    set_lr(optimizer, lr)
+
+    train_step = make_train_step(
+        model, optimizer, {k: args.get(k, 0.0) for k in LAMBDA_KEYS},
+        rootrel=args.get("rootrel", False), no_conf=args.get("no_conf", False),
+        flip_aug=bool(args.get("flip", False)), generator=generator)
+
+    history = []
+    for epoch in range(st, args.epochs):
+        print(f"Training epoch {epoch}.")
+        start = time.time()
+        losses: dict = {}
+        train_loader.set_epoch(epoch)
+        for batch_input, batch_gt in train_loader:
+            terms = train_step(torch.from_numpy(batch_input).to(dev),
+                               torch.from_numpy(batch_gt).to(dev))
+            for k, v in terms.items():
+                losses.setdefault(k, AverageMeter()).update(
+                    float(v), len(batch_input))
+        elapsed = (time.time() - start) / 60.0
+        record = {"epoch": epoch, "lr": lr,
+                  "losses": {k: m.avg for k, m in losses.items()},
+                  "e1": None, "e2": None}
+        if args.get("no_eval", False):
+            print(f"[{epoch + 1}] time {elapsed:.2f} lr {lr:f} "
+                  f"3d_train {losses['3d_pos'].avg:f}")
+            improved = False
+        else:
+            e1, e2, _, per_action = evaluate(
+                args, model, test_loader, datareader, return_results=True)
+            _print_eval_table(per_action, e1, e2)
+            print(f"[{epoch + 1}] time {elapsed:.2f} lr {lr:f} "
+                  f"3d_train {losses['3d_pos'].avg:f} e1 {e1:f} e2 {e2:f}")
+            writer.add_scalar("Error P1", e1, epoch + 1)
+            writer.add_scalar("Error P2", e2, epoch + 1)
+            improved = e1 < min_loss
+            min_loss = min(e1, min_loss)
+            record.update(e1=e1, e2=e2)
+        for k, meter in losses.items():
+            writer.add_scalar(f"loss_{k}", meter.avg, epoch + 1)
+        history.append(record)
+
+        # exponential per-epoch decay (reference train.py:359-362)
+        lr *= args.lr_decay
+        scale_lr(optimizer, args.lr_decay)
+        ckpt_mgr.save_epoch(epoch, lr, model, optimizer, best_metric=min_loss,
+                            improved=improved, rng=generator.get_state())
+    writer.close()
+    return {"e1": min_loss, "history": history}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", type=str,
+                        default="configs/pretrain/MB_pretrain.yaml",
+                        help="Path to the config file.")
+    parser.add_argument("-c", "--checkpoint", default="checkpoint", type=str,
+                        metavar="PATH", help="checkpoint directory")
+    parser.add_argument("-p", "--pretrained", default="checkpoint", type=str,
+                        metavar="PATH", help="pretrained checkpoint directory")
+    parser.add_argument("-r", "--resume", default="", type=str,
+                        metavar="FILENAME", help="checkpoint to resume")
+    parser.add_argument("-e", "--evaluate", default="", type=str,
+                        metavar="FILENAME", help="checkpoint to evaluate")
+    parser.add_argument("-ms", "--selection", default="latest_epoch.ckpt",
+                        type=str, metavar="FILENAME",
+                        help="checkpoint to finetune")
+    parser.add_argument("-sd", "--seed", default=0, type=int,
+                        help="random seed")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the card)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    from motionbert_tpu_torch.core.config import get_config
+
+    opts = parse_args(argv)
+    random.seed(opts.seed)
+    np.random.seed(opts.seed)
+    return train_with_config(get_config(opts.config), opts, device=opts.device)
+
+
+if __name__ == "__main__":
+    main()

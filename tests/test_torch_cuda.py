@@ -1,4 +1,5 @@
-"""The port's CUDA pair kernels on the card, against their plain versions.
+"""The port's CUDA pair kernels (forward and backward) on the card, against
+their plain versions.
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 neither jax nor the JAX package, so it also runs where JAX is not installed:
@@ -99,3 +100,132 @@ def test_model_kernels_match_fp32_plain(cuda):
     with torch.inference_mode():
         assert _rel(model(x, return_rep=True),
                     ref(x, return_rep=True)) <= TOL
+
+
+def _bwd(gated):
+    return (fp.fused_gated_pair_block_bwd, fp.gated_pair_block_bwd_plain) \
+        if gated else (fp.fused_pair_block_bwd, fp.pair_block_bwd_plain)
+
+
+def _bwd_args(args, g, gated):
+    """Forward arguments -> the backward wrappers' (x, [other,] g, ...)."""
+    return [args[0]] + ([args[1]] if gated else []) + [g] \
+        + args[(2 if gated else 1):]
+
+
+def _grad_out(device, shape, seed=7):
+    a = np.random.RandomState(seed).normal(size=shape).astype(np.float32)
+    return torch.from_numpy(a).to(device=device, dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("C,H", [(512, 8), (256, 8)])  # head dim 64 and 32
+def test_bwd_kernel_matches_plain(cuda, mode, gated, C, H):
+    args, H = _inputs(cuda, gated, C=C, H=H)
+    bargs = _bwd_args(args, _grad_out(cuda, args[0].shape), gated)
+    kernel, plain = _bwd(gated)
+    before = kernel.launches
+    got = kernel(*bargs, H, (C // H) ** -0.5, mode)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(*bargs, H, (C // H) ** -0.5, mode)
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert torch.isfinite(a.float()).all(), i
+        assert _rel(a, b) <= TOL, (i, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_ragged_rows_and_single_frame(cuda):
+    for F, gated, mode in ((1, False, "temporal"), (5, True, "spatial"),
+                           (243, False, "temporal")):
+        args, H = _inputs(cuda, gated, F=F, B=2)
+        bargs = _bwd_args(args, _grad_out(cuda, args[0].shape), gated)
+        kernel, plain = _bwd(gated)
+        got = kernel(*bargs, H, 0.125, mode)
+        want = plain(*bargs, H, 0.125, mode)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert _rel(a, b) <= TOL, (F, i, _rel(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+def test_bwd_kernel_is_bitwise_repeatable(cuda, gated):
+    args, H = _inputs(cuda, gated)
+    bargs = _bwd_args(args, _grad_out(cuda, args[0].shape), gated)
+    kernel, _ = _bwd(gated)
+    first = kernel(*bargs, H, 0.125, "temporal")
+    second = kernel(*bargs, H, 0.125, "temporal")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bwd_cuda_tensor_never_falls_back(cuda):
+    args, H = _inputs(cuda, False)
+    bargs = _bwd_args(args, _grad_out(cuda, args[0].shape), False)
+    bargs[1] = bargs[1].float()   # an fp32 output gradient
+    with pytest.raises(ValueError, match="bfloat16"):
+        fp.fused_pair_block_bwd(*bargs, H, 0.125, "spatial")
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_kernels(cuda):
+    """loss.backward() through the wrappers reaches x, other and every
+    parameter through the backward kernel."""
+    args, H = _inputs(cuda, True, F=27)
+    args = [a.requires_grad_() for a in args]
+    before = fp.fused_gated_pair_block_bwd.launches
+    out = fp.fused_gated_pair_block(*args, H, 0.125, "temporal")
+    out.float().square().mean().backward()
+    assert fp.fused_gated_pair_block_bwd.launches == before + 1
+    assert all(a.grad is not None and torch.isfinite(a.grad.float()).all()
+               for a in args)
+
+
+@pytest.mark.cuda
+def test_train_steps_depth2_flagship_width(cuda):
+    """Three AdamW steps of a depth-2 model at the flagship width through the
+    kernels: finite, falling loss; the first step's gradients against the
+    fp32 plain path with autograd (cosine of all gradients as one vector)."""
+    from motionbert_tpu_torch.losses.pose import pose3d_total_loss
+    from motionbert_tpu_torch.train.pose3d import (
+        make_train_step, preprocess_batch)
+    from motionbert_tpu_torch.train.state import make_adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lambdas = dict(lambda_scale=0.5, lambda_3d_velocity=20.0)
+    cfg = ConfigDict(dim_feat=512, dim_rep=512, depth=2, num_heads=8,
+                     mlp_ratio=2, num_joints=17, maxlen=81)
+    model = load_backbone(cfg, device=cuda)
+    model.init_weights(torch.Generator().manual_seed(0))
+    ref = load_backbone(cfg, dtype=torch.float32, device=cuda,
+                        attn_impl="plain")
+    ref.load_state_dict(model.state_dict())
+    rs = np.random.RandomState(2)
+    y = torch.from_numpy(rs.uniform(-1, 1, (2, 81, 17, 3)).astype(
+        np.float32)).to(cuda)
+    x = torch.cat([y[..., :2], torch.ones_like(y[..., :1])], -1)
+
+    grads = []
+    for m in (model, ref):
+        m.train()
+        xb, yb = preprocess_batch(x, y, rootrel=True, no_conf=False)
+        pose3d_total_loss(m(xb).float(), yb, {**dict.fromkeys(
+            ("lambda_lv", "lambda_lg", "lambda_a", "lambda_av"), 0.0),
+            **lambdas})[0].backward()
+        grads.append(torch.cat([p.grad.float().flatten()
+                                for p in m.parameters()]))
+        m.zero_grad(set_to_none=True)
+    cos = torch.nn.functional.cosine_similarity(grads[0], grads[1], dim=0)
+    assert cos.item() >= 0.999, cos.item()
+
+    opt = make_adamw(model.parameters(), 1e-3, 0.01)
+    step = make_train_step(model, opt, lambdas, rootrel=True, no_conf=False)
+    before = fp.fused_pair_block_bwd.launches
+    losses = [step(x, y)["total"].item() for _ in range(3)]
+    assert fp.fused_pair_block_bwd.launches == before + 3 * 6
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses

@@ -22,6 +22,14 @@ def test_port_imports_no_jax():
         "motionbert_tpu_torch.serve\n"
         "import motionbert_tpu_torch.ops.fused_pair, "
         "motionbert_tpu_torch.core.checkpoint\n"
+        "import motionbert_tpu_torch.train.pose3d, "
+        "motionbert_tpu_torch.train.state, motionbert_tpu_torch.losses.pose, "
+        "motionbert_tpu_torch.data.readers, motionbert_tpu_torch.data.datasets, "
+        "motionbert_tpu_torch.geometry.transforms, "
+        "motionbert_tpu_torch.geometry.procrustes, "
+        "motionbert_tpu_torch.core.metrics, motionbert_tpu_torch.core.logging\n"
+        "import runpy; runpy.run_module('motionbert_tpu_torch.train.pose3d', "
+        "run_name='not_main')\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -29,7 +37,10 @@ def test_port_imports_no_jax():
     import json
 
     mods = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "motionbert_tpu_torch.api" in mods
+    for m in ("motionbert_tpu_torch.api", "motionbert_tpu_torch.train.pose3d",
+              "motionbert_tpu_torch.data.datasets",
+              "motionbert_tpu_torch.losses.pose"):
+        assert m in mods, m
     bad = [m for m in mods if _is_jax_package(m)]
     assert not bad, bad
 
@@ -47,7 +58,7 @@ def test_port_sources_and_chip_smoke_import_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "motionbert_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) > 10
+    assert len(files) > 20
     for path in files:
         bad = [m for m in _imported_names(path) if _is_jax_package(m)]
         assert not bad, (path, bad)
