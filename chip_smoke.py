@@ -29,14 +29,42 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      ms per step, clips/s, peak memory, and one step under torch.profiler.
   9. driver: train_with_config on the synthetic smoke set at the flagship
      widths, 2 epochs with evaluation, then a resumed third epoch.
-Then a JSON line of per-kernel numbers, the card's name and power limit, and
-as the last line {"ok": true, "device": {...}}.
+ 10. q8 kernels: the W8A8 pair (plain and gated, temporal and spatial) at the
+     phase-3 shape against its plain version (a max-based bar and a
+     relative-L2 bar that a moved rounding point fails), twice for bitwise
+     equality,
+     with its time, bound, the plain version's time, a library yardstick
+     (torch._int_mm products, PyTorch's own operators for the rest), the
+     bf16 pair's time from the same run (one call at a time, and enqueued
+     back to back), and the cost of quant_cols.
+ 11. q8 main path: MotionBERT.from_config with attn_impl="kernel_q8" and the
+     anchor; a flip-TTA lift and a representation through the int8 kernels;
+     launch counts; relative L2 error against the fp32 plain path beside
+     the bf16 tier's; clips/s of both tiers; one q8 lift under the profiler.
+ 12. task gate: the H36M protocol on the synthetic smoke set with the anchor,
+     for fp32 plain, bf16 kernels and q8 kernels; the q8 tier's MPJPE drift
+     must stay within max(1 mm, 1 %) of the fp32 value.
+ 13. wild inference: a seeded Halpe-26 AlphaPose JSON through run_wild_pose
+     in both tiers; shape, X3D.npy, root handling, and each clip against a
+     direct lift.
+ 14. straight-through: the q8 Functions' backward against the bf16
+     Functions', bit for bit, counted as backward-kernel launches.
+ 15. q8 serving: MotionBERTServer built with attn_impl="kernel_q8".
+Phases 10-15 run after phase 6. Then a JSON line of per-kernel numbers, the
+card's name and power limit, and as the last line {"ok": true, "device":
+{...}}.
+
+    python3 chip_smoke.py --phases q8
+
+runs only phases 1, 2 and 10-15 (while working on them) and prints no last
+line.
 
 Imports nothing of JAX or of the JAX package motionbert_tpu.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -60,10 +88,27 @@ ANCHOR = os.path.join(ROOT, "data", "anchors", "flagship_synth_trained.npz")
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 KERNEL_TOL = 2e-2   # max|kernel - plain| / max|plain|, bf16 vs bf16
 PATH_TOL = 2e-2     # max|bf16 kernels - fp32 plain| / max|fp32 plain|
+# int8 kernel vs its plain version: the integer products are exact on both
+# sides; what differs is bf16 rounding flips of qkv, attn and y (as for the
+# bf16 pair) and single int8 steps where the card's rsqrtf / erff and a
+# warp's summation order land an activation across a quantiser boundary
+Q8_KERNEL_TOL = 2e-2
+# the same comparison as a relative L2: measured 1.0e-3 to 1.5e-3 with 2-5 %
+# of the outputs differing at all; a rounding point moved (LN output or
+# GELU(z) through bf16, y left in fp32) measures 6e-3 to 1.8e-2 in the CPU
+# tests, so this bar tells the two apart where the max-based one cannot
+Q8_KERNEL_L2_TOL = 4e-3
+# the W8A8 tier's gates, as the JAX package holds its own (bench.py):
+# relative L2 of the lift against the fp32 plain path, and the drift of the
+# H36M-protocol MPJPE against the fp32 plain path's
+Q8_REL_L2_GATE = 0.05
+Q8_MPJPE_GATE_MM = 1.0
+Q8_MPJPE_GATE_REL = 0.01
 # first train step, bf16 kernels vs fp32 plain: the cosine of all gradients
 # as one vector, the loss (relative), and each tensor's max|d| / max|ref|.
 # Two kinds of tensor get a wider bar: their gradient is a sum of bf16 terms
@@ -115,6 +160,33 @@ def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_ms_back_to_back(fn, calls: int = 10, runs: int = 5) -> float:
+    """ms per call of `calls` calls enqueued back to back between one pair
+    of events (median of `runs`): the host runs ahead of the device, so this
+    is the device's time per call where a single call's is partly the host's
+    launch work."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def timed(name: str, fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -330,6 +402,12 @@ def phase_main_path(fp, records: list):
     return mb, x
 
 
+# kernel-name fragments of the port's own kernels, for the profile's groups
+PROFILE_GROUPS = ("gemm_q8_kernel", "ln_quant_rows_kernel",
+                  "quant_rows_kernel", "attention_kernel", "gate_kernel",
+                  "gemm_kernel")
+
+
 def device_rows(prof) -> list:
     """(name, device ms, count) of the kernels in a profile: only events
     that ran on the device, so host-side ranges that enclose kernels (aten
@@ -342,7 +420,7 @@ def device_rows(prof) -> list:
             and e.self_device_time_total > 0]
 
 
-def phase_profile(mb, x):
+def phase_profile(mb, x, tag: str = "profile"):
     """One more lift under torch.profiler: device time by kernel and the
     device's busy share of the wall time (the profiler's own overhead is in
     that wall time)."""
@@ -356,23 +434,39 @@ def phase_profile(mb, x):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof)
     busy_ms = sum(ms for _, ms, _ in rows)
-    log(f"profile: one lift ({LIFT_BATCH}, {FRAMES}) under the profiler: "
+    log(f"{tag}: one lift ({LIFT_BATCH}, {FRAMES}) under the profiler: "
         f"{wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy "
         f"({100 * busy_ms / wall_ms:.1f}%)")
-    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
-        log(f"profile: {ms:9.3f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% "
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:14]:
+        log(f"{tag}: {ms:9.3f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% "
             f"{n:5d}x {key[:100]}")
+    groups = {}
+    for key, ms, n in rows:
+        name = next((g for g in PROFILE_GROUPS if g in key),
+                    "other (PyTorch operators: casts, quant_cols, embed, head)")
+        groups[name] = groups.get(name, 0.0) + ms
+    log(f"{tag}: by group: " + json.dumps(
+        {k: round(v, 3) for k, v in sorted(groups.items(),
+                                            key=lambda kv: -kv[1])}))
 
 
-def phase_serving(mb):
+def phase_serving(mb=None, n_requests: int = 20, tag: str = "serving",
+                  attn_impl=None):
+    """Concurrent requests through a MotionBERTServer over ``mb``, or, with
+    ``mb`` None, one built by MotionBERTServer.from_config with
+    ``attn_impl``; each answer against a direct lift of the same model."""
     from motionbert_tpu_torch.serve import MotionBERTServer
 
+    kw = dict(batch_buckets=(1, 8, 32), max_wait_ms=20)
+    srv = MotionBERTServer(mb, **kw) if mb is not None else \
+        MotionBERTServer.from_config(CONFIG, checkpoint=ANCHOR,
+                                     attn_impl=attn_impl, **kw)
+    mb = srv.mb
     rs = np.random.RandomState(5)
     clips = [seeded_motion(rs, 1, 243 if i % 2 == 0 else 81)[0]
-             for i in range(20)]
+             for i in range(n_requests)]
     direct = [mb.lift(c[None])[0] for c in clips]
     results = [None] * len(clips)
-    srv = MotionBERTServer(mb, batch_buckets=(1, 8, 32), max_wait_ms=20)
     n_threads = 4
 
     def client(tid):
@@ -402,11 +496,409 @@ def phase_serving(mb):
     if not worst <= KERNEL_TOL:
         fail(f"served answers disagree with direct lift: {worst:.3e}")
     stats = srv.stats["lift"]
-    log(f"serving: {len(clips)} requests (243 and 81 frames) from "
+    log(f"{tag}: {len(clips)} requests (243 and 81 frames) from "
         f"{n_threads} threads in {dt:.2f} s; {stats.batches} batches, "
         f"avg batch {stats.avg_batch_size:.2f}; worst max|d|/max|ref| vs "
         f"direct lift {worst:.3e}; shutdown returned")
 
+
+
+# ---------------------------------------------------------------------------
+# phases 10-15: the W8A8 serving tier
+# ---------------------------------------------------------------------------
+
+def pair_q8_cost(mode: str, gated: bool) -> tuple:
+    """(seconds by operations, bytes, int8 operations, bf16 FLOPs) of the
+    W8A8 pair at the phase-3 shape: the four products at the int8 peak, the
+    attention core (and the gate) at the bf16 peak. Bytes as for the bf16
+    pair: the function takes the full-precision weights and quantises them
+    itself."""
+    flops, nbytes = pair_cost(mode, gated)
+    int8_ops = 2 * B * FRAMES * J * (3 * C * C + C * C + 2 * C * HIDDEN)
+    t_ops = int8_ops / PEAK_INT8_OPS + (flops - int8_ops) / PEAK_BF16_FLOPS
+    return t_ops, nbytes, int8_ops, flops - int8_ops
+
+
+def q8_linear_library(a: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """fp32 rows (M, K) through a W8A8 linear layer whose integer product is
+    PyTorch's own (torch._int_mm, cuBLASLt): the yardstick's only."""
+    s = a.abs().amax(-1, keepdim=True).clamp_min(1e-6) * (1.0 / 127.0)
+    a8 = torch.round(a / s).clamp(-127, 127).to(torch.int8)
+    wf = w.float()
+    ws = wf.abs().amax(1).clamp_min(1e-8) * (1.0 / 127.0)
+    w8 = torch.round(wf / ws[:, None]).clamp(-127, 127).to(torch.int8)
+    return torch._int_mm(a8, w8.t()).float() * s * ws + b.float()
+
+
+def pair_q8_library(p: dict, gated: bool, scale: float, mode: str):
+    """The W8A8 pair from PyTorch's own operators (layer_norm, _int_mm,
+    scaled_dot_product_attention): a yardstick of speed the port never
+    calls."""
+    x = p["x"]
+    Bx, Fx, Jx, Cx = x.shape
+    d = Cx // HEADS
+    rows = lambda t: t.reshape(-1, t.shape[-1])
+    h = F.layer_norm(x.float(), (Cx,), p["ln1_w"], p["ln1_b"], 1e-6)
+    qkv = q8_linear_library(rows(h), p["wqkv"], p["bqkv"]).to(x.dtype)
+    qkv = qkv.reshape(Bx, Fx, Jx, 3, HEADS, d)
+    perm = (0, 1, 3, 2, 4) if mode == "spatial" else (0, 2, 3, 1, 4)
+    q, k, v = (qkv[:, :, :, i].permute(perm) for i in range(3))
+    o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    o = o.permute([perm.index(i) for i in range(5)]).reshape(Bx, Fx, Jx, Cx)
+    y = (q8_linear_library(rows(o.float()), p["wproj"], p["bproj"])
+         .reshape(x.shape) + x.float()).to(x.dtype)
+    h2 = F.layer_norm(y.float(), (Cx,), p["ln2_w"], p["ln2_b"], 1e-6)
+    z = F.gelu(q8_linear_library(rows(h2), p["w1"], p["b1"]))
+    out = (q8_linear_library(z, p["w2"], p["b2"]).reshape(x.shape)
+           + y.float()).to(x.dtype)
+    if gated:
+        s = F.linear(torch.cat([p["other"], out], -1), p["wg"], p["bg"])
+        a = torch.softmax(s.float(), -1).to(out.dtype)
+        out = p["other"] * a[..., 0:1] + out * a[..., 1:2]
+    return out
+
+
+def phase_q8_kernels(q8, fp) -> list:
+    scale = (C // HEADS) ** -0.5
+    dev = torch.device("cuda")
+    records = []
+    for name, wrapper, plain, bf16_wrapper, gated, main_mode in (
+            ("fused_pair_block_q8", q8.fused_pair_block_q8,
+             q8.pair_block_q8_plain, fp.fused_pair_block, False, "temporal"),
+            ("fused_gated_pair_block_q8", q8.fused_gated_pair_block_q8,
+             q8.gated_pair_block_q8_plain, fp.fused_gated_pair_block, True,
+             "spatial")):
+        modes = {}
+        for mode in ("temporal", "spatial"):
+            p = pair_inputs(6 if mode == "temporal" else 7, gated, dev)
+            args = pair_args(p, gated)
+            out = wrapper(*args, HEADS, scale, mode)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(out, wrapper(*args, HEADS, scale, mode))
+            ref = plain(*args, HEADS, scale, mode)
+            if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+                fail(f"{name}/{mode}: shape {tuple(out.shape)} or non-finite")
+            abs_err, rel = rel_err(out, ref)
+            l2 = (torch.linalg.norm(out.float() - ref.float())
+                  / torch.linalg.norm(ref.float())).item()
+            differ = (out != ref).float().mean().item()
+            lib_rel = rel_err(pair_q8_library(p, gated, scale, mode), ref)[1]
+            full_l2 = (torch.linalg.norm(out.float() - bf16_wrapper(
+                *args, HEADS, scale, mode).float())
+                / torch.linalg.norm(ref.float())).item()
+            t_ops, nbytes, int8_ops, bf16_flops = pair_q8_cost(mode, gated)
+            t_bytes = nbytes / PEAK_HBM_BYTES
+            weights = [p[k] for k in ("wqkv", "wproj", "w1", "w2")]
+            rec = dict(
+                max_abs_err=abs_err, rel_err=rel, tol=Q8_KERNEL_TOL,
+                rel_l2=l2, l2_tol=Q8_KERNEL_L2_TOL,
+                outputs_that_differ=differ,
+                bitwise_repeatable=bitwise,
+                rel_l2_vs_bf16_pair=full_l2,
+                ms=time_ms(lambda: wrapper(*args, HEADS, scale, mode)),
+                bf16_pair_ms=time_ms(
+                    lambda: bf16_wrapper(*args, HEADS, scale, mode)),
+                back_to_back_ms=time_ms_back_to_back(
+                    lambda: wrapper(*args, HEADS, scale, mode)),
+                bf16_pair_back_to_back_ms=time_ms_back_to_back(
+                    lambda: bf16_wrapper(*args, HEADS, scale, mode)),
+                plain_ms=time_ms(lambda: plain(*args, HEADS, scale, mode),
+                                 runs=10, warmup=1),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                library_ms=time_ms(
+                    lambda: pair_q8_library(p, gated, scale, mode)),
+                library_rel_err=lib_rel,
+                quant_cols_ms=time_ms(
+                    lambda: [q8.quant_cols(w) for w in weights]),
+                int8_gop=int8_ops / 1e9, bf16_gflop=bf16_flops / 1e9,
+                mbytes=nbytes / 1e6)
+            log(f"q8 kernel {name}/{mode}: " + json.dumps(rec))
+            if not (rel <= Q8_KERNEL_TOL and l2 <= Q8_KERNEL_L2_TOL):
+                fail(f"{name}/{mode}: max|d|/max|ref| {rel:.3e} (bar "
+                     f"{Q8_KERNEL_TOL}), relative L2 {l2:.3e} (bar "
+                     f"{Q8_KERNEL_L2_TOL})")
+            if not bitwise:
+                fail(f"{name}/{mode}: two runs gave different bits")
+            modes[mode] = rec
+            del p, args, out, ref, weights
+        main = modes[main_mode]
+        records.append(dict(
+            name=name, route="cuda",
+            source="motionbert_tpu_torch/ops/csrc/pair_q8_kernels.cu",
+            replaces="motionbert_tpu/ops/pair_q8.py:147", launches=None,
+            max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], mode=main_mode,
+            shape=[B, FRAMES, J, C], modes=modes))
+    torch.cuda.empty_cache()
+    return records
+
+
+def rel_l2(out: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+
+
+def pair_counters(q8, fp) -> tuple:
+    return (q8.fused_pair_block_q8, q8.fused_gated_pair_block_q8,
+            fp.fused_pair_block, fp.fused_gated_pair_block)
+
+
+def phase_q8_main_path(q8, fp, records: list):
+    from motionbert_tpu_torch.api import MotionBERT
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.models.factory import load_backbone
+
+    mb8 = MotionBERT.from_config(CONFIG, checkpoint=ANCHOR,
+                                 attn_impl="kernel_q8")
+    mb16 = MotionBERT.from_config(CONFIG, checkpoint=ANCHOR)
+    x = seeded_motion(np.random.RandomState(0), LIFT_BATCH, FRAMES)
+
+    counters = pair_counters(q8, fp)
+    for c in counters:
+        c.launches = 0
+    lifted = mb8.lift(x)
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"q8 main: launches in one flip-TTA lift: {json.dumps(launches)}")
+    expect = {"fused_pair_block_q8": 3 * 5 * 2,
+              "fused_gated_pair_block_q8": 5 * 2,
+              "fused_pair_block": 0, "fused_gated_pair_block": 0}
+    if launches != expect:
+        fail(f"q8 lift launched {launches}, expected {expect}")
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
+    rep = mb8.get_representation(x)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref_model = load_backbone(get_config(CONFIG), dtype=torch.float32,
+                              device="cuda", attn_impl="plain")
+    ref_model.load_state_dict(mb8.model.state_dict(), strict=True)
+    mb_ref = MotionBERT(ref_model, maxlen=mb8.maxlen)
+    lifted_ref, rep_ref = mb_ref.lift(x), mb_ref.get_representation(x)
+    lifted16, rep16 = mb16.lift(x), mb16.get_representation(x)
+    del ref_model, mb_ref
+    torch.cuda.empty_cache()
+    for what, out, out16, ref in (("lift", lifted, lifted16, lifted_ref),
+                                  ("get_representation", rep, rep16,
+                                   rep_ref)):
+        if out.shape != ref.shape or not np.isfinite(out).all():
+            fail(f"q8 {what}: shape {out.shape} vs {ref.shape} or non-finite")
+        log(f"q8 main: {what} {out.shape} vs fp32 plain: relative L2 "
+            f"{rel_l2(out, ref):.4e} (q8 kernels), {rel_l2(out16, ref):.4e} "
+            f"(bf16 kernels); max|d|/max|ref| "
+            f"{rel_err(torch.from_numpy(out), torch.from_numpy(ref))[1]:.4e}"
+            f" (q8), "
+            f"{rel_err(torch.from_numpy(out16), torch.from_numpy(ref))[1]:.4e}"
+            f" (bf16); gate {Q8_REL_L2_GATE} on the lift's relative L2")
+    if not rel_l2(lifted, lifted_ref) <= Q8_REL_L2_GATE:
+        fail(f"q8 lift is {rel_l2(lifted, lifted_ref):.3e} from the fp32 "
+             f"plain path, gate {Q8_REL_L2_GATE}")
+    if np.array_equal(lifted, lifted16):
+        fail("the q8 lift equals the bf16 lift bit for bit: the int8 tier "
+             "did not run")
+    if not np.all(lifted[:, :, 0, :] == 0):
+        fail("q8 lift is not root-relative")
+
+    # both tiers in turns: q8, bf16, bf16, q8 (weight quantisation runs
+    # inside every q8 pair call, so it is in the time), at the batch of 8 and
+    # for a single clip, where the host's launch work weighs most
+    for batch, reps in ((LIFT_BATCH, 3), (1, 5)):
+        xb, times = x[:batch], {"q8": 0.0, "bf16": 0.0}
+        for tier in ("q8", "bf16", "bf16", "q8"):
+            mb = mb8 if tier == "q8" else mb16
+            mb.lift(xb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                mb.lift(xb)
+            times[tier] += time.perf_counter() - t0
+        for tier, dt in times.items():
+            log(f"q8 main: lift ({batch}, {FRAMES}, 17, 3) flip-TTA, {tier} "
+                f"kernels: {2 * reps * batch / dt:.2f} clips/s "
+                f"({dt / (2 * reps) * 1e3:.2f} ms per call)")
+    return mb8, mb16, x
+
+
+def phase_task_gate(q8, fp):
+    """The H36M protocol on the synthetic smoke set (16-frame clips) with the
+    anchor weights in the three tiers."""
+    from motionbert_tpu_torch.core.checkpoint import load_state_dict
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.data.datasets import BatchLoader, MotionDataset3D
+    from motionbert_tpu_torch.data.readers import DataReaderH36M
+    from motionbert_tpu_torch.models.factory import load_backbone
+    from motionbert_tpu_torch.train.pose3d import evaluate
+
+    args = get_config(SMOKE_CONFIG)
+    args.update(dim_feat=512, dim_rep=512, num_heads=8, depth=5, mlp_ratio=2,
+                maxlen=243)
+    args.data_root = os.path.join(ROOT, args.data_root)
+    args.dt_root = os.path.join(ROOT, args.dt_root)
+    test_loader = BatchLoader(MotionDataset3D(args, args.subset_list, "test"),
+                              args.batch_size, shuffle=False)
+    datareader = DataReaderH36M(
+        n_frames=args.clip_len, sample_stride=args.sample_stride,
+        data_stride_train=args.data_stride, data_stride_test=args.clip_len,
+        dt_root=args.dt_root, dt_file=args.dt_file)
+    sd = load_state_dict(ANCHOR)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    e1 = {}
+    counters = pair_counters(q8, fp)
+    for tier, kw in (("fp32 plain", dict(dtype=torch.float32,
+                                         attn_impl="plain")),
+                     ("bf16 kernels", dict(attn_impl="kernel")),
+                     ("q8 kernels", dict(attn_impl="kernel_q8"))):
+        model = load_backbone(args, device="cuda", **kw)
+        model.load_state_dict(sd, strict=True)
+        for c in counters:
+            c.launches = 0
+        e1[tier], e2, results = evaluate(args, model, test_loader, datareader)
+        launches = [c.launches for c in counters]
+        log(f"task gate: {tier}: MPJPE {e1[tier]:.4f} mm, P-MPJPE {e2:.4f} "
+            f"mm over {len(results)} clips of {args.clip_len} frames; pair "
+            f"launches q8 {launches[0] + launches[1]}, bf16 "
+            f"{launches[2] + launches[3]}")
+        if tier == "q8 kernels" and (launches[0] == 0 or launches[2] != 0):
+            fail(f"task gate: the q8 tier launched {launches}")
+        del model
+    ref = e1["fp32 plain"]
+    bar = max(Q8_MPJPE_GATE_MM, Q8_MPJPE_GATE_REL * ref)
+    drift = {k: v - ref for k, v in e1.items() if k != "fp32 plain"}
+    log(f"task gate: MPJPE drift vs fp32 plain: bf16 kernels "
+        f"{drift['bf16 kernels']:+.4f} mm, q8 kernels "
+        f"{drift['q8 kernels']:+.4f} mm; bar max({Q8_MPJPE_GATE_MM} mm, "
+        f"{Q8_MPJPE_GATE_REL:.0%} of {ref:.4f}) = {bar:.4f} mm")
+    if not abs(drift["q8 kernels"]) <= bar:
+        fail(f"task gate: q8 MPJPE drift {drift['q8 kernels']:+.4f} mm is "
+             f"over {bar:.4f} mm")
+    torch.cuda.empty_cache()
+
+
+def write_wild_json(path: str, frames=(300, 100), seed: int = 21) -> None:
+    """Halpe-26 AlphaPose detections from a numpy seed: one smooth track per
+    person in a 1920 x 1080 frame, ``frames[i]`` detections of person i."""
+    rs = np.random.RandomState(seed)
+    results = []
+    for person, n in enumerate(frames):
+        t = np.arange(n)[:, None, None] / 100.0
+        rest = rs.uniform(-200, 200, size=(1, 26, 2)) + (960.0, 540.0)
+        amp = rs.uniform(10, 60, size=(1, 26, 2))
+        phase = rs.uniform(size=(1, 26, 2))
+        xy = rest + amp * np.sin(2 * np.pi * (t + phase))
+        conf = rs.uniform(0.5, 1.0, size=(n, 26, 1))
+        kpts = np.concatenate([xy, conf], -1)
+        results += [{"image_id": f"{f}.jpg", "idx": person, "score": 2.5,
+                     "keypoints": kpts[f].ravel().tolist()} for f in range(n)]
+    with open(path, "w") as fh:
+        json.dump(results, fh)
+
+
+def phase_wild(q8, fp, mb8, mb16):
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.data.dataset_wild import WildDetDataset
+    from motionbert_tpu_torch.infer.wild_pose import run_wild_pose
+
+    args = get_config(CONFIG)
+    frames = (300, 100)
+    with tempfile.TemporaryDirectory() as tmp:
+        json_path = os.path.join(tmp, "alphapose-results.json")
+        write_wild_json(json_path, frames)
+        clips = WildDetDataset(json_path, clip_len=FRAMES, vid_size=None,
+                               scale_range=[1, 1], focus=0)
+        lengths = [len(clips[i]) for i in range(len(clips))]
+        if lengths != [FRAMES, frames[0] - FRAMES]:
+            fail(f"wild: clips of {lengths} frames")
+        outs = {}
+        counters = pair_counters(q8, fp)
+        for tier, mb in (("bf16", mb16), ("q8", mb8)):
+            out_dir = os.path.join(tmp, tier)
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            out = run_wild_pose(args, json_path=json_path, out_path=out_dir,
+                                model=mb.model, focus=0, clip_len=FRAMES)
+            dt = time.perf_counter() - t0
+            launches = [c.launches for c in counters]
+            saved = np.load(os.path.join(out_dir, "X3D.npy"))
+            if out.shape != (frames[0], 17, 3) or not np.isfinite(out).all() \
+                    or not np.array_equal(saved, out):
+                fail(f"wild {tier}: shape {out.shape}, or X3D.npy differs")
+            if not np.all(out[:, 0, :] == 0):   # rootrel: true in the config
+                fail(f"wild {tier}: the root joint is not zeroed")
+            worst, st = 0.0, 0
+            for i in range(len(clips)):
+                direct = mb.lift(clips[i][None], flip_tta=bool(args.flip),
+                                 rootrel=bool(args.rootrel))[0]
+                worst = max(worst, float(np.abs(
+                    out[st:st + len(direct)] - direct).max()))
+                st += len(direct)
+            used = (launches[0] + launches[1], launches[2] + launches[3])
+            log(f"wild {tier}: {frames[0]} frames of person 0 as clips of "
+                f"{lengths} in {dt:.2f} s -> {out.shape}, X3D.npy written; "
+                f"max|d| vs direct lifts {worst:.3e}; pair launches q8 "
+                f"{used[0]}, bf16 {used[1]}")
+            if worst != 0.0:
+                fail(f"wild {tier}: a clip differs from its direct lift by "
+                     f"{worst:.3e}")
+            if (tier == "q8") != (used[0] > 0) or (tier == "q8") == (used[1] > 0):
+                fail(f"wild {tier}: launched {launches}")
+            outs[tier] = out
+        both = WildDetDataset(json_path, clip_len=FRAMES, vid_size=None,
+                              scale_range=[1, 1], focus=None)
+        if len(both.vid_all) != sum(frames):
+            fail(f"wild: {len(both.vid_all)} detections without focus")
+    log(f"wild: q8 vs bf16 output relative L2 "
+        f"{rel_l2(outs['q8'], outs['bf16']):.4e}")
+
+
+def phase_straight_through(q8, fp):
+    scale = (C // HEADS) ** -0.5
+    dev = torch.device("cuda")
+    for q8_fn, bf16_fn, bwd, gated, mode in (
+            (q8.fused_pair_block_q8, fp.fused_pair_block,
+             fp.fused_pair_block_bwd, False, "temporal"),
+            (q8.fused_gated_pair_block_q8, fp.fused_gated_pair_block,
+             fp.fused_gated_pair_block_bwd, True, "spatial")):
+        p = pair_inputs(8, gated, dev)
+        g = pair_inputs(9, False, dev)["x"]
+        grads, before = [], bwd.launches
+        for fn in (q8_fn, bf16_fn):
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in pair_args(p, gated)]
+            out = fn(*leaves, HEADS, scale, mode)
+            grads.append(torch.autograd.grad(out, leaves, g))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*grads))
+        finite = all(torch.isfinite(a.float()).all() for a in grads[0])
+        log(f"straight-through {q8_fn.__name__}/{mode}: {len(grads[0])} "
+            f"gradients, bitwise equal to {bf16_fn.__name__}'s: {same}; "
+            f"{bwd.__name__} launches {bwd.launches - before}")
+        if not (same and finite) or bwd.launches - before != 2:
+            fail(f"{q8_fn.__name__}: backward is not the bf16 pair's")
+        del p, g, grads, leaves, out
+    torch.cuda.empty_cache()
+
+
+def phase_q8(q8, fp) -> list:
+    records = phase_q8_kernels(q8, fp)
+    mb8, mb16, x = phase_q8_main_path(q8, fp, records)
+    phase_profile(mb8, x, tag="q8 profile")
+    phase_task_gate(q8, fp)
+    phase_wild(q8, fp, mb8, mb16)
+    phase_straight_through(q8, fp)
+    del mb8, mb16, x
+    counters = pair_counters(q8, fp)
+    for c in counters:
+        c.launches = 0
+    phase_serving(n_requests=8, tag="q8 serving", attn_impl="kernel_q8")
+    launches = [c.launches for c in counters]
+    if launches[0] == 0 or launches[2] + launches[3] != 0:
+        fail(f"q8 serving launched {launches}")
+    torch.cuda.empty_cache()
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -716,6 +1208,10 @@ def phase_driver():
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", choices=("all", "q8"), default="all",
+                        help="q8: only phases 1, 2 and 10-15, no last line")
+    opts = parser.parse_args()
     # phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -728,6 +1224,7 @@ def main() -> int:
 
     from motionbert_tpu_torch.ops import _build
     from motionbert_tpu_torch.ops import fused_pair as fp
+    from motionbert_tpu_torch.ops import pair_q8 as q8
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -739,16 +1236,23 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
 
-    records = phase_kernels(fp)
-    mb, x = phase_main_path(fp, records)
-    phase_profile(mb, x)
-    phase_serving(mb)
+    if opts.phases == "q8":
+        log(json.dumps({"kernels": timed("q8", phase_q8, q8, fp)}))
+        log(f"device: {smi}")
+        log("partial run (--phases q8): no result line")
+        return 0
+
+    records = timed("kernels", phase_kernels, fp)
+    mb, x = timed("main path", phase_main_path, fp, records)
+    timed("profile", phase_profile, mb, x)
+    timed("serving", phase_serving, mb)
     del mb, x
     torch.cuda.empty_cache()
-    bwd_records = phase_backward(fp)
-    phase_train(fp, records, bwd_records)
-    phase_driver()
-    records += bwd_records
+    q8_records = timed("q8", phase_q8, q8, fp)
+    bwd_records = timed("backward", phase_backward, fp)
+    timed("train", phase_train, fp, records, bwd_records)
+    timed("driver", phase_driver)
+    records += bwd_records + q8_records
 
     log(json.dumps({"kernels": records}))
     log(f"device: {smi}")

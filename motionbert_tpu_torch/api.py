@@ -32,12 +32,16 @@ class MotionBERT:
 
     @classmethod
     def from_config(cls, config_path: str, checkpoint: Optional[str] = None,
-                    device=None) -> "MotionBERT":
+                    device=None,
+                    attn_impl: Optional[str] = None) -> "MotionBERT":
         """Build the configured backbone on ``device`` (None: the card; raises
         when there is none). Without a checkpoint the weights get the
-        reference initialisation from a generator seeded with 0."""
+        reference initialisation from a generator seeded with 0. attn_impl
+        None takes the config's ``attn_impl`` key (``models.factory``):
+        "kernel_q8", or ``attn_impl: pallas_q8`` in the config, serves from
+        the W8A8 tier on the same checkpoint."""
         args = get_config(config_path)
-        model = load_backbone(args, device=device)
+        model = load_backbone(args, device=device, attn_impl=attn_impl)
         if checkpoint:
             model.load_state_dict(load_state_dict(checkpoint), strict=True)
         else:

@@ -7,8 +7,10 @@ and passes ``depth`` dual blocks. In each, the S->T stream runs the spatial
 then the temporal attention+MLP pair, the T->S stream the temporal then the
 spatial pair, and the learned per-channel softmax gate ``ts_attn`` mixes the
 two. Each pair runs as one ``fused_pair_block`` call, and the T->S stream's
-last pair carries the gate (``fused_gated_pair_block``). Then LayerNorm ->
-pre_logits (Linear + Tanh) -> head.
+last pair carries the gate (``fused_gated_pair_block``). ``attn_impl`` picks
+the pair functions (``PAIR_IMPLS``): the bf16 kernels, the W8A8 int8 kernels
+of the serving tier, or the plain version of either, on the same parameters.
+Then LayerNorm -> pre_logits (Linear + Tanh) -> head.
 
 Module and parameter names are the reference PyTorch ones, so a MotionBERT
 state_dict loads with ``load_state_dict(strict=True)``. Parameters stay
@@ -30,13 +32,19 @@ from motionbert_tpu_torch.ops.attention import layer_norm
 from motionbert_tpu_torch.ops.fused_pair import (
     fused_gated_pair_block, fused_pair_block, gated_pair_block_plain,
     pair_block_plain)
+from motionbert_tpu_torch.ops.pair_q8 import (
+    fused_gated_pair_block_q8, fused_pair_block_q8, gated_pair_block_q8_plain,
+    pair_block_q8_plain)
 
 # attn_impl -> (pair function, gated pair function). "kernel" goes through
 # the wrappers (CUDA kernel on the card, plain version on the CPU); "plain"
-# calls the plain versions directly, on any device, in any dtype.
+# calls the plain versions directly, on any device, in any dtype. The "_q8"
+# pairs are the W8A8 serving tier (ops/pair_q8.py) on the same parameters.
 PAIR_IMPLS = {
     "kernel": (fused_pair_block, fused_gated_pair_block),
     "plain": (pair_block_plain, gated_pair_block_plain),
+    "kernel_q8": (fused_pair_block_q8, fused_gated_pair_block_q8),
+    "plain_q8": (pair_block_q8_plain, gated_pair_block_q8_plain),
 }
 
 

@@ -12,7 +12,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from motionbert_tpu_torch.models.dstformer import DSTformer
+from motionbert_tpu_torch.models.dstformer import PAIR_IMPLS, DSTformer
 
 _BACKBONES: Dict[str, Callable] = {}
 
@@ -39,6 +39,33 @@ def resolve_device(device=None) -> torch.device:
 
 def default_compute_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+# The JAX package's attn_impl names, as configs carry them, onto the port's
+# (the keys of models.dstformer.PAIR_IMPLS).
+JAX_ATTN_IMPLS = {"pallas": "kernel", "xla": "plain", "pallas_q8": "kernel_q8"}
+STREAM_ATTN_IMPLS = ("pallas_stream", "pallas_stream_q8")
+DEFAULT_ATTN_IMPL = "kernel"
+
+
+def resolve_attn_impl(attn_impl: Optional[str], args=None) -> str:
+    """The port's name for ``attn_impl``: the argument, else the config's
+    ``attn_impl`` key, else "kernel"; a JAX-package name maps onto the
+    port's. The stream kernels are not ported and raise; an unknown name
+    raises ValueError."""
+    name = attn_impl or (_cfg_get(args, "attn_impl", None)
+                         if args is not None else None) or DEFAULT_ATTN_IMPL
+    if name in STREAM_ATTN_IMPLS:
+        raise NotImplementedError(
+            f"attn_impl {name!r} needs the whole-stream kernel (B10, "
+            f"motionbert_tpu/ops/fused_stream.py), which is not ported yet "
+            f"(ROADMAP section B)")
+    name = JAX_ATTN_IMPLS.get(name, name)
+    if name not in PAIR_IMPLS:
+        raise ValueError(
+            f"unknown attn_impl {name!r}; known: {sorted(PAIR_IMPLS)}, or the "
+            f"JAX package's {sorted(JAX_ATTN_IMPLS)}")
+    return name
 
 
 def register_backbone(name: str):
@@ -70,15 +97,17 @@ def _dstformer(args, **overrides):
 
 
 def load_backbone(args, dtype: Optional[torch.dtype] = None, device=None,
-                  attn_impl: str = "kernel", **overrides) -> DSTformer:
+                  attn_impl: Optional[str] = None, **overrides) -> DSTformer:
     """Build the backbone named by args.backbone (default DSTformer) on
     ``device`` (None: the card), in eval mode, with uninitialised weights
     (load a state_dict, or call ``init_weights``).
 
     dtype=None resolves from the ``bf16`` config key when present, else bf16
-    on the card and fp32 on the CPU. attn_impl "kernel" runs the pairs
-    through the CUDA kernels on the card; "plain" runs their plain PyTorch
-    versions (the fp32 reference)."""
+    on the card and fp32 on the CPU. attn_impl=None resolves from the
+    ``attn_impl`` config key when present, else "kernel" (see
+    ``resolve_attn_impl``): "kernel" runs the pairs through the CUDA kernels
+    on the card, "kernel_q8" through the W8A8 int8 kernels, and "plain" /
+    "plain_q8" run their plain PyTorch versions (the references)."""
     dev = resolve_device(device)
     name = _cfg_get(args, "backbone", "DSTformer")
     if name not in _BACKBONES:
@@ -89,5 +118,5 @@ def load_backbone(args, dtype: Optional[torch.dtype] = None, device=None,
         dtype = default_compute_dtype(dev) if bf16 is None else \
             (torch.bfloat16 if bf16 else torch.float32)
     overrides.setdefault("compute_dtype", dtype)
-    overrides.setdefault("attn_impl", attn_impl)
+    overrides.setdefault("attn_impl", resolve_attn_impl(attn_impl, args))
     return _BACKBONES[name](args, **overrides).to(dev).eval()

@@ -1,6 +1,6 @@
 // Shared device code of the DSTformer pair kernels (pair_kernels.cu, the
-// forward, and pair_bwd_kernels.cu, the backward): bf16 with fp32
-// accumulation, for NVIDIA Hopper (sm_90a).
+// forward, pair_bwd_kernels.cu, the backward, and pair_q8_kernels.cu, the int8
+// forward): bf16 with fp32 accumulation, for NVIDIA Hopper (sm_90a).
 //
 // - gemm_kernel<LAYOUT, LN, EPI>: one WMMA (mma.sync) GEMM with 64x64 output
 //   tiles and a 32-deep reduction step, in three operand layouts:
@@ -13,6 +13,7 @@
 //   the result is the same bits on every run.
 // - attention_kernel<D>: softmax(q k^T * scale) v over one (group, head) per
 //   block, K and V of the group in shared memory, a warp per query row.
+// - gate_kernel: the att_fuse gate of the gated pair, a warp per token row.
 //
 // Everything is in an anonymous namespace: each .cu that includes this file
 // builds into its own shared library with its own copy.
@@ -420,6 +421,65 @@ cudaError_t launch_attention_any(const void* qkv, void* out, int B, int F, int J
     if (D == 64) return launch_attention<64>(qkv, out, B, F, J, C, scale, temporal, stream);
     if (D == 32) return launch_attention<32>(qkv, out, B, F, J, C, scale, temporal, stream);
     return cudaErrorInvalidValue;
+}
+
+constexpr int GATE_THREADS = 256;
+
+// att_fuse gate, one warp per token row: s_k = other.wg[k, :C] + pair.wg[k, C:]
+// + bg[k] in fp32, (a0, a1) = bf16(softmax(s)), out = bf16(bf16(other * a0) +
+// bf16(pair * a1)). wg is the nn.Linear weight (2, 2C).
+__global__ void __launch_bounds__(GATE_THREADS)
+gate_kernel(const bf16* __restrict__ other, const bf16* __restrict__ pair,
+            const bf16* __restrict__ wg, const bf16* __restrict__ bg,
+            bf16* __restrict__ out, int M, int C) {
+    const int row = blockIdx.x * (GATE_THREADS / 32) + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= M) return;
+    const bf16* o = other + (size_t)row * C;
+    const bf16* u = pair + (size_t)row * C;
+    const bf16* w0 = wg;
+    const bf16* w1 = wg + 2 * C;
+    float s0a = 0.f, s1a = 0.f, s0b = 0.f, s1b = 0.f;
+    for (int c = lane * 2; c < C; c += 64) {
+        const float2 ov = __bfloat1622float2(*reinterpret_cast<const bf162*>(o + c));
+        const float2 uv = __bfloat1622float2(*reinterpret_cast<const bf162*>(u + c));
+        const float2 w0a = __bfloat1622float2(*reinterpret_cast<const bf162*>(w0 + c));
+        const float2 w1a = __bfloat1622float2(*reinterpret_cast<const bf162*>(w1 + c));
+        const float2 w0b = __bfloat1622float2(*reinterpret_cast<const bf162*>(w0 + C + c));
+        const float2 w1b = __bfloat1622float2(*reinterpret_cast<const bf162*>(w1 + C + c));
+        s0a += ov.x * w0a.x + ov.y * w0a.y;
+        s1a += ov.x * w1a.x + ov.y * w1a.y;
+        s0b += uv.x * w0b.x + uv.y * w0b.y;
+        s1b += uv.x * w1b.x + uv.y * w1b.y;
+    }
+    s0a = warp_sum(s0a);
+    s1a = warp_sum(s1a);
+    s0b = warp_sum(s0b);
+    s1b = warp_sum(s1b);
+    const float s0 = s0a + s0b + __bfloat162float(bg[0]);
+    const float s1 = s1a + s1b + __bfloat162float(bg[1]);
+    const float mx = fmaxf(s0, s1);
+    const float e0 = expf(s0 - mx), e1 = expf(s1 - mx);
+    const float a0 = round_bf16(e0 / (e0 + e1));
+    const float a1 = round_bf16(e1 / (e0 + e1));
+    bf16* dst = out + (size_t)row * C;
+    for (int c = lane * 2; c < C; c += 64) {
+        const float2 ov = __bfloat1622float2(*reinterpret_cast<const bf162*>(o + c));
+        const float2 uv = __bfloat1622float2(*reinterpret_cast<const bf162*>(u + c));
+        const float r0 = round_bf16(ov.x * a0) + round_bf16(uv.x * a1);
+        const float r1 = round_bf16(ov.y * a0) + round_bf16(uv.y * a1);
+        *reinterpret_cast<bf162*>(dst + c) = __floats2bfloat162_rn(r0, r1);
+    }
+}
+
+cudaError_t launch_gate(const void* other, const void* pair, const void* wg,
+                        const void* bg, void* out, int M, int C, cudaStream_t stream) {
+    const int blocks = (M + GATE_THREADS / 32 - 1) / (GATE_THREADS / 32);
+    gate_kernel<<<blocks, GATE_THREADS, 0, stream>>>(
+        static_cast<const bf16*>(other), static_cast<const bf16*>(pair),
+        static_cast<const bf16*>(wg), static_cast<const bf16*>(bg),
+        static_cast<bf16*>(out), M, C);
+    return cudaGetLastError();
 }
 
 }  // namespace

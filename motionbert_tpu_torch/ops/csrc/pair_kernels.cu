@@ -26,8 +26,9 @@
 // the hidden activation are bf16; every sum is fp32; LN statistics are fp32
 // with var = E[x^2] - mean^2 and eps 1e-6; GELU is the exact erf form.
 // Spatial groups are the 17 joints of one frame, so the TPU's 8-frame tile and
-// its block-diagonal mask are not needed here. The GEMM and the attention core
-// live in pair_common.cuh, which the backward (pair_bwd_kernels.cu) shares.
+// its block-diagonal mask are not needed here. The GEMM, the attention core and the gate
+// live in pair_common.cuh, which the backward (pair_bwd_kernels.cu) and the
+// int8 chain (pair_q8_kernels.cu) share.
 //
 // Bound. At the flagship shape (C 512, hidden 1024, F 243) a pair does about
 // 4.2 MFLOP per token in the four products and 0.5 MFLOP per token in temporal
@@ -44,59 +45,6 @@
 // returns cudaGetLastError() (0 on success).
 
 #include "pair_common.cuh"
-
-namespace {
-
-constexpr int GATE_THREADS = 256;
-
-// att_fuse gate, one warp per token row: s_k = other.wg[k, :C] + pair.wg[k, C:]
-// + bg[k] in fp32, (a0, a1) = bf16(softmax(s)), out = bf16(bf16(other * a0) +
-// bf16(pair * a1)). wg is the nn.Linear weight (2, 2C).
-__global__ void __launch_bounds__(GATE_THREADS)
-gate_kernel(const bf16* __restrict__ other, const bf16* __restrict__ pair,
-            const bf16* __restrict__ wg, const bf16* __restrict__ bg,
-            bf16* __restrict__ out, int M, int C) {
-    const int row = blockIdx.x * (GATE_THREADS / 32) + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (row >= M) return;
-    const bf16* o = other + (size_t)row * C;
-    const bf16* u = pair + (size_t)row * C;
-    const bf16* w0 = wg;
-    const bf16* w1 = wg + 2 * C;
-    float s0a = 0.f, s1a = 0.f, s0b = 0.f, s1b = 0.f;
-    for (int c = lane * 2; c < C; c += 64) {
-        const float2 ov = __bfloat1622float2(*reinterpret_cast<const bf162*>(o + c));
-        const float2 uv = __bfloat1622float2(*reinterpret_cast<const bf162*>(u + c));
-        const float2 w0a = __bfloat1622float2(*reinterpret_cast<const bf162*>(w0 + c));
-        const float2 w1a = __bfloat1622float2(*reinterpret_cast<const bf162*>(w1 + c));
-        const float2 w0b = __bfloat1622float2(*reinterpret_cast<const bf162*>(w0 + C + c));
-        const float2 w1b = __bfloat1622float2(*reinterpret_cast<const bf162*>(w1 + C + c));
-        s0a += ov.x * w0a.x + ov.y * w0a.y;
-        s1a += ov.x * w1a.x + ov.y * w1a.y;
-        s0b += uv.x * w0b.x + uv.y * w0b.y;
-        s1b += uv.x * w1b.x + uv.y * w1b.y;
-    }
-    s0a = warp_sum(s0a);
-    s1a = warp_sum(s1a);
-    s0b = warp_sum(s0b);
-    s1b = warp_sum(s1b);
-    const float s0 = s0a + s0b + __bfloat162float(bg[0]);
-    const float s1 = s1a + s1b + __bfloat162float(bg[1]);
-    const float mx = fmaxf(s0, s1);
-    const float e0 = expf(s0 - mx), e1 = expf(s1 - mx);
-    const float a0 = round_bf16(e0 / (e0 + e1));
-    const float a1 = round_bf16(e1 / (e0 + e1));
-    bf16* dst = out + (size_t)row * C;
-    for (int c = lane * 2; c < C; c += 64) {
-        const float2 ov = __bfloat1622float2(*reinterpret_cast<const bf162*>(o + c));
-        const float2 uv = __bfloat1622float2(*reinterpret_cast<const bf162*>(u + c));
-        const float r0 = round_bf16(ov.x * a0) + round_bf16(uv.x * a1);
-        const float r1 = round_bf16(ov.y * a0) + round_bf16(uv.y * a1);
-        *reinterpret_cast<bf162*>(dst + c) = __floats2bfloat162_rn(r0, r1);
-    }
-}
-
-}  // namespace
 
 // One pair (other == nullptr) or gated pair on x (B, F, J, C) bf16. Scratch
 // buffers come from the caller: qkv (M, 3C), attn (M, C), y (M, C),
@@ -131,13 +79,6 @@ extern "C" int mbt_pair_block(
                                                gated ? pair_out : out, nullptr, M, C,
                                                hidden, stream);
     if (err != cudaSuccess) return (int)err;
-    if (gated) {
-        const int blocks = (M + GATE_THREADS / 32 - 1) / (GATE_THREADS / 32);
-        gate_kernel<<<blocks, GATE_THREADS, 0, stream>>>(
-            static_cast<const bf16*>(other), static_cast<const bf16*>(pair_out),
-            static_cast<const bf16*>(wg), static_cast<const bf16*>(bg),
-            static_cast<bf16*>(out), M, C);
-        err = cudaGetLastError();
-    }
+    if (gated) err = launch_gate(other, pair_out, wg, bg, out, M, C, stream);
     return (int)err;
 }

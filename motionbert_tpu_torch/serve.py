@@ -315,11 +315,12 @@ class MotionBERTServer:
 
     @classmethod
     def from_config(cls, config_path: str, checkpoint: Optional[str] = None,
-                    device=None, **kw) -> "MotionBERTServer":
+                    device=None, attn_impl: Optional[str] = None,
+                    **kw) -> "MotionBERTServer":
         from motionbert_tpu_torch.api import MotionBERT
 
-        return cls(MotionBERT.from_config(config_path, checkpoint, device),
-                   **kw)
+        return cls(MotionBERT.from_config(config_path, checkpoint, device,
+                                          attn_impl=attn_impl), **kw)
 
     def lift(self, motion_2d: np.ndarray) -> Future:
         """(T<=maxlen, 17, 3) normalized 2D+conf -> Future[(T, 17, 3)]."""

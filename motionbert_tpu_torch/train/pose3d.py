@@ -6,13 +6,14 @@ evaluation protocol and the epoch driver, with its command line:
 
 The port of ``motionbert_tpu/train/pose3d.py`` and the root ``train.py``
 (reference train.py). Flags as there (--config -c -p -r -e -ms -sd) plus
---device, which defaults to the card. Batch conditioning (root-relative
-targets, the confidence split) and the random horizontal flip run on the
-device inside the step, the flip from a ``torch.Generator`` on the model's
-device whose state the checkpoints keep. Not ported yet (ROADMAP A3): the 2D
-datasets and pretraining (``train_2d``), and the noise and masking
-corruption of ``data/augment.py`` (``noise``, ``mask_ratio``); configs that
-ask for them raise.
+--device, which defaults to the card, and --attn_impl, which defaults to
+the config's key. Batch conditioning (root-relative targets, the confidence
+split) and the random horizontal flip run on the device inside the step, the
+flip from a ``torch.Generator`` on the model's device whose state the
+checkpoints keep. Not ported yet (ROADMAP A3): the 2D datasets and
+pretraining (``train_2d``), and the noise and masking corruption of
+``data/augment.py`` (``noise``, ``mask_ratio``); configs that ask for them
+raise.
 """
 
 from __future__ import annotations
@@ -204,12 +205,13 @@ def _refuse_unported(args) -> None:
             "(ROADMAP A3)")
 
 
-def train_with_config(args, opts, device=None) -> dict:
+def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     """The epoch driver (reference train.py:208-377) on ``device`` (None:
     the card). opts: checkpoint, pretrained, resume, evaluate, selection,
-    seed. Resumes from the checkpoint directory's latest_epoch.ckpt when
-    there is one. Returns {"e1": best P1, "history": one dict per epoch run
-    (epoch, lr, mean loss terms, e1, e2)}."""
+    seed. attn_impl None takes the config's ``attn_impl`` key
+    (``models.factory``). Resumes from the checkpoint directory's
+    latest_epoch.ckpt when there is one. Returns {"e1": best P1, "history":
+    one dict per epoch run (epoch, lr, mean loss terms, e1, e2)}."""
     from motionbert_tpu_torch.core.checkpoint import (
         CheckpointManager, is_port_checkpoint, load_checkpoint,
         load_state_dict)
@@ -237,7 +239,7 @@ def train_with_config(args, opts, device=None) -> dict:
         data_stride_train=args.data_stride, data_stride_test=args.clip_len,
         dt_root=args.get("dt_root", "data/motion3d"), dt_file=args.dt_file)
 
-    model = load_backbone(args, device=dev)
+    model = load_backbone(args, device=dev, attn_impl=attn_impl)
     model.init_weights(torch.Generator().manual_seed(opts.seed))
     print("INFO: Trainable parameter count:",
           sum(p.numel() for p in model.parameters()))
@@ -355,6 +357,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="random seed")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
+    parser.add_argument("--attn_impl", default=None,
+                        help="pair implementation: kernel, plain, kernel_q8, "
+                             "plain_q8 (default: the config's attn_impl key, "
+                             "else kernel)")
     return parser.parse_args(argv)
 
 
@@ -364,7 +370,8 @@ def main(argv=None) -> dict:
     opts = parse_args(argv)
     random.seed(opts.seed)
     np.random.seed(opts.seed)
-    return train_with_config(get_config(opts.config), opts, device=opts.device)
+    return train_with_config(get_config(opts.config), opts, device=opts.device,
+                             attn_impl=opts.attn_impl)
 
 
 if __name__ == "__main__":

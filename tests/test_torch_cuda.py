@@ -1,5 +1,5 @@
-"""The port's CUDA pair kernels (forward and backward) on the card, against
-their plain versions.
+"""The port's CUDA pair kernels (forward, backward and the int8 W8A8 forward)
+on the card, against their plain versions.
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 neither jax nor the JAX package, so it also runs where JAX is not installed:
@@ -14,9 +14,18 @@ import torch
 from motionbert_tpu_torch.core.config import ConfigDict
 from motionbert_tpu_torch.models.factory import load_backbone
 from motionbert_tpu_torch.ops import fused_pair as fp
+from motionbert_tpu_torch.ops import pair_q8 as q8
 
 # bf16 kernel vs bf16 plain: rounding flips of intermediates only
 TOL = 2e-2
+# int8 kernel vs its plain version: the integer products are exact on both
+# sides, so they differ by bf16 rounding flips of qkv, attn and y as above,
+# and by single int8 steps where LN or GELU (this card's rsqrtf and erff, a
+# warp's summation order) land a value across a quantiser boundary
+Q8_TOL = 2e-2
+# the same as a relative L2 (measured 1.0e-3 to 1.5e-3 at the flagship
+# shape): a rounding point moved in the chain shows as 6e-3 or more
+Q8_L2_TOL = 4e-3
 
 
 @pytest.fixture
@@ -50,6 +59,11 @@ def _inputs(device, gated, C=512, H=8, F=81, B=1, hidden=None):
 def _rel(out, ref):
     return ((out.float() - ref.float()).abs().max()
             / ref.float().abs().max()).item()
+
+
+def _rel_l2(out, ref):
+    return (torch.linalg.norm(out.float() - ref.float())
+            / torch.linalg.norm(ref.float())).item()
 
 
 @pytest.mark.cuda
@@ -229,3 +243,127 @@ def test_train_steps_depth2_flagship_width(cuda):
     losses = [step(x, y)["total"].item() for _ in range(3)]
     assert fp.fused_pair_block_bwd.launches == before + 3 * 6
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+
+
+# ---------------------------------------------------------------------------
+# the W8A8 pair (ops/pair_q8.py, csrc/pair_q8_kernels.cu)
+# ---------------------------------------------------------------------------
+
+def _q8(gated):
+    return (q8.fused_gated_pair_block_q8, q8.gated_pair_block_q8_plain) \
+        if gated else (q8.fused_pair_block_q8, q8.pair_block_q8_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("C,H", [(512, 8), (256, 8)])  # head dim 64 and 32
+def test_q8_kernel_matches_plain(cuda, mode, gated, C, H):
+    args, H = _inputs(cuda, gated, C=C, H=H)
+    wrapper, plain = _q8(gated)
+    before = wrapper.launches, fp.fused_pair_block.launches
+    out = wrapper(*args, H, (C // H) ** -0.5, mode)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before[0] + 1
+    assert fp.fused_pair_block.launches == before[1]
+    assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
+    assert torch.isfinite(out.float()).all()
+    ref = plain(*args, H, (C // H) ** -0.5, mode)
+    assert _rel(out, ref) <= Q8_TOL
+    assert _rel_l2(out, ref) <= Q8_L2_TOL, _rel_l2(out, ref)
+    # the same launch again gives the same bits: no atomics in the chain
+    assert torch.equal(out, wrapper(*args, H, (C // H) ** -0.5, mode))
+
+
+@pytest.mark.cuda
+def test_q8_kernel_ragged_rows_and_single_frame(cuda):
+    """M = B*F*J not a multiple of the 64-row tile, and F = 1."""
+    for F in (1, 5, 243):
+        args, H = _inputs(cuda, False, F=F, B=2)
+        out = q8.fused_pair_block_q8(*args, H, 0.125, "temporal")
+        assert _rel(out, q8.pair_block_q8_plain(*args, H, 0.125,
+                                                "temporal")) <= Q8_TOL
+
+
+@pytest.mark.cuda
+def test_q8_kernel_rows_with_extreme_values(cuda):
+    """Rows with extreme values, where a wrong row scale or a missing clip
+    would show: a constant row (LN output is ln_b) and a row with one
+    dominant value."""
+    args, H = _inputs(cuda, False, F=9)
+    x = args[0].clone()
+    x[0, 0, 0, :] = 0.0                 # a constant row: LN output is ln_b
+    x[0, 1, 0, 0] = 300.0               # one dominant value in a row
+    args[0] = x
+    out = q8.fused_pair_block_q8(*args, H, 0.125, "spatial")
+    assert torch.isfinite(out.float()).all()
+    assert _rel(out, q8.pair_block_q8_plain(*args, H, 0.125,
+                                            "spatial")) <= Q8_TOL
+
+
+@pytest.mark.cuda
+def test_q8_wrapper_raises_on_misaligned_width_and_never_falls_back(cuda):
+    """C = 96 has no whole 64-deep int8 tile; fp32 input has no kernel. On a
+    CUDA tensor both raise: neither the plain version nor the bf16 kernels
+    step in."""
+    args, H = _inputs(cuda, False, C=96, H=3, hidden=192)
+    before = q8.fused_pair_block_q8.launches, fp.fused_pair_block.launches
+    with pytest.raises(ValueError, match="C % 64"):
+        q8.fused_pair_block_q8(*args, H, 32 ** -0.5, "spatial")
+    args, H = _inputs(cuda, True)
+    args[0] = args[0].float()
+    with pytest.raises(ValueError, match="bfloat16"):
+        q8.fused_gated_pair_block_q8(*args, H, 0.125, "temporal")
+    assert (q8.fused_pair_block_q8.launches,
+            fp.fused_pair_block.launches) == before
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_q8_function_is_straight_through(cuda):
+    """loss.backward() through FusedGatedPairQ8 launches the bf16 pair's
+    backward kernel once and gives every input the gradient the bf16
+    Function gives for the same cotangent, bit for bit."""
+    args, H = _inputs(cuda, True, F=27)
+    g = _grad_out(cuda, args[0].shape)
+    before = fp.fused_gated_pair_block_bwd.launches
+    grads = []
+    for fn in (q8.fused_gated_pair_block_q8, fp.fused_gated_pair_block):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        out = fn(*leaves, H, 0.125, "temporal")
+        grads.append(torch.autograd.grad(out, leaves, g))
+    assert fp.fused_gated_pair_block_bwd.launches == before + 2
+    for a, b in zip(*grads):
+        assert torch.isfinite(a.float()).all() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_model_q8_kernels_match_plain_q8(cuda):
+    """A depth-2 model at the flagship width: the int8 kernels against the
+    plain q8 path in the same dtype, and against the fp32 full-precision
+    plain path within the serving tier's gate (5 % relative L2). Through
+    eight pairs the single-step differences of the quantisers compound, so
+    the representation is held to 1e-2 relative L2 and 5e-2 of max|ref|
+    (one pair alone stays within Q8_TOL)."""
+    cfg = ConfigDict(dim_feat=512, dim_rep=512, depth=2, num_heads=8,
+                     mlp_ratio=2, num_joints=17, maxlen=81)
+    model = load_backbone(cfg, device=cuda, attn_impl="kernel_q8")
+    model.init_weights(torch.Generator().manual_seed(0))
+    plain = load_backbone(cfg, device=cuda, attn_impl="plain_q8")
+    plain.load_state_dict(model.state_dict())
+    ref = load_backbone(cfg, dtype=torch.float32, device=cuda,
+                        attn_impl="plain")
+    ref.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        -1, 1, (2, 81, 17, 3)).astype(np.float32)).to(cuda)
+    counters = (q8.fused_pair_block_q8, q8.fused_gated_pair_block_q8,
+                fp.fused_pair_block, fp.fused_gated_pair_block)
+    before = [c.launches for c in counters]
+    with torch.inference_mode():
+        out = model(x, return_rep=True)
+        assert [c.launches - b for c, b in zip(counters, before)] \
+            == [6, 2, 0, 0]
+        want = plain(x, return_rep=True)
+        full = ref(x, return_rep=True)
+    assert _rel_l2(out, want) <= 1e-2 and _rel(out, want) <= 5e-2, \
+        (_rel_l2(out, want), _rel(out, want))
+    assert 0 < _rel_l2(out, full) <= 0.05, _rel_l2(out, full)

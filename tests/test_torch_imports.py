@@ -10,9 +10,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _is_jax_package(name: str) -> bool:
     # motionbert_tpu_torch starts with "motionbert_tpu": match the module
-    # name itself or its submodules, not the prefix
-    return name in ("jax", "motionbert_tpu") or name.startswith(
-        ("jax.", "jaxlib", "flax", "optax", "motionbert_tpu."))
+    # name itself or its submodules, not the prefix. The repo's tools/ import
+    # the JAX package, so the port keeps away from them too.
+    return name in ("jax", "motionbert_tpu", "tools") or name.startswith(
+        ("jax.", "jaxlib", "flax", "optax", "motionbert_tpu.", "tools."))
 
 
 def test_port_imports_no_jax():
@@ -28,7 +29,12 @@ def test_port_imports_no_jax():
         "motionbert_tpu_torch.geometry.transforms, "
         "motionbert_tpu_torch.geometry.procrustes, "
         "motionbert_tpu_torch.core.metrics, motionbert_tpu_torch.core.logging\n"
+        "import motionbert_tpu_torch.ops.pair_q8, "
+        "motionbert_tpu_torch.data.dataset_wild, "
+        "motionbert_tpu_torch.infer.wild_pose\n"
         "import runpy; runpy.run_module('motionbert_tpu_torch.train.pose3d', "
+        "run_name='not_main')\n"
+        "runpy.run_module('motionbert_tpu_torch.infer.wild_pose', "
         "run_name='not_main')\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -39,7 +45,10 @@ def test_port_imports_no_jax():
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     for m in ("motionbert_tpu_torch.api", "motionbert_tpu_torch.train.pose3d",
               "motionbert_tpu_torch.data.datasets",
-              "motionbert_tpu_torch.losses.pose"):
+              "motionbert_tpu_torch.losses.pose",
+              "motionbert_tpu_torch.ops.pair_q8",
+              "motionbert_tpu_torch.data.dataset_wild",
+              "motionbert_tpu_torch.infer.wild_pose"):
         assert m in mods, m
     bad = [m for m in mods if _is_jax_package(m)]
     assert not bad, bad
@@ -70,3 +79,5 @@ def test_name_check_tells_the_packages_apart():
     assert _is_jax_package("jax.numpy")
     assert not _is_jax_package("motionbert_tpu_torch")
     assert not _is_jax_package("motionbert_tpu_torch.ops")
+    assert _is_jax_package("tools.make_synthetic_data")
+    assert not _is_jax_package("toolshed")
