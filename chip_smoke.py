@@ -50,14 +50,33 @@ Phases, each of which passes or ends the run with a non-zero exit code:
  14. straight-through: the q8 Functions' backward against the bf16
      Functions', bit for bit, counted as backward-kernel launches.
  15. q8 serving: MotionBERTServer built with attn_impl="kernel_q8".
-Phases 10-15 run after phase 6. Then a JSON line of per-kernel numbers, the
+ 16. block kernels: the standalone attention block (temporal and spatial) and
+     MLP block at the phase-3 shape, in the flag combinations the model uses
+     and with LayerNorm and residual both on, against their plain versions
+     (the max-based bar and a relative-L2 bar), twice for bitwise equality,
+     with times (one call at a time, and back to back), bound, the plain
+     version's time and a library yardstick.
+ 17. block backward kernels: the same for the two backward chains, per
+     gradient tensor.
+ 18. drop-path training: the flagship built with drop_path_rate=0.1; the
+     first step's loss and gradients in bf16 through the kernels against the
+     fp32 plain path drawing the same masks; 10 AdamW steps with the launch
+     counts per step (layer 0 on the pair path, layers 1-4 through the
+     blocks), ms per step, clips/s, peak memory, a profiled step; steps with
+     drop_rate=0.1 (every layer through the attention block, the MLP in
+     plain PyTorch); an evaluation call that runs pairs only.
+ 19. pretraining: augment2d on a CUDA batch, then train_with_config on the
+     synthetic pretraining set at the flagship widths through the kernels: a
+     3D epoch, 2D epochs joining at epoch 1, a resumed third epoch.
+Phases 10-15 run after phase 6, phases 16-19 after phase 9. Then a JSON line of per-kernel numbers, the
 card's name and power limit, and as the last line {"ok": true, "device":
 {...}}.
 
     python3 chip_smoke.py --phases q8
+    python3 chip_smoke.py --phases blocks
 
-runs only phases 1, 2 and 10-15 (while working on them) and prints no last
-line.
+run only phases 1, 2 and 10-15, or 1, 2 and 16-19 (while working on them),
+and print no last line.
 
 Imports nothing of JAX or of the JAX package motionbert_tpu.
 """
@@ -84,6 +103,8 @@ CONFIG = os.path.join(ROOT, "configs", "pose3d", "MB_ft_h36m.yaml")
 TRAIN_CONFIG = os.path.join(ROOT, "configs", "pose3d", "MB_train_h36m.yaml")
 SMOKE_CONFIG = os.path.join(ROOT, "configs", "pose3d",
                             "MB_train_synth_smoke.yaml")
+PRETRAIN_CONFIG = os.path.join(ROOT, "configs", "pretrain",
+                               "MB_pretrain_synth_smoke.yaml")
 ANCHOR = os.path.join(ROOT, "data", "anchors", "flagship_synth_trained.npz")
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
@@ -404,8 +425,10 @@ def phase_main_path(fp, records: list):
 
 # kernel-name fragments of the port's own kernels, for the profile's groups
 PROFILE_GROUPS = ("gemm_q8_kernel", "ln_quant_rows_kernel",
-                  "quant_rows_kernel", "attention_kernel", "gate_kernel",
-                  "gemm_kernel")
+                  "quant_rows_kernel", "attention_bwd_kernel",
+                  "attention_kernel", "gate_bwd_rows_kernel", "gate_kernel",
+                  "gemm_kernel", "colsum_kernel", "reduce_splits_kernel",
+                  "ln_fwd_rows_kernel", "ln_bwd_rows_kernel")
 
 
 def device_rows(prof) -> list:
@@ -1024,19 +1047,71 @@ def train_batch(n: int) -> tuple:
     return (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
 
 
-def loss_and_grads(model, x, y, lambdas) -> tuple:
+def loss_and_grads(model, x, y, lambdas, **kw) -> tuple:
     from motionbert_tpu_torch.losses.pose import pose3d_total_loss
     from motionbert_tpu_torch.train.pose3d import preprocess_batch
 
     model.train()
     model.zero_grad(set_to_none=True)
-    xb, yb = preprocess_batch(x, y, rootrel=True, no_conf=False)
-    total, _ = pose3d_total_loss(model(xb).float(), yb, lambdas)
+    xb, yb, _ = preprocess_batch(x, y, rootrel=True, no_conf=False)
+    total, _ = pose3d_total_loss(model(xb, **kw).float(), yb, lambdas)
     total.backward()
     grads = {n: p.grad.detach().float().clone()
              for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     return total.item(), grads
+
+
+def compare_first_step(tag: str, what: str, loss, grads, ref_loss,
+                       ref_grads) -> None:
+    """The first step's loss and gradients (bf16 kernels) against the fp32
+    plain path's: the loss, the cosine of all gradients as one vector, and
+    each tensor's max|d| / max|ref|."""
+    per = {n: rel_err(grads[n], ref_grads[n])[1] for n in ref_grads}
+    flat = torch.cat([grads[n].flatten() for n in ref_grads])
+    ref_flat = torch.cat([ref_grads[n].flatten() for n in ref_grads])
+    cosine = F.cosine_similarity(flat, ref_flat, dim=0).item()
+    worst = sorted(per.items(), key=lambda kv: -kv[1])
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    log(f"{tag}: {what}: loss {loss:.6f} (bf16 kernels) vs {ref_loss:.6f} "
+        f"(fp32 plain), rel {loss_rel:.3e}; gradient cosine {cosine:.6f}; "
+        f"median tensor max|d|/max|ref| "
+        f"{statistics.median(per.values()):.3e}; worst "
+        + ", ".join(f"{n} {e:.3e}" for n, e in worst[:12]))
+    over = [(n, e) for n, e in worst if not e <= grad_tensor_tol(n)]
+    if not (loss_rel <= LOSS_TOL and cosine >= GRAD_COSINE_MIN) or over:
+        fail(f"{tag}: {what} disagrees with the fp32 plain path: loss rel "
+             f"{loss_rel:.3e}, cosine {cosine:.6f}, over the bar: {over}")
+
+
+def profile_step(tag: str, step, x, y) -> None:
+    """One more train step under torch.profiler: device time by kernel and
+    by group, and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy_ms = sum(ms for _, ms, _ in rows)
+    log(f"{tag}: one step ({TRAIN_BATCH}, {FRAMES}) under the profiler: "
+        f"{wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy "
+        f"({100 * busy_ms / wall_ms:.1f}%)")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:16]:
+        log(f"{tag}: {ms:9.3f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% "
+            f"{n:5d}x {key[:100]}")
+    groups = {}
+    for key, ms, n in rows:
+        name = next((g for g in PROFILE_GROUPS if g in key),
+                    "other (PyTorch operators: LayerNorm, DropPath, gate, "
+                    "casts, loss, AdamW)")
+        groups[name] = groups.get(name, 0.0) + ms
+    log(f"{tag}: by group: " + json.dumps(
+        {k: round(v, 3) for k, v in sorted(groups.items(),
+                                            key=lambda kv: -kv[1])}))
 
 
 def phase_train(fp, fwd_records: list, bwd_records: list):
@@ -1070,22 +1145,9 @@ def phase_train(fp, fwd_records: list, bwd_records: list):
     ref_loss, ref_grads = loss_and_grads(ref_model, x, y, lambdas)
     del ref_model
     torch.cuda.empty_cache()
-    per = {n: rel_err(grads[n], ref_grads[n])[1] for n in ref_grads}
-    flat = torch.cat([grads[n].flatten() for n in ref_grads])
-    ref_flat = torch.cat([ref_grads[n].flatten() for n in ref_grads])
-    cosine = F.cosine_similarity(flat, ref_flat, dim=0).item()
-    worst = sorted(per.items(), key=lambda kv: -kv[1])
-    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
-    log(f"train: first step, batch {REF_BATCH}: loss {loss:.6f} (bf16 "
-        f"kernels) vs {ref_loss:.6f} (fp32 plain), rel {loss_rel:.3e}; "
-        f"gradient cosine {cosine:.6f}; median tensor max|d|/max|ref| "
-        f"{statistics.median(per.values()):.3e}; worst "
-        + ", ".join(f"{n} {e:.3e}" for n, e in worst[:12]))
-    over = [(n, e) for n, e in worst if not e <= grad_tensor_tol(n)]
-    if not (loss_rel <= LOSS_TOL and cosine >= GRAD_COSINE_MIN) or over:
-        fail(f"first train step disagrees with the fp32 plain path: loss "
-             f"rel {loss_rel:.3e}, cosine {cosine:.6f}, over the bar: {over}")
-    del grads, ref_grads, flat, ref_flat
+    compare_first_step("train", f"first step, batch {REF_BATCH}", loss, grads,
+                       ref_loss, ref_grads)
+    del grads, ref_grads
 
     # TRAIN_STEPS steps through the kernels on one fixed batch
     x, y = train_batch(TRAIN_BATCH)
@@ -1098,7 +1160,7 @@ def phase_train(fp, fwd_records: list, bwd_records: list):
 
     def eval_loss():
         with torch.no_grad():
-            xb, yb = preprocess_batch(x, y, rootrel=True, no_conf=False)
+            xb, yb, _ = preprocess_batch(x, y, rootrel=True, no_conf=False)
             return pose3d_total_loss(model(xb).float(), yb, lambdas)[0].item()
 
     before = eval_loss()
@@ -1137,23 +1199,7 @@ def phase_train(fp, fwd_records: list, bwd_records: list):
     for rec in bwd_records:
         rec["launches"] = launches[rec["name"]]
 
-    # one more step under the profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(x, y)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof)
-    busy_ms = sum(ms for _, ms, _ in rows)
-    log(f"train profile: one step ({TRAIN_BATCH}, {FRAMES}) under the "
-        f"profiler: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy "
-        f"({100 * busy_ms / wall_ms:.1f}%)")
-    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:16]:
-        log(f"train profile: {ms:9.3f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% "
-            f"{n:5d}x {key[:100]}")
+    profile_step("train profile", step, x, y)
     del model, opt, step
     torch.cuda.empty_cache()
 
@@ -1207,10 +1253,503 @@ def phase_driver():
         fail(f"driver: latest checkpoint records epoch {latest['epoch']}")
 
 
+# ---------------------------------------------------------------------------
+# phases 16 and 17: the standalone attention and MLP blocks
+# ---------------------------------------------------------------------------
+
+# bf16 block kernel vs its plain version as a relative L2: rounding flips of
+# qkv, attn and the hidden activation only (measured 1.5e-4 to 1.0e-3); the
+# bar is the q8 pair's, which a moved rounding point fails
+BLOCK_L2_TOL = 4e-3
+ATTN_KEYS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj")
+MLP_KEYS = ("ln2_w", "ln2_b", "w1", "b1", "w2", "b2")
+# (use_ln, residual): what the model calls, then everything on
+ATTN_FLAGS = ((True, False), (True, True))
+MLP_FLAGS = ((False, False), (True, True))
+
+
+def attn_library(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, scale, mode,
+                 use_ln, residual):
+    """The attention block from PyTorch's own operators: a yardstick of
+    speed the port never calls."""
+    Bx, Fx, Jx, Cx = x.shape
+    d = Cx // HEADS
+    h = F.layer_norm(x, (Cx,), ln_w.to(x.dtype), ln_b.to(x.dtype), 1e-6) \
+        if use_ln else x
+    qkv = F.linear(h, wqkv, bqkv).reshape(Bx, Fx, Jx, 3, HEADS, d)
+    perm = (0, 1, 3, 2, 4) if mode == "spatial" else (0, 2, 3, 1, 4)
+    q, k, v = (qkv[:, :, :, i].permute(perm) for i in range(3))
+    o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    o = o.permute([perm.index(i) for i in range(5)]).reshape(Bx, Fx, Jx, Cx)
+    out = F.linear(o, wproj, bproj)
+    return x + out if residual else out
+
+
+def mlp_library(x, ln_w, ln_b, w1, b1, w2, b2, use_ln, residual):
+    h = F.layer_norm(x, (x.shape[-1],), ln_w.to(x.dtype), ln_b.to(x.dtype),
+                     1e-6) if use_ln else x
+    out = F.linear(F.gelu(F.linear(h, w1, b1)), w2, b2)
+    return x + out if residual else out
+
+
+def block_cost(kind: str, mode: str, backward: bool) -> tuple:
+    """(FLOPs, bytes) of a block at the phase-3 shape: its products (and the
+    attention core); x read and out written once, the weights read once. The
+    backward's inputs are x, g and the weights, so its recompute counts: each
+    product and the core three times; x and g read, dx written, the weights
+    read and their gradients written once."""
+    M = B * FRAMES * J
+    if kind == "attention":
+        w_elems, b_elems = 3 * C * C + C * C, 3 * C + C
+        flops = 2 * M * w_elems
+        groups, n = (B * J, FRAMES) if mode == "temporal" else (B * FRAMES, J)
+        flops += 4 * groups * n * n * C
+    else:
+        w_elems, b_elems = 2 * C * HIDDEN, HIDDEN + C
+        flops = 2 * M * w_elems
+    param_bytes = (w_elems + b_elems) * 2 + 2 * C * 4
+    if backward:
+        return 3 * flops, 3 * M * C * 2 + 2 * param_bytes
+    return flops, 2 * M * C * 2 + param_bytes
+
+
+def rel_l2_t(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return (torch.linalg.norm(out.float() - ref.float())
+            / torch.linalg.norm(ref.float()).clamp_min(1e-30)).item()
+
+
+def block_cases(at, mlp):
+    """(kind, mode, forward wrapper, forward plain, backward wrapper,
+    backward plain, library, keys, flags, extra arguments)."""
+    scale = (C // HEADS) ** -0.5
+    for mode in ("temporal", "spatial"):
+        yield ("attention", mode, at.fused_attention_block,
+               at.attention_block_plain, at.fused_attention_block_bwd,
+               at.attention_block_bwd_plain,
+               lambda *a, mode=mode: attn_library(*a[:7], scale, mode, *a[7:]),
+               ATTN_KEYS, ATTN_FLAGS, (HEADS, scale, mode))
+    yield ("mlp", "tokens", mlp.fused_mlp_block, mlp.mlp_block_plain,
+           mlp.fused_mlp_block_bwd, mlp.mlp_block_bwd_plain, mlp_library,
+           MLP_KEYS, MLP_FLAGS, ())
+
+
+def phase_block_kernels(at, mlp) -> list:
+    dev = torch.device("cuda")
+    modes = {"attention": {}, "mlp": {}}
+    for kind, mode, wrapper, plain, _, _, library, keys, flags, extra in \
+            block_cases(at, mlp):
+        p = pair_inputs(12 if mode == "temporal" else 13, False, dev)
+        args = [p["x"]] + [p[k] for k in keys]
+        for use_ln, residual in flags:
+            fl = (use_ln, residual)
+            tag = f"{mode}/ln{int(use_ln)}res{int(residual)}"
+            out = wrapper(*args, *extra, *fl)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(out, wrapper(*args, *extra, *fl))
+            ref = plain(*args, *extra, *fl)
+            if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+                fail(f"{kind} block {tag}: shape {tuple(out.shape)} or "
+                     f"non-finite")
+            abs_err, rel = rel_err(out, ref)
+            l2 = rel_l2_t(out, ref)
+            lib_rel = rel_err(library(*args, *fl), ref)[1]
+            flops, nbytes = block_cost(kind, mode, False)
+            t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+            rec = dict(
+                max_abs_err=abs_err, rel_err=rel, tol=KERNEL_TOL, rel_l2=l2,
+                l2_tol=BLOCK_L2_TOL, bitwise_repeatable=bitwise,
+                ms=time_ms(lambda: wrapper(*args, *extra, *fl)),
+                back_to_back_ms=time_ms_back_to_back(
+                    lambda: wrapper(*args, *extra, *fl)),
+                plain_ms=time_ms(lambda: plain(*args, *extra, *fl), runs=10,
+                                 warmup=1),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                library_ms=time_ms(lambda: library(*args, *fl)),
+                library_rel_err=lib_rel, gflop=flops / 1e9,
+                mbytes=nbytes / 1e6)
+            log(f"block kernel {kind}/{tag}: " + json.dumps(rec))
+            if not (rel <= KERNEL_TOL and l2 <= BLOCK_L2_TOL):
+                fail(f"{kind} block {tag}: max|d|/max|ref| {rel:.3e} (bar "
+                     f"{KERNEL_TOL}), relative L2 {l2:.3e} (bar "
+                     f"{BLOCK_L2_TOL})")
+            if not bitwise:
+                fail(f"{kind} block {tag}: two runs gave different bits")
+            modes[kind][tag] = rec
+        del p, args, out, ref
+    torch.cuda.empty_cache()
+    return [block_record("fused_attention_block", "attention.py:466",
+                         modes["attention"], "temporal/ln1res0"),
+            block_record("fused_mlp_block", "fused_mlp.py:50", modes["mlp"],
+                         "tokens/ln0res0")]
+
+
+def block_record(name: str, replaces: str, modes: dict, main: str) -> dict:
+    m = modes[main]
+    return dict(
+        name=name, route="cuda",
+        source="motionbert_tpu_torch/ops/csrc/block_kernels.cu",
+        replaces=f"motionbert_tpu/ops/{replaces}", launches=None,
+        max_abs_err=max(r["max_abs_err"] for r in modes.values()),
+        ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+        bound_by=m["bound_by"], library_ms=m["library_ms"], mode=main,
+        shape=[B, FRAMES, J, C], modes=modes)
+
+
+def phase_block_backward(at, mlp) -> list:
+    dev = torch.device("cuda")
+    modes = {"attention": {}, "mlp": {}}
+    grad_names = {
+        "attention": ("dx", "dln_w", "dln_b", "dwqkv", "dbqkv", "dwproj",
+                      "dbproj"),
+        "mlp": ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")}
+    for kind, mode, wrapper, _, kernel, plain, library, keys, flags, extra in \
+            block_cases(at, mlp):
+        p = pair_inputs(14 if mode == "temporal" else 15, False, dev)
+        g = pair_inputs(5, False, dev)["x"]
+        fwd = [p["x"]] + [p[k] for k in keys]
+        args = [p["x"], g] + [p[k] for k in keys[:-1]]  # no output bias
+        for use_ln, residual in flags:
+            fl = (use_ln, residual)
+            tag = f"{mode}/ln{int(use_ln)}res{int(residual)}"
+            got = kernel(*args, *extra, *fl)
+            torch.cuda.synchronize()
+            again = kernel(*args, *extra, *fl)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            want = plain(*args, *extra, *fl)
+            if any(not torch.isfinite(t.float()).all() for t in got):
+                fail(f"{kind} block backward {tag}: non-finite gradient")
+            errs = {n: rel_err(a, b) for n, a, b in
+                    zip(grad_names[kind], got, want)
+                    if use_ln or not n.startswith("dln")}
+            if not use_ln and (got[1].any() or got[2].any()):
+                fail(f"{kind} block backward {tag}: LayerNorm gradients "
+                     f"without LayerNorm")
+            leaves = [t.detach().clone().requires_grad_() for t in fwd]
+            used = [t for n, t in zip(("x",) + keys, leaves)
+                    if use_ln or not n.startswith("ln")]
+
+            def library_bwd():
+                return torch.autograd.grad(library(*leaves, *fl), used, g)
+
+            flops, nbytes = block_cost(kind, mode, True)
+            t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+            rec = dict(
+                rel_err={n: e[1] for n, e in errs.items()},
+                max_abs_err=max(e[0] for e in errs.values()), tol=KERNEL_TOL,
+                bitwise_repeatable=bitwise,
+                ms=time_ms(lambda: kernel(*args, *extra, *fl)),
+                back_to_back_ms=time_ms_back_to_back(
+                    lambda: kernel(*args, *extra, *fl)),
+                plain_ms=time_ms(lambda: plain(*args, *extra, *fl), runs=5,
+                                 warmup=1),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                library_ms=time_ms(library_bwd, runs=10),
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            log(f"block backward {kind}/{tag}: " + json.dumps(rec))
+            worst = max(rec["rel_err"].items(), key=lambda kv: kv[1])
+            if not worst[1] <= KERNEL_TOL:
+                fail(f"{kind} block backward {tag}: {worst[0]} "
+                     f"max|d|/max|ref| {worst[1]:.3e} > {KERNEL_TOL}")
+            if not bitwise:
+                fail(f"{kind} block backward {tag}: two runs gave different "
+                     f"bits")
+            modes[kind][tag] = rec
+            del got, again, want, leaves, used
+        del p, g, fwd, args
+    torch.cuda.empty_cache()
+    return [block_record("fused_attention_block_bwd", "attention.py:633",
+                         modes["attention"], "temporal/ln1res0"),
+            block_record("fused_mlp_block_bwd", "fused_mlp.py:151",
+                         modes["mlp"], "tokens/ln0res0")]
+
+
+# ---------------------------------------------------------------------------
+# phase 18: training with drop-path and dropout
+# ---------------------------------------------------------------------------
+
+DROP_PATH_RATE = 0.1
+DROP_RATE = 0.1
+DROPOUT_STEPS = 3
+
+
+def phase_drop_path(fp, at, mlp, fwd_records: list, bwd_records: list):
+    from motionbert_tpu_torch.core.checkpoint import load_state_dict
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.losses.pose import LAMBDA_KEYS, pose3d_total_loss
+    from motionbert_tpu_torch.models.factory import load_backbone
+    from motionbert_tpu_torch.train.pose3d import (
+        make_train_step, preprocess_batch)
+    from motionbert_tpu_torch.train.state import make_adamw
+
+    args = get_config(TRAIN_CONFIG)
+    lambdas = {k: args.get(k, 0.0) for k in LAMBDA_KEYS}
+    sd = load_state_dict(ANCHOR)
+    model = load_backbone(args, device="cuda", drop_path_rate=DROP_PATH_RATE)
+    model.load_state_dict(sd, strict=True)
+    rates = [round(b.droppath.rate, 4) for b in model.blocks_st]
+    log(f"drop-path: {os.path.basename(TRAIN_CONFIG)} built with "
+        f"load_backbone(cfg, drop_path_rate={DROP_PATH_RATE}): rates per "
+        f"layer {rates}, compute dtype {model.compute_dtype}")
+    depth = len(rates)
+    if rates[0] != 0.0 or not all(r > 0 for r in rates[1:]):
+        fail(f"drop-path rates {rates}: layer 0 must be 0, the others above")
+
+    # first step against the fp32 plain path, both drawing the same masks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x, y = train_batch(REF_BATCH)
+    seeded = lambda: torch.Generator(device="cuda").manual_seed(17)
+    loss, grads = loss_and_grads(model, x, y, lambdas, generator=seeded())
+    ref_model = load_backbone(args, dtype=torch.float32, device="cuda",
+                              attn_impl="plain",
+                              drop_path_rate=DROP_PATH_RATE)
+    ref_model.load_state_dict(sd, strict=True)
+    ref_loss, ref_grads = loss_and_grads(ref_model, x, y, lambdas,
+                                         generator=seeded())
+    ref_model.eval()
+    with torch.no_grad():   # evaluation draws no mask
+        xb, yb, _ = preprocess_batch(x, y, rootrel=True, no_conf=False)
+        ref_eval = pose3d_total_loss(ref_model(xb).float(), yb,
+                                     lambdas)[0].item()
+    del ref_model
+    torch.cuda.empty_cache()
+    compare_first_step(
+        "drop-path", f"first step, batch {REF_BATCH}, same generator seed "
+        f"(the fp32 plain loss without masks: {ref_eval:.6f})", loss, grads,
+        ref_loss, ref_grads)
+    if ref_eval == ref_loss:
+        fail("the masks changed nothing: drop-path did not run")
+    del grads, ref_grads
+
+    counters = (fp.fused_pair_block, fp.fused_gated_pair_block,
+                fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd,
+                at.fused_attention_block, at.fused_attention_block_bwd,
+                mlp.fused_mlp_block, mlp.fused_mlp_block_bwd)
+
+    def counted(fn) -> dict:
+        for c in counters:
+            c.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return {c.__name__: c.launches for c in counters}
+
+    # TRAIN_STEPS steps through the kernels on one fixed batch
+    x, y = train_batch(TRAIN_BATCH)
+    opt = make_adamw(model.parameters(), args.learning_rate,
+                     args.weight_decay)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = make_train_step(model, opt, lambdas, rootrel=args.rootrel,
+                           no_conf=args.no_conf, flip_aug=bool(args.flip),
+                           generator=gen)
+
+    def eval_loss():
+        model.eval()
+        with torch.no_grad():
+            xb, yb, _ = preprocess_batch(x, y, rootrel=True, no_conf=False)
+            return pose3d_total_loss(model(xb).float(), yb, lambdas)[0].item()
+
+    before = eval_loss()
+    losses, timing = [], {}
+
+    def steps():
+        losses.append(step(x, y)["total"])   # warms the allocator up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses.extend(step(x, y)["total"] for _ in range(TRAIN_STEPS - 1))
+        torch.cuda.synchronize()
+        timing["dt"] = (time.perf_counter() - t0) / (TRAIN_STEPS - 1)
+
+    launches = counted(steps)
+    dt = timing["dt"]
+    peak = torch.cuda.max_memory_allocated()
+    after = eval_loss()
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    log(f"drop-path: launches per step {json.dumps(per_step)}")
+    unfused = 4 * (depth - 1)   # layers 1..: two blocks of two sub-block pairs
+    expect = {"fused_pair_block": 3, "fused_gated_pair_block": 1,
+              "fused_pair_block_bwd": 3, "fused_gated_pair_block_bwd": 1,
+              "fused_attention_block": unfused,
+              "fused_attention_block_bwd": unfused,
+              "fused_mlp_block": unfused, "fused_mlp_block_bwd": unfused}
+    if per_step != expect:
+        fail(f"drop-path step launched {per_step}, expected {expect}")
+    losses = [v.item() for v in losses]
+    log(f"drop-path: ({TRAIN_BATCH}, {FRAMES}, 17, 3) AdamW steps, "
+        f"drop_path_rate {DROP_PATH_RATE}: {dt * 1e3:.2f} ms per step, "
+        f"{TRAIN_BATCH / dt:.3f} clips/s, peak memory {peak / 2**30:.3f} GiB; "
+        f"fixed-batch evaluation loss {before:.6f} before, {after:.6f} after "
+        f"{TRAIN_STEPS} steps; step losses "
+        + " ".join(f"{v:.5f}" for v in losses))
+    if not (np.isfinite(losses).all() and np.isfinite(after)
+            and after < before):
+        fail(f"drop-path: loss did not fall: {before} -> {after}")
+    for rec in fwd_records + bwd_records:
+        rec["launches"] = launches[rec["name"]]
+
+    profile_step("drop-path profile", step, x, y)
+
+    # evaluation on the same model: the pair path, whatever the rates
+    model.eval()
+    with torch.no_grad():
+        launches = counted(lambda: model(x))
+    expect = dict.fromkeys(expect, 0)
+    expect.update(fused_pair_block=3 * depth, fused_gated_pair_block=depth)
+    log(f"drop-path: one evaluation call launched {json.dumps(launches)}")
+    if launches != expect:
+        fail(f"evaluation launched {launches}, expected {expect}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # dropout: every layer leaves the pair path, the MLP leaves its kernel
+    model = load_backbone(args, device="cuda", drop_rate=DROP_RATE)
+    model.load_state_dict(sd, strict=True)
+    opt = make_adamw(model.parameters(), args.learning_rate,
+                     args.weight_decay)
+    step = make_train_step(model, opt, lambdas, rootrel=args.rootrel,
+                           no_conf=args.no_conf, flip_aug=bool(args.flip),
+                           generator=gen)
+    t0 = time.perf_counter()
+    launches = counted(lambda: losses.extend(
+        step(x, y)["total"].item() for _ in range(DROPOUT_STEPS)))
+    dt = (time.perf_counter() - t0) / DROPOUT_STEPS
+    per_step = {k: v / DROPOUT_STEPS for k, v in launches.items()}
+    expect = dict.fromkeys(expect, 0)
+    expect.update(fused_attention_block=4 * depth,
+                  fused_attention_block_bwd=4 * depth)
+    log(f"dropout: drop_rate {DROP_RATE}: launches per step "
+        f"{json.dumps(per_step)}; {dt * 1e3:.2f} ms per step (first step "
+        f"included); losses "
+        + " ".join(f"{v:.5f}" for v in losses[-DROPOUT_STEPS:]))
+    if per_step != expect:
+        fail(f"dropout step launched {per_step}, expected {expect}")
+    if not np.isfinite(losses[-DROPOUT_STEPS:]).all():
+        fail("dropout: non-finite loss")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 19: pretraining
+# ---------------------------------------------------------------------------
+
+def phase_pretrain(fp):
+    from motionbert_tpu_torch.core.checkpoint import load_checkpoint
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.data.augment import NoiseParams, augment2d
+    from motionbert_tpu_torch.train.pose3d import train_with_config
+
+    def pretrain_args(epochs):
+        args = get_config(PRETRAIN_CONFIG)
+        args.update(dim_feat=512, dim_rep=512, num_heads=8, depth=5,
+                    mlp_ratio=2, maxlen=243, epochs=epochs,
+                    checkpoint_frequency=1)
+        for key in ("data_root", "dt_root", "posetrack_root", "instav_root",
+                    "noise_path", "d2c_params_path"):
+            args[key] = os.path.join(ROOT, args[key])
+        return args
+
+    # the corruption on a flagship-length batch on the card
+    args = pretrain_args(1)
+    noise = NoiseParams.load(args.noise_path, args.d2c_params_path)
+    x, _ = train_batch(TRAIN_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    t0 = time.perf_counter()
+    out = augment2d(gen, x, noise, noise=True, mask=True,
+                    mask_ratio=args.mask_ratio, mask_T_ratio=args.mask_T_ratio)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    conf = out[..., 2]
+    gone = out.abs().sum(-1) == 0                       # (B, F, J)
+    frame_gone = gone.all(0).all(-1)                    # (F,)
+    frames_masked = frame_gone.float().mean().item()
+    joints_masked = gone[:, ~frame_gone].float().mean().item()
+    moved = (out[..., :2] - x[..., :2]).abs()[~gone].mean().item()
+    log(f"pretrain: augment2d on {tuple(x.shape)} {out.device}: {dt * 1e3:.2f} "
+        f"ms (first call); confidence in [{conf.min().item():.4f}, "
+        f"{conf.max().item():.4f}]; frames masked {frames_masked:.4f} (ratio "
+        f"{args.mask_T_ratio}), joints masked in the other frames "
+        f"{joints_masked:.4f} (ratio {args.mask_ratio}); mean |xy noise| "
+        f"{moved:.5f}")
+    if out.device.type != "cuda" or out.shape != x.shape \
+            or not torch.isfinite(out).all() \
+            or conf.min().item() < 0 or conf.max().item() > 1:
+        fail("augment2d: device, shape, finiteness or confidence range")
+    # 243 frame draws (std 0.019) and ~30,000 joint draws (std 0.0013)
+    if not (abs(frames_masked - args.mask_T_ratio) <= 0.08
+            and abs(joints_masked - args.mask_ratio) <= 0.01
+            and 0 < moved < 0.1):
+        fail(f"augment2d: masked share {frames_masked:.4f} of the frames, "
+             f"{joints_masked:.4f} of the joints, or noise {moved:.5f} out "
+             f"of range")
+    gen.manual_seed(3)
+    again = augment2d(gen, x, noise, noise=True, mask=True,
+                      mask_ratio=args.mask_ratio,
+                      mask_T_ratio=args.mask_T_ratio)
+    if not torch.equal(out, again):
+        fail("augment2d: the same generator seed gave another corruption")
+
+    counters = (fp.fused_pair_block, fp.fused_gated_pair_block,
+                fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd)
+    for c in counters:
+        c.launches = 0
+    with tempfile.TemporaryDirectory() as ckpt:
+        opts = lambda: types.SimpleNamespace(
+            checkpoint=ckpt, pretrained="", resume="", evaluate="",
+            selection="", seed=0)
+        t0 = time.perf_counter()
+        first = train_with_config(pretrain_args(2), opts(),
+                                  attn_impl="kernel")
+        t1 = time.perf_counter()
+        resumed = train_with_config(pretrain_args(3), opts(),
+                                    attn_impl="kernel")
+        t2 = time.perf_counter()
+        roles = sorted(os.listdir(ckpt))
+        latest = load_checkpoint(os.path.join(ckpt, "latest_epoch.ckpt"))
+    hist = first["history"] + resumed["history"]
+    log("pretrain: " + json.dumps([dict(epoch=h["epoch"], lr=h["lr"],
+                                        losses=h["losses"], e1=h["e1"])
+                                   for h in hist]))
+    log(f"pretrain: 2 epochs in {t1 - t0:.2f} s, resumed third in "
+        f"{t2 - t1:.2f} s; files {roles}; pair launches "
+        f"{json.dumps({c.__name__: c.launches for c in counters})}")
+    if [h["epoch"] for h in hist] != [0, 1, 2]:
+        fail(f"pretrain ran epochs {[h['epoch'] for h in hist]}")
+    if "2d_proj" in hist[0]["losses"] or not all(
+            "2d_proj" in h["losses"] and "3d_pos" in h["losses"]
+            for h in hist[1:]):
+        fail("pretrain: the 2D loss must join at epoch 1 (curriculum 1)")
+    if not all(np.isfinite(list(h["losses"].values()) + [h["e1"]]).all()
+               for h in hist):
+        fail("pretrain: non-finite loss or error")
+    if latest["epoch"] != 3 or "latest_epoch.ckpt" not in roles \
+            or "best_epoch.ckpt" not in roles:
+        fail(f"pretrain: checkpoints {roles}, latest epoch {latest['epoch']}")
+    if any(c.launches == 0 for c in counters):
+        fail("pretrain: train_with_config did not launch the pair kernels")
+
+
+def phase_blocks(fp) -> list:
+    from motionbert_tpu_torch.ops import attention as at
+    from motionbert_tpu_torch.ops import fused_mlp as mlp
+
+    fwd = timed("block kernels", phase_block_kernels, at, mlp)
+    bwd = timed("block backward", phase_block_backward, at, mlp)
+    timed("drop-path", phase_drop_path, fp, at, mlp, fwd, bwd)
+    timed("pretrain", phase_pretrain, fp)
+    return fwd + bwd
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", choices=("all", "q8"), default="all",
-                        help="q8: only phases 1, 2 and 10-15, no last line")
+    parser.add_argument("--phases", choices=("all", "q8", "blocks"),
+                        default="all",
+                        help="q8: only phases 1, 2 and 10-15; blocks: only "
+                             "phases 1, 2 and 16-19; neither prints the last "
+                             "line")
     opts = parser.parse_args()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1242,6 +1781,12 @@ def main() -> int:
         log("partial run (--phases q8): no result line")
         return 0
 
+    if opts.phases == "blocks":
+        log(json.dumps({"kernels": phase_blocks(fp)}))
+        log(f"device: {smi}")
+        log("partial run (--phases blocks): no result line")
+        return 0
+
     records = timed("kernels", phase_kernels, fp)
     mb, x = timed("main path", phase_main_path, fp, records)
     timed("profile", phase_profile, mb, x)
@@ -1252,7 +1797,7 @@ def main() -> int:
     bwd_records = timed("backward", phase_backward, fp)
     timed("train", phase_train, fp, records, bwd_records)
     timed("driver", phase_driver)
-    records += bwd_records + q8_records
+    records += bwd_records + phase_blocks(fp) + q8_records
 
     log(json.dumps({"kernels": records}))
     log(f"device: {smi}")

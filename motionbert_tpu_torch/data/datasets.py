@@ -1,8 +1,10 @@
-"""The pose3d clip dataset and a threaded batch loader.
+"""The pose3d clip dataset, the 2D pretraining datasets and a threaded batch
+loader.
 
 The port's own copy of ``motionbert_tpu/data/datasets.py``'s
-``EpochSeededRNG``, ``MotionDataset3D``, ``_collate`` and ``BatchLoader``
-(reference dataset_motion_3d.py): one pickle per clip, decoded on a thread
+``EpochSeededRNG``, ``MotionDataset3D``, ``PoseTrackDataset2D``,
+``InstaVDataset2D``, ``_collate`` and ``BatchLoader`` (reference
+dataset_motion_3d.py, dataset_motion_2d.py): one pickle per clip, decoded on a thread
 pool, shuffled with ``np.random.RandomState(seed)`` and per-item RNGs hashed
 from (seed, epoch, index), so that batch order and augmentation draws match
 the JAX package's loader. The random flip runs on the device in the train
@@ -14,15 +16,19 @@ same set.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import json
 import os
 import queue
 import threading
+from collections import defaultdict
 from typing import Iterator, Sequence
 
 import numpy as np
 
 from motionbert_tpu_torch.core.config import read_pkl
-from motionbert_tpu_torch.geometry.transforms import crop_scale_3d
+from motionbert_tpu_torch.geometry.skeleton import posetrack2h36m
+from motionbert_tpu_torch.geometry.transforms import (
+    crop_scale, crop_scale_3d, split_clips)
 
 DECODE_THREADS = 8   # items decoded in parallel
 PREFETCH_BATCHES = 4  # ready batches the loader holds ahead of the consumer
@@ -99,6 +105,74 @@ class MotionDataset3D(EpochSeededRNG):
         else:
             raise ValueError("Data split unknown.")
         return motion_2d, motion_3d
+
+
+class PoseTrackDataset2D:
+    """PoseTrack18 2D tracks for pretraining (reference
+    dataset_motion_2d.py:77-121): the first 30 frames of every track that
+    has them and enough valid joints, crop-scaled (one RandomState(0) over
+    the tracks in file order), remapped to H36M-17, kept when the root is
+    visible in every frame. Items are (motion, motion) float32 (30, 17, 3):
+    2D self-supervision, the confidence in the last channel. A missing
+    ``data_root`` raises FileNotFoundError."""
+
+    def __init__(self, data_root="data/motion2d/posetrack18_annotations/train/",
+                 scale_range=(0.25, 1)):
+        rng = np.random.RandomState(0)
+        motions = []
+        for filename in sorted(os.listdir(data_root)):
+            with open(os.path.join(data_root, filename)) as f:
+                json_dict = json.load(f)
+            tracks = defaultdict(list)
+            for annot in json_dict["annotations"]:
+                tracks[annot["track_id"]].append(
+                    np.array(annot["keypoints"]).reshape(-1, 3))
+            motions += list(tracks.values())
+        kept = []
+        for motion in motions:
+            if len(motion) < 30:
+                continue
+            motion = np.array(motion[:30])
+            if np.sum(motion[:, :, 2]) <= 306:  # valid-joint threshold
+                continue
+            motion = posetrack2h36m(crop_scale(motion, scale_range, rng=rng))
+            motion[motion[:, :, 2] == 0] = 0
+            if np.sum(motion[:, 0, 2]) < 30:  # root visible in every frame
+                continue
+            kept.append(motion.astype(np.float32))
+        self.motions_2d = np.array(kept)
+
+    def __len__(self):
+        return len(self.motions_2d)
+
+    def __getitem__(self, index):
+        m = self.motions_2d[index]
+        return m, m
+
+
+class InstaVDataset2D(EpochSeededRNG):
+    """InstaVariety 2D clips (reference dataset_motion_2d.py:123-147):
+    ``motion_all.npy`` cut into clips by ``id_all.npy``, those whose first
+    root confidence is above the threshold, crop-scaled per item with the
+    item's RNG. Items are (motion, motion) float32 (n_frames, 17, 3)."""
+
+    def __init__(self, data_root="data/motion2d/InstaVariety", n_frames=81,
+                 data_stride=27, valid_threshold=0.0, scale_range=(0.25, 1)):
+        self.scale_range = scale_range
+        motion_all = np.load(os.path.join(data_root, "motion_all.npy"))
+        id_all = np.load(os.path.join(data_root, "id_all.npy"))
+        motions_2d = motion_all[split_clips(id_all, n_frames, data_stride)]
+        self.motions_2d = motions_2d[motions_2d[:, 0, 0, 2] > valid_threshold]
+
+    def __len__(self):
+        return len(self.motions_2d)
+
+    def __getitem__(self, index):
+        m = crop_scale(self.motions_2d[index], self.scale_range,
+                       rng=self.item_rng(index))
+        m[m[:, :, 2] == 0] = 0
+        m = m.astype(np.float32)
+        return m, m
 
 
 def _collate(items):

@@ -5,8 +5,9 @@ topologies of the pose losses, and the remaps from detector skeletons
 The port's own copy of ``motionbert_tpu/geometry/skeleton.py``'s flip
 (reference utils_data.py:54-66), of its ``H36M_LIMBS`` /
 ``H36M_ANGLE_PAIRS`` (reference loss.py:103-108, 159-176) and of its
-``coco2h36m`` / ``halpe2h36m`` (reference dataset_action.py:31-74,
-dataset_wild.py:15-65). Joint order:
+``coco2h36m`` / ``halpe2h36m`` / ``posetrack2h36m`` (reference
+dataset_action.py:31-74, dataset_wild.py:15-65, dataset_motion_2d.py:14-74).
+Joint order:
 0 root, 1 rhip, 2 rkne, 3 rank, 4 lhip, 5 lkne, 6 lank, 7 belly, 8 neck,
 9 nose, 10 head, 11 lsho, 12 lelb, 13 lwri, 14 rsho, 15 relb, 16 rwri.
 """
@@ -87,6 +88,16 @@ _HALPE2H36M = _remap_matrix({
     10: [(17, 1.0)]}, num_src=26)
 
 
+# PoseTrack-17 -> H36M-17, the linear part: PoseTrack has the head bottom (1)
+# and the head top (2); the belly is (root + head bottom) / 2
+_POSETRACK2H36M = _remap_matrix({
+    **{dst: [(src, 1.0)] for dst, src in _LIMB_ROWS.items()},
+    0: [(11, 0.5), (12, 0.5)],
+    7: [(11, 0.25), (12, 0.25), (1, 0.5)],
+    8: [(1, 1.0)],
+    10: [(2, 1.0)]}, num_src=17)
+
+
 def _apply_remap(x, matrix: np.ndarray) -> np.ndarray:
     """x (..., V, C) -> (..., 17, C), always in floating point: an integer
     input is taken as float64, so the 0.5 and 0.25 weights survive."""
@@ -103,3 +114,14 @@ def coco2h36m(x) -> np.ndarray:
 def halpe2h36m(x) -> np.ndarray:
     """Halpe-26 keypoints (..., 26, C) -> H36M-17 (numpy, on the host)."""
     return _apply_remap(x, _HALPE2H36M)
+
+
+def posetrack2h36m(x) -> np.ndarray:
+    """PoseTrack-17 keypoints (..., 17, 3) -> H36M-17 (numpy, on the host).
+    The root's and the belly's confidences are the minimum over the joints
+    they are averaged from (reference dataset_motion_2d.py:72-73)."""
+    y = _apply_remap(x, _POSETRACK2H36M)
+    x = np.asarray(x)
+    y[..., 0, 2] = np.minimum(x[..., 11, 2], x[..., 12, 2])
+    y[..., 7, 2] = np.minimum(y[..., 0, 2], y[..., 8, 2])
+    return y

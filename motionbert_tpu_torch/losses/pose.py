@@ -1,6 +1,7 @@
 """3D-pose training losses on tensors.
 
-The port of ``motionbert_tpu/losses/pose.py`` (reference loss.py:56-203).
+The port of ``motionbert_tpu/losses/pose.py`` (reference loss.py:56-203),
+with the confidence-weighted 2D loss of pretraining on 2D-only data.
 Every reduction is a full mean, as in the reference; the 16-limb and 18-angle
 topologies come from ``geometry.skeleton``. Clips of one frame give zero for
 the temporal terms.
@@ -31,6 +32,15 @@ def loss_mpjpe(predicted: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean per-joint position error."""
     assert predicted.shape == target.shape
     return safe_norm(predicted - target).mean()
+
+
+def loss_2d_weighted(predicted: torch.Tensor, target: torch.Tensor,
+                     conf: torch.Tensor) -> torch.Tensor:
+    """Confidence-weighted 2D reprojection loss of 2D-only data (reference
+    loss.py:72-77): the xy difference is weighted, then its L2 norm averaged.
+    predicted, target (N, T, 17, C >= 2); conf (N, T, 17, 1)."""
+    diff = (predicted[..., :2] - target[..., :2]) * conf
+    return safe_norm(diff).mean()
 
 
 def n_mpjpe(predicted: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

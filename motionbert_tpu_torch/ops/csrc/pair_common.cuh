@@ -1,6 +1,7 @@
 // Shared device code of the DSTformer pair kernels (pair_kernels.cu, the
 // forward, pair_bwd_kernels.cu, the backward, and pair_q8_kernels.cu, the int8
-// forward): bf16 with fp32 accumulation, for NVIDIA Hopper (sm_90a).
+// forward) and of the standalone attention and MLP blocks (block_kernels.cu):
+// bf16 with fp32 accumulation, for NVIDIA Hopper (sm_90a).
 //
 // - gemm_kernel<LAYOUT, LN, EPI>: one WMMA (mma.sync) GEMM with 64x64 output
 //   tiles and a 32-deep reduction step, in three operand layouts:
@@ -53,7 +54,8 @@ enum Epilogue {
     EPI_F32 = 4,          // fp32 acc
     EPI_BF16 = 5,         // bf16(acc)
     EPI_DGELU = 6,        // bf16(acc * GELU'(Z)), Z fp32 of the output's shape
-    EPI_PARTIAL = 7       // fp32 acc into this block's split slice (TN)
+    EPI_PARTIAL = 7,      // fp32 acc into this block's split slice (TN)
+    EPI_RES = 8           // bf16(acc + R)
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -270,7 +272,7 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
             v0 += bv.x;
             v1 += bv.y;
         }
-        if (EPI == EPI_BIAS_RES) {
+        if (EPI == EPI_BIAS_RES || EPI == EPI_RES) {
             const float2 rv = load_bf162(R + o);
             v0 += rv.x;
             v1 += rv.y;

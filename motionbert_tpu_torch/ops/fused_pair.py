@@ -48,14 +48,11 @@ import torch
 
 from motionbert_tpu_torch.ops import _build
 from motionbert_tpu_torch.ops.attention import (
-    attention_block, from_groups, linear, ln_bwd_rows, ln_fwd_stats,
-    to_groups, wide)
+    HEAD_DIMS, MAX_FRAMES, MAX_ROWS, NUM_JOINTS, attention_block,
+    check_tensor as _check, device_kind as _device_kind, from_groups, linear,
+    ln_bwd_rows, ln_fwd_stats, rows as _rows, to_groups,
+    weight_grad as _weight_grad, wide)
 from motionbert_tpu_torch.ops.fused_mlp import mlp_block
-
-MAX_FRAMES = 243   # the kernel keeps one temporal group's K and V in shared memory
-NUM_JOINTS = 17
-HEAD_DIMS = (32, 64)
-MAX_ROWS = 65535 * 64  # the GEMM grid's y extent times its 64-row tile
 
 # the 12 parameters of a pair, in argument order
 PAIR_PARAMS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj", "ln2_w",
@@ -92,15 +89,6 @@ def gated_pair_block_plain(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
     out = pair_block_plain(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
                            ln2_b, w1, b1, w2, b2, num_heads, scale, mode)
     return gate_plain(other, out, wg, bg)
-
-
-def _rows(t: torch.Tensor) -> torch.Tensor:
-    return wide(t.reshape(-1, t.shape[-1]))
-
-
-def _weight_grad(dy: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """sum over token rows of dy^T a, fp32: an nn.Linear weight's gradient."""
-    return torch.matmul(_rows(dy).t(), _rows(a))
 
 
 def _pair_bwd_plain(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
@@ -221,18 +209,6 @@ def gated_pair_block_bwd_plain(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj,
 # ---------------------------------------------------------------------------
 # kernel launch
 # ---------------------------------------------------------------------------
-
-def _check(name, t, shape, dtype, device):
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
 
 def check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
                       ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads: int,
@@ -383,12 +359,6 @@ def _launch_bwd(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
     names = ["dx"] + (["dother"] if gated else []) \
         + [f"d{k}" for k in PAIR_PARAMS] + (["dwg", "dbg"] if gated else [])
     return tuple(t[n] for n in names)
-
-
-def _device_kind(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no pair kernel for device {x.device}")
-    return x.device.type
 
 
 # ---------------------------------------------------------------------------

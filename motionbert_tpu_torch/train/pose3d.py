@@ -1,19 +1,23 @@
-"""Pose3D task: the train step, the flip-averaged eval step, the H36M
-evaluation protocol and the epoch driver, with its command line:
+"""Pose3D and pretraining task: the train step, the flip-averaged eval step,
+the H36M evaluation protocol and the epoch driver, with its command line:
 
     python -m motionbert_tpu_torch.train.pose3d \\
         --config configs/pose3d/MB_train_synth_smoke.yaml -c ckpt_dir [--device cpu]
+    python -m motionbert_tpu_torch.train.pose3d \\
+        --config configs/pretrain/MB_pretrain_synth_smoke.yaml -c ckpt_dir [--device cpu]
 
 The port of ``motionbert_tpu/train/pose3d.py`` and the root ``train.py``
 (reference train.py). Flags as there (--config -c -p -r -e -ms -sd) plus
 --device, which defaults to the card, and --attn_impl, which defaults to
 the config's key. Batch conditioning (root-relative targets, the confidence
-split) and the random horizontal flip run on the device inside the step, the
-flip from a ``torch.Generator`` on the model's device whose state the
-checkpoints keep. Not ported yet (ROADMAP A3): the 2D datasets and
-pretraining (``train_2d``), and the noise and masking corruption of
-``data/augment.py`` (``noise``, ``mask_ratio``); configs that ask for them
-raise.
+split), the random horizontal flip, the 2D corruption of pretraining
+(``data/augment.py``: ``noise``, ``mask_ratio``, ``mask_T_ratio``) and the
+model's dropout and drop-path masks all run on the device inside the step
+and draw, in that order, from one ``torch.Generator`` on the model's device
+whose state the checkpoints keep, so a resumed run draws what the
+uninterrupted run would have. With ``train_2d`` the 2D datasets (PoseTrack,
+InstaVariety) join from epoch ``pretrain_3d_curriculum`` on, each as an epoch
+of its own before the 3D epoch, trained with the confidence-weighted 2D loss.
 """
 
 from __future__ import annotations
@@ -22,14 +26,16 @@ import argparse
 import os
 import random
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from motionbert_tpu_torch.data.augment import NoiseParams, augment2d
 from motionbert_tpu_torch.geometry.procrustes import mpjpe, p_mpjpe
 from motionbert_tpu_torch.geometry.skeleton import flip_data
-from motionbert_tpu_torch.losses.pose import LAMBDA_KEYS, pose3d_total_loss
+from motionbert_tpu_torch.losses.pose import (
+    LAMBDA_KEYS, loss_2d_weighted, pose3d_total_loss)
 
 # H36M test videos excluded from evaluation (reference train.py:109-111)
 BLOCK_LIST = ("s_09_act_05_subact_02", "s_09_act_10_subact_02",
@@ -37,34 +43,49 @@ BLOCK_LIST = ("s_09_act_05_subact_02", "s_09_act_10_subact_02",
 
 
 def preprocess_batch(batch_input: torch.Tensor, batch_gt: torch.Tensor, *,
-                     rootrel: bool, no_conf: bool) -> tuple:
+                     rootrel: bool, no_conf: bool,
+                     has_3d: bool = True) -> tuple:
     """Input and target conditioning (reference train.py:163-170): drop the
     confidence channel with no_conf; root-relative targets with rootrel,
-    else the first frame's root depth is zeroed across the clip."""
+    else the first frame's root depth is zeroed across the clip. Returns
+    (input, target, conf): 2D data (has_3d False) carries its confidence in
+    the target's last channel, conf (B, F, J, 1); else conf is None."""
     if no_conf:
         batch_input = batch_input[..., :2]
+    conf = None if has_3d else batch_gt[..., 2:]
     if rootrel:
         batch_gt = batch_gt - batch_gt[:, :, 0:1, :]
     else:
         anchor = batch_gt[:, 0:1, 0:1, 2:3]
         batch_gt = torch.cat([batch_gt[..., :2], batch_gt[..., 2:3] - anchor],
                              dim=-1)
-    return batch_input, batch_gt
+    return batch_input, batch_gt, conf
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     lambdas: dict, *, rootrel: bool, no_conf: bool,
+                    use_mask: bool = False, use_noise: bool = False,
+                    noise_params: Optional[NoiseParams] = None,
+                    mask_ratio: float = 0.0, mask_T_ratio: float = 0.0,
                     flip_aug: bool = False,
                     generator: torch.Generator = None) -> Callable:
-    """step(batch_input (B, F, J, 3), batch_gt (B, F, J, 3)) -> the loss
-    terms as 0-d fp32 tensors on the device, after one AdamW update. With
-    flip_aug each clip and its label are mirrored together with probability
-    1/2, drawn from ``generator`` (on the batches' device)."""
-    if flip_aug and generator is None:
-        raise ValueError("flip_aug needs a generator")
+    """step(batch_input (B, F, J, 3), batch_gt (B, F, J, 3), has_3d=True,
+    has_gt=True) -> the loss terms as 0-d fp32 tensors on the device, after
+    one AdamW update. has_3d False: 2D data, trained with the
+    confidence-weighted 2D loss (term "2d_proj"). With flip_aug each clip and
+    its label are mirrored together with probability 1/2; with use_noise
+    (only where has_gt) and use_mask the input goes through ``augment2d``;
+    the model runs in training mode and draws its dropout and drop-path
+    masks. All of these draw from ``generator`` (on the batches' device),
+    which is needed when any of them is live."""
+    if (flip_aug or use_mask or use_noise) and generator is None:
+        raise ValueError("flip_aug, use_mask and use_noise need a generator")
+    if use_noise and noise_params is None:
+        raise ValueError("use_noise needs noise_params")
     lambdas = {k: float(lambdas.get(k, 0.0)) for k in LAMBDA_KEYS}
 
-    def train_step(batch_input: torch.Tensor, batch_gt: torch.Tensor) -> dict:
+    def train_step(batch_input: torch.Tensor, batch_gt: torch.Tensor,
+                   has_3d: bool = True, has_gt: bool = True) -> dict:
         model.train()
         if flip_aug:
             do = torch.rand((batch_input.shape[0], 1, 1, 1),
@@ -72,10 +93,20 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                             device=generator.device) < 0.5
             batch_input = torch.where(do, flip_data(batch_input), batch_input)
             batch_gt = torch.where(do, flip_data(batch_gt), batch_gt)
-        batch_input, batch_gt = preprocess_batch(
-            batch_input, batch_gt, rootrel=rootrel, no_conf=no_conf)
-        pred = model(batch_input).float()
-        total, terms = pose3d_total_loss(pred, batch_gt.float(), lambdas)
+        batch_input, batch_gt, conf = preprocess_batch(
+            batch_input, batch_gt, rootrel=rootrel, no_conf=no_conf,
+            has_3d=has_3d)
+        if use_mask or use_noise:
+            batch_input = augment2d(
+                generator, batch_input, noise_params,
+                noise=use_noise and has_gt, mask=use_mask,
+                mask_ratio=mask_ratio, mask_T_ratio=mask_T_ratio)
+        pred = model(batch_input, generator=generator).float()
+        if has_3d:
+            total, terms = pose3d_total_loss(pred, batch_gt.float(), lambdas)
+        else:
+            total = loss_2d_weighted(pred, batch_gt.float(), conf.float())
+            terms = {"2d_proj": total, "total": total}
         optimizer.zero_grad(set_to_none=True)
         total.backward()
         optimizer.step()
@@ -194,17 +225,6 @@ def _print_eval_table(per_action, e1, e2):
     print("----------")
 
 
-def _refuse_unported(args) -> None:
-    if args.get("train_2d", False):
-        raise NotImplementedError(
-            "train_2d (the 2D datasets and pretraining) is not ported yet "
-            "(ROADMAP A3)")
-    if args.get("noise", False) or args.get("mask_ratio", 0) > 0:
-        raise NotImplementedError(
-            "noise and mask corruption (data/augment.py) are not ported yet "
-            "(ROADMAP A3)")
-
-
 def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     """The epoch driver (reference train.py:208-377) on ``device`` (None:
     the card). opts: checkpoint, pretrained, resume, evaluate, selection,
@@ -217,13 +237,13 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         load_state_dict)
     from motionbert_tpu_torch.core.logging import MetricsWriter
     from motionbert_tpu_torch.core.metrics import AverageMeter
-    from motionbert_tpu_torch.data.datasets import BatchLoader, MotionDataset3D
+    from motionbert_tpu_torch.data.datasets import (
+        BatchLoader, InstaVDataset2D, MotionDataset3D, PoseTrackDataset2D)
     from motionbert_tpu_torch.data.readers import DataReaderH36M
     from motionbert_tpu_torch.models.factory import load_backbone, resolve_device
     from motionbert_tpu_torch.train.state import (
         freeze_except, make_adamw, scale_lr, set_lr)
 
-    _refuse_unported(args)
     dev = resolve_device(device)
     os.makedirs(opts.checkpoint, exist_ok=True)
     writer = MetricsWriter(os.path.join(opts.checkpoint, "logs"))
@@ -234,6 +254,28 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     train_loader = BatchLoader(train_dataset, args.batch_size, shuffle=True,
                                drop_last=True, seed=opts.seed)
     test_loader = BatchLoader(test_dataset, args.batch_size, shuffle=False)
+
+    # (name, loader, has_gt): PoseTrack is annotated by hand, so the noise
+    # corruption applies to it; InstaVariety is detector output already
+    loaders_2d = []
+    if args.get("train_2d", False):
+        specs = [
+            (PoseTrackDataset2D,
+             args.get("posetrack_root",
+                      "data/motion2d/posetrack18_annotations/train/"), True),
+            (InstaVDataset2D,
+             args.get("instav_root", "data/motion2d/InstaVariety"), False)]
+        for ds_cls, data_root, has_gt in specs:
+            try:
+                loader = BatchLoader(ds_cls(data_root=data_root),
+                                     args.batch_size, shuffle=True,
+                                     drop_last=True, seed=opts.seed)
+            except FileNotFoundError as e:
+                print(f"WARNING: 2D dataset {ds_cls.__name__} unavailable "
+                      f"({e}); skipping")
+                continue
+            loaders_2d.append((ds_cls.__name__, loader, has_gt))
+
     datareader = DataReaderH36M(
         n_frames=args.clip_len, sample_stride=args.sample_stride,
         data_stride_train=args.data_stride, data_stride_test=args.clip_len,
@@ -288,10 +330,29 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
             generator.set_state(resume_payload["rng"])
     set_lr(optimizer, lr)
 
+    use_mask = args.get("mask_ratio", 0) > 0 and args.get("mask_T_ratio", 0) > 0
+    use_noise = bool(args.get("noise", False))
+    noise_params = None
+    if use_mask or use_noise:
+        noise_params = NoiseParams.load(
+            args.get("noise_path", "params/synthetic_noise.npz"),
+            args.get("d2c_params_path", "params/d2c_params.pkl"))
     train_step = make_train_step(
         model, optimizer, {k: args.get(k, 0.0) for k in LAMBDA_KEYS},
         rootrel=args.get("rootrel", False), no_conf=args.get("no_conf", False),
+        use_mask=use_mask, use_noise=use_noise, noise_params=noise_params,
+        mask_ratio=args.get("mask_ratio", 0.0),
+        mask_T_ratio=args.get("mask_T_ratio", 0.0),
         flip_aug=bool(args.get("flip", False)), generator=generator)
+
+    def run_epoch(loader, losses, has_3d, has_gt):
+        for batch_input, batch_gt in loader:
+            terms = train_step(torch.from_numpy(batch_input).to(dev),
+                               torch.from_numpy(batch_gt).to(dev),
+                               has_3d=has_3d, has_gt=has_gt)
+            for k, v in terms.items():
+                losses.setdefault(k, AverageMeter()).update(
+                    float(v), len(batch_input))
 
     history = []
     for epoch in range(st, args.epochs):
@@ -299,12 +360,12 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         start = time.time()
         losses: dict = {}
         train_loader.set_epoch(epoch)
-        for batch_input, batch_gt in train_loader:
-            terms = train_step(torch.from_numpy(batch_input).to(dev),
-                               torch.from_numpy(batch_gt).to(dev))
-            for k, v in terms.items():
-                losses.setdefault(k, AverageMeter()).update(
-                    float(v), len(batch_input))
+        # curriculum: the 2D datasets join after pretrain_3d_curriculum epochs
+        if loaders_2d and epoch >= args.get("pretrain_3d_curriculum", 0):
+            for _, loader_2d, has_gt in loaders_2d:
+                loader_2d.set_epoch(epoch)
+                run_epoch(loader_2d, losses, has_3d=False, has_gt=has_gt)
+        run_epoch(train_loader, losses, has_3d=True, has_gt=True)
         elapsed = (time.time() - start) / 60.0
         record = {"epoch": epoch, "lr": lr,
                   "losses": {k: m.avg for k, m in losses.items()},

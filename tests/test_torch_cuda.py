@@ -13,6 +13,8 @@ import torch
 
 from motionbert_tpu_torch.core.config import ConfigDict
 from motionbert_tpu_torch.models.factory import load_backbone
+from motionbert_tpu_torch.ops import attention as at
+from motionbert_tpu_torch.ops import fused_mlp as mlp
 from motionbert_tpu_torch.ops import fused_pair as fp
 from motionbert_tpu_torch.ops import pair_q8 as q8
 
@@ -227,7 +229,7 @@ def test_train_steps_depth2_flagship_width(cuda):
     grads = []
     for m in (model, ref):
         m.train()
-        xb, yb = preprocess_batch(x, y, rootrel=True, no_conf=False)
+        xb, yb, _ = preprocess_batch(x, y, rootrel=True, no_conf=False)
         pose3d_total_loss(m(xb).float(), yb, {**dict.fromkeys(
             ("lambda_lv", "lambda_lg", "lambda_a", "lambda_av"), 0.0),
             **lambdas})[0].backward()
@@ -367,3 +369,196 @@ def test_model_q8_kernels_match_plain_q8(cuda):
     assert _rel_l2(out, want) <= 1e-2 and _rel(out, want) <= 5e-2, \
         (_rel_l2(out, want), _rel(out, want))
     assert 0 < _rel_l2(out, full) <= 0.05, _rel_l2(out, full)
+
+
+# ---------------------------------------------------------------------------
+# the standalone attention and MLP blocks (csrc/block_kernels.cu)
+# ---------------------------------------------------------------------------
+
+FLAGS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+def _block_inputs(device, C=512, H=8, F=81, B=1, hidden=None):
+    """(x, attention block parameters, MLP block parameters, H)."""
+    args, H = _inputs(device, False, C=C, H=H, F=F, B=B, hidden=hidden)
+    return args[0], args[1:7], args[7:13], H
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+@pytest.mark.parametrize("use_ln,residual", FLAGS)
+@pytest.mark.parametrize("C,H", [(512, 8), (256, 8)])  # head dim 64 and 32
+def test_attention_block_kernel_matches_plain(cuda, mode, use_ln, residual,
+                                              C, H):
+    x, ap, _, H = _block_inputs(cuda, C=C, H=H, B=2)
+    scale = (C // H) ** -0.5
+    before = at.fused_attention_block.launches
+    out = at.fused_attention_block(x, *ap, H, scale, mode, use_ln, residual)
+    torch.cuda.synchronize()
+    assert at.fused_attention_block.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert torch.equal(out, at.fused_attention_block(
+        x, *ap, H, scale, mode, use_ln, residual))
+    ref = at.attention_block_plain(x, *ap, H, scale, mode, use_ln, residual)
+    assert _rel(out, ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+@pytest.mark.parametrize("use_ln,residual", FLAGS)
+@pytest.mark.parametrize("C,H,F", [(512, 8, 81), (256, 8, 243), (512, 8, 5)])
+def test_attention_block_bwd_kernel_matches_plain(cuda, mode, use_ln,
+                                                  residual, C, H, F):
+    x, ap, _, H = _block_inputs(cuda, C=C, H=H, F=F, B=2)
+    g = _grad_out(cuda, x.shape)
+    scale = (C // H) ** -0.5
+    args = (x, g, *ap[:5], H, scale, mode, use_ln, residual)
+    before = at.fused_attention_block_bwd.launches
+    got = at.fused_attention_block_bwd(*args)
+    torch.cuda.synchronize()
+    assert at.fused_attention_block_bwd.launches == before + 1
+    again = at.fused_attention_block_bwd(*args)
+    want = at.attention_block_bwd_plain(*args)
+    names = ("dx", "dln_w", "dln_b", "dwqkv", "dbqkv", "dwproj", "dbproj")
+    for name, a, b, w in zip(names, got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, b), f"{name}: two runs differ"
+        if name.startswith("dln") and not use_ln:
+            assert not a.any(), name
+        else:
+            assert _rel(a, w) <= TOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_ln,residual", FLAGS)
+@pytest.mark.parametrize("C,hidden,shape", [(512, 1024, (2, 81, 17)),
+                                            (256, 1024, (1000,)),
+                                            (64, 64, (3, 7))])
+def test_mlp_block_kernels_match_plain(cuda, use_ln, residual, C, hidden,
+                                       shape):
+    """Forward and backward, any leading shape (the block is token-wise)."""
+    _, _, mp, _ = _block_inputs(cuda, C=C, hidden=hidden, F=1)
+    x = _grad_out(cuda, (*shape, C), seed=3)
+    g = _grad_out(cuda, x.shape)
+    before = (mlp.fused_mlp_block.launches, mlp.fused_mlp_block_bwd.launches)
+    out = mlp.fused_mlp_block(x, *mp, use_ln, residual)
+    got = mlp.fused_mlp_block_bwd(x, g, *mp[:5], use_ln, residual)
+    torch.cuda.synchronize()
+    assert (mlp.fused_mlp_block.launches,
+            mlp.fused_mlp_block_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert torch.equal(out, mlp.fused_mlp_block(x, *mp, use_ln, residual))
+    assert _rel(out, mlp.mlp_block_plain(x, *mp, use_ln, residual)) <= TOL
+    again = mlp.fused_mlp_block_bwd(x, g, *mp[:5], use_ln, residual)
+    want = mlp.mlp_block_bwd_plain(x, g, *mp[:5], use_ln, residual)
+    names = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2")
+    for name, a, b, w in zip(names, got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, b), f"{name}: two runs differ"
+        if name.startswith("dln") and not use_ln:
+            assert not a.any(), name
+        else:
+            assert _rel(a, w) <= TOL, name
+
+
+@pytest.mark.cuda
+def test_block_functions_backward_through_the_kernels(cuda):
+    """autograd through the two Functions launches the backward kernels and
+    agrees with the plain backward."""
+    x, ap, mp, H = _block_inputs(cuda, B=2)
+    g = _grad_out(cuda, x.shape)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, *ap)]
+    before = at.fused_attention_block_bwd.launches
+    out = at.fused_attention_block(*leaves, H, 0.125, "temporal", True, False)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert at.fused_attention_block_bwd.launches == before + 1
+    want = at.attention_block_bwd_plain(x, g, *ap[:5], H, 0.125, "temporal",
+                                        True, False)
+    for a, w in zip(grads, want):
+        assert _rel(a, w) <= TOL
+    leaves = [t.detach().clone().requires_grad_() for t in (x, *mp)]
+    before = mlp.fused_mlp_block_bwd.launches
+    grads = torch.autograd.grad(mlp.fused_mlp_block(*leaves), leaves, g)
+    assert mlp.fused_mlp_block_bwd.launches == before + 1
+    want = mlp.mlp_block_bwd_plain(x, g, *mp[:5])
+    for name, a, w in zip("x ln_w ln_b w1 b1 w2 b2".split(), grads, want):
+        if name.startswith("ln"):
+            assert not a.any()
+        else:
+            assert _rel(a, w) <= TOL
+
+
+@pytest.mark.cuda
+def test_blocks_never_fall_back_on_cuda(cuda):
+    x, ap, mp, H = _block_inputs(cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        at.fused_attention_block(x.float(), *ap, H, 0.125, "spatial")
+    with pytest.raises(ValueError, match="bfloat16"):
+        mlp.fused_mlp_block(x.float(), *mp)
+    with pytest.raises(ValueError, match="joints"):
+        at.fused_attention_block(x[:, :, :16].contiguous(), *ap, H, 0.125,
+                                 "spatial")
+
+
+@pytest.mark.cuda
+def test_drop_path_train_steps_depth2_flagship_width(cuda):
+    """A depth-2 model at the flagship width built with drop_path_rate=0.2:
+    layer 0 stays on the pair path, layer 1 runs the block kernels; the first
+    step's gradients against the fp32 plain path drawing the same masks; three
+    AdamW steps with the launch counts; evaluation runs pairs only."""
+    from motionbert_tpu_torch.losses.pose import pose3d_total_loss
+    from motionbert_tpu_torch.train.pose3d import (
+        make_train_step, preprocess_batch)
+    from motionbert_tpu_torch.train.state import make_adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lambdas = dict.fromkeys(("lambda_lv", "lambda_lg", "lambda_a",
+                             "lambda_av"), 0.0)
+    lambdas.update(lambda_scale=0.5, lambda_3d_velocity=20.0)
+    cfg = ConfigDict(dim_feat=512, dim_rep=512, depth=2, num_heads=8,
+                     mlp_ratio=2, num_joints=17, maxlen=81)
+    model = load_backbone(cfg, device=cuda, drop_path_rate=0.2)
+    model.init_weights(torch.Generator().manual_seed(0))
+    ref = load_backbone(cfg, dtype=torch.float32, device=cuda,
+                        attn_impl="plain", drop_path_rate=0.2)
+    ref.load_state_dict(model.state_dict())
+    rs = np.random.RandomState(2)
+    y = torch.from_numpy(rs.uniform(-1, 1, (2, 81, 17, 3)).astype(
+        np.float32)).to(cuda)
+    x = torch.cat([y[..., :2], torch.ones_like(y[..., :1])], -1)
+
+    counters = (fp.fused_pair_block, fp.fused_gated_pair_block,
+                fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd,
+                at.fused_attention_block, at.fused_attention_block_bwd,
+                mlp.fused_mlp_block, mlp.fused_mlp_block_bwd)
+
+    def count(fn):
+        before = [c.launches for c in counters]
+        out = fn()
+        return out, [c.launches - b for c, b in zip(counters, before)]
+
+    grads = []
+    for m in (model, ref):
+        m.train()
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        xb, yb, _ = preprocess_batch(x, y, rootrel=True, no_conf=False)
+        pose3d_total_loss(m(xb, generator=gen).float(), yb,
+                          lambdas)[0].backward()
+        grads.append(torch.cat([p.grad.float().flatten()
+                                for p in m.parameters()]))
+        m.zero_grad(set_to_none=True)
+    cos = torch.nn.functional.cosine_similarity(grads[0], grads[1], dim=0)
+    assert cos.item() >= 0.999, cos.item()
+
+    opt = make_adamw(model.parameters(), 1e-3, 0.01)
+    step = make_train_step(model, opt, lambdas, rootrel=True, no_conf=False,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    losses, launched = count(lambda: [step(x, y)["total"].item()
+                                      for _ in range(3)])
+    assert launched == [9, 3, 9, 3, 12, 12, 12, 12], launched
+    assert np.isfinite(losses).all(), losses
+
+    model.eval()
+    with torch.no_grad():
+        _, launched = count(lambda: model(x))
+    assert launched == [6, 2, 0, 0, 0, 0, 0, 0], launched

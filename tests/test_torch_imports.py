@@ -32,6 +32,10 @@ def test_port_imports_no_jax():
         "import motionbert_tpu_torch.ops.pair_q8, "
         "motionbert_tpu_torch.data.dataset_wild, "
         "motionbert_tpu_torch.infer.wild_pose\n"
+        "import motionbert_tpu_torch.ops.attention, "
+        "motionbert_tpu_torch.ops.fused_mlp, "
+        "motionbert_tpu_torch.data.augment, "
+        "motionbert_tpu_torch.geometry.skeleton\n"
         "import runpy; runpy.run_module('motionbert_tpu_torch.train.pose3d', "
         "run_name='not_main')\n"
         "runpy.run_module('motionbert_tpu_torch.infer.wild_pose', "
@@ -48,7 +52,10 @@ def test_port_imports_no_jax():
               "motionbert_tpu_torch.losses.pose",
               "motionbert_tpu_torch.ops.pair_q8",
               "motionbert_tpu_torch.data.dataset_wild",
-              "motionbert_tpu_torch.infer.wild_pose"):
+              "motionbert_tpu_torch.infer.wild_pose",
+              "motionbert_tpu_torch.ops.attention",
+              "motionbert_tpu_torch.ops.fused_mlp",
+              "motionbert_tpu_torch.data.augment"):
         assert m in mods, m
     bad = [m for m in mods if _is_jax_package(m)]
     assert not bad, bad

@@ -380,26 +380,3 @@ def test_driver_trains_saves_roles_and_resumes(tmp_path):
     for sa, sb in zip(first["optimizer"]["state"].values(),
                       resume_from["optimizer"]["state"].values()):
         assert torch.equal(sa["exp_avg"], sb["exp_avg"])
-
-
-def test_driver_refuses_what_is_not_ported(tmp_path):
-    from motionbert_tpu_torch.train.pose3d import train_with_config
-
-    for key, value in (("train_2d", True), ("noise", True),
-                       ("mask_ratio", 0.1)):
-        args = _smoke_args()
-        args[key] = value
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            train_with_config(args, _opts(tmp_path), device="cpu")
-
-
-def test_training_with_dropout_raises():
-    cfg = ConfigDict(CFG)
-    model = load_backbone(cfg, device="cpu", drop_path_rate=0.1)
-    model.init_weights(torch.Generator().manual_seed(0))
-    x = torch.zeros(1, 9, 17, 3)
-    with torch.no_grad():
-        model(x)  # evaluation is unaffected
-    model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        model(x)
