@@ -68,15 +68,41 @@ Phases, each of which passes or ends the run with a non-zero exit code:
  19. pretraining: augment2d on a CUDA batch, then train_with_config on the
      synthetic pretraining set at the flagship widths through the kernels: a
      3D epoch, 2D epochs joining at epoch 1, a resumed third epoch.
-Phases 10-15 run after phase 6, phases 16-19 after phase 9. Then a JSON line of per-kernel numbers, the
-card's name and power limit, and as the last line {"ok": true, "device":
-{...}}.
+ 20. attention core (B8): st_attention, temporal and spatial, at the phase-3
+     shape against its plain version (the max-based bar and a relative-L2
+     bar), twice for bitwise equality, with times (one call, and back to
+     back), bound, the plain version's time and a library yardstick
+     (scaled_dot_product_attention on permuted copies); the StAttention
+     backward against the fp32 plain backward, per tensor.
+ 21. legacy attention modes at the flagship width (C 512, 8 heads, hidden
+     1024): vanilla, series, parallel, coupling (batch 2), spatial, temporal
+     and Block(stage_para, att_fuse=True) on a seeded (4, 243, 17, 512)
+     input, bf16 through the kernels against the fp32 plain module, forward
+     and one backward, with the launches of each.
+ 22. action training at the flagship widths: ActionNet from
+     MB_train_NTU60_xsub.yaml (60 classes, hidden 2048); the first step's
+     loss, logits and gradients against the bf16 and the fp32 plain path on
+     the same dropout masks, at batch 4 and at the config's 32 x 2 persons
+     (the head's BatchNorm on its running statistics), and the head in
+     training mode on the card against the CPU; 5 two-group AdamW steps at
+     the config's batch with ms per step, clips/s, peak memory and launches
+     per step; BatchNorm statistics; a validate pass. Then the embed head of
+     MB_train_NTU120_oneshot.yaml (clip 100, batch 32): 3 SupCon steps and
+     validate_1shot on seeded anchors.
+ 23. action drivers: train.action.train_with_config on the synthetic action
+     set at the flagship widths, 2 epochs then a resumed third; the one-shot
+     driver on a one-shot pickle this phase writes, 1 epoch then a resumed
+     second.
+Phases 10-15 run after phase 6, phases 16-19 after phase 9, phases 20-23
+after phase 19. Then a JSON line of per-kernel numbers, the card's name and
+power limit, and as the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases q8
     python3 chip_smoke.py --phases blocks
+    python3 chip_smoke.py --phases action
 
-run only phases 1, 2 and 10-15, or 1, 2 and 16-19 (while working on them),
-and print no last line.
+run only phases 1, 2 and 10-15, 1, 2 and 16-19, or 1, 2 and 20-23 (while
+working on them), and print no last line.
 
 Imports nothing of JAX or of the JAX package motionbert_tpu.
 """
@@ -84,6 +110,7 @@ Imports nothing of JAX or of the JAX package motionbert_tpu.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import statistics
@@ -105,6 +132,12 @@ SMOKE_CONFIG = os.path.join(ROOT, "configs", "pose3d",
                             "MB_train_synth_smoke.yaml")
 PRETRAIN_CONFIG = os.path.join(ROOT, "configs", "pretrain",
                                "MB_pretrain_synth_smoke.yaml")
+ACTION_CONFIG = os.path.join(ROOT, "configs", "action",
+                             "MB_train_NTU60_xsub.yaml")
+ONESHOT_CONFIG = os.path.join(ROOT, "configs", "action",
+                              "MB_train_NTU120_oneshot.yaml")
+ACTION_SMOKE_CONFIG = os.path.join(ROOT, "configs", "action",
+                                   "MB_train_synth_smoke.yaml")
 ANCHOR = os.path.join(ROOT, "data", "anchors", "flagship_synth_trained.npz")
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
@@ -145,6 +178,7 @@ CANCELLING_SUM_TOL = 0.5
 
 
 def grad_tensor_tol(name: str) -> float:
+    name = name.removeprefix("backbone.")    # ActionNet's backbone
     cancelling = name == "temp_embed" or (
         name.startswith("ts_attn.") and name.endswith(".bias"))
     return CANCELLING_SUM_TOL if cancelling else GRAD_TENSOR_TOL
@@ -1063,25 +1097,31 @@ def loss_and_grads(model, x, y, lambdas, **kw) -> tuple:
 
 
 def compare_first_step(tag: str, what: str, loss, grads, ref_loss,
-                       ref_grads) -> None:
-    """The first step's loss and gradients (bf16 kernels) against the fp32
-    plain path's: the loss, the cosine of all gradients as one vector, and
-    each tensor's max|d| / max|ref|."""
+                       ref_grads, cosine_min: float = GRAD_COSINE_MIN,
+                       tensor_tol=grad_tensor_tol) -> None:
+    """The first step's loss and gradients (bf16 kernels) against a plain
+    path's: the loss, the cosine of all gradients as one vector, and each
+    tensor's max|d| / max|ref| (to ``tensor_tol(name)``)."""
     per = {n: rel_err(grads[n], ref_grads[n])[1] for n in ref_grads}
-    flat = torch.cat([grads[n].flatten() for n in ref_grads])
-    ref_flat = torch.cat([ref_grads[n].flatten() for n in ref_grads])
-    cosine = F.cosine_similarity(flat, ref_flat, dim=0).item()
+    cosine = grad_cosine(grads, ref_grads)
     worst = sorted(per.items(), key=lambda kv: -kv[1])
     loss_rel = abs(loss - ref_loss) / abs(ref_loss)
     log(f"{tag}: {what}: loss {loss:.6f} (bf16 kernels) vs {ref_loss:.6f} "
-        f"(fp32 plain), rel {loss_rel:.3e}; gradient cosine {cosine:.6f}; "
-        f"median tensor max|d|/max|ref| "
-        f"{statistics.median(per.values()):.3e}; worst "
+        f"(plain), rel {loss_rel:.3e}; gradient cosine {cosine:.6f}; median "
+        f"tensor max|d|/max|ref| {statistics.median(per.values()):.3e}; worst "
         + ", ".join(f"{n} {e:.3e}" for n, e in worst[:12]))
-    over = [(n, e) for n, e in worst if not e <= grad_tensor_tol(n)]
-    if not (loss_rel <= LOSS_TOL and cosine >= GRAD_COSINE_MIN) or over:
-        fail(f"{tag}: {what} disagrees with the fp32 plain path: loss rel "
-             f"{loss_rel:.3e}, cosine {cosine:.6f}, over the bar: {over}")
+    over = [(n, e) for n, e in worst if not e <= tensor_tol(n)]
+    if not (loss_rel <= LOSS_TOL and cosine >= cosine_min) or over:
+        fail(f"{tag}: {what} disagrees with the plain path: loss rel "
+             f"{loss_rel:.3e}, cosine {cosine:.6f} (bar {cosine_min}), over "
+             f"the bar: {over}")
+
+
+def grad_cosine(grads: dict, ref_grads: dict) -> float:
+    """The cosine of two gradient dicts, each flattened into one vector."""
+    flat = torch.cat([grads[n].flatten() for n in ref_grads])
+    ref_flat = torch.cat([ref_grads[n].flatten() for n in ref_grads])
+    return F.cosine_similarity(flat, ref_flat, dim=0).item()
 
 
 def profile_step(tag: str, step, x, y) -> None:
@@ -1743,13 +1783,635 @@ def phase_blocks(fp) -> list:
     return fwd + bwd
 
 
+
+# ---------------------------------------------------------------------------
+# phase 20: the attention core alone (B8)
+# ---------------------------------------------------------------------------
+
+# B8 kernel vs its plain version as a relative L2: summation order and
+# single bf16 flips of P and the output (emulated on the CPU at this shape:
+# 6e-5); P left in fp32, or the scores rounded to bf16, measure 2.6e-3 to
+# 4.8e-3 there, so this bar fails a moved rounding point
+ST_L2_TOL = 1e-3
+ST_MODES = {"temporal": "motionbert_tpu/ops/attention.py:166",
+            "spatial": "motionbert_tpu/ops/attention.py:225"}
+
+
+def st_inputs(seed: int, batch: int = B) -> list:
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(rs.normal(size=(batch, FRAMES, J, C)).astype(
+        np.float32)).to(device="cuda", dtype=torch.bfloat16)
+        for _ in range(3)]
+
+
+def st_library(q, k, v, mode, scale):
+    """softmax(q k^T * scale) v from scaled_dot_product_attention on
+    permuted copies of the (B, F, J, C) tensors, the copies included: a
+    yardstick of speed the port never calls."""
+    Bx, Fx, Jx, Cx = q.shape
+    perm = (0, 1, 3, 2, 4) if mode == "spatial" else (0, 2, 3, 1, 4)
+    qh, kh, vh = (t.reshape(Bx, Fx, Jx, HEADS, Cx // HEADS).permute(
+        perm).contiguous() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    return o.permute([perm.index(i) for i in range(5)]).reshape(
+        Bx, Fx, Jx, Cx)
+
+
+def st_cost(mode: str) -> tuple:
+    """(FLOPs, bytes): q.k^T and P.v over every head and group; q, k, v read
+    once and the output written once, bf16."""
+    groups, n = (B * J, FRAMES) if mode == "temporal" else (B * FRAMES, J)
+    return 4 * groups * n * n * C, 4 * B * FRAMES * J * C * 2
+
+
+def phase_st_attention(at) -> dict:
+    scale = (C // HEADS) ** -0.5
+    modes = {}
+    for i, mode in enumerate(ST_MODES):
+        q, k, v = st_inputs(20 + i)
+        args = (q, k, v, mode, HEADS, scale)
+        out = at.st_attention(*args)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(out, at.st_attention(*args))
+        ref = at.st_attention_plain(*args)
+        if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+            fail(f"st_attention/{mode}: shape {tuple(out.shape)} or "
+                 f"non-finite")
+        abs_err, rel = rel_err(out, ref)
+        l2 = rel_l2_t(out, ref)
+        lib_rel = rel_err(st_library(q, k, v, mode, scale), ref)[1]
+        flops, nbytes = st_cost(mode)
+        t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+        # the backward: the Function's (plain PyTorch, bf16) against the
+        # fp32 plain backward, per tensor
+        g = st_inputs(30 + i)[0]
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        grads = torch.autograd.grad(at.st_attention(*leaves, mode, HEADS,
+                                                    scale), leaves, g)
+        want = at.st_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                         g.float(), mode, HEADS, scale)
+        bwd_rel = {n: rel_err(a, w)[1] for n, a, w in
+                   zip(("dq", "dk", "dv"), grads, want)}
+        rec = dict(
+            max_abs_err=abs_err, rel_err=rel, tol=KERNEL_TOL, rel_l2=l2,
+            l2_tol=ST_L2_TOL, bitwise_repeatable=bitwise,
+            ms=time_ms(lambda: at.st_attention(*args)),
+            back_to_back_ms=time_ms_back_to_back(
+                lambda: at.st_attention(*args)),
+            plain_ms=time_ms(lambda: at.st_attention_plain(*args), runs=10,
+                             warmup=1),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes > t_ops else "operations",
+            library_ms=time_ms(lambda: st_library(q, k, v, mode, scale)),
+            library_rel_err=lib_rel, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+            backward_rel_err_vs_fp32=bwd_rel,
+            backward_plain_ms=time_ms(lambda: at.st_attention_bwd_plain(
+                q, k, v, g, mode, HEADS, scale), runs=5, warmup=1))
+        log(f"st_attention/{mode}: " + json.dumps(rec))
+        if not (rel <= KERNEL_TOL and l2 <= ST_L2_TOL):
+            fail(f"st_attention/{mode}: max|d|/max|ref| {rel:.3e} (bar "
+                 f"{KERNEL_TOL}), relative L2 {l2:.3e} (bar {ST_L2_TOL})")
+        if not bitwise:
+            fail(f"st_attention/{mode}: two runs gave different bits")
+        worst = max(bwd_rel.items(), key=lambda kv: kv[1])
+        if not worst[1] <= KERNEL_TOL:
+            fail(f"st_attention/{mode} backward: {worst[0]} {worst[1]:.3e} "
+                 f"from the fp32 plain backward (bar {KERNEL_TOL})")
+        modes[mode] = rec
+        del q, k, v, g, out, ref, leaves, grads, want
+    torch.cuda.empty_cache()
+    main = modes["temporal"]
+    return dict(
+        name="st_attention", route="cuda",
+        source="motionbert_tpu_torch/ops/csrc/st_attention_kernels.cu",
+        replaces=ST_MODES["temporal"], also_replaces=ST_MODES["spatial"],
+        launches=None,
+        max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        mode="temporal", shape=[B, FRAMES, J, C], modes=modes)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the legacy attention modes
+# ---------------------------------------------------------------------------
+
+# mode -> launches of (st_attention, fused_attention_block,
+# fused_attention_block_bwd, fused_mlp_block, fused_mlp_block_bwd) in one
+# forward and one backward
+LEGACY_LAUNCHES = {
+    "vanilla": (1, 0, 0, 0, 0), "series": (2, 0, 0, 0, 0),
+    "parallel": (2, 0, 0, 0, 0), "coupling": (0, 0, 0, 0, 0),
+    "spatial": (0, 1, 1, 0, 0), "temporal": (0, 1, 1, 0, 0),
+    "stage_para": (0, 2, 2, 2, 2)}
+
+
+def legacy_module(mode: str, attn_impl: str):
+    from motionbert_tpu_torch.models import dstformer as dst
+
+    if mode == "stage_para":
+        return dst.Block(C, HEADS, HIDDEN / C, "stage_para",
+                         attn_impl=attn_impl, att_fuse=True)
+    return dst.Attention(C, HEADS, mode, attn_impl)
+
+
+def phase_legacy(fp, at, mlp) -> dict:
+    counters = (at.st_attention, at.fused_attention_block,
+                at.fused_attention_block_bwd, mlp.fused_mlp_block,
+                mlp.fused_mlp_block_bwd)
+    pairs = (fp.fused_pair_block, fp.fused_gated_pair_block,
+             fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x_all, g_all = st_inputs(40)[:2]
+    for c in counters + pairs:
+        c.launches = 0
+    for mode, want in LEGACY_LAUNCHES.items():
+        batch = 2 if mode == "coupling" else B   # fp32 scores: 2.2 GB at 4
+        x, g = x_all[:batch], g_all[:batch]
+        torch.manual_seed(41)
+        model = legacy_module(mode, "kernel").cuda()
+        ref = legacy_module(mode, "plain").cuda()
+        ref.load_state_dict(model.state_dict(), strict=True)
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaf = x.detach().clone().requires_grad_()
+        out = model(leaf)
+        (out.float() * g.float()).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = tuple(c.launches - b for c, b in zip(counters, before))
+        ref_leaf = x.detach().float().requires_grad_()
+        ref_out = ref(ref_leaf)
+        (ref_out * g.float()).sum().backward()
+        grads = {"x": leaf.grad.float()}
+        grads.update({n: p.grad.float() for n, p in model.named_parameters()})
+        ref_grads = {"x": ref_leaf.grad}
+        ref_grads.update({n: p.grad for n, p in ref.named_parameters()})
+        per = {n: rel_err(grads[n], ref_grads[n])[1] for n in ref_grads}
+        cosine = grad_cosine(grads, ref_grads)
+        out_rel = rel_err(out, ref_out)[1]
+        worst = sorted(per.items(), key=lambda kv: -kv[1])
+        names = (c.__name__ for c in counters)
+        log(f"legacy/{mode}: batch {batch}, launches "
+            f"{dict(zip(names, launched))}; forward+backward {ms:.2f} ms "
+            f"(first call); bf16 kernels vs "
+            f"fp32 plain: output {out_rel:.3e}, gradient cosine {cosine:.6f}, "
+            f"worst " + ", ".join(f"{n} {e:.3e}" for n, e in worst[:4]))
+        over = [(n, e) for n, e in worst if not e <= grad_tensor_tol(n)]
+        if launched != want:
+            fail(f"legacy/{mode} launched {launched}, expected {want}")
+        if not (out_rel <= PATH_TOL and cosine >= GRAD_COSINE_MIN) or over:
+            fail(f"legacy/{mode} disagrees with the fp32 plain module: "
+                 f"output {out_rel:.3e}, cosine {cosine:.6f}, over the bar: "
+                 f"{over}")
+        del model, ref, leaf, out, ref_leaf, ref_out, grads, ref_grads
+        torch.cuda.empty_cache()
+    total = {c.__name__: c.launches for c in counters + pairs}
+    log(f"legacy: launches over the seven modules: {json.dumps(total)}")
+    if any(c.launches for c in pairs):
+        fail("legacy: a legacy module launched a pair kernel")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 22: action training at the flagship widths
+# ---------------------------------------------------------------------------
+
+ACTION_STEPS, SUPCON_STEPS = 5, 3
+# The first step through the kernels against the plain path on the same
+# inputs and dropout masks, at REF_BATCH x 2 persons and at the config's
+# batch (32 x 2, 64 backbone clips: the shapes the timed steps give the
+# kernels), the head's BatchNorm on its running statistics. At
+# initialisation fc1's output barely varies across a batch (see HEAD_TOL),
+# so the batch's own statistics scale rounding up ~125x: with them the
+# kernels read gradient cosine 0.9945 against the bf16 plain path, and the
+# bf16 plain path 0.9926 against the fp32 one. The
+# training-mode BatchNorm is held on its own instead: the head on the card
+# against the head on the CPU, fp32 both (HEAD_TOL).
+# Against the bf16 plain path (the kernels' rounding points) phase 8's bars
+# hold. Against the fp32 plain path they measure bf16 arithmetic, not the
+# kernels: the classification gradient is a small sum over 243 frames and 17
+# joints of each clip, which bf16 moves by more than the pose3d step's. So
+# the phase runs the bf16 plain path against the fp32 one too (the witness),
+# and holds the kernels against fp32 to a gradient cosine of
+# ACTION_FP32_COSINE_MIN and each tensor to the larger of phase 8's bar and
+# WITNESS_MARGIN times the witness's distance on that tensor. Readings on the
+# card: batch 4, kernels 0.998870, witness 0.999049, every tensor within
+# phase 8's bars; 32 x 2, kernels 0.998697, witness 0.998597, the gate
+# ts_attn.2 at 2.03 (bias) and 0.26 (weight), the witness 1.82 and 0.24,
+# the kernels against bf16 plain 0.267 and 0.041 there. The head is fp32
+# with a ReLU on the bf16 representation: a hidden unit whose pre-activation
+# lies within the representation's rounding of 0 is on in one path and off
+# in the other, which moves single elements by their whole size; so its
+# tensors are held by their relative L2 (to the same bars) and left out of
+# the cosine.
+ACTION_FP32_COSINE_MIN = 0.995
+WITNESS_MARGIN = 2.0
+# The fp32 head in training mode, card against CPU: max|d| / max|CPU| of
+# each output, and |g| / |g head.bn.bias| of fc1's bias (the BatchNorm
+# subtracts the batch mean of fc1's output, so that bias gets no gradient but
+# rounding). fc1's output varies across the batch by 5.6e-5 (eps 1e-5), so
+# the batch statistics scale fp32 rounding up ~125x: read on the card at 32 x
+# 2, gradients 1.64e-3 at worst, logits 2.6e-4, running statistics 1.8e-7,
+# fc1's bias 3.8e-4. This holds the card's arithmetic to the CPU's; the
+# BatchNorm's formulas are held against the JAX package by the CPU tests.
+HEAD_TOL = 1e-2
+
+
+def action_batch(n: int, frames: int, classes: int, seed: int) -> tuple:
+    """(n, 2, frames, 17, 3) normalized keypoints with confidences, and
+    labels; for SupCon (classes None) two clips of each of n / 2 classes."""
+    rs = np.random.RandomState(seed)
+    x = seeded_motion(rs, 2 * n, frames).reshape(n, 2, frames, 17, 3)
+    y = rs.randint(0, classes, n) if classes else np.repeat(
+        np.arange(n // 2), 2)
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(y).long().cuda())
+
+
+def checkpoint_blocks(model) -> None:
+    """Recompute each backbone block of an ActionNet in the backward: the
+    plain path keeps its fp32 attention probabilities for autograd, too many
+    at 64 clips to keep for ten blocks at once. The values are the same."""
+    from torch.utils.checkpoint import checkpoint
+
+    bb = model.backbone
+    for blk in list(bb.blocks_st) + list(bb.blocks_ts):
+        blk.forward = lambda *a, _f=blk.forward, **kw: checkpoint(
+            _f, *a, use_reentrant=False, **kw)
+
+
+def action_first_step(model, x, y, seed: int) -> tuple:
+    """Cross-entropy, fp32 logits and gradients of one training-mode step
+    without the update, the head's dropout from a generator seeded with
+    ``seed`` and its BatchNorm on its running statistics."""
+    model.train()
+    model.head.bn.eval()
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = model(x, generator=gen).float()
+    loss = F.cross_entropy(logits, y)
+    loss.backward()
+    # the backbone's output head is unused under return_rep: no gradient
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    model.train()
+    return loss.item(), logits.detach(), grads
+
+
+def compare_action_step(what: str, got: tuple, ref: tuple,
+                        witness: dict = None) -> None:
+    """``got`` against ``ref`` (each loss, logits, gradients): the logits by
+    max|d| / max|ref|, the backbone by ``compare_first_step``, the head's
+    tensors by relative L2. ``witness`` None: the reference is the bf16
+    plain path, phase 8's bars, the logits held to KERNEL_TOL. Else it is
+    the fp32 plain path, and ``witness`` the bf16 plain path's max|d| /
+    max|ref| from it per backbone tensor (see ACTION_FP32_COSINE_MIN)."""
+    (loss, logits, grads), (ref_loss, ref_logits, ref_grads) = got, ref
+    split = lambda g, head: {n: t for n, t in g.items()
+                             if n.startswith("head.") == head}
+    head = {n: rel_l2_t(grads[n], t)
+            for n, t in split(ref_grads, True).items()}
+    logit_err = rel_err(logits, ref_logits)[1]
+    log(f"action: {what}: logits max|d|/max|ref| {logit_err:.3e}; head "
+        f"gradients by relative L2: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in head.items()))
+    if witness is None:
+        cosine_min, tensor_tol = GRAD_COSINE_MIN, grad_tensor_tol
+    else:
+        cosine_min = ACTION_FP32_COSINE_MIN
+        tensor_tol = lambda n: max(grad_tensor_tol(n),
+                                   WITNESS_MARGIN * witness[n])
+    compare_first_step("action", what + ", backbone", loss,
+                       split(grads, False), ref_loss, split(ref_grads, False),
+                       cosine_min, tensor_tol)
+    over = [(n, e) for n, e in head.items() if not e <= grad_tensor_tol(n)]
+    if over or (witness is None and not logit_err <= KERNEL_TOL):
+        fail(f"action: {what}: logits {logit_err:.3e}, head over the bar: "
+             f"{over}")
+
+
+def action_head_check(model, x, y) -> None:
+    """The classification head as the timed steps run it, in training mode
+    (BatchNorm on the batch's statistics, updating its running averages), on
+    the card against a copy on the CPU, fp32 both, on the kernels'
+    representation of ``x`` and without dropout (the full-path comparison
+    holds the masks): logits, the gradients of the head and of its input,
+    and the running statistics after, each by max|d| / max|CPU|, and fc1's
+    bias gradient against the BatchNorm bias's, to HEAD_TOL."""
+    N, M, T, J, C = x.shape
+    with torch.no_grad():
+        rep = model.backbone(x.reshape(N * M, T, J, C), return_rep=True)
+    feat = rep.reshape(N, M, T, J, -1).float()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        head = copy.deepcopy(model.head).to(dev).train()
+        leaf = feat.detach().to(dev).requires_grad_()
+        fc1 = []
+        hook = head.fc1.register_forward_hook(
+            lambda m, i, o: fc1.append(o.detach()))
+        logits = head(leaf)
+        hook.remove()
+        F.cross_entropy(logits, y.to(dev)).backward()
+        t = {"logits": logits.detach(), "d feat": leaf.grad}
+        t.update({f"d {n}": p.grad for n, p in head.named_parameters()})
+        t.update(running_mean=head.bn.running_mean,
+                 running_var=head.bn.running_var)
+        out[dev] = ({k: v.detach().cpu().float() for k, v in t.items()},
+                    fc1[0].var(0, unbiased=False))
+    (card, var), (cpu, _) = out["cuda"], out["cpu"]
+    vanishing = "d fc1.bias"
+    errs = {k: rel_err(card[k], cpu[k])[1] for k in cpu if k != vanishing}
+    norm = lambda t: torch.linalg.norm(t).item()
+    vanish = max(norm(card[vanishing]), norm(cpu[vanishing])) \
+        / norm(cpu["d bn.bias"])
+    log(f"action: head in training mode, batch {N} x 2 persons, card against "
+        f"CPU (fp32): " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f"; fc1.bias |g| / |g bn.bias| {vanish:.3e}; fc1 output batch "
+        f"variance mean {var.mean().item():.4e}, median "
+        f"{var.median().item():.4e} (BatchNorm eps 1e-5)")
+    over = {k: e for k, e in errs.items() if not e <= HEAD_TOL}
+    if over or not vanish <= HEAD_TOL:
+        fail(f"action: the head in training mode disagrees between card and "
+             f"CPU: {over}, fc1.bias {vanish:.3e}")
+
+
+def action_first_steps(args, model) -> None:
+    """The kernels' first step against the bf16 and the fp32 plain path at
+    batch REF_BATCH and at the config's batch, and the two plain paths
+    against each other (logged first: the witness for
+    ACTION_FP32_COSINE_MIN); then the head in training mode at the config's
+    batch."""
+    from motionbert_tpu_torch.train.action import build_action_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    body = lambda g: {k: t for k, t in g.items() if not k.startswith("head.")}
+    for n in (REF_BATCH, args.batch_size):
+        x, y = action_batch(n, args.clip_len, args.action_classes, 50)
+        got = action_first_step(model, x, y, 51)
+        what = (f"first step, batch {n} x 2 persons, the same dropout masks, "
+                f"BatchNorm on its running statistics")
+        refs = []
+        for dtype in (torch.bfloat16, torch.float32):
+            ref = build_action_model(args, device="cuda", attn_impl="plain",
+                                     dtype=dtype)
+            ref.load_state_dict(model.state_dict(), strict=True)
+            if n > REF_BATCH:
+                checkpoint_blocks(ref)
+            refs.append(action_first_step(ref, x, y, 51))
+            del ref
+            torch.cuda.empty_cache()
+        bf, fp = refs
+        witness = {k: rel_err(t, fp[2][k])[1] for k, t in body(bf[2]).items()}
+        log(f"action: {what}: bf16 plain path against the fp32 plain path "
+            f"(the witness): loss rel {abs(bf[0] - fp[0]) / abs(fp[0]):.3e}, "
+            f"backbone gradient cosine "
+            f"{grad_cosine(body(bf[2]), body(fp[2])):.6f}, logits max|d|/"
+            f"max|ref| {rel_err(bf[1], fp[1])[1]:.3e}; worst tensors "
+            + ", ".join(f"{k} {e:.3e}" for k, e in sorted(
+                witness.items(), key=lambda kv: -kv[1])[:8]))
+        compare_action_step(what + ", against the bf16 plain path", got, bf)
+        compare_action_step(what + ", against the fp32 plain path", got, fp,
+                            witness)
+        del got, refs, bf, fp
+        torch.cuda.empty_cache()
+    action_head_check(model, x, y)
+
+
+def phase_action(fp) -> None:
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.train.action import (
+        build_action_model, make_action_train_step, validate)
+    from motionbert_tpu_torch.train.action_1shot import (
+        make_supcon_train_step, validate_1shot)
+    from motionbert_tpu_torch.train.state import make_two_group_adamw
+
+    args = get_config(ACTION_CONFIG)
+    model = build_action_model(args, device="cuda")
+    model.init_weights(torch.Generator().manual_seed(0))
+    log(f"action: {os.path.basename(ACTION_CONFIG)} dim {args.dim_feat} depth "
+        f"{args.depth} heads {args.num_heads}, {args.action_classes} classes, "
+        f"hidden {args.hidden_dim}, dropout {args.dropout_ratio}, backbone "
+        f"{model.backbone.compute_dtype}, head fp32, lr {args.lr_backbone} / "
+        f"{args.lr_head}")
+
+    action_first_steps(args, model)
+
+    x, y = action_batch(args.batch_size, args.clip_len, args.action_classes,
+                        52)
+    opt = make_two_group_adamw(model, args.lr_backbone, args.lr_head,
+                               args.weight_decay)
+    step = make_action_train_step(
+        model, opt, torch.Generator(device="cuda").manual_seed(0))
+    counters = (fp.fused_pair_block, fp.fused_gated_pair_block,
+                fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd)
+    for c in counters:
+        c.launches = 0
+    metrics = [step(x, y)]                     # warms the allocator up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics += [step(x, y) for _ in range(ACTION_STEPS - 1)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (ACTION_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {c.__name__: c.launches / ACTION_STEPS for c in counters}
+    clips = 2 * args.batch_size
+    losses = [m["loss"].item() for m in metrics]
+    bn = model.head.bn
+    log(f"action: ({args.batch_size}, 2, {args.clip_len}, 17, 3) two-group "
+        f"AdamW steps: {dt * 1e3:.2f} ms per step, {clips / dt:.3f} clips/s "
+        f"({args.batch_size / dt:.3f} samples/s), peak memory "
+        f"{peak / 2**30:.3f} GiB; launches per step {json.dumps(per_step)}; "
+        f"losses " + " ".join(f"{v:.5f}" for v in losses) + f"; top1 "
+        + " ".join(f"{m['top1'].item():.2f}" for m in metrics)
+        + f"; BN running mean |.| {bn.running_mean.abs().mean().item():.4e}, "
+        f"running var mean {bn.running_var.mean().item():.6f}, batches "
+        f"{bn.num_batches_tracked.item()}")
+    expect = {"fused_pair_block": 15, "fused_gated_pair_block": 5,
+              "fused_pair_block_bwd": 15, "fused_gated_pair_block_bwd": 5}
+    if per_step != expect:
+        fail(f"action step launched {per_step}, expected {expect}")
+    if not np.isfinite(losses).all():
+        fail(f"action: non-finite losses {losses}")
+    if not (torch.isfinite(bn.running_mean).all()
+            and torch.isfinite(bn.running_var).all()
+            and bn.running_mean.abs().sum() > 0
+            and not torch.allclose(bn.running_var, torch.ones_like(
+                bn.running_var))
+            and bn.num_batches_tracked.item() == ACTION_STEPS):
+        fail("action: BatchNorm statistics not finite or not moved")
+    del opt, step
+    torch.cuda.empty_cache()
+    test = [tuple(t.cpu().numpy() for t in action_batch(
+        args.batch_size, args.clip_len, args.action_classes, 53 + i))
+        for i in range(2)]
+    t0 = time.perf_counter()
+    v_loss, v_top1, v_top5 = validate(test, model)
+    log(f"action: validate on 2 seeded batches of {args.batch_size}: loss "
+        f"{v_loss:.5f}, top1 {v_top1:.2f}, top5 {v_top5:.2f} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (np.isfinite(v_loss) and 0 <= v_top1 <= v_top5 <= 100):
+        fail(f"action: validate gave {v_loss}, {v_top1}, {v_top5}")
+    del model
+    torch.cuda.empty_cache()
+
+    # one-shot: the embed head, SupCon steps, 1-NN matching
+    args = get_config(ONESHOT_CONFIG)
+    args.model_version = "embed"
+    model = build_action_model(args, device="cuda")
+    model.init_weights(torch.Generator().manual_seed(1))
+    opt = make_two_group_adamw(model, args.lr_backbone, args.lr_head,
+                               args.weight_decay)
+    step = make_supcon_train_step(
+        model, opt, args.hidden_dim, args.temp,
+        torch.Generator(device="cuda").manual_seed(1))
+    x, y = action_batch(args.batch_size, args.clip_len, None, 60)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(x, y).item() for _ in range(SUPCON_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SUPCON_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    anchors = tuple(t.cpu().numpy() for t in action_batch(
+        20, args.clip_len, None, 61))
+    anchors = (anchors[0], np.arange(20))
+    tests = tuple(t.cpu().numpy() for t in action_batch(40, args.clip_len,
+                                                          20, 62))
+    t0 = time.perf_counter()
+    acc = validate_1shot([anchors], [tests], model)
+    self_acc = validate_1shot([anchors], [anchors], model)
+    log(f"oneshot: ({args.batch_size}, 2, {args.clip_len}) SupCon steps "
+        f"(temperature {args.temp}): {dt * 1e3:.2f} ms per step (first "
+        f"included), peak memory {peak / 2**30:.3f} GiB, losses "
+        + " ".join(f"{v:.5f}" for v in losses) + f"; validate_1shot on 20 "
+        f"seeded anchors: {acc:.4f} over 40 seeded tests, {self_acc:.4f} "
+        f"with the anchors as tests, in {time.perf_counter() - t0:.2f} s")
+    if not (np.isfinite(losses).all() and 0.0 <= acc <= 1.0
+            and self_acc == 1.0):
+        fail(f"oneshot: losses {losses}, accuracy {acc}, {self_acc}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the action drivers
+# ---------------------------------------------------------------------------
+
+def write_oneshot_pickle(path: str, n: int = 32, seed: int = 70) -> None:
+    """A pyskl-format pickle with oneshot_train / oneshot_val splits: n
+    clips of 40-120 frames, one or two persons of smooth COCO-17 tracks in
+    pixels, labels 0..7 (0 and 6 are one-shot evaluation classes)."""
+    import pickle
+
+    rs = np.random.RandomState(seed)
+    anns, split = [], {"oneshot_train": [], "oneshot_val": []}
+    for i in range(n):
+        frames, persons = int(rs.randint(40, 120)), 1 + i % 2
+        t = np.arange(frames)[None, :, None, None] / frames
+        shape = (persons, 1, 17, 2)
+        kp = (np.array([480.0, 270.0]) + 60 * rs.normal(size=shape)
+              + 20 * np.sin(2 * np.pi * (t + rs.uniform(size=shape))))
+        anns.append({"frame_dir": f"S{i:03d}", "total_frames": frames,
+                     "img_shape": (540, 960),
+                     "keypoint": kp.astype(np.float32),
+                     "keypoint_score": rs.uniform(0.5, 1.0, (
+                         persons, frames, 17)).astype(np.float32),
+                     "label": i % 8})
+        split["oneshot_train" if i < 8 else "oneshot_val"].append(
+            f"S{i:03d}")
+    with open(path, "wb") as f:
+        pickle.dump({"split": split, "annotations": anns}, f)
+
+
+def phase_action_drivers(fp) -> None:
+    from motionbert_tpu_torch.core.checkpoint import load_checkpoint
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.train import action, action_1shot
+
+    flagship = dict(dim_feat=512, dim_rep=512, num_heads=8, depth=5,
+                    mlp_ratio=2, hidden_dim=2048)
+
+    def run(driver, args_fn, tag):
+        with tempfile.TemporaryDirectory() as ckpt:
+            opts = lambda: types.SimpleNamespace(
+                checkpoint=ckpt, pretrained="", resume="", evaluate="",
+                selection="", seed=0, print_freq=100)
+            t0 = time.perf_counter()
+            first = driver.train_with_config(args_fn(False), opts())
+            t1 = time.perf_counter()
+            resumed = driver.train_with_config(args_fn(True), opts())
+            t2 = time.perf_counter()
+            roles = sorted(os.listdir(ckpt))
+            latest = load_checkpoint(os.path.join(ckpt, "latest_epoch.ckpt"))
+        hist = first["history"] + resumed["history"]
+        log(f"{tag}: " + json.dumps(hist))
+        log(f"{tag}: {len(first['history'])} epoch(s) in {t1 - t0:.2f} s, "
+            f"resumed {len(resumed['history'])} in {t2 - t1:.2f} s; files "
+            f"{roles}")
+        if [h["epoch"] for h in hist] != list(range(len(hist))) \
+                or not resumed["history"] or not first["history"]:
+            fail(f"{tag}: epochs {[h['epoch'] for h in hist]}")
+        if latest["epoch"] != len(hist) or "latest_epoch.ckpt" not in roles:
+            fail(f"{tag}: checkpoints {roles}, latest epoch {latest['epoch']}")
+        if not np.isfinite([h["loss"] for h in hist]).all():
+            fail(f"{tag}: non-finite loss")
+        return hist
+
+    def action_args(resume):
+        args = get_config(ACTION_SMOKE_CONFIG)
+        args.update(flagship, epochs=3 if resume else 2)
+        args.data_path = os.path.join(ROOT, args.data_path)
+        return args
+
+    counters = (fp.fused_pair_block, fp.fused_gated_pair_block,
+                fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd)
+    for c in counters:
+        c.launches = 0
+    hist = run(action, action_args, "action driver")
+    lr0 = action_args(False).lr_backbone
+    if abs(hist[-1]["lr"] - lr0 * 0.99 ** 2) > 1e-12:
+        fail(f"action driver: resumed at lr {hist[-1]['lr']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl = os.path.join(tmp, "oneshot.pkl")
+        write_oneshot_pickle(pkl)
+
+        def oneshot_args(resume):
+            args = get_config(ACTION_SMOKE_CONFIG)
+            args.update(flagship, epochs=2 if resume else 1, n_views=2,
+                        temp=0.1, data_path=pkl, data_path_1shot=pkl)
+            return args
+
+        run(action_1shot, oneshot_args, "oneshot driver")
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"action drivers: pair launches {json.dumps(launches)}")
+    if any(v == 0 for v in launches.values()):
+        fail("action drivers: the pair kernels were not launched")
+
+
+def phase_action_all(fp) -> list:
+    from motionbert_tpu_torch.ops import attention as at
+    from motionbert_tpu_torch.ops import fused_mlp as mlp
+
+    record = timed("st_attention", phase_st_attention, at)
+    launches = timed("legacy", phase_legacy, fp, at, mlp)
+    record["launches"] = launches["st_attention"]
+    timed("action", phase_action, fp)
+    timed("action drivers", phase_action_drivers, fp)
+    return [record]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", choices=("all", "q8", "blocks"),
+    parser.add_argument("--phases", choices=("all", "q8", "blocks", "action"),
                         default="all",
                         help="q8: only phases 1, 2 and 10-15; blocks: only "
-                             "phases 1, 2 and 16-19; neither prints the last "
-                             "line")
+                             "phases 1, 2 and 16-19; action: only phases 1, "
+                             "2 and 20-23; none of them prints the last line")
     opts = parser.parse_args()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1787,6 +2449,12 @@ def main() -> int:
         log("partial run (--phases blocks): no result line")
         return 0
 
+    if opts.phases == "action":
+        log(json.dumps({"kernels": phase_action_all(fp)}))
+        log(f"device: {smi}")
+        log("partial run (--phases action): no result line")
+        return 0
+
     records = timed("kernels", phase_kernels, fp)
     mb, x = timed("main path", phase_main_path, fp, records)
     timed("profile", phase_profile, mb, x)
@@ -1798,6 +2466,7 @@ def main() -> int:
     timed("train", phase_train, fp, records, bwd_records)
     timed("driver", phase_driver)
     records += bwd_records + phase_blocks(fp) + q8_records
+    records += phase_action_all(fp)
 
     log(json.dumps({"kernels": records}))
     log(f"device: {smi}")

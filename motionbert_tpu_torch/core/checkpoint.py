@@ -10,16 +10,22 @@ Four formats are read, chosen by file name and content:
 - a zip archive (what ``torch.save`` writes) under any other name: the
   port's own checkpoint (``CheckpointManager`` below);
 - anything else: a JAX package checkpoint, a pickle of numpy params
-  (``motionbert_tpu/core/checkpoint.py``), read without importing jax; only
-  its params cross over (its optax state does not map onto torch's).
+  (``motionbert_tpu/core/checkpoint.py``), read without importing jax; its
+  params cross over, and the BatchNorm statistics of an action checkpoint
+  (``batch_stats``, in ``extra_vars`` or beside ``params``) become the
+  ``running_mean`` / ``running_var`` buffers; its optax state does not map
+  onto torch's.
 
 ``CheckpointManager`` keeps the reference's file roles (train.py:46-54,
 364-374): ``latest_epoch.ckpt`` every epoch, ``epoch_{n}.ckpt`` every
 ``checkpoint_frequency`` epochs, ``best_epoch.ckpt`` on improvement. Its
-payload: the model's state_dict, the optimizer's state_dict, lr, the epoch
-to resume from (epoch + 1), the best metric, and the state of the train
-step's flip generator, so that a resumed run draws the flips the
-uninterrupted run would have (the JAX package stores its PRNG key there).
+payload: the model's state_dict (BatchNorm buffers included), the
+optimizer's state_dict (with each parameter group's learning rate: the
+action tasks' backbone and head groups), lr, the epoch to resume from
+(epoch + 1), the best metric (P1 error, or top-1 accuracy), and the state of
+the train step's generator, so that a resumed run draws the flips and masks
+the uninterrupted run would have (the JAX package stores its PRNG key
+there).
 """
 
 from __future__ import annotations
@@ -84,10 +90,13 @@ class _ParamsUnpickler(pickle.Unpickler):
 
 
 def load_jax_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """The params of a JAX package checkpoint payload as a state_dict."""
+    """The params and BatchNorm statistics of a JAX package checkpoint
+    payload as a state_dict."""
     with open(path, "rb") as f:
         payload = _ParamsUnpickler(f).load()
-    return state_dict_from_jax(payload["params"])
+    stats = (payload.get("extra_vars") or {}).get("batch_stats",
+                                                  payload.get("batch_stats"))
+    return state_dict_from_jax(payload["params"], stats)
 
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:

@@ -8,9 +8,10 @@ dataset_motion_3d.py, dataset_motion_2d.py): one pickle per clip, decoded on a t
 pool, shuffled with ``np.random.RandomState(seed)`` and per-item RNGs hashed
 from (seed, epoch, index), so that batch order and augmentation draws match
 the JAX package's loader. The random flip runs on the device in the train
-step (``train/pose3d.py``), not here. The JAX package's native clip store
-(``train.mbcs``) is not wrapped: the port reads the per-clip pickles of the
-same set.
+step (``train/pose3d.py``), not here. A dataset with a ``get_batch`` method
+(the native clip store, ``data/clipstore.py``) is gathered a batch at a
+time; a ``sampler`` (the one-shot task's ``MPerClassSampler``) orders the
+items in place of the shuffle.
 """
 
 from __future__ import annotations
@@ -190,14 +191,17 @@ def _collate(items):
 class BatchLoader:
     """Shuffling, batching, prefetching loader yielding tuples of stacked
     numpy arrays: items decode on a thread pool (pickle and numpy release the
-    interpreter lock on I/O) and a bounded queue holds ready batches."""
+    interpreter lock on I/O), or a batch at a time through the dataset's
+    ``get_batch``, and a bounded queue holds ready batches. ``sampler``: an
+    iterable of indices with a length, in place of the shuffle."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0):
+                 drop_last: bool = False, seed: int = 0, sampler=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.sampler = sampler
         self.rng = np.random.RandomState(seed)
         self._epoch = 0
 
@@ -206,15 +210,18 @@ class BatchLoader:
         self._epoch = int(epoch)
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.sampler if self.sampler is not None else self.dataset)
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def _batches(self):
-        idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            self.rng.shuffle(idx)
+        if self.sampler is not None:
+            idx = np.fromiter(iter(self.sampler), dtype=np.int64)
+        else:
+            idx = np.arange(len(self.dataset))
+            if self.shuffle:
+                self.rng.shuffle(idx)
         for i in range(0, len(idx), self.batch_size):
             b = idx[i:i + self.batch_size]
             if self.drop_last and len(b) < self.batch_size:
@@ -228,6 +235,7 @@ class BatchLoader:
         if set_epoch is not None:
             set_epoch(self._epoch)
         self._epoch += 1
+        get_batch = getattr(self.dataset, "get_batch", None)
 
         def put(item) -> bool:
             # a bounded put that gives up once the consumer has gone away
@@ -240,19 +248,22 @@ class BatchLoader:
             return False
 
         def produce():
-            pool = cf.ThreadPoolExecutor(DECODE_THREADS)
+            pool = cf.ThreadPoolExecutor(DECODE_THREADS) \
+                if get_batch is None else None
             try:
                 for b in self._batches():
                     if stop.is_set():
                         return
-                    batch = _collate(list(pool.map(self.dataset.__getitem__, b)))
+                    batch = get_batch(b) if pool is None else _collate(
+                        list(pool.map(self.dataset.__getitem__, b)))
                     if not put(batch):
                         return
             except BaseException as e:  # raised again in the consumer: a
                 put(e)                  # swallowed error would silently
                 return                  # cut the epoch short
             finally:
-                pool.shutdown(wait=False)
+                if pool is not None:
+                    pool.shutdown(wait=False)
                 put(None)
 
         t = threading.Thread(target=produce, daemon=True)

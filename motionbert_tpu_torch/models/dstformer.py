@@ -26,6 +26,14 @@ compute dtype nor ``attn_impl``. Attention-weight dropout
 (``attn_drop_rate``) is not implemented, as in the JAX package: training
 with it raises.
 
+The legacy attention modes (reference DSTformer.py:112-176; no shipped config
+builds them) are public modules here as in the JAX package: ``Attention``
+with mode "vanilla", "series" or "parallel" runs the attention core alone
+(``st_attention``, kernel B8 on the card) between projections in plain
+PyTorch, "coupling" runs ``coupled_attention``, and ``Block(st_mode=
+"stage_para")`` runs its two branches through the attention and MLP blocks
+(B4, B6) with the LayerNorms outside them.
+
 Module and parameter names are the reference PyTorch ones, so a MotionBERT
 state_dict loads with ``load_state_dict(strict=True)``. Parameters stay
 fp32; ``compute_dtype`` (bf16 on the card) sets the activation dtype, with
@@ -43,7 +51,8 @@ import torch
 from torch import nn
 
 from motionbert_tpu_torch.ops.attention import (
-    attention_block_plain, fused_attention_block, layer_norm, linear, wide)
+    attention_block_plain, coupled_attention, fused_attention_block,
+    layer_norm, linear, st_attention, st_attention_plain, wide)
 from motionbert_tpu_torch.ops.fused_mlp import fused_mlp_block, mlp_block_plain
 from motionbert_tpu_torch.ops.fused_pair import (
     fused_gated_pair_block, fused_pair_block, gate_plain,
@@ -73,6 +82,20 @@ BLOCK_IMPLS = {
     "kernel_q8": (fused_attention_block, fused_mlp_block),
     "plain_q8": (attention_block_plain, mlp_block_plain),
 }
+
+
+# attn_impl -> the attention core of the legacy attention modes (vanilla,
+# series, parallel): the B8 wrapper or its plain version. The JAX package's
+# pallas and pallas_q8 both reach its Pallas core there.
+CORE_IMPLS = {
+    "kernel": st_attention,
+    "plain": st_attention_plain,
+    "kernel_q8": st_attention,
+    "plain_q8": st_attention_plain,
+}
+
+AXIS_MODES = ("spatial", "temporal")
+ATTENTION_MODES = AXIS_MODES + ("vanilla", "series", "parallel", "coupling")
 
 
 def _drop(x: torch.Tensor, mask_shape, rate: float,
@@ -118,28 +141,85 @@ def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
                                 layer.bias.to(x.dtype))
 
 
-class Attention(nn.Module):
-    """One attention sub-block (reference DSTformer.py:88-110): ``qkv`` packs
-    [q | k | v], each H heads of d. The pair path reads only the parameters;
-    ``forward`` is the standalone block of the dropout / drop-path path."""
+def _gate_mix(x_s: torch.Tensor, x_t: torch.Tensor,
+              logits: torch.Tensor) -> torch.Tensor:
+    """The per-channel softmax gate of the parallel mode and of the
+    stage_para block: logits (..., 2C) read as (C, 2), so channel 2c weighs
+    x_s and 2c + 1 weighs x_t; fp32 softmax, weights and mix in x's dtype."""
+    C = x_s.shape[-1]
+    a = torch.softmax(wide(logits).reshape(*logits.shape[:-1], C, 2),
+                      dim=-1).to(x_s.dtype)
+    return x_t * a[..., 1] + x_s * a[..., 0]
 
-    def __init__(self, dim: int, proj_drop: float = 0.0):
+
+class Attention(nn.Module):
+    """One attention sub-block (reference DSTformer.py:88-200): ``qkv``
+    packs [q | k | v], each H heads of d, then ``proj``. ``mode``:
+    "spatial" (the joints of a frame) and "temporal" (the frames of a joint)
+    run as one attention block (``BLOCK_IMPLS``); the legacy modes project in
+    plain PyTorch around the attention core (``CORE_IMPLS``): "vanilla" is
+    spatial attention, "series" spatial attention re-projected through the
+    same ``qkv`` then temporal, "parallel" both axes on one projection mixed
+    by a per-channel gate (``ts_attn``, Linear(2C, 2C), parallel mode only)
+    on the joint-mean of [x_s, x_t], "coupling" all F*J tokens of a clip.
+    The pair path reads only the parameters."""
+
+    def __init__(self, dim: int, num_heads: int = 8, mode: str = "spatial",
+                 attn_impl: str = "kernel", proj_drop: float = 0.0):
         super().__init__()
+        if mode not in ATTENTION_MODES:
+            raise NotImplementedError(f"attention mode {mode!r}; known: "
+                                      f"{ATTENTION_MODES}")
+        if attn_impl not in CORE_IMPLS:
+            raise ValueError(f"attn_impl must be one of {sorted(CORE_IMPLS)}, "
+                             f"got {attn_impl!r}")
+        self.num_heads = num_heads
+        self.scale = (dim // num_heads) ** -0.5
+        self.mode = mode
+        self.attn_impl = attn_impl
         self.qkv = nn.Linear(dim, dim * 3)
         self.proj = nn.Linear(dim, dim)
+        if mode == "parallel":
+            self.ts_attn = nn.Linear(dim * 2, dim * 2)
         self.proj_drop = float(proj_drop)
 
-    def forward(self, x: torch.Tensor, ln: nn.LayerNorm, num_heads: int,
-                scale: float, mode: str, attn_impl: str,
+    def forward(self, x: torch.Tensor, ln: nn.LayerNorm = None,
                 generator=None) -> torch.Tensor:
-        """dropout(proj(attn(qkv(LN x)))), without the residual."""
+        """dropout(proj(attention(qkv([LN] x)))), without the residual; in a
+        spatial or temporal mode the LayerNorm runs inside the block."""
         dt = x.dtype
-        block_fn = BLOCK_IMPLS[attn_impl][0]
-        out = block_fn(x, ln.weight, ln.bias, self.qkv.weight.to(dt),
-                       self.qkv.bias.to(dt), self.proj.weight.to(dt),
-                       self.proj.bias.to(dt), num_heads, scale, mode,
-                       True, False)
+        if self.mode in AXIS_MODES:
+            ln_w, ln_b = (None, None) if ln is None else (ln.weight, ln.bias)
+            out = BLOCK_IMPLS[self.attn_impl][0](
+                x, ln_w, ln_b, self.qkv.weight.to(dt), self.qkv.bias.to(dt),
+                self.proj.weight.to(dt), self.proj.bias.to(dt),
+                self.num_heads, self.scale, self.mode, ln is not None, False)
+            return dropout(out, self.proj_drop, generator)
+        h = x if ln is None else layer_norm(x, ln.weight, ln.bias)
+        out = _linear(self._attend(h), self.proj)
         return dropout(out, self.proj_drop, generator)
+
+    def _split_qkv(self, h: torch.Tensor) -> tuple:
+        C = h.shape[-1]
+        qkv = _linear(h, self.qkv)
+        return qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+
+    def _attend(self, h: torch.Tensor) -> torch.Tensor:
+        """The legacy modes between the two projections."""
+        core = CORE_IMPLS[self.attn_impl]
+        H, scale = self.num_heads, self.scale
+        q, k, v = self._split_qkv(h)
+        if self.mode == "vanilla":
+            return core(q, k, v, "spatial", H, scale)
+        if self.mode == "coupling":
+            return coupled_attention(q, k, v, H, scale)
+        if self.mode == "series":
+            mid = core(q, k, v, "spatial", H, scale)
+            return core(*self._split_qkv(mid), "temporal", H, scale)
+        x_t = core(q, k, v, "temporal", H, scale)
+        x_s = core(q, k, v, "spatial", H, scale)
+        alpha = wide(torch.cat([x_s, x_t], -1)).mean(2, keepdim=True)
+        return _gate_mix(x_s, x_t, _linear(alpha.to(h.dtype), self.ts_attn))
 
 
 class Mlp(nn.Module):
@@ -162,10 +242,8 @@ class Mlp(nn.Module):
         w1, b1 = self.fc1.weight.to(dt), self.fc1.bias.to(dt)
         w2, b2 = self.fc2.weight.to(dt), self.fc2.bias.to(dt)
         if self.drop == 0.0 or generator is None:
-            C = x.shape[-1]
-            ones = torch.ones(C, dtype=torch.float32, device=x.device)
-            return BLOCK_IMPLS[attn_impl][1](x, ones, torch.zeros_like(ones),
-                                             w1, b1, w2, b2, False, False)
+            return BLOCK_IMPLS[attn_impl][1](x, None, None, w1, b1, w2, b2,
+                                             False, False)
         h = linear(x, w1, b1).to(dt)
         h = nn.functional.gelu(wide(h)).to(dt)
         h = dropout(h, self.drop, generator)
@@ -177,16 +255,21 @@ class Block(nn.Module):
     """Pre-LN dual attention+MLP block (reference DSTformer.py:214-267).
 
     st_mode "stage_st": spatial pair then temporal pair; "stage_ts": the
-    reverse order. ``drop`` is the dropout rate after the attention
-    projection and inside the MLP, ``drop_path`` the stochastic-depth rate
-    of every residual of the block."""
+    reverse order; "stage_para" (legacy): a temporal and a spatial branch
+    side by side, each ``x + attn(LN x)`` then ``+ mlp(LN .)`` through the
+    attention and MLP blocks with the LayerNorm outside them, mixed by the
+    per-channel gate ``ts_attn`` (Linear(2C, 2C)) with ``att_fuse``, else
+    averaged. ``drop`` is the dropout rate after the attention projection
+    and inside the MLP, ``drop_path`` the stochastic-depth rate of every
+    residual of the block."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  st_mode: str, attn_impl: str = "kernel", drop: float = 0.0,
-                 attn_drop: float = 0.0, drop_path: float = 0.0):
+                 attn_drop: float = 0.0, drop_path: float = 0.0,
+                 att_fuse: bool = False):
         super().__init__()
-        if st_mode not in ("stage_st", "stage_ts"):
-            raise NotImplementedError(f"st_mode {st_mode!r} is not ported")
+        if st_mode not in ("stage_st", "stage_ts", "stage_para"):
+            raise NotImplementedError(f"st_mode {st_mode!r}")
         if attn_impl not in PAIR_IMPLS:
             raise ValueError(f"attn_impl must be one of {sorted(PAIR_IMPLS)}, "
                              f"got {attn_impl!r}")
@@ -201,11 +284,15 @@ class Block(nn.Module):
         self.norm1_t = nn.LayerNorm(dim, eps=1e-6)
         self.norm2_s = nn.LayerNorm(dim, eps=1e-6)
         self.norm2_t = nn.LayerNorm(dim, eps=1e-6)
-        self.attn_s = Attention(dim, proj_drop=drop)
-        self.attn_t = Attention(dim, proj_drop=drop)
+        kw = dict(num_heads=num_heads, attn_impl=attn_impl, proj_drop=drop)
+        self.attn_s = Attention(dim, mode="spatial", **kw)
+        self.attn_t = Attention(dim, mode="temporal", **kw)
         self.mlp_s = Mlp(dim, hidden, drop=drop)
         self.mlp_t = Mlp(dim, hidden, drop=drop)
         self.droppath = DropPath(drop_path)
+        self.att_fuse = st_mode == "stage_para" and att_fuse
+        if self.att_fuse:
+            self.ts_attn = nn.Linear(dim * 2, dim * 2)
 
     def _pair_params(self, axis: str, dtype: torch.dtype) -> list:
         attn = self.attn_s if axis == "s" else self.attn_t
@@ -232,6 +319,11 @@ class Block(nn.Module):
             raise NotImplementedError(
                 f"attn_drop_rate={self.attn_drop} is not supported for "
                 f"training; set it to 0 (every shipped config does)")
+        if self.st_mode == "stage_para":
+            if gate is not None:
+                raise ValueError("the stage_para block takes no twin-stream "
+                                 "gate")
+            return self._stage_para(x, generator)
         if not stochastic or (self.drop == 0.0 and self.droppath.rate == 0.0):
             pair_fn, gated_fn = PAIR_IMPLS[self.attn_impl]
             for i, axis in enumerate(order):
@@ -248,10 +340,7 @@ class Block(nn.Module):
             mlp = self.mlp_s if axis == "s" else self.mlp_t
             ln1 = self.norm1_s if axis == "s" else self.norm1_t
             ln2 = self.norm2_s if axis == "s" else self.norm2_t
-            mode = "spatial" if axis == "s" else "temporal"
-            x = x + self.droppath(
-                attn(x, ln1, self.num_heads, self.scale, mode, self.attn_impl,
-                     generator), generator)
+            x = x + self.droppath(attn(x, ln1, generator), generator)
             x = x + self.droppath(
                 mlp(layer_norm(x, ln2.weight, ln2.bias), self.attn_impl,
                     generator), generator)
@@ -259,6 +348,24 @@ class Block(nn.Module):
             other, wg, bg = gate
             x = gate_plain(other, x, wg, bg)
         return x
+
+    def _stage_para(self, x: torch.Tensor, generator) -> torch.Tensor:
+        branches = []
+        for attn, mlp, ln1, ln2 in (
+                (self.attn_t, self.mlp_t, self.norm1_t, self.norm2_t),
+                (self.attn_s, self.mlp_s, self.norm1_s, self.norm2_s)):
+            y = x + self.droppath(
+                attn(layer_norm(x, ln1.weight, ln1.bias), generator=generator),
+                generator)
+            y = y + self.droppath(
+                mlp(layer_norm(y, ln2.weight, ln2.bias), self.attn_impl,
+                    generator), generator)
+            branches.append(y)
+        x_t, x_s = branches
+        if self.att_fuse:
+            return _gate_mix(x_s, x_t,
+                             _linear(torch.cat([x_s, x_t], -1), self.ts_attn))
+        return (x_s + x_t) * 0.5
 
 
 class DSTformer(nn.Module):

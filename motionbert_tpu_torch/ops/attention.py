@@ -1,4 +1,20 @@
-"""LayerNorm, single-axis attention and the standalone attention block.
+"""LayerNorm, single-axis attention (the attention core alone, B8) and the
+standalone attention block (B4, B5).
+
+``st_attention`` is softmax(q k^T * scale) v per head over the J joints of a
+frame ("spatial") or the F frames of a joint ("temporal") of separate q, k, v
+(B, F, J, C), differentiable (``StAttention``): the legacy attention modes
+run it between their projections. On a CUDA tensor it launches the kernel in
+``csrc/st_attention_kernels.cu`` (the pair chains' attention core on three
+row-strided pointers) or raises; on a CPU tensor it runs
+``st_attention_plain``. Its backward is plain PyTorch
+(``st_attention_bwd_plain``), as the JAX package's is XLA. It counts its
+launches in ``st_attention.launches``. The kernel replaces
+``motionbert_tpu/ops/attention.py:_temporal_pallas`` and ``_spatial_pallas``;
+it moves four (B, F, J, C) bf16 tensors and is bound by bytes on the H100,
+and computes on CUDA cores (see the note at the top of the ``.cu``).
+``coupled_attention`` (all F*J tokens of a clip) stays plain PyTorch, as XLA
+computes it in the JAX package.
 
 ``fused_attention_block`` is ``[LN ->] qkv -> softmax(q k^T * scale) v per
 head over the J joints of a frame ("spatial") or the F frames of a joint
@@ -138,11 +154,14 @@ def from_groups(t: torch.Tensor, mode: str) -> torch.Tensor:
     return t.reshape(B, F, J, H * d)
 
 
-def st_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 mode: str, num_heads: int, scale: float) -> torch.Tensor:
+def st_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mode: str, num_heads: int,
+                       scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v over the joints of one frame ("spatial") or
     the frames of one joint ("temporal") of (B, F, J, C) tensors. Scores and
-    softmax in fp32, P rounded to q's dtype before P.v, output in q's dtype."""
+    softmax in fp32, P rounded to q's dtype before P.v, output in q's dtype.
+    The plain attention core: the plain versions of every kernel call it, and
+    ``st_attention`` is held against it."""
     if mode not in _PERM:
         raise ValueError(f"unknown attention mode: {mode!r}")
     qh, kh, vh = (wide(to_groups(t, mode, num_heads)) for t in (q, k, v))
@@ -161,8 +180,8 @@ def attention_block(x: torch.Tensor, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     C = x.shape[-1]
     h = layer_norm(x, ln_w, ln_b) if use_ln else x
     qkv = linear(h, wqkv, bqkv).to(x.dtype)
-    attn = st_attention(qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:],
-                        mode, num_heads, scale)
+    attn = st_attention_plain(qkv[..., :C], qkv[..., C:2 * C],
+                              qkv[..., 2 * C:], mode, num_heads, scale)
     out = linear(attn, wproj, bproj)
     return out + wide(x) if residual else out
 
@@ -179,6 +198,13 @@ def attention_block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     ``fused_attention_block``."""
     return attention_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads,
                            scale, mode, use_ln, residual).to(x.dtype)
+
+
+def no_ln_grads(ln_w, ln_b) -> tuple:
+    """The LayerNorm gradients of a block run without use_ln: zeros, or None
+    for parameters passed as None (the block reads them only with use_ln)."""
+    return tuple(None if t is None else torch.zeros_like(t)
+                 for t in (ln_w, ln_b))
 
 
 def rows(t: torch.Tensor) -> torch.Tensor:
@@ -201,7 +227,7 @@ def attention_block_bwd_plain(x, g, ln_w, ln_b, wqkv, bqkv, wproj,
     attn); dattn, P, dS and dqkv are rounded to the compute dtype before
     their products, and dbqkv sums the fp32 dqkv. Returns (dx, dln_w, dln_b,
     dwqkv, dbqkv, dwproj, dbproj), each in its tensor's dtype (dbproj in
-    wproj's); the LayerNorm gradients are zeros without use_ln."""
+    wproj's); without use_ln, ``no_ln_grads``."""
     dt = x.dtype
     C = x.shape[-1]
     # ---- forward recompute ----
@@ -238,11 +264,12 @@ def attention_block_bwd_plain(x, g, ln_w, ln_b, wqkv, bqkv, wproj,
     # ---- LayerNorm backward and residual ----
     if use_ln:
         dx, dln_w, dln_b = ln_bwd_rows(dh, xhat, rstd, ln_w)
+        dln_w, dln_b = dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype)
     else:
-        dx, dln_w, dln_b = dh, torch.zeros_like(ln_w), torch.zeros_like(ln_b)
+        dx, (dln_w, dln_b) = dh, no_ln_grads(ln_w, ln_b)
     if residual:
         dx = dx + wide(g)
-    return (dx.to(dt), dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype),
+    return (dx.to(dt), dln_w, dln_b,
             dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dwproj.to(wproj.dtype),
             dbproj.to(wproj.dtype))
 
@@ -251,8 +278,18 @@ def attention_block_bwd_plain(x, g, ln_w, ln_b, wqkv, bqkv, wproj,
 # the standalone attention block: kernel launch
 # ---------------------------------------------------------------------------
 
+def check_ln_args(ln_w, ln_b, C: int, use_ln: bool, dev) -> None:
+    """ln_w / ln_b: (C,) fp32 on x's device, or None without use_ln."""
+    for name, t in (("ln_w", ln_w), ("ln_b", ln_b)):
+        if t is None and use_ln:
+            raise ValueError(f"{name} is None with use_ln")
+        if t is not None:
+            check_tensor(name, t, (C,), torch.float32, dev)
+
+
 def check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
-                         num_heads: int, mode: str) -> None:
+                         num_heads: int, mode: str,
+                         use_ln: bool = True) -> None:
     """Raise ValueError on anything the CUDA attention block does not take
     (bproj None: the backward, which does not read it)."""
     if x.dim() != 4:
@@ -275,8 +312,7 @@ def check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                          f"dim in {HEAD_DIMS}, got C={C}, heads={num_heads}")
     dev, bf16 = x.device, torch.bfloat16
     check_tensor("x", x, (B, F, J, C), bf16, dev)
-    check_tensor("ln_w", ln_w, (C,), torch.float32, dev)
-    check_tensor("ln_b", ln_b, (C,), torch.float32, dev)
+    check_ln_args(ln_w, ln_b, C, use_ln, dev)
     for name, t, shape in (("wqkv", wqkv, (3 * C, C)), ("bqkv", bqkv, (3 * C,)),
                            ("wproj", wproj, (C, C)), ("bproj", bproj, (C,))):
         if t is not None:
@@ -314,17 +350,22 @@ def block_library() -> ctypes.CDLL:
     return lib
 
 
+def data_ptr(t):
+    """t's device address, None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
 def slot_pointers(slots: tuple, tensors: dict):
     """The ctypes pointer array of ``tensors`` in ``slots`` order (None ->
     a null pointer)."""
-    return (ctypes.c_void_p * len(slots))(
-        *(None if tensors[k] is None else tensors[k].data_ptr() for k in slots))
+    return (ctypes.c_void_p * len(slots))(*(data_ptr(tensors[k])
+                                            for k in slots))
 
 
 def _launch(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, scale, mode,
             use_ln, residual) -> torch.Tensor:
     check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads,
-                         mode)
+                         mode, use_ln)
     B, F, J, C = x.shape
     M = B * F * J
     lib = block_library()
@@ -334,7 +375,7 @@ def _launch(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, num_heads, scale, mode,
         out = torch.empty_like(x)
         rc = lib.mbt_attention_block(
             x.data_ptr(), out.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
-            ln_w.data_ptr(), ln_b.data_ptr(), wqkv.data_ptr(),
+            data_ptr(ln_w), data_ptr(ln_b), wqkv.data_ptr(),
             bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
             B, F, J, C, num_heads, float(scale), int(mode == "temporal"),
             int(use_ln), int(residual),
@@ -349,7 +390,7 @@ def _launch_bwd(x, g, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale, mode,
                 use_ln, residual) -> tuple:
     B, F, J, C = x.shape
     check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, None, num_heads,
-                         mode)
+                         mode, use_ln)
     check_tensor("g", g, x.shape, x.dtype, x.device)
     M = B * F * J
     lib = block_library()
@@ -374,7 +415,7 @@ def _launch_bwd(x, g, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale, mode,
         raise RuntimeError(f"attention block backward kernel launch failed "
                            f"with CUDA error {rc}")
     if not use_ln:
-        t["dln_w"], t["dln_b"] = torch.zeros_like(ln_w), torch.zeros_like(ln_b)
+        t["dln_w"], t["dln_b"] = no_ln_grads(ln_w, ln_b)
     return tuple(t[n] for n in ("dx", "dln_w", "dln_b", "dwqkv", "dbqkv",
                                 "dwproj", "dbproj"))
 
@@ -432,9 +473,163 @@ def fused_attention_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     """[LN ->] qkv -> attention -> proj [-> + x] on x (B, F, J, C),
     differentiable in x and every parameter: the CUDA kernels for a CUDA
     tensor, the plain versions for a CPU tensor. ln_w / ln_b (C,) fp32 are
-    read only with use_ln."""
+    read only with use_ln, and may be None without it."""
     return FusedAttentionBlock.apply(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                                      num_heads, scale, mode, use_ln, residual)
 
 
 fused_attention_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the attention core alone (B8): plain versions
+# ---------------------------------------------------------------------------
+
+def st_attention_bwd_plain(q, k, v, g, mode: str, num_heads: int,
+                           scale: float) -> tuple:
+    """Gradients (dq, dk, dv) of ``st_attention_plain`` for the output
+    gradient g, P recomputed, at the rounding points of the JAX package's
+    analytic backward (``motionbert_tpu/ops/attention.py``
+    ``_attention_fused_bwd``; for spatial groups the VJP of
+    ``_attention_xla_spatial_grouped``, the same math per frame): fp32 P; dv
+    from P rounded to g's dtype; dS = P (dP - sum(dP P)) * scale rounded to
+    q's dtype before dq and dk; every product summed in fp32; the gradients
+    in q's dtype."""
+    dt = q.dtype
+    qh, kh, vh, gh = (wide(to_groups(t, mode, num_heads))
+                      for t in (q, k, v, g))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(wide(p.to(g.dtype)).transpose(-1, -2), gh)
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = wide((ds * scale).to(dt))
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return tuple(from_groups(t, mode).to(dt) for t in (dq, dk, dv))
+
+
+def coupled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      num_heads: int, scale: float) -> torch.Tensor:
+    """All F*J tokens of a clip attend to each other (the legacy "coupling"
+    mode; ``motionbert_tpu/ops/attention.py`` ``coupled_attention``, which
+    XLA computes outside any kernel): fp32 scores and softmax, P rounded to
+    q's dtype, output in q's dtype. Plain PyTorch on every device,
+    differentiable by autograd; its fp32 scores take B * H * (F J)^2 * 4
+    bytes."""
+    B, F, J, C = q.shape
+    d = C // num_heads
+    qh, kh, vh = (wide(t.reshape(B, F * J, num_heads, d).transpose(1, 2))
+                  for t in (q, k, v))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.matmul(wide(p), vh).to(q.dtype)
+    return o.transpose(1, 2).reshape(B, F, J, C)
+
+
+# ---------------------------------------------------------------------------
+# the attention core alone (B8): kernel launch and public wrapper
+# ---------------------------------------------------------------------------
+
+def check_st_attention_args(q, k, v, num_heads: int, mode: str) -> int:
+    """Raise ValueError on anything the CUDA attention core does not take;
+    return the common row stride of q, k and v (C for contiguous tensors, 3C
+    for the slices of a packed qkv projection)."""
+    if mode not in ("spatial", "temporal"):
+        raise ValueError(f"unknown attention mode: {mode!r}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, F, J, C), got shape {tuple(q.shape)}")
+    B, F, J, C = q.shape
+    if J != NUM_JOINTS:
+        raise ValueError(f"the attention kernel takes J={NUM_JOINTS} joints, "
+                         f"got {J}")
+    if not 1 <= F <= MAX_FRAMES:
+        raise ValueError(f"the attention kernel takes 1..{MAX_FRAMES} frames, "
+                         f"got {F}")
+    if not 1 <= B * F * J <= MAX_ROWS:
+        raise ValueError(f"the attention kernel takes 1..{MAX_ROWS} token "
+                         f"rows (B*F*J), got {B * F * J}")
+    if C % 64 or num_heads < 1 or C % num_heads \
+            or C // num_heads not in HEAD_DIMS:
+        raise ValueError(f"the attention kernel takes C % 64 == 0 and head "
+                         f"dim in {HEAD_DIMS}, got C={C}, heads={num_heads}")
+    ld = q.stride(2)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if tuple(t.shape) != (B, F, J, C):
+            raise ValueError(f"{name}: expected shape {(B, F, J, C)}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: expected torch.bfloat16, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: expected device {q.device}, got "
+                             f"{t.device}")
+        want = (F * J * ld, J * ld, ld, 1)
+        if any(n > 1 and t.stride(i) != w
+               for i, (n, w) in enumerate(zip(t.shape, want))) \
+                or ld < C or ld % 2 or t.data_ptr() % 4:
+            raise ValueError(f"{name}: the attention kernel takes token rows "
+                             f"of one common even row stride >= C (q's is "
+                             f"{ld}), got strides {t.stride()}")
+    return ld
+
+
+def st_attention_library() -> ctypes.CDLL:
+    """csrc/st_attention_kernels.cu, loaded, with its argument types set."""
+    lib = _build.load("st_attention_kernels")
+    if lib.mbt_st_attention.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.mbt_st_attention.argtypes = [vp, vp, vp, i, vp] + [i] * 5 + [
+            ctypes.c_float, i, vp]
+        lib.mbt_st_attention.restype = ctypes.c_int
+    return lib
+
+
+def _launch_st(q, k, v, mode, num_heads, scale) -> torch.Tensor:
+    ld = check_st_attention_args(q, k, v, num_heads, mode)
+    B, F, J, C = q.shape
+    lib = st_attention_library()
+    with torch.cuda.device(q.device):
+        out = torch.empty((B, F, J, C), dtype=q.dtype, device=q.device)
+        rc = lib.mbt_st_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, out.data_ptr(),
+            B, F, J, C, num_heads, float(scale), int(mode == "temporal"),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attention core kernel launch failed with CUDA "
+                           f"error {rc}")
+    return out
+
+
+class StAttention(torch.autograd.Function):
+    """``st_attention`` with its backward. Saves only q, k and v; the
+    backward recomputes P in plain PyTorch (``st_attention_bwd_plain``), as
+    the JAX package's backward is XLA and not a kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mode, num_heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (mode, num_heads, scale)
+        if device_kind(q, "attention core") == "cpu":
+            return st_attention_plain(q, k, v, mode, num_heads, scale)
+        out = _launch_st(q, k, v, mode, num_heads, scale)
+        st_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*st_attention_bwd_plain(q, k, v, g, *ctx.cfg), None, None,
+                None)
+
+
+def st_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mode: str, num_heads: int, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v per head over the joints of a frame
+    ("spatial") or the frames of a joint ("temporal") of (B, F, J, C)
+    tensors, differentiable in q, k and v: the CUDA kernel for CUDA tensors
+    (bf16 token rows of one common row stride, so slices of a packed qkv
+    need no copy), the plain version for CPU tensors."""
+    return StAttention.apply(q, k, v, mode, num_heads, scale)
+
+
+st_attention.launches = 0

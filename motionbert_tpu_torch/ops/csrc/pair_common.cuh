@@ -1,6 +1,7 @@
 // Shared device code of the DSTformer pair kernels (pair_kernels.cu, the
 // forward, pair_bwd_kernels.cu, the backward, and pair_q8_kernels.cu, the int8
-// forward) and of the standalone attention and MLP blocks (block_kernels.cu):
+// forward), of the standalone attention and MLP blocks (block_kernels.cu) and
+// of the standalone attention core (st_attention_kernels.cu):
 // bf16 with fp32 accumulation, for NVIDIA Hopper (sm_90a).
 //
 // - gemm_kernel<LAYOUT, LN, EPI>: one WMMA (mma.sync) GEMM with 64x64 output
@@ -13,7 +14,9 @@
 //   reduce_splits_kernel adds the partials in chunk order. No atomics, so
 //   the result is the same bits on every run.
 // - attention_kernel<D>: softmax(q k^T * scale) v over one (group, head) per
-//   block, K and V of the group in shared memory, a warp per query row.
+//   block, K and V of the group in shared memory, a warp per query row; q, k
+//   and v are three row-strided pointers, so the chains' packed qkv and the
+//   standalone core's separate tensors (st_attention_kernels.cu) share it.
 // - gate_kernel: the att_fuse gate of the gated pair, a warp per token row.
 //
 // Everything is in an anonymous namespace: each .cu that includes this file
@@ -287,12 +290,15 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     }
 }
 
-// Attention core over one (group, head) per block. qkv is (M, 3C) bf16 with
-// [q | k | v] each split into H heads of D; the group's N tokens sit at rows
-// base + t * stride. K and V of the group stay in shared memory (row stride
-// D + 2 so lanes reading different keys hit different banks); each warp owns
-// one query row at a time: fp32 scores, max-subtracted fp32 softmax, P rounded
-// to bf16, fp32 P.V, bf16 output.
+// Attention core over one (group, head) per block. q, k and v are bf16 token
+// rows with row stride ld (elements), each split into H heads of D: the pair
+// and block chains pass one packed (M, 3C) qkv as (qkv, qkv + C, qkv + 2C,
+// 3C), the standalone core (st_attention_kernels.cu) three (M, C) tensors and
+// C. The group's N tokens sit at rows base + t * stride. K and V of the group
+// stay in shared memory (row stride D + 2 so lanes reading different keys hit
+// different banks); each warp owns one query row at a time: fp32 scores,
+// max-subtracted fp32 softmax, P rounded to bf16, fp32 P.V, bf16 output
+// (M, C).
 __device__ __forceinline__ void attention_group(int g, int F, int J, int temporal,
                                                 int* N, int* base, int* stride) {
     if (temporal) {
@@ -309,7 +315,8 @@ __device__ __forceinline__ void attention_group(int g, int F, int J, int tempora
 
 template <int D>
 __global__ void __launch_bounds__(ATTN_THREADS)
-attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+attention_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
+                 const bf16* __restrict__ v_in, int ld, bf16* __restrict__ out,
                  int F, int J, int C, float scale, int temporal) {
     extern __shared__ __align__(16) unsigned char smem[];
     constexpr int LDK = D + 2;
@@ -320,15 +327,14 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     bf16* Ks = reinterpret_cast<bf16*>(smem);
     bf16* Vs = Ks + N * LDK;
     float* Ps = reinterpret_cast<float*>(Vs + N * LDK);
-    const size_t C3 = 3 * (size_t)C;
 
     for (int idx = threadIdx.x; idx < N * (D / 2); idx += ATTN_THREADS) {
         const int t = idx / (D / 2), c = (idx % (D / 2)) * 2;
-        const bf16* row = qkv + (size_t)(base + t * stride) * C3 + h * D + c;
+        const size_t r = (size_t)(base + t * stride) * ld + h * D + c;
         *reinterpret_cast<bf162*>(Ks + t * LDK + c) =
-            *reinterpret_cast<const bf162*>(row + C);
+            *reinterpret_cast<const bf162*>(k_in + r);
         *reinterpret_cast<bf162*>(Vs + t * LDK + c) =
-            *reinterpret_cast<const bf162*>(row + 2 * C);
+            *reinterpret_cast<const bf162*>(v_in + r);
     }
     __syncthreads();
 
@@ -336,7 +342,7 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     float* p = Ps + warp * N;
     for (int i = warp; i < N; i += nwarps) {
         const size_t qrow = (size_t)(base + i * stride);
-        const bf16* qp = qkv + qrow * C3 + h * D;
+        const bf16* qp = q_in + qrow * ld + h * D;
         float q[D];
 #pragma unroll
         for (int c = 0; c < D; c += 2) {
@@ -403,8 +409,9 @@ cudaError_t launch_gemm(const void* A, const void* W, const void* bias, const vo
 }
 
 template <int D>
-cudaError_t launch_attention(const void* qkv, void* out, int B, int F, int J, int C,
-                             float scale, int temporal, cudaStream_t stream) {
+cudaError_t launch_attention(const void* q, const void* k, const void* v, int ld,
+                             void* out, int B, int F, int J, int C, float scale,
+                             int temporal, cudaStream_t stream) {
     const int N = temporal ? F : J;
     const size_t smem = 2 * (size_t)N * (D + 2) * sizeof(bf16)
                       + (size_t)(ATTN_THREADS / 32) * N * sizeof(float);
@@ -413,16 +420,28 @@ cudaError_t launch_attention(const void* qkv, void* out, int B, int F, int J, in
     if (err != cudaSuccess) return err;
     const dim3 grid(temporal ? B * J : B * F, C / D);
     attention_kernel<D><<<grid, ATTN_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), F, J, C, scale, temporal);
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), ld, static_cast<bf16*>(out), F, J, C, scale,
+        temporal);
     return cudaGetLastError();
 }
 
+// The attention core on separate q, k, v token rows of row stride ld.
+cudaError_t launch_st_attention_any(const void* q, const void* k, const void* v, int ld,
+                                    void* out, int B, int F, int J, int C, int H,
+                                    float scale, int temporal, cudaStream_t stream) {
+    const int D = C / H;
+    if (D == 64) return launch_attention<64>(q, k, v, ld, out, B, F, J, C, scale, temporal, stream);
+    if (D == 32) return launch_attention<32>(q, k, v, ld, out, B, F, J, C, scale, temporal, stream);
+    return cudaErrorInvalidValue;
+}
+
+// The attention core on one packed (M, 3C) qkv ([q | k | v] per row).
 cudaError_t launch_attention_any(const void* qkv, void* out, int B, int F, int J, int C,
                                  int H, float scale, int temporal, cudaStream_t stream) {
-    const int D = C / H;
-    if (D == 64) return launch_attention<64>(qkv, out, B, F, J, C, scale, temporal, stream);
-    if (D == 32) return launch_attention<32>(qkv, out, B, F, J, C, scale, temporal, stream);
-    return cudaErrorInvalidValue;
+    const bf16* q = static_cast<const bf16*>(qkv);
+    return launch_st_attention_any(q, q + C, q + 2 * C, 3 * C, out, B, F, J, C, H, scale,
+                                   temporal, stream);
 }
 
 constexpr int GATE_THREADS = 256;

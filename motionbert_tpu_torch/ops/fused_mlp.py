@@ -33,8 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from motionbert_tpu_torch.ops.attention import (
-    MAX_ROWS, block_library, check_tensor, device_kind, layer_norm, linear,
-    ln_bwd_rows, ln_fwd_stats, rows, slot_pointers, weight_grad, wide)
+    MAX_ROWS, block_library, check_ln_args, check_tensor, data_ptr,
+    device_kind, layer_norm, linear, ln_bwd_rows, ln_fwd_stats, no_ln_grads,
+    rows, slot_pointers, weight_grad, wide)
 
 
 def mlp_block(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2,
@@ -62,8 +63,7 @@ def mlp_block_bwd_plain(x, g, ln_w, ln_b, w1, b1, w2, use_ln: bool = False,
     ``_fused_mlp_bwd_kernel``: the forward is recomputed (h, fp32 z, a
     rounded), dz is rounded to the compute dtype before its products, and db1
     sums the rounded dz. Returns (dx, dln_w, dln_b, dw1, db1, dw2, db2), each
-    in its tensor's dtype (db2 in w2's); the LayerNorm gradients are zeros
-    without use_ln."""
+    in its tensor's dtype (db2 in w2's); without use_ln, ``no_ln_grads``."""
     dt = x.dtype
     if use_ln:
         xhat, rstd, hf = ln_fwd_stats(x, ln_w, ln_b)
@@ -83,11 +83,12 @@ def mlp_block_bwd_plain(x, g, ln_w, ln_b, w1, b1, w2, use_ln: bool = False,
     dh = torch.matmul(wide(dz), wide(w1))
     if use_ln:
         dx, dln_w, dln_b = ln_bwd_rows(dh, xhat, rstd, ln_w)
+        dln_w, dln_b = dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype)
     else:
-        dx, dln_w, dln_b = dh, torch.zeros_like(ln_w), torch.zeros_like(ln_b)
+        dx, (dln_w, dln_b) = dh, no_ln_grads(ln_w, ln_b)
     if residual:
         dx = dx + wide(g)
-    return (dx.to(dt), dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype),
+    return (dx.to(dt), dln_w, dln_b,
             dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
             db2.to(w2.dtype))
 
@@ -96,7 +97,8 @@ def mlp_block_bwd_plain(x, g, ln_w, ln_b, w1, b1, w2, use_ln: bool = False,
 # kernel launch
 # ---------------------------------------------------------------------------
 
-def check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2) -> None:
+def check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2,
+                   use_ln: bool = True) -> None:
     """Raise ValueError on anything the CUDA MLP block does not take (b2
     None: the backward, which does not read it)."""
     if x.dim() < 1:
@@ -112,8 +114,7 @@ def check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2) -> None:
                          f"== 0, got C={C}, hidden={hidden}")
     dev, bf16 = x.device, torch.bfloat16
     check_tensor("x", x, x.shape, bf16, dev)
-    check_tensor("ln_w", ln_w, (C,), torch.float32, dev)
-    check_tensor("ln_b", ln_b, (C,), torch.float32, dev)
+    check_ln_args(ln_w, ln_b, C, use_ln, dev)
     for name, t, shape in (("w1", w1, (hidden, C)), ("b1", b1, (hidden,)),
                            ("w2", w2, (C, hidden)), ("b2", b2, (C,))):
         if t is not None:
@@ -137,7 +138,7 @@ def _library():
 
 
 def _launch(x, ln_w, ln_b, w1, b1, w2, b2, use_ln, residual) -> torch.Tensor:
-    check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2)
+    check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2, use_ln)
     C, hidden = x.shape[-1], w1.shape[0]
     M = x.numel() // C
     lib = _library()
@@ -145,8 +146,8 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, use_ln, residual) -> torch.Tensor:
         hid = torch.empty((M, hidden), dtype=x.dtype, device=x.device)
         out = torch.empty_like(x)
         rc = lib.mbt_mlp_block(
-            x.data_ptr(), out.data_ptr(), hid.data_ptr(), ln_w.data_ptr(),
-            ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            x.data_ptr(), out.data_ptr(), hid.data_ptr(), data_ptr(ln_w),
+            data_ptr(ln_b), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), M, C, hidden, int(use_ln), int(residual),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
@@ -156,7 +157,7 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, use_ln, residual) -> torch.Tensor:
 
 
 def _launch_bwd(x, g, ln_w, ln_b, w1, b1, w2, use_ln, residual) -> tuple:
-    check_mlp_args(x, ln_w, ln_b, w1, b1, w2, None)
+    check_mlp_args(x, ln_w, ln_b, w1, b1, w2, None, use_ln)
     check_tensor("g", g, x.shape, x.dtype, x.device)
     C, hidden = x.shape[-1], w1.shape[0]
     M = x.numel() // C
@@ -180,7 +181,7 @@ def _launch_bwd(x, g, ln_w, ln_b, w1, b1, w2, use_ln, residual) -> tuple:
         raise RuntimeError(f"MLP block backward kernel launch failed with "
                            f"CUDA error {rc}")
     if not use_ln:
-        t["dln_w"], t["dln_b"] = torch.zeros_like(ln_w), torch.zeros_like(ln_b)
+        t["dln_w"], t["dln_b"] = no_ln_grads(ln_w, ln_b)
     return tuple(t[n] for n in ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2",
                                 "db2"))
 
@@ -232,7 +233,7 @@ def fused_mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, use_ln: bool = False,
     """[LN ->] fc1 -> GELU -> fc2 [-> + x] on x (..., C), token-wise and
     differentiable in x and every parameter: the CUDA kernels for a CUDA
     tensor, the plain versions for a CPU tensor. ln_w / ln_b (C,) fp32 are
-    read only with use_ln."""
+    read only with use_ln, and may be None without it."""
     return FusedMlpBlock.apply(x, ln_w, ln_b, w1, b1, w2, b2, use_ln, residual)
 
 

@@ -49,7 +49,8 @@ import ctypes
 import torch
 
 from motionbert_tpu_torch.ops import _build
-from motionbert_tpu_torch.ops.attention import ln_fwd_stats, st_attention, wide
+from motionbert_tpu_torch.ops.attention import (
+    ln_fwd_stats, st_attention_plain, wide)
 from motionbert_tpu_torch.ops.fused_pair import (
     _device_kind, check_kernel_args, fused_gated_pair_block_bwd,
     fused_pair_block_bwd, gate_plain)
@@ -109,8 +110,8 @@ def pair_block_q8_plain(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
     C = x.shape[-1]
     h = ln_fwd_stats(x, ln1_w, ln1_b)[2]
     qkv = qdot_plain(h, wqkv, bqkv)
-    attn = st_attention(qkv[..., :C].to(dt), qkv[..., C:2 * C].to(dt),
-                        qkv[..., 2 * C:].to(dt), mode, num_heads, scale)
+    attn = st_attention_plain(qkv[..., :C].to(dt), qkv[..., C:2 * C].to(dt),
+                              qkv[..., 2 * C:].to(dt), mode, num_heads, scale)
     yb = (qdot_plain(wide(attn), wproj, bproj) + wide(x)).to(dt)
     z = qdot_plain(ln_fwd_stats(yb, ln2_w, ln2_b)[2], w1, b1)
     g = 0.5 * z * (1.0 + torch.erf(z * 0.7071067811865476))

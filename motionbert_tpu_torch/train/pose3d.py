@@ -225,6 +225,28 @@ def _print_eval_table(per_action, e1, e2):
     print("----------")
 
 
+def build_dataset_3d(args, split: str):
+    """The split's clips: the packed native clip store
+    ``<data_root>/<subset>/<split>.mbcs`` when there is one subset and the
+    file exists (``data/clipstore.py``, one gather per batch), else the
+    per-clip pickles (``MotionDataset3D``), as the JAX driver chooses."""
+    from motionbert_tpu_torch.data.datasets import MotionDataset3D
+
+    if len(args.subset_list) == 1:
+        packed = os.path.join(args.data_root, args.subset_list[0],
+                              f"{split}.mbcs")
+        if os.path.exists(packed):
+            from motionbert_tpu_torch.data.clipstore import ClipStoreDataset3D
+
+            print(f"INFO: using native clip store {packed}")
+            return ClipStoreDataset3D(
+                packed, synthetic=args.get("synthetic", False),
+                gt_2d=args.get("gt_2d", False),
+                scale_range_pretrain=args.get("scale_range_pretrain"),
+                data_split=split)
+    return MotionDataset3D(args, args.subset_list, split)
+
+
 def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     """The epoch driver (reference train.py:208-377) on ``device`` (None:
     the card). opts: checkpoint, pretrained, resume, evaluate, selection,
@@ -238,7 +260,7 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     from motionbert_tpu_torch.core.logging import MetricsWriter
     from motionbert_tpu_torch.core.metrics import AverageMeter
     from motionbert_tpu_torch.data.datasets import (
-        BatchLoader, InstaVDataset2D, MotionDataset3D, PoseTrackDataset2D)
+        BatchLoader, InstaVDataset2D, PoseTrackDataset2D)
     from motionbert_tpu_torch.data.readers import DataReaderH36M
     from motionbert_tpu_torch.models.factory import load_backbone, resolve_device
     from motionbert_tpu_torch.train.state import (
@@ -249,8 +271,8 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     writer = MetricsWriter(os.path.join(opts.checkpoint, "logs"))
 
     print("Loading dataset...")
-    train_dataset = MotionDataset3D(args, args.subset_list, "train")
-    test_dataset = MotionDataset3D(args, args.subset_list, "test")
+    train_dataset = build_dataset_3d(args, "train")
+    test_dataset = build_dataset_3d(args, "test")
     train_loader = BatchLoader(train_dataset, args.batch_size, shuffle=True,
                                drop_last=True, seed=opts.seed)
     test_loader = BatchLoader(test_dataset, args.batch_size, shuffle=False)

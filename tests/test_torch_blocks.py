@@ -224,9 +224,15 @@ def test_wrappers_validate_like_the_pair():
     with pytest.raises(ValueError, match="contiguous"):
         at.check_attention_args(x, p[0], p[1], p[2].t().contiguous().t(),
                                 *p[3:], heads, "spatial")
+    at.check_attention_args(x, None, None, *p[2:], heads, "spatial", False)
+    with pytest.raises(ValueError, match="ln_w is None"):
+        at.check_attention_args(x, None, None, *p[2:], heads, "spatial", True)
     xm, *pm = _to_torch(_mlp_arrays(), torch.bfloat16)
     mlp.check_mlp_args(xm, *pm)
     mlp.check_mlp_args(xm.reshape(-1, C), *pm)      # any leading shape
+    mlp.check_mlp_args(xm, None, None, *pm[2:], False)
+    with pytest.raises(ValueError, match="ln_b is None"):
+        mlp.check_mlp_args(xm, pm[0], None, *pm[2:], True)
     with pytest.raises(ValueError, match="hidden"):
         mlp.check_mlp_args(xm, pm[0], pm[1], pm[2][:100].contiguous(),
                            pm[3][:100].contiguous(),

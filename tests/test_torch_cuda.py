@@ -562,3 +562,174 @@ def test_drop_path_train_steps_depth2_flagship_width(cuda):
     with torch.no_grad():
         _, launched = count(lambda: model(x))
     assert launched == [6, 2, 0, 0, 0, 0, 0, 0], launched
+
+
+# ---------------------------------------------------------------------------
+# the attention core alone (B8), the legacy attention modes, ActionNet
+# ---------------------------------------------------------------------------
+
+# B8 kernel vs plain as a relative L2: summation order and single bf16 flips
+# of P and of the output only (6e-5 when emulated on the CPU at the flagship
+# shape); P left in fp32, or the scores rounded to bf16, measure 2.6e-3 to
+# 4.8e-3 there, so this bar fails a moved rounding point
+ST_L2_TOL = 1e-3
+
+
+def _qkv(device, C, F, B=2, seed=0):
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(rs.normal(size=(B, F, 17, C)).astype(
+        np.float32)).to(device=device, dtype=torch.bfloat16) for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+@pytest.mark.parametrize("C,H", [(512, 8), (256, 8)])  # head dim 64 and 32
+@pytest.mark.parametrize("F", [1, 27, 243])
+def test_st_attention_kernel_matches_plain(cuda, mode, C, H, F):
+    q, k, v = _qkv(cuda, C, F)
+    scale = (C // H) ** -0.5
+    before = at.st_attention.launches
+    out = at.st_attention(q, k, v, mode, H, scale)
+    torch.cuda.synchronize()
+    assert at.st_attention.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.equal(out, at.st_attention(q, k, v, mode, H, scale))
+    ref = at.st_attention_plain(q, k, v, mode, H, scale)
+    assert _rel(out, ref) <= TOL
+    assert _rel_l2(out, ref) <= ST_L2_TOL
+    # the same tokens as slices of one packed projection (row stride 3C)
+    packed = torch.cat([q, k, v], -1)
+    sliced = at.st_attention(packed[..., :C], packed[..., C:2 * C],
+                             packed[..., 2 * C:], mode, H, scale)
+    assert torch.equal(sliced, out)
+
+
+@pytest.mark.cuda
+def test_st_attention_raises_and_never_falls_back(cuda):
+    q, k, v = _qkv(cuda, 512, 9)
+    with pytest.raises(ValueError, match="bfloat16"):
+        at.st_attention(q.float(), k, v, "spatial", 8, 0.125)
+    with pytest.raises(ValueError, match="row stride"):
+        at.st_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                        "temporal", 8, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        at.st_attention(q, k, v, "spatial", 4, 0.125)
+    with pytest.raises(ValueError, match="joints"):
+        at.st_attention(*(t[:, :, :16] for t in (q, k, v)), "spatial", 8,
+                        0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_autograd_through_st_attention(cuda, mode):
+    """The Function's backward is the plain backward (bf16), and that is
+    within the bf16 bar of autograd through the fp32 plain core."""
+    q, k, v = _qkv(cuda, 512, 81)
+    g = _grad_out(cuda, q.shape)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(at.st_attention(*leaves, mode, 8, 0.125),
+                                leaves, g)
+    want = at.st_attention_bwd_plain(q, k, v, g, mode, 8, 0.125)
+    f32 = [t.float().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(at.st_attention_plain(*f32, mode, 8, 0.125),
+                               f32, g.float())
+    for a, w, r in zip(grads, want, auto):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, w)
+        assert _rel(a, r) <= TOL
+
+
+@pytest.mark.cuda
+def test_legacy_modes_launch_counts(cuda):
+    """Each legacy mode at C 256 (head dim 32) through the kernels: the
+    launches of B8 and of the attention block, forward and backward; the
+    output against the fp32 plain module."""
+    from motionbert_tpu_torch.models import dstformer as dst
+
+    counters = (at.st_attention, at.fused_attention_block,
+                at.fused_attention_block_bwd, mlp.fused_mlp_block,
+                mlp.fused_mlp_block_bwd)
+    expect = {"vanilla": [1, 0, 0, 0, 0], "series": [2, 0, 0, 0, 0],
+              "parallel": [2, 0, 0, 0, 0], "coupling": [0, 0, 0, 0, 0],
+              "spatial": [0, 1, 1, 0, 0], "temporal": [0, 1, 1, 0, 0],
+              "stage_para": [0, 2, 2, 2, 2]}
+    x = _grad_out(cuda, (1, 27, 17, 256), seed=4)
+    for mode, want in expect.items():
+        torch.manual_seed(0)
+        if mode == "stage_para":
+            make = lambda impl: dst.Block(256, 8, 2, "stage_para",
+                                          attn_impl=impl, att_fuse=True)
+        else:
+            make = lambda impl: dst.Attention(256, 8, mode, impl)
+        model = make("kernel").to(cuda)
+        ref = make("plain").to(cuda)
+        ref.load_state_dict(model.state_dict())
+        before = [c.launches for c in counters]
+        leaf = x.detach().clone().requires_grad_()
+        out = model(leaf)
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == want, mode
+        assert leaf.grad is not None and torch.isfinite(leaf.grad).all()
+        with torch.no_grad():
+            assert _rel(out, ref(x.float())) <= TOL, mode
+
+
+@pytest.mark.cuda
+def test_action_step_batchnorm_matches_cpu(cuda):
+    """One classification step of a small ActionNet on the fp32 plain path,
+    on the card and on the CPU from the same weights and batch: the loss,
+    every gradient (fc1's bias: within rounding of 0 on both) and the head's
+    BatchNorm statistics agree; the weights
+    after the first AdamW step, lr * g / (|g| + eps) + decay, within 1e-6
+    wherever |g| >= 1e-5 on both with one sign, and within lr where a
+    gradient within rounding of 0 may take either sign."""
+    from motionbert_tpu_torch.train.action import (
+        build_action_model, make_action_train_step)
+    from motionbert_tpu_torch.train.state import make_two_group_adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ConfigDict(dim_feat=64, dim_rep=64, depth=1, num_heads=2,
+                     mlp_ratio=2, num_joints=17, maxlen=16, hidden_dim=128,
+                     action_classes=6, dropout_ratio=0.0)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.normal(size=(8, 2, 16, 17, 3)).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 6, 8))
+    results = []
+    for dev in ("cpu", cuda):
+        model = build_action_model(cfg, device=dev, attn_impl="plain",
+                                   dtype=torch.float32)
+        model.init_weights(torch.Generator().manual_seed(0))
+        opt = make_two_group_adamw(model, 1e-4, 1e-3, 0.01)
+        m = make_action_train_step(model, opt)(x.to(dev), y.to(dev))
+        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        results.append((m["loss"].item(), grads,
+                        {k: v.detach().cpu() for k, v in
+                         model.state_dict().items()}))
+    (l0, g0, s0), (l1, g1, s1) = results
+    assert abs(l0 - l1) <= 1e-5 * abs(l0)
+    assert sorted(g0) == sorted(g1) and len(g0) > 0
+    # the BatchNorm subtracts the batch mean of fc1's output, so fc1's bias
+    # gets no gradient but rounding: held against the BatchNorm bias's
+    vanishing = "head.fc1.bias"
+    for g in (g0, g1):
+        assert (torch.linalg.norm(g[vanishing])
+                <= 1e-3 * torch.linalg.norm(g0["head.bn.bias"]))
+    for k in g0:
+        if k == vanishing:
+            continue
+        scale = g0[k].abs().max().item()
+        np.testing.assert_allclose(g1[k].numpy(), g0[k].numpy(), rtol=1e-3,
+                                   atol=1e-3 * scale + 1e-12, err_msg=k)
+    assert s0["head.bn.num_batches_tracked"].item() == 1
+    assert s1["head.bn.num_batches_tracked"].item() == 1
+    for k in ("head.bn.running_mean", "head.bn.running_var"):
+        np.testing.assert_allclose(s1[k].numpy(), s0[k].numpy(), atol=1e-6,
+                                   rtol=1e-5, err_msg=k)
+    for k in g0:
+        lr = 1e-4 if k.startswith("backbone.") else 1e-3
+        d = (s1[k].float() - s0[k].float()).abs()
+        sure = (g0[k].abs() >= 1e-5) & (g0[k].sign() == g1[k].sign())
+        if sure.any():
+            assert d[sure].max().item() <= 1e-6, k
+        assert d.max().item() <= 2.1 * lr, k

@@ -36,7 +36,17 @@ def test_port_imports_no_jax():
         "motionbert_tpu_torch.ops.fused_mlp, "
         "motionbert_tpu_torch.data.augment, "
         "motionbert_tpu_torch.geometry.skeleton\n"
+        "import motionbert_tpu_torch.models.action_heads, "
+        "motionbert_tpu_torch.data.dataset_action, "
+        "motionbert_tpu_torch.data.clipstore, "
+        "motionbert_tpu_torch.losses.supcon, "
+        "motionbert_tpu_torch.train.action, "
+        "motionbert_tpu_torch.train.action_1shot\n"
         "import runpy; runpy.run_module('motionbert_tpu_torch.train.pose3d', "
+        "run_name='not_main')\n"
+        "runpy.run_module('motionbert_tpu_torch.train.action', "
+        "run_name='not_main')\n"
+        "runpy.run_module('motionbert_tpu_torch.train.action_1shot', "
         "run_name='not_main')\n"
         "runpy.run_module('motionbert_tpu_torch.infer.wild_pose', "
         "run_name='not_main')\n"
@@ -55,7 +65,13 @@ def test_port_imports_no_jax():
               "motionbert_tpu_torch.infer.wild_pose",
               "motionbert_tpu_torch.ops.attention",
               "motionbert_tpu_torch.ops.fused_mlp",
-              "motionbert_tpu_torch.data.augment"):
+              "motionbert_tpu_torch.data.augment",
+              "motionbert_tpu_torch.models.action_heads",
+              "motionbert_tpu_torch.data.dataset_action",
+              "motionbert_tpu_torch.data.clipstore",
+              "motionbert_tpu_torch.losses.supcon",
+              "motionbert_tpu_torch.train.action",
+              "motionbert_tpu_torch.train.action_1shot"):
         assert m in mods, m
     bad = [m for m in mods if _is_jax_package(m)]
     assert not bad, bad
