@@ -93,16 +93,49 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      set at the flagship widths, 2 epochs then a resumed third; the one-shot
      driver on a one-shot pickle this phase writes, 1 epoch then a resumed
      second.
+ 24. stream kernels (B10): the four stream functions (bf16 and W8A8,
+     ungated ("s","t") and gated ("t","s")) at the phase-3 shape against
+     their plain versions (the max-based and the relative-L2 bar), twice for
+     bitwise repeatability and bit for bit against the ported pair chain
+     (B1 -> B1 / B2, B9 -> B9), with times (one call, and back to back), the
+     chain's times in the same run, bound, the plain version's time and a
+     library yardstick (each pair's PyTorch operators, twice).
+ 25. stream main path: the anchor's (8, 243) flip-TTA lift and
+     representation through attn_impl "kernel_stream" and "kernel_stream_q8",
+     bit for bit equal to "kernel" and "kernel_q8", with launch counts and
+     clips/s of both in turns; 8 requests served under "kernel_stream"; a
+     flagship train step under "kernel_stream" whose loss and gradients equal
+     the pair path's bit for bit, with its launch counts.
+ 26. mesh at the flagship widths: MeshRegressor from MB_train_h36m.yaml (dim
+     512, depth 5, hidden 1024) on a seeded 6890-vertex body model, batch
+     128 x 16 frames; the first step's loss, joints and gradients against
+     the bf16 and the fp32 plain path on the same dropout masks (BatchNorm
+     on running statistics), at batch 4 and 128; the head in training mode
+     on the card against the CPU; 5 two-group AdamW steps with ms per step,
+     clips/s, peak memory and launches per step; SMPL's share of a step; a
+     profiled step; the flip-TTA eval step through "kernel" and
+     "kernel_stream", bit for bit equal.
+ 27. mesh drivers: train.mesh.train_with_config on the synthetic mesh set at
+     the flagship widths, 2 epochs then a resumed third; the wild-mesh
+     command line on a seeded Halpe-26 JSON with --attn_impl pallas_stream.
 Phases 10-15 run after phase 6, phases 16-19 after phase 9, phases 20-23
-after phase 19. Then a JSON line of per-kernel numbers, the card's name and
-power limit, and as the last line {"ok": true, "device": {...}}.
+after phase 19, phases 24-27 after phase 23. Then a JSON line of per-kernel
+numbers, the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases q8
     python3 chip_smoke.py --phases blocks
     python3 chip_smoke.py --phases action
+    python3 chip_smoke.py --phases mesh
 
-run only phases 1, 2 and 10-15, 1, 2 and 16-19, or 1, 2 and 20-23 (while
-working on them), and print no last line.
+run only phases 1, 2 and 10-15, 1, 2 and 16-19, 1, 2 and 20-23, or 1, 2 and
+24-27 (while working on them), and print no last line.
+
+    python3 chip_smoke.py --baseline ROOT [--phases ...]
+
+also builds the pair and W8A8 pair sources of the checkout at ROOT (the
+parent's, unpacked with git archive) and holds this checkout's pair outputs
+against that build, bit for bit, after phase 2.
 
 Imports nothing of JAX or of the JAX package motionbert_tpu.
 """
@@ -1137,7 +1170,7 @@ def profile_step(tag: str, step, x, y) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof)
     busy_ms = sum(ms for _, ms, _ in rows)
-    log(f"{tag}: one step ({TRAIN_BATCH}, {FRAMES}) under the profiler: "
+    log(f"{tag}: one step {tuple(x.shape[:2])} under the profiler: "
         f"{wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy "
         f"({100 * busy_ms / wall_ms:.1f}%)")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:16]:
@@ -2062,34 +2095,40 @@ def action_first_step(model, x, y, seed: int) -> tuple:
 
 
 def compare_action_step(what: str, got: tuple, ref: tuple,
-                        witness: dict = None) -> None:
+                        witness: dict = None, tag: str = "action",
+                        cosine_min: float = ACTION_FP32_COSINE_MIN,
+                        head_witness: dict = None) -> None:
     """``got`` against ``ref`` (each loss, logits, gradients): the logits by
     max|d| / max|ref|, the backbone by ``compare_first_step``, the head's
     tensors by relative L2. ``witness`` None: the reference is the bf16
-    plain path, phase 8's bars, the logits held to KERNEL_TOL. Else it is
-    the fp32 plain path, and ``witness`` the bf16 plain path's max|d| /
-    max|ref| from it per backbone tensor (see ACTION_FP32_COSINE_MIN)."""
+    plain path, phase 8's bars, the logits held to KERNEL_TOL. Else
+    ``witness`` is the bf16 plain path's max|d| / max|ref| from the fp32
+    plain path per backbone tensor, the gradient cosine is held to
+    ``cosine_min`` (see ACTION_FP32_COSINE_MIN) and each tensor to the
+    larger of phase 8's bar and WITNESS_MARGIN times its witness;
+    ``head_witness`` (relative L2s) widens the head's bars alike."""
     (loss, logits, grads), (ref_loss, ref_logits, ref_grads) = got, ref
     split = lambda g, head: {n: t for n, t in g.items()
                              if n.startswith("head.") == head}
     head = {n: rel_l2_t(grads[n], t)
             for n, t in split(ref_grads, True).items()}
     logit_err = rel_err(logits, ref_logits)[1]
-    log(f"action: {what}: logits max|d|/max|ref| {logit_err:.3e}; head "
+    log(f"{tag}: {what}: logits max|d|/max|ref| {logit_err:.3e}; head "
         f"gradients by relative L2: "
         + ", ".join(f"{n} {e:.3e}" for n, e in head.items()))
     if witness is None:
         cosine_min, tensor_tol = GRAD_COSINE_MIN, grad_tensor_tol
     else:
-        cosine_min = ACTION_FP32_COSINE_MIN
         tensor_tol = lambda n: max(grad_tensor_tol(n),
                                    WITNESS_MARGIN * witness[n])
-    compare_first_step("action", what + ", backbone", loss,
+    head_tol = grad_tensor_tol if head_witness is None else (
+        lambda n: max(grad_tensor_tol(n), WITNESS_MARGIN * head_witness[n]))
+    compare_first_step(tag, what + ", backbone", loss,
                        split(grads, False), ref_loss, split(ref_grads, False),
                        cosine_min, tensor_tol)
-    over = [(n, e) for n, e in head.items() if not e <= grad_tensor_tol(n)]
+    over = [(n, e) for n, e in head.items() if not e <= head_tol(n)]
     if over or (witness is None and not logit_err <= KERNEL_TOL):
-        fail(f"action: {what}: logits {logit_err:.3e}, head over the bar: "
+        fail(f"{tag}: {what}: logits {logit_err:.3e}, head over the bar: "
              f"{over}")
 
 
@@ -2405,13 +2444,747 @@ def phase_action_all(fp) -> list:
     return [record]
 
 
+# ---------------------------------------------------------------------------
+# phases 24 and 25: the whole-stream kernel (B10)
+# ---------------------------------------------------------------------------
+
+STREAM_REPLACES = "motionbert_tpu/ops/fused_stream.py:309"
+# The stream against its plain version: two chained pairs, so pass 1's
+# rounding flips travel through pass 2 (measured on the card at the phase-3
+# shape, max|d| / max|ref| and relative L2: bf16 8.0e-3 / 2.7e-3 ungated,
+# 1.2e-2 / 4.5e-3 gated; W8A8 9.8e-3 / 5.8e-3 and 1.5e-2 / 7.7e-3; the W8A8
+# card test at F 81 read 2.1e-2 / 5.6e-3): twice a single pair's bars. What
+# holds the rounding points is the bit for bit equality with the pair
+# chain, each pair held to its own bars by phases 3 and 10.
+STREAM_TOL = 2 * KERNEL_TOL
+STREAM_L2_TOL = 2 * BLOCK_L2_TOL
+# the four public functions at the orders the model calls them: the S->T
+# stream ungated, the T->S stream gated (name, gated, q8, order)
+STREAM_VARIANTS = (("fused_stream_block", False, False, ("s", "t")),
+                   ("fused_gated_stream_block", True, False, ("t", "s")),
+                   ("fused_stream_block_q8", False, True, ("s", "t")),
+                   ("fused_gated_stream_block_q8", True, True, ("t", "s")))
+
+
+def stream_modes(order) -> tuple:
+    return tuple("spatial" if a == "s" else "temporal" for a in order)
+
+
+def stream_args(p1: dict, p2: dict, gated: bool) -> list:
+    """x, [other,] pass 1's 12 parameters, pass 2's 12, [wg, bg]."""
+    args = [p1["x"]] + ([p1["other"]] if gated else [])
+    args += [p1[k] for k in PAIR_KEYS] + [p2[k] for k in PAIR_KEYS]
+    return args + ([p1["wg"], p1["bg"]] if gated else [])
+
+
+def stream_chain(pair_fn, gated_fn, p1: dict, p2: dict, gated: bool,
+                 scale: float, order) -> torch.Tensor:
+    """The same stream as two calls of the ported pair wrappers."""
+    m1, m2 = stream_modes(order)
+    mid = pair_fn(p1["x"], *[p1[k] for k in PAIR_KEYS], HEADS, scale, m1)
+    p = [p2[k] for k in PAIR_KEYS]
+    if not gated:
+        return pair_fn(mid, *p, HEADS, scale, m2)
+    return gated_fn(mid, p1["other"], *p, p1["wg"], p1["bg"], HEADS, scale,
+                    m2)
+
+
+def stream_library(p1: dict, p2: dict, gated: bool, scale: float, order,
+                   q8_tier: bool) -> torch.Tensor:
+    """Each pair's PyTorch-operator composition (pair_library, or
+    pair_q8_library in the W8A8 tier), run twice: the yardstick."""
+    lib = pair_q8_library if q8_tier else pair_library
+    m1, m2 = stream_modes(order)
+    mid = lib(p1, False, scale, m1)
+    second = dict(p2, x=mid)
+    if gated:
+        second.update(other=p1["other"], wg=p1["wg"], bg=p1["bg"])
+    return lib(second, gated, scale, m2)
+
+
+def stream_cost(order, gated: bool, q8_tier: bool) -> tuple:
+    """(seconds by operations, bytes) of the stream at the phase-3 shape:
+    the two pairs' operations; x (and other) read once, out written once,
+    both pairs' weights read once (the inter-pair activation is the
+    function's own)."""
+    m1, m2 = stream_modes(order)
+    inner = 2 * B * FRAMES * J * C * 2
+    if q8_tier:
+        (t1, b1, _, _), (t2, b2, _, _) = (pair_q8_cost(m1, False),
+                                          pair_q8_cost(m2, gated))
+        return t1 + t2, b1 + b2 - inner
+    (f1, b1), (f2, b2) = pair_cost(m1, False), pair_cost(m2, gated)
+    return (f1 + f2) / PEAK_BF16_FLOPS, b1 + b2 - inner
+
+
+def phase_stream_kernels(fp, q8, fs) -> list:
+    """B10's four variants at the phase-3 shape against their plain
+    versions (the max-based and the relative-L2 bar), twice for bitwise
+    repeatability, bit for bit against the ported pair chain, with times
+    (one call, and back to back), the chain's times in the same run, the
+    bound, the plain version's time and the library yardstick."""
+    scale = (C // HEADS) ** -0.5
+    dev = torch.device("cuda")
+    records = []
+    for i, (name, gated, q8_tier, order) in enumerate(STREAM_VARIANTS):
+        wrapper = getattr(fs, name)
+        plain = getattr(fs, ("gated_" if gated else "") + "stream_block"
+                        + ("_q8" if q8_tier else "") + "_plain")
+        pair_fn, gated_fn = ((q8.fused_pair_block_q8,
+                              q8.fused_gated_pair_block_q8) if q8_tier else
+                             (fp.fused_pair_block, fp.fused_gated_pair_block))
+        p1 = pair_inputs(30 + i, gated, dev)
+        p2 = pair_inputs(40 + i, False, dev)
+        args = stream_args(p1, p2, gated)
+        call = lambda: wrapper(*args, HEADS, scale, order)
+        chain = lambda: stream_chain(pair_fn, gated_fn, p1, p2, gated, scale,
+                                     order)
+        out = call()
+        torch.cuda.synchronize()
+        bitwise = torch.equal(out, call())
+        equal_chain = torch.equal(out, chain())
+        ref = plain(*args, HEADS, scale, order)
+        if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+            fail(f"{name}: shape {tuple(out.shape)} or non-finite")
+        abs_err, rel = rel_err(out, ref)
+        l2 = rel_l2_t(out, ref)
+        tol, l2_tol = STREAM_TOL, STREAM_L2_TOL
+        lib_rel = rel_err(stream_library(p1, p2, gated, scale, order,
+                                         q8_tier), ref)[1]
+        t_ops, nbytes = stream_cost(order, gated, q8_tier)
+        t_bytes = nbytes / PEAK_HBM_BYTES
+        rec = dict(
+            order="".join(order), max_abs_err=abs_err, rel_err=rel, tol=tol,
+            rel_l2=l2, l2_tol=l2_tol, bitwise_repeatable=bitwise,
+            bitwise_equal_to_pair_chain=equal_chain,
+            ms=time_ms(call), back_to_back_ms=time_ms_back_to_back(call),
+            chain_ms=time_ms(chain),
+            chain_back_to_back_ms=time_ms_back_to_back(chain),
+            plain_ms=time_ms(lambda: plain(*args, HEADS, scale, order),
+                             runs=5, warmup=1),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes > t_ops else "operations",
+            library_ms=time_ms(lambda: stream_library(
+                p1, p2, gated, scale, order, q8_tier)),
+            library_rel_err=lib_rel, mbytes=nbytes / 1e6)
+        log(f"stream kernel {name}: " + json.dumps(rec))
+        if not (rel <= tol and l2 <= l2_tol):
+            fail(f"{name}: max|d|/max|ref| {rel:.3e} (bar {tol}), relative "
+                 f"L2 {l2:.3e} (bar {l2_tol})")
+        if not (bitwise and equal_chain):
+            fail(f"{name}: bitwise repeatable {bitwise}, equal to the pair "
+                 f"chain {equal_chain}")
+        records.append(dict(
+            name=name, route="cuda",
+            source="motionbert_tpu_torch/ops/csrc/stream_kernels.cu",
+            replaces=STREAM_REPLACES, launches=None, max_abs_err=abs_err,
+            ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            shape=[B, FRAMES, J, C], detail=rec))
+        del p1, p2, args, out, ref
+        torch.cuda.empty_cache()
+    return records
+
+
+def stream_counters(fp, q8, fs) -> tuple:
+    return (fs.fused_stream_block, fs.fused_gated_stream_block,
+            fs.fused_stream_block_q8, fs.fused_gated_stream_block_q8,
+            fs.fused_stream_block_bwd, fs.fused_gated_stream_block_bwd,
+            fp.fused_pair_block, fp.fused_gated_pair_block,
+            q8.fused_pair_block_q8, q8.fused_gated_pair_block_q8,
+            fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd)
+
+
+def counted(counters, fn) -> tuple:
+    """fn()'s result and the launches of ``counters`` it made (0 omitted)."""
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {c.__name__: c.launches for c in counters if c.launches}
+
+
+def phase_stream_main_path(fp, q8, fs, records: list) -> None:
+    """The anchor's (8, 243) flip-TTA lift and representation through
+    kernel_stream and kernel_stream_q8, bit for bit equal to kernel and
+    kernel_q8, with launch counts and clips/s side by side; served requests
+    under kernel_stream; a flagship train step under kernel_stream whose
+    gradients equal the pair path's bit for bit."""
+    from motionbert_tpu_torch.api import MotionBERT
+    from motionbert_tpu_torch.core.checkpoint import load_state_dict
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.losses.pose import LAMBDA_KEYS
+    from motionbert_tpu_torch.models.factory import load_backbone
+
+    x = seeded_motion(np.random.RandomState(0), LIFT_BATCH, FRAMES)
+    counters = stream_counters(fp, q8, fs)
+    launches = {}
+    for stream_impl, pair_impl in (("kernel_stream", "kernel"),
+                                   ("kernel_stream_q8", "kernel_q8")):
+        mbs = MotionBERT.from_config(CONFIG, checkpoint=ANCHOR,
+                                     attn_impl=stream_impl)
+        mbp = MotionBERT.from_config(CONFIG, checkpoint=ANCHOR,
+                                     attn_impl=pair_impl)
+        lifted, got = counted(counters, lambda: mbs.lift(x))
+        launches[stream_impl] = got
+        suffix = "_q8" if stream_impl.endswith("q8") else ""
+        expect = {f"fused_stream_block{suffix}": 10,
+                  f"fused_gated_stream_block{suffix}": 10}
+        log(f"stream main: {stream_impl}: launches in one flip-TTA lift "
+            f"({LIFT_BATCH}, {FRAMES}): {json.dumps(got)}")
+        if got != expect:
+            fail(f"{stream_impl} lift launched {got}, expected {expect}")
+        same = (np.array_equal(lifted, mbp.lift(x)),
+                np.array_equal(mbs.get_representation(x),
+                               mbp.get_representation(x)))
+        times = {stream_impl: [], pair_impl: []}
+        for mb, impl in ((mbp, pair_impl), (mbs, stream_impl),
+                         (mbs, stream_impl), (mbp, pair_impl)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mb.lift(x)
+            times[impl].append(time.perf_counter() - t0)
+        log(f"stream main: {stream_impl} vs {pair_impl}: lift and "
+            f"representation bitwise equal {same}; clips/s (calls in turns "
+            f"pair, stream, stream, pair): " + json.dumps(
+                {k: [round(LIFT_BATCH / t, 3) for t in v]
+                 for k, v in times.items()}))
+        if not all(same):
+            fail(f"{stream_impl} differs from {pair_impl}: {same}")
+        del mbs, mbp
+        torch.cuda.empty_cache()
+    for rec in records:
+        impl = "kernel_stream_q8" if rec["name"].endswith("q8") \
+            else "kernel_stream"
+        rec["launches"] = launches[impl][rec["name"]]
+
+    phase_serving(n_requests=8, tag="stream serving",
+                  attn_impl="kernel_stream")
+
+    args = get_config(TRAIN_CONFIG)
+    lambdas = {k: args.get(k, 0.0) for k in LAMBDA_KEYS}
+    sd = load_state_dict(ANCHOR)
+    xb, yb = train_batch(TRAIN_BATCH)
+    results = {}
+    for impl in ("kernel_stream", "kernel"):
+        model = load_backbone(args, device="cuda", attn_impl=impl)
+        model.load_state_dict(sd, strict=True)
+        results[impl] = counted(counters, lambda: loss_and_grads(
+            model, xb, yb, lambdas))
+        del model
+    (loss_s, grads_s), got = results["kernel_stream"]
+    (loss_p, grads_p), _ = results["kernel"]
+    equal = loss_s == loss_p and all(torch.equal(grads_s[k], grads_p[k])
+                                     for k in grads_p)
+    expect = {"fused_stream_block": 5, "fused_gated_stream_block": 5,
+              "fused_stream_block_bwd": 5, "fused_gated_stream_block_bwd": 5,
+              "fused_pair_block_bwd": 15, "fused_gated_pair_block_bwd": 5}
+    log(f"stream main: train step ({TRAIN_BATCH}, {FRAMES}) under "
+        f"kernel_stream: launches {json.dumps(got)}; loss and every "
+        f"gradient bitwise equal to the pair path's: {equal}")
+    if got != expect or not equal:
+        fail(f"stream train step: launches {got} (expected {expect}), "
+             f"bitwise equal {equal}")
+    for rec in records:
+        rec["launches_train"] = got.get(rec["name"], 0)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 26 and 27: human mesh recovery
+# ---------------------------------------------------------------------------
+
+MESH_CONFIG = os.path.join(ROOT, "configs", "mesh", "MB_train_h36m.yaml")
+MESH_SMOKE_CONFIG = os.path.join(ROOT, "configs", "mesh",
+                                 "MB_train_synth_smoke.yaml")
+MESH_VERTS = 6890       # the real SMPL vertex count; the values are seeded
+MESH_STEPS = 5
+MESH_HEAD_BATCH = 32    # the training-mode head on the CPU: clips x 16 frames
+
+
+def mesh_batch(smpl, n: int, frames: int, seed: int) -> tuple:
+    """(x (n, frames, 17, 3), ground truth {theta, kp_3d, verts}) on the
+    card: seeded keypoints, SMPL parameters and their root-relative mesh in
+    mm from the card's SMPL forward."""
+    from motionbert_tpu_torch.models.smpl import smpl_forward
+
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(seeded_motion(rs, n, frames)).cuda()
+    pose = torch.from_numpy(rs.normal(0, 0.3, (n, frames, 72)).astype(
+        np.float32)).cuda()
+    shape = torch.from_numpy(rs.normal(0, 1, (n, frames, 10)).astype(
+        np.float32)).cuda()
+    with torch.no_grad():
+        verts = smpl_forward(smpl, shape.reshape(-1, 10), pose.reshape(
+            -1, 72))["vertices"] * 1000.0
+        kp = torch.einsum("jv,bvc->bjc", smpl.J_regressor_h36m, verts)
+    gt = {"theta": torch.cat([pose, shape], -1),
+          "kp_3d": (kp - kp[:, :1]).reshape(n, frames, 17, 3),
+          "verts": (verts - kp[:, :1]).reshape(n, frames, -1, 3)}
+    return x, gt
+
+
+def mesh_first_step(model, x, gt, lambdas, seed: int) -> tuple:
+    """The mesh loss, fp32 kp_3d and gradients of one training-mode step
+    without the update: the head's dropout from a generator seeded with
+    ``seed``, its BatchNorms on their running statistics."""
+    from motionbert_tpu_torch.losses.mesh import mesh_total_loss
+
+    model.train()
+    model.head.bn1.eval()
+    model.head.bn2.eval()
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = model(x, generator=gen)
+    loss = mesh_total_loss(out, gt, lambdas)[0]
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    model.train()
+    return loss.item(), out["kp_3d"].detach(), grads
+
+
+# The mesh loss at initialisation is far more sensitive to rounding than
+# the pose3d loss: its velocity term differentiates frame differences of the
+# regressed joints, so its gradient reaches a weight as a sum over frames of
+# alternating terms, which cancel where the frames' activations are alike
+# (the temporal attention makes them so at initialisation), and the head
+# turns the representation into rotations and a mesh. On the card at batch
+# 4 the bf16 plain path read a backbone gradient cosine of 0.9915 against
+# the fp32 plain path, and the kernels 0.9905 against the bf16 plain path;
+# with the velocity term weighted 0, 0.9978 and 0.9980 (phase 8's bar is
+# 0.999). So the kernels are held twice: at the mesh step's shape with a
+# well-conditioned loss (the representation's square distance from a fixed
+# random tensor) against the bf16 plain backbone at phase 8's bars
+# (mesh_backbone_check),
+# and through the config's mesh loss by the witness rule against both plain
+# paths: gradient cosine >= 1 - WITNESS_MARGIN x (1 - the witness's), capped
+# at ACTION_FP32_COSINE_MIN, and each tensor to the larger of phase 8's bar
+# and WITNESS_MARGIN x the witness's largest distance among the tensors that
+# phase 8 holds to the same bar (the head's by relative L2). One tensor's
+# own witness is too noisy a bar here: at 128 x 16 the kernels read 0.236 on
+# blocks_st.2.norm2_s.weight against the bf16 plain path where the witness
+# read less than half that on it, and 0.22 on other tensors.
+
+
+def witness_by_kind(witness: dict) -> dict:
+    """Each tensor's witness replaced by the largest among the tensors that
+    phase 8 holds to the same bar (grad_tensor_tol)."""
+    top = {}
+    for n, e in witness.items():
+        top[grad_tensor_tol(n)] = max(top.get(grad_tensor_tol(n), 0.0), e)
+    return {n: top[grad_tensor_tol(n)] for n in witness}
+
+
+def mesh_first_steps(args, model, smpl, lambdas) -> None:
+    """The kernels' first step through the config's mesh loss against the
+    bf16 and the fp32 plain path at batch REF_BATCH and at the config's
+    batch, by the witness rule (compare_action_step: the 17 regressed joints
+    in place of the logits)."""
+    from motionbert_tpu_torch.train.mesh import build_mesh_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    body = lambda g: {k: t for k, t in g.items() if not k.startswith("head.")}
+    for n in (REF_BATCH, args.batch_size):
+        x, gt = mesh_batch(smpl, n, args.clip_len, 80)
+        got = mesh_first_step(model, x, gt, lambdas, 81)
+        refs = []
+        for dtype in (torch.bfloat16, torch.float32):
+            ref = build_mesh_model(args, smpl, device="cuda",
+                                   attn_impl="plain", dtype=dtype)
+            ref.load_state_dict(model.state_dict(), strict=True)
+            refs.append(mesh_first_step(ref, x, gt, lambdas, 81))
+            del ref
+            torch.cuda.empty_cache()
+        bf, fp32 = refs
+        what = (f"first step, batch {n} x {args.clip_len} frames, the same "
+                f"dropout masks, BatchNorm on its running statistics")
+        witness = {k: rel_err(t, fp32[2][k])[1]
+                   for k, t in body(bf[2]).items()}
+        head_witness = witness_by_kind(
+            {k: rel_l2_t(t, fp32[2][k])
+             for k, t in bf[2].items() if k.startswith("head.")})
+        wcos = grad_cosine(body(bf[2]), body(fp32[2]))
+        cos_min = min(ACTION_FP32_COSINE_MIN,
+                      1.0 - WITNESS_MARGIN * (1.0 - wcos))
+        log(f"mesh: {what}: bf16 plain path against the fp32 plain path "
+            f"(the witness): loss rel "
+            f"{abs(bf[0] - fp32[0]) / abs(fp32[0]):.3e}, backbone gradient "
+            f"cosine {wcos:.6f}, kp_3d max|d|/max|ref| "
+            f"{rel_err(bf[1], fp32[1])[1]:.3e}; worst tensors "
+            + ", ".join(f"{k} {e:.3e}" for k, e in sorted(
+                witness.items(), key=lambda kv: -kv[1])[:8]))
+        for ref, name in ((bf, "bf16"), (fp32, "fp32")):
+            compare_action_step(
+                f"{what}, against the {name} plain path", got, ref,
+                witness_by_kind(witness), tag="mesh", cosine_min=cos_min,
+                head_witness=head_witness)
+        del got, refs, bf, fp32
+        torch.cuda.empty_cache()
+
+
+def mesh_backbone_check(args, model, n: int) -> None:
+    """The backbone at the mesh step's shape (n x clip_len frames) through
+    the kernels against the bf16 plain backbone, in training mode, on a
+    well-conditioned loss (the mean square distance of its representation
+    from a fixed seeded tensor): phase 8's bars."""
+    from motionbert_tpu_torch.models.factory import load_backbone
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(85)
+    x = torch.from_numpy(seeded_motion(rs, n, args.clip_len)).cuda()
+    w = torch.from_numpy(rs.normal(size=(n, args.clip_len, 17, args.dim_rep))
+                         .astype(np.float32)).cuda()
+
+    def loss_and_grads(bb):
+        bb.train()
+        bb.zero_grad(set_to_none=True)
+        loss = (bb(x, return_rep=True).float() - w).square().mean()
+        loss.backward()
+        grads = {k: p.grad.detach().float().clone()
+                 for k, p in bb.named_parameters() if p.grad is not None}
+        bb.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    loss, grads = loss_and_grads(model.backbone)
+    ref = load_backbone(args, dtype=torch.bfloat16, device="cuda",
+                        attn_impl="plain")
+    ref.load_state_dict(model.backbone.state_dict(), strict=True)
+    ref_loss, ref_grads = loss_and_grads(ref)
+    del ref
+    torch.cuda.empty_cache()
+    compare_first_step("mesh", f"backbone at the mesh step's shape, batch {n} "
+                       f"x {args.clip_len} frames, the square distance of its "
+                       f"representation from a fixed random tensor, against "
+                       f"the bf16 plain backbone", loss, grads, ref_loss,
+                       ref_grads)
+
+
+def mesh_head_check(model, smpl, lambdas, frames: int) -> None:
+    """The SMPL head as the timed steps run it, in training mode
+    (BatchNorms on the batch's statistics, updating their running averages),
+    on the card against a copy on the CPU, fp32 both, on the kernels'
+    representation and without dropout: outputs, the gradients of the head
+    and of its input, the running statistics after, each by max|d| /
+    max|CPU|, and fc1's / fc2's bias gradients against their BatchNorm
+    bias's, to HEAD_TOL."""
+    from motionbert_tpu_torch.losses.mesh import mesh_total_loss
+
+    x, gt = mesh_batch(smpl, MESH_HEAD_BATCH, frames, 82)
+    N, T = x.shape[:2]
+    with torch.no_grad():
+        feat = model.backbone(x, return_rep=True).reshape(N, T, 17, -1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        head = copy.deepcopy(model.head).to(dev).train()
+        leaf = feat.float().detach().to(dev).requires_grad_()
+        res = head(leaf)
+        res = {k: v.reshape(N, T, *v.shape[1:]) for k, v in res.items()}
+        mesh_total_loss(res, {k: v.to(dev) for k, v in gt.items()},
+                        lambdas)[0].backward()
+        t = {k: v.detach() for k, v in res.items()}
+        t["d feat"] = leaf.grad
+        t.update({f"d {n}": p.grad for n, p in head.named_parameters()})
+        for bn in ("bn1", "bn2"):
+            t.update({f"{bn}.{b}": getattr(getattr(head, bn), b)
+                      for b in ("running_mean", "running_var")})
+        out[dev] = {k: v.detach().cpu().float() for k, v in t.items()}
+    card, cpu = out["cuda"], out["cpu"]
+    vanishing = {"d fc1.bias": "d bn1.bias", "d fc2.bias": "d bn2.bias"}
+    errs = {k: rel_err(card[k], cpu[k])[1] for k in cpu if k not in vanishing}
+    norm = lambda t: torch.linalg.norm(t).item()
+    vanish = {k: max(norm(card[k]), norm(cpu[k])) / norm(cpu[b])
+              for k, b in vanishing.items()}
+    log(f"mesh: head in training mode, {N} x {T} frames, card against CPU "
+        f"(fp32): " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + "; " + ", ".join(f"{k} |g| / |g bn bias| {v:.3e}"
+                          for k, v in vanish.items()))
+    over = {k: e for k, e in errs.items() if not e <= HEAD_TOL}
+    if over or not all(v <= HEAD_TOL for v in vanish.values()):
+        fail(f"mesh: the head in training mode disagrees between card and "
+             f"CPU: {over}, {vanish}")
+
+
+def smpl_share(smpl, n_frames: int, step_ms: float) -> None:
+    """The SMPL layer's forward and backward at the step's frame count,
+    timed alone with CUDA events (median of 5), against the step's time."""
+    from motionbert_tpu_torch.geometry.rotations import rot6d_to_rotmat
+    from motionbert_tpu_torch.models.smpl import smpl_forward
+
+    rs = np.random.RandomState(83)
+    six = torch.from_numpy(rs.normal(size=(n_frames, 24, 6)).astype(
+        np.float32)).cuda().requires_grad_()
+    betas = torch.from_numpy(rs.normal(size=(n_frames, 10)).astype(
+        np.float32)).cuda().requires_grad_()
+
+    def fwd_bwd():
+        v = smpl_forward(smpl, betas, rot6d_to_rotmat(six),
+                         pose2rot=False)["vertices"]
+        v.square().mean().backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(fwd_bwd, runs=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"mesh: SMPL forward + backward alone, {n_frames} frames x "
+        f"{smpl.num_verts} vertices: {ms:.3f} ms, {100 * ms / step_ms:.1f}% "
+        f"of the {step_ms:.2f} ms step; peak memory {peak / 2**30:.3f} GiB")
+
+
+def phase_mesh(fp, fs) -> None:
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.losses.mesh import LAMBDA_KEYS
+    from motionbert_tpu_torch.models.smpl import SMPLModel
+    from motionbert_tpu_torch.train.mesh import (
+        build_mesh_model, make_mesh_eval_step, make_mesh_train_step)
+    from motionbert_tpu_torch.train.state import make_two_group_adamw
+
+    args = get_config(MESH_CONFIG)
+    lambdas = {k: args[k] for k in LAMBDA_KEYS}
+    smpl = SMPLModel.synthetic(num_verts=MESH_VERTS, seed=0).cuda()
+    model = build_mesh_model(args, smpl, device="cuda")
+    model.init_weights(torch.Generator().manual_seed(0))
+    log(f"mesh: {os.path.basename(MESH_CONFIG)} dim {args.dim_feat} depth "
+        f"{args.depth} heads {args.num_heads}, hidden {args.hidden_dim}, "
+        f"dropout {args.dropout}, clip {args.clip_len}, batch "
+        f"{args.batch_size}, a seeded {smpl.num_verts}-vertex body model; "
+        f"backbone {model.backbone.compute_dtype}, head and SMPL fp32")
+
+    mesh_backbone_check(args, model, args.batch_size)
+    mesh_first_steps(args, model, smpl, lambdas)
+    mesh_head_check(model, smpl, lambdas, args.clip_len)
+
+    x, gt = mesh_batch(smpl, args.batch_size, args.clip_len, 84)
+    opt = make_two_group_adamw(model, args.lr_backbone, args.lr_head,
+                               args.weight_decay)
+    step = make_mesh_train_step(model, opt, lambdas,
+                                args.get("loss_type", "L1"),
+                                torch.Generator(device="cuda").manual_seed(0))
+    counters = (fp.fused_pair_block, fp.fused_gated_pair_block,
+                fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd)
+    for c in counters:
+        c.launches = 0
+    terms = [step(x, gt)]                      # warms the allocator up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    terms += [step(x, gt) for _ in range(MESH_STEPS - 1)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (MESH_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {c.__name__: c.launches / MESH_STEPS for c in counters}
+    losses = [t["total"].item() for t in terms]
+    bn = model.head.bn1
+    log(f"mesh: ({args.batch_size}, {args.clip_len}, 17, 3) two-group AdamW "
+        f"steps: {dt * 1e3:.2f} ms per step, {args.batch_size / dt:.3f} "
+        f"clips/s ({args.batch_size * args.clip_len / dt:.1f} frames/s), "
+        f"peak memory {peak / 2**30:.3f} GiB; launches per step "
+        f"{json.dumps(per_step)}; losses " + " ".join(
+            f"{v:.4f}" for v in losses) + "; mpjpe " + " ".join(
+            f"{t['mpjpe'].item():.2f}" for t in terms) + "; mpve " + " ".join(
+            f"{t['mpve'].item():.2f}" for t in terms) + f"; bn1 running mean "
+        f"|.| {bn.running_mean.abs().mean().item():.4e}, batches "
+        f"{bn.num_batches_tracked.item()}")
+    expect = {"fused_pair_block": 15, "fused_gated_pair_block": 5,
+              "fused_pair_block_bwd": 15, "fused_gated_pair_block_bwd": 5}
+    if per_step != expect:
+        fail(f"mesh step launched {per_step}, expected {expect}")
+    if not np.isfinite(losses).all():
+        fail(f"mesh: non-finite losses {losses}")
+    if not (torch.isfinite(bn.running_mean).all()
+            and bn.running_mean.abs().sum() > 0
+            and bn.num_batches_tracked.item() == MESH_STEPS):
+        fail("mesh: BatchNorm statistics not finite or not moved")
+    smpl_share(smpl, args.batch_size * args.clip_len, dt * 1e3)
+    profile_step("mesh profile", step, x, gt)
+    del opt, step
+    torch.cuda.empty_cache()
+
+    # flip-TTA evaluation through the pair kernels and the stream kernels
+    stream = build_mesh_model(args, smpl, device="cuda",
+                              attn_impl="kernel_stream")
+    stream.load_state_dict(model.state_dict(), strict=True)
+    scounters = (fs.fused_stream_block, fs.fused_gated_stream_block,
+                 fp.fused_pair_block, fp.fused_gated_pair_block)
+    outs = {}
+    for tag, m in (("kernel", model), ("kernel_stream", stream)):
+        ev = make_mesh_eval_step(m, flip_tta=True)
+        outs[tag], got = counted(scounters, lambda: ev(x))
+        t = time_ms(lambda: ev(x), runs=3, warmup=1)
+        log(f"mesh: flip-TTA eval step ({args.batch_size}, {args.clip_len}) "
+            f"through {tag}: {t:.2f} ms, {args.batch_size / t * 1e3:.2f} "
+            f"clips/s; launches {json.dumps(got)}")
+    same = {k: torch.equal(outs["kernel"][k], outs["kernel_stream"][k])
+            for k in outs["kernel"]}
+    log(f"mesh: flip-TTA eval, stream against pair kernels, bitwise equal: "
+        f"{same}")
+    if not all(same.values()) or not all(
+            torch.isfinite(v).all() for v in outs["kernel"].values()):
+        fail(f"mesh: eval outputs differ or non-finite: {same}")
+    del model, stream, outs
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_drivers(fp, fs) -> None:
+    """train.mesh.train_with_config on the synthetic mesh set at the
+    flagship widths, 2 epochs then a resumed third; the wild-mesh command
+    line on a seeded Halpe-26 JSON with --attn_impl pallas_stream."""
+    import yaml
+
+    from motionbert_tpu_torch.core.checkpoint import load_checkpoint
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.infer import wild_mesh
+    from motionbert_tpu_torch.train import mesh
+
+    # the flagship's widths and maxlen: the wild command line takes clips
+    # of 243 frames
+    flagship = dict(dim_feat=512, dim_rep=512, num_heads=8, depth=5,
+                    mlp_ratio=2, hidden_dim=1024, maxlen=243)
+
+    def mesh_args(epochs):
+        args = get_config(MESH_SMOKE_CONFIG)
+        args.update(flagship, epochs=epochs)
+        args.data_root = os.path.join(ROOT, args.data_root)
+        args.smpl_model_path = os.path.join(ROOT, args.smpl_model_path)
+        return args
+
+    counters = (fp.fused_pair_block, fp.fused_gated_pair_block,
+                fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd,
+                fs.fused_stream_block, fs.fused_gated_stream_block)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ck")
+        opts = lambda: types.SimpleNamespace(
+            checkpoint=ckpt, pretrained="", resume="", evaluate="",
+            selection="", seed=0, print_freq=100)
+        t0 = time.perf_counter()
+        first, got = counted(counters, lambda: mesh.train_with_config(
+            mesh_args(2), opts()))
+        t1 = time.perf_counter()
+        resumed = mesh.train_with_config(mesh_args(3), opts())
+        t2 = time.perf_counter()
+        roles = sorted(os.listdir(ckpt))
+        latest = load_checkpoint(os.path.join(ckpt, "latest_epoch.ckpt"))
+        hist = first["history"] + resumed["history"]
+        log("mesh driver: " + json.dumps(hist))
+        log(f"mesh driver: 2 epochs in {t1 - t0:.2f} s, resumed third in "
+            f"{t2 - t1:.2f} s; files {roles}; launches in the first run "
+            f"{json.dumps(got)}")
+        if [h["epoch"] for h in hist] != [0, 1, 2] or latest["epoch"] != 3:
+            fail(f"mesh driver: epochs {[h['epoch'] for h in hist]}, latest "
+                 f"{latest['epoch']}")
+        if not all(np.isfinite([h["loss"], h["pw3d_mpjpe"]]).all()
+                   for h in hist):
+            fail("mesh driver: non-finite loss or error")
+        if not (got.get("fused_pair_block_bwd") and got.get("fused_pair_block")):
+            fail(f"mesh driver: the pair kernels were not launched: {got}")
+
+        json_path = os.path.join(tmp, "alphapose-results.json")
+        frames = (300, 100)
+        write_wild_json(json_path, frames)
+        cfg = os.path.join(tmp, "mesh_flagship.yaml")
+        with open(cfg, "w") as f:
+            yaml.safe_dump(dict(mesh_args(1)), f)
+        out_dir = os.path.join(tmp, "wild")
+        t0 = time.perf_counter()
+        verts, got = counted(counters, lambda: wild_mesh.main(
+            ["--config", cfg, "-j", json_path, "-o", out_dir, "--focus", "0",
+             "--attn_impl", "pallas_stream"]))
+        dt = time.perf_counter() - t0
+        saved = np.load(os.path.join(out_dir, "mesh_verts.npy"))
+        log(f"wild mesh: {frames[0]} frames of person 0 in {dt:.2f} s -> "
+            f"mesh_verts.npy {saved.shape}; launches {json.dumps(got)}")
+        if verts.shape[0] != frames[0] or not np.isfinite(verts).all() \
+                or not np.array_equal(saved, verts):
+            fail(f"wild mesh: {verts.shape}, or mesh_verts.npy differs")
+        if not (got.get("fused_stream_block") and got.get(
+                "fused_gated_stream_block")) or got.get("fused_pair_block"):
+            fail(f"wild mesh: launched {got}, not the stream kernels")
+
+
+# ---------------------------------------------------------------------------
+# --baseline: the pair chains of another checkout, bit for bit
+# ---------------------------------------------------------------------------
+
+def phase_baseline(fp, q8, other_root: str) -> None:
+    """Build another checkout's pair_kernels.cu and pair_q8_kernels.cu (the
+    parent's, say) with this one's nvcc flags, and hold this checkout's pair
+    and W8A8 pair outputs, plain and gated, temporal and spatial, against
+    them bit for bit, through the same wrappers."""
+    import ctypes
+
+    from motionbert_tpu_torch.ops import _build
+
+    csrc = os.path.join(other_root, "motionbert_tpu_torch", "ops", "csrc")
+    scale = (C // HEADS) ** -0.5
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {}
+        for name in ("pair_kernels", "pair_q8_kernels"):
+            so = os.path.join(tmp, f"{name}.so")
+            out = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                                  os.path.join(csrc, f"{name}.cu")],
+                                 capture_output=True, text=True, timeout=600)
+            if out.returncode != 0:
+                fail(f"baseline: nvcc failed for {name}.cu:\n{out.stdout}"
+                     f"{out.stderr}")
+            libs[name] = ctypes.CDLL(so)
+        results = {}
+        for name, module, wrapper in (
+                ("pair_kernels", fp, fp.fused_pair_block),
+                ("pair_kernels", fp, fp.fused_gated_pair_block),
+                ("pair_q8_kernels", q8, q8.fused_pair_block_q8),
+                ("pair_q8_kernels", q8, q8.fused_gated_pair_block_q8)):
+            gated = "gated" in wrapper.__name__
+            for mode in ("temporal", "spatial"):
+                p = pair_inputs(50, gated, dev)
+                args = pair_args(p, gated)
+                ours = wrapper(*args, HEADS, scale, mode)
+                module._library()          # argtypes set on our library
+                fn_name = "mbt_pair_block_q8" if module is q8 \
+                    else "mbt_pair_block"
+                theirs_lib = libs[name]
+                getattr(theirs_lib, fn_name).argtypes = getattr(
+                    module._library(), fn_name).argtypes
+                getattr(theirs_lib, fn_name).restype = ctypes.c_int
+                saved = _build._libs[name]
+                _build._libs[name] = theirs_lib
+                try:
+                    theirs = wrapper(*args, HEADS, scale, mode)
+                finally:
+                    _build._libs[name] = saved
+                results[f"{wrapper.__name__}/{mode}"] = torch.equal(ours,
+                                                                    theirs)
+    log(f"baseline ({other_root}): this checkout's pair outputs bitwise "
+        f"equal to the other build's: {json.dumps(results)}")
+    if not all(results.values()):
+        fail(f"baseline: outputs differ: {results}")
+
+
+def phase_mesh_all(fp, q8) -> list:
+    from motionbert_tpu_torch.ops import fused_stream as fs
+
+    records = timed("stream kernels", phase_stream_kernels, fp, q8, fs)
+    timed("stream main path", phase_stream_main_path, fp, q8, fs, records)
+    timed("mesh", phase_mesh, fp, fs)
+    timed("mesh drivers", phase_mesh_drivers, fp, fs)
+    return records
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", choices=("all", "q8", "blocks", "action"),
+    parser.add_argument("--phases",
+                        choices=("all", "q8", "blocks", "action", "mesh"),
                         default="all",
                         help="q8: only phases 1, 2 and 10-15; blocks: only "
                              "phases 1, 2 and 16-19; action: only phases 1, "
-                             "2 and 20-23; none of them prints the last line")
+                             "2 and 20-23; mesh: only phases 1, 2 and 24-27; "
+                             "none of them prints the last line")
+    parser.add_argument("--baseline", default=None, metavar="ROOT",
+                        help="another checkout (the parent's, say): after the "
+                             "build, hold this checkout's pair and W8A8 pair "
+                             "outputs against that checkout's build, bit for "
+                             "bit")
     opts = parser.parse_args()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2436,6 +3209,15 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
+
+    if opts.baseline:
+        timed("baseline", phase_baseline, fp, q8, opts.baseline)
+
+    if opts.phases == "mesh":
+        log(json.dumps({"kernels": phase_mesh_all(fp, q8)}))
+        log(f"device: {smi}")
+        log("partial run (--phases mesh): no result line")
+        return 0
 
     if opts.phases == "q8":
         log(json.dumps({"kernels": timed("q8", phase_q8, q8, fp)}))
@@ -2467,6 +3249,7 @@ def main() -> int:
     timed("driver", phase_driver)
     records += bwd_records + phase_blocks(fp) + q8_records
     records += phase_action_all(fp)
+    records += phase_mesh_all(fp, q8)
 
     log(json.dumps({"kernels": records}))
     log(f"device: {smi}")

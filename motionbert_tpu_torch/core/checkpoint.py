@@ -11,10 +11,10 @@ Four formats are read, chosen by file name and content:
   port's own checkpoint (``CheckpointManager`` below);
 - anything else: a JAX package checkpoint, a pickle of numpy params
   (``motionbert_tpu/core/checkpoint.py``), read without importing jax; its
-  params cross over, and the BatchNorm statistics of an action checkpoint
-  (``batch_stats``, in ``extra_vars`` or beside ``params``) become the
-  ``running_mean`` / ``running_var`` buffers; its optax state does not map
-  onto torch's.
+  params cross over, and the BatchNorm statistics of an action or mesh
+  checkpoint (``batch_stats``, in ``extra_vars`` or beside ``params``)
+  become the ``running_mean`` / ``running_var`` buffers; its optax state
+  does not map onto torch's.
 
 ``CheckpointManager`` keeps the reference's file roles (train.py:46-54,
 364-374): ``latest_epoch.ckpt`` every epoch, ``epoch_{n}.ckpt`` every

@@ -1,8 +1,10 @@
-"""The H36M dataset reader: normalised, clip-sliced 2D inputs and 3D labels.
+"""The H36M and mesh dataset readers: normalised, clip-sliced 2D inputs
+and 3D labels.
 
 The port's own copy of ``motionbert_tpu/data/readers.py``'s
-``DataReaderH36M`` (reference datareader_h36m.py): the same normalisation,
-clip slicing and denormalisation, vectorised over frames. numpy on the host.
+``DataReaderH36M`` (reference datareader_h36m.py) and ``DataReaderMesh``
+(reference datareader_mesh.py): the same normalisation, clip slicing and
+denormalisation, vectorised over frames. numpy on the host.
 """
 
 from __future__ import annotations
@@ -152,3 +154,57 @@ class DataReaderH36M:
         data[..., 1] = (data[..., 1] + h / w) * w / 2
         data[..., 2] = data[..., 2] * w / 2
         return data
+
+
+class DataReaderMesh:
+    """Reader of the mesh pickles, with a fixed resolution per dataset
+    (reference datareader_mesh.py:7-57: COCO 640 x 640, 3DPW 1920 x 1920):
+    read_2d, get_split_id; the SMPL parameters stay in ``dt_dataset``."""
+
+    def __init__(self, n_frames, sample_stride, data_stride_train,
+                 data_stride_test, read_confidence=True, dt_root="data/mesh",
+                 dt_file="mesh_det_h36m.pkl", res=(640, 640)):
+        self.split_id_train = None
+        self.split_id_test = None
+        self.dt_dataset = read_pkl(f"{dt_root}/{dt_file}")
+        self.n_frames = n_frames
+        self.sample_stride = sample_stride
+        self.data_stride_train = data_stride_train
+        self.data_stride_test = data_stride_test
+        self.read_confidence = read_confidence
+        self.res = res
+
+    def read_2d(self):
+        """Pixels -> [-1, 1] by the resolution's width, y offset by
+        height / width; the confidences as a third channel."""
+        ss = self.sample_stride
+        res_w, res_h = self.res
+        offset = np.array([1, res_h / res_w])
+        out = []
+        for split in ("train", "test"):
+            d = self.dt_dataset[split]
+            xy = d["joint_2d"][::ss, :, :2].astype(np.float32) / res_w * 2 \
+                - offset
+            if self.read_confidence:
+                conf = d["confidence"][::ss].astype(np.float32)
+                if conf.ndim == 2:
+                    conf = conf[:, :, None]
+                xy = np.concatenate([xy, conf], axis=2)
+            out.append(xy.astype(np.float32))
+        return tuple(out)
+
+    def get_split_id(self):
+        """Clip index lists of the train and test splits, with split_clips'
+        tail resampling pinned to RandomState(0) as in DataReaderH36M (mesh
+        sources such as 3DPW and COCO do have videos shorter than a clip)."""
+        if self.split_id_train is None:
+            ss = self.sample_stride
+            self.split_id_train = split_clips(
+                self.dt_dataset["train"]["source"][::ss], self.n_frames,
+                data_stride=self.data_stride_train,
+                rng=np.random.RandomState(0))
+            self.split_id_test = split_clips(
+                self.dt_dataset["test"]["source"][::ss], self.n_frames,
+                data_stride=self.data_stride_test,
+                rng=np.random.RandomState(0))
+        return self.split_id_train, self.split_id_test

@@ -57,6 +57,13 @@ def flip_data(data: torch.Tensor) -> torch.Tensor:
     return flipped.index_select(-2, perm)
 
 
+def flip_data_np(data) -> np.ndarray:
+    """The numpy twin of ``flip_data``, for the data loaders."""
+    flipped = np.array(data, copy=True)
+    flipped[..., 0] *= -1
+    return flipped[..., H36M_FLIP_PERM, :]
+
+
 def _remap_matrix(rows: dict, num_src: int) -> np.ndarray:
     """A (17, num_src) mixing matrix from {h36m joint: [(source joint,
     weight), ...]}."""

@@ -1,0 +1,172 @@
+"""In-the-wild human mesh recovery, with its command line:
+
+    python -m motionbert_tpu_torch.infer.wild_mesh \\
+        --config configs/mesh/MB_ft_pw3d.yaml -e best_epoch.bin \\
+        -j alphapose-results.json -o out_dir \\
+        [--pixel --vid_size W H] [--focus ID] [--clip_len 243] \\
+        [--ref_3d_motion_path X3D.npy] [--attn_impl pallas_stream] [--device cpu]
+
+The port of ``motionbert_tpu/infer/wild_mesh.py`` and the root
+``infer_wild_mesh.py`` (reference infer_wild_mesh.py). AlphaPose JSON ->
+halpe2h36m -> normalise -> consecutive ``clip_len`` windows ->
+MeshRegressor with flip averaging in SMPL theta space (the mesh eval step)
+-> optionally the global trajectory: a scale fitted by grid search and
+least squares (scipy) between the regressed joints and a reference 3D
+motion, which places each frame's root -> ``mesh_verts.npy`` (T, V, 3), mm.
+Runs on the card unless ``--device cpu`` is given.
+
+Not ported yet: the mp4 rendering of ``viz/render.py`` (ROADMAP A.4), so
+``render=True`` raises and the command line does not render; and reading a
+video's size and frame rate, so the size is given as ``--vid_size W H``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def err(p, x, y) -> float:
+    """Mean distance between scale p[0] times x plus offset p[1:] and y."""
+    return np.linalg.norm(p[0] * x + np.array([p[1], p[2], p[3]]) - y,
+                          axis=-1).mean()
+
+
+def solve_scale(x: np.ndarray, y: np.ndarray) -> float:
+    """The scale that aligns x to y best, from least-squares fits of scale
+    and offset started at 0, 5, ..., 1995 (reference
+    infer_wild_mesh.py:45-56)."""
+    from scipy.optimize import least_squares
+
+    print("Estimating camera transformation.")
+    best_res, best_scale = 1e5, None
+    for init_scale in range(0, 2000, 5):
+        est = least_squares(err, [init_scale, 0.0, 0.0, 0.0],
+                            args=(x.reshape(-1, 3), y.reshape(-1, 3)))
+        res = float(est["fun"][0])
+        if res < best_res:
+            best_res, best_scale = res, est["x"][0]
+    print("Pose matching error = %.2f mm." % best_res)
+    return best_scale
+
+
+def run_wild_mesh(args, *, json_path: str, out_path: str, model,
+                  vid_size=None, pixel: bool = False,
+                  focus: Optional[int] = None, clip_len: int = 243,
+                  ref_3d_motion_path: Optional[str] = None,
+                  render: bool = False) -> tuple:
+    """(vertices (T, V, 3), regressed H36M joints (T, 17, 3)) of the
+    detections in ``json_path``, in mm, the vertices also written to
+    ``out_path``/mesh_verts.npy.
+
+    args: the config (infer_batch_size). model: the MeshRegressor, weights
+    loaded, on the device to run on. vid_size: (w, h) of the source video;
+    needed with ``pixel``. ref_3d_motion_path: an (T, 17, 3) 3D motion
+    (``X3D.npy`` of the wild pose CLI) whose root trajectory, scaled to the
+    mesh, places the vertices."""
+    from motionbert_tpu_torch.data.dataset_wild import WildDetDataset
+    from motionbert_tpu_torch.infer.batching import run_batched
+    from motionbert_tpu_torch.train.mesh import make_mesh_eval_step
+
+    if render:
+        raise NotImplementedError(
+            "rendering mesh.mp4 needs viz/render.py, which is not ported yet "
+            "(ROADMAP A.4); call with render=False")
+    if pixel and not vid_size:
+        raise ValueError("pixel=True needs vid_size (w, h): pixel-space "
+                         "input needs the video's resolution")
+    os.makedirs(out_path, exist_ok=True)
+    if pixel:
+        dataset = WildDetDataset(json_path, clip_len=clip_len,
+                                 vid_size=vid_size, scale_range=None,
+                                 focus=focus)
+    else:
+        dataset = WildDetDataset(json_path, clip_len=clip_len, vid_size=None,
+                                 scale_range=[1, 1], focus=focus)
+    eval_step = make_mesh_eval_step(model, flip_tta=True)
+    device = next(model.parameters()).device
+    clips = [dataset[i] for i in range(len(dataset))]
+    outs = run_batched(clips, int(args.get("infer_batch_size", 8)),
+                       lambda b: eval_step(torch.from_numpy(b).to(device)))
+    verts_all = np.concatenate([o["verts"] for o in outs])
+    reg3d_all = np.concatenate([o["kp_3d"] for o in outs])
+    if ref_3d_motion_path:
+        ref_pose = np.load(ref_3d_motion_path)
+        scale = solve_scale(ref_pose - ref_pose[:, :1],
+                            reg3d_all - reg3d_all[:, :1])
+        verts_all = verts_all - reg3d_all[:, :1] + ref_pose[:, :1] * scale
+    np.save(os.path.join(out_path, "mesh_verts.npy"), verts_all)
+    return verts_all, reg3d_all
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="In-the-wild mesh recovery: AlphaPose JSON in, "
+                    "mesh_verts.npy out. Does not render mesh.mp4 (the "
+                    "renderer is not ported yet).")
+    parser.add_argument("--config", type=str,
+                        default="configs/mesh/MB_ft_pw3d.yaml",
+                        help="Path to the config file.")
+    parser.add_argument("-e", "--evaluate", default="", type=str,
+                        metavar="FILENAME", help="checkpoint to evaluate")
+    parser.add_argument("-j", "--json_path", type=str, required=True,
+                        help="alphapose detection result json path")
+    parser.add_argument("-o", "--out_path", type=str, required=True,
+                        help="output path")
+    parser.add_argument("--ref_3d_motion_path", type=str, default=None,
+                        help="3D motion path (for global trajectory)")
+    parser.add_argument("--vid_size", type=int, nargs=2, default=None,
+                        metavar=("W", "H"),
+                        help="width and height of the source video")
+    parser.add_argument("--pixel", action="store_true",
+                        help="align with pixel coordinates (needs --vid_size)")
+    parser.add_argument("--focus", type=int, default=None,
+                        help="target person id")
+    parser.add_argument("--clip_len", type=int, default=243,
+                        help="clip length for network input")
+    parser.add_argument("--attn_impl", default=None,
+                        help="pair implementation: kernel, plain, kernel_q8, "
+                             "plain_q8, kernel_stream, kernel_stream_q8 "
+                             "(default: the config's attn_impl key, "
+                             "else kernel)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the card)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> np.ndarray:
+    from motionbert_tpu_torch.core.checkpoint import load_state_dict
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.models.smpl import SMPLModel
+    from motionbert_tpu_torch.train.action import load_action_state
+    from motionbert_tpu_torch.train.mesh import (
+        build_mesh_model, smpl_model_path)
+
+    opts = parse_args(argv)
+    if opts.pixel and not opts.vid_size:
+        raise SystemExit("--pixel requires --vid_size W H (pixel-space "
+                         "input needs the video resolution)")
+    args = get_config(opts.config)
+    model = build_mesh_model(args, SMPLModel.from_npz(smpl_model_path(args)),
+                             device=opts.device, attn_impl=opts.attn_impl)
+    if opts.evaluate:
+        load_action_state(model, load_state_dict(opts.evaluate))
+    else:
+        print("WARNING: no checkpoint given (-e); using random init")
+        model.init_weights(torch.Generator().manual_seed(0))
+    verts, _ = run_wild_mesh(
+        args, json_path=opts.json_path, out_path=opts.out_path, model=model,
+        vid_size=tuple(opts.vid_size) if opts.vid_size else None,
+        pixel=opts.pixel, focus=opts.focus, clip_len=opts.clip_len,
+        ref_3d_motion_path=opts.ref_3d_motion_path)
+    print("saved", os.path.join(opts.out_path, "mesh_verts.npy"),
+          "shape", verts.shape)
+    return verts
+
+
+if __name__ == "__main__":
+    main()

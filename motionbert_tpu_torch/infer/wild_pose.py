@@ -14,10 +14,10 @@ card unless ``--device cpu`` is given. ``--attn_impl kernel_q8`` (or
 ``attn_impl: pallas_q8`` in the config) runs the W8A8 serving tier on the
 same checkpoint.
 
-Not ported yet: the mp4 rendering of ``viz/render.py`` (ROADMAP A7), so
+Not ported yet: the mp4 rendering of ``viz/render.py`` (ROADMAP A.4), so
 ``render=True`` raises and the command line does not render; and reading a
 video's size and frame rate (``read_video_meta`` needs imageio), so the
-size is given as ``--vid_size W H`` (ROADMAP A2).
+size is given as ``--vid_size W H`` (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def run_wild_pose(args, *, json_path: str, out_path: str, model,
     if render:
         raise NotImplementedError(
             "rendering X3D.mp4 needs viz/render.py, which is not ported yet "
-            "(ROADMAP A7); call with render=False")
+            "(ROADMAP A.4); call with render=False")
     if pixel and not vid_size:
         raise ValueError("pixel=True needs vid_size (w, h): pixel-space "
                          "output needs the video's resolution")
@@ -115,7 +115,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="clip length for network input")
     parser.add_argument("--attn_impl", default=None,
                         help="pair implementation: kernel, plain, kernel_q8, "
-                             "plain_q8 (default: the config's attn_impl key, "
+                             "plain_q8, kernel_stream, kernel_stream_q8 "
+                             "(default: the config's attn_impl key, "
                              "else kernel)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")

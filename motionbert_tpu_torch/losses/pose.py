@@ -1,7 +1,8 @@
 """3D-pose training losses on tensors.
 
 The port of ``motionbert_tpu/losses/pose.py`` (reference loss.py:56-203),
-with the confidence-weighted 2D loss of pretraining on 2D-only data.
+with the confidence-weighted 2D loss of pretraining on 2D-only data and the
+weighted MPJPE and bone-length losses.
 Every reduction is a full mean, as in the reference; the 16-limb and 18-angle
 topologies come from ``geometry.skeleton``. Clips of one frame give zero for
 the temporal terms.
@@ -32,6 +33,13 @@ def loss_mpjpe(predicted: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean per-joint position error."""
     assert predicted.shape == target.shape
     return safe_norm(predicted - target).mean()
+
+
+def weighted_mpjpe(predicted: torch.Tensor, target: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """Per-sample weighted MPJPE; w broadcasts over the per-joint errors."""
+    assert predicted.shape == target.shape
+    return (w * safe_norm(predicted - target)).mean()
 
 
 def loss_2d_weighted(predicted: torch.Tensor, target: torch.Tensor,
@@ -138,3 +146,16 @@ def pose3d_total_loss(predicted: torch.Tensor, target: torch.Tensor,
              + lambdas["lambda_av"] * terms["angle_velocity"])
     terms["total"] = total
     return total, terms
+
+
+def weighted_bonelen_loss(predict_3d_length: torch.Tensor,
+                          gt_3d_length: torch.Tensor) -> torch.Tensor:
+    """(reference loss.py:90-92)"""
+    return 0.001 * ((predict_3d_length - gt_3d_length) ** 2).mean()
+
+
+def weighted_boneratio_loss(predict_3d_length: torch.Tensor,
+                            gt_3d_length: torch.Tensor) -> torch.Tensor:
+    """(reference loss.py:94-96)"""
+    return 0.1 * (((predict_3d_length - gt_3d_length) / gt_3d_length)
+                  ** 2).mean()

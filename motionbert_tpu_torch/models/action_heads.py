@@ -24,19 +24,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from motionbert_tpu_torch.geometry.rotations import f_normalize
 from motionbert_tpu_torch.models.dstformer import DSTformer, dropout
-
-
-def f_normalize(v: torch.Tensor, dim: int = -1,
-                eps: float = 1e-12) -> torch.Tensor:
-    """torch's F.normalize with a NaN-free backward at a zero vector (the
-    JAX package's ``geometry/rotations.py`` ``f_normalize``): the norm comes
-    from a sum of squares guarded on both sides of the square root, and a
-    zero vector maps to zero."""
-    sq = (v * v).sum(dim, keepdim=True)
-    pos = sq > 0
-    n = torch.sqrt(torch.where(pos, sq, torch.ones_like(sq)))
-    return v / torch.where(pos, n, torch.zeros_like(n)).clamp_min(eps)
 
 
 class BatchNorm1d(nn.BatchNorm1d):

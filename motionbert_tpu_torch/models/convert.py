@@ -8,11 +8,12 @@ The port's own copy of the mapping in ``motionbert_tpu/models/convert.py``:
 - ``pre_logits`` <-> ``pre_logits.fc`` (the Tanh has no params);
 - BatchNorm ``scale`` <-> ``weight``, and the ``batch_stats`` collection's
   ``mean`` / ``var`` <-> the ``running_mean`` / ``running_var`` buffers
-  (ActionNet's ``head.bn``).
+  (ActionNet's ``head.bn``, the mesh head's ``head.bn1`` / ``head.bn2``).
 So ``ts_attn_i/kernel`` (2C, 2) becomes ``ts_attn.i.weight`` (2, 2C), while
 an unindexed ``ts_attn/kernel`` (2C, 2C), the gate of the legacy "parallel"
-Attention or of the stage_para Block, becomes ``ts_attn.weight``. ActionNet's
-``backbone`` / ``head`` trees become ``backbone.*`` / ``head.*``.
+Attention or of the stage_para Block, becomes ``ts_attn.weight``. The
+``backbone`` / ``head`` trees of ActionNet and of MeshRegressor become
+``backbone.*`` / ``head.*``.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ import torch
 
 _LIST_MODULES = ("blocks_st", "blocks_ts", "ts_attn")
 _LIST_RE = re.compile(r"^(blocks_st|blocks_ts|ts_attn)_(\d+)$")
-# modules whose 1-D ``weight`` is a norm scale (LayerNorm, ActionNet's BatchNorm)
-_NORM_NAMES = ("norm", "norm1_s", "norm1_t", "norm2_s", "norm2_t", "bn")
+# modules whose 1-D ``weight`` is a norm scale (LayerNorm; the BatchNorms of
+# ActionNet's head and of the mesh head)
+_NORM_NAMES = ("norm", "norm1_s", "norm1_t", "norm2_s", "norm2_t", "bn", "bn1",
+               "bn2")
 _BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
@@ -133,3 +136,23 @@ def jax_from_state_dict(state_dict: Mapping[str, object]) -> dict:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(arr)
     return params
+
+
+def jax_batch_stats_from_state_dict(state_dict: Mapping[str, object]) -> dict:
+    """The BatchNorm buffers of a torch state_dict as the JAX package's
+    ``batch_stats`` collection: nested numpy ``mean`` / ``var`` leaves under
+    the flax module names (the inverse of state_dict_from_jax's
+    batch_stats)."""
+    stats: dict = {}
+    leaves = {v: k for k, v in _STAT_LEAVES.items()}
+    for key, value in strip_module_prefix(state_dict).items():
+        mod, _, leaf = key.rpartition(".")
+        if leaf not in leaves:
+            continue
+        node = stats
+        for m in mod.split("."):
+            node = node.setdefault(m, {})
+        arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) \
+            else np.asarray(value)
+        node[leaves[leaf]] = np.ascontiguousarray(arr)
+    return stats

@@ -9,7 +9,9 @@ spatial pair, and the learned per-channel softmax gate ``ts_attn`` mixes the
 two. Each pair runs as one ``fused_pair_block`` call, and the T->S stream's
 last pair carries the gate (``fused_gated_pair_block``). ``attn_impl`` picks
 the pair functions (``PAIR_IMPLS``): the bf16 kernels, the W8A8 int8 kernels
-of the serving tier, or the plain version of either, on the same parameters.
+of the serving tier, or the plain version of either, on the same parameters;
+or the whole-stream kernels (``STREAM_IMPLS``, bf16 or W8A8), which run a
+block's two pairs, and its gate, in one call per stream.
 Then LayerNorm -> pre_logits (Linear + Tanh) -> head.
 
 Dropout and drop-path (``drop_rate``, ``drop_path_rate``) are live only in
@@ -57,6 +59,9 @@ from motionbert_tpu_torch.ops.fused_mlp import fused_mlp_block, mlp_block_plain
 from motionbert_tpu_torch.ops.fused_pair import (
     fused_gated_pair_block, fused_pair_block, gate_plain,
     gated_pair_block_plain, pair_block_plain)
+from motionbert_tpu_torch.ops.fused_stream import (
+    fused_gated_stream_block, fused_gated_stream_block_q8, fused_stream_block,
+    fused_stream_block_q8)
 from motionbert_tpu_torch.ops.pair_q8 import (
     fused_gated_pair_block_q8, fused_pair_block_q8, gated_pair_block_q8_plain,
     pair_block_q8_plain)
@@ -72,26 +77,39 @@ PAIR_IMPLS = {
     "plain_q8": (pair_block_q8_plain, gated_pair_block_q8_plain),
 }
 
+# attn_impl -> (stream function, gated stream function): the whole-stream
+# kernel (ops/fused_stream.py), bf16 or W8A8, which runs both pairs of a
+# block's stream, and the att_fuse gate of the T->S stream, in one call.
+STREAM_IMPLS = {
+    "kernel_stream": (fused_stream_block, fused_gated_stream_block),
+    "kernel_stream_q8": (fused_stream_block_q8, fused_gated_stream_block_q8),
+}
+ATTN_IMPLS = tuple(PAIR_IMPLS) + tuple(STREAM_IMPLS)
+
 
 # attn_impl -> (attention block, MLP block) of the path dropout and drop-path
-# take. The W8A8 tier quantises only inside the pair kernels: its standalone
-# blocks are the bf16 ones, as in the JAX package.
+# take. The W8A8 tier and the stream kernels quantise or fuse only on the
+# pair path: their standalone blocks are the bf16 ones, as in the JAX package.
 BLOCK_IMPLS = {
     "kernel": (fused_attention_block, fused_mlp_block),
     "plain": (attention_block_plain, mlp_block_plain),
     "kernel_q8": (fused_attention_block, fused_mlp_block),
     "plain_q8": (attention_block_plain, mlp_block_plain),
+    "kernel_stream": (fused_attention_block, fused_mlp_block),
+    "kernel_stream_q8": (fused_attention_block, fused_mlp_block),
 }
 
 
 # attn_impl -> the attention core of the legacy attention modes (vanilla,
 # series, parallel): the B8 wrapper or its plain version. The JAX package's
-# pallas and pallas_q8 both reach its Pallas core there.
+# pallas, pallas_q8 and pallas_stream* all reach its Pallas core there.
 CORE_IMPLS = {
     "kernel": st_attention,
     "plain": st_attention_plain,
     "kernel_q8": st_attention,
     "plain_q8": st_attention_plain,
+    "kernel_stream": st_attention,
+    "kernel_stream_q8": st_attention,
 }
 
 AXIS_MODES = ("spatial", "temporal")
@@ -270,8 +288,8 @@ class Block(nn.Module):
         super().__init__()
         if st_mode not in ("stage_st", "stage_ts", "stage_para"):
             raise NotImplementedError(f"st_mode {st_mode!r}")
-        if attn_impl not in PAIR_IMPLS:
-            raise ValueError(f"attn_impl must be one of {sorted(PAIR_IMPLS)}, "
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {sorted(ATTN_IMPLS)}, "
                              f"got {attn_impl!r}")
         self.st_mode = st_mode
         self.num_heads = num_heads
@@ -325,6 +343,8 @@ class Block(nn.Module):
                                  "gate")
             return self._stage_para(x, generator)
         if not stochastic or (self.drop == 0.0 and self.droppath.rate == 0.0):
+            if self.attn_impl in STREAM_IMPLS:
+                return self._stream(x, order, gate)
             pair_fn, gated_fn = PAIR_IMPLS[self.attn_impl]
             for i, axis in enumerate(order):
                 params = self._pair_params(axis, x.dtype)
@@ -348,6 +368,17 @@ class Block(nn.Module):
             other, wg, bg = gate
             x = gate_plain(other, x, wg, bg)
         return x
+
+    def _stream(self, x: torch.Tensor, order: tuple, gate) -> torch.Tensor:
+        """Both pairs of the stream, and the gate, in one stream call."""
+        stream_fn, gated_fn = STREAM_IMPLS[self.attn_impl]
+        params = self._pair_params(order[0], x.dtype) \
+            + self._pair_params(order[1], x.dtype)
+        if gate is None:
+            return stream_fn(x, *params, self.num_heads, self.scale, order)
+        other, wg, bg = gate
+        return gated_fn(x, other, *params, wg, bg, self.num_heads, self.scale,
+                        order)
 
     def _stage_para(self, x: torch.Tensor, generator) -> torch.Tensor:
         branches = []

@@ -12,7 +12,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from motionbert_tpu_torch.models.dstformer import PAIR_IMPLS, DSTformer
+from motionbert_tpu_torch.models.dstformer import ATTN_IMPLS, DSTformer
 
 _BACKBONES: Dict[str, Callable] = {}
 
@@ -42,28 +42,23 @@ def default_compute_dtype(device: torch.device) -> torch.dtype:
 
 
 # The JAX package's attn_impl names, as configs carry them, onto the port's
-# (the keys of models.dstformer.PAIR_IMPLS).
-JAX_ATTN_IMPLS = {"pallas": "kernel", "xla": "plain", "pallas_q8": "kernel_q8"}
-STREAM_ATTN_IMPLS = ("pallas_stream", "pallas_stream_q8")
+# (models.dstformer.ATTN_IMPLS).
+JAX_ATTN_IMPLS = {"pallas": "kernel", "xla": "plain", "pallas_q8": "kernel_q8",
+                  "pallas_stream": "kernel_stream",
+                  "pallas_stream_q8": "kernel_stream_q8"}
 DEFAULT_ATTN_IMPL = "kernel"
 
 
 def resolve_attn_impl(attn_impl: Optional[str], args=None) -> str:
     """The port's name for ``attn_impl``: the argument, else the config's
     ``attn_impl`` key, else "kernel"; a JAX-package name maps onto the
-    port's. The stream kernels are not ported and raise; an unknown name
-    raises ValueError."""
+    port's. An unknown name raises ValueError."""
     name = attn_impl or (_cfg_get(args, "attn_impl", None)
                          if args is not None else None) or DEFAULT_ATTN_IMPL
-    if name in STREAM_ATTN_IMPLS:
-        raise NotImplementedError(
-            f"attn_impl {name!r} needs the whole-stream kernel (B10, "
-            f"motionbert_tpu/ops/fused_stream.py), which is not ported yet "
-            f"(ROADMAP section B)")
     name = JAX_ATTN_IMPLS.get(name, name)
-    if name not in PAIR_IMPLS:
+    if name not in ATTN_IMPLS:
         raise ValueError(
-            f"unknown attn_impl {name!r}; known: {sorted(PAIR_IMPLS)}, or the "
+            f"unknown attn_impl {name!r}; known: {sorted(ATTN_IMPLS)}, or the "
             f"JAX package's {sorted(JAX_ATTN_IMPLS)}")
     return name
 
@@ -106,8 +101,10 @@ def load_backbone(args, dtype: Optional[torch.dtype] = None, device=None,
     on the card and fp32 on the CPU. attn_impl=None resolves from the
     ``attn_impl`` config key when present, else "kernel" (see
     ``resolve_attn_impl``): "kernel" runs the pairs through the CUDA kernels
-    on the card, "kernel_q8" through the W8A8 int8 kernels, and "plain" /
-    "plain_q8" run their plain PyTorch versions (the references)."""
+    on the card, "kernel_q8" through the W8A8 int8 kernels, "kernel_stream"
+    / "kernel_stream_q8" each stream's two pairs through one stream kernel,
+    and "plain" / "plain_q8" run the pairs' plain PyTorch versions (the
+    references)."""
     dev = resolve_device(device)
     name = _cfg_get(args, "backbone", "DSTformer")
     if name not in _BACKBONES:

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES: Tuple[str, ...] = ("pair_kernels", "pair_bwd_kernels",
                            "pair_q8_kernels", "block_kernels",
-                           "st_attention_kernels")
+                           "st_attention_kernels", "stream_kernels")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -503,4 +503,36 @@ cudaError_t launch_gate(const void* other, const void* pair, const void* wg,
     return cudaGetLastError();
 }
 
+// The 12 parameters of one pair, in the order of ops/fused_pair.py's
+// PAIR_PARAMS: LayerNorm parameters fp32, the rest bf16, weights (out, in).
+struct PairParams {
+    const void *ln1_w, *ln1_b, *wqkv, *bqkv, *wproj, *bproj,
+               *ln2_w, *ln2_b, *w1, *b1, *w2, *b2;
+};
+
+// One pair's chain of five launches (pair_kernels.cu's note): out =
+// pair(x), with scratch qkv (M, 3C), attn (M, C), y (M, C), hid (M, hidden).
+// x is read by the first and third launch only, so out may alias x's buffer
+// once they have run: the stream chain (stream_kernels.cu) reads its
+// inter-pair activation from the buffer that pass 2's last GEMM writes.
+cudaError_t pair_chain(const void* x, void* out, void* qkv, void* attn, void* y, void* hid,
+                       const PairParams& p, int B, int F, int J, int C, int H, int hidden,
+                       float scale, int temporal, cudaStream_t stream) {
+    const int M = B * F * J;
+    cudaError_t err;
+    err = launch_gemm<NT, true, EPI_BIAS>(x, p.wqkv, p.bqkv, nullptr, p.ln1_w, p.ln1_b,
+                                          nullptr, qkv, nullptr, M, 3 * C, C, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_attention_any(qkv, attn, B, F, J, C, H, scale, temporal, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_gemm<NT, false, EPI_BIAS_RES>(attn, p.wproj, p.bproj, x, nullptr, nullptr,
+                                               nullptr, y, nullptr, M, C, C, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_gemm<NT, true, EPI_BIAS_GELU>(y, p.w1, p.b1, nullptr, p.ln2_w, p.ln2_b,
+                                               nullptr, hid, nullptr, M, hidden, C, stream);
+    if (err != cudaSuccess) return err;
+    return launch_gemm<NT, false, EPI_BIAS_RES>(hid, p.w2, p.b2, y, nullptr, nullptr, nullptr,
+                                                out, nullptr, M, C, hidden, stream);
+}
+
 }  // namespace

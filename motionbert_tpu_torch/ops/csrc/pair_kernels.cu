@@ -26,9 +26,10 @@
 // the hidden activation are bf16; every sum is fp32; LN statistics are fp32
 // with var = E[x^2] - mean^2 and eps 1e-6; GELU is the exact erf form.
 // Spatial groups are the 17 joints of one frame, so the TPU's 8-frame tile and
-// its block-diagonal mask are not needed here. The GEMM, the attention core and the gate
-// live in pair_common.cuh, which the backward (pair_bwd_kernels.cu) and the
-// int8 chain (pair_q8_kernels.cu) share.
+// its block-diagonal mask are not needed here. The GEMM, the attention core, the gate
+// and the chain itself (pair_chain) live in pair_common.cuh, which the backward
+// (pair_bwd_kernels.cu), the int8 chain (pair_q8_kernels.cu) and the stream
+// (stream_kernels.cu) share.
 //
 // Bound. At the flagship shape (C 512, hidden 1024, F 243) a pair does about
 // 4.2 MFLOP per token in the four products and 0.5 MFLOP per token in temporal
@@ -60,25 +61,11 @@ extern "C" int mbt_pair_block(
     int B, int F, int J, int C, int H, int hidden, float scale, int temporal,
     void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const int M = B * F * J;
     const bool gated = other != nullptr;
-    cudaError_t err;
-
-    err = launch_gemm<NT, true, EPI_BIAS>(x, wqkv, bqkv, nullptr, ln1_w, ln1_b, nullptr,
-                                          qkv, nullptr, M, 3 * C, C, stream);
+    const PairParams p{ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2};
+    cudaError_t err = pair_chain(x, gated ? pair_out : out, qkv, attn, y, hid, p, B, F, J, C,
+                                 H, hidden, scale, temporal, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_attention_any(qkv, attn, B, F, J, C, H, scale, temporal, stream);
-    if (err != cudaSuccess) return (int)err;
-    err = launch_gemm<NT, false, EPI_BIAS_RES>(attn, wproj, bproj, x, nullptr, nullptr,
-                                               nullptr, y, nullptr, M, C, C, stream);
-    if (err != cudaSuccess) return (int)err;
-    err = launch_gemm<NT, true, EPI_BIAS_GELU>(y, w1, b1, nullptr, ln2_w, ln2_b, nullptr,
-                                               hid, nullptr, M, hidden, C, stream);
-    if (err != cudaSuccess) return (int)err;
-    err = launch_gemm<NT, false, EPI_BIAS_RES>(hid, w2, b2, y, nullptr, nullptr, nullptr,
-                                               gated ? pair_out : out, nullptr, M, C,
-                                               hidden, stream);
-    if (err != cudaSuccess) return (int)err;
-    if (gated) err = launch_gate(other, pair_out, wg, bg, out, M, C, stream);
+    if (gated) err = launch_gate(other, pair_out, wg, bg, out, B * F * J, C, stream);
     return (int)err;
 }

@@ -113,18 +113,19 @@ def build_action_model(args, device=None, attn_impl: Optional[str] = None,
     return model.to(next(backbone.parameters()).device)
 
 
-def load_action_state(model: ActionNet, state_dict: Dict[str, torch.Tensor]
-                      ) -> None:
-    """Load a whole ActionNet's weights: strictly, except that a state_dict
-    converted from the JAX package may lack the backbone's unused output
-    head (``JAX_MISSING_KEYS``), which then keeps its values."""
+def load_action_state(model: torch.nn.Module,
+                      state_dict: Dict[str, torch.Tensor]) -> None:
+    """Load a whole task model's weights (ActionNet, MeshRegressor):
+    strictly, except that a state_dict converted from the JAX package may
+    lack the backbone's unused output head (``JAX_MISSING_KEYS``), which
+    then keeps its values."""
     missing, unexpected = model.load_state_dict(state_dict, strict=False)
     if unexpected or set(missing) - set(JAX_MISSING_KEYS):
         raise RuntimeError(f"checkpoint does not fit the model: missing "
                            f"{missing}, unexpected {unexpected}")
 
 
-def load_pretrained_backbone(model: ActionNet,
+def load_pretrained_backbone(model: torch.nn.Module,
                              state_dict: Dict[str, torch.Tensor]) -> int:
     """Copy the backbone weights of a pretrained checkpoint whose names and
     shapes match, keeping the others (reference load_pretrained_weights);
@@ -291,7 +292,8 @@ def parse_args(argv=None,
                         help="torch device (default: the card)")
     parser.add_argument("--attn_impl", default=None,
                         help="pair implementation: kernel, plain, kernel_q8, "
-                             "plain_q8 (default: the config's attn_impl key, "
+                             "plain_q8, kernel_stream, kernel_stream_q8 "
+                             "(default: the config's attn_impl key, "
                              "else kernel)")
     return parser.parse_args(argv)
 

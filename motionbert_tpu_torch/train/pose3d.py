@@ -442,7 +442,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="torch device (default: the card)")
     parser.add_argument("--attn_impl", default=None,
                         help="pair implementation: kernel, plain, kernel_q8, "
-                             "plain_q8 (default: the config's attn_impl key, "
+                             "plain_q8, kernel_stream, kernel_stream_q8 "
+                             "(default: the config's attn_impl key, "
                              "else kernel)")
     return parser.parse_args(argv)
 

@@ -414,9 +414,13 @@ def test_dropout_training_leaves_the_mlp_kernel(monkeypatch):
 
 
 def test_q8_impl_runs_the_bf16_blocks():
+    """The W8A8 tier and the stream kernels run the bf16 standalone blocks;
+    every attn_impl the model takes has its blocks."""
     assert dst.BLOCK_IMPLS["kernel_q8"] == dst.BLOCK_IMPLS["kernel"]
     assert dst.BLOCK_IMPLS["plain_q8"] == dst.BLOCK_IMPLS["plain"]
-    assert dst.BLOCK_IMPLS.keys() == dst.PAIR_IMPLS.keys()
+    assert dst.BLOCK_IMPLS["kernel_stream"] == dst.BLOCK_IMPLS["kernel"]
+    assert dst.BLOCK_IMPLS["kernel_stream_q8"] == dst.BLOCK_IMPLS["kernel"]
+    assert set(dst.BLOCK_IMPLS) == set(dst.ATTN_IMPLS) == set(dst.CORE_IMPLS)
 
 
 def test_training_with_attention_dropout_raises():

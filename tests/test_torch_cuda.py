@@ -733,3 +733,252 @@ def test_action_step_batchnorm_matches_cpu(cuda):
         if sure.any():
             assert d[sure].max().item() <= 1e-6, k
         assert d.max().item() <= 2.1 * lr, k
+
+
+# ---------------------------------------------------------------------------
+# the stream kernel (B10)
+# ---------------------------------------------------------------------------
+
+def _stream_args(device, gated, F=81, B=1):
+    """x, [other,] pass 1's 12 parameters, pass 2's 12, [wg, bg]: two pairs
+    of _inputs with different seeds."""
+    a1, H = _inputs(device, gated, F=F, B=B)
+    rs = np.random.RandomState(1)
+    p2 = [(t + torch.from_numpy(rs.normal(size=t.shape).astype(np.float32))
+           .to(device=device, dtype=t.dtype) * 0.05) for t in
+          a1[1 + gated:13 + gated]]
+    args = a1[:13 + gated] + p2 + (a1[13 + gated:] if gated else [])
+    return args, H
+
+
+def _stream_fns(gated, q8_tier):
+    from motionbert_tpu_torch.ops import fused_stream as fs
+
+    if q8_tier:
+        return ((fs.fused_gated_stream_block_q8 if gated
+                 else fs.fused_stream_block_q8),
+                (fs.gated_stream_block_q8_plain if gated
+                 else fs.stream_block_q8_plain),
+                q8.fused_pair_block_q8, q8.fused_gated_pair_block_q8)
+    return ((fs.fused_gated_stream_block if gated else fs.fused_stream_block),
+            (fs.gated_stream_block_plain if gated else fs.stream_block_plain),
+            fp.fused_pair_block, fp.fused_gated_pair_block)
+
+
+def _pair_chain(pair_fn, gated_fn, args, gated, H, scale, order):
+    modes = ["spatial" if a == "s" else "temporal" for a in order]
+    x = args[0]
+    p1 = args[1 + gated:13 + gated]
+    p2 = args[13 + gated:25 + gated]
+    mid = pair_fn(x, *p1, H, scale, modes[0])
+    if not gated:
+        return pair_fn(mid, *p2, H, scale, modes[1])
+    return gated_fn(mid, args[1], *p2, *args[25 + gated:], H, scale, modes[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8_tier", [False, True])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("order", [("s", "t"), ("t", "s")])
+def test_stream_kernel_matches_plain_and_the_pair_chain(cuda, order, gated,
+                                                        q8_tier):
+    """Against the plain stream at the pair kernels' bars, and bit for bit
+    against the ported pair chain B1 -> B1 / B2 (B9 -> B9): the same
+    launches on the same operands."""
+    args, H = _stream_args(cuda, gated)
+    scale = 0.125
+    wrapper, plain, pair_fn, gated_fn = _stream_fns(gated, q8_tier)
+    before = wrapper.launches
+    out = wrapper(*args, H, scale, order)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
+    ref = plain(*args, H, scale, order)
+    # two chained pairs: pass 1's rounding flips travel through pass 2, so
+    # the bars are twice a pair's (measured up to 2.1e-2 and 5.6e-3 here);
+    # the equality with the pair chain below holds the rounding points
+    assert _rel(out, ref) <= 2 * (Q8_TOL if q8_tier else TOL)
+    assert _rel_l2(out, ref) <= 2 * Q8_L2_TOL
+    assert torch.equal(out, _pair_chain(pair_fn, gated_fn, args, gated, H,
+                                        scale, order))
+    assert torch.equal(out, wrapper(*args, H, scale, order))
+
+
+@pytest.mark.cuda
+def test_stream_kernel_ragged_rows_single_frame_and_full_clip(cuda):
+    from motionbert_tpu_torch.ops import fused_stream as fs
+
+    for F in (1, 5, 243):
+        args, H = _stream_args(cuda, True, F=F, B=2)
+        out = fs.fused_gated_stream_block(*args, H, 0.125, ("t", "s"))
+        assert _rel(out, fs.gated_stream_block_plain(
+            *args, H, 0.125, ("t", "s"))) <= TOL
+
+
+@pytest.mark.cuda
+def test_stream_never_falls_back_on_cuda(cuda):
+    from motionbert_tpu_torch.ops import fused_stream as fs
+
+    args, H = _stream_args(cuda, False)
+    args[0] = args[0].float()
+    with pytest.raises(ValueError, match="bfloat16"):
+        fs.fused_stream_block(*args, H, 0.125, ("s", "t"))
+    args, H = _stream_args(cuda, False, F=244)
+    with pytest.raises(ValueError, match="frames"):
+        fs.fused_stream_block_q8(*args, H, 0.125, ("s", "t"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+def test_stream_backward_is_the_pair_path_bitwise(cuda, gated):
+    """The stream's gradients (pass 1 recomputed with B1, then B3 twice)
+    equal the pair path's through the pair Functions, bit for bit; the W8A8
+    stream's equal the bf16 stream's (straight-through)."""
+    from motionbert_tpu_torch.ops import fused_stream as fs
+
+    base, H = _stream_args(cuda, gated)
+    g = torch.from_numpy(np.random.RandomState(9).normal(
+        size=base[0].shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    order = ("t", "s") if gated else ("s", "t")
+    counter = (fs.fused_gated_stream_block_bwd if gated
+               else fs.fused_stream_block_bwd)
+    before = counter.launches
+    grads = []
+    for fn in ("stream", "pairs", "stream_q8"):
+        args = [a.clone().requires_grad_() for a in base]
+        if fn == "pairs":
+            out = _pair_chain(fp.fused_pair_block, fp.fused_gated_pair_block,
+                              args, gated, H, 0.125, order)
+        else:
+            out = _stream_fns(gated, fn == "stream_q8")[0](*args, H, 0.125,
+                                                           order)
+        grads.append(torch.autograd.grad(out, args, g))
+    for a, b, c in zip(*grads):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert counter.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_model_stream_launches_and_equals_the_pair_path(cuda):
+    """Under kernel_stream a depth-2 forward launches 2 + 2 stream kernels
+    and no pair kernel, and its output is the pair path's, bit for bit."""
+    from motionbert_tpu_torch.ops import fused_stream as fs
+
+    cfg = ConfigDict(dim_feat=512, dim_rep=512, depth=2, num_heads=8,
+                     mlp_ratio=2, num_joints=17, maxlen=81)
+    model = load_backbone(cfg, device=cuda, attn_impl="kernel_stream")
+    model.init_weights(torch.Generator().manual_seed(0))
+    pairs = load_backbone(cfg, device=cuda)
+    pairs.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        -1, 1, (2, 81, 17, 3)).astype(np.float32)).to(cuda)
+    counters = (fs.fused_stream_block, fs.fused_gated_stream_block,
+                fp.fused_pair_block, fp.fused_gated_pair_block)
+    for c in counters:
+        c.launches = 0
+    with torch.inference_mode():
+        out = model(x, return_rep=True)
+        launches = [c.launches for c in counters]
+        assert torch.equal(out, pairs(x, return_rep=True))
+    assert launches == [2, 2, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# the mesh task
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_smpl_and_rotations_on_the_card_match_the_cpu(cuda):
+    """SMPL at the real vertex count (a seeded 6890-vertex model) and the
+    rotation conversions, fp32 on both: summation order only, 1e-5 of the
+    largest value; axis-angle from matrices within 1e-4 (the goldens' bar)
+    with angles near pi, where fp32 may take the other Shepperd branch."""
+    from motionbert_tpu_torch.geometry import rotations as rot
+    from motionbert_tpu_torch.models.smpl import SMPLModel, smpl_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = SMPLModel.synthetic(num_verts=6890, seed=0)
+    rs = np.random.RandomState(0)
+    betas = torch.from_numpy(rs.normal(size=(64, 10)).astype(np.float32))
+    pose = torch.from_numpy(rs.normal(0, 0.5, (64, 72)).astype(np.float32))
+    cpu = smpl_forward(model, betas, pose)
+    card = smpl_forward(model.to(cuda), betas.to(cuda), pose.to(cuda))
+    for k in ("vertices", "joints", "rotmats"):
+        assert _rel(card[k].cpu(), cpu[k]) <= 1e-5, k
+    aa = rs.normal(size=(256, 3))
+    aa /= np.linalg.norm(aa, axis=-1, keepdims=True)
+    aa *= np.concatenate([rs.uniform(0, np.pi, 248),
+                          np.pi - np.logspace(-7, -1, 8)])[:, None]
+    aa = torch.from_numpy(aa.astype(np.float32))
+    R = rot.batch_rodrigues(aa)
+    assert _rel(rot.batch_rodrigues(aa.to(cuda)).cpu(), R) <= 1e-5
+    six = torch.from_numpy(rs.normal(size=(64, 6)).astype(np.float32))
+    assert _rel(rot.rot6d_to_rotmat(six.to(cuda)).cpu(),
+                rot.rot6d_to_rotmat(six)) <= 1e-5
+    back = rot.rotmat_to_angle_axis(R.to(cuda)).cpu()
+    want = rot.rotmat_to_angle_axis(R)
+    # an axis-angle of pi and its negation are one rotation
+    same = torch.minimum((back - want).abs().amax(-1),
+                         (back + want).abs().amax(-1))
+    assert same.max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_mesh_step_matches_cpu(cuda):
+    """One mesh training step of a small MeshRegressor on the fp32 plain
+    path, on the card and on the CPU from the same weights and batch: the
+    loss terms, every gradient (fc1's and fc2's biases: within rounding of
+    0, held against their BatchNorm's) and the BatchNorm statistics."""
+    from motionbert_tpu_torch.models.smpl import SMPLModel
+    from motionbert_tpu_torch.train.mesh import (
+        build_mesh_model, make_mesh_train_step)
+    from motionbert_tpu_torch.train.state import make_two_group_adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ConfigDict(dim_feat=64, dim_rep=64, depth=1, num_heads=2,
+                     mlp_ratio=2, num_joints=17, maxlen=16, hidden_dim=128,
+                     dropout=0.0)
+    lambdas = dict(lambda_3d=0.5, lambda_scale=0, lambda_3dv=10, lambda_lv=0,
+                   lambda_lg=0, lambda_a=0, lambda_av=0, lambda_pose=1000,
+                   lambda_shape=1, lambda_norm=20)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.uniform(-1, 1, (8, 16, 17, 3)).astype(np.float32))
+    gt = {"theta": torch.from_numpy(rs.normal(0, 0.3, (8, 16, 82)).astype(
+              np.float32)),
+          "kp_3d": torch.from_numpy(rs.normal(0, 100, (8, 16, 17, 3)).astype(
+              np.float32)),
+          "verts": torch.from_numpy(rs.normal(0, 100, (8, 16, 256, 3)).astype(
+              np.float32))}
+    results = []
+    for dev in ("cpu", cuda):
+        model = build_mesh_model(cfg, SMPLModel.synthetic(num_verts=256),
+                                 device=dev, attn_impl="plain",
+                                 dtype=torch.float32)
+        model.init_weights(torch.Generator().manual_seed(0))
+        opt = make_two_group_adamw(model, 1e-4, 1e-3, 0.01)
+        terms = make_mesh_train_step(model, opt, lambdas)(
+            x.to(dev), {k: v.to(dev) for k, v in gt.items()})
+        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        results.append(({k: v.item() for k, v in terms.items()}, grads,
+                        {k: v.detach().cpu() for k, v in
+                         model.state_dict().items()}))
+    (t0, g0, s0), (t1, g1, s1) = results
+    for k in t0:
+        assert abs(t0[k] - t1[k]) <= 1e-4 * abs(t0[k]) + 1e-6, k
+    assert sorted(g0) == sorted(g1) and len(g0) > 0
+    vanishing = {"head.fc1.bias": "head.bn1.bias",
+                 "head.fc2.bias": "head.bn2.bias"}
+    for k in g0:
+        if k in vanishing:
+            ref = torch.linalg.norm(g0[vanishing[k]])
+            assert torch.linalg.norm(g1[k] - g0[k]) <= 1e-3 * ref, k
+            continue
+        scale = g0[k].abs().max().item()
+        np.testing.assert_allclose(g1[k].numpy(), g0[k].numpy(), rtol=1e-3,
+                                   atol=1e-3 * scale + 1e-12, err_msg=k)
+    for bn in ("bn1", "bn2"):
+        for buf in ("running_mean", "running_var"):
+            k = f"head.{bn}.{buf}"
+            np.testing.assert_allclose(s1[k].numpy(), s0[k].numpy(),
+                                       atol=1e-5, rtol=1e-4, err_msg=k)

@@ -42,6 +42,14 @@ def test_port_imports_no_jax():
         "motionbert_tpu_torch.losses.supcon, "
         "motionbert_tpu_torch.train.action, "
         "motionbert_tpu_torch.train.action_1shot\n"
+        "import motionbert_tpu_torch.ops.fused_stream, "
+        "motionbert_tpu_torch.geometry.rotations, "
+        "motionbert_tpu_torch.models.smpl, "
+        "motionbert_tpu_torch.models.mesh_head, "
+        "motionbert_tpu_torch.losses.mesh, "
+        "motionbert_tpu_torch.data.dataset_mesh, "
+        "motionbert_tpu_torch.train.mesh, "
+        "motionbert_tpu_torch.infer.wild_mesh\n"
         "import runpy; runpy.run_module('motionbert_tpu_torch.train.pose3d', "
         "run_name='not_main')\n"
         "runpy.run_module('motionbert_tpu_torch.train.action', "
@@ -49,6 +57,10 @@ def test_port_imports_no_jax():
         "runpy.run_module('motionbert_tpu_torch.train.action_1shot', "
         "run_name='not_main')\n"
         "runpy.run_module('motionbert_tpu_torch.infer.wild_pose', "
+        "run_name='not_main')\n"
+        "runpy.run_module('motionbert_tpu_torch.train.mesh', "
+        "run_name='not_main')\n"
+        "runpy.run_module('motionbert_tpu_torch.infer.wild_mesh', "
         "run_name='not_main')\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -71,7 +83,14 @@ def test_port_imports_no_jax():
               "motionbert_tpu_torch.data.clipstore",
               "motionbert_tpu_torch.losses.supcon",
               "motionbert_tpu_torch.train.action",
-              "motionbert_tpu_torch.train.action_1shot"):
+              "motionbert_tpu_torch.train.action_1shot",
+              "motionbert_tpu_torch.ops.fused_stream",
+              "motionbert_tpu_torch.models.smpl",
+              "motionbert_tpu_torch.models.mesh_head",
+              "motionbert_tpu_torch.losses.mesh",
+              "motionbert_tpu_torch.data.dataset_mesh",
+              "motionbert_tpu_torch.train.mesh",
+              "motionbert_tpu_torch.infer.wild_mesh"):
         assert m in mods, m
     bad = [m for m in mods if _is_jax_package(m)]
     assert not bad, bad

@@ -259,11 +259,17 @@ def test_config_attn_impl_key_picks_the_pair_functions(key, want):
 
 @pytest.mark.parametrize("key", ["pallas_stream", "pallas_stream_q8"])
 def test_stream_attn_impl_raises_naming_the_kernel(key):
-    with pytest.raises(NotImplementedError, match="B10"):
-        factory.load_backbone(ConfigDict(dict(CFG, attn_impl=key)),
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="B10"):
-        factory.load_backbone(ConfigDict(CFG), device="cpu", attn_impl=key)
+    """The stream kernel (B10) used to be unported, and these names raised:
+    now the config key and the argument both reach the stream functions."""
+    want = tmodel.STREAM_IMPLS[factory.JAX_ATTN_IMPLS[key]]
+    assert want[0].__name__ == ("fused_stream_block_q8" if key.endswith("q8")
+                                else "fused_stream_block")
+    for model in (factory.load_backbone(ConfigDict(dict(CFG, attn_impl=key)),
+                                        device="cpu"),
+                  factory.load_backbone(ConfigDict(CFG), device="cpu",
+                                        attn_impl=key)):
+        assert {tmodel.STREAM_IMPLS[b.attn_impl] for b in
+                list(model.blocks_st) + list(model.blocks_ts)} == {want}
 
 
 def test_unknown_attn_impl_lists_the_known_ones():
@@ -283,7 +289,8 @@ def _write_config(tmp_path, attn_impl):
 def test_entry_points_resolve_the_config_key(tmp_path):
     """MotionBERT.from_config and MotionBERTServer.from_config reach the q8
     pair functions from ``attn_impl: pallas_q8`` in the YAML, and take an
-    ``attn_impl=`` argument that wins."""
+    ``attn_impl=`` argument that wins; ``pallas_stream`` reaches the stream
+    functions, which compute the pair path's values."""
     from motionbert_tpu_torch.api import MotionBERT
     from motionbert_tpu_torch.serve import MotionBERTServer
 
@@ -304,9 +311,11 @@ def test_entry_points_resolve_the_config_key(tmp_path):
             _write_config(tmp_path, "xla"), device="cpu",
             attn_impl="kernel_q8") as srv:
         assert _pair_fns(srv.mb.model) == q8
-    with pytest.raises(NotImplementedError, match="B10"):
-        MotionBERT.from_config(_write_config(tmp_path, "pallas_stream"),
-                               device="cpu")
+    cfg = _write_config(tmp_path, "pallas_stream")
+    stream = MotionBERT.from_config(cfg, device="cpu")
+    assert {b.attn_impl for b in stream.model.blocks_ts} == {"kernel_stream"}
+    pairs = MotionBERT.from_config(cfg, device="cpu", attn_impl="kernel")
+    np.testing.assert_array_equal(stream.lift(x[None]), pairs.lift(x[None]))
 
 
 def test_pose3d_driver_trains_through_the_q8_forward(tmp_path, monkeypatch):

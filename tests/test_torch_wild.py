@@ -132,7 +132,7 @@ def test_run_wild_pose_matches_jax(wild_json, tmp_path, keys, pixel):
 
 def test_render_raises_until_the_renderer_is_ported(wild_json, tmp_path):
     _, _, model = _models()
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A.4"):
         twp.run_wild_pose(ConfigDict(), json_path=wild_json,
                           out_path=str(tmp_path), model=model,
                           clip_len=CLIP_LEN, render=True)
@@ -177,14 +177,23 @@ def test_cli_runs_and_resolves_attn_impl(wild_json, tmp_path, monkeypatch,
 
 
 def test_cli_refuses_pixel_without_size_and_stream_kernels(wild_json,
-                                                           tmp_path):
+                                                           tmp_path,
+                                                           monkeypatch):
     cfg = _write_config(tmp_path / "cfg.yaml")
     base = ["--config", cfg, "-j", wild_json, "-o", str(tmp_path / "o"),
             "--device", "cpu"]
     with pytest.raises(SystemExit, match="vid_size"):
         twp.main(base + ["--pixel"])
-    with pytest.raises(NotImplementedError, match="B10"):
-        twp.main(base + ["--attn_impl", "pallas_stream_q8"])
+    # the stream kernels used to be refused: the flag now reaches them
+    calls = []
+    monkeypatch.setattr(tmodel, "STREAM_IMPLS", {
+        k: tuple((lambda f: lambda *a: calls.append(f.__name__) or f(*a))(f)
+                 for f in fns) for k, fns in tmodel.STREAM_IMPLS.items()})
+    out = twp.main(base + ["--attn_impl", "pallas_stream_q8", "--clip_len",
+                           str(CLIP_LEN), "--focus", "1"])
+    assert out.shape == (N_FRAMES, 17, 3) and np.isfinite(out).all()
+    assert set(calls) == {"fused_stream_block_q8",
+                          "fused_gated_stream_block_q8"}
 
 
 def test_cli_needs_the_card_unless_told(wild_json, tmp_path):
