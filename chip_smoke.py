@@ -50,11 +50,16 @@ Phases, each of which passes or ends the run with a non-zero exit code:
  14. straight-through: the q8 Functions' backward against the bf16
      Functions', bit for bit, counted as backward-kernel launches.
  15. q8 serving: MotionBERTServer built with attn_impl="kernel_q8".
- 16. block kernels: the standalone attention block (temporal and spatial) and
-     MLP block at the phase-3 shape, in the flag combinations the model uses
-     and with LayerNorm and residual both on, against their plain versions
-     (the max-based bar and a relative-L2 bar), twice for bitwise equality,
-     with times (one call at a time, and back to back), bound, the plain
+ 16. block kernels: first the GEMM engine of the MLP blocks alone
+     (csrc/hopper_gemm.cuh): each (layout, epilogue) pair the MLP chains
+     launch, at its flagship shape and at ragged ones, against the fp32
+     product rounded at the same point, twice for bitwise equality, with
+     its device time and TFLOP/s; then the standalone attention block
+     (temporal and spatial) and MLP block at the phase-3 shape, in the flag
+     combinations the model uses and with LayerNorm and residual both on,
+     against their plain versions (the max-based bar and a relative-L2
+     bar), twice for bitwise equality, with times (one call at a time, back
+     to back, and the device's own from the profiler), bound, the plain
      version's time and a library yardstick.
  17. block backward kernels: the same for the two backward chains, per
      gradient tensor.
@@ -133,9 +138,13 @@ run only phases 1, 2 and 10-15, 1, 2 and 16-19, 1, 2 and 20-23, or 1, 2 and
 
     python3 chip_smoke.py --baseline ROOT [--phases ...]
 
-also builds the pair and W8A8 pair sources of the checkout at ROOT (the
-parent's, unpacked with git archive) and holds this checkout's pair outputs
-against that build, bit for bit, after phase 2.
+also builds the pair, W8A8 pair and block sources of the checkout at ROOT
+(the parent's, unpacked with git archive) after phase 2: holds this
+checkout's pair, W8A8 pair and attention block (B4, B5) outputs against that
+build, bit for bit; times the MLP blocks (B6, B7) of both builds in turns
+(other, this, this, other) at the phase-16/17 shape; and runs phase 18's
+drop-path train steps in turns with the other build's block library swapped
+in.
 
 Imports nothing of JAX or of the JAX package motionbert_tpu.
 """
@@ -143,9 +152,11 @@ Imports nothing of JAX or of the JAX package motionbert_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -268,6 +279,77 @@ def time_ms_back_to_back(fn, calls: int = 10, runs: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+# the profiler's own kernels, launched first (device_rows leaves them out)
+PRIMER_KERNEL, PRIMER_LAUNCHES = "spin_kernel", 64
+DEVICE_MS_TRIES = 3
+
+
+@contextlib.contextmanager
+def card_profile():
+    """torch.profiler over the host and the card, primed. On the card a
+    profile can lose its first kernel records, more of them the longer the
+    process has run, and now and then all of them, so PRIMER_LAUNCHES short
+    spin kernels, run to their end, take their place before the work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PRIMER_LAUNCHES):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def device_ms(fn, records, calls: int = 10):
+    """Device time per call of every kernel `fn` launches, from
+    torch.profiler: the card's own time, free of the host's gaps, where
+    back to back a host slower than a short kernel sets the pace. A profile
+    that dropped records would undercount, so it must hold them all:
+    `records` device records (kernels and fills) a call, where the caller
+    knows them (the port's chains), or with None (a library call, whose
+    kernels PyTorch picks) each kernel a whole multiple of `calls` times.
+    A profile short of them is taken again, DEVICE_MS_TRIES times in all;
+    then None, logged with the last profile's rows: the CUDA-event times
+    beside it stand alone."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(DEVICE_MS_TRIES):
+        with card_profile() as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        seen = sum(n for _, _, n in rows)
+        if records is None:
+            whole = seen > 0 and all(n % calls == 0 for _, _, n in rows)
+            want = f"a multiple of {calls} for each kernel"
+        else:
+            whole, want = seen == records * calls, str(records * calls)
+        if whole:
+            return sum(ms for _, ms, _ in rows) / calls
+    log(f"device_ms: {DEVICE_MS_TRIES} profiles of {calls} calls, the last "
+        f"with {seen} device records, expected {want}; recorded as null: "
+        + json.dumps([[key[:60], n] for key, _, n in rows]))
+    return None
+
+
+def block_records(kind: str, backward: bool, use_ln: bool) -> int:
+    """Device records of one call of a block wrapper, from the chains in
+    csrc/block_kernels.cu (this checkout's and the parent's alike, but B6
+    with use_ln, whose LayerNorm here is a launch of its own): a weight
+    gradient and a column sum are two launches each (the fixed-chunk
+    partials, the in-order pass); the backward's LayerNorm adds its rows
+    forward and backward, an fp32 dh and two column sums in place of the
+    bf16 dx, and without it the wrapper zeroes the two LayerNorm gradients
+    (no_ln_grads)."""
+    if not backward:
+        return 3 if kind == "attention" else 2 + int(use_ln)
+    # recompute 1, two weight gradients 4, two column sums 4, dz / dattn 1,
+    # dx 1; the attention core forward and backward 2 more
+    base = 11 + (2 if kind == "attention" else 0)
+    return base + (6 if use_ln else 2)
 
 
 def timed(name: str, fn, *args, **kw):
@@ -491,7 +573,7 @@ def phase_main_path(fp, records: list):
 
 
 # kernel-name fragments of the port's own kernels, for the profile's groups
-PROFILE_GROUPS = ("gemm_q8_kernel", "ln_quant_rows_kernel",
+PROFILE_GROUPS = ("hg_gemm_kernel", "gemm_q8_kernel", "ln_quant_rows_kernel",
                   "quant_rows_kernel", "attention_bwd_kernel",
                   "attention_kernel", "gate_bwd_rows_kernel", "gate_kernel",
                   "gemm_kernel", "colsum_kernel", "reduce_splits_kernel",
@@ -507,17 +589,14 @@ def device_rows(prof) -> list:
     return [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and PRIMER_KERNEL not in e.key]
 
 
 def phase_profile(mb, x, tag: str = "profile"):
     """One more lift under torch.profiler: device time by kernel and the
     device's busy share of the wall time (the profiler's own overhead is in
     that wall time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with card_profile() as prof:
         t0 = time.perf_counter()
         mb.lift(x)
         torch.cuda.synchronize()
@@ -1157,13 +1236,11 @@ def grad_cosine(grads: dict, ref_grads: dict) -> float:
     return F.cosine_similarity(flat, ref_flat, dim=0).item()
 
 
-def profile_step(tag: str, step, x, y) -> None:
+def profile_step(tag: str, step, x, y) -> tuple:
     """One more train step under torch.profiler: device time by kernel and
-    by group, and the device's busy share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    by group, and the device's busy share of the wall time. Returns (device
+    busy ms, {group: ms})."""
+    with card_profile() as prof:
         t0 = time.perf_counter()
         step(x, y)
         torch.cuda.synchronize()
@@ -1185,6 +1262,7 @@ def profile_step(tag: str, step, x, y) -> None:
     log(f"{tag}: by group: " + json.dumps(
         {k: round(v, 3) for k, v in sorted(groups.items(),
                                             key=lambda kv: -kv[1])}))
+    return busy_ms, groups
 
 
 def phase_train(fp, fwd_records: list, bwd_records: list):
@@ -1327,6 +1405,94 @@ def phase_driver():
 
 
 # ---------------------------------------------------------------------------
+# phase 16, first: the GEMM engine alone (csrc/hopper_gemm.cuh)
+# ---------------------------------------------------------------------------
+
+# engine vs the fp32 product rounded at the same point (torch.matmul in fp32,
+# TF32 off): fp32 results differ by summation order only; a bf16 result by
+# one rounding step either side of a boundary (2**-8 of the value), so twice
+# that of max|reference| bounds both (tests/test_torch_cuda.py's bars)
+ENGINE_F32_TOL = 1e-4
+ENGINE_BF16_TOL = 2 ** -7
+
+
+def engine_flagship_shape(layout: str, epi: str) -> tuple:
+    """(M, N, K) at which the MLP chains launch (layout, epi) at the phase-3
+    shape: fc1 and its recompute, fc2, dz and dh, the dW2 partials."""
+    M = B * FRAMES * J
+    if layout == "TN":
+        return M, C, HIDDEN
+    wide_out = epi in ("bias_gelu", "bias_gelu_z", "dgelu")
+    return (M, HIDDEN, C) if wide_out else (M, C, HIDDEN)
+
+
+def engine_operands(layout: str, M: int, N: int, K: int, seed: int) -> tuple:
+    """(a, w, bias, r, z) on the card from a seeded numpy RNG."""
+    rs = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+
+    def t(*shape, scale=1.0, dt=torch.bfloat16):
+        a = rs.normal(size=shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(device=dev, dtype=dt)
+
+    a = t(M, N) if layout == "TN" else t(M, K)
+    w = {"NT": lambda: t(N, K, scale=K ** -0.5),
+         "NN": lambda: t(K, N, scale=K ** -0.5),
+         "TN": lambda: t(M, K, scale=M ** -0.5)}[layout]()
+    shape = (N, K) if layout == "TN" else (M, N)
+    return a, w, t(shape[1], scale=0.1), t(*shape), t(*shape, dt=torch.float32)
+
+
+def phase_engine(mlp) -> None:
+    """Each (layout, epilogue) pair the MLP chains launch, at its flagship
+    shape and at ragged ones (M 37 and 16,524 with N = K = 64), against the
+    fp32 product rounded at the same point, twice for bitwise equality, with
+    one call's CUDA-event time (the wrapper's host work included) and the
+    kernel's device time and TFLOP/s (operations from the shape) at the
+    flagship shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M = B * FRAMES * J
+    for layout, epi in mlp.ENGINE_CASES:
+        for shape in (engine_flagship_shape(layout, epi), (37, 64, 64),
+                      (M, 64, 64)):
+            args = engine_operands(layout, *shape, seed=sum(shape))
+            got = mlp.engine_gemm(layout, epi, *args)
+            torch.cuda.synchronize()
+            again = mlp.engine_gemm(layout, epi, *args)
+            want = mlp.engine_gemm_plain(layout, epi, *args)
+            pairs = list(zip(got, again, want)) if epi == "bias_gelu_z" \
+                else [(got, again, want)]
+            rec = dict(shape=list(shape), bitwise_repeatable=all(
+                torch.equal(a, b) for a, b, _ in pairs))
+            errs = []
+            for a, _, w in pairs:
+                if a.shape != w.shape or a.dtype != w.dtype \
+                        or not torch.isfinite(a).all():
+                    fail(f"engine {layout}/{epi} {shape}: shape, type or "
+                         f"non-finite")
+                tol = ENGINE_BF16_TOL if a.dtype == torch.bfloat16 \
+                    else ENGINE_F32_TOL
+                errs.append((rel_err(a, w)[1], rel_l2_t(a, w), tol))
+            rec.update(rel_err=[e[0] for e in errs],
+                       rel_l2=[e[1] for e in errs], tol=[e[2] for e in errs])
+            if shape == engine_flagship_shape(layout, epi):
+                fn = lambda: mlp.engine_gemm(layout, epi, *args)
+                ms, dev_ms = time_ms(fn), device_ms(fn, 1)
+                flop = 2 * shape[0] * shape[1] * shape[2]
+                rec.update(ms=ms, device_ms=dev_ms, tflops=None if dev_ms
+                           is None else flop / (dev_ms * 1e-3) / 1e12)
+            log(f"engine {layout}/{epi}: " + json.dumps(rec))
+            if any(e > tol for e, _, tol in errs):
+                fail(f"engine {layout}/{epi} {shape}: max|d|/max|ref| "
+                     f"{[e[0] for e in errs]} above {[e[2] for e in errs]}")
+            if not rec["bitwise_repeatable"]:
+                fail(f"engine {layout}/{epi} {shape}: two runs gave "
+                     f"different bits")
+            del args, got, again, want, pairs
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phases 16 and 17: the standalone attention and MLP blocks
 # ---------------------------------------------------------------------------
 
@@ -1368,22 +1534,28 @@ def mlp_library(x, ln_w, ln_b, w1, b1, w2, b2, use_ln, residual):
 def block_cost(kind: str, mode: str, backward: bool) -> tuple:
     """(FLOPs, bytes) of a block at the phase-3 shape: its products (and the
     attention core); x read and out written once, the weights read once. The
-    backward's inputs are x, g and the weights, so its recompute counts: each
-    product and the core three times; x and g read, dx written, the weights
-    read and their gradients written once."""
+    backward's inputs are x, g and the weights, so the recompute that its
+    gradients need counts: the first product (qkv, fc1) three times (the
+    recompute, its weight's gradient, its input's), the output product
+    (proj, fc2) twice (its weight's gradient and its input's: its output is
+    never needed), the core three times (the recompute and a backward of
+    four products against the forward's two); x and g read, dx written, the
+    weights read and their gradients written once."""
     M = B * FRAMES * J
     if kind == "attention":
-        w_elems, b_elems = 3 * C * C + C * C, 3 * C + C
-        flops = 2 * M * w_elems
+        first, second = 3 * C * C, C * C
+        b_elems = 3 * C + C
         groups, n = (B * J, FRAMES) if mode == "temporal" else (B * FRAMES, J)
-        flops += 4 * groups * n * n * C
+        core = 4 * groups * n * n * C
     else:
-        w_elems, b_elems = 2 * C * HIDDEN, HIDDEN + C
-        flops = 2 * M * w_elems
+        first, second = C * HIDDEN, HIDDEN * C
+        b_elems, core = HIDDEN + C, 0
+    w_elems = first + second
     param_bytes = (w_elems + b_elems) * 2 + 2 * C * 4
     if backward:
-        return 3 * flops, 3 * M * C * 2 + 2 * param_bytes
-    return flops, 2 * M * C * 2 + param_bytes
+        flops = 2 * M * (3 * first + 2 * second) + 3 * core
+        return flops, 3 * M * C * 2 + 2 * param_bytes
+    return 2 * M * w_elems + core, 2 * M * C * 2 + param_bytes
 
 
 def rel_l2_t(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -1439,6 +1611,12 @@ def phase_block_kernels(at, mlp) -> list:
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes > t_ops else "operations",
                 library_ms=time_ms(lambda: library(*args, *fl)),
+                library_back_to_back_ms=time_ms_back_to_back(
+                    lambda: library(*args, *fl)),
+                device_ms=device_ms(lambda: wrapper(*args, *extra, *fl),
+                                    block_records(kind, False, use_ln)),
+                library_device_ms=device_ms(lambda: library(*args, *fl),
+                                            None),
                 library_rel_err=lib_rel, gflop=flops / 1e9,
                 mbytes=nbytes / 1e6)
             log(f"block kernel {kind}/{tag}: " + json.dumps(rec))
@@ -1520,6 +1698,10 @@ def phase_block_backward(at, mlp) -> list:
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes > t_ops else "operations",
                 library_ms=time_ms(library_bwd, runs=10),
+                library_back_to_back_ms=time_ms_back_to_back(library_bwd),
+                device_ms=device_ms(lambda: kernel(*args, *extra, *fl),
+                                    block_records(kind, True, use_ln)),
+                library_device_ms=device_ms(library_bwd, None),
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
             log(f"block backward {kind}/{tag}: " + json.dumps(rec))
             worst = max(rec["rel_err"].items(), key=lambda kv: kv[1])
@@ -1809,6 +1991,7 @@ def phase_blocks(fp) -> list:
     from motionbert_tpu_torch.ops import attention as at
     from motionbert_tpu_torch.ops import fused_mlp as mlp
 
+    timed("engine", phase_engine, mlp)
     fwd = timed("block kernels", phase_block_kernels, at, mlp)
     bwd = timed("block backward", phase_block_backward, at, mlp)
     timed("drop-path", phase_drop_path, fp, at, mlp, fwd, bwd)
@@ -3103,32 +3286,185 @@ def phase_mesh_drivers(fp, fs) -> None:
 
 
 # ---------------------------------------------------------------------------
-# --baseline: the pair chains of another checkout, bit for bit
+# --baseline: another checkout's kernels, bit for bit and in turns
 # ---------------------------------------------------------------------------
 
-def phase_baseline(fp, q8, other_root: str) -> None:
-    """Build another checkout's pair_kernels.cu and pair_q8_kernels.cu (the
-    parent's, say) with this one's nvcc flags, and hold this checkout's pair
-    and W8A8 pair outputs, plain and gated, temporal and spatial, against
-    them bit for bit, through the same wrappers."""
+BASELINE_STEPS = 5
+
+
+def build_other(csrc: str, name: str, tmp: str):
+    """csrc/<name>.cu of another checkout, built with this one's nvcc flags
+    into tmp and loaded."""
     import ctypes
 
     from motionbert_tpu_torch.ops import _build
+
+    so = os.path.join(tmp, f"{name}.so")
+    out = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                          os.path.join(csrc, f"{name}.cu")],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"baseline: nvcc failed for {name}.cu:\n{out.stdout}{out.stderr}")
+    return ctypes.CDLL(so)
+
+
+class swapped_library:
+    """Within the block, the wrappers load `lib` for csrc/<name>.cu."""
+
+    def __init__(self, name: str, lib):
+        from motionbert_tpu_torch.ops import _build
+
+        self.libs, self.name, self.lib = _build._libs, name, lib
+
+    def __enter__(self):
+        self.saved = self.libs[self.name]
+        self.libs[self.name] = self.lib
+
+    def __exit__(self, *exc):
+        self.libs[self.name] = self.saved
+
+
+def baseline_blocks(other_block, results: dict) -> None:
+    """B4 and B5 of this build against the other's, bit for bit; B6 and B7
+    of both timed in turns (other, this, this, other) at the phase-16/17
+    shape with the flags the model calls."""
+    from motionbert_tpu_torch.ops import attention as at
+    from motionbert_tpu_torch.ops import fused_mlp as mlp
+
+    at.block_library()
+    mlp._library()
+    dev = torch.device("cuda")
+    scale = (C // HEADS) ** -0.5
+    p = pair_inputs(51, False, dev)
+    g = pair_inputs(5, False, dev)["x"]
+    attn = [p["x"]] + [p[k] for k in ATTN_KEYS]
+    for mode in ("temporal", "spatial"):
+        for use_ln, residual in ATTN_FLAGS:
+            fl = (HEADS, scale, mode, use_ln, residual)
+            tag = f"{mode}/ln{int(use_ln)}res{int(residual)}"
+            ours = (at.fused_attention_block(*attn, *fl),
+                    at.fused_attention_block_bwd(attn[0], g, *attn[1:6], *fl))
+            with swapped_library("block_kernels", other_block):
+                at.block_library()          # argtypes on the other library
+                theirs = (at.fused_attention_block(*attn, *fl),
+                          at.fused_attention_block_bwd(attn[0], g, *attn[1:6],
+                                                       *fl))
+            results[f"fused_attention_block/{tag}"] = torch.equal(ours[0],
+                                                                  theirs[0])
+            results[f"fused_attention_block_bwd/{tag}"] = all(
+                torch.equal(a, b) for a, b in zip(ours[1], theirs[1])
+                if a is not None)
+    mlp_args = [p["x"]] + [p[k] for k in MLP_KEYS]
+    bwd_args = [p["x"], g] + [p[k] for k in MLP_KEYS[:-1]]
+    use_ln, residual = MLP_FLAGS[0]
+    times = {"fused_mlp_block": [], "fused_mlp_block_bwd": []}
+    for which in ("other", "this", "this", "other"):
+        lib = other_block if which == "other" else None
+        for name, fn, records in (
+                ("fused_mlp_block",
+                 lambda: mlp.fused_mlp_block(*mlp_args, use_ln, residual),
+                 block_records("mlp", False, use_ln)),
+                ("fused_mlp_block_bwd",
+                 lambda: mlp.fused_mlp_block_bwd(*bwd_args, use_ln,
+                                                 residual),
+                 block_records("mlp", True, use_ln))):
+            if lib is None:
+                rec = (time_ms(fn), time_ms_back_to_back(fn),
+                       device_ms(fn, records))
+            else:
+                with swapped_library("block_kernels", lib):
+                    rec = (time_ms(fn), time_ms_back_to_back(fn),
+                           device_ms(fn, records))
+            times[name].append(dict(build=which, ms=rec[0],
+                                    back_to_back_ms=rec[1], device_ms=rec[2]))
+    log("baseline: B6 / B7 at tokens/ln0res0, in turns: " + json.dumps(times))
+    for name, turns in times.items():
+        this = [t["ms"] for t in turns if t["build"] == "this"]
+        other = [t["ms"] for t in turns if t["build"] == "other"]
+        log(f"baseline: {name}: this build {min(this):.4f}-{max(this):.4f} ms, "
+            f"the other {min(other):.4f}-{max(other):.4f} ms "
+            f"({statistics.mean(other) / statistics.mean(this):.2f}x)")
+    del p, g, attn, mlp_args, bwd_args
+    torch.cuda.empty_cache()
+
+
+def baseline_drop_path(other_block) -> None:
+    """Phase 18's drop-path train steps in turns (other, this, this, other)
+    with the other checkout's block library swapped in: ms per step."""
+    from motionbert_tpu_torch.core.checkpoint import load_state_dict
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.losses.pose import LAMBDA_KEYS
+    from motionbert_tpu_torch.models.factory import load_backbone
+    from motionbert_tpu_torch.train.pose3d import make_train_step
+    from motionbert_tpu_torch.train.state import make_adamw
+
+    args = get_config(TRAIN_CONFIG)
+    lambdas = {k: args.get(k, 0.0) for k in LAMBDA_KEYS}
+    model = load_backbone(args, device="cuda", drop_path_rate=DROP_PATH_RATE)
+    model.load_state_dict(load_state_dict(ANCHOR), strict=True)
+    opt = make_adamw(model.parameters(), args.learning_rate,
+                     args.weight_decay)
+    step = make_train_step(model, opt, lambdas, rootrel=args.rootrel,
+                           no_conf=args.no_conf, flip_aug=bool(args.flip),
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    x, y = train_batch(TRAIN_BATCH)
+
+    def steps() -> float:
+        step(x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BASELINE_STEPS):
+            step(x, y)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / BASELINE_STEPS * 1e3
+
+    steps()                 # warm-up: the first steps allocate and tune
+    turns = []
+    for which in ("other", "this", "this", "other"):
+        if which == "other":
+            with swapped_library("block_kernels", other_block):
+                turns.append((which, steps()))
+        else:
+            turns.append((which, steps()))
+    log(f"baseline: drop-path step ({TRAIN_BATCH}, {FRAMES}), "
+        f"drop_path_rate {DROP_PATH_RATE}, {BASELINE_STEPS} steps a turn, "
+        f"ms per step in turns: "
+        + ", ".join(f"{w} {ms:.2f}" for w, ms in turns))
+    # B6 / B7's products in the other build's step: both builds run B1-B5
+    # on the same WMMA GEMM, so the difference of that group is the other
+    # B6 / B7's (this build's run on the engine)
+    with swapped_library("block_kernels", other_block):
+        other_busy, other_groups = profile_step(
+            "baseline drop-path profile (other)", step, x, y)
+    this_busy, this_groups = profile_step(
+        "baseline drop-path profile (this)", step, x, y)
+    theirs = other_groups.get("gemm_kernel", 0.0) \
+        - this_groups.get("gemm_kernel", 0.0)
+    ours = this_groups.get("hg_gemm_kernel", 0.0)
+    log(f"baseline: B6 / B7's products in a profiled drop-path step: the "
+        f"other build's {theirs:.2f} ms of {other_busy:.2f} device busy "
+        f"({100 * theirs / other_busy:.1f}%), this build's {ours:.2f} of "
+        f"{this_busy:.2f} ({100 * ours / this_busy:.1f}%)")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+def phase_baseline(fp, q8, other_root: str) -> None:
+    """Build another checkout's pair_kernels.cu, pair_q8_kernels.cu and
+    block_kernels.cu (the parent's, say) with this one's nvcc flags. Hold
+    this checkout's pair and W8A8 pair outputs, plain and gated, temporal
+    and spatial, and the attention blocks' (B4, B5) outputs against that
+    build bit for bit, through the same wrappers; time the MLP blocks (B6,
+    B7) and the drop-path train step of both builds in turns."""
+    import ctypes
 
     csrc = os.path.join(other_root, "motionbert_tpu_torch", "ops", "csrc")
     scale = (C // HEADS) ** -0.5
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {}
-        for name in ("pair_kernels", "pair_q8_kernels"):
-            so = os.path.join(tmp, f"{name}.so")
-            out = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", so,
-                                  os.path.join(csrc, f"{name}.cu")],
-                                 capture_output=True, text=True, timeout=600)
-            if out.returncode != 0:
-                fail(f"baseline: nvcc failed for {name}.cu:\n{out.stdout}"
-                     f"{out.stderr}")
-            libs[name] = ctypes.CDLL(so)
+        libs = {name: build_other(csrc, name, tmp)
+                for name in ("pair_kernels", "pair_q8_kernels",
+                             "block_kernels")}
         results = {}
         for name, module, wrapper in (
                 ("pair_kernels", fp, fp.fused_pair_block),
@@ -3147,18 +3483,17 @@ def phase_baseline(fp, q8, other_root: str) -> None:
                 getattr(theirs_lib, fn_name).argtypes = getattr(
                     module._library(), fn_name).argtypes
                 getattr(theirs_lib, fn_name).restype = ctypes.c_int
-                saved = _build._libs[name]
-                _build._libs[name] = theirs_lib
-                try:
+                with swapped_library(name, theirs_lib):
                     theirs = wrapper(*args, HEADS, scale, mode)
-                finally:
-                    _build._libs[name] = saved
                 results[f"{wrapper.__name__}/{mode}"] = torch.equal(ours,
                                                                     theirs)
-    log(f"baseline ({other_root}): this checkout's pair outputs bitwise "
-        f"equal to the other build's: {json.dumps(results)}")
-    if not all(results.values()):
-        fail(f"baseline: outputs differ: {results}")
+        baseline_blocks(libs["block_kernels"], results)
+        log(f"baseline ({other_root}): this checkout's pair and attention "
+            f"block outputs bitwise equal to the other build's: "
+            f"{json.dumps(results)}")
+        if not all(results.values()):
+            fail(f"baseline: outputs differ: {results}")
+        baseline_drop_path(libs["block_kernels"])
 
 
 def phase_mesh_all(fp, q8) -> list:
@@ -3182,9 +3517,10 @@ def main() -> int:
                              "none of them prints the last line")
     parser.add_argument("--baseline", default=None, metavar="ROOT",
                         help="another checkout (the parent's, say): after the "
-                             "build, hold this checkout's pair and W8A8 pair "
-                             "outputs against that checkout's build, bit for "
-                             "bit")
+                             "build, hold this checkout's pair, W8A8 pair and "
+                             "attention block outputs against that checkout's "
+                             "build, bit for bit, and time its MLP blocks and "
+                             "drop-path steps in turns with this build's")
     opts = parser.parse_args()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3206,9 +3542,13 @@ def main() -> int:
     log(f"build: {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in _build.build_logs.items():
+        kernel = ""
         for line in text.splitlines():
+            if "Function properties for" in line:
+                found = re.search(r"hg_gemm_kernelILi(\d+)ELi(\d+)E", line)
+                kernel = f"hg_gemm_kernel<{found[1]}, {found[2]}>: " if found else ""
             if "registers" in line or "smem" in line or "spill" in line:
-                log(f"build: {name}: {line.strip()}")
+                log(f"build: {name}: {kernel}{line.strip()}")
 
     if opts.baseline:
         timed("baseline", phase_baseline, fp, q8, opts.baseline)

@@ -19,9 +19,8 @@
 // and accumulate the parameter gradients across a sequential grid. 227 KB of
 // shared memory cannot hold the weights and thread blocks run in no order, so
 // each entry point is a chain of launches over the flattened token rows
-// (M = B*F*J for attention, any row count for the MLP), from the templates the
-// pair kernels use (pair_common.cuh, pair_bwd_common.cuh), at the TPU
-// kernels' rounding points:
+// (M = B*F*J for attention, any row count for the MLP), at the TPU kernels'
+// rounding points:
 //   attention forward   NT gemm [LN prologue] (qkv, bf16) -> attention
 //                       -> NT gemm + bias [+ x]
 //   attention backward  [ln_fwd_rows (h, row stats)] -> NT gemm (qkv)
@@ -31,7 +30,7 @@
 //                       dqkv; NN dh = bf16(dqkv) Wqkv;
 //                       with LN: ln_bwd_rows dx = bf16(LN-backward(dh) [+ g]),
 //                       without: dx = bf16(dh [+ g]) in the GEMM's epilogue
-//   MLP forward         NT gemm [LN prologue] + GELU (bf16) -> NT gemm + bias [+ x]
+//   MLP forward         [ln_fwd_rows] -> NT gemm + GELU (bf16) -> NT gemm + bias [+ x]
 //   MLP backward        [ln_fwd_rows] -> NT gemm + GELU (bf16 a, fp32 z);
 //                       TN dW2 = g^T a; NN dz = bf16(g W2 * GELU'(z));
 //                       TN dW1 = dz^T h; db1 from the rounded dz;
@@ -45,14 +44,25 @@
 //
 // Bound. At (4, 243, 17, 512), 8 heads, hidden 1024, the attention block does
 // 42.9 GFLOP (temporal) and the MLP block 34.7 GFLOP against ~36 MB of inputs
-// and outputs: tensor-core operations bound both. As with the pair, this
-// first design writes its intermediates to device memory and its GEMMs are
-// WMMA tiles without a copy pipeline; it sits well short of that bound.
+// and outputs; the backwards 120.0 and 86.6 GFLOP, the recompute counted (the
+// first product three times, the output product twice, the core three times):
+// tensor-core operations bound all four. The attention chains run pair_common.cuh's
+// WMMA GEMM (64 x 64 tiles, no copy pipeline), well short of that bound. The
+// MLP chains are pure GEMM chains around small row and column passes, so they
+// run on hopper_gemm.cuh, the wgmma + TMA engine: 128 x 128 tiles from a
+// three-stage TMA ring, two blocks an SM, the epilogues from the register
+// fragments. Their LayerNorm (use_ln; the model calls the MLP without it)
+// runs as ln_fwd_rows before the first GEMM, the same arithmetic as the
+// WMMA GEMM's prologue; the weight gradients take the engine's fixed
+// HG_TN_SPLITS row chunks and the same in-order second pass.
 //
 // Every entry point launches on the caller's stream, allocates nothing (the
 // caller passes every buffer) and returns 0 or the first CUDA error.
 
+#include <cstring>
+
 #include "pair_bwd_common.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -80,29 +90,50 @@ enum MlpSlot {
     M_COUNT
 };
 
+static_assert(HG_TN_SPLITS <= TN_SPLITS, "mbt_block_work_floats holds the engine's partials");
+
+// The NN product dY W of the input gradient: the WMMA GEMM (attention) or the
+// engine (MLP).
+template <bool ENGINE, int EPI>
+cudaError_t nn_gemm(const void* dY, const void* W, const void* R, void* out, int M, int C,
+                    int N, cudaStream_t stream) {
+    if constexpr (ENGINE)
+        return hg_gemm<NN, EPI>(dY, W, nullptr, R, nullptr, out, nullptr, M, C, N, stream);
+    else
+        return launch_gemm<NN, false, EPI>(dY, W, nullptr, R, nullptr, nullptr, nullptr, out,
+                                           nullptr, M, C, N, stream);
+}
+
 // dx from dh = dY W (NN product of dY (M, N) bf16 with the nn.Linear weight
 // W (N, C)). With LN: fp32 dh, the LayerNorm parameter gradients, then the
 // row backward [+ g]. Without: the product's epilogue writes bf16(dh [+ g]).
+template <bool ENGINE>
 cudaError_t input_grad(const void* dY, const void* W, int M, int C, int N, bool use_ln,
                        bool residual, const void* x, const void* g, const void* stats,
                        const void* ln_w, void* dh, float* work, void* dln_w, void* dln_b,
                        void* dx, cudaStream_t stream) {
     cudaError_t err;
     if (!use_ln) {
-        if (residual)
-            return launch_gemm<NN, false, EPI_RES>(dY, W, nullptr, g, nullptr, nullptr,
-                                                   nullptr, dx, nullptr, M, C, N, stream);
-        return launch_gemm<NN, false, EPI_BF16>(dY, W, nullptr, nullptr, nullptr, nullptr,
-                                                nullptr, dx, nullptr, M, C, N, stream);
+        if (residual) return nn_gemm<ENGINE, EPI_RES>(dY, W, g, dx, M, C, N, stream);
+        return nn_gemm<ENGINE, EPI_BF16>(dY, W, nullptr, dx, M, C, N, stream);
     }
-    err = launch_gemm<NN, false, EPI_F32>(dY, W, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                          dh, nullptr, M, C, N, stream);
+    err = nn_gemm<ENGINE, EPI_F32>(dY, W, nullptr, dh, M, C, N, stream);
     if (err != cudaSuccess) return err;
     err = column_sum<COL_F32>(dh, nullptr, nullptr, nullptr, M, C, work, dln_b, false, stream);
     if (err != cudaSuccess) return err;
     err = column_sum<COL_LN_W>(dh, x, stats, nullptr, M, C, work, dln_w, false, stream);
     if (err != cudaSuccess) return err;
     return launch_ln_bwd_rows(dh, x, stats, ln_w, residual ? g : nullptr, dx, M, C, stream);
+}
+
+// dW (rows, cols) bf16 = sum_m dY[m, :rows]^T A[m, :cols] on the engine:
+// HG_TN_SPLITS fp32 partials, added in chunk order.
+cudaError_t hg_weight_grad(const void* dY, const void* A, int M, int rows, int cols,
+                           float* work, void* out, cudaStream_t stream) {
+    cudaError_t err = hg_gemm<TN, EPI_PARTIAL>(dY, A, nullptr, nullptr, nullptr, work,
+                                               nullptr, M, rows, cols, stream);
+    if (err != cudaSuccess) return err;
+    return reduce_splits(work, HG_TN_SPLITS, rows * cols, out, true, stream);
 }
 
 }  // namespace
@@ -179,31 +210,34 @@ extern "C" int mbt_attention_block_bwd(void* const* p, int B, int F, int J, int 
     CHECK(weight_grad(p[A_DQKVB], h, M, 3 * C, C, work, p[A_DWQKV], stream));
     CHECK(column_sum<COL_F32>(p[A_DQKV], nullptr, nullptr, nullptr, M, 3 * C, work,
                               p[A_DBQKV], true, stream));
-    CHECK(input_grad(p[A_DQKVB], p[A_WQKV], M, C, 3 * C, use_ln != 0, residual != 0, p[A_X],
+    CHECK(input_grad<false>(p[A_DQKVB], p[A_WQKV], M, C, 3 * C, use_ln != 0, residual != 0, p[A_X],
                      p[A_G], p[A_ST], p[A_LN_W], p[A_DH], work, p[A_DLN_W], p[A_DLN_B],
                      p[A_DX], stream));
     return 0;
 }
 
-// MLP block on x (M, C) bf16. Scratch from the caller: hid (M, hidden) bf16.
+// MLP block on x (M, C) bf16. Scratch from the caller: hid (M, hidden) bf16,
+// followed with use_ln by h (M, C) bf16 and the row statistics (M, 2) fp32:
+// M * (hidden + C + 4) bf16 elements in all (ops/fused_mlp.py's _launch).
 extern "C" int mbt_mlp_block(
     const void* x, void* out, void* hid, const void* ln_w, const void* ln_b,
     const void* w1, const void* b1, const void* w2, const void* b2,
     int M, int C, int hidden, int use_ln, int residual, void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    if (use_ln)
-        CHECK((launch_gemm<NT, true, EPI_BIAS_GELU>(x, w1, b1, nullptr, ln_w, ln_b, nullptr,
-                                                    hid, nullptr, M, hidden, C, stream)));
-    else
-        CHECK((launch_gemm<NT, false, EPI_BIAS_GELU>(x, w1, b1, nullptr, nullptr, nullptr,
-                                                     nullptr, hid, nullptr, M, hidden, C,
-                                                     stream)));
+    const void* h = x;
+    if (use_ln) {
+        bf16* hb = static_cast<bf16*>(hid) + (size_t)M * hidden;
+        CHECK(launch_ln_fwd_rows(x, ln_w, ln_b, hb, hb + (size_t)M * C, M, C, stream));
+        h = hb;
+    }
+    CHECK((hg_gemm<NT, EPI_BIAS_GELU>(h, w1, b1, nullptr, nullptr, hid, nullptr, M, hidden, C,
+                                      stream)));
     if (residual)
-        CHECK((launch_gemm<NT, false, EPI_BIAS_RES>(hid, w2, b2, x, nullptr, nullptr, nullptr,
-                                                    out, nullptr, M, C, hidden, stream)));
+        CHECK((hg_gemm<NT, EPI_BIAS_RES>(hid, w2, b2, x, nullptr, out, nullptr, M, C, hidden,
+                                         stream)));
     else
-        CHECK((launch_gemm<NT, false, EPI_BIAS>(hid, w2, b2, nullptr, nullptr, nullptr,
-                                                nullptr, out, nullptr, M, C, hidden, stream)));
+        CHECK((hg_gemm<NT, EPI_BIAS>(hid, w2, b2, nullptr, nullptr, out, nullptr, M, C, hidden,
+                                     stream)));
     return 0;
 }
 
@@ -223,24 +257,68 @@ extern "C" int mbt_mlp_block_bwd(void* const* p, int M, int C, int hidden, int u
         CHECK(launch_ln_fwd_rows(p[M_X], p[M_LN_W], p[M_LN_B], p[M_H], p[M_ST], M, C, stream));
         h = p[M_H];
     }
-    CHECK((launch_gemm<NT, false, EPI_BIAS_GELU_Z>(h, p[M_W1], p[M_B1], nullptr, nullptr,
-                                                   nullptr, nullptr, p[M_A], p[M_Z], M, hidden,
-                                                   C, stream)));
+    CHECK((hg_gemm<NT, EPI_BIAS_GELU_Z>(h, p[M_W1], p[M_B1], nullptr, nullptr, p[M_A], p[M_Z],
+                                        M, hidden, C, stream)));
 
     // ---- fc2 backward ----
-    CHECK(weight_grad(p[M_G], p[M_A], M, C, hidden, work, p[M_DW2], stream));
+    CHECK(hg_weight_grad(p[M_G], p[M_A], M, C, hidden, work, p[M_DW2], stream));
     CHECK(column_sum<COL_BF16>(p[M_G], nullptr, nullptr, nullptr, M, C, work, p[M_DB2], true,
                                stream));
-    CHECK((launch_gemm<NN, false, EPI_DGELU>(p[M_G], p[M_W2], nullptr, nullptr, nullptr,
-                                             nullptr, p[M_Z], p[M_DZ], nullptr, M, hidden, C,
-                                             stream)));
+    CHECK((hg_gemm<NN, EPI_DGELU>(p[M_G], p[M_W2], nullptr, nullptr, p[M_Z], p[M_DZ], nullptr,
+                                  M, hidden, C, stream)));
 
     // ---- fc1 backward ----
-    CHECK(weight_grad(p[M_DZ], h, M, hidden, C, work, p[M_DW1], stream));
+    CHECK(hg_weight_grad(p[M_DZ], h, M, hidden, C, work, p[M_DW1], stream));
     CHECK(column_sum<COL_BF16>(p[M_DZ], nullptr, nullptr, nullptr, M, hidden, work, p[M_DB1],
                                true, stream));
-    CHECK(input_grad(p[M_DZ], p[M_W1], M, C, hidden, use_ln != 0, residual != 0, p[M_X],
-                     p[M_G], p[M_ST], p[M_LN_W], p[M_DH], work, p[M_DLN_W], p[M_DLN_B],
-                     p[M_DX], stream));
+    CHECK(input_grad<true>(p[M_DZ], p[M_W1], M, C, hidden, use_ln != 0, residual != 0, p[M_X],
+                           p[M_G], p[M_ST], p[M_LN_W], p[M_DH], work, p[M_DLN_W], p[M_DLN_B],
+                           p[M_DX], stream));
     return 0;
+}
+
+// ---------------------------------------------------------------------------
+// the engine alone, for its tests: one hg_gemm launch of the (layout,
+// epilogue) pairs the MLP chains use, with hg_gemm's arguments. TN (EPI_PARTIAL)
+// writes HG_TN_SPLITS partial tiles of mbt_hgemm_split_rows(M) token rows
+// each. Any other pair returns cudaErrorInvalidValue.
+// ---------------------------------------------------------------------------
+
+// The constants ops/fused_mlp.py names (its ENGINE_* tables) by its names:
+// the Layout and Epilogue values, the k-step and the TN chunk count; -1 for
+// any other name. The wrapper holds its tables against these.
+extern "C" int mbt_hgemm_constant(const char* name) {
+    static const struct { const char* name; int value; } table[] = {
+        {"NT", NT}, {"NN", NN}, {"TN", TN},
+        {"bias", EPI_BIAS}, {"bias_res", EPI_BIAS_RES}, {"bias_gelu", EPI_BIAS_GELU},
+        {"bias_gelu_z", EPI_BIAS_GELU_Z}, {"f32", EPI_F32}, {"bf16", EPI_BF16},
+        {"dgelu", EPI_DGELU}, {"partial", EPI_PARTIAL}, {"res", EPI_RES},
+        {"BK", HG_BK}, {"TN_SPLITS", HG_TN_SPLITS}};
+    for (const auto& entry : table)
+        if (strcmp(entry.name, name) == 0) return entry.value;
+    return -1;
+}
+
+extern "C" int mbt_hgemm_split_rows(int M) { return hg_split_rows(M); }
+
+extern "C" int mbt_hgemm_test(int layout, int epi, const void* A, const void* W,
+                              const void* bias, const void* R, const void* Z, void* out,
+                              void* out_z, int M, int N, int K, void* stream_ptr) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+    const int key = layout * 16 + epi;
+#define HG_CASE(L, E) \
+    case L * 16 + E: return (int)hg_gemm<L, E>(A, W, bias, R, Z, out, out_z, M, N, K, s);
+    switch (key) {
+        HG_CASE(NT, EPI_BIAS)
+        HG_CASE(NT, EPI_BIAS_RES)
+        HG_CASE(NT, EPI_BIAS_GELU)
+        HG_CASE(NT, EPI_BIAS_GELU_Z)
+        HG_CASE(NN, EPI_DGELU)
+        HG_CASE(NN, EPI_F32)
+        HG_CASE(NN, EPI_BF16)
+        HG_CASE(NN, EPI_RES)
+        HG_CASE(TN, EPI_PARTIAL)
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef HG_CASE
 }

@@ -14,12 +14,20 @@ recomputes the block. The wrappers count their kernel launches in
 Source note. The CUDA chains replace the TPU kernels
 ``motionbert_tpu/ops/fused_mlp.py:_fused_mlp_pallas`` and
 ``motionbert_tpu/ops/fused_mlp.py:_fused_mlp_bwd_pallas``. On the H100 the
-block is bound by tensor-core operations (~2.1 MFLOP per token against 2 KB
-of token I/O at the flagship shape). The TPU kernel tiles 512 token rows with
-both weights resident on chip, and gets erf from a polynomial (|error| <=
-1.5e-7) because its compiler has none; the port runs two GEMM launches
-forward and a chain with two-pass deterministic reductions backward, and uses
-the exact erf (``erff`` on the card, ``torch.erf`` here).
+block is bound by tensor-core operations: 34.7 GFLOP forward and 86.6 GFLOP
+backward (fc1 three times with its recompute, fc2 twice) at the flagship
+shape (16,524 token rows, C 512, hidden 1024), ~2.1 MFLOP per token against
+2 KB of token I/O. The TPU
+kernel tiles 512 token rows with both weights resident on chip, and gets erf
+from a polynomial (|error| <= 1.5e-7) because its compiler has none. On the
+card the weights do not fit an SM, so the forward is two GEMM launches and
+the backward a chain of five GEMMs with two-pass deterministic reductions,
+all on ``csrc/hopper_gemm.cuh``: wgmma products fed by TMA through a
+three-stage mbarrier ring, 128 x 128 tiles, two blocks an SM, the bias,
+residual, GELU and GELU' epilogues applied to the register fragments. The
+port uses the exact erf (``erff`` on the card, ``torch.erf`` here).
+``engine_gemm`` runs one engine launch alone, for its tests; its plain
+version is ``engine_gemm_plain``.
 
 The hidden activation is rounded to x's dtype before fc2, as the kernels
 round it. Weights use nn.Linear's layout: w1 (hidden, C), w2 (C, hidden).
@@ -28,6 +36,8 @@ pair (``ops/fused_pair.py``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -119,6 +129,16 @@ def check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2,
                            ("w2", w2, (C, hidden)), ("b2", b2, (C,))):
         if t is not None:
             check_tensor(name, t, shape, bf16, dev)
+    for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+        if t is not None:
+            check_aligned(name, t)
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """The engine's TMA loads read from 16-byte-aligned addresses only."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the GEMM engine needs a 16-byte-aligned "
+                         f"address, got one at offset {t.data_ptr() % 16}")
 
 
 # mbt_mlp_block_bwd's pointer array, in the order of the MlpSlot enum in
@@ -143,7 +163,10 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, use_ln, residual) -> torch.Tensor:
     M = x.numel() // C
     lib = _library()
     with torch.cuda.device(x.device):
-        hid = torch.empty((M, hidden), dtype=x.dtype, device=x.device)
+        # hid (M, hidden); with use_ln then h (M, C) and the fp32 row
+        # statistics (M, 2) of the LayerNorm pass, as 4 bf16 a row
+        hid = torch.empty(M * (hidden + (C + 4 if use_ln else 0)),
+                          dtype=x.dtype, device=x.device)
         out = torch.empty_like(x)
         rc = lib.mbt_mlp_block(
             x.data_ptr(), out.data_ptr(), hid.data_ptr(), data_ptr(ln_w),
@@ -159,6 +182,7 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, use_ln, residual) -> torch.Tensor:
 def _launch_bwd(x, g, ln_w, ln_b, w1, b1, w2, use_ln, residual) -> tuple:
     check_mlp_args(x, ln_w, ln_b, w1, b1, w2, None, use_ln)
     check_tensor("g", g, x.shape, x.dtype, x.device)
+    check_aligned("g", g)
     C, hidden = x.shape[-1], w1.shape[0]
     M = x.numel() // C
     lib = _library()
@@ -238,3 +262,161 @@ def fused_mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, use_ln: bool = False,
 
 
 fused_mlp_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the GEMM engine alone (csrc/hopper_gemm.cuh through block_kernels.cu's test
+# entry): one launch of a (layout, epilogue) pair the MLP chains use
+# ---------------------------------------------------------------------------
+
+# csrc/pair_common.cuh's Layout and Epilogue values and hopper_gemm.cuh's
+# HG_TN_SPLITS and HG_BK; _engine_library holds them against the library's
+# mbt_hgemm_constant, the plain version needs them without one
+ENGINE_LAYOUTS = {"NT": 0, "NN": 1, "TN": 2}
+ENGINE_EPILOGUES = {"bias": 0, "bias_res": 1, "bias_gelu": 2,
+                    "bias_gelu_z": 3, "f32": 4, "bf16": 5, "dgelu": 6,
+                    "partial": 7, "res": 8}
+ENGINE_CASES = (("NT", "bias"), ("NT", "bias_res"), ("NT", "bias_gelu"),
+                ("NT", "bias_gelu_z"), ("NN", "dgelu"), ("NN", "f32"),
+                ("NN", "bf16"), ("NN", "res"), ("TN", "partial"))
+ENGINE_TN_SPLITS = 8
+ENGINE_BK = 64
+
+
+def engine_split_rows(M: int) -> int:
+    """Token rows of one TN chunk: M split ENGINE_TN_SPLITS ways, rounded up
+    to whole k-steps (hopper_gemm.cuh's hg_split_rows)."""
+    per = -(-M // ENGINE_TN_SPLITS)
+    return -(-per // ENGINE_BK) * ENGINE_BK
+
+
+def engine_shapes(layout: str, a: torch.Tensor, w: torch.Tensor) -> tuple:
+    """(M, N, K) of a launch and the output's (rows, cols): NT a (M, K), w
+    (N, K); NN a (M, K), w (K, N); TN a (M, N), w (M, K) -> (N, K)."""
+    if layout == "NT":
+        (M, K), N = a.shape, w.shape[0]
+    elif layout == "NN":
+        (M, K), N = a.shape, w.shape[1]
+    else:
+        (M, N), K = a.shape, w.shape[1]
+        return (M, N, K), (N, K)
+    return (M, N, K), (M, N)
+
+
+def engine_gemm_plain(layout: str, epi: str, a, w, bias=None, r=None,
+                      z=None):
+    """The engine's launch in plain PyTorch: the fp32 product (exact bf16
+    products, fp32 sums) and the epilogue at the kernel's rounding points,
+    written as ``mlp_block`` and ``mlp_block_bwd_plain`` write each step.
+    Returns the output (bf16, or fp32 for "f32"); "bias_gelu_z" returns
+    (bf16 GELU(z), fp32 z); TN returns the ENGINE_TN_SPLITS fp32 partials
+    (splits, N, K) of the fixed row chunks."""
+    if layout == "TN":
+        step = engine_split_rows(a.shape[0])
+        return torch.stack([
+            torch.matmul(wide(a[s * step:(s + 1) * step]).t(),
+                         wide(w[s * step:(s + 1) * step]))
+            for s in range(ENGINE_TN_SPLITS)])
+    acc = torch.matmul(wide(a), wide(w).t() if layout == "NT" else wide(w))
+    if epi == "f32":
+        return acc
+    if epi == "dgelu":
+        zf = wide(z)
+        cdf = 0.5 * (1.0 + torch.erf(zf * 0.7071067811865476))
+        pdf = torch.exp(-0.5 * zf * zf) * 0.3989422804014327
+        acc = acc * (cdf + zf * pdf)
+    if epi.startswith("bias"):
+        acc = acc + wide(bias)
+    if epi in ("bias_res", "res"):
+        acc = acc + wide(r)
+    if epi == "bias_gelu":
+        return F.gelu(acc).to(a.dtype)
+    if epi == "bias_gelu_z":
+        cdf = 0.5 * (1.0 + torch.erf(acc * 0.7071067811865476))
+        return (acc * cdf).to(a.dtype), acc
+    return acc.to(a.dtype)
+
+
+def engine_constants() -> dict:
+    """Every constant the engine's test entry and plain version share, by
+    the name ``mbt_hgemm_constant`` takes."""
+    return {**ENGINE_LAYOUTS, **ENGINE_EPILOGUES, "BK": ENGINE_BK,
+            "TN_SPLITS": ENGINE_TN_SPLITS}
+
+
+def _engine_library(M: int):
+    lib = _library()
+    if lib.mbt_hgemm_test.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.mbt_hgemm_test.argtypes = [i, i] + [vp] * 7 + [i] * 3 + [vp]
+        lib.mbt_hgemm_test.restype = i
+        for fn, argtypes in ((lib.mbt_hgemm_constant, [ctypes.c_char_p]),
+                             (lib.mbt_hgemm_split_rows, [i])):
+            fn.argtypes, fn.restype = argtypes, i
+    drift = {name: (value, lib.mbt_hgemm_constant(name.encode()))
+             for name, value in engine_constants().items()
+             if lib.mbt_hgemm_constant(name.encode()) != value}
+    if drift:
+        raise RuntimeError(f"fused_mlp's engine constants disagree with the "
+                           f"library's (ours, the library's): {drift}")
+    if lib.mbt_hgemm_split_rows(M) != engine_split_rows(M):
+        raise RuntimeError("hopper_gemm.cuh and engine_split_rows disagree on "
+                           "the TN chunks")
+    return lib
+
+
+def engine_gemm(layout: str, epi: str, a, w, bias=None, r=None, z=None):
+    """One launch of the GEMM engine on a CUDA tensor (the plain version on
+    a CPU tensor), with ``engine_gemm_plain``'s arguments and results. a and
+    w are 2-D, contiguous, bf16 and 16-byte aligned; N and K multiples of
+    64; bias (N,) bf16, r (M, N) bf16 and z (M, N) fp32 where the epilogue
+    reads them."""
+    if device_kind(a, "GEMM engine") == "cpu":
+        return engine_gemm_plain(layout, epi, a, w, bias, r, z)
+    if (layout, epi) not in ENGINE_CASES:
+        raise ValueError(f"the engine's test entry has no {layout}/{epi}")
+    dev, bf16 = a.device, torch.bfloat16
+    if a.dim() != 2 or w.dim() != 2:
+        raise ValueError("a and w must be 2-D")
+    (M, N, K), out_shape = engine_shapes(layout, a, w)
+    if N % 64 or K % 64 or not 1 <= M <= MAX_ROWS:
+        raise ValueError(f"the engine takes N % 64 == 0, K % 64 == 0 and "
+                         f"1..{MAX_ROWS} rows, got M={M}, N={N}, K={K}")
+    check_tensor("a", a, a.shape, bf16, dev)
+    check_tensor("w", w, w.shape, bf16, dev)
+    check_aligned("a", a)
+    check_aligned("w", w)
+    rows_, cols = out_shape
+    for name, t, shape, dt in (("bias", bias, (cols,), bf16),
+                               ("r", r, out_shape, bf16),
+                               ("z", z, out_shape, torch.float32)):
+        needed = (name == "bias" and epi.startswith("bias")) or \
+            (name == "r" and epi in ("bias_res", "res")) or \
+            (name == "z" and epi == "dgelu")
+        if needed:
+            if t is None:
+                raise ValueError(f"{epi} reads {name}")
+            check_tensor(name, t, shape, dt, dev)
+            check_aligned(name, t)
+    lib = _engine_library(M)
+    with torch.cuda.device(dev):
+        if layout == "TN":
+            out = torch.empty((ENGINE_TN_SPLITS, rows_, cols),
+                              dtype=torch.float32, device=dev)
+        else:
+            out = torch.empty(out_shape, device=dev, dtype=torch.float32
+                              if epi == "f32" else bf16)
+        out_z = torch.empty(out_shape, dtype=torch.float32, device=dev) \
+            if epi == "bias_gelu_z" else None
+        rc = lib.mbt_hgemm_test(
+            ENGINE_LAYOUTS[layout], ENGINE_EPILOGUES[epi], a.data_ptr(),
+            w.data_ptr(), data_ptr(bias), data_ptr(r), data_ptr(z),
+            out.data_ptr(), data_ptr(out_z), M, N, K,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"GEMM engine launch failed with CUDA error {rc}")
+    engine_gemm.launches += 1
+    return (out, out_z) if epi == "bias_gelu_z" else out
+
+
+engine_gemm.launches = 0

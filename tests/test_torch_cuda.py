@@ -461,6 +461,69 @@ def test_mlp_block_kernels_match_plain(cuda, use_ln, residual, C, hidden,
             assert _rel(a, w) <= TOL, name
 
 
+# the GEMM engine alone (csrc/hopper_gemm.cuh) against the fp32 product
+# rounded at the same point: fp32 results differ by summation order only;
+# a bf16 result by one rounding step either side of a boundary (2**-8 of the
+# value), so twice that of max|reference| bounds both
+ENGINE_F32_TOL = 1e-4
+ENGINE_BF16_TOL = 2 ** -7
+
+
+def _engine_operands(device, layout, M, N, K, seed=0):
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0, dt=torch.bfloat16):
+        a = rs.normal(size=shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(device=device, dtype=dt)
+
+    a = t(M, N) if layout == "TN" else t(M, K)
+    w = {"NT": lambda: t(N, K, scale=K ** -0.5),
+         "NN": lambda: t(K, N, scale=K ** -0.5),
+         "TN": lambda: t(M, K, scale=M ** -0.5)}[layout]()
+    shape = (N, K) if layout == "TN" else (M, N)
+    return a, w, t(shape[1], scale=0.1), t(*shape), t(*shape, dt=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,epi", mlp.ENGINE_CASES)
+@pytest.mark.parametrize("M,N,K", [(37, 64, 64), (300, 192, 128),
+                                   (1000, 256, 512)])
+def test_engine_gemm_matches_the_fp32_product(cuda, layout, epi, M, N, K):
+    """Every (layout, epilogue) pair the MLP chains launch, at ragged and
+    partial-tile shapes, twice for bitwise repeatability."""
+    args = _engine_operands(cuda, layout, M, N, K)
+    before = mlp.engine_gemm.launches
+    got = mlp.engine_gemm(layout, epi, *args)
+    torch.cuda.synchronize()
+    assert mlp.engine_gemm.launches == before + 1
+    again = mlp.engine_gemm(layout, epi, *args)
+    want = mlp.engine_gemm_plain(layout, epi, *args)
+    pairs = zip(got, again, want) if epi == "bias_gelu_z" else \
+        [(got, again, want)]
+    for a, b, w in pairs:
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.equal(a, b), "two runs differ"
+        tol = ENGINE_BF16_TOL if a.dtype == torch.bfloat16 else ENGINE_F32_TOL
+        assert _rel(a, w) <= tol, (_rel(a, w), tol)
+
+
+@pytest.mark.cuda
+def test_engine_raises_and_never_falls_back(cuda):
+    a, w, *_ = _engine_operands(cuda, "NN", 64, 64, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mlp.engine_gemm("NN", "bf16", a.float(), w)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        mlp.engine_gemm("NN", "bf16", a.reshape(-1)[1:65].reshape(1, 64), w)
+    with pytest.raises(ValueError, match="N % 64"):
+        mlp.engine_gemm("NN", "bf16", a, w[:, :32].contiguous())
+    with pytest.raises(ValueError, match="no NT/dgelu"):
+        mlp.engine_gemm("NT", "dgelu", a, w)
+    x = torch.zeros(2 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    _, _, mp, _ = _block_inputs(cuda, C=64, hidden=64, F=1)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        mlp.fused_mlp_block(x.view(2, 64), *mp)
+
+
 @pytest.mark.cuda
 def test_block_functions_backward_through_the_kernels(cuda):
     """autograd through the two Functions launches the backward kernels and
