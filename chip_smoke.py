@@ -20,8 +20,12 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      frames from several threads; each answer is held against a direct lift.
   7. backward kernels: the pair backward (plain and gated, temporal and
      spatial) at the phase-3 shape against its plain backward, per gradient
-     tensor, twice for bitwise equality, with times, bound and a library
-     yardstick (PyTorch's own operators, forward plus autograd).
+     tensor, twice for bitwise equality, with times (one call, back to back,
+     and the device's own from the profiler, by kernel), bound and a
+     library yardstick (PyTorch's own operators, forward plus autograd,
+     with its device time); a call's profile must hold the GEMM engine and
+     the tensor-core attention core and no WMMA GEMM or CUDA-core attention
+     kernel.
   8. train step: the flagship pose3d training config with the anchor weights,
      a seeded (8, 243, 17, 3) batch and a smooth root-relative target; the
      first step's loss and gradients against the fp32 plain path (batch 4),
@@ -50,11 +54,17 @@ Phases, each of which passes or ends the run with a non-zero exit code:
  14. straight-through: the q8 Functions' backward against the bf16
      Functions', bit for bit, counted as backward-kernel launches.
  15. q8 serving: MotionBERTServer built with attn_impl="kernel_q8".
- 16. block kernels: first the GEMM engine of the MLP blocks alone
-     (csrc/hopper_gemm.cuh): each (layout, epilogue) pair the MLP chains
-     launch, at its flagship shape and at ragged ones, against the fp32
-     product rounded at the same point, twice for bitwise equality, with
-     its device time and TFLOP/s; then the standalone attention block
+ 16. block kernels: first the GEMM engine alone (csrc/hopper_gemm.cuh):
+     each (layout, epilogue) pair the MLP chains launch, at its flagship
+     shape and at ragged ones, and the pair backward's wider products (qkv,
+     dh1, dWqkv), against the fp32 product rounded at the same point, twice
+     for bitwise equality, with its device time and TFLOP/s; then the pair
+     backward's tensor-core attention core alone (csrc/attention_tc.cuh),
+     forward and backward, at groups of 1, 5, 16, 17, 100 and 243 rows,
+     head dim 64 and 32, temporal and spatial, against the plain core (the
+     max-based and the relative-L2 bar), twice for bitwise equality, and
+     its device time at the phase-3 shape beside the CUDA-core kernels';
+     then the standalone attention block
      (temporal and spatial) and MLP block at the phase-3 shape, in the flag
      combinations the model uses and with LayerNorm and residual both on,
      against their plain versions (the max-based bar and a relative-L2
@@ -128,23 +138,27 @@ after phase 19, phases 24-27 after phase 23. Then a JSON line of per-kernel
 numbers, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
+    python3 chip_smoke.py --phases train
     python3 chip_smoke.py --phases q8
     python3 chip_smoke.py --phases blocks
     python3 chip_smoke.py --phases action
     python3 chip_smoke.py --phases mesh
 
-run only phases 1, 2 and 10-15, 1, 2 and 16-19, 1, 2 and 20-23, or 1, 2 and
-24-27 (while working on them), and print no last line.
+run only phases 1, 2, the engine and core phases of 16, 7 and 8; 1, 2 and
+10-15; 1, 2 and 16-19; 1, 2 and 20-23; or 1, 2 and 24-27 (while working on
+them), and print no last line.
 
     python3 chip_smoke.py --baseline ROOT [--phases ...]
 
-also builds the pair, W8A8 pair and block sources of the checkout at ROOT
-(the parent's, unpacked with git archive) after phase 2: holds this
-checkout's pair, W8A8 pair and attention block (B4, B5) outputs against that
-build, bit for bit; times the MLP blocks (B6, B7) of both builds in turns
-(other, this, this, other) at the phase-16/17 shape; and runs phase 18's
+also builds the pair, W8A8 pair, block and pair backward sources of the
+checkout at ROOT (the parent's, unpacked with git archive) after phase 2:
+holds this checkout's pair, W8A8 pair and block (B4-B7) outputs against
+that build, bit for bit; times the MLP blocks (B6, B7) of both builds in
+turns (other, this, this, other) at the phase-16/17 shape; runs phase 18's
 drop-path train steps in turns with the other build's block library swapped
-in.
+in; times the pair backward (B3) of both builds in turns at the phase-7
+shape; and runs phase 8's train steps in turns with the other build's pair
+backward library swapped in, then profiles one step of each.
 
 Imports nothing of JAX or of the JAX package motionbert_tpu.
 """
@@ -303,7 +317,12 @@ def card_profile():
 
 
 def device_ms(fn, records, calls: int = 10):
-    """Device time per call of every kernel `fn` launches, from
+    """device_profile's time alone."""
+    return device_profile(fn, records, calls)[0]
+
+
+def device_profile(fn, records, calls: int = 10) -> tuple:
+    """(ms, rows): device time per call of every kernel `fn` launches, from
     torch.profiler: the card's own time, free of the host's gaps, where
     back to back a host slower than a short kernel sets the pace. A profile
     that dropped records would undercount, so it must hold them all:
@@ -312,7 +331,8 @@ def device_ms(fn, records, calls: int = 10):
     kernels PyTorch picks) each kernel a whole multiple of `calls` times.
     A profile short of them is taken again, DEVICE_MS_TRIES times in all;
     then None, logged with the last profile's rows: the CUDA-event times
-    beside it stand alone."""
+    beside it stand alone. rows: the last profile's (name, device ms,
+    count) of each kernel, over all `calls` calls."""
     fn()
     torch.cuda.synchronize()
     for _ in range(DEVICE_MS_TRIES):
@@ -328,11 +348,11 @@ def device_ms(fn, records, calls: int = 10):
         else:
             whole, want = seen == records * calls, str(records * calls)
         if whole:
-            return sum(ms for _, ms, _ in rows) / calls
+            return sum(ms for _, ms, _ in rows) / calls, rows
     log(f"device_ms: {DEVICE_MS_TRIES} profiles of {calls} calls, the last "
         f"with {seen} device records, expected {want}; recorded as null: "
         + json.dumps([[key[:60], n] for key, _, n in rows]))
-    return None
+    return None, rows
 
 
 def block_records(kind: str, backward: bool, use_ln: bool) -> int:
@@ -573,7 +593,8 @@ def phase_main_path(fp, records: list):
 
 
 # kernel-name fragments of the port's own kernels, for the profile's groups
-PROFILE_GROUPS = ("hg_gemm_kernel", "gemm_q8_kernel", "ln_quant_rows_kernel",
+PROFILE_GROUPS = ("hg_gemm_kernel", "attn_tc_fwd_kernel", "attn_tc_bwd_kernel",
+                  "gemm_q8_kernel", "ln_quant_rows_kernel",
                   "quant_rows_kernel", "attention_bwd_kernel",
                   "attention_kernel", "gate_bwd_rows_kernel", "gate_kernel",
                   "gemm_kernel", "colsum_kernel", "reduce_splits_kernel",
@@ -1078,18 +1099,48 @@ def pair_bwd_cost(mode: str, gated: bool) -> tuple:
     """(FLOPs, bytes) of the pair backward at the phase-3 shape. Its inputs
     are x (+ other), g and the weights, so the forward's recompute counts:
     each product runs three times (forward, input gradient, weight
-    gradient), and the attention core three times (the forward, then dP/dv
-    and dq/dk at twice the work, as one backward). Bytes: x, g (+ other)
-    read, dx (+ dother) written, the weights read and their gradients
-    written once."""
+    gradient) but fc2, which the ungated chain runs twice (dW2 and dz: its
+    output is not needed, the gated chain recomputes it for the gate), and
+    the attention core three times (the forward, then dP/dv and dq/dk at
+    twice the work, as one backward). Bytes: x, g (+ other) read, dx (+
+    dother) written, the weights read and their gradients written once."""
     flops, nbytes = pair_cost(mode, gated)
     M = B * FRAMES * J
+    fc2 = 2 * M * C * HIDDEN
     weight_bytes = nbytes - 2 * M * C * 2 - (M * C * 2 if gated else 0)
     grad_bytes = (3 * C * C + C * C + 2 * C * HIDDEN) * 2 \
         + (3 * C + C + HIDDEN + C) * 2 + 4 * C * 4 \
         + ((2 * 2 * C + 2) * 2 if gated else 0)
     act = (2 if gated else 1) * M * C * 2
-    return 3 * flops, 2 * act + M * C * 2 + weight_bytes + grad_bytes
+    return (3 * flops - (0 if gated else fc2),
+            2 * act + M * C * 2 + weight_bytes + grad_bytes)
+
+
+def pair_bwd_records(gated: bool) -> int:
+    """Device records of one pair backward call, from the chain in
+    csrc/pair_bwd_kernels.cu (this checkout's and the parent's alike): the
+    recompute's two LayerNorm rows, four products and the attention core;
+    four weight gradients and eight column sums of two launches each; dz,
+    dh2, dattn, dh1, two LayerNorm backward rows and the attention
+    backward. The gated chain adds out_b, the gate's rows and five more
+    column sums."""
+    return 37 + (12 if gated else 0)
+
+
+# kernel-name fragments a pair backward call must launch (the engine, the
+# tensor-core core), and those it must not (the WMMA GEMM, the CUDA-core
+# attention kernels); "gemm_kernel" outside "hg_gemm_kernel" is the WMMA
+# GEMM's name
+PAIR_BWD_KERNELS = ("hg_gemm_kernel", "attn_tc_fwd_kernel",
+                    "attn_tc_bwd_kernel")
+PAIR_BWD_RETIRED = ("attention_kernel", "attention_bwd_kernel")
+
+
+def retired_kernels(rows) -> list:
+    """The kernels of a profile that the pair backward no longer runs."""
+    return [key for key, _, _ in rows
+            if any(k in key for k in PAIR_BWD_RETIRED)
+            or ("gemm_kernel" in key and "hg_gemm_kernel" not in key)]
 
 
 def grad_errors(got, want) -> list:
@@ -1135,18 +1186,32 @@ def phase_backward(fp) -> list:
 
             flops, nbytes = pair_bwd_cost(mode, gated)
             t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+            call = lambda: kernel(*args, HEADS, scale, mode)
+            calls = 10
+            dev_ms, rows = device_profile(call, pair_bwd_records(gated),
+                                          calls)
             rec = dict(
                 rel_err={n: e[1] for n, e in zip(names, errs)},
                 max_abs_err=max(e[0] for e in errs), tol=KERNEL_TOL,
                 bitwise_repeatable=bitwise,
-                ms=time_ms(lambda: kernel(*args, HEADS, scale, mode)),
+                ms=time_ms(call),
+                back_to_back_ms=time_ms_back_to_back(call),
+                device_ms=dev_ms,
+                device_by_kernel={key[:60]: ms / calls
+                                  for key, ms, _ in rows},
                 plain_ms=time_ms(lambda: plain(*args, HEADS, scale, mode),
                                  runs=5, warmup=1),
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes > t_ops else "operations",
                 library_ms=time_ms(library, runs=10),
+                library_device_ms=device_ms(library, None),
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
             log(f"backward {name}/{mode}: " + json.dumps(rec))
+            missing = [k for k in PAIR_BWD_KERNELS
+                       if not any(k in key for key, _, _ in rows)]
+            if missing or retired_kernels(rows):
+                fail(f"{name}/{mode}: the profile of a call misses "
+                     f"{missing} or runs {retired_kernels(rows)}")
             worst = max(rec["rel_err"].items(), key=lambda kv: kv[1])
             if not worst[1] <= KERNEL_TOL:
                 fail(f"{name}/{mode}: {worst[0]} max|d|/max|ref| "
@@ -1163,7 +1228,8 @@ def phase_backward(fp) -> list:
             max_abs_err=max(m["max_abs_err"] for m in modes.values()),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], mode=main_mode,
+            library_ms=main["library_ms"], device_ms=main["device_ms"],
+            library_device_ms=main["library_device_ms"], mode=main_mode,
             shape=[B, FRAMES, J, C], modes=modes))
     torch.cuda.empty_cache()
     return records
@@ -1443,52 +1509,170 @@ def engine_operands(layout: str, M: int, N: int, K: int, seed: int) -> tuple:
     return a, w, t(shape[1], scale=0.1), t(*shape), t(*shape, dt=torch.float32)
 
 
+# B3's engine launches at shapes the MLP chains do not give: qkv (NT, N
+# 1536), dh1 (NN, K 1536) and dWqkv (TN, 1536 rows); (layout, epi, M, N, K)
+PAIR_BWD_ENGINE_SHAPES = (("NT", "bias", B * FRAMES * J, 3 * C, C),
+                          ("NN", "f32", B * FRAMES * J, C, 3 * C),
+                          ("TN", "partial", B * FRAMES * J, 3 * C, C))
+
+
+def engine_case(mlp, layout: str, epi: str, shape: tuple,
+                timed_shape: bool) -> None:
+    """One (layout, epilogue) launch of the engine at `shape` against the
+    fp32 product rounded at the same point, twice for bitwise equality; with
+    `timed_shape`, one call's CUDA-event time (the wrapper's host work
+    included) and the kernel's device time and TFLOP/s (operations from the
+    shape)."""
+    args = engine_operands(layout, *shape, seed=sum(shape))
+    got = mlp.engine_gemm(layout, epi, *args)
+    torch.cuda.synchronize()
+    again = mlp.engine_gemm(layout, epi, *args)
+    want = mlp.engine_gemm_plain(layout, epi, *args)
+    pairs = list(zip(got, again, want)) if epi == "bias_gelu_z" \
+        else [(got, again, want)]
+    rec = dict(shape=list(shape), bitwise_repeatable=all(
+        torch.equal(a, b) for a, b, _ in pairs))
+    errs = []
+    for a, _, w in pairs:
+        if a.shape != w.shape or a.dtype != w.dtype \
+                or not torch.isfinite(a).all():
+            fail(f"engine {layout}/{epi} {shape}: shape, type or non-finite")
+        tol = ENGINE_BF16_TOL if a.dtype == torch.bfloat16 \
+            else ENGINE_F32_TOL
+        errs.append((rel_err(a, w)[1], rel_l2_t(a, w), tol))
+    rec.update(rel_err=[e[0] for e in errs], rel_l2=[e[1] for e in errs],
+               tol=[e[2] for e in errs])
+    if timed_shape:
+        fn = lambda: mlp.engine_gemm(layout, epi, *args)
+        ms, dev_ms = time_ms(fn), device_ms(fn, 1)
+        flop = 2 * shape[0] * shape[1] * shape[2]
+        rec.update(ms=ms, device_ms=dev_ms, tflops=None if dev_ms
+                   is None else flop / (dev_ms * 1e-3) / 1e12)
+    log(f"engine {layout}/{epi}: " + json.dumps(rec))
+    if any(e > tol for e, _, tol in errs):
+        fail(f"engine {layout}/{epi} {shape}: max|d|/max|ref| "
+             f"{[e[0] for e in errs]} above {[e[2] for e in errs]}")
+    if not rec["bitwise_repeatable"]:
+        fail(f"engine {layout}/{epi} {shape}: two runs gave different bits")
+
+
 def phase_engine(mlp) -> None:
     """Each (layout, epilogue) pair the MLP chains launch, at its flagship
-    shape and at ragged ones (M 37 and 16,524 with N = K = 64), against the
-    fp32 product rounded at the same point, twice for bitwise equality, with
-    one call's CUDA-event time (the wrapper's host work included) and the
-    kernel's device time and TFLOP/s (operations from the shape) at the
-    flagship shape."""
+    shape and at ragged ones (M 37 and 16,524 with N = K = 64), then the
+    pair backward's wider shapes (PAIR_BWD_ENGINE_SHAPES), each through
+    engine_case, timed at the flagship shapes."""
     torch.backends.cuda.matmul.allow_tf32 = False
     M = B * FRAMES * J
     for layout, epi in mlp.ENGINE_CASES:
         for shape in (engine_flagship_shape(layout, epi), (37, 64, 64),
                       (M, 64, 64)):
-            args = engine_operands(layout, *shape, seed=sum(shape))
-            got = mlp.engine_gemm(layout, epi, *args)
-            torch.cuda.synchronize()
-            again = mlp.engine_gemm(layout, epi, *args)
-            want = mlp.engine_gemm_plain(layout, epi, *args)
-            pairs = list(zip(got, again, want)) if epi == "bias_gelu_z" \
-                else [(got, again, want)]
-            rec = dict(shape=list(shape), bitwise_repeatable=all(
-                torch.equal(a, b) for a, b, _ in pairs))
-            errs = []
-            for a, _, w in pairs:
-                if a.shape != w.shape or a.dtype != w.dtype \
-                        or not torch.isfinite(a).all():
-                    fail(f"engine {layout}/{epi} {shape}: shape, type or "
-                         f"non-finite")
-                tol = ENGINE_BF16_TOL if a.dtype == torch.bfloat16 \
-                    else ENGINE_F32_TOL
-                errs.append((rel_err(a, w)[1], rel_l2_t(a, w), tol))
-            rec.update(rel_err=[e[0] for e in errs],
-                       rel_l2=[e[1] for e in errs], tol=[e[2] for e in errs])
-            if shape == engine_flagship_shape(layout, epi):
-                fn = lambda: mlp.engine_gemm(layout, epi, *args)
-                ms, dev_ms = time_ms(fn), device_ms(fn, 1)
-                flop = 2 * shape[0] * shape[1] * shape[2]
-                rec.update(ms=ms, device_ms=dev_ms, tflops=None if dev_ms
-                           is None else flop / (dev_ms * 1e-3) / 1e12)
-            log(f"engine {layout}/{epi}: " + json.dumps(rec))
-            if any(e > tol for e, _, tol in errs):
-                fail(f"engine {layout}/{epi} {shape}: max|d|/max|ref| "
-                     f"{[e[0] for e in errs]} above {[e[2] for e in errs]}")
-            if not rec["bitwise_repeatable"]:
-                fail(f"engine {layout}/{epi} {shape}: two runs gave "
-                     f"different bits")
-            del args, got, again, want, pairs
+            engine_case(mlp, layout, epi, shape,
+                        shape == engine_flagship_shape(layout, epi))
+    for layout, epi, *shape in PAIR_BWD_ENGINE_SHAPES:
+        engine_case(mlp, layout, epi, tuple(shape), True)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 16, second: the pair backward's attention core alone
+# (csrc/attention_tc.cuh)
+# ---------------------------------------------------------------------------
+
+# tensor-core core vs the plain core as a relative L2: the forward is B8's
+# function and takes B8's bar (ST_L2_TOL); the backward rounds dS and its
+# three gradients to bf16 and takes the block kernels' (BLOCK_L2_TOL), as
+# tests/test_torch_cuda.py holds it
+CORE_L2_TOL = 1e-3
+CORE_BWD_L2_TOL = 4e-3
+CORE_SIZES = (1, 5, 16, 17, 100, 243)
+
+
+def core_inputs(mode: str, n: int, shape=None, seed: int = 0) -> list:
+    """q, k, v and an output gradient on the card, groups of n rows: n frames
+    of 5 joints (temporal) or 7 frames of n joints (spatial), or `shape`."""
+    shape = shape or ((2, n, 5, C) if mode == "temporal" else (2, 7, n, C))
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(rs.normal(size=shape).astype(np.float32)).to(
+        device="cuda", dtype=torch.bfloat16) for _ in range(4)]
+
+
+def old_core_ms(at, mode: str, scale: float) -> tuple:
+    """Device ms of the CUDA-core attention kernels at the phase-3 shape:
+    B8's attention_kernel alone, and attention_bwd_kernel's share of a
+    profiled B5 call (the chain that still runs it)."""
+    q, k, v, _ = core_inputs(mode, 0, (B, FRAMES, J, C), seed=40)
+    fwd = device_ms(lambda: at.st_attention(q, k, v, mode, HEADS, scale), 1)
+    p = pair_inputs(41, False, torch.device("cuda"))
+    g = pair_inputs(5, False, torch.device("cuda"))["x"]
+    args = [p["x"], g] + [p[k] for k in ATTN_KEYS[:-1]]
+    calls = 10
+    _, rows = device_profile(
+        lambda: at.fused_attention_block_bwd(*args, HEADS, scale, mode, True,
+                                             False),
+        block_records("attention", True, True), calls)
+    bwd = sum(ms for key, ms, _ in rows if "attention_bwd_kernel" in key)
+    return fwd, (bwd / calls if bwd else None)
+
+
+def phase_core(fp, at) -> None:
+    """The tensor-core core (fp.attention_core / attention_core_bwd, one
+    launch each) against the plain core at groups of CORE_SIZES rows, head
+    dim 64 and 32, temporal and spatial: the max-based bar and the relative
+    L2, twice for bitwise repeatability. Then at the phase-3 shape, D 64:
+    its device times beside the CUDA-core kernels' in this run."""
+    for mode in ("temporal", "spatial"):
+        for heads in (HEADS, 2 * HEADS):
+            scale = (C // heads) ** -0.5
+            for n in CORE_SIZES:
+                q, k, v, g = core_inputs(mode, n, seed=n)
+                out = fp.attention_core(q, k, v, mode, heads, scale)
+                grads = fp.attention_core_bwd(q, k, v, g, mode, heads, scale)
+                torch.cuda.synchronize()
+                again = (fp.attention_core(q, k, v, mode, heads, scale),) \
+                    + fp.attention_core_bwd(q, k, v, g, mode, heads, scale)
+                bitwise = all(torch.equal(a, b)
+                              for a, b in zip((out,) + grads, again))
+                want = (at.st_attention_plain(q, k, v, mode, heads, scale),) \
+                    + at.st_attention_bwd_plain(q, k, v, g, mode, heads,
+                                                scale)
+                errs = {name: (rel_err(a, w)[1], rel_l2_t(a, w), l2_tol)
+                        for name, a, w, l2_tol in zip(
+                            ("out", "dq", "dk", "dv"), (out,) + grads, want,
+                            (CORE_L2_TOL,) + (CORE_BWD_L2_TOL,) * 3)}
+                tag = f"{mode}/n{n}/d{C // heads}"
+                log(f"core {tag}: key tiles {fp.core_key_tiles(n)}, "
+                    f"bitwise repeatable {bitwise}, (max-rel, rel-L2, L2 "
+                    f"bar): " + json.dumps(errs))
+                if any(not torch.isfinite(t.float()).all()
+                       for t in (out,) + grads):
+                    fail(f"core {tag}: non-finite output")
+                over = {n_: e for n_, e in errs.items()
+                        if not (e[0] <= KERNEL_TOL and e[1] <= e[2])}
+                if over:
+                    fail(f"core {tag}: over the bars: {over}")
+                if not bitwise:
+                    fail(f"core {tag}: two runs gave different bits")
+                del q, k, v, g, out, grads, again, want
+    scale = (C // HEADS) ** -0.5
+    for mode in ("temporal", "spatial"):
+        q, k, v, g = core_inputs(mode, 0, (B, FRAMES, J, C), seed=40)
+        fwd = lambda: fp.attention_core(q, k, v, mode, HEADS, scale)
+        bwd = lambda: fp.attention_core_bwd(q, k, v, g, mode, HEADS, scale)
+        groups, n = (B * J, FRAMES) if mode == "temporal" else (B * FRAMES, J)
+        flop = 4 * groups * n * n * C          # q.k^T and p.v, all heads
+        old_fwd, old_bwd = old_core_ms(at, mode, scale)
+        rec = dict(shape=[B, FRAMES, J, C], ms=time_ms(fwd),
+                   device_ms=device_ms(fwd, 1), bwd_ms=time_ms(bwd),
+                   bwd_device_ms=device_ms(bwd, 1),
+                   cuda_core_device_ms=old_fwd,
+                   cuda_core_bwd_device_ms=old_bwd, gflop=flop / 1e9,
+                   bwd_gflop=2 * flop / 1e9)
+        for key, f in (("tflops", "device_ms"), ("bwd_tflops", "bwd_device_ms")):
+            ms = rec[f]
+            rec[key] = None if ms is None else \
+                flop * (2 if key.startswith("bwd") else 1) / (ms * 1e-3) / 1e12
+        log(f"core {mode} at the phase-3 shape: " + json.dumps(rec))
+        del q, k, v, g
     torch.cuda.empty_cache()
 
 
@@ -1992,6 +2176,7 @@ def phase_blocks(fp) -> list:
     from motionbert_tpu_torch.ops import fused_mlp as mlp
 
     timed("engine", phase_engine, mlp)
+    timed("core", phase_core, fp, at)
     fwd = timed("block kernels", phase_block_kernels, at, mlp)
     bwd = timed("block backward", phase_block_backward, at, mlp)
     timed("drop-path", phase_drop_path, fp, at, mlp, fwd, bwd)
@@ -3294,7 +3479,7 @@ BASELINE_STEPS = 5
 
 def build_other(csrc: str, name: str, tmp: str):
     """csrc/<name>.cu of another checkout, built with this one's nvcc flags
-    into tmp and loaded."""
+    into tmp and loaded (thread-safe: one nvcc process a call)."""
     import ctypes
 
     from motionbert_tpu_torch.ops import _build
@@ -3356,6 +3541,17 @@ def baseline_blocks(other_block, results: dict) -> None:
                 if a is not None)
     mlp_args = [p["x"]] + [p[k] for k in MLP_KEYS]
     bwd_args = [p["x"], g] + [p[k] for k in MLP_KEYS[:-1]]
+    # B6 / B7 share hg_weight_grad's header with the pair backward now
+    for use_ln, residual in MLP_FLAGS:
+        tag = f"tokens/ln{int(use_ln)}res{int(residual)}"
+        ours = (mlp.fused_mlp_block(*mlp_args, use_ln, residual),
+                mlp.fused_mlp_block_bwd(*bwd_args, use_ln, residual))
+        with swapped_library("block_kernels", other_block):
+            theirs = (mlp.fused_mlp_block(*mlp_args, use_ln, residual),
+                      mlp.fused_mlp_block_bwd(*bwd_args, use_ln, residual))
+        results[f"fused_mlp_block/{tag}"] = torch.equal(ours[0], theirs[0])
+        results[f"fused_mlp_block_bwd/{tag}"] = all(
+            torch.equal(a, b) for a, b in zip(ours[1], theirs[1]))
     use_ln, residual = MLP_FLAGS[0]
     times = {"fused_mlp_block": [], "fused_mlp_block_bwd": []}
     for which in ("other", "this", "this", "other"):
@@ -3388,9 +3584,11 @@ def baseline_blocks(other_block, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def baseline_drop_path(other_block) -> None:
-    """Phase 18's drop-path train steps in turns (other, this, this, other)
-    with the other checkout's block library swapped in: ms per step."""
+def baseline_steps(name: str, other, tag: str, **build) -> None:
+    """Phase 8's flagship train steps (with build's load_backbone
+    overrides: drop_path_rate for phase 18's) in turns (other, this, this,
+    other) with the other checkout's library for csrc/<name>.cu swapped in:
+    ms per step; then one step of each build profiled."""
     from motionbert_tpu_torch.core.checkpoint import load_state_dict
     from motionbert_tpu_torch.core.config import get_config
     from motionbert_tpu_torch.losses.pose import LAMBDA_KEYS
@@ -3400,7 +3598,7 @@ def baseline_drop_path(other_block) -> None:
 
     args = get_config(TRAIN_CONFIG)
     lambdas = {k: args.get(k, 0.0) for k in LAMBDA_KEYS}
-    model = load_backbone(args, device="cuda", drop_path_rate=DROP_PATH_RATE)
+    model = load_backbone(args, device="cuda", **build)
     model.load_state_dict(load_state_dict(ANCHOR), strict=True)
     opt = make_adamw(model.parameters(), args.learning_rate,
                      args.weight_decay)
@@ -3421,50 +3619,74 @@ def baseline_drop_path(other_block) -> None:
     steps()                 # warm-up: the first steps allocate and tune
     turns = []
     for which in ("other", "this", "this", "other"):
-        if which == "other":
-            with swapped_library("block_kernels", other_block):
-                turns.append((which, steps()))
-        else:
+        with (swapped_library(name, other) if which == "other"
+              else contextlib.nullcontext()):
             turns.append((which, steps()))
-    log(f"baseline: drop-path step ({TRAIN_BATCH}, {FRAMES}), "
-        f"drop_path_rate {DROP_PATH_RATE}, {BASELINE_STEPS} steps a turn, "
-        f"ms per step in turns: "
+    log(f"baseline: {tag} step ({TRAIN_BATCH}, {FRAMES}) {json.dumps(build)}, "
+        f"{BASELINE_STEPS} steps a turn, ms per step in turns: "
         + ", ".join(f"{w} {ms:.2f}" for w, ms in turns))
-    # B6 / B7's products in the other build's step: both builds run B1-B5
-    # on the same WMMA GEMM, so the difference of that group is the other
-    # B6 / B7's (this build's run on the engine)
-    with swapped_library("block_kernels", other_block):
-        other_busy, other_groups = profile_step(
-            "baseline drop-path profile (other)", step, x, y)
-    this_busy, this_groups = profile_step(
-        "baseline drop-path profile (this)", step, x, y)
-    theirs = other_groups.get("gemm_kernel", 0.0) \
-        - this_groups.get("gemm_kernel", 0.0)
-    ours = this_groups.get("hg_gemm_kernel", 0.0)
-    log(f"baseline: B6 / B7's products in a profiled drop-path step: the "
-        f"other build's {theirs:.2f} ms of {other_busy:.2f} device busy "
-        f"({100 * theirs / other_busy:.1f}%), this build's {ours:.2f} of "
-        f"{this_busy:.2f} ({100 * ours / this_busy:.1f}%)")
+    with swapped_library(name, other):
+        profile_step(f"baseline {tag} profile (other)", step, x, y)
+    profile_step(f"baseline {tag} profile (this)", step, x, y)
     del model, opt, step
     torch.cuda.empty_cache()
 
 
-def phase_baseline(fp, q8, other_root: str) -> None:
-    """Build another checkout's pair_kernels.cu, pair_q8_kernels.cu and
-    block_kernels.cu (the parent's, say) with this one's nvcc flags. Hold
-    this checkout's pair and W8A8 pair outputs, plain and gated, temporal
-    and spatial, and the attention blocks' (B4, B5) outputs against that
-    build bit for bit, through the same wrappers; time the MLP blocks (B6,
-    B7) and the drop-path train step of both builds in turns."""
+def baseline_pair_bwd(fp, other_bwd) -> dict:
+    """B3's four variants at the phase-7 shape, timed in turns (other, this,
+    this, other): one call, back to back, and device time. Returns {variant:
+    turns}."""
+    dev = torch.device("cuda")
+    scale = (C // HEADS) ** -0.5
+    fp._bwd_library()
+    out = {}
+    for name, kernel, gated in (
+            ("fused_pair_block_bwd", fp.fused_pair_block_bwd, False),
+            ("fused_gated_pair_block_bwd", fp.fused_gated_pair_block_bwd,
+             True)):
+        for mode in ("temporal", "spatial"):
+            p = pair_inputs(3 if mode == "temporal" else 4, gated, dev)
+            g = pair_inputs(5, False, dev)["x"]
+            fwd = pair_args(p, gated)
+            args = fwd[:2 if gated else 1] + [g] + fwd[2 if gated else 1:]
+            call = lambda: kernel(*args, HEADS, scale, mode)
+            turns = []
+            for which in ("other", "this", "this", "other"):
+                with (swapped_library("pair_bwd_kernels", other_bwd)
+                      if which == "other" else contextlib.nullcontext()):
+                    turns.append(dict(
+                        build=which, ms=time_ms(call),
+                        back_to_back_ms=time_ms_back_to_back(call),
+                        device_ms=device_ms(call, pair_bwd_records(gated))))
+            out[f"{name}/{mode}"] = turns
+            log(f"baseline: {name}/{mode} in turns: " + json.dumps(turns))
+            del p, g, fwd, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_baseline(fp, q8, other_root: str) -> dict:
+    """Build another checkout's pair_kernels.cu, pair_q8_kernels.cu,
+    block_kernels.cu and pair_bwd_kernels.cu (the parent's, say) with this
+    one's nvcc flags. Hold this checkout's pair and W8A8 pair outputs, plain
+    and gated, temporal and spatial, and the attention and MLP blocks' (B4
+    to B7) outputs against that build bit for bit, through the same
+    wrappers; time the MLP blocks (B6, B7), the drop-path train step, the
+    pair backward (B3) and the flagship train step of both builds in
+    turns. Returns baseline_pair_bwd's turns."""
     import ctypes
 
     csrc = os.path.join(other_root, "motionbert_tpu_torch", "ops", "csrc")
     scale = (C // HEADS) ** -0.5
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {name: build_other(csrc, name, tmp)
-                for name in ("pair_kernels", "pair_q8_kernels",
-                             "block_kernels")}
+        from concurrent.futures import ThreadPoolExecutor
+
+        names = ("pair_kernels", "pair_q8_kernels", "block_kernels",
+                 "pair_bwd_kernels")
+        with ThreadPoolExecutor(len(names)) as pool:
+            libs = dict(zip(names, pool.map(
+                lambda name: build_other(csrc, name, tmp), names)))
         results = {}
         for name, module, wrapper in (
                 ("pair_kernels", fp, fp.fused_pair_block),
@@ -3488,12 +3710,25 @@ def phase_baseline(fp, q8, other_root: str) -> None:
                 results[f"{wrapper.__name__}/{mode}"] = torch.equal(ours,
                                                                     theirs)
         baseline_blocks(libs["block_kernels"], results)
-        log(f"baseline ({other_root}): this checkout's pair and attention "
-            f"block outputs bitwise equal to the other build's: "
+        log(f"baseline ({other_root}): this checkout's pair and block "
+            f"outputs bitwise equal to the other build's: "
             f"{json.dumps(results)}")
         if not all(results.values()):
             fail(f"baseline: outputs differ: {results}")
-        baseline_drop_path(libs["block_kernels"])
+        baseline_steps("block_kernels", libs["block_kernels"], "drop-path",
+                       drop_path_rate=DROP_PATH_RATE)
+        turns = baseline_pair_bwd(fp, libs["pair_bwd_kernels"])
+        baseline_steps("pair_bwd_kernels", libs["pair_bwd_kernels"], "train")
+    return turns
+
+
+def attach_turns(bwd_records: list, turns: dict) -> None:
+    """The pair backward's in-turn times (phase_baseline) into its phase-7
+    records: each mode's, and the main mode's at the top."""
+    for rec in bwd_records:
+        for mode, m in rec["modes"].items():
+            m["in_turns"] = turns.get(f"{rec['name']}/{mode}")
+        rec["in_turns"] = rec["modes"][rec["mode"]]["in_turns"]
 
 
 def phase_mesh_all(fp, q8) -> list:
@@ -3509,18 +3744,22 @@ def phase_mesh_all(fp, q8) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
-                        choices=("all", "q8", "blocks", "action", "mesh"),
+                        choices=("all", "train", "q8", "blocks", "action",
+                                 "mesh"),
                         default="all",
-                        help="q8: only phases 1, 2 and 10-15; blocks: only "
-                             "phases 1, 2 and 16-19; action: only phases 1, "
-                             "2 and 20-23; mesh: only phases 1, 2 and 24-27; "
-                             "none of them prints the last line")
+                        help="train: only phases 1, 2, the engine and core "
+                             "phases, 7 and 8; q8: only phases 1, 2 and "
+                             "10-15; blocks: only phases 1, 2 and 16-19; "
+                             "action: only phases 1, 2 and 20-23; mesh: only "
+                             "phases 1, 2 and 24-27; none of them prints the "
+                             "last line")
     parser.add_argument("--baseline", default=None, metavar="ROOT",
                         help="another checkout (the parent's, say): after the "
                              "build, hold this checkout's pair, W8A8 pair and "
-                             "attention block outputs against that checkout's "
-                             "build, bit for bit, and time its MLP blocks and "
-                             "drop-path steps in turns with this build's")
+                             "block outputs against that checkout's build, "
+                             "bit for bit, and time its MLP blocks, pair "
+                             "backward, drop-path and train steps in turns "
+                             "with this build's")
     opts = parser.parse_args()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3545,13 +3784,29 @@ def main() -> int:
         kernel = ""
         for line in text.splitlines():
             if "Function properties for" in line:
-                found = re.search(r"hg_gemm_kernelILi(\d+)ELi(\d+)E", line)
-                kernel = f"hg_gemm_kernel<{found[1]}, {found[2]}>: " if found else ""
+                found = re.search(r"(hg_gemm_kernel|attn_tc_fwd_kernel|"
+                                  r"attn_tc_bwd_kernel)ILi(\d+)ELi(\d+)E", line)
+                kernel = f"{found[1]}<{found[2]}, {found[3]}>: " if found else ""
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"build: {name}: {kernel}{line.strip()}")
 
     if opts.baseline:
-        timed("baseline", phase_baseline, fp, q8, opts.baseline)
+        turns = timed("baseline", phase_baseline, fp, q8, opts.baseline)
+
+    if opts.phases == "train":
+        from motionbert_tpu_torch.ops import attention as at
+        from motionbert_tpu_torch.ops import fused_mlp as mlp
+
+        timed("engine", phase_engine, mlp)
+        timed("core", phase_core, fp, at)
+        bwd_records = timed("backward", phase_backward, fp)
+        if opts.baseline:
+            attach_turns(bwd_records, turns)
+        timed("train", phase_train, fp, [], bwd_records)
+        log(json.dumps({"kernels": bwd_records}))
+        log(f"device: {smi}")
+        log("partial run (--phases train): no result line")
+        return 0
 
     if opts.phases == "mesh":
         log(json.dumps({"kernels": phase_mesh_all(fp, q8)}))
@@ -3585,6 +3840,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     q8_records = timed("q8", phase_q8, q8, fp)
     bwd_records = timed("backward", phase_backward, fp)
+    if opts.baseline:
+        attach_turns(bwd_records, turns)
     timed("train", phase_train, fp, records, bwd_records)
     timed("driver", phase_driver)
     records += bwd_records + phase_blocks(fp) + q8_records

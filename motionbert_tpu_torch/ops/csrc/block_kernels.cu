@@ -90,8 +90,6 @@ enum MlpSlot {
     M_COUNT
 };
 
-static_assert(HG_TN_SPLITS <= TN_SPLITS, "mbt_block_work_floats holds the engine's partials");
-
 // The NN product dY W of the input gradient: the WMMA GEMM (attention) or the
 // engine (MLP).
 template <bool ENGINE, int EPI>
@@ -124,16 +122,6 @@ cudaError_t input_grad(const void* dY, const void* W, int M, int C, int N, bool 
     err = column_sum<COL_LN_W>(dh, x, stats, nullptr, M, C, work, dln_w, false, stream);
     if (err != cudaSuccess) return err;
     return launch_ln_bwd_rows(dh, x, stats, ln_w, residual ? g : nullptr, dx, M, C, stream);
-}
-
-// dW (rows, cols) bf16 = sum_m dY[m, :rows]^T A[m, :cols] on the engine:
-// HG_TN_SPLITS fp32 partials, added in chunk order.
-cudaError_t hg_weight_grad(const void* dY, const void* A, int M, int rows, int cols,
-                           float* work, void* out, cudaStream_t stream) {
-    cudaError_t err = hg_gemm<TN, EPI_PARTIAL>(dY, A, nullptr, nullptr, nullptr, work,
-                                               nullptr, M, rows, cols, stream);
-    if (err != cudaSuccess) return err;
-    return reduce_splits(work, HG_TN_SPLITS, rows * cols, out, true, stream);
 }
 
 }  // namespace

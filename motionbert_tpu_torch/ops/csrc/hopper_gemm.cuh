@@ -12,7 +12,10 @@
 //       result is the same bits on every run
 // The LayerNorm prologue does not ride a TMA load: a caller that needs it
 // runs launch_ln_fwd_rows first (pair_bwd_common.cuh, the same arithmetic)
-// and feeds its bf16 rows to NT.
+// and feeds its bf16 rows to NT. hg_weight_grad, at the end, is TN with the
+// in-order second pass (pair_bwd_common.cuh's reduce_splits): the weight
+// gradient of the MLP block backward (block_kernels.cu) and of the pair
+// backward (pair_bwd_kernels.cu).
 //
 // Design. Persistent blocks, two an SM, walk over the 128 x 128 output tiles
 // (column tile fastest) in two roles. Warp 8 is the producer: one thread
@@ -51,7 +54,7 @@
 
 #include <atomic>
 
-#include "pair_common.cuh"
+#include "pair_bwd_common.cuh"
 
 namespace {
 
@@ -65,6 +68,9 @@ constexpr int HG_BOX_BYTES = 64 * HG_BK * 2;      // 64 rows of K-major, or one 
 constexpr int HG_A_BYTES = HG_BM * HG_BK * 2;
 constexpr int HG_STAGE_BYTES = HG_A_BYTES + HG_BN * HG_BK * 2;
 constexpr int HG_SMEM = HG_STAGES * HG_STAGE_BYTES + 2 * HG_STAGES * 8 + 1024;
+
+static_assert(HG_TN_SPLITS <= TN_SPLITS,
+              "the backward chains' work buffers, sized for TN_SPLITS, hold the engine's partials");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -436,6 +442,16 @@ cudaError_t hg_gemm(const void* A, const void* W, const void* bias, const void* 
         static_cast<const float*>(Z), out, static_cast<float*>(out_z), rows, cols, k_len,
         split, tiles_x, tiles_y, n_tiles);
     return cudaGetLastError();
+}
+
+// dW (rows, cols) bf16 = sum_m dY[m, :rows]^T A[m, :cols] on the engine:
+// HG_TN_SPLITS fp32 partials in work, added in chunk order.
+cudaError_t hg_weight_grad(const void* dY, const void* A, int M, int rows, int cols,
+                           float* work, void* out, cudaStream_t stream) {
+    cudaError_t err = hg_gemm<TN, EPI_PARTIAL>(dY, A, nullptr, nullptr, nullptr, work,
+                                               nullptr, M, rows, cols, stream);
+    if (err != cudaSuccess) return err;
+    return reduce_splits(work, HG_TN_SPLITS, rows * cols, out, true, stream);
 }
 
 }  // namespace

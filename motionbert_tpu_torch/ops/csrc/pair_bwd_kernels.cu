@@ -24,8 +24,8 @@
 //               TN dW1 = dz^T h2; NN dh2 = dz W1 (fp32);
 //               ln_bwd_rows: dyb = bf16(LN2-backward(dh2) + gmlp)
 //   attention   NN dattn = bf16(dyb Wproj); TN dWproj = dyb^T attn;
-//               attention_bwd (fp32 and bf16 dqkv); TN dWqkv = bf16(dqkv)^T h1;
-//               NN dh1 = bf16(dqkv) Wqkv (fp32);
+//               attention backward (fp32 and bf16 dqkv);
+//               TN dWqkv = bf16(dqkv)^T h1; NN dh1 = bf16(dqkv) Wqkv (fp32);
 //               ln_bwd_rows: dx = bf16(LN1-backward(dh1) + dyb)
 //   biases, LN parameters and the gate weights: column sums.
 // Every reduction over M is deterministic: the weight-gradient GEMMs and the
@@ -33,23 +33,30 @@
 // chunk order (reduce_splits_kernel); there are no float atomics, so two runs
 // give the same bits.
 //
-// Bound. With the recompute, a call does about 3x the forward's four products
-// plus 3x its attention: ~232.6 GFLOP for a temporal pair at (4, 243, 17,
-// 512), hidden 1024, against ~60 MB of inputs and outputs, so tensor-core
-// operations bound it (0.235 ms at 989 TFLOP/s). This first design stays
-// simple instead: the chain writes its intermediates (~30 KB per token row)
-// to device memory, the GEMMs are the forward's WMMA tiles without a copy
-// pipeline, and the attention backward runs in fp32 on CUDA cores (per
-// (group, head): a query-major pass for the row statistics and dq, then a
-// key-major pass for dk and dv, so that no fp32 dK/dV accumulators of a
-// 243-frame group need shared memory). wgmma, TMA and tensor-core attention
-// are later work. The row, column-sum, weight-gradient and attention-backward
-// kernels live in pair_bwd_common.cuh, which block_kernels.cu shares.
+// Bound. With the recompute, a call does each forward product three times
+// (forward, input gradient, weight gradient) but fc2, which the ungated
+// chain runs twice (dW2, dz; the gated chain recomputes out_b), and the
+// attention core three times: ~215.3 GFLOP for a temporal pair at (4, 243,
+// 17, 512), hidden 1024 (192.3 spatial), against ~60 MB of inputs and
+// outputs, so tensor-core operations bound it (0.218 ms at 989 TFLOP/s).
+// Every product runs on hopper_gemm.cuh, the wgmma + TMA engine (128 x 128
+// tiles from a three-stage TMA ring, the epilogues on the register
+// fragments; the weight gradients in its fixed row chunks), and the
+// attention core, forward and backward, on attention_tc.cuh's mma.sync
+// tensor-core kernels (a group's q, k, v and dO in shared memory; a
+// query-major pass for the row statistics, D and dq, then a key-major pass
+// for dk and dv). What stays on CUDA cores is the row passes (LayerNorm
+// forward and backward, the gate) and the column sums, all in
+// pair_bwd_common.cuh, which block_kernels.cu shares. The chain still writes
+// its intermediates (~30 KB per token row) to device memory.
 //
 // The entry point launches on the caller's stream, allocates nothing (the
 // caller passes every buffer) and returns 0 or the first CUDA error.
 
-#include "pair_bwd_common.cuh"
+#include <cstring>
+
+#include "attention_tc.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -106,28 +113,35 @@ extern "C" int mbt_pair_block_bwd(void* const* p, int B, int F, int J, int C, in
         static_cast<const float*>(p[S_LN1_B]), static_cast<bf16*>(p[S_H1]),
         static_cast<float2*>(p[S_ST1]), M, C);
     CHECK(cudaGetLastError());
-    CHECK((launch_gemm<NT, false, EPI_BIAS>(p[S_H1], p[S_WQKV], p[S_BQKV], nullptr, nullptr,
-                                            nullptr, nullptr, p[S_QKV], nullptr, M, 3 * C,
-                                            C, stream)));
-    CHECK(launch_attention_any(p[S_QKV], p[S_ATTN], B, F, J, C, H, scale, temporal, stream));
-    CHECK((launch_gemm<NT, false, EPI_BIAS_RES>(p[S_ATTN], p[S_WPROJ], p[S_BPROJ], p[S_X],
-                                                nullptr, nullptr, nullptr, p[S_YB], nullptr,
-                                                M, C, C, stream)));
+    CHECK((hg_gemm<NT, EPI_BIAS>(p[S_H1], p[S_WQKV], p[S_BQKV], nullptr, nullptr, p[S_QKV],
+                                 nullptr, M, 3 * C, C, stream)));
+    const bf16* qkv = static_cast<const bf16*>(p[S_QKV]);
+    TcArgs core{};
+    core.q = qkv;
+    core.k = qkv + C;
+    core.v = qkv + 2 * C;
+    core.ld = 3 * C;
+    core.B = B, core.F = F, core.J = J, core.C = C, core.H = H;
+    core.scale = scale;
+    core.temporal = temporal;
+    core.out = p[S_ATTN];
+    core.ld_out = C;
+    CHECK(launch_attention_tc(core, false, stream));
+    CHECK((hg_gemm<NT, EPI_BIAS_RES>(p[S_ATTN], p[S_WPROJ], p[S_BPROJ], p[S_X], nullptr,
+                                     p[S_YB], nullptr, M, C, C, stream)));
     ln_fwd_rows_kernel<<<row_blocks, ROW_THREADS, 0, stream>>>(
         static_cast<const bf16*>(p[S_YB]), static_cast<const float*>(p[S_LN2_W]),
         static_cast<const float*>(p[S_LN2_B]), static_cast<bf16*>(p[S_H2]),
         static_cast<float2*>(p[S_ST2]), M, C);
     CHECK(cudaGetLastError());
-    CHECK((launch_gemm<NT, false, EPI_BIAS_GELU_Z>(p[S_H2], p[S_W1], p[S_B1], nullptr,
-                                                   nullptr, nullptr, nullptr, p[S_A],
-                                                   p[S_Z], M, hidden, C, stream)));
+    CHECK((hg_gemm<NT, EPI_BIAS_GELU_Z>(p[S_H2], p[S_W1], p[S_B1], nullptr, nullptr, p[S_A],
+                                        p[S_Z], M, hidden, C, stream)));
 
     // ---- att_fuse gate backward ----
     const void* gm = p[S_G];
     if (gated) {
-        CHECK((launch_gemm<NT, false, EPI_BIAS_RES>(p[S_A], p[S_W2], p[S_B2], p[S_YB],
-                                                    nullptr, nullptr, nullptr, p[S_OUTB],
-                                                    nullptr, M, C, hidden, stream)));
+        CHECK((hg_gemm<NT, EPI_BIAS_RES>(p[S_A], p[S_W2], p[S_B2], p[S_YB], nullptr,
+                                         p[S_OUTB], nullptr, M, C, hidden, stream)));
         gate_bwd_rows_kernel<<<row_blocks, ROW_THREADS, 0, stream>>>(
             static_cast<const bf16*>(p[S_OTHER]), static_cast<const bf16*>(p[S_OUTB]),
             static_cast<const bf16*>(p[S_G]), static_cast<const bf16*>(p[S_WG]),
@@ -148,17 +162,16 @@ extern "C" int mbt_pair_block_bwd(void* const* p, int B, int F, int J, int C, in
     }
 
     // ---- MLP backward ----
-    CHECK(weight_grad(gm, p[S_A], M, C, hidden, work, p[S_DW2], stream));
+    CHECK(hg_weight_grad(gm, p[S_A], M, C, hidden, work, p[S_DW2], stream));
     CHECK(column_sum<COL_BF16>(gm, nullptr, nullptr, nullptr, M, C, work, p[S_DB2], true,
                                stream));
-    CHECK((launch_gemm<NN, false, EPI_DGELU>(gm, p[S_W2], nullptr, nullptr, nullptr, nullptr,
-                                             p[S_Z], dz, nullptr, M, hidden, C, stream)));
-    CHECK(weight_grad(dz, p[S_H2], M, hidden, C, work, p[S_DW1], stream));
+    CHECK((hg_gemm<NN, EPI_DGELU>(gm, p[S_W2], nullptr, nullptr, p[S_Z], dz, nullptr, M,
+                                  hidden, C, stream)));
+    CHECK(hg_weight_grad(dz, p[S_H2], M, hidden, C, work, p[S_DW1], stream));
     CHECK(column_sum<COL_BF16>(dz, nullptr, nullptr, nullptr, M, hidden, work, p[S_DB1],
                                true, stream));
-    CHECK((launch_gemm<NN, false, EPI_F32>(dz, p[S_W1], nullptr, nullptr, nullptr, nullptr,
-                                           nullptr, p[S_DH], nullptr, M, C, hidden,
-                                           stream)));
+    CHECK((hg_gemm<NN, EPI_F32>(dz, p[S_W1], nullptr, nullptr, nullptr, p[S_DH], nullptr, M,
+                                C, hidden, stream)));
     CHECK(column_sum<COL_F32>(p[S_DH], nullptr, nullptr, nullptr, M, C, work, p[S_DLN2_B],
                               false, stream));
     CHECK(column_sum<COL_LN_W>(p[S_DH], p[S_YB], p[S_ST2], nullptr, M, C, work, p[S_DLN2_W],
@@ -170,20 +183,24 @@ extern "C" int mbt_pair_block_bwd(void* const* p, int B, int F, int J, int C, in
     CHECK(cudaGetLastError());
 
     // ---- attention backward ----
-    CHECK((launch_gemm<NN, false, EPI_BF16>(p[S_DYB], p[S_WPROJ], nullptr, nullptr, nullptr,
-                                            nullptr, nullptr, dattn, nullptr, M, C, C,
-                                            stream)));
-    CHECK(weight_grad(p[S_DYB], p[S_ATTN], M, C, C, work, p[S_DWPROJ], stream));
+    CHECK((hg_gemm<NN, EPI_BF16>(p[S_DYB], p[S_WPROJ], nullptr, nullptr, nullptr, dattn,
+                                 nullptr, M, C, C, stream)));
+    CHECK(hg_weight_grad(p[S_DYB], p[S_ATTN], M, C, C, work, p[S_DWPROJ], stream));
     CHECK(column_sum<COL_BF16>(p[S_DYB], nullptr, nullptr, nullptr, M, C, work, p[S_DBPROJ],
                                true, stream));
-    CHECK(launch_attention_bwd_any(p[S_QKV], dattn, p[S_DQKV], p[S_DQKVB], B, F, J, C, H,
-                                   scale, temporal, stream));
-    CHECK(weight_grad(p[S_DQKVB], p[S_H1], M, 3 * C, C, work, p[S_DWQKV], stream));
+    float* dqkv = static_cast<float*>(p[S_DQKV]);
+    bf16* dqkvb = static_cast<bf16*>(p[S_DQKVB]);
+    core.g = dattn;
+    core.ld_g = C;
+    core.dqf = dqkv, core.dkf = dqkv + C, core.dvf = dqkv + 2 * C;
+    core.dqb = dqkvb, core.dkb = dqkvb + C, core.dvb = dqkvb + 2 * C;
+    core.ld_out = 3 * C;
+    CHECK(launch_attention_tc(core, true, stream));
+    CHECK(hg_weight_grad(p[S_DQKVB], p[S_H1], M, 3 * C, C, work, p[S_DWQKV], stream));
     CHECK(column_sum<COL_F32>(p[S_DQKV], nullptr, nullptr, nullptr, M, 3 * C, work,
                               p[S_DBQKV], true, stream));
-    CHECK((launch_gemm<NN, false, EPI_F32>(p[S_DQKVB], p[S_WQKV], nullptr, nullptr, nullptr,
-                                           nullptr, nullptr, p[S_DH], nullptr, M, C, 3 * C,
-                                           stream)));
+    CHECK((hg_gemm<NN, EPI_F32>(p[S_DQKVB], p[S_WQKV], nullptr, nullptr, nullptr, p[S_DH],
+                                nullptr, M, C, 3 * C, stream)));
     CHECK(column_sum<COL_F32>(p[S_DH], nullptr, nullptr, nullptr, M, C, work, p[S_DLN1_B],
                               false, stream));
     CHECK(column_sum<COL_LN_W>(p[S_DH], p[S_X], p[S_ST1], nullptr, M, C, work, p[S_DLN1_W],
@@ -193,4 +210,50 @@ extern "C" int mbt_pair_block_bwd(void* const* p, int B, int F, int J, int C, in
         static_cast<const float2*>(p[S_ST1]), static_cast<const float*>(p[S_LN1_W]),
         static_cast<const bf16*>(p[S_DYB]), static_cast<bf16*>(p[S_DX]), M, C);
     return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the tensor-core attention core alone (attention_tc.cuh), for its tests: q,
+// k, v, dO, the output and the gradients are (B, F, J, C) bf16 token rows of
+// row stride C; groups of 1..max_keys rows.
+// ---------------------------------------------------------------------------
+
+// The constants ops/fused_pair.py names (CORE_CONSTANTS) by its names; -1
+// for any other name. The wrapper holds its table against these.
+extern "C" int mbt_attn_core_constant(const char* name) {
+    static const struct { const char* name; int value; } table[] = {
+        {"max_keys", TC_MAX_KEYS}, {"key_tile", TC_KEY_TILE}};
+    for (const auto& entry : table)
+        if (strcmp(entry.name, name) == 0) return entry.value;
+    return -1;
+}
+
+// out = softmax(q k^T * scale) v per head over the group ("temporal": the F
+// frames of a joint, else the J joints of a frame).
+extern "C" int mbt_attn_core_test(const void* q, const void* k, const void* v, void* out,
+                                  int B, int F, int J, int C, int H, float scale,
+                                  int temporal, void* stream_ptr) {
+    TcArgs a{};
+    a.q = q, a.k = k, a.v = v, a.out = out;
+    a.ld = C, a.ld_out = C;
+    a.B = B, a.F = F, a.J = J, a.C = C, a.H = H;
+    a.scale = scale;
+    a.temporal = temporal;
+    return (int)launch_attention_tc(a, false, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// dq, dk, dv (bf16) of the same core for the output gradient g; the fp32
+// copies the pair backward sums for dbqkv are not written.
+extern "C" int mbt_attn_core_bwd_test(const void* q, const void* k, const void* v,
+                                      const void* g, void* dq, void* dk, void* dv, int B,
+                                      int F, int J, int C, int H, float scale, int temporal,
+                                      void* stream_ptr) {
+    TcArgs a{};
+    a.q = q, a.k = k, a.v = v, a.g = g;
+    a.dqb = dq, a.dkb = dk, a.dvb = dv;
+    a.ld = C, a.ld_g = C, a.ld_out = C;
+    a.B = B, a.F = F, a.J = J, a.C = C, a.H = H;
+    a.scale = scale;
+    a.temporal = temporal;
+    return (int)launch_attention_tc(a, true, static_cast<cudaStream_t>(stream_ptr));
 }

@@ -31,7 +31,13 @@ recompute, about three times that). The TPU design keeps every weight
 resident on chip, which 227 KB of shared memory cannot; the port runs chains
 of GEMM, attention and row launches over the flattened rows and pays for the
 intermediates in device memory; see the notes at the top of the ``.cu``
-files.
+files. The backward runs its products on the wgmma + TMA engine
+(``csrc/hopper_gemm.cuh``), so x, g and the weights and biases must sit at
+16-byte-aligned addresses (it raises otherwise), and its attention core on
+tensor cores (``csrc/attention_tc.cuh``). That core alone, forward and
+backward, is ``attention_core`` / ``attention_core_bwd`` (through the test
+entries of ``csrc/pair_bwd_kernels.cu``; plain twins ``st_attention_plain``
+and ``st_attention_bwd_plain``).
 
 Weights use nn.Linear's layout: wqkv (3C, C), wproj (C, C), w1 (hidden, C),
 w2 (C, hidden), wg (2, 2C). LayerNorm weights stay fp32; everything else is
@@ -50,9 +56,9 @@ from motionbert_tpu_torch.ops import _build
 from motionbert_tpu_torch.ops.attention import (
     HEAD_DIMS, MAX_FRAMES, MAX_ROWS, NUM_JOINTS, attention_block,
     check_tensor as _check, device_kind as _device_kind, from_groups, linear,
-    ln_bwd_rows, ln_fwd_stats, rows as _rows, to_groups,
-    weight_grad as _weight_grad, wide)
-from motionbert_tpu_torch.ops.fused_mlp import mlp_block
+    ln_bwd_rows, ln_fwd_stats, rows as _rows, st_attention_bwd_plain,
+    st_attention_plain, to_groups, weight_grad as _weight_grad, wide)
+from motionbert_tpu_torch.ops.fused_mlp import check_aligned, mlp_block
 
 # the 12 parameters of a pair, in argument order
 PAIR_PARAMS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj", "ln2_w",
@@ -323,6 +329,10 @@ def _launch_bwd(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
     check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
                       ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads, mode)
     _check("g", g, x.shape, x.dtype, x.device)
+    for name, t in (("x", x), ("g", g), ("wqkv", wqkv), ("bqkv", bqkv),
+                    ("wproj", wproj), ("bproj", bproj), ("w1", w1),
+                    ("b1", b1), ("w2", w2), ("b2", b2)):
+        check_aligned(name, t)
     B, F, J, C = x.shape
     hidden = w1.shape[0]
     M = B * F * J
@@ -481,3 +491,118 @@ def fused_gated_pair_block(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
 
 
 fused_gated_pair_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the pair backward's tensor-core attention core alone
+# ---------------------------------------------------------------------------
+
+# what csrc/attention_tc.cuh takes, by the names mbt_attn_core_constant
+# (csrc/pair_bwd_kernels.cu) maps to its constants: groups of up to
+# max_keys rows, padded to key_tile rows times a power of two
+CORE_CONSTANTS = {"max_keys": 256, "key_tile": 16}
+
+
+def core_key_tiles(n: int) -> int:
+    """Key tiles (of ``key_tile`` rows) the core pads a group of n rows to:
+    a power of two, which picks the kernel instantiation that runs."""
+    kt = 1
+    while kt * CORE_CONSTANTS["key_tile"] < n:
+        kt *= 2
+    return kt
+
+
+def check_core_args(q, k, v, g, num_heads: int, mode: str) -> None:
+    """Raise ValueError on anything the tensor-core core does not take."""
+    if mode not in ("spatial", "temporal"):
+        raise ValueError(f"unknown attention mode: {mode!r}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, F, J, C), got shape {tuple(q.shape)}")
+    B, F, J, C = q.shape
+    n = F if mode == "temporal" else J
+    if not 1 <= n <= CORE_CONSTANTS["max_keys"]:
+        raise ValueError(f"the tensor-core core takes groups of 1.."
+                         f"{CORE_CONSTANTS['max_keys']} rows, got {n}")
+    if num_heads < 1 or C % num_heads or C // num_heads not in HEAD_DIMS:
+        raise ValueError(f"the tensor-core core takes a head dim in "
+                         f"{HEAD_DIMS}, got C={C}, heads={num_heads}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
+        if t is not None:
+            _check(name, t, (B, F, J, C), torch.bfloat16, q.device)
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the tensor-core core copies "
+                                 f"16-byte chunks and needs a 16-byte-"
+                                 f"aligned address")
+
+
+def _core_library() -> ctypes.CDLL:
+    lib = _bwd_library()
+    if lib.mbt_attn_core_test.argtypes is None:
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.mbt_attn_core_test.argtypes = [vp] * 4 + [i] * 5 + [f, i, vp]
+        lib.mbt_attn_core_bwd_test.argtypes = [vp] * 7 + [i] * 5 + [f, i, vp]
+        lib.mbt_attn_core_constant.argtypes = [ctypes.c_char_p]
+        for fn in (lib.mbt_attn_core_test, lib.mbt_attn_core_bwd_test,
+                   lib.mbt_attn_core_constant):
+            fn.restype = i
+    drift = {name: (value, lib.mbt_attn_core_constant(name.encode()))
+             for name, value in CORE_CONSTANTS.items()
+             if lib.mbt_attn_core_constant(name.encode()) != value}
+    if drift:
+        raise RuntimeError(f"fused_pair's core constants disagree with the "
+                           f"library's (ours, the library's): {drift}")
+    return lib
+
+
+def attention_core(q, k, v, mode: str, num_heads: int,
+                   scale: float) -> torch.Tensor:
+    """The pair backward's forward attention core on (B, F, J, C) q, k, v:
+    one launch of the tensor-core kernel on CUDA tensors (counted in
+    ``attention_core.launches``), ``st_attention_plain`` on CPU tensors."""
+    if _device_kind(q, "attention core") == "cpu":
+        return st_attention_plain(q, k, v, mode, num_heads, scale)
+    check_core_args(q, k, v, None, num_heads, mode)
+    B, F, J, C = q.shape
+    lib = _core_library()
+    with torch.cuda.device(q.device):
+        out = torch.empty_like(q)
+        rc = lib.mbt_attn_core_test(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, F, J,
+            C, num_heads, float(scale), int(mode == "temporal"),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tensor-core attention core launch failed with "
+                           f"CUDA error {rc}")
+    attention_core.launches += 1
+    return out
+
+
+attention_core.launches = 0
+
+
+def attention_core_bwd(q, k, v, g, mode: str, num_heads: int,
+                       scale: float) -> tuple:
+    """(dq, dk, dv) of ``attention_core`` for the output gradient g: one
+    launch of the tensor-core backward on CUDA tensors (counted in
+    ``attention_core_bwd.launches``), ``st_attention_bwd_plain`` on CPU
+    tensors."""
+    if _device_kind(q, "attention core") == "cpu":
+        return st_attention_bwd_plain(q, k, v, g, mode, num_heads, scale)
+    check_core_args(q, k, v, g, num_heads, mode)
+    B, F, J, C = q.shape
+    lib = _core_library()
+    with torch.cuda.device(q.device):
+        bf = [torch.empty_like(q) for _ in range(3)]
+        rc = lib.mbt_attn_core_bwd_test(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() for t in bf), B, F, J, C, num_heads,
+            float(scale), int(mode == "temporal"),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tensor-core attention core backward launch "
+                           f"failed with CUDA error {rc}")
+    attention_core_bwd.launches += 1
+    return tuple(bf)
+
+
+attention_core_bwd.launches = 0

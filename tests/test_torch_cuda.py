@@ -1045,3 +1045,119 @@ def test_mesh_step_matches_cpu(cuda):
             k = f"head.{bn}.{buf}"
             np.testing.assert_allclose(s1[k].numpy(), s0[k].numpy(),
                                        atol=1e-5, rtol=1e-4, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the pair backward (B3) on tensor cores: its attention core alone, and its
+# products on the GEMM engine at the flagship shapes
+# ---------------------------------------------------------------------------
+
+# the tensor-core core vs the plain core as a relative L2: the forward is
+# B8's function and takes B8's bar (a moved rounding point measures 2.6e-3
+# or more); the backward rounds dS and its three gradients to bf16, and
+# takes the block kernels' bar (BLOCK_L2_TOL in chip_smoke.py)
+CORE_L2_TOL = 1e-3
+CORE_BWD_L2_TOL = 4e-3
+
+
+def _core_inputs(device, mode, n, C, seed=0):
+    """q, k, v and the output gradient with groups of n rows: n frames of 5
+    joints (temporal), or 7 frames of n joints (spatial)."""
+    shape = (2, n, 5, C) if mode == "temporal" else (2, 7, n, C)
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(rs.normal(size=shape).astype(np.float32)).to(
+        device=device, dtype=torch.bfloat16) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+@pytest.mark.parametrize("H", [8, 16])          # head dim 64 and 32 at C 512
+@pytest.mark.parametrize("n", [1, 5, 16, 17, 100, 243])
+def test_attention_core_matches_the_plain_core(cuda, mode, H, n):
+    """The tensor-core core, forward and backward, against the plain core at
+    every key-tile count (1, 2, 8 and 16 tiles; ragged and exact), twice for
+    bitwise repeatability, one launch each."""
+    q, k, v, g = _core_inputs(cuda, mode, n, 512)
+    scale = (512 // H) ** -0.5
+    before = (fp.attention_core.launches, fp.attention_core_bwd.launches)
+    out = fp.attention_core(q, k, v, mode, H, scale)
+    grads = fp.attention_core_bwd(q, k, v, g, mode, H, scale)
+    torch.cuda.synchronize()
+    assert (fp.attention_core.launches,
+            fp.attention_core_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, fp.attention_core(q, k, v, mode, H, scale))
+    for a, b in zip(grads, fp.attention_core_bwd(q, k, v, g, mode, H, scale)):
+        assert torch.equal(a, b), "two runs differ"
+    ref = at.st_attention_plain(q, k, v, mode, H, scale)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _rel(out, ref) <= TOL and _rel_l2(out, ref) <= CORE_L2_TOL
+    want = at.st_attention_bwd_plain(q, k, v, g, mode, H, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        if not b.float().abs().max():       # one key: dS, dq and dk are 0
+            assert not a.float().abs().max(), name
+            continue
+        assert _rel(a, b) <= TOL, (name, _rel(a, b))
+        assert _rel_l2(a, b) <= CORE_BWD_L2_TOL, (name, _rel_l2(a, b))
+
+
+@pytest.mark.cuda
+def test_attention_core_raises_and_never_falls_back(cuda):
+    q, k, v, g = _core_inputs(cuda, "temporal", 9, 512)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fp.attention_core(q.float(), k, v, "temporal", 8, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        fp.attention_core_bwd(q, k, v, g, "temporal", 4, 0.125)
+    big = torch.zeros((1, 257, 1, 512), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="groups of 1..256"):
+        fp.attention_core(big, big, big, "temporal", 8, 0.125)
+
+
+# (layout, epilogue, M, N, K) of every product the pair backward launches at
+# the flagship shape (4, 243, 17) token rows, C 512, hidden 1024
+B3_PRODUCTS = [("NT", "bias", 16524, 1536, 512),      # qkv
+               ("NT", "bias_res", 16524, 512, 512),   # proj + x
+               ("NT", "bias_gelu_z", 16524, 1024, 512),  # fc1 with fp32 z
+               ("NT", "bias_res", 16524, 512, 1024),  # gated: fc2 + yb
+               ("NN", "dgelu", 16524, 1024, 512),     # dz
+               ("NN", "f32", 16524, 512, 1024),       # dh2
+               ("NN", "bf16", 16524, 512, 512),       # dattn
+               ("NN", "f32", 16524, 512, 1536),       # dh1
+               ("TN", "partial", 16524, 512, 1024),   # dW2
+               ("TN", "partial", 16524, 1024, 512),   # dW1
+               ("TN", "partial", 16524, 512, 512),    # dWproj
+               ("TN", "partial", 16524, 1536, 512)]   # dWqkv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,epi,M,N,K", B3_PRODUCTS)
+def test_pair_bwd_products_match_the_fp32_product(cuda, layout, epi, M, N,
+                                                  K):
+    """The engine launches of the pair backward, at their flagship shapes,
+    against the fp32 product rounded at the same point, bitwise twice."""
+    args = _engine_operands(cuda, layout, M, N, K, seed=M + N + K)
+    got = mlp.engine_gemm(layout, epi, *args)
+    again = mlp.engine_gemm(layout, epi, *args)
+    want = mlp.engine_gemm_plain(layout, epi, *args)
+    pairs = zip(got, again, want) if epi == "bias_gelu_z" else \
+        [(got, again, want)]
+    for a, b, w in pairs:
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.equal(a, b), "two runs differ"
+        tol = ENGINE_BF16_TOL if a.dtype == torch.bfloat16 else ENGINE_F32_TOL
+        assert _rel(a, w) <= tol, (_rel(a, w), tol)
+
+
+@pytest.mark.cuda
+def test_bwd_raises_on_a_misaligned_input(cuda):
+    """The pair backward's products read x, g and the weights through TMA,
+    which takes 16-byte-aligned addresses only: it raises, never falls
+    back."""
+    args, H = _inputs(cuda, False, F=3)
+    g = _grad_out(cuda, args[0].shape)
+    shifted = torch.empty(g.numel() + 1, dtype=g.dtype, device=cuda)[1:]
+    shifted.copy_(g.reshape(-1))
+    bargs = _bwd_args(args, shifted.view(g.shape), False)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fp.fused_pair_block_bwd(*bargs, H, 0.125, "temporal")
