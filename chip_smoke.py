@@ -7,10 +7,15 @@ Phases, each of which passes or ends the run with a non-zero exit code:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; exits non-zero when torch sees no CUDA device.
   2. build: nvcc compiles ops/csrc/*.cu from this checkout.
-  3. kernels: every CUDA kernel of the serving path against its plain PyTorch
-     version at the flagship shape (B 4, F 243, J 17, C 512, 8 heads, hidden
-     1024), bf16, with its time, the plain version's, a one-library-call
-     yardstick's, and the least time the card could take (bound).
+  3. kernels: every CUDA kernel of the serving path (the pair B1 and the
+     gated pair B2, temporal and spatial) against its plain PyTorch version
+     at the flagship shape (B 4, F 243, J 17, C 512, 8 heads, hidden 1024),
+     bf16, twice for bitwise repeatability, with its time (one call, back to
+     back, and the device's own from the profiler, by kernel), the plain
+     version's, a one-library-call yardstick's with its device time, and
+     the least time the card could take (bound); a call's profile must hold
+     the GEMM engine, the tensor-core attention core and the LayerNorm rows
+     and no WMMA GEMM or CUDA-core attention kernel.
   4. main path: MotionBERT.from_config on the flagship config with the trained
      anchor weights; flip-TTA lift and get_representation of a seeded
      (8, 243, 17, 3) batch through the kernels, held against the plain fp32
@@ -112,9 +117,10 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      ungated ("s","t") and gated ("t","s")) at the phase-3 shape against
      their plain versions (the max-based and the relative-L2 bar), twice for
      bitwise repeatability and bit for bit against the ported pair chain
-     (B1 -> B1 / B2, B9 -> B9), with times (one call, and back to back), the
-     chain's times in the same run, bound, the plain version's time and a
-     library yardstick (each pair's PyTorch operators, twice).
+     (B1 -> B1 / B2, B9 -> B9), with times (one call, back to back, and
+     device), the chain's times in the same run, bound, the plain version's
+     time and a library yardstick (each pair's PyTorch operators, twice)
+     with its device time.
  25. stream main path: the anchor's (8, 243) flip-TTA lift and
      representation through attn_impl "kernel_stream" and "kernel_stream_q8",
      bit for bit equal to "kernel" and "kernel_q8", with launch counts and
@@ -138,27 +144,28 @@ after phase 19, phases 24-27 after phase 23. Then a JSON line of per-kernel
 numbers, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
+    python3 chip_smoke.py --phases pairs
     python3 chip_smoke.py --phases train
     python3 chip_smoke.py --phases q8
     python3 chip_smoke.py --phases blocks
     python3 chip_smoke.py --phases action
     python3 chip_smoke.py --phases mesh
 
-run only phases 1, 2, the engine and core phases of 16, 7 and 8; 1, 2 and
-10-15; 1, 2 and 16-19; 1, 2 and 20-23; or 1, 2 and 24-27 (while working on
-them), and print no last line.
+run only phases 1, 2, 3 and 24; 1, 2, the engine and core phases of 16, 7
+and 8; 1, 2 and 10-15; 1, 2 and 16-19; 1, 2 and 20-23; or 1, 2 and 24-27
+(while working on them), and print no last line.
 
     python3 chip_smoke.py --baseline ROOT [--phases ...]
 
-also builds the pair, W8A8 pair, block and pair backward sources of the
-checkout at ROOT (the parent's, unpacked with git archive) after phase 2:
-holds this checkout's pair, W8A8 pair and block (B4-B7) outputs against
-that build, bit for bit; times the MLP blocks (B6, B7) of both builds in
-turns (other, this, this, other) at the phase-16/17 shape; runs phase 18's
-drop-path train steps in turns with the other build's block library swapped
-in; times the pair backward (B3) of both builds in turns at the phase-7
-shape; and runs phase 8's train steps in turns with the other build's pair
-backward library swapped in, then profiles one step of each.
+also builds the pair, W8A8 pair, block, pair backward and stream sources of
+the checkout at ROOT (the parent's, unpacked with git archive) after phase
+2: holds this checkout's W8A8 pair, block (B4-B7) and pair backward (B3)
+outputs against that build, bit for bit; holds this build's bf16 pairs (B1,
+B2) and bf16 streams (B10) to their plain versions' bars and times both
+builds' in turns (other, this, this, other) at the phase-3 and phase-24
+inputs; runs phase 8's train steps in turns with the other build's pair
+library swapped in, then profiles one step of each; and times phase 4's
+lift in turns the same way. The in-turn times join the kernels line.
 
 Imports nothing of JAX or of the JAX package motionbert_tpu.
 """
@@ -466,7 +473,34 @@ def pair_cost(mode: str, gated: bool) -> tuple:
     return flops, nbytes
 
 
+def pair_records(gated: bool) -> int:
+    """Device records of one pair call, from the chain in
+    csrc/pair_chain.cuh: two LayerNorm row passes, four products on the
+    engine and the tensor-core core; the gated pair adds the gate."""
+    return 7 + int(gated)
+
+
+def stream_records(gated: bool, q8_tier: bool):
+    """Device records of one stream call: both passes' chains and the gate
+    (csrc/stream_kernels.cu); None in the W8A8 tier, whose wrapper runs
+    quant_cols's PyTorch operators before its launch (device_profile then
+    takes every kernel a whole multiple of the calls)."""
+    return None if q8_tier else 2 * pair_records(False) + int(gated)
+
+
+# kernel-name fragments a bf16 pair call must launch, and those of the
+# first design it must not (retired_kernels)
+PAIR_KERNELS = ("hg_gemm_kernel", "attn_tc_fwd_kernel", "ln_fwd_rows_kernel")
+
+
 def phase_kernels(fp) -> list:
+    """B1 and B2, temporal and spatial, at the flagship shape against their
+    plain versions, twice for bitwise repeatability, with times (one call,
+    back to back, and the device's own from the profiler, by kernel), the
+    bound, the plain version's time and the library yardstick with its
+    device time. A call's profile must hold the engine, the tensor-core
+    core and the LayerNorm rows (and the gate when gated) and no WMMA GEMM
+    or CUDA-core attention kernel."""
     scale = (C // HEADS) ** -0.5
     dev = torch.device("cuda")
     records = []
@@ -480,27 +514,45 @@ def phase_kernels(fp) -> list:
         for mode in ("temporal", "spatial"):
             p = pair_inputs(1 if mode == "temporal" else 2, gated, dev)
             args = pair_args(p, gated)
-            out = wrapper(*args, HEADS, scale, mode)
+            call = lambda: wrapper(*args, HEADS, scale, mode)
+            out = call()
             torch.cuda.synchronize()
+            bitwise = torch.equal(out, call())
             ref = plain(*args, HEADS, scale, mode)
             if out.shape != ref.shape or not torch.isfinite(out.float()).all():
                 fail(f"{name}/{mode}: shape {tuple(out.shape)} or non-finite")
             abs_err, rel = rel_err(out, ref)
-            lib_abs, lib_rel = rel_err(pair_library(p, gated, scale, mode), ref)
+            library = lambda: pair_library(p, gated, scale, mode)
+            lib_abs, lib_rel = rel_err(library(), ref)
             flops, nbytes = pair_cost(mode, gated)
             t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+            calls = 10
+            dev_ms, rows = device_profile(call, pair_records(gated), calls)
             rec = dict(
                 max_abs_err=abs_err, rel_err=rel, tol=KERNEL_TOL,
-                ms=time_ms(lambda: wrapper(*args, HEADS, scale, mode)),
+                rel_l2=rel_l2_t(out, ref), bitwise_repeatable=bitwise,
+                ms=time_ms(call), back_to_back_ms=time_ms_back_to_back(call),
+                device_ms=dev_ms,
+                device_by_kernel={key[:60]: ms / calls
+                                  for key, ms, _ in rows},
                 plain_ms=time_ms(lambda: plain(*args, HEADS, scale, mode),
                                  runs=10, warmup=1),
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes > t_ops else "operations",
-                library_ms=time_ms(lambda: pair_library(p, gated, scale, mode)),
+                library_ms=time_ms(library),
+                library_device_ms=device_ms(library, None),
                 library_rel_err=lib_rel, gflop=flops / 1e9, mbytes=nbytes / 1e6)
             log(f"kernel {name}/{mode}: " + json.dumps(rec))
+            needed = PAIR_KERNELS + (("gate_kernel",) if gated else ())
+            missing = [k for k in needed
+                       if not any(k in key for key, _, _ in rows)]
+            if missing or retired_kernels(rows):
+                fail(f"{name}/{mode}: the profile of a call misses "
+                     f"{missing} or runs {retired_kernels(rows)}")
             if not rel <= KERNEL_TOL:
                 fail(f"{name}/{mode}: max|d|/max|ref| {rel:.3e} > {KERNEL_TOL}")
+            if not bitwise:
+                fail(f"{name}/{mode}: two runs gave different bits")
             modes[mode] = rec
             del p, args, out, ref
         main = modes[main_mode]
@@ -511,8 +563,10 @@ def phase_kernels(fp) -> list:
             max_abs_err=max(m["max_abs_err"] for m in modes.values()),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], mode=main_mode,
+            library_ms=main["library_ms"], device_ms=main["device_ms"],
+            library_device_ms=main["library_device_ms"], mode=main_mode,
             shape=[B, FRAMES, J, C], modes=modes))
+    torch.cuda.empty_cache()
     return records
 
 
@@ -1137,7 +1191,8 @@ PAIR_BWD_RETIRED = ("attention_kernel", "attention_bwd_kernel")
 
 
 def retired_kernels(rows) -> list:
-    """The kernels of a profile that the pair backward no longer runs."""
+    """The kernels of a profile that the bf16 pair chains, forward and
+    backward, no longer run."""
     return [key for key, _, _ in rows
             if any(k in key for k in PAIR_BWD_RETIRED)
             or ("gemm_kernel" in key and "hg_gemm_kernel" not in key)]
@@ -2418,6 +2473,12 @@ WITNESS_MARGIN = 2.0
 # 2, gradients 1.64e-3 at worst, logits 2.6e-4, running statistics 1.8e-7,
 # fc1's bias 3.8e-4. This holds the card's arithmetic to the CPU's; the
 # BatchNorm's formulas are held against the JAX package by the CPU tests.
+# The same scaling reaches the ReLU's input (BatchNorm's output): read on
+# the card at 32 x 2, 2.3e-3 of its max apart, and one of the 65,536 (clip,
+# unit) decisions on the other side of 0, which moved fc1's weight gradient
+# by 1.12e-2 (that clip's whole share of one unit's row); with the CPU's
+# decisions on both, 1.63e-3. So the ReLU's input is held to this bar, and
+# the gradients with the CPU's decisions on both.
 HEAD_TOL = 1e-2
 
 
@@ -2500,6 +2561,29 @@ def compare_action_step(what: str, got: tuple, ref: tuple,
              f"{over}")
 
 
+def head_run(head, feat, y, relu_on=None) -> tuple:
+    """One training-mode forward and backward of the classification head
+    on ``feat``, without dropout: (tensors, fc1's output batch variance,
+    BatchNorm's output). With ``relu_on`` (a boolean tensor of BatchNorm's
+    output shape) the ReLU's on/off decisions are taken from it, so that
+    two devices' heads can be compared on the same decisions; the rest is
+    ActionHeadClassification.forward."""
+    from motionbert_tpu_torch.models.action_heads import _pool_feat
+
+    leaf = feat.detach().requires_grad_()
+    z = head.fc1(_pool_feat(leaf, 0.0, None))
+    pre = head.bn(z)
+    act = torch.relu(pre) if relu_on is None else pre * relu_on
+    logits = head.fc2(act)
+    F.cross_entropy(logits, y).backward()
+    t = {"logits": logits.detach(), "d feat": leaf.grad}
+    t.update({f"d {n}": p.grad for n, p in head.named_parameters()})
+    t.update(running_mean=head.bn.running_mean,
+             running_var=head.bn.running_var)
+    return ({k: v.detach().cpu().float() for k, v in t.items()},
+            z.detach().var(0, unbiased=False).cpu(), pre.detach())
+
+
 def action_head_check(model, x, y) -> None:
     """The classification head as the timed steps run it, in training mode
     (BatchNorm on the batch's statistics, updating its running averages), on
@@ -2507,42 +2591,48 @@ def action_head_check(model, x, y) -> None:
     representation of ``x`` and without dropout (the full-path comparison
     holds the masks): logits, the gradients of the head and of its input,
     and the running statistics after, each by max|d| / max|CPU|, and fc1's
-    bias gradient against the BatchNorm bias's, to HEAD_TOL."""
+    bias gradient against the BatchNorm bias's, to HEAD_TOL. BatchNorm's
+    output (the ReLU's input) is held to HEAD_TOL too; where it lies within
+    the two devices' rounding of 0 the ReLU decides differently on them
+    (HEAD_TOL's note), and the gradients are then held with the CPU's
+    decisions on both."""
     N, M, T, J, C = x.shape
     with torch.no_grad():
         rep = model.backbone(x.reshape(N * M, T, J, C), return_rep=True)
     feat = rep.reshape(N, M, T, J, -1).float()
-    out = {}
-    for dev in ("cuda", "cpu"):
-        head = copy.deepcopy(model.head).to(dev).train()
-        leaf = feat.detach().to(dev).requires_grad_()
-        fc1 = []
-        hook = head.fc1.register_forward_hook(
-            lambda m, i, o: fc1.append(o.detach()))
-        logits = head(leaf)
-        hook.remove()
-        F.cross_entropy(logits, y.to(dev)).backward()
-        t = {"logits": logits.detach(), "d feat": leaf.grad}
-        t.update({f"d {n}": p.grad for n, p in head.named_parameters()})
-        t.update(running_mean=head.bn.running_mean,
-                 running_var=head.bn.running_var)
-        out[dev] = ({k: v.detach().cpu().float() for k, v in t.items()},
-                    fc1[0].var(0, unbiased=False))
-    (card, var), (cpu, _) = out["cuda"], out["cpu"]
+    head0 = copy.deepcopy(model.head).train()
+    runs = {dev: head_run(copy.deepcopy(head0).to(dev), feat.to(dev),
+                          y.to(dev)) for dev in ("cuda", "cpu")}
+    (card, var, pre_card), (cpu, _, pre_cpu) = runs["cuda"], runs["cpu"]
+    # the replica is the module: its logits on the CPU, bit for bit
+    with torch.no_grad():
+        module_logits = copy.deepcopy(head0).cpu()(feat.cpu())
+    if not torch.equal(module_logits, cpu["logits"]):
+        fail("action: head_run is not ActionHeadClassification.forward")
+    on_cpu = pre_cpu > 0
+    flips = int(((pre_card.cpu() > 0) != on_cpu).sum())
+    pre_err = rel_err(pre_card.cpu(), pre_cpu)[1]
+    if flips:
+        card = head_run(copy.deepcopy(head0).cuda(), feat, y.cuda(),
+                        on_cpu.cuda())[0]
     vanishing = "d fc1.bias"
     errs = {k: rel_err(card[k], cpu[k])[1] for k in cpu if k != vanishing}
     norm = lambda t: torch.linalg.norm(t).item()
     vanish = max(norm(card[vanishing]), norm(cpu[vanishing])) \
         / norm(cpu["d bn.bias"])
     log(f"action: head in training mode, batch {N} x 2 persons, card against "
-        f"CPU (fp32): " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        f"CPU (fp32): BatchNorm output {pre_err:.3e}, ReLU decisions that "
+        f"differ {flips} of {on_cpu.numel()}"
+        + (" (the gradients below on the CPU's decisions)" if flips else "")
+        + "; " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
         + f"; fc1.bias |g| / |g bn.bias| {vanish:.3e}; fc1 output batch "
         f"variance mean {var.mean().item():.4e}, median "
         f"{var.median().item():.4e} (BatchNorm eps 1e-5)")
     over = {k: e for k, e in errs.items() if not e <= HEAD_TOL}
-    if over or not vanish <= HEAD_TOL:
+    if over or not (vanish <= HEAD_TOL and pre_err <= HEAD_TOL):
         fail(f"action: the head in training mode disagrees between card and "
-             f"CPU: {over}, fc1.bias {vanish:.3e}")
+             f"CPU: {over}, fc1.bias {vanish:.3e}, BatchNorm output "
+             f"{pre_err:.3e}")
 
 
 def action_first_steps(args, model) -> None:
@@ -2921,19 +3011,24 @@ def phase_stream_kernels(fp, q8, fs) -> list:
                                          q8_tier), ref)[1]
         t_ops, nbytes = stream_cost(order, gated, q8_tier)
         t_bytes = nbytes / PEAK_HBM_BYTES
+        library = lambda: stream_library(p1, p2, gated, scale, order,
+                                         q8_tier)
+        records_a_call = stream_records(gated, q8_tier)
         rec = dict(
             order="".join(order), max_abs_err=abs_err, rel_err=rel, tol=tol,
             rel_l2=l2, l2_tol=l2_tol, bitwise_repeatable=bitwise,
             bitwise_equal_to_pair_chain=equal_chain,
             ms=time_ms(call), back_to_back_ms=time_ms_back_to_back(call),
+            device_ms=device_ms(call, records_a_call),
             chain_ms=time_ms(chain),
             chain_back_to_back_ms=time_ms_back_to_back(chain),
+            chain_device_ms=device_ms(chain, records_a_call),
             plain_ms=time_ms(lambda: plain(*args, HEADS, scale, order),
                              runs=5, warmup=1),
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes > t_ops else "operations",
-            library_ms=time_ms(lambda: stream_library(
-                p1, p2, gated, scale, order, q8_tier)),
+            library_ms=time_ms(library),
+            library_device_ms=device_ms(library, None),
             library_rel_err=lib_rel, mbytes=nbytes / 1e6)
         log(f"stream kernel {name}: " + json.dumps(rec))
         if not (rel <= tol and l2 <= l2_tol):
@@ -2948,6 +3043,8 @@ def phase_stream_kernels(fp, q8, fs) -> list:
             replaces=STREAM_REPLACES, launches=None, max_abs_err=abs_err,
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            device_ms=rec["device_ms"],
+            library_device_ms=rec["library_device_ms"],
             shape=[B, FRAMES, J, C], detail=rec))
         del p1, p2, args, out, ref
         torch.cuda.empty_cache()
@@ -3510,9 +3607,8 @@ class swapped_library:
 
 
 def baseline_blocks(other_block, results: dict) -> None:
-    """B4 and B5 of this build against the other's, bit for bit; B6 and B7
-    of both timed in turns (other, this, this, other) at the phase-16/17
-    shape with the flags the model calls."""
+    """B4 to B7 of this build against the other's, bit for bit, at the
+    phase-16/17 shape with the flags the model calls."""
     from motionbert_tpu_torch.ops import attention as at
     from motionbert_tpu_torch.ops import fused_mlp as mlp
 
@@ -3541,7 +3637,6 @@ def baseline_blocks(other_block, results: dict) -> None:
                 if a is not None)
     mlp_args = [p["x"]] + [p[k] for k in MLP_KEYS]
     bwd_args = [p["x"], g] + [p[k] for k in MLP_KEYS[:-1]]
-    # B6 / B7 share hg_weight_grad's header with the pair backward now
     for use_ln, residual in MLP_FLAGS:
         tag = f"tokens/ln{int(use_ln)}res{int(residual)}"
         ours = (mlp.fused_mlp_block(*mlp_args, use_ln, residual),
@@ -3552,43 +3647,115 @@ def baseline_blocks(other_block, results: dict) -> None:
         results[f"fused_mlp_block/{tag}"] = torch.equal(ours[0], theirs[0])
         results[f"fused_mlp_block_bwd/{tag}"] = all(
             torch.equal(a, b) for a, b in zip(ours[1], theirs[1]))
-    use_ln, residual = MLP_FLAGS[0]
-    times = {"fused_mlp_block": [], "fused_mlp_block_bwd": []}
-    for which in ("other", "this", "this", "other"):
-        lib = other_block if which == "other" else None
-        for name, fn, records in (
-                ("fused_mlp_block",
-                 lambda: mlp.fused_mlp_block(*mlp_args, use_ln, residual),
-                 block_records("mlp", False, use_ln)),
-                ("fused_mlp_block_bwd",
-                 lambda: mlp.fused_mlp_block_bwd(*bwd_args, use_ln,
-                                                 residual),
-                 block_records("mlp", True, use_ln))):
-            if lib is None:
-                rec = (time_ms(fn), time_ms_back_to_back(fn),
-                       device_ms(fn, records))
-            else:
-                with swapped_library("block_kernels", lib):
-                    rec = (time_ms(fn), time_ms_back_to_back(fn),
-                           device_ms(fn, records))
-            times[name].append(dict(build=which, ms=rec[0],
-                                    back_to_back_ms=rec[1], device_ms=rec[2]))
-    log("baseline: B6 / B7 at tokens/ln0res0, in turns: " + json.dumps(times))
-    for name, turns in times.items():
-        this = [t["ms"] for t in turns if t["build"] == "this"]
-        other = [t["ms"] for t in turns if t["build"] == "other"]
-        log(f"baseline: {name}: this build {min(this):.4f}-{max(this):.4f} ms, "
-            f"the other {min(other):.4f}-{max(other):.4f} ms "
-            f"({statistics.mean(other) / statistics.mean(this):.2f}x)")
     del p, g, attn, mlp_args, bwd_args
     torch.cuda.empty_cache()
 
 
-def baseline_steps(name: str, other, tag: str, **build) -> None:
-    """Phase 8's flagship train steps (with build's load_backbone
-    overrides: drop_path_rate for phase 18's) in turns (other, this, this,
-    other) with the other checkout's library for csrc/<name>.cu swapped in:
-    ms per step; then one step of each build profiled."""
+def in_turns(call, records, lib_name: str, other) -> list:
+    """call() timed in turns (other, this, this, other), with the other
+    checkout's library for csrc/<lib_name>.cu swapped in on the other's
+    turns: one call, back to back and device ms (this build's profile held
+    to `records` a call; the other's, whose chain may launch otherwise, to
+    whole multiples of the calls)."""
+    turns = []
+    for which in ("other", "this", "this", "other"):
+        with (swapped_library(lib_name, other) if which == "other"
+              else contextlib.nullcontext()):
+            turns.append(dict(
+                build=which, ms=time_ms(call),
+                back_to_back_ms=time_ms_back_to_back(call),
+                device_ms=device_ms(call, None if which == "other"
+                                    else records)))
+    return turns
+
+
+def baseline_pairs(fp, fs, other_pair, other_stream) -> dict:
+    """B1 and B2 (both modes at the phase-3 inputs) and the bf16 B10 (both
+    variants at the phase-24 inputs) of this build held to their plain
+    versions' bars, the other build's outputs measured against the same
+    plain versions, and both builds timed in turns. Returns {name/mode or
+    name: turns}."""
+    dev = torch.device("cuda")
+    scale = (C // HEADS) ** -0.5
+    fp._library()
+    fs._library()
+    out = {}
+    for name, wrapper, plain, gated in (
+            ("fused_pair_block", fp.fused_pair_block, fp.pair_block_plain,
+             False),
+            ("fused_gated_pair_block", fp.fused_gated_pair_block,
+             fp.gated_pair_block_plain, True)):
+        for mode in ("temporal", "spatial"):
+            p = pair_inputs(1 if mode == "temporal" else 2, gated, dev)
+            args = pair_args(p, gated)
+            call = lambda: wrapper(*args, HEADS, scale, mode)
+            ref = plain(*args, HEADS, scale, mode)
+            ours = rel_err(call(), ref)[1]
+            with swapped_library("pair_kernels", other_pair):
+                theirs = rel_err(call(), ref)[1]
+            turns = in_turns(call, pair_records(gated), "pair_kernels",
+                             other_pair)
+            log(f"baseline: {name}/{mode}: max|d|/max|plain| this build "
+                f"{ours:.3e}, the other {theirs:.3e}; in turns: "
+                + json.dumps(turns))
+            if not ours <= KERNEL_TOL:
+                fail(f"baseline: {name}/{mode}: {ours:.3e} > {KERNEL_TOL}")
+            out[f"{name}/{mode}"] = turns
+            del p, args, ref
+    for i, (name, gated, q8_tier, order) in enumerate(STREAM_VARIANTS):
+        if q8_tier:
+            continue
+        p1 = pair_inputs(30 + i, gated, dev)
+        p2 = pair_inputs(40 + i, False, dev)
+        args = stream_args(p1, p2, gated)
+        wrapper = getattr(fs, name)
+        plain = getattr(fs, ("gated_" if gated else "") + "stream_block_plain")
+        call = lambda: wrapper(*args, HEADS, scale, order)
+        ref = plain(*args, HEADS, scale, order)
+        ours = call()
+        errs = (rel_err(ours, ref)[1], rel_l2_t(ours, ref))
+        turns = in_turns(call, stream_records(gated, False), "stream_kernels",
+                         other_stream)
+        log(f"baseline: {name}: max|d|/max|plain| and relative L2 this "
+            f"build {errs[0]:.3e} / {errs[1]:.3e}; in turns: "
+            + json.dumps(turns))
+        if not (errs[0] <= STREAM_TOL and errs[1] <= STREAM_L2_TOL):
+            fail(f"baseline: {name}: {errs} over ({STREAM_TOL}, "
+                 f"{STREAM_L2_TOL})")
+        out[name] = turns
+        del p1, p2, args, ref, ours
+    torch.cuda.empty_cache()
+    return out
+
+
+def baseline_pair_bwd(fp, other_bwd, results: dict) -> None:
+    """B3's four variants of this build against the other's, bit for bit,
+    on the phase-7 inputs."""
+    dev = torch.device("cuda")
+    scale = (C // HEADS) ** -0.5
+    fp._bwd_library()
+    for name, kernel, gated in (
+            ("fused_pair_block_bwd", fp.fused_pair_block_bwd, False),
+            ("fused_gated_pair_block_bwd", fp.fused_gated_pair_block_bwd,
+             True)):
+        for mode in ("temporal", "spatial"):
+            p = pair_inputs(3 if mode == "temporal" else 4, gated, dev)
+            g = pair_inputs(5, False, dev)["x"]
+            fwd = pair_args(p, gated)
+            args = fwd[:2 if gated else 1] + [g] + fwd[2 if gated else 1:]
+            ours = kernel(*args, HEADS, scale, mode)
+            with swapped_library("pair_bwd_kernels", other_bwd):
+                theirs = kernel(*args, HEADS, scale, mode)
+            results[f"{name}/{mode}"] = all(
+                torch.equal(a, b) for a, b in zip(ours, theirs))
+            del p, g, fwd, args, ours, theirs
+    torch.cuda.empty_cache()
+
+
+def baseline_steps(name: str, other, tag: str) -> None:
+    """Phase 8's flagship train steps in turns (other, this, this, other)
+    with the other checkout's library for csrc/<name>.cu swapped in: ms per
+    step; then one step of each build profiled."""
     from motionbert_tpu_torch.core.checkpoint import load_state_dict
     from motionbert_tpu_torch.core.config import get_config
     from motionbert_tpu_torch.losses.pose import LAMBDA_KEYS
@@ -3598,7 +3765,7 @@ def baseline_steps(name: str, other, tag: str, **build) -> None:
 
     args = get_config(TRAIN_CONFIG)
     lambdas = {k: args.get(k, 0.0) for k in LAMBDA_KEYS}
-    model = load_backbone(args, device="cuda", **build)
+    model = load_backbone(args, device="cuda")
     model.load_state_dict(load_state_dict(ANCHOR), strict=True)
     opt = make_adamw(model.parameters(), args.learning_rate,
                      args.weight_decay)
@@ -3622,7 +3789,7 @@ def baseline_steps(name: str, other, tag: str, **build) -> None:
         with (swapped_library(name, other) if which == "other"
               else contextlib.nullcontext()):
             turns.append((which, steps()))
-    log(f"baseline: {tag} step ({TRAIN_BATCH}, {FRAMES}) {json.dumps(build)}, "
+    log(f"baseline: {tag} step ({TRAIN_BATCH}, {FRAMES}), "
         f"{BASELINE_STEPS} steps a turn, ms per step in turns: "
         + ", ".join(f"{w} {ms:.2f}" for w, ms in turns))
     with swapped_library(name, other):
@@ -3632,49 +3799,44 @@ def baseline_steps(name: str, other, tag: str, **build) -> None:
     torch.cuda.empty_cache()
 
 
-def baseline_pair_bwd(fp, other_bwd) -> dict:
-    """B3's four variants at the phase-7 shape, timed in turns (other, this,
-    this, other): one call, back to back, and device time. Returns {variant:
-    turns}."""
-    dev = torch.device("cuda")
-    scale = (C // HEADS) ** -0.5
-    fp._bwd_library()
-    out = {}
-    for name, kernel, gated in (
-            ("fused_pair_block_bwd", fp.fused_pair_block_bwd, False),
-            ("fused_gated_pair_block_bwd", fp.fused_gated_pair_block_bwd,
-             True)):
-        for mode in ("temporal", "spatial"):
-            p = pair_inputs(3 if mode == "temporal" else 4, gated, dev)
-            g = pair_inputs(5, False, dev)["x"]
-            fwd = pair_args(p, gated)
-            args = fwd[:2 if gated else 1] + [g] + fwd[2 if gated else 1:]
-            call = lambda: kernel(*args, HEADS, scale, mode)
-            turns = []
-            for which in ("other", "this", "this", "other"):
-                with (swapped_library("pair_bwd_kernels", other_bwd)
-                      if which == "other" else contextlib.nullcontext()):
-                    turns.append(dict(
-                        build=which, ms=time_ms(call),
-                        back_to_back_ms=time_ms_back_to_back(call),
-                        device_ms=device_ms(call, pair_bwd_records(gated))))
-            out[f"{name}/{mode}"] = turns
-            log(f"baseline: {name}/{mode} in turns: " + json.dumps(turns))
-            del p, g, fwd, args
+def baseline_lift(other_pair) -> None:
+    """Phase 4's flip-TTA lift of the anchor in turns (other, this, this,
+    other) with the other checkout's pair library swapped in: clips/s over
+    BASELINE_STEPS calls a turn."""
+    from motionbert_tpu_torch.api import MotionBERT
+
+    mb = MotionBERT.from_config(CONFIG, checkpoint=ANCHOR)
+    x = seeded_motion(np.random.RandomState(0), LIFT_BATCH, FRAMES)
+    mb.lift(x)
+    turns = []
+    for which in ("other", "this", "this", "other"):
+        with (swapped_library("pair_kernels", other_pair)
+              if which == "other" else contextlib.nullcontext()):
+            mb.lift(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BASELINE_STEPS):
+                mb.lift(x)
+            dt = (time.perf_counter() - t0) / BASELINE_STEPS
+            turns.append((which, LIFT_BATCH / dt))
+    log(f"baseline: lift ({LIFT_BATCH}, {FRAMES}) flip-TTA, "
+        f"{BASELINE_STEPS} calls a turn, clips/s in turns: "
+        + ", ".join(f"{w} {v:.2f}" for w, v in turns))
+    del mb
     torch.cuda.empty_cache()
-    return out
 
 
 def phase_baseline(fp, q8, other_root: str) -> dict:
-    """Build another checkout's pair_kernels.cu, pair_q8_kernels.cu,
-    block_kernels.cu and pair_bwd_kernels.cu (the parent's, say) with this
-    one's nvcc flags. Hold this checkout's pair and W8A8 pair outputs, plain
-    and gated, temporal and spatial, and the attention and MLP blocks' (B4
-    to B7) outputs against that build bit for bit, through the same
-    wrappers; time the MLP blocks (B6, B7), the drop-path train step, the
-    pair backward (B3) and the flagship train step of both builds in
-    turns. Returns baseline_pair_bwd's turns."""
-    import ctypes
+    """Build another checkout's pair, W8A8 pair, block, pair backward and
+    stream sources (the parent's, say) with this one's nvcc flags. Hold
+    this checkout's W8A8 pair outputs (plain and gated, temporal and
+    spatial), the attention and MLP blocks' (B4 to B7) and the pair
+    backward's (B3) against that build bit for bit, through the same
+    wrappers; hold this build's bf16 pairs (B1, B2) and bf16 streams (B10)
+    to their plain bars and time them against the other build in turns;
+    then the flagship train step and lift in turns with the other build's
+    pair library swapped in. Returns baseline_pairs's turns."""
+    from motionbert_tpu_torch.ops import fused_stream as fs
 
     csrc = os.path.join(other_root, "motionbert_tpu_torch", "ops", "csrc")
     scale = (C // HEADS) ** -0.5
@@ -3683,52 +3845,50 @@ def phase_baseline(fp, q8, other_root: str) -> dict:
         from concurrent.futures import ThreadPoolExecutor
 
         names = ("pair_kernels", "pair_q8_kernels", "block_kernels",
-                 "pair_bwd_kernels")
+                 "pair_bwd_kernels", "stream_kernels")
         with ThreadPoolExecutor(len(names)) as pool:
             libs = dict(zip(names, pool.map(
                 lambda name: build_other(csrc, name, tmp), names)))
         results = {}
-        for name, module, wrapper in (
-                ("pair_kernels", fp, fp.fused_pair_block),
-                ("pair_kernels", fp, fp.fused_gated_pair_block),
-                ("pair_q8_kernels", q8, q8.fused_pair_block_q8),
-                ("pair_q8_kernels", q8, q8.fused_gated_pair_block_q8)):
+        q8._library()
+        for wrapper in (q8.fused_pair_block_q8, q8.fused_gated_pair_block_q8):
             gated = "gated" in wrapper.__name__
             for mode in ("temporal", "spatial"):
                 p = pair_inputs(50, gated, dev)
                 args = pair_args(p, gated)
                 ours = wrapper(*args, HEADS, scale, mode)
-                module._library()          # argtypes set on our library
-                fn_name = "mbt_pair_block_q8" if module is q8 \
-                    else "mbt_pair_block"
-                theirs_lib = libs[name]
-                getattr(theirs_lib, fn_name).argtypes = getattr(
-                    module._library(), fn_name).argtypes
-                getattr(theirs_lib, fn_name).restype = ctypes.c_int
-                with swapped_library(name, theirs_lib):
+                with swapped_library("pair_q8_kernels", libs["pair_q8_kernels"]):
                     theirs = wrapper(*args, HEADS, scale, mode)
                 results[f"{wrapper.__name__}/{mode}"] = torch.equal(ours,
                                                                     theirs)
         baseline_blocks(libs["block_kernels"], results)
-        log(f"baseline ({other_root}): this checkout's pair and block "
-            f"outputs bitwise equal to the other build's: "
+        baseline_pair_bwd(fp, libs["pair_bwd_kernels"], results)
+        log(f"baseline ({other_root}): this checkout's W8A8 pair, block and "
+            f"pair backward outputs bitwise equal to the other build's: "
             f"{json.dumps(results)}")
         if not all(results.values()):
             fail(f"baseline: outputs differ: {results}")
-        baseline_steps("block_kernels", libs["block_kernels"], "drop-path",
-                       drop_path_rate=DROP_PATH_RATE)
-        turns = baseline_pair_bwd(fp, libs["pair_bwd_kernels"])
-        baseline_steps("pair_bwd_kernels", libs["pair_bwd_kernels"], "train")
+        turns = baseline_pairs(fp, fs, libs["pair_kernels"],
+                               libs["stream_kernels"])
+        baseline_steps("pair_kernels", libs["pair_kernels"], "train")
+        baseline_lift(libs["pair_kernels"])
     return turns
 
 
-def attach_turns(bwd_records: list, turns: dict) -> None:
-    """The pair backward's in-turn times (phase_baseline) into its phase-7
-    records: each mode's, and the main mode's at the top."""
-    for rec in bwd_records:
-        for mode, m in rec["modes"].items():
-            m["in_turns"] = turns.get(f"{rec['name']}/{mode}")
-        rec["in_turns"] = rec["modes"][rec["mode"]]["in_turns"]
+def attach_turns(records: list, turns: dict) -> None:
+    """The in-turn times (phase_baseline) into the records they belong to:
+    each mode's of B1 / B2 (phase 3), with the main mode's at the top, and
+    the bf16 B10 variants' (phase 24)."""
+    for rec in records:
+        per_mode = {mode: turns[f"{rec['name']}/{mode}"]
+                    for mode in rec.get("modes", ())
+                    if f"{rec['name']}/{mode}" in turns}
+        for mode, t in per_mode.items():
+            rec["modes"][mode]["in_turns"] = t
+        if rec.get("mode") in per_mode:
+            rec["in_turns"] = per_mode[rec["mode"]]
+        elif rec["name"] in turns:
+            rec["in_turns"] = turns[rec["name"]]
 
 
 def phase_mesh_all(fp, q8) -> list:
@@ -3744,22 +3904,23 @@ def phase_mesh_all(fp, q8) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
-                        choices=("all", "train", "q8", "blocks", "action",
-                                 "mesh"),
+                        choices=("all", "pairs", "train", "q8", "blocks",
+                                 "action", "mesh"),
                         default="all",
-                        help="train: only phases 1, 2, the engine and core "
-                             "phases, 7 and 8; q8: only phases 1, 2 and "
-                             "10-15; blocks: only phases 1, 2 and 16-19; "
-                             "action: only phases 1, 2 and 20-23; mesh: only "
-                             "phases 1, 2 and 24-27; none of them prints the "
-                             "last line")
+                        help="pairs: only phases 1, 2, 3 and 24; train: only "
+                             "phases 1, 2, the engine and core phases, 7 and "
+                             "8; q8: only phases 1, 2 and 10-15; blocks: only "
+                             "phases 1, 2 and 16-19; action: only phases 1, "
+                             "2 and 20-23; mesh: only phases 1, 2 and 24-27; "
+                             "none of them prints the last line")
     parser.add_argument("--baseline", default=None, metavar="ROOT",
                         help="another checkout (the parent's, say): after the "
-                             "build, hold this checkout's pair, W8A8 pair and "
-                             "block outputs against that checkout's build, "
-                             "bit for bit, and time its MLP blocks, pair "
-                             "backward, drop-path and train steps in turns "
-                             "with this build's")
+                             "build, hold this checkout's W8A8 pair, block "
+                             "and pair backward outputs against that "
+                             "checkout's build, bit for bit, hold its bf16 "
+                             "pairs and streams to their plain bars and time "
+                             "them, the train step and the lift in turns "
+                             "with that build's")
     opts = parser.parse_args()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3800,12 +3961,22 @@ def main() -> int:
         timed("engine", phase_engine, mlp)
         timed("core", phase_core, fp, at)
         bwd_records = timed("backward", phase_backward, fp)
-        if opts.baseline:
-            attach_turns(bwd_records, turns)
         timed("train", phase_train, fp, [], bwd_records)
         log(json.dumps({"kernels": bwd_records}))
         log(f"device: {smi}")
         log("partial run (--phases train): no result line")
+        return 0
+
+    if opts.phases == "pairs":
+        from motionbert_tpu_torch.ops import fused_stream as fs
+
+        records = timed("kernels", phase_kernels, fp)
+        records += timed("stream kernels", phase_stream_kernels, fp, q8, fs)
+        if opts.baseline:
+            attach_turns(records, turns)
+        log(json.dumps({"kernels": records}))
+        log(f"device: {smi}")
+        log("partial run (--phases pairs): no result line")
         return 0
 
     if opts.phases == "mesh":
@@ -3840,13 +4011,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     q8_records = timed("q8", phase_q8, q8, fp)
     bwd_records = timed("backward", phase_backward, fp)
-    if opts.baseline:
-        attach_turns(bwd_records, turns)
     timed("train", phase_train, fp, records, bwd_records)
     timed("driver", phase_driver)
     records += bwd_records + phase_blocks(fp) + q8_records
     records += phase_action_all(fp)
     records += phase_mesh_all(fp, q8)
+    if opts.baseline:
+        attach_turns(records, turns)
 
     log(json.dumps({"kernels": records}))
     log(f"device: {smi}")

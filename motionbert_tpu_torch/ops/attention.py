@@ -5,8 +5,8 @@ standalone attention block (B4, B5).
 frame ("spatial") or the F frames of a joint ("temporal") of separate q, k, v
 (B, F, J, C), differentiable (``StAttention``): the legacy attention modes
 run it between their projections. On a CUDA tensor it launches the kernel in
-``csrc/st_attention_kernels.cu`` (the pair chains' attention core on three
-row-strided pointers) or raises; on a CPU tensor it runs
+``csrc/st_attention_kernels.cu`` (the W8A8 and block chains' attention
+core on three row-strided pointers) or raises; on a CPU tensor it runs
 ``st_attention_plain``. Its backward is plain PyTorch
 (``st_attention_bwd_plain``), as the JAX package's is XLA. It counts its
 launches in ``st_attention.launches``. The kernel replaces
@@ -62,7 +62,7 @@ LN_EPS = 1e-6
 MAX_FRAMES = 243   # one temporal group's K and V stay in shared memory
 NUM_JOINTS = 17
 HEAD_DIMS = (32, 64)
-MAX_ROWS = 65535 * 64  # the GEMM grid's y extent times its 64-row tile
+MAX_ROWS = 65535 * 64  # the WMMA and int8 GEMMs' grid y extent times their 64-row tile
 
 
 def check_tensor(name, t, shape, dtype, device):

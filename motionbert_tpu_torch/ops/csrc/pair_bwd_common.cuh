@@ -15,14 +15,14 @@
 
 namespace {
 
-constexpr int ROW_THREADS = 256;   // one warp per token row
 constexpr int COL_THREADS = 256;   // one thread per column
 constexpr int COL_SPLITS = 64;     // fixed row chunks of a column sum
 constexpr int TN_SPLITS = 8;       // fixed row chunks of a weight gradient
 
 // fp32 LayerNorm statistics of the row (var = E[x^2] - mean^2) and the bf16
 // normalised row h = bf16(((x - mean) * rstd) * w + b); the same arithmetic as
-// the GEMM's LayerNorm prologue.
+// the GEMM's LayerNorm prologue. The statistics (mean, rstd) go to stats
+// unless it is null (the forward chain, pair_chain.cuh, keeps none).
 __global__ void __launch_bounds__(ROW_THREADS)
 ln_fwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ b, bf16* __restrict__ h,
@@ -42,7 +42,7 @@ ln_fwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
     const float mean = s / C;
     const float var = ss / C - mean * mean;
     const float rstd = rsqrtf(var + LN_EPS);
-    if (lane == 0) stats[row] = make_float2(mean, rstd);
+    if (lane == 0 && stats != nullptr) stats[row] = make_float2(mean, rstd);
     bf16* hr = h + (size_t)row * C;
     for (int k = lane * 2; k < C; k += 64) {
         const float2 v = load_bf162(xr + k);

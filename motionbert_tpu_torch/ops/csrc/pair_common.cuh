@@ -1,8 +1,8 @@
-// Shared device code of the DSTformer pair kernels (pair_kernels.cu, the
-// forward, pair_bwd_kernels.cu, the backward, and pair_q8_kernels.cu, the int8
-// forward), of the standalone attention and MLP blocks (block_kernels.cu) and
-// of the standalone attention core (st_attention_kernels.cu):
-// bf16 with fp32 accumulation, for NVIDIA Hopper (sm_90a).
+// Shared device code of the DSTformer chains, bf16 with fp32 accumulation, for
+// NVIDIA Hopper (sm_90a): the constants, enums and helpers every chain uses
+// (the layouts and epilogues that hopper_gemm.cuh's engine takes too, GELU,
+// rounding), the att_fuse gate, and the first design's WMMA GEMM and CUDA-core
+// attention core, which the chains not yet redesigned still run:
 //
 // - gemm_kernel<LAYOUT, LN, EPI>: one WMMA (mma.sync) GEMM with 64x64 output
 //   tiles and a 32-deep reduction step, in three operand layouts:
@@ -12,12 +12,19 @@
 //   TN reduces over the token rows M: the rows are cut into `splits` fixed
 //   chunks, each block writes its chunk's fp32 partial tile, and
 //   reduce_splits_kernel adds the partials in chunk order. No atomics, so
-//   the result is the same bits on every run.
+//   the result is the same bits on every run. Its users: the standalone
+//   attention block forward and backward (block_kernels.cu, B4 / B5).
 // - attention_kernel<D>: softmax(q k^T * scale) v over one (group, head) per
 //   block, K and V of the group in shared memory, a warp per query row; q, k
 //   and v are three row-strided pointers, so the chains' packed qkv and the
 //   standalone core's separate tensors (st_attention_kernels.cu) share it.
+//   Its users: the attention block (B4) and B5's recompute
+//   (block_kernels.cu), the standalone core (B8) and the W8A8 pair chain
+//   (pair_q8_common.cuh, B9 and B10's W8A8 passes).
 // - gate_kernel: the att_fuse gate of the gated pair, a warp per token row.
+//
+// The bf16 pair chain (B1, B2 and B10's bf16 passes) runs on the engine and
+// the tensor-core core instead: pair_chain.cuh.
 //
 // Everything is in an anonymous namespace: each .cu that includes this file
 // builds into its own shared library with its own copy.
@@ -43,6 +50,7 @@ constexpr int TILE_ELEMS = BM * LDS;  // >= BK * LDT
 constexpr int LDC = BN + 4;   // fp32 row stride of the accumulator tile
 constexpr int GEMM_THREADS = 128;
 constexpr int ATTN_THREADS = 256;
+constexpr int ROW_THREADS = 256;   // one warp per token row (the row passes)
 constexpr float LN_EPS = 1e-6f;
 
 static_assert(BK * LDT <= TILE_ELEMS, "k-major tile must fit the tile buffer");
@@ -501,38 +509,6 @@ cudaError_t launch_gate(const void* other, const void* pair, const void* wg,
         static_cast<const bf16*>(wg), static_cast<const bf16*>(bg),
         static_cast<bf16*>(out), M, C);
     return cudaGetLastError();
-}
-
-// The 12 parameters of one pair, in the order of ops/fused_pair.py's
-// PAIR_PARAMS: LayerNorm parameters fp32, the rest bf16, weights (out, in).
-struct PairParams {
-    const void *ln1_w, *ln1_b, *wqkv, *bqkv, *wproj, *bproj,
-               *ln2_w, *ln2_b, *w1, *b1, *w2, *b2;
-};
-
-// One pair's chain of five launches (pair_kernels.cu's note): out =
-// pair(x), with scratch qkv (M, 3C), attn (M, C), y (M, C), hid (M, hidden).
-// x is read by the first and third launch only, so out may alias x's buffer
-// once they have run: the stream chain (stream_kernels.cu) reads its
-// inter-pair activation from the buffer that pass 2's last GEMM writes.
-cudaError_t pair_chain(const void* x, void* out, void* qkv, void* attn, void* y, void* hid,
-                       const PairParams& p, int B, int F, int J, int C, int H, int hidden,
-                       float scale, int temporal, cudaStream_t stream) {
-    const int M = B * F * J;
-    cudaError_t err;
-    err = launch_gemm<NT, true, EPI_BIAS>(x, p.wqkv, p.bqkv, nullptr, p.ln1_w, p.ln1_b,
-                                          nullptr, qkv, nullptr, M, 3 * C, C, stream);
-    if (err != cudaSuccess) return err;
-    err = launch_attention_any(qkv, attn, B, F, J, C, H, scale, temporal, stream);
-    if (err != cudaSuccess) return err;
-    err = launch_gemm<NT, false, EPI_BIAS_RES>(attn, p.wproj, p.bproj, x, nullptr, nullptr,
-                                               nullptr, y, nullptr, M, C, C, stream);
-    if (err != cudaSuccess) return err;
-    err = launch_gemm<NT, true, EPI_BIAS_GELU>(y, p.w1, p.b1, nullptr, p.ln2_w, p.ln2_b,
-                                               nullptr, hid, nullptr, M, hidden, C, stream);
-    if (err != cudaSuccess) return err;
-    return launch_gemm<NT, false, EPI_BIAS_RES>(hid, p.w2, p.b2, y, nullptr, nullptr, nullptr,
-                                                out, nullptr, M, C, hidden, stream);
 }
 
 }  // namespace

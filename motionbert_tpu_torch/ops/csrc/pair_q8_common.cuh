@@ -20,7 +20,6 @@ constexpr int QBM = 64, QBN = 64, QBK = 64;
 // eight rows a warp reads at once fall on distinct banks (20 words apart)
 constexpr int QLD = QBK + 16;
 constexpr int QGEMM_THREADS = 128;
-constexpr int ROW_THREADS = 256;
 constexpr float INV127 = 0.007874015718698502f;  // float(1 / 127)
 constexpr float ROW_AMAX_FLOOR = 1e-6f;
 

@@ -18,15 +18,17 @@
 // in VMEM, so the inter-pair activation never reaches HBM. On the H100 neither
 // fits an SM: at the flagship shape the clip is 4.2 MB per (F, J*C) bf16 block
 // and one pair's weights 4 MiB, against 227 KB of shared memory. So the stream
-// runs both pairs' chains (pair_common.cuh's pair_chain, pair_q8_common.cuh's
+// runs both pairs' chains (pair_chain.cuh's pair_chain, pair_q8_common.cuh's
 // q8_pair_chain) back to back on the caller's stream over one workspace: one
 // set of chain scratch buffers serves both passes, the inter-pair activation
 // lives in a workspace slot `mid` (never a tensor handed back to PyTorch), and
 // in the gated variant pass 2 writes its pair output over `mid` (a pair's
-// chain reads its input only in its first and third launch, the fifth writes
-// the output), so the stream needs one (M, C) buffer less than two pair calls.
+// chain reads its input only before its last launch, which writes the
+// output), so the stream needs one (M, C) buffer less than two pair calls.
 // The launches, their kernels and their operands are the pair chains', which
-// is what keeps the bits.
+// is what keeps the bits: the bf16 passes run the pair's products on
+// hopper_gemm.cuh's wgmma + TMA engine and its core on attention_tc.cuh's
+// tensor cores, the W8A8 passes the int8 GEMM and the CUDA-core core.
 //
 // Bound. The work is the two pairs' (plus the gate): at (4, 243, 17, 512),
 // hidden 1024, about 0.149 ms of bf16 tensor-core operations for a temporal
@@ -39,6 +41,7 @@
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 on success).
 
+#include "pair_chain.cuh"
 #include "pair_q8_common.cuh"
 
 namespace {

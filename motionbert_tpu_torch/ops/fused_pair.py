@@ -31,13 +31,15 @@ recompute, about three times that). The TPU design keeps every weight
 resident on chip, which 227 KB of shared memory cannot; the port runs chains
 of GEMM, attention and row launches over the flattened rows and pays for the
 intermediates in device memory; see the notes at the top of the ``.cu``
-files. The backward runs its products on the wgmma + TMA engine
+files. Both chains run their products on the wgmma + TMA engine
 (``csrc/hopper_gemm.cuh``), so x, g and the weights and biases must sit at
-16-byte-aligned addresses (it raises otherwise), and its attention core on
-tensor cores (``csrc/attention_tc.cuh``). That core alone, forward and
-backward, is ``attention_core`` / ``attention_core_bwd`` (through the test
-entries of ``csrc/pair_bwd_kernels.cu``; plain twins ``st_attention_plain``
-and ``st_attention_bwd_plain``).
+16-byte-aligned addresses (they raise otherwise), and their attention core on
+tensor cores (``csrc/attention_tc.cuh``); the forward's chain is
+``csrc/pair_chain.cuh``, which the bf16 stream (``ops/fused_stream.py``)
+shares. That core alone, forward and backward, is ``attention_core`` /
+``attention_core_bwd`` (through the test entries of
+``csrc/pair_bwd_kernels.cu``; plain twins ``st_attention_plain`` and
+``st_attention_bwd_plain``).
 
 Weights use nn.Linear's layout: wqkv (3C, C), wproj (C, C), w1 (hidden, C),
 w2 (C, hidden), wg (2, 2C). LayerNorm weights stay fp32; everything else is
@@ -216,10 +218,29 @@ def gated_pair_block_bwd_plain(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj,
 # kernel launch
 # ---------------------------------------------------------------------------
 
+# the tensor-core core numbers its (group, head) items with 32-bit ints: at
+# most B*F*J * heads of them (a temporal group of one frame)
+CORE_MAX_ITEMS = 2 ** 31 - 1
+
+
+def max_rows(num_heads: int, q8: bool = False) -> int:
+    """Token rows (B*F*J) a pair chain takes: with ``q8`` the W8A8 chain's,
+    whose int8 GEMM puts its 64-row tiles on the grid's y extent
+    (``MAX_ROWS``); else the bf16 chains', whose engine walks its tiles with
+    persistent blocks and takes any row count, so the tensor-core core's
+    item count bounds them."""
+    return MAX_ROWS if q8 else CORE_MAX_ITEMS // num_heads
+
+
 def check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
                       ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads: int,
-                      mode: str) -> None:
-    """Raise ValueError on anything the CUDA pair kernels do not take."""
+                      mode: str, q8: bool = False) -> None:
+    """Raise ValueError on anything the CUDA pair kernels do not take: the
+    bf16 chains (forward and backward, on the engine and the tensor-core
+    core), or with ``q8`` the W8A8 chain (``ops/pair_q8.py``), whose int8
+    GEMM takes fewer rows. Every chain reads x, other, the weights and the
+    biases with vector loads (the engine's through TMA), so each must sit at
+    a 16-byte-aligned address."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, F, J, C), got shape {tuple(x.shape)}")
     B, F, J, C = x.shape
@@ -230,13 +251,14 @@ def check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
     if not 1 <= F <= MAX_FRAMES:
         raise ValueError(f"the pair kernel takes 1..{MAX_FRAMES} frames, "
                          f"got {F}")
-    if not 1 <= B * F * J <= MAX_ROWS:
-        raise ValueError(f"the pair kernel takes 1..{MAX_ROWS} token rows "
-                         f"(B*F*J), got {B * F * J}")
     if C % 64 or num_heads < 1 or C % num_heads \
             or C // num_heads not in HEAD_DIMS:
         raise ValueError(f"the pair kernel takes C % 64 == 0 and head dim in "
                          f"{HEAD_DIMS}, got C={C}, heads={num_heads}")
+    limit = max_rows(num_heads, q8)
+    if not 1 <= B * F * J <= limit:
+        raise ValueError(f"the pair kernel takes 1..{limit} token rows "
+                         f"(B*F*J) at {num_heads} heads, got {B * F * J}")
     hidden = w1.shape[0]
     if hidden % 64:
         raise ValueError(f"hidden width must be a multiple of 64, got {hidden}")
@@ -254,6 +276,12 @@ def check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
                            ("w1", w1, (hidden, C)), ("b1", b1, (hidden,)),
                            ("w2", w2, (C, hidden)), ("b2", b2, (C,))):
         _check(name, t, shape, bf16, dev)
+    for name, t in (("x", x), ("other", other), ("wqkv", wqkv),
+                    ("bqkv", bqkv), ("wproj", wproj), ("bproj", bproj),
+                    ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2),
+                    ("wg", wg), ("bg", bg)):
+        if t is not None:
+            check_aligned(name, t)
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 6
@@ -329,10 +357,7 @@ def _launch_bwd(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
     check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
                       ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads, mode)
     _check("g", g, x.shape, x.dtype, x.device)
-    for name, t in (("x", x), ("g", g), ("wqkv", wqkv), ("bqkv", bqkv),
-                    ("wproj", wproj), ("bproj", bproj), ("w1", w1),
-                    ("b1", b1), ("w2", w2), ("b2", b2)):
-        check_aligned(name, t)
+    check_aligned("g", g)
     B, F, J, C = x.shape
     hidden = w1.shape[0]
     M = B * F * J

@@ -149,9 +149,10 @@ def _launch(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
             w1, b1, w2, b2, wg, bg, num_heads, scale, mode) -> torch.Tensor:
     # the bf16 kernels' conditions are the int8 chain's too: C and hidden
     # multiples of 64 give whole 64-deep int8 reduction tiles and 16-byte
-    # row starts
+    # row starts; its int8 GEMM's grid bounds the rows
     check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
-                      ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads, mode)
+                      ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads, mode,
+                      q8=True)
     B, F, J, C = x.shape
     hidden = w1.shape[0]
     M = B * F * J

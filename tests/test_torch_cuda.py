@@ -86,7 +86,7 @@ def test_kernel_matches_plain(cuda, mode, gated, C, H):
 
 @pytest.mark.cuda
 def test_kernel_ragged_rows_and_single_frame(cuda):
-    """M = B*F*J not a multiple of the 64-row tile, and F = 1."""
+    """M = B*F*J not a multiple of the engine's 128-row tile, and F = 1."""
     for F in (1, 5, 243):
         args, H = _inputs(cuda, False, F=F, B=2)
         out = fp.fused_pair_block(*args, H, 0.125, "temporal")
@@ -100,6 +100,56 @@ def test_cuda_tensor_never_falls_back(cuda):
     args[0] = args[0].float()
     with pytest.raises(ValueError, match="bfloat16"):
         fp.fused_pair_block(*args, H, 0.125, "spatial")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+@pytest.mark.parametrize("gated", [False, True])
+def test_kernel_is_bitwise_repeatable(cuda, gated, mode):
+    """Each output of the forward chain is written once by one block: two
+    runs give the same bits."""
+    args, H = _inputs(cuda, gated)
+    wrapper = fp.fused_gated_pair_block if gated else fp.fused_pair_block
+    assert torch.equal(wrapper(*args, H, 0.125, mode),
+                       wrapper(*args, H, 0.125, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+def test_kernel_runs_only_the_engine_and_the_tensor_core_core(cuda, gated):
+    """A call's profile holds the GEMM engine, the tensor-core core, the
+    LayerNorm rows (and the gate) and nothing else: no WMMA GEMM, no
+    CUDA-core attention kernel."""
+    import chip_smoke
+
+    args, H = _inputs(cuda, gated)
+    wrapper = fp.fused_gated_pair_block if gated else fp.fused_pair_block
+    ms, rows = chip_smoke.device_profile(
+        lambda: wrapper(*args, H, 0.125, "temporal"),
+        chip_smoke.pair_records(gated), calls=2)
+    assert ms is not None, rows
+    names = {key for key, _, _ in rows}
+    wanted = chip_smoke.PAIR_KERNELS + (("gate_kernel",) if gated else ())
+    for fragment in wanted:
+        assert any(fragment in key for key in names), (fragment, names)
+    assert not chip_smoke.retired_kernels(rows), names
+
+
+@pytest.mark.cuda
+def test_kernel_raises_on_a_misaligned_input(cuda):
+    """The forward chain reads x and the weights through the engine's TMA
+    loads, which take 16-byte-aligned addresses only, and the W8A8 chain
+    reads x with vector loads: both raise, never fall back (a misaligned
+    load would end the process's CUDA context)."""
+    args, H = _inputs(cuda, False, F=3)
+    x = args[0]
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
+    shifted.copy_(x.reshape(-1))
+    args[0] = shifted.view(x.shape)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fp.fused_pair_block(*args, H, 0.125, "temporal")
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        q8.fused_pair_block_q8(*args, H, 0.125, "temporal")
 
 
 @pytest.mark.cuda

@@ -170,12 +170,25 @@ def test_check_kernel_args_accepts_supported_shapes(gated):
         tpair.check_kernel_args(x, other, *rest, wg, bg, H_, "temporal")
 
 
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """t's values at an address 2 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype)[1:]
+    flat.copy_(t.reshape(-1))
+    return flat.view(t.shape)
+
+
 @pytest.mark.parametrize("case", [
     "fp32", "heads", "frames", "joints", "noncontig", "ln_dtype", "mode",
-    "wshape", "empty", "rows"])
+    "wshape", "empty", "rows", "rows_q8", "misaligned_x", "misaligned_w"])
 def test_check_kernel_args_rejects(case):
+    """rows: one row past what the bf16 chains take (the tensor-core core's
+    32-bit item count at these heads), rows_q8: past the W8A8 chain's int8
+    GEMM grid; misaligned: x or a weight off the 16-byte boundary that the
+    engine's TMA loads and every chain's vector loads need (the W8A8 chain
+    too)."""
     args, wg, bg, H = _bf16_kernel_args(False)
     mode = "spatial"
+    q8 = False
     if case == "fp32":
         args[0] = args[0].float()
     elif case == "heads":
@@ -194,11 +207,26 @@ def test_check_kernel_args_rejects(case):
         args[3] = args[3][:, :32].contiguous()
     elif case == "empty":
         args[0] = torch.zeros(0, 9, J, 64, dtype=torch.bfloat16)
-    elif case == "rows":  # one row past the GEMM grid's reach
+    elif case in ("rows", "rows_q8"):
+        q8 = case == "rows_q8"
+        limit = tpair.max_rows(H, q8)
+        assert limit == (tpair.MAX_ROWS if q8 else (2 ** 31 - 1) // H)
         args[0] = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(
-            tpair.MAX_ROWS // J + 1, 1, J, 64)
-    with pytest.raises(ValueError):
-        tpair.check_kernel_args(args[0], None, *args[1:], wg, bg, H, mode)
+            limit // J + 1, 1, J, 64)
+    elif case == "misaligned_x":
+        args[0] = _misaligned(args[0])
+    elif case == "misaligned_w":
+        args[3] = _misaligned(args[3])
+    match = {"rows": "token rows", "rows_q8": "token rows",
+             "misaligned_x": "16-byte-aligned",
+             "misaligned_w": "16-byte-aligned"}.get(case)
+    with pytest.raises(ValueError, match=match):
+        tpair.check_kernel_args(args[0], None, *args[1:], wg, bg, H, mode,
+                                q8=q8)
+    if case.startswith("misaligned"):
+        with pytest.raises(ValueError, match=match):
+            tpair.check_kernel_args(args[0], None, *args[1:], wg, bg, H,
+                                    mode, q8=True)
 
 
 def test_wrapper_refuses_other_devices():
