@@ -68,16 +68,18 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      forward and backward, at groups of 1, 5, 16, 17, 100 and 243 rows,
      head dim 64 and 32, temporal and spatial, against the plain core (the
      max-based and the relative-L2 bar), twice for bitwise equality, and
-     its device time at the phase-3 shape beside the CUDA-core kernels';
-     then the standalone attention block
-     (temporal and spatial) and MLP block at the phase-3 shape, in the flag
-     combinations the model uses and with LayerNorm and residual both on,
-     against their plain versions (the max-based bar and a relative-L2
-     bar), twice for bitwise equality, with times (one call at a time, back
-     to back, and the device's own from the profiler), bound, the plain
-     version's time and a library yardstick.
- 17. block backward kernels: the same for the two backward chains, per
-     gradient tensor.
+     its device time at the phase-3 shape beside the CUDA-core forward's;
+     then the standalone attention block (B4, temporal and spatial, every
+     (use_ln, residual) pair) and MLP block (B6, the flags the model uses
+     and both on) at the phase-3 shape against their plain versions (the
+     max-based bar and a relative-L2 bar), twice for bitwise equality, with
+     times (one call at a time, back to back, and the device's own from the
+     profiler, by kernel), bound, the plain version's time and a library
+     yardstick; a call's profile must hold the GEMM engine (and the
+     tensor-core core) and nothing but the row passes and column sums
+     beside them; the attention block also at head dim 32, without times.
+ 17. block backward kernels: the same for the two backward chains (B5, B7),
+     per gradient tensor (the relative-L2 bar on B5's).
  18. drop-path training: the flagship built with drop_path_rate=0.1; the
      first step's loss and gradients in bf16 through the kernels against the
      fp32 plain path drawing the same masks; 10 AdamW steps with the launch
@@ -157,15 +159,18 @@ and 8; 1, 2 and 10-15; 1, 2 and 16-19; 1, 2 and 20-23; or 1, 2 and 24-27
 
     python3 chip_smoke.py --baseline ROOT [--phases ...]
 
-also builds the pair, W8A8 pair, block, pair backward and stream sources of
-the checkout at ROOT (the parent's, unpacked with git archive) after phase
-2: holds this checkout's W8A8 pair, block (B4-B7) and pair backward (B3)
-outputs against that build, bit for bit; holds this build's bf16 pairs (B1,
-B2) and bf16 streams (B10) to their plain versions' bars and times both
-builds' in turns (other, this, this, other) at the phase-3 and phase-24
-inputs; runs phase 8's train steps in turns with the other build's pair
-library swapped in, then profiles one step of each; and times phase 4's
-lift in turns the same way. The in-turn times join the kernels line.
+also builds the pair, W8A8 pair, block, pair backward, attention core and
+stream sources of the checkout at ROOT (the parent's, unpacked with git
+archive) after phase 2: holds this checkout's pairs (B1, B2, W8A8), streams
+(B10, both tiers), pair backward (B3), MLP blocks (B6, B7) and attention
+core (B8) against that build, bit for bit; holds this build's attention
+blocks (B4, B5, every flag pair), bf16 pairs and bf16 streams to their
+plain versions' bars and times both builds' in turns (other, this, this,
+other) at the phase-16/17, phase-3 and phase-24 inputs, the device time by
+kernel beside; runs phase 8's train steps and phase 18's drop-path steps
+in turns with the other build's pair or block library swapped in, then
+profiles one step of each; and times phase 4's lift in turns the same
+way. The in-turn times join the kernels line.
 
 Imports nothing of JAX or of the JAX package motionbert_tpu.
 """
@@ -362,17 +367,29 @@ def device_profile(fn, records, calls: int = 10) -> tuple:
     return None, rows
 
 
+def by_kernel(rows, calls: int) -> dict:
+    """Device ms per call of each kernel of a profile, by its name with its
+    template arguments (the engine's layout and epilogue, the core's head
+    dim and key tiles) and without its parameter list."""
+    out = {}
+    for key, ms, _ in rows:
+        name = key.replace("(anonymous namespace)::", "").replace("void ", "")
+        name = re.sub(r"\((?!anonymous).*$", "", name)[:72]
+        out[name] = out.get(name, 0.0) + ms / calls
+    return out
+
+
 def block_records(kind: str, backward: bool, use_ln: bool) -> int:
     """Device records of one call of a block wrapper, from the chains in
-    csrc/block_kernels.cu (this checkout's and the parent's alike, but B6
-    with use_ln, whose LayerNorm here is a launch of its own): a weight
-    gradient and a column sum are two launches each (the fixed-chunk
-    partials, the in-order pass); the backward's LayerNorm adds its rows
-    forward and backward, an fp32 dh and two column sums in place of the
-    bf16 dx, and without it the wrapper zeroes the two LayerNorm gradients
-    (no_ln_grads)."""
+    csrc/block_kernels.cu: the forward's products and the attention core,
+    and the LayerNorm's rows when use_ln; in the backward a weight gradient
+    and a column sum are two launches each (the fixed-chunk partials, the
+    in-order pass), the LayerNorm adds its rows forward and backward, an
+    fp32 dh and two column sums in place of the bf16 dx, and without it the
+    wrapper zeroes the two LayerNorm gradients (no_ln_grads). Another
+    checkout's chains may launch otherwise."""
     if not backward:
-        return 3 if kind == "attention" else 2 + int(use_ln)
+        return 2 + int(use_ln) + int(kind == "attention")
     # recompute 1, two weight gradients 4, two column sums 4, dz / dattn 1,
     # dx 1; the attention core forward and backward 2 more
     base = 11 + (2 if kind == "attention" else 0)
@@ -533,8 +550,7 @@ def phase_kernels(fp) -> list:
                 rel_l2=rel_l2_t(out, ref), bitwise_repeatable=bitwise,
                 ms=time_ms(call), back_to_back_ms=time_ms_back_to_back(call),
                 device_ms=dev_ms,
-                device_by_kernel={key[:60]: ms / calls
-                                  for key, ms, _ in rows},
+                device_by_kernel=by_kernel(rows, calls),
                 plain_ms=time_ms(lambda: plain(*args, HEADS, scale, mode),
                                  runs=10, warmup=1),
                 bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -1191,8 +1207,8 @@ PAIR_BWD_RETIRED = ("attention_kernel", "attention_bwd_kernel")
 
 
 def retired_kernels(rows) -> list:
-    """The kernels of a profile that the bf16 pair chains, forward and
-    backward, no longer run."""
+    """The kernels of a profile that the bf16 chains (the pairs and the
+    blocks, forward and backward) no longer run."""
     return [key for key, _, _ in rows
             if any(k in key for k in PAIR_BWD_RETIRED)
             or ("gemm_kernel" in key and "hg_gemm_kernel" not in key)]
@@ -1252,8 +1268,7 @@ def phase_backward(fp) -> list:
                 ms=time_ms(call),
                 back_to_back_ms=time_ms_back_to_back(call),
                 device_ms=dev_ms,
-                device_by_kernel={key[:60]: ms / calls
-                                  for key, ms, _ in rows},
+                device_by_kernel=by_kernel(rows, calls),
                 plain_ms=time_ms(lambda: plain(*args, HEADS, scale, mode),
                                  runs=5, warmup=1),
                 bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -1651,30 +1666,14 @@ def core_inputs(mode: str, n: int, shape=None, seed: int = 0) -> list:
         device="cuda", dtype=torch.bfloat16) for _ in range(4)]
 
 
-def old_core_ms(at, mode: str, scale: float) -> tuple:
-    """Device ms of the CUDA-core attention kernels at the phase-3 shape:
-    B8's attention_kernel alone, and attention_bwd_kernel's share of a
-    profiled B5 call (the chain that still runs it)."""
-    q, k, v, _ = core_inputs(mode, 0, (B, FRAMES, J, C), seed=40)
-    fwd = device_ms(lambda: at.st_attention(q, k, v, mode, HEADS, scale), 1)
-    p = pair_inputs(41, False, torch.device("cuda"))
-    g = pair_inputs(5, False, torch.device("cuda"))["x"]
-    args = [p["x"], g] + [p[k] for k in ATTN_KEYS[:-1]]
-    calls = 10
-    _, rows = device_profile(
-        lambda: at.fused_attention_block_bwd(*args, HEADS, scale, mode, True,
-                                             False),
-        block_records("attention", True, True), calls)
-    bwd = sum(ms for key, ms, _ in rows if "attention_bwd_kernel" in key)
-    return fwd, (bwd / calls if bwd else None)
-
-
 def phase_core(fp, at) -> None:
     """The tensor-core core (fp.attention_core / attention_core_bwd, one
     launch each) against the plain core at groups of CORE_SIZES rows, head
     dim 64 and 32, temporal and spatial: the max-based bar and the relative
     L2, twice for bitwise repeatability. Then at the phase-3 shape, D 64:
-    its device times beside the CUDA-core kernels' in this run."""
+    its device times beside the CUDA-core forward's in this run (the
+    CUDA-core backward is retired; --baseline profiles it in the other
+    build's B5)."""
     for mode in ("temporal", "spatial"):
         for heads in (HEADS, 2 * HEADS):
             scale = (C // heads) ** -0.5
@@ -1715,18 +1714,20 @@ def phase_core(fp, at) -> None:
         bwd = lambda: fp.attention_core_bwd(q, k, v, g, mode, HEADS, scale)
         groups, n = (B * J, FRAMES) if mode == "temporal" else (B * FRAMES, J)
         flop = 4 * groups * n * n * C          # q.k^T and p.v, all heads
-        old_fwd, old_bwd = old_core_ms(at, mode, scale)
         rec = dict(shape=[B, FRAMES, J, C], ms=time_ms(fwd),
                    device_ms=device_ms(fwd, 1), bwd_ms=time_ms(bwd),
                    bwd_device_ms=device_ms(bwd, 1),
-                   cuda_core_device_ms=old_fwd,
-                   cuda_core_bwd_device_ms=old_bwd, gflop=flop / 1e9,
-                   bwd_gflop=2 * flop / 1e9)
+                   cuda_core_device_ms=device_ms(
+                       lambda: at.st_attention(q, k, v, mode, HEADS, scale),
+                       1),
+                   gflop=flop / 1e9, bwd_gflop=2 * flop / 1e9)
         for key, f in (("tflops", "device_ms"), ("bwd_tflops", "bwd_device_ms")):
             ms = rec[f]
             rec[key] = None if ms is None else \
                 flop * (2 if key.startswith("bwd") else 1) / (ms * 1e-3) / 1e12
-        log(f"core {mode} at the phase-3 shape: " + json.dumps(rec))
+        log(f"core {mode} at the phase-3 shape: " + json.dumps(rec)
+            + "; the CUDA-core backward (attention_bwd_kernel) is retired: "
+            "--baseline profiles it in the other build's B5")
         del q, k, v, g
     torch.cuda.empty_cache()
 
@@ -1741,9 +1742,32 @@ def phase_core(fp, at) -> None:
 BLOCK_L2_TOL = 4e-3
 ATTN_KEYS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj")
 MLP_KEYS = ("ln2_w", "ln2_b", "w1", "b1", "w2", "b2")
-# (use_ln, residual): what the model calls, then everything on
-ATTN_FLAGS = ((True, False), (True, True))
+# (use_ln, residual): what the model calls (the pre-LN sub-block; the T->S
+# stream's unfused path without LayerNorm), then the rest
+ATTN_FLAGS = ((True, False), (False, False), (True, True), (False, True))
 MLP_FLAGS = ((False, False), (True, True))
+# kernel-name fragments a block call's profile may hold: the engine, the
+# tensor-core core, the LayerNorm rows, the column sums and their in-order
+# pass, and PyTorch's fills (the zero LayerNorm gradients without use_ln)
+BLOCK_KERNELS = ("hg_gemm_kernel", "attn_tc_fwd_kernel", "attn_tc_bwd_kernel",
+                 "ln_fwd_rows_kernel", "ln_bwd_rows_kernel", "colsum_kernel",
+                 "reduce_splits_kernel", "FillFunctor")
+
+
+def block_profile_faults(kind: str, backward: bool, rows) -> list:
+    """What a block call's profile must not show: the engine (and for the
+    attention block the tensor-core core, forward and in the backward its
+    backward too) missing, a kernel outside BLOCK_KERNELS, or a retired one
+    (the WMMA GEMM, the CUDA-core attention kernels)."""
+    needed = ["hg_gemm_kernel"]
+    if kind == "attention":
+        needed += ["attn_tc_fwd_kernel"] + (["attn_tc_bwd_kernel"]
+                                            if backward else [])
+    names = [key for key, _, _ in rows]
+    retired = retired_kernels(rows)
+    return ([f"no {k}" for k in needed if not any(k in n for n in names)]
+            + [f"runs {n[:80]}" for n in names
+               if n in retired or not any(k in n for k in BLOCK_KERNELS)])
 
 
 def attn_library(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, scale, mode,
@@ -1817,7 +1841,43 @@ def block_cases(at, mlp):
            MLP_KEYS, MLP_FLAGS, ())
 
 
+# the attention block's other head dim (32 at C 512), held to the same bars
+# at the phase-16 shape without times
+NARROW_HEADS = 2 * HEADS
+
+
+def narrow_head_cases(mode: str):
+    """(tag, extra arguments) of the attention block at head dim
+    C // NARROW_HEADS, every flag pair."""
+    d = C // NARROW_HEADS
+    for use_ln, residual in ATTN_FLAGS:
+        yield (f"{mode}/ln{int(use_ln)}res{int(residual)}/d{d}",
+               (NARROW_HEADS, d ** -0.5, mode), (use_ln, residual))
+
+
+def block_fwd_errors(kind: str, tag: str, out, again, ref) -> tuple:
+    """(max|d|, max|d|/max|ref|, relative L2) of a block forward's output
+    against the plain forward's; fails on a shape other than the plain's, a
+    non-finite value, bits that differ run to run, or an error over
+    KERNEL_TOL or BLOCK_L2_TOL."""
+    if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+        fail(f"{kind} block {tag}: shape {tuple(out.shape)} or non-finite")
+    if not torch.equal(out, again):
+        fail(f"{kind} block {tag}: two runs gave different bits")
+    abs_err, rel = rel_err(out, ref)
+    l2 = rel_l2_t(out, ref)
+    if not (rel <= KERNEL_TOL and l2 <= BLOCK_L2_TOL):
+        fail(f"{kind} block {tag}: max|d|/max|ref| {rel:.3e} (bar "
+             f"{KERNEL_TOL}), relative L2 {l2:.3e} (bar {BLOCK_L2_TOL})")
+    return abs_err, rel, l2
+
+
 def phase_block_kernels(at, mlp) -> list:
+    """B4 and B6 at the phase-3 shape, every flag pair each takes, against
+    their plain versions (the max-based bar and the relative L2), twice for
+    bitwise repeatability, with times and each call's profile held to the
+    engine and the tensor-core core; then B4 at head dim 32, without
+    times."""
     dev = torch.device("cuda")
     modes = {"attention": {}, "mlp": {}}
     for kind, mode, wrapper, plain, _, _, library, keys, flags, extra in \
@@ -1829,19 +1889,19 @@ def phase_block_kernels(at, mlp) -> list:
             tag = f"{mode}/ln{int(use_ln)}res{int(residual)}"
             out = wrapper(*args, *extra, *fl)
             torch.cuda.synchronize()
-            bitwise = torch.equal(out, wrapper(*args, *extra, *fl))
             ref = plain(*args, *extra, *fl)
-            if out.shape != ref.shape or not torch.isfinite(out.float()).all():
-                fail(f"{kind} block {tag}: shape {tuple(out.shape)} or "
-                     f"non-finite")
-            abs_err, rel = rel_err(out, ref)
-            l2 = rel_l2_t(out, ref)
+            abs_err, rel, l2 = block_fwd_errors(
+                kind, tag, out, wrapper(*args, *extra, *fl), ref)
             lib_rel = rel_err(library(*args, *fl), ref)[1]
             flops, nbytes = block_cost(kind, mode, False)
             t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+            calls = 10
+            dev_ms, rows = device_profile(
+                lambda: wrapper(*args, *extra, *fl),
+                block_records(kind, False, use_ln), calls)
             rec = dict(
                 max_abs_err=abs_err, rel_err=rel, tol=KERNEL_TOL, rel_l2=l2,
-                l2_tol=BLOCK_L2_TOL, bitwise_repeatable=bitwise,
+                l2_tol=BLOCK_L2_TOL, bitwise_repeatable=True,
                 ms=time_ms(lambda: wrapper(*args, *extra, *fl)),
                 back_to_back_ms=time_ms_back_to_back(
                     lambda: wrapper(*args, *extra, *fl)),
@@ -1852,20 +1912,26 @@ def phase_block_kernels(at, mlp) -> list:
                 library_ms=time_ms(lambda: library(*args, *fl)),
                 library_back_to_back_ms=time_ms_back_to_back(
                     lambda: library(*args, *fl)),
-                device_ms=device_ms(lambda: wrapper(*args, *extra, *fl),
-                                    block_records(kind, False, use_ln)),
+                device_ms=dev_ms,
+                device_by_kernel=by_kernel(rows, calls),
                 library_device_ms=device_ms(lambda: library(*args, *fl),
                                             None),
                 library_rel_err=lib_rel, gflop=flops / 1e9,
                 mbytes=nbytes / 1e6)
             log(f"block kernel {kind}/{tag}: " + json.dumps(rec))
-            if not (rel <= KERNEL_TOL and l2 <= BLOCK_L2_TOL):
-                fail(f"{kind} block {tag}: max|d|/max|ref| {rel:.3e} (bar "
-                     f"{KERNEL_TOL}), relative L2 {l2:.3e} (bar "
-                     f"{BLOCK_L2_TOL})")
-            if not bitwise:
-                fail(f"{kind} block {tag}: two runs gave different bits")
+            faults = block_profile_faults(kind, False, rows)
+            if faults:
+                fail(f"{kind} block {tag}: the profile of a call: {faults}")
             modes[kind][tag] = rec
+        if kind == "attention":
+            for tag, narrow, fl in narrow_head_cases(mode):
+                out = wrapper(*args, *narrow, *fl)
+                torch.cuda.synchronize()
+                ref = plain(*args, *narrow, *fl)
+                _, rel, l2 = block_fwd_errors(
+                    kind, tag, out, wrapper(*args, *narrow, *fl), ref)
+                log(f"block kernel attention/{tag}: max|d|/max|ref| and "
+                    f"relative L2 {rel:.3e} / {l2:.3e}, bitwise repeatable")
         del p, args, out, ref
     torch.cuda.empty_cache()
     return [block_record("fused_attention_block", "attention.py:466",
@@ -1886,7 +1952,35 @@ def block_record(name: str, replaces: str, modes: dict, main: str) -> dict:
         shape=[B, FRAMES, J, C], modes=modes)
 
 
+def block_grad_errors(kind: str, tag: str, names, got, again, want,
+                      use_ln: bool) -> dict:
+    """{gradient: (max|d|, max|d|/max|ref|, relative L2)} of a block
+    backward's outputs against the plain backward's; fails on a non-finite
+    gradient, LayerNorm gradients without use_ln, bits that differ run to
+    run, or a gradient over KERNEL_TOL, or for the attention block over
+    BLOCK_L2_TOL (the MLP block's relative L2 is logged)."""
+    if any(not torch.isfinite(t.float()).all() for t in got):
+        fail(f"{kind} block backward {tag}: non-finite gradient")
+    if not use_ln and (got[1].any() or got[2].any()):
+        fail(f"{kind} block backward {tag}: LayerNorm gradients without "
+             f"LayerNorm")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{kind} block backward {tag}: two runs gave different bits")
+    errs = {n: (*rel_err(a, b), rel_l2_t(a, b))
+            for n, a, b in zip(names, got, want)
+            if use_ln or not n.startswith("dln")}
+    l2_tol = BLOCK_L2_TOL if kind == "attention" else float("inf")
+    over = {n: e[1:] for n, e in errs.items()
+            if not (e[1] <= KERNEL_TOL and e[2] <= l2_tol)}
+    if over:
+        fail(f"{kind} block backward {tag}: (max|d|/max|ref|, relative L2) "
+             f"over ({KERNEL_TOL}, {BLOCK_L2_TOL}): {over}")
+    return errs
+
+
 def phase_block_backward(at, mlp) -> list:
+    """B5 and B7 as phase_block_kernels holds B4 and B6: each gradient
+    against the plain backward's."""
     dev = torch.device("cuda")
     modes = {"attention": {}, "mlp": {}}
     grad_names = {
@@ -1906,16 +2000,9 @@ def phase_block_backward(at, mlp) -> list:
             torch.cuda.synchronize()
             again = kernel(*args, *extra, *fl)
             torch.cuda.synchronize()
-            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
             want = plain(*args, *extra, *fl)
-            if any(not torch.isfinite(t.float()).all() for t in got):
-                fail(f"{kind} block backward {tag}: non-finite gradient")
-            errs = {n: rel_err(a, b) for n, a, b in
-                    zip(grad_names[kind], got, want)
-                    if use_ln or not n.startswith("dln")}
-            if not use_ln and (got[1].any() or got[2].any()):
-                fail(f"{kind} block backward {tag}: LayerNorm gradients "
-                     f"without LayerNorm")
+            errs = block_grad_errors(kind, tag, grad_names[kind], got, again,
+                                     want, use_ln)
             leaves = [t.detach().clone().requires_grad_() for t in fwd]
             used = [t for n, t in zip(("x",) + keys, leaves)
                     if use_ln or not n.startswith("ln")]
@@ -1925,10 +2012,16 @@ def phase_block_backward(at, mlp) -> list:
 
             flops, nbytes = block_cost(kind, mode, True)
             t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+            calls = 10
+            dev_ms, rows = device_profile(
+                lambda: kernel(*args, *extra, *fl),
+                block_records(kind, True, use_ln), calls)
             rec = dict(
                 rel_err={n: e[1] for n, e in errs.items()},
+                rel_l2={n: e[2] for n, e in errs.items()},
                 max_abs_err=max(e[0] for e in errs.values()), tol=KERNEL_TOL,
-                bitwise_repeatable=bitwise,
+                l2_tol=BLOCK_L2_TOL if kind == "attention" else None,
+                bitwise_repeatable=True,
                 ms=time_ms(lambda: kernel(*args, *extra, *fl)),
                 back_to_back_ms=time_ms_back_to_back(
                     lambda: kernel(*args, *extra, *fl)),
@@ -1938,20 +2031,29 @@ def phase_block_backward(at, mlp) -> list:
                 bound_by="bytes" if t_bytes > t_ops else "operations",
                 library_ms=time_ms(library_bwd, runs=10),
                 library_back_to_back_ms=time_ms_back_to_back(library_bwd),
-                device_ms=device_ms(lambda: kernel(*args, *extra, *fl),
-                                    block_records(kind, True, use_ln)),
+                device_ms=dev_ms,
+                device_by_kernel=by_kernel(rows, calls),
                 library_device_ms=device_ms(library_bwd, None),
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
             log(f"block backward {kind}/{tag}: " + json.dumps(rec))
-            worst = max(rec["rel_err"].items(), key=lambda kv: kv[1])
-            if not worst[1] <= KERNEL_TOL:
-                fail(f"{kind} block backward {tag}: {worst[0]} "
-                     f"max|d|/max|ref| {worst[1]:.3e} > {KERNEL_TOL}")
-            if not bitwise:
-                fail(f"{kind} block backward {tag}: two runs gave different "
-                     f"bits")
+            faults = block_profile_faults(kind, True, rows)
+            if faults:
+                fail(f"{kind} block backward {tag}: the profile of a call: "
+                     f"{faults}")
             modes[kind][tag] = rec
             del got, again, want, leaves, used
+        if kind == "attention":
+            for tag, narrow, fl in narrow_head_cases(mode):
+                got = kernel(*args, *narrow, *fl)
+                torch.cuda.synchronize()
+                again = kernel(*args, *narrow, *fl)
+                want = plain(*args, *narrow, *fl)
+                errs = block_grad_errors(kind, tag, grad_names[kind], got,
+                                         again, want, fl[0])
+                log(f"block backward attention/{tag}: bitwise repeatable, "
+                    f"(max|d|/max|ref|, relative L2): " + json.dumps(
+                        {n: e[1:] for n, e in errs.items()}))
+                del got, again, want
         del p, g, fwd, args
     torch.cuda.empty_cache()
     return [block_record("fused_attention_block_bwd", "attention.py:633",
@@ -3606,35 +3708,63 @@ class swapped_library:
         self.libs[self.name] = self.saved
 
 
-def baseline_blocks(other_block, results: dict) -> None:
-    """B4 to B7 of this build against the other's, bit for bit, at the
-    phase-16/17 shape with the flags the model calls."""
+def baseline_blocks(other_block, results: dict) -> dict:
+    """B6 and B7 of this build against the other's, bit for bit, at the
+    phase-16/17 shape with the flags the model calls; B4 and B5, every flag
+    pair, both modes, held to their plain bars (the other build's errors
+    logged beside) and timed against the other build in turns. Returns
+    {name/mode/flags: turns}."""
     from motionbert_tpu_torch.ops import attention as at
     from motionbert_tpu_torch.ops import fused_mlp as mlp
 
     at.block_library()
     mlp._library()
+    with swapped_library("block_kernels", other_block):
+        at.block_library()          # argtypes on the other library
     dev = torch.device("cuda")
     scale = (C // HEADS) ** -0.5
     p = pair_inputs(51, False, dev)
     g = pair_inputs(5, False, dev)["x"]
     attn = [p["x"]] + [p[k] for k in ATTN_KEYS]
+    names = ("dx", "dln_w", "dln_b", "dwqkv", "dbqkv", "dwproj", "dbproj")
+    out = {}
     for mode in ("temporal", "spatial"):
         for use_ln, residual in ATTN_FLAGS:
             fl = (HEADS, scale, mode, use_ln, residual)
             tag = f"{mode}/ln{int(use_ln)}res{int(residual)}"
-            ours = (at.fused_attention_block(*attn, *fl),
-                    at.fused_attention_block_bwd(attn[0], g, *attn[1:6], *fl))
+            fwd = lambda: at.fused_attention_block(*attn, *fl)
+            bwd = lambda: at.fused_attention_block_bwd(attn[0], g, *attn[1:6],
+                                                       *fl)
+            ref = (at.attention_block_plain(*attn, *fl),
+                   at.attention_block_bwd_plain(attn[0], g, *attn[1:6], *fl))
+            ours = (fwd(), bwd())
             with swapped_library("block_kernels", other_block):
-                at.block_library()          # argtypes on the other library
-                theirs = (at.fused_attention_block(*attn, *fl),
-                          at.fused_attention_block_bwd(attn[0], g, *attn[1:6],
-                                                       *fl))
-            results[f"fused_attention_block/{tag}"] = torch.equal(ours[0],
-                                                                  theirs[0])
-            results[f"fused_attention_block_bwd/{tag}"] = all(
-                torch.equal(a, b) for a, b in zip(ours[1], theirs[1])
-                if a is not None)
+                theirs = (fwd(), bwd())
+            errs = {}
+            for build, (o, grads) in (("this", ours), ("other", theirs)):
+                errs[build] = {"out": (rel_err(o, ref[0])[1],
+                                       rel_l2_t(o, ref[0]))}
+                errs[build].update(
+                    {n: (rel_err(a, b)[1], rel_l2_t(a, b))
+                     for n, a, b in zip(names, grads, ref[1])
+                     if use_ln or not n.startswith("dln")})
+            over = {n: e for n, e in errs["this"].items()
+                    if not (e[0] <= KERNEL_TOL and e[1] <= BLOCK_L2_TOL)}
+            for name, call, records in (
+                    ("fused_attention_block", fwd,
+                     block_records("attention", False, use_ln)),
+                    ("fused_attention_block_bwd", bwd,
+                     block_records("attention", True, use_ln))):
+                out[f"{name}/{tag}"] = in_turns(call, records, "block_kernels",
+                                                other_block)
+            log(f"baseline: attention block {tag}: (max|d|/max|plain|, "
+                f"relative L2) " + json.dumps(errs) + "; in turns: "
+                + json.dumps({n: out[f"{n}/{tag}"] for n in (
+                    "fused_attention_block", "fused_attention_block_bwd")}))
+            if over:
+                fail(f"baseline: attention block {tag}: over ({KERNEL_TOL}, "
+                     f"{BLOCK_L2_TOL}): {over}")
+            del ours, theirs, ref
     mlp_args = [p["x"]] + [p[k] for k in MLP_KEYS]
     bwd_args = [p["x"], g] + [p[k] for k in MLP_KEYS[:-1]]
     for use_ln, residual in MLP_FLAGS:
@@ -3649,6 +3779,7 @@ def baseline_blocks(other_block, results: dict) -> None:
             torch.equal(a, b) for a, b in zip(ours[1], theirs[1]))
     del p, g, attn, mlp_args, bwd_args
     torch.cuda.empty_cache()
+    return out
 
 
 def in_turns(call, records, lib_name: str, other) -> list:
@@ -3656,25 +3787,28 @@ def in_turns(call, records, lib_name: str, other) -> list:
     checkout's library for csrc/<lib_name>.cu swapped in on the other's
     turns: one call, back to back and device ms (this build's profile held
     to `records` a call; the other's, whose chain may launch otherwise, to
-    whole multiples of the calls)."""
+    whole multiples of the calls), and the device ms by kernel."""
     turns = []
+    calls = 10
     for which in ("other", "this", "this", "other"):
         with (swapped_library(lib_name, other) if which == "other"
               else contextlib.nullcontext()):
+            dev_ms, rows = device_profile(
+                call, None if which == "other" else records, calls)
             turns.append(dict(
                 build=which, ms=time_ms(call),
                 back_to_back_ms=time_ms_back_to_back(call),
-                device_ms=device_ms(call, None if which == "other"
-                                    else records)))
+                device_ms=dev_ms,
+                device_by_kernel=by_kernel(rows, calls)))
     return turns
 
 
-def baseline_pairs(fp, fs, other_pair, other_stream) -> dict:
+def baseline_pairs(fp, fs, other_pair, other_stream, results: dict) -> dict:
     """B1 and B2 (both modes at the phase-3 inputs) and the bf16 B10 (both
     variants at the phase-24 inputs) of this build held to their plain
-    versions' bars, the other build's outputs measured against the same
-    plain versions, and both builds timed in turns. Returns {name/mode or
-    name: turns}."""
+    versions' bars and to the other build's outputs bit for bit (into
+    results, with the W8A8 B10 variants'), and both builds timed in turns.
+    Returns {name/mode or name: turns}."""
     dev = torch.device("cuda")
     scale = (C // HEADS) ** -0.5
     fp._library()
@@ -3690,9 +3824,11 @@ def baseline_pairs(fp, fs, other_pair, other_stream) -> dict:
             args = pair_args(p, gated)
             call = lambda: wrapper(*args, HEADS, scale, mode)
             ref = plain(*args, HEADS, scale, mode)
-            ours = rel_err(call(), ref)[1]
+            got = call()
             with swapped_library("pair_kernels", other_pair):
-                theirs = rel_err(call(), ref)[1]
+                other = call()
+            results[f"{name}/{mode}"] = torch.equal(got, other)
+            ours, theirs = rel_err(got, ref)[1], rel_err(other, ref)[1]
             turns = in_turns(call, pair_records(gated), "pair_kernels",
                              other_pair)
             log(f"baseline: {name}/{mode}: max|d|/max|plain| this build "
@@ -3701,18 +3837,21 @@ def baseline_pairs(fp, fs, other_pair, other_stream) -> dict:
             if not ours <= KERNEL_TOL:
                 fail(f"baseline: {name}/{mode}: {ours:.3e} > {KERNEL_TOL}")
             out[f"{name}/{mode}"] = turns
-            del p, args, ref
+            del p, args, ref, got, other
     for i, (name, gated, q8_tier, order) in enumerate(STREAM_VARIANTS):
-        if q8_tier:
-            continue
         p1 = pair_inputs(30 + i, gated, dev)
         p2 = pair_inputs(40 + i, False, dev)
         args = stream_args(p1, p2, gated)
         wrapper = getattr(fs, name)
-        plain = getattr(fs, ("gated_" if gated else "") + "stream_block_plain")
         call = lambda: wrapper(*args, HEADS, scale, order)
-        ref = plain(*args, HEADS, scale, order)
         ours = call()
+        with swapped_library("stream_kernels", other_stream):
+            results[name] = torch.equal(ours, call())
+        if q8_tier:
+            del p1, p2, args, ours
+            continue
+        plain = getattr(fs, ("gated_" if gated else "") + "stream_block_plain")
+        ref = plain(*args, HEADS, scale, order)
         errs = (rel_err(ours, ref)[1], rel_l2_t(ours, ref))
         turns = in_turns(call, stream_records(gated, False), "stream_kernels",
                          other_stream)
@@ -3726,6 +3865,21 @@ def baseline_pairs(fp, fs, other_pair, other_stream) -> dict:
         del p1, p2, args, ref, ours
     torch.cuda.empty_cache()
     return out
+
+
+def baseline_st_attention(other_st, results: dict) -> None:
+    """B8 of this build against the other's, bit for bit, both modes at the
+    phase-20 shape."""
+    from motionbert_tpu_torch.ops import attention as at
+
+    scale = (C // HEADS) ** -0.5
+    q, k, v = st_inputs(60)
+    for mode in ("temporal", "spatial"):
+        ours = at.st_attention(q, k, v, mode, HEADS, scale)
+        with swapped_library("st_attention_kernels", other_st):
+            results[f"st_attention/{mode}"] = torch.equal(
+                ours, at.st_attention(q, k, v, mode, HEADS, scale))
+    del q, k, v
 
 
 def baseline_pair_bwd(fp, other_bwd, results: dict) -> None:
@@ -3752,10 +3906,12 @@ def baseline_pair_bwd(fp, other_bwd, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def baseline_steps(name: str, other, tag: str) -> None:
-    """Phase 8's flagship train steps in turns (other, this, this, other)
-    with the other checkout's library for csrc/<name>.cu swapped in: ms per
-    step; then one step of each build profiled."""
+def baseline_steps(name: str, other, tag: str,
+                   drop_path_rate: float = 0.0) -> None:
+    """Phase 8's flagship train steps (with drop_path_rate, phase 18's) in
+    turns (other, this, this, other) with the other checkout's library for
+    csrc/<name>.cu swapped in: ms per step; then one step of each build
+    profiled."""
     from motionbert_tpu_torch.core.checkpoint import load_state_dict
     from motionbert_tpu_torch.core.config import get_config
     from motionbert_tpu_torch.losses.pose import LAMBDA_KEYS
@@ -3765,7 +3921,7 @@ def baseline_steps(name: str, other, tag: str) -> None:
 
     args = get_config(TRAIN_CONFIG)
     lambdas = {k: args.get(k, 0.0) for k in LAMBDA_KEYS}
-    model = load_backbone(args, device="cuda")
+    model = load_backbone(args, device="cuda", drop_path_rate=drop_path_rate)
     model.load_state_dict(load_state_dict(ANCHOR), strict=True)
     opt = make_adamw(model.parameters(), args.learning_rate,
                      args.weight_decay)
@@ -3827,15 +3983,16 @@ def baseline_lift(other_pair) -> None:
 
 
 def phase_baseline(fp, q8, other_root: str) -> dict:
-    """Build another checkout's pair, W8A8 pair, block, pair backward and
-    stream sources (the parent's, say) with this one's nvcc flags. Hold
-    this checkout's W8A8 pair outputs (plain and gated, temporal and
-    spatial), the attention and MLP blocks' (B4 to B7) and the pair
-    backward's (B3) against that build bit for bit, through the same
-    wrappers; hold this build's bf16 pairs (B1, B2) and bf16 streams (B10)
-    to their plain bars and time them against the other build in turns;
-    then the flagship train step and lift in turns with the other build's
-    pair library swapped in. Returns baseline_pairs's turns."""
+    """Build another checkout's pair, W8A8 pair, block, pair backward,
+    attention core and stream sources (the parent's, say) with this one's
+    nvcc flags. Hold this checkout's W8A8 pairs, bf16 pairs (B1, B2),
+    streams (B10, both tiers), pair backward (B3), MLP blocks (B6, B7) and
+    attention core alone (B8) against that build bit for bit, through the
+    same wrappers; hold the attention blocks (B4, B5) and the bf16 pairs and
+    streams to their plain bars and time them against the other build in
+    turns; then the flagship train step, the drop-path step and the lift in
+    turns with the other build's pair or block library swapped in. Returns
+    the in-turn times by record and mode."""
     from motionbert_tpu_torch.ops import fused_stream as fs
 
     csrc = os.path.join(other_root, "motionbert_tpu_torch", "ops", "csrc")
@@ -3845,7 +4002,7 @@ def phase_baseline(fp, q8, other_root: str) -> dict:
         from concurrent.futures import ThreadPoolExecutor
 
         names = ("pair_kernels", "pair_q8_kernels", "block_kernels",
-                 "pair_bwd_kernels", "stream_kernels")
+                 "pair_bwd_kernels", "stream_kernels", "st_attention_kernels")
         with ThreadPoolExecutor(len(names)) as pool:
             libs = dict(zip(names, pool.map(
                 lambda name: build_other(csrc, name, tmp), names)))
@@ -3861,24 +4018,27 @@ def phase_baseline(fp, q8, other_root: str) -> dict:
                     theirs = wrapper(*args, HEADS, scale, mode)
                 results[f"{wrapper.__name__}/{mode}"] = torch.equal(ours,
                                                                     theirs)
-        baseline_blocks(libs["block_kernels"], results)
+        turns = baseline_blocks(libs["block_kernels"], results)
         baseline_pair_bwd(fp, libs["pair_bwd_kernels"], results)
-        log(f"baseline ({other_root}): this checkout's W8A8 pair, block and "
-            f"pair backward outputs bitwise equal to the other build's: "
-            f"{json.dumps(results)}")
+        baseline_st_attention(libs["st_attention_kernels"], results)
+        turns.update(baseline_pairs(fp, fs, libs["pair_kernels"],
+                                    libs["stream_kernels"], results))
+        log(f"baseline ({other_root}): this checkout's outputs bitwise equal "
+            f"to the other build's: {json.dumps(results)}")
         if not all(results.values()):
             fail(f"baseline: outputs differ: {results}")
-        turns = baseline_pairs(fp, fs, libs["pair_kernels"],
-                               libs["stream_kernels"])
         baseline_steps("pair_kernels", libs["pair_kernels"], "train")
+        baseline_steps("block_kernels", libs["block_kernels"], "drop-path",
+                       DROP_PATH_RATE)
         baseline_lift(libs["pair_kernels"])
     return turns
 
 
 def attach_turns(records: list, turns: dict) -> None:
     """The in-turn times (phase_baseline) into the records they belong to:
-    each mode's of B1 / B2 (phase 3), with the main mode's at the top, and
-    the bf16 B10 variants' (phase 24)."""
+    each mode's of B1 / B2 (phase 3) and each mode and flag pair's of B4 /
+    B5 (phases 16, 17), with the main mode's at the top, and the bf16 B10
+    variants' (phase 24)."""
     for rec in records:
         per_mode = {mode: turns[f"{rec['name']}/{mode}"]
                     for mode in rec.get("modes", ())
@@ -3915,12 +4075,13 @@ def main() -> int:
                              "none of them prints the last line")
     parser.add_argument("--baseline", default=None, metavar="ROOT",
                         help="another checkout (the parent's, say): after the "
-                             "build, hold this checkout's W8A8 pair, block "
-                             "and pair backward outputs against that "
-                             "checkout's build, bit for bit, hold its bf16 "
-                             "pairs and streams to their plain bars and time "
-                             "them, the train step and the lift in turns "
-                             "with that build's")
+                             "build, hold this checkout's pairs, streams, "
+                             "pair backward, MLP blocks and attention core "
+                             "against that checkout's build, bit for bit, "
+                             "hold its attention blocks, bf16 pairs and "
+                             "streams to their plain bars and time them, the "
+                             "train step, the drop-path step and the lift "
+                             "in turns with that build's")
     opts = parser.parse_args()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3992,7 +4153,10 @@ def main() -> int:
         return 0
 
     if opts.phases == "blocks":
-        log(json.dumps({"kernels": phase_blocks(fp)}))
+        records = phase_blocks(fp)
+        if opts.baseline:
+            attach_turns(records, turns)
+        log(json.dumps({"kernels": records}))
         log(f"device: {smi}")
         log("partial run (--phases blocks): no result line")
         return 0

@@ -5,8 +5,8 @@ standalone attention block (B4, B5).
 frame ("spatial") or the F frames of a joint ("temporal") of separate q, k, v
 (B, F, J, C), differentiable (``StAttention``): the legacy attention modes
 run it between their projections. On a CUDA tensor it launches the kernel in
-``csrc/st_attention_kernels.cu`` (the W8A8 and block chains' attention
-core on three row-strided pointers) or raises; on a CPU tensor it runs
+``csrc/st_attention_kernels.cu`` (the W8A8 chain's attention core on three
+row-strided pointers) or raises; on a CPU tensor it runs
 ``st_attention_plain``. Its backward is plain PyTorch
 (``st_attention_bwd_plain``), as the JAX package's is XLA. It counts its
 launches in ``st_attention.launches``. The kernel replaces
@@ -36,8 +36,13 @@ Source note. The CUDA chains replace the TPU kernels
 block is bound by tensor-core operations (~2.6 MFLOP per token against 2 KB of
 token I/O at the flagship shape). The TPU design keeps the weights resident on
 chip and accumulates parameter gradients across a sequential grid; the port
-runs a chain of GEMM, attention and row launches over the flattened rows with
-two-pass deterministic reductions (see the notes at the top of the ``.cu``).
+runs a chain over the flattened rows: every product on the wgmma + TMA GEMM
+engine (``csrc/hopper_gemm.cuh``), the attention core, forward and backward,
+on tensor cores (``csrc/attention_tc.cuh``), the LayerNorm and the bias
+sums as row and column passes with two-pass deterministic reductions (see
+the notes at the top of the ``.cu``). The engine reads x, g and the weights
+through TMA, so each must sit at a 16-byte-aligned address
+(``check_attention_args`` raises otherwise).
 
 The plain versions here are also what the CUDA pair kernel is held against
 (``ops/fused_pair.py``). They keep the kernels' rounding points: inputs arrive
@@ -62,7 +67,16 @@ LN_EPS = 1e-6
 MAX_FRAMES = 243   # one temporal group's K and V stay in shared memory
 NUM_JOINTS = 17
 HEAD_DIMS = (32, 64)
-MAX_ROWS = 65535 * 64  # the WMMA and int8 GEMMs' grid y extent times their 64-row tile
+# the int8 GEMM's grid y extent times its 64-row tile: the token rows the
+# W8A8 pair chain (B9) takes; the attention core alone (B8) keeps the same
+# limit
+MAX_ROWS = 65535 * 64
+# the tensor-core core numbers its (group, head) items with 32-bit ints: at
+# most B*F*J * heads of them (a temporal group of one frame)
+CORE_MAX_ITEMS = 2 ** 31 - 1
+# the GEMM engine walks its tiles with persistent blocks, and it, the row
+# passes and the column sums index the token rows with 32-bit ints
+ENGINE_MAX_ROWS = 2 ** 31 - 1
 
 
 def check_tensor(name, t, shape, dtype, device):
@@ -278,6 +292,19 @@ def attention_block_bwd_plain(x, g, ln_w, ln_b, wqkv, bqkv, wproj,
 # the standalone attention block: kernel launch
 # ---------------------------------------------------------------------------
 
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """The engine's TMA loads read from 16-byte-aligned addresses only."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the GEMM engine needs a 16-byte-aligned "
+                         f"address, got one at offset {t.data_ptr() % 16}")
+
+
+def core_max_rows(num_heads: int) -> int:
+    """Token rows (B*F*J) a chain of the engine and the tensor-core core
+    takes: the core's item count binds before ENGINE_MAX_ROWS does."""
+    return CORE_MAX_ITEMS // num_heads
+
+
 def check_ln_args(ln_w, ln_b, C: int, use_ln: bool, dev) -> None:
     """ln_w / ln_b: (C,) fp32 on x's device, or None without use_ln."""
     for name, t in (("ln_w", ln_w), ("ln_b", ln_b)):
@@ -291,7 +318,10 @@ def check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                          num_heads: int, mode: str,
                          use_ln: bool = True) -> None:
     """Raise ValueError on anything the CUDA attention block does not take
-    (bproj None: the backward, which does not read it)."""
+    (bproj None: the backward, which does not read it). Its chains run the
+    GEMM engine and the tensor-core core, so the row limit is
+    ``core_max_rows``, and x, the weights and the biases must sit at
+    16-byte-aligned addresses (the engine's TMA and vector loads)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, F, J, C), got shape {tuple(x.shape)}")
     B, F, J, C = x.shape
@@ -303,13 +333,14 @@ def check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     if not 1 <= F <= MAX_FRAMES:
         raise ValueError(f"the attention kernel takes 1..{MAX_FRAMES} frames, "
                          f"got {F}")
-    if not 1 <= B * F * J <= MAX_ROWS:
-        raise ValueError(f"the attention kernel takes 1..{MAX_ROWS} token "
-                         f"rows (B*F*J), got {B * F * J}")
     if C % 64 or num_heads < 1 or C % num_heads \
             or C // num_heads not in HEAD_DIMS:
         raise ValueError(f"the attention kernel takes C % 64 == 0 and head "
                          f"dim in {HEAD_DIMS}, got C={C}, heads={num_heads}")
+    limit = core_max_rows(num_heads)
+    if not 1 <= B * F * J <= limit:
+        raise ValueError(f"the attention block kernel takes 1..{limit} token "
+                         f"rows (B*F*J) at {num_heads} heads, got {B * F * J}")
     dev, bf16 = x.device, torch.bfloat16
     check_tensor("x", x, (B, F, J, C), bf16, dev)
     check_ln_args(ln_w, ln_b, C, use_ln, dev)
@@ -317,6 +348,10 @@ def check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                            ("wproj", wproj, (C, C)), ("bproj", bproj, (C,))):
         if t is not None:
             check_tensor(name, t, shape, bf16, dev)
+    for name, t in (("x", x), ("wqkv", wqkv), ("bqkv", bqkv),
+                    ("wproj", wproj), ("bproj", bproj)):
+        if t is not None:
+            check_aligned(name, t)
 
 
 # mbt_attention_block_bwd's pointer array, in the order of the AttnSlot enum
@@ -392,6 +427,7 @@ def _launch_bwd(x, g, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale, mode,
     check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, None, num_heads,
                          mode, use_ln)
     check_tensor("g", g, x.shape, x.dtype, x.device)
+    check_aligned("g", g)
     M = B * F * J
     lib = block_library()
     dev = x.device

@@ -1,14 +1,18 @@
 // The attention core on tensor cores, forward and backward, for NVIDIA
 // Hopper (sm_90a): bf16 operands and fp32 accumulation through
-// mma.sync.m16n8k16 fed by ldmatrix. The pair backward (pair_bwd_kernels.cu)
-// runs both: the forward in its recompute, the backward for dq, dk and dv.
-// Together they replace the attention part of the TPU kernel
-// motionbert_tpu/ops/fused_pair.py:_pair_bwd_pallas (_pair_bwd_body's
-// per-head recompute of P and its attention backward).
+// mma.sync.m16n8k16 fed by ldmatrix. The forward pairs (pair_chain.cuh) run
+// the forward; the pair backward (pair_bwd_kernels.cu) and the attention
+// block's backward (block_kernels.cu) run both, the forward in their
+// recompute and the backward for dq, dk and dv; the attention block's
+// forward runs the forward. They replace the attention part of the TPU
+// kernels motionbert_tpu/ops/fused_pair.py:_pair_pallas, _pair_bwd_pallas
+// (_pair_bwd_body's per-head recompute of P and its attention backward) and
+// motionbert_tpu/ops/attention.py:_fused_block_pallas, _fused_block_bwd_pallas.
 //
-// Rounding points, those of the JAX kernel's _pair_bwd_body
-// (motionbert_tpu/ops/fused_pair.py) and of pair_common.cuh's
-// attention_kernel / pair_bwd_common.cuh's attention_bwd_kernel:
+// Rounding points, those of the JAX kernels' _pair_bwd_body
+// (motionbert_tpu/ops/fused_pair.py) and _fused_block_bwd_kernel
+// (motionbert_tpu/ops/attention.py), and of pair_common.cuh's
+// attention_kernel in the forward:
 //   S = (q . k) * scale in fp32; P = exp(S - rowmax) / rowsum in fp32
 //   (as exp(S - rowmax) times the row's fp32 reciprocal: one fp32 rounding
 //   apart, and far cheaper than a division per element);
@@ -525,6 +529,23 @@ struct TcArgs {
     float scale;
     int temporal;
 };
+
+// The arguments of a core launch on one packed (M, 3C) qkv ([q | k | v] per
+// token row): q, k and v with row stride 3C and the shapes. The caller sets
+// the outputs.
+TcArgs tc_packed_args(const void* qkv, int B, int F, int J, int C, int H, float scale,
+                      int temporal) {
+    const bf16* q = static_cast<const bf16*>(qkv);
+    TcArgs a{};
+    a.q = q;
+    a.k = q + C;
+    a.v = q + 2 * C;
+    a.ld = 3 * C;
+    a.B = B, a.F = F, a.J = J, a.C = C, a.H = H;
+    a.scale = scale;
+    a.temporal = temporal;
+    return a;
+}
 
 template <int D, int KT>
 cudaError_t tc_launch(const TcArgs& a, bool backward, cudaStream_t stream) {

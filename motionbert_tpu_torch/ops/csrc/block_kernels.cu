@@ -20,48 +20,53 @@
 // shared memory cannot hold the weights and thread blocks run in no order, so
 // each entry point is a chain of launches over the flattened token rows
 // (M = B*F*J for attention, any row count for the MLP), at the TPU kernels'
-// rounding points:
-//   attention forward   NT gemm [LN prologue] (qkv, bf16) -> attention
-//                       -> NT gemm + bias [+ x]
-//   attention backward  [ln_fwd_rows (h, row stats)] -> NT gemm (qkv)
-//                       -> attention; NN dattn = bf16(g Wproj);
-//                       TN dWproj = g^T attn; attention_bwd (fp32 and bf16
-//                       dqkv); TN dWqkv = bf16(dqkv)^T h; dbqkv from the fp32
-//                       dqkv; NN dh = bf16(dqkv) Wqkv;
-//                       with LN: ln_bwd_rows dx = bf16(LN-backward(dh) [+ g]),
-//                       without: dx = bf16(dh [+ g]) in the GEMM's epilogue
-//   MLP forward         [ln_fwd_rows] -> NT gemm + GELU (bf16) -> NT gemm + bias [+ x]
-//   MLP backward        [ln_fwd_rows] -> NT gemm + GELU (bf16 a, fp32 z);
+// rounding points. Every product runs on hopper_gemm.cuh, the wgmma + TMA
+// engine (128 x 128 tiles from a three-stage TMA ring, two blocks an SM, the
+// epilogues from the register fragments; the weight gradients in its fixed
+// HG_TN_SPLITS row chunks and an in-order second pass), the attention core,
+// forward and backward, on attention_tc.cuh's mma.sync tensor-core kernels,
+// and the LayerNorm (use_ln) as row passes before the first product:
+//   attention forward   [ln_fwd_rows (h, into the attn scratch)] -> NT qkv
+//                       + bias (bf16) -> core -> NT proj + bias [+ x]
+//   attention backward  [ln_fwd_rows (h, row stats)] -> NT qkv -> core;
+//                       NN dattn = bf16(g Wproj); TN dWproj = g^T attn;
+//                       core backward (fp32 and bf16 dqkv); TN dWqkv =
+//                       bf16(dqkv)^T h; dbqkv from the fp32 dqkv; then dx
+//                       as below with dY = bf16(dqkv), W = Wqkv
+//   MLP forward         [ln_fwd_rows] -> NT fc1 + GELU (bf16) -> NT fc2 + bias [+ x]
+//   MLP backward        [ln_fwd_rows] -> NT fc1 + GELU (bf16 a, fp32 z);
 //                       TN dW2 = g^T a; NN dz = bf16(g W2 * GELU'(z));
-//                       TN dW1 = dz^T h; db1 from the rounded dz;
-//                       NN dh = dz W1; dx as for attention
+//                       TN dW1 = dz^T h; db1 from the rounded dz; then dx
+//                       with dY = dz, W = W1
+//   dx                  with LN: NN dh = dY W (fp32), the LayerNorm
+//                       parameter gradients, ln_bwd_rows dx = bf16(LN-
+//                       backward(dh) [+ g]); without: NN dx = bf16(dY W [+ g])
+//                       in the product's epilogue
 // Spatial groups are the 17 joints of one frame; the TPU's 8-frame tile, its
 // same-frame mask and its zeroed tail rows are layout and have no counterpart.
 // GELU is the exact erff form (the TPU kernel approximates erf with a
-// polynomial, |error| <= 1.5e-7, because its compiler has none). Every
-// reduction over the rows goes through fixed chunks and a second pass, without
-// atomics, so two runs give the same bits.
+// polynomial, |error| <= 1.5e-7, because its compiler has none). The core
+// normalises P by the row sum's fp32 reciprocal (attention_tc.cuh), one fp32
+// rounding from the JAX kernels' division. Every reduction over the rows goes
+// through fixed chunks and a second pass, without atomics, and every output
+// is written once, so two runs give the same bits.
 //
 // Bound. At (4, 243, 17, 512), 8 heads, hidden 1024, the attention block does
 // 42.9 GFLOP (temporal) and the MLP block 34.7 GFLOP against ~36 MB of inputs
 // and outputs; the backwards 120.0 and 86.6 GFLOP, the recompute counted (the
 // first product three times, the output product twice, the core three times):
-// tensor-core operations bound all four. The attention chains run pair_common.cuh's
-// WMMA GEMM (64 x 64 tiles, no copy pipeline), well short of that bound. The
-// MLP chains are pure GEMM chains around small row and column passes, so they
-// run on hopper_gemm.cuh, the wgmma + TMA engine: 128 x 128 tiles from a
-// three-stage TMA ring, two blocks an SM, the epilogues from the register
-// fragments. Their LayerNorm (use_ln; the model calls the MLP without it)
-// runs as ln_fwd_rows before the first GEMM, the same arithmetic as the
-// WMMA GEMM's prologue; the weight gradients take the engine's fixed
-// HG_TN_SPLITS row chunks and the same in-order second pass.
+// tensor-core operations bound all four. What stays on CUDA cores is the row
+// passes (LayerNorm forward and backward) and the column sums (the biases and
+// the LayerNorm parameters), which pair_bwd_common.cuh shares with the pair
+// backward; the chains still write their intermediates (qkv, attn, dattn,
+// dqkv; h, z, a, dz) to device memory.
 //
 // Every entry point launches on the caller's stream, allocates nothing (the
 // caller passes every buffer) and returns 0 or the first CUDA error.
 
 #include <cstring>
 
-#include "pair_bwd_common.cuh"
+#include "attention_tc.cuh"
 #include "hopper_gemm.cuh"
 
 namespace {
@@ -90,32 +95,30 @@ enum MlpSlot {
     M_COUNT
 };
 
-// The NN product dY W of the input gradient: the WMMA GEMM (attention) or the
-// engine (MLP).
-template <bool ENGINE, int EPI>
-cudaError_t nn_gemm(const void* dY, const void* W, const void* R, void* out, int M, int C,
-                    int N, cudaStream_t stream) {
-    if constexpr (ENGINE)
-        return hg_gemm<NN, EPI>(dY, W, nullptr, R, nullptr, out, nullptr, M, C, N, stream);
-    else
-        return launch_gemm<NN, false, EPI>(dY, W, nullptr, R, nullptr, nullptr, nullptr, out,
-                                           nullptr, M, C, N, stream);
+// out = bf16(A W^T + bias [+ R]) (M, N): the NT product of a block's last
+// layer, with the residual R unless it is null.
+cudaError_t nt_out(const void* A, const void* W, const void* bias, const void* R, void* out,
+                   int M, int N, int K, cudaStream_t stream) {
+    if (R != nullptr)
+        return hg_gemm<NT, EPI_BIAS_RES>(A, W, bias, R, nullptr, out, nullptr, M, N, K, stream);
+    return hg_gemm<NT, EPI_BIAS>(A, W, bias, nullptr, nullptr, out, nullptr, M, N, K, stream);
 }
 
 // dx from dh = dY W (NN product of dY (M, N) bf16 with the nn.Linear weight
 // W (N, C)). With LN: fp32 dh, the LayerNorm parameter gradients, then the
 // row backward [+ g]. Without: the product's epilogue writes bf16(dh [+ g]).
-template <bool ENGINE>
 cudaError_t input_grad(const void* dY, const void* W, int M, int C, int N, bool use_ln,
                        bool residual, const void* x, const void* g, const void* stats,
                        const void* ln_w, void* dh, float* work, void* dln_w, void* dln_b,
                        void* dx, cudaStream_t stream) {
     cudaError_t err;
     if (!use_ln) {
-        if (residual) return nn_gemm<ENGINE, EPI_RES>(dY, W, g, dx, M, C, N, stream);
-        return nn_gemm<ENGINE, EPI_BF16>(dY, W, nullptr, dx, M, C, N, stream);
+        if (residual)
+            return hg_gemm<NN, EPI_RES>(dY, W, nullptr, g, nullptr, dx, nullptr, M, C, N, stream);
+        return hg_gemm<NN, EPI_BF16>(dY, W, nullptr, nullptr, nullptr, dx, nullptr, M, C, N,
+                                     stream);
     }
-    err = nn_gemm<ENGINE, EPI_F32>(dY, W, nullptr, dh, M, C, N, stream);
+    err = hg_gemm<NN, EPI_F32>(dY, W, nullptr, nullptr, nullptr, dh, nullptr, M, C, N, stream);
     if (err != cudaSuccess) return err;
     err = column_sum<COL_F32>(dh, nullptr, nullptr, nullptr, M, C, work, dln_b, false, stream);
     if (err != cudaSuccess) return err;
@@ -132,12 +135,18 @@ extern "C" int mbt_mlp_bwd_slot_count() { return M_COUNT; }
 // Floats of fp32 workspace the partials of a (rows, cols) weight gradient and
 // of a column sum over `rows` columns need.
 extern "C" long long mbt_block_work_floats(int rows, int cols) {
-    const long long a = (long long)TN_SPLITS * rows * cols, b = (long long)COL_SPLITS * rows;
+    const long long a = (long long)HG_TN_SPLITS * rows * cols, b = (long long)COL_SPLITS * rows;
     return a > b ? a : b;
 }
 
 // Attention block on x (B, F, J, C) bf16. Scratch from the caller: qkv
-// (M, 3C) and attn (M, C), bf16. ln_w / ln_b (fp32) are read only with use_ln.
+// (M, 3C) and attn (M, C), bf16. ln_w / ln_b (fp32) are read only with use_ln;
+// then attn holds LN's rows h until the core overwrites them (the qkv product
+// has read them by then), and no row statistics are kept. 3 + use_ln
+// launches. The engine reads x and the weights through TMA and the biases and
+// the residual with vector loads: all must sit at 16-byte-aligned addresses,
+// which ops/attention.py checks (hg_gemm refuses a misaligned A or W with
+// cudaErrorInvalidValue; a misaligned bias or residual would fault).
 extern "C" int mbt_attention_block(
     const void* x, void* out, void* qkv, void* attn, const void* ln_w, const void* ln_b,
     const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
@@ -145,19 +154,18 @@ extern "C" int mbt_attention_block(
     int residual, void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const int M = B * F * J;
-    if (use_ln)
-        CHECK((launch_gemm<NT, true, EPI_BIAS>(x, wqkv, bqkv, nullptr, ln_w, ln_b, nullptr,
-                                               qkv, nullptr, M, 3 * C, C, stream)));
-    else
-        CHECK((launch_gemm<NT, false, EPI_BIAS>(x, wqkv, bqkv, nullptr, nullptr, nullptr,
-                                                nullptr, qkv, nullptr, M, 3 * C, C, stream)));
-    CHECK(launch_attention_any(qkv, attn, B, F, J, C, H, scale, temporal, stream));
-    if (residual)
-        CHECK((launch_gemm<NT, false, EPI_BIAS_RES>(attn, wproj, bproj, x, nullptr, nullptr,
-                                                    nullptr, out, nullptr, M, C, C, stream)));
-    else
-        CHECK((launch_gemm<NT, false, EPI_BIAS>(attn, wproj, bproj, nullptr, nullptr, nullptr,
-                                                nullptr, out, nullptr, M, C, C, stream)));
+    const void* h = x;
+    if (use_ln) {
+        CHECK(launch_ln_fwd_rows(x, ln_w, ln_b, attn, nullptr, M, C, stream));
+        h = attn;
+    }
+    CHECK((hg_gemm<NT, EPI_BIAS>(h, wqkv, bqkv, nullptr, nullptr, qkv, nullptr, M, 3 * C, C,
+                                 stream)));
+    TcArgs core = tc_packed_args(qkv, B, F, J, C, H, scale, temporal);
+    core.out = attn;
+    core.ld_out = C;
+    CHECK(launch_attention_tc(core, false, stream));
+    CHECK(nt_out(attn, wproj, bproj, residual ? x : nullptr, out, M, C, C, stream));
     return 0;
 }
 
@@ -166,7 +174,8 @@ extern "C" int mbt_attention_block(
 // h, attn, dattn (M, C) bf16; qkv, dqkvb (M, 3C) bf16; dqkv (M, 3C) fp32;
 // st (M, 2) fp32; dh (M, C) fp32; work mbt_block_work_floats(3C, C). h, st, dh
 // and the dln outputs are used only with use_ln. Outputs: dx bf16; weight and
-// bias gradients bf16; LayerNorm gradients fp32.
+// bias gradients bf16; LayerNorm gradients fp32. x, g, the weights and the
+// biases at 16-byte-aligned addresses, as for the forward.
 extern "C" int mbt_attention_block_bwd(void* const* p, int B, int F, int J, int C, int H,
                                        float scale, int temporal, int use_ln, int residual,
                                        void* stream_ptr) {
@@ -180,25 +189,33 @@ extern "C" int mbt_attention_block_bwd(void* const* p, int B, int F, int J, int 
         CHECK(launch_ln_fwd_rows(p[A_X], p[A_LN_W], p[A_LN_B], p[A_H], p[A_ST], M, C, stream));
         h = p[A_H];
     }
-    CHECK((launch_gemm<NT, false, EPI_BIAS>(h, p[A_WQKV], p[A_BQKV], nullptr, nullptr, nullptr,
-                                            nullptr, p[A_QKV], nullptr, M, 3 * C, C, stream)));
-    CHECK(launch_attention_any(p[A_QKV], p[A_ATTN], B, F, J, C, H, scale, temporal, stream));
+    CHECK((hg_gemm<NT, EPI_BIAS>(h, p[A_WQKV], p[A_BQKV], nullptr, nullptr, p[A_QKV], nullptr,
+                                 M, 3 * C, C, stream)));
+    TcArgs core = tc_packed_args(p[A_QKV], B, F, J, C, H, scale, temporal);
+    core.out = p[A_ATTN];
+    core.ld_out = C;
+    CHECK(launch_attention_tc(core, false, stream));
 
     // ---- output projection backward ----
-    CHECK((launch_gemm<NN, false, EPI_BF16>(p[A_G], p[A_WPROJ], nullptr, nullptr, nullptr,
-                                            nullptr, nullptr, p[A_DATTN], nullptr, M, C, C,
-                                            stream)));
-    CHECK(weight_grad(p[A_G], p[A_ATTN], M, C, C, work, p[A_DWPROJ], stream));
+    CHECK((hg_gemm<NN, EPI_BF16>(p[A_G], p[A_WPROJ], nullptr, nullptr, nullptr, p[A_DATTN],
+                                 nullptr, M, C, C, stream)));
+    CHECK(hg_weight_grad(p[A_G], p[A_ATTN], M, C, C, work, p[A_DWPROJ], stream));
     CHECK(column_sum<COL_BF16>(p[A_G], nullptr, nullptr, nullptr, M, C, work, p[A_DBPROJ],
                                true, stream));
 
     // ---- attention core and qkv projection backward ----
-    CHECK(launch_attention_bwd_any(p[A_QKV], p[A_DATTN], p[A_DQKV], p[A_DQKVB], B, F, J, C, H,
-                                   scale, temporal, stream));
-    CHECK(weight_grad(p[A_DQKVB], h, M, 3 * C, C, work, p[A_DWQKV], stream));
-    CHECK(column_sum<COL_F32>(p[A_DQKV], nullptr, nullptr, nullptr, M, 3 * C, work,
-                              p[A_DBQKV], true, stream));
-    CHECK(input_grad<false>(p[A_DQKVB], p[A_WQKV], M, C, 3 * C, use_ln != 0, residual != 0, p[A_X],
+    float* dqkv = static_cast<float*>(p[A_DQKV]);
+    bf16* dqkvb = static_cast<bf16*>(p[A_DQKVB]);
+    core.g = p[A_DATTN];
+    core.ld_g = C;
+    core.dqf = dqkv, core.dkf = dqkv + C, core.dvf = dqkv + 2 * C;
+    core.dqb = dqkvb, core.dkb = dqkvb + C, core.dvb = dqkvb + 2 * C;
+    core.ld_out = 3 * C;
+    CHECK(launch_attention_tc(core, true, stream));
+    CHECK(hg_weight_grad(dqkvb, h, M, 3 * C, C, work, p[A_DWQKV], stream));
+    CHECK(column_sum<COL_F32>(dqkv, nullptr, nullptr, nullptr, M, 3 * C, work, p[A_DBQKV],
+                              true, stream));
+    CHECK(input_grad(dqkvb, p[A_WQKV], M, C, 3 * C, use_ln != 0, residual != 0, p[A_X],
                      p[A_G], p[A_ST], p[A_LN_W], p[A_DH], work, p[A_DLN_W], p[A_DLN_B],
                      p[A_DX], stream));
     return 0;
@@ -220,12 +237,7 @@ extern "C" int mbt_mlp_block(
     }
     CHECK((hg_gemm<NT, EPI_BIAS_GELU>(h, w1, b1, nullptr, nullptr, hid, nullptr, M, hidden, C,
                                       stream)));
-    if (residual)
-        CHECK((hg_gemm<NT, EPI_BIAS_RES>(hid, w2, b2, x, nullptr, out, nullptr, M, C, hidden,
-                                         stream)));
-    else
-        CHECK((hg_gemm<NT, EPI_BIAS>(hid, w2, b2, nullptr, nullptr, out, nullptr, M, C, hidden,
-                                     stream)));
+    CHECK(nt_out(hid, w2, b2, residual ? x : nullptr, out, M, C, hidden, stream));
     return 0;
 }
 
@@ -259,9 +271,9 @@ extern "C" int mbt_mlp_block_bwd(void* const* p, int M, int C, int hidden, int u
     CHECK(hg_weight_grad(p[M_DZ], h, M, hidden, C, work, p[M_DW1], stream));
     CHECK(column_sum<COL_BF16>(p[M_DZ], nullptr, nullptr, nullptr, M, hidden, work, p[M_DB1],
                                true, stream));
-    CHECK(input_grad<true>(p[M_DZ], p[M_W1], M, C, hidden, use_ln != 0, residual != 0, p[M_X],
-                           p[M_G], p[M_ST], p[M_LN_W], p[M_DH], work, p[M_DLN_W], p[M_DLN_B],
-                           p[M_DX], stream));
+    CHECK(input_grad(p[M_DZ], p[M_W1], M, C, hidden, use_ln != 0, residual != 0, p[M_X],
+                     p[M_G], p[M_ST], p[M_LN_W], p[M_DH], work, p[M_DLN_W], p[M_DLN_B],
+                     p[M_DX], stream));
     return 0;
 }
 

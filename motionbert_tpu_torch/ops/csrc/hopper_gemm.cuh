@@ -1,8 +1,9 @@
 // The Hopper GEMM engine: bf16 products with fp32 accumulation for NVIDIA
 // Hopper (sm_90a), fed by the Tensor Memory Accelerator (TMA) and computed
-// by warpgroup MMAs (wgmma). It takes the three operand layouts and the
-// epilogues of pair_common.cuh's gemm_kernel, with the same meaning and the
-// same rounding points:
+// by warpgroup MMAs (wgmma). It takes the three operand layouts of
+// pair_common.cuh's Layout enum and the epilogues of its Epilogue enum, each
+// rounding where the JAX kernels round (the epilogue on the fp32 sum, one
+// rounding to bf16):
 //   NT  out[M, N] = A[M, K] . W[N, K]^T   A and W K-major: wgmma's native form
 //   NN  out[M, N] = A[M, K] . W[K, N]     W N-major: the B transpose bit
 //   TN  out[N, K] = sum_m A[m, n] W[m, k] both M-major: both transpose bits;
@@ -10,12 +11,12 @@
 //       of the k-step each), every block writes its chunk's fp32 partial tile
 //       (EPI_PARTIAL) and the caller adds the partials in chunk order, so the
 //       result is the same bits on every run
-// The LayerNorm prologue does not ride a TMA load: a caller that needs it
-// runs launch_ln_fwd_rows first (pair_bwd_common.cuh, the same arithmetic)
-// and feeds its bf16 rows to NT. hg_weight_grad, at the end, is TN with the
-// in-order second pass (pair_bwd_common.cuh's reduce_splits): the weight
-// gradient of the MLP block backward (block_kernels.cu) and of the pair
-// backward (pair_bwd_kernels.cu).
+// No LayerNorm rides a TMA load: a chain that needs one runs
+// launch_ln_fwd_rows first (pair_bwd_common.cuh) and feeds its bf16 rows to
+// NT. hg_weight_grad, at the end, is TN with the in-order second pass
+// (pair_bwd_common.cuh's reduce_splits): the weight gradients of the pair
+// backward (pair_bwd_kernels.cu) and of the attention and MLP block
+// backwards (block_kernels.cu).
 //
 // Design. Persistent blocks, two an SM, walk over the 128 x 128 output tiles
 // (column tile fastest) in two roles. Warp 8 is the producer: one thread
@@ -68,9 +69,6 @@ constexpr int HG_BOX_BYTES = 64 * HG_BK * 2;      // 64 rows of K-major, or one 
 constexpr int HG_A_BYTES = HG_BM * HG_BK * 2;
 constexpr int HG_STAGE_BYTES = HG_A_BYTES + HG_BN * HG_BK * 2;
 constexpr int HG_SMEM = HG_STAGES * HG_STAGE_BYTES + 2 * HG_STAGES * 8 + 1024;
-
-static_assert(HG_TN_SPLITS <= TN_SPLITS,
-              "the backward chains' work buffers, sized for TN_SPLITS, hold the engine's partials");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -152,8 +150,9 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 }
 
 // The epilogue of four consecutive columns n..n+3 of one output row (o the
-// first's offset): bias, residual, GELU or GELU' at gemm_kernel's rounding
-// points, 8- and 16-byte loads and stores.
+// first's offset), as the Epilogue enum defines it: the bias and residual
+// added to the fp32 sum, GELU or GELU' applied to it in fp32, one rounding to
+// bf16 at the end; 8- and 16-byte loads and stores.
 template <int EPI>
 __device__ __forceinline__ void epilogue4(float (&v)[4], size_t o, int n,
                                           const bf16* __restrict__ bias,
@@ -209,7 +208,8 @@ __device__ __forceinline__ void epilogue4(float (&v)[4], size_t o, int n,
 // z over [z * split, z * split + split). A block takes tiles blockIdx.x,
 // blockIdx.x + gridDim.x, ... of the tiles_x * tiles_y * chunks tiles
 // (column tile fastest); the ring's stage and phase run on across its tiles.
-// Bias, R and Z as in gemm_kernel.
+// bias (N) bf16, R (rows, cols) bf16 and Z (rows, cols) fp32 feed the
+// epilogues that name them; out_z takes EPI_BIAS_GELU_Z's fp32 z.
 template <int LAYOUT, int EPI>
 __global__ void __launch_bounds__(HG_THREADS, HG_MIN_BLOCKS)
 hg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
@@ -398,10 +398,12 @@ int hg_resident_blocks(int dev) {
     return sms * HG_MIN_BLOCKS;
 }
 
-// The engine's launch, with launch_gemm's arguments (M, N, K as there; for
-// TN, out is HG_TN_SPLITS partial (N, K) fp32 tiles). Needs N % 64 == 0 and
-// K % 64 == 0, 16-byte-aligned A and W; any M >= 1. Returns
-// cudaErrorInvalidValue when a tensor map cannot be built.
+// The engine's launch: out = LAYOUT's product of A and W (M token rows, N
+// output columns, K the reduction of NT and NN; for TN, A is (M, N), W is
+// (M, K) and out HG_TN_SPLITS partial (N, K) fp32 tiles), then EPI with
+// bias, R and Z (out_z for EPI_BIAS_GELU_Z). Needs N % 64 == 0 and K % 64 ==
+// 0, 16-byte-aligned A and W; any M >= 1. Returns cudaErrorInvalidValue
+// when a tensor map cannot be built.
 template <int LAYOUT, int EPI>
 cudaError_t hg_gemm(const void* A, const void* W, const void* bias, const void* R,
                     const void* Z, void* out, void* out_z, int M, int N, int K,

@@ -1,9 +1,11 @@
-// Device code the backward chains share (pair_bwd_kernels.cu, the pair
-// backward, and block_kernels.cu, the standalone attention and MLP blocks):
-// LayerNorm forward-with-statistics and backward over token rows, the
-// att_fuse gate backward, the attention core's backward, deterministic column
-// sums and the weight-gradient GEMM with its split reduction. bf16 with fp32
-// accumulation, for NVIDIA Hopper (sm_90a); built on pair_common.cuh.
+// Device code the engine's chains share (pair_chain.cuh, the forward pairs;
+// pair_bwd_kernels.cu, the pair backward; block_kernels.cu, the standalone
+// attention and MLP blocks): LayerNorm forward-with-statistics and backward
+// over token rows, the att_fuse gate backward, deterministic column sums and
+// the in-order pass that adds the weight gradients' fixed-chunk partials
+// (reduce_splits; the partials come from hopper_gemm.cuh's TN products).
+// bf16 with fp32 accumulation, for NVIDIA Hopper (sm_90a); built on
+// pair_common.cuh.
 //
 // Every reduction over the token rows cuts them into fixed chunks, writes
 // fp32 partials and adds them in chunk order: no float atomics, so two runs
@@ -17,12 +19,12 @@ namespace {
 
 constexpr int COL_THREADS = 256;   // one thread per column
 constexpr int COL_SPLITS = 64;     // fixed row chunks of a column sum
-constexpr int TN_SPLITS = 8;       // fixed row chunks of a weight gradient
 
 // fp32 LayerNorm statistics of the row (var = E[x^2] - mean^2) and the bf16
-// normalised row h = bf16(((x - mean) * rstd) * w + b); the same arithmetic as
-// the GEMM's LayerNorm prologue. The statistics (mean, rstd) go to stats
-// unless it is null (the forward chain, pair_chain.cuh, keeps none).
+// normalised row h = bf16(((x - mean) * rstd) * w + b), the arithmetic of the
+// JAX kernels' LayerNorm. The statistics (mean, rstd) go to stats unless it
+// is null (the forward chains, pair_chain.cuh's and the attention block's,
+// keep none).
 __global__ void __launch_bounds__(ROW_THREADS)
 ln_fwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ b, bf16* __restrict__ h,
@@ -145,185 +147,6 @@ gate_bwd_rows_kernel(const bf16* __restrict__ other, const bf16* __restrict__ ou
     }
 }
 
-// Attention backward over one (group, head) per block, in fp32 on CUDA cores,
-// at _pair_bwd_body's rounding points: fp32 P, dv = bf16(P)^T dO,
-// dp = dO v^T, ds = bf16(P * (dp - rowsum(dp * P)) * scale), dq = ds k,
-// dk = ds^T q. q, k, v and dO (= bf16 dattn) of the group sit in shared memory.
-// Pass 1, a warp per query row i: the row's scores, max, sum and D_i =
-// rowsum(dp * P) (kept in shared memory), then dq_i. Pass 2, a warp per key
-// row j: recomputes P[:, j] and ds[:, j] from the kept statistics (lanes over
-// the query rows), then dk_j and dv_j (lanes over channels). Writes dqkv in
-// fp32 (for dbqkv) and in bf16 (for dWqkv and dh1).
-template <int D>
-__global__ void __launch_bounds__(ATTN_THREADS)
-attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dattn,
-                     float* __restrict__ dqkv, bf16* __restrict__ dqkvb,
-                     int F, int J, int C, float scale, int temporal) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    constexpr int LDK = D + 2;
-    const int h = blockIdx.y;
-    int N, base, stride;
-    attention_group(blockIdx.x, F, J, temporal, &N, &base, &stride);
-    const int nwarps = ATTN_THREADS / 32;
-    bf16* Qs = reinterpret_cast<bf16*>(smem);
-    bf16* Ks = Qs + N * LDK;
-    bf16* Vs = Ks + N * LDK;
-    bf16* Gs = Vs + N * LDK;
-    float* row_max = reinterpret_cast<float*>(Gs + N * LDK);
-    float* row_sum = row_max + N;
-    float* row_d = row_sum + N;
-    float* bufs = row_d + N;
-    const size_t C3 = 3 * (size_t)C;
-
-    for (int idx = threadIdx.x; idx < N * (D / 2); idx += ATTN_THREADS) {
-        const int t = idx / (D / 2), c = (idx % (D / 2)) * 2;
-        const size_t tok = (size_t)(base + t * stride);
-        const bf16* row = qkv + tok * C3 + h * D + c;
-        *reinterpret_cast<bf162*>(Qs + t * LDK + c) = *reinterpret_cast<const bf162*>(row);
-        *reinterpret_cast<bf162*>(Ks + t * LDK + c) = *reinterpret_cast<const bf162*>(row + C);
-        *reinterpret_cast<bf162*>(Vs + t * LDK + c) = *reinterpret_cast<const bf162*>(row + 2 * C);
-        *reinterpret_cast<bf162*>(Gs + t * LDK + c) =
-            *reinterpret_cast<const bf162*>(dattn + tok * C + h * D + c);
-    }
-    __syncthreads();
-
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float* pa = bufs + warp * 2 * N;
-    float* pb = pa + N;
-    float r[D];
-
-    // pass 1: query rows
-    for (int i = warp; i < N; i += nwarps) {
-#pragma unroll
-        for (int c = 0; c < D; c += 2) {
-            const float2 v = load_bf162(Qs + i * LDK + c);
-            r[c] = v.x;
-            r[c + 1] = v.y;
-        }
-        float mx = __int_as_float(0xff800000);  // -inf
-        for (int m = lane; m < N; m += 32) {
-            float s = 0.f;
-#pragma unroll
-            for (int c = 0; c < D; c += 2) {
-                const float2 kv = load_bf162(Ks + m * LDK + c);
-                s += r[c] * kv.x + r[c + 1] * kv.y;
-            }
-            s *= scale;
-            pa[m] = s;
-            mx = fmaxf(mx, s);
-        }
-        mx = warp_max(mx);
-        float sum = 0.f;
-        for (int m = lane; m < N; m += 32) {
-            const float e = expf(pa[m] - mx);
-            pa[m] = e;
-            sum += e;
-        }
-        sum = warp_sum(sum);
-#pragma unroll
-        for (int c = 0; c < D; c += 2) {
-            const float2 v = load_bf162(Gs + i * LDK + c);
-            r[c] = v.x;
-            r[c + 1] = v.y;
-        }
-        float dsum = 0.f;
-        for (int m = lane; m < N; m += 32) {
-            const float p = pa[m] / sum;
-            float dp = 0.f;
-#pragma unroll
-            for (int c = 0; c < D; c += 2) {
-                const float2 vv = load_bf162(Vs + m * LDK + c);
-                dp += r[c] * vv.x + r[c + 1] * vv.y;
-            }
-            pa[m] = p;
-            pb[m] = dp;
-            dsum += dp * p;
-        }
-        const float di = warp_sum(dsum);
-        for (int m = lane; m < N; m += 32)
-            pb[m] = round_bf16((pa[m] * (pb[m] - di)) * scale);
-        if (lane == 0) {
-            row_max[i] = mx;
-            row_sum[i] = sum;
-            row_d[i] = di;
-        }
-        __syncwarp();
-        const size_t tok = (size_t)(base + i * stride);
-        for (int c = lane * 2; c < D; c += 64) {
-            float a0 = 0.f, a1 = 0.f;
-            for (int m = 0; m < N; ++m) {
-                const float ds = pb[m];
-                const float2 kv = load_bf162(Ks + m * LDK + c);
-                a0 += ds * kv.x;
-                a1 += ds * kv.y;
-            }
-            const size_t o = tok * C3 + h * D + c;
-            *reinterpret_cast<float2*>(dqkv + o) = make_float2(a0, a1);
-            *reinterpret_cast<bf162*>(dqkvb + o) = __floats2bfloat162_rn(a0, a1);
-        }
-        __syncwarp();
-    }
-    __syncthreads();
-
-    // pass 2: key rows
-    for (int j = warp; j < N; j += nwarps) {
-#pragma unroll
-        for (int c = 0; c < D; c += 2) {
-            const float2 v = load_bf162(Ks + j * LDK + c);
-            r[c] = v.x;
-            r[c + 1] = v.y;
-        }
-        for (int i = lane; i < N; i += 32) {
-            float s = 0.f;
-#pragma unroll
-            for (int c = 0; c < D; c += 2) {
-                const float2 qv = load_bf162(Qs + i * LDK + c);
-                s += qv.x * r[c] + qv.y * r[c + 1];
-            }
-            s *= scale;
-            const float p = expf(s - row_max[i]) / row_sum[i];
-            pa[i] = round_bf16(p);
-            pb[i] = p;
-        }
-#pragma unroll
-        for (int c = 0; c < D; c += 2) {
-            const float2 v = load_bf162(Vs + j * LDK + c);
-            r[c] = v.x;
-            r[c + 1] = v.y;
-        }
-        for (int i = lane; i < N; i += 32) {
-            float dp = 0.f;
-#pragma unroll
-            for (int c = 0; c < D; c += 2) {
-                const float2 gv = load_bf162(Gs + i * LDK + c);
-                dp += gv.x * r[c] + gv.y * r[c + 1];
-            }
-            pb[i] = round_bf16((pb[i] * (dp - row_d[i])) * scale);
-        }
-        __syncwarp();
-        const size_t tok = (size_t)(base + j * stride);
-        for (int c = lane * 2; c < D; c += 64) {
-            float dk0 = 0.f, dk1 = 0.f, dv0 = 0.f, dv1 = 0.f;
-            for (int i = 0; i < N; ++i) {
-                const float pv = pa[i], ds = pb[i];
-                const float2 qv = load_bf162(Qs + i * LDK + c);
-                const float2 gv = load_bf162(Gs + i * LDK + c);
-                dk0 += ds * qv.x;
-                dk1 += ds * qv.y;
-                dv0 += pv * gv.x;
-                dv1 += pv * gv.y;
-            }
-            const size_t ok = tok * C3 + C + h * D + c;
-            const size_t ov = tok * C3 + 2 * C + h * D + c;
-            *reinterpret_cast<float2*>(dqkv + ok) = make_float2(dk0, dk1);
-            *reinterpret_cast<bf162*>(dqkvb + ok) = __floats2bfloat162_rn(dk0, dk1);
-            *reinterpret_cast<float2*>(dqkv + ov) = make_float2(dv0, dv1);
-            *reinterpret_cast<bf162*>(dqkvb + ov) = __floats2bfloat162_rn(dv0, dv1);
-        }
-        __syncwarp();
-    }
-}
-
 enum ColMode {
     COL_BF16 = 0,   // sum_m src[m, c], src bf16
     COL_F32 = 1,    // sum_m src[m, c], src fp32
@@ -391,47 +214,6 @@ cudaError_t column_sum(const void* src, const void* x, const void* stats, const 
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     return reduce_splits(work, COL_SPLITS, N, out, out_bf16, stream);
-}
-
-// dW (rows, cols) bf16 = sum_m dY[m, :rows]^T A[m, :cols], through fp32 partials
-cudaError_t weight_grad(const void* dY, const void* A, int M, int rows, int cols,
-                        float* work, void* out, cudaStream_t stream) {
-    cudaError_t err = launch_gemm<TN, false, EPI_PARTIAL>(
-        dY, A, nullptr, nullptr, nullptr, nullptr, nullptr, work, nullptr, M, rows, cols,
-        stream, TN_SPLITS);
-    if (err != cudaSuccess) return err;
-    return reduce_splits(work, TN_SPLITS, rows * cols, out, true, stream);
-}
-
-template <int D>
-cudaError_t launch_attention_bwd(const void* qkv, const void* dattn, void* dqkv, void* dqkvb,
-                                 int B, int F, int J, int C, float scale, int temporal,
-                                 cudaStream_t stream) {
-    const int N = temporal ? F : J;
-    const size_t smem = 4 * (size_t)N * (D + 2) * sizeof(bf16)
-                      + 3 * (size_t)N * sizeof(float)
-                      + (size_t)(ATTN_THREADS / 32) * 2 * N * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        attention_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(temporal ? B * J : B * F, C / D);
-    attention_bwd_kernel<D><<<grid, ATTN_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(dattn),
-        static_cast<float*>(dqkv), static_cast<bf16*>(dqkvb), F, J, C, scale, temporal);
-    return cudaGetLastError();
-}
-
-cudaError_t launch_attention_bwd_any(const void* qkv, const void* dattn, void* dqkv,
-                                     void* dqkvb, int B, int F, int J, int C, int H,
-                                     float scale, int temporal, cudaStream_t stream) {
-    const int D = C / H;
-    if (D == 64)
-        return launch_attention_bwd<64>(qkv, dattn, dqkv, dqkvb, B, F, J, C, scale,
-                                        temporal, stream);
-    if (D == 32)
-        return launch_attention_bwd<32>(qkv, dattn, dqkv, dqkvb, B, F, J, C, scale,
-                                        temporal, stream);
-    return cudaErrorInvalidValue;
 }
 
 cudaError_t launch_ln_fwd_rows(const void* x, const void* w, const void* b, void* h,

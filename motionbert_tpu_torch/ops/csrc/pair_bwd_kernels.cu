@@ -83,7 +83,7 @@ extern "C" int mbt_pair_bwd_slot_count() { return S_COUNT; }
 extern "C" long long mbt_pair_bwd_work_floats(int C, int hidden) {
     const long long wmax = (long long)(3 * C > hidden ? 3 * C : hidden) * C;
     const long long cmax = (long long)(3 * C > hidden ? 3 * C : hidden);
-    const long long a = TN_SPLITS * wmax, b = COL_SPLITS * cmax;
+    const long long a = HG_TN_SPLITS * wmax, b = COL_SPLITS * cmax;
     return a > b ? a : b;
 }
 
@@ -115,15 +115,7 @@ extern "C" int mbt_pair_block_bwd(void* const* p, int B, int F, int J, int C, in
     CHECK(cudaGetLastError());
     CHECK((hg_gemm<NT, EPI_BIAS>(p[S_H1], p[S_WQKV], p[S_BQKV], nullptr, nullptr, p[S_QKV],
                                  nullptr, M, 3 * C, C, stream)));
-    const bf16* qkv = static_cast<const bf16*>(p[S_QKV]);
-    TcArgs core{};
-    core.q = qkv;
-    core.k = qkv + C;
-    core.v = qkv + 2 * C;
-    core.ld = 3 * C;
-    core.B = B, core.F = F, core.J = J, core.C = C, core.H = H;
-    core.scale = scale;
-    core.temporal = temporal;
+    TcArgs core = tc_packed_args(p[S_QKV], B, F, J, C, H, scale, temporal);
     core.out = p[S_ATTN];
     core.ld_out = C;
     CHECK(launch_attention_tc(core, false, stream));

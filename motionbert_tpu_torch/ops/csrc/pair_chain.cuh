@@ -49,17 +49,9 @@ cudaError_t pair_chain(const void* x, void* out, void* qkv, void* attn, void* y,
     err = hg_gemm<NT, EPI_BIAS>(attn, p.wqkv, p.bqkv, nullptr, nullptr, qkv, nullptr, M, 3 * C,
                                 C, stream);
     if (err != cudaSuccess) return err;
-    const bf16* q = static_cast<const bf16*>(qkv);
-    TcArgs core{};
-    core.q = q;
-    core.k = q + C;
-    core.v = q + 2 * C;
-    core.ld = 3 * C;
+    TcArgs core = tc_packed_args(qkv, B, F, J, C, H, scale, temporal);
     core.out = attn;
     core.ld_out = C;
-    core.B = B, core.F = F, core.J = J, core.C = C, core.H = H;
-    core.scale = scale;
-    core.temporal = temporal;
     err = launch_attention_tc(core, false, stream);
     if (err != cudaSuccess) return err;
     err = hg_gemm<NT, EPI_BIAS_RES>(attn, p.wproj, p.bproj, x, nullptr, y, nullptr, M, C, C,

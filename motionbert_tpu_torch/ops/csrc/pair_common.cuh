@@ -1,30 +1,21 @@
 // Shared device code of the DSTformer chains, bf16 with fp32 accumulation, for
 // NVIDIA Hopper (sm_90a): the constants, enums and helpers every chain uses
-// (the layouts and epilogues that hopper_gemm.cuh's engine takes too, GELU,
-// rounding), the att_fuse gate, and the first design's WMMA GEMM and CUDA-core
-// attention core, which the chains not yet redesigned still run:
+// (the operand layouts and epilogues of hopper_gemm.cuh's engine, GELU,
+// rounding), the att_fuse gate, and the first design's CUDA-core attention
+// core, which the chains not yet redesigned still run:
 //
-// - gemm_kernel<LAYOUT, LN, EPI>: one WMMA (mma.sync) GEMM with 64x64 output
-//   tiles and a 32-deep reduction step, in three operand layouts:
-//     NT  out[M, N] = prologue(A)[M, K] . W[N, K]^T   (nn.Linear forward)
-//     NN  out[M, N] = A[M, K] . W[K, N]               (input gradients)
-//     TN  out[N, K] = sum_m A[m, n] W[m, k]           (weight gradients)
-//   TN reduces over the token rows M: the rows are cut into `splits` fixed
-//   chunks, each block writes its chunk's fp32 partial tile, and
-//   reduce_splits_kernel adds the partials in chunk order. No atomics, so
-//   the result is the same bits on every run. Its users: the standalone
-//   attention block forward and backward (block_kernels.cu, B4 / B5).
 // - attention_kernel<D>: softmax(q k^T * scale) v over one (group, head) per
 //   block, K and V of the group in shared memory, a warp per query row; q, k
-//   and v are three row-strided pointers, so the chains' packed qkv and the
-//   standalone core's separate tensors (st_attention_kernels.cu) share it.
-//   Its users: the attention block (B4) and B5's recompute
-//   (block_kernels.cu), the standalone core (B8) and the W8A8 pair chain
+//   and v are three row-strided pointers, so the W8A8 chain's packed qkv and
+//   the standalone core's separate tensors (st_attention_kernels.cu) share
+//   it. Its users: the standalone core (B8) and the W8A8 pair chain
 //   (pair_q8_common.cuh, B9 and B10's W8A8 passes).
 // - gate_kernel: the att_fuse gate of the gated pair, a warp per token row.
 //
-// The bf16 pair chain (B1, B2 and B10's bf16 passes) runs on the engine and
-// the tensor-core core instead: pair_chain.cuh.
+// The bf16 chains (the pairs B1 and B2 and B10's bf16 passes in
+// pair_chain.cuh, the pair backward B3, the attention and MLP blocks B4-B7)
+// run every product on hopper_gemm.cuh's engine and their attention core on
+// attention_tc.cuh's tensor-core kernels instead.
 //
 // Everything is in an anonymous namespace: each .cu that includes this file
 // builds into its own shared library with its own copy.
@@ -33,28 +24,22 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
-#include <type_traits>
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int LDS = BK + 8;   // bf16 row stride of the k-contiguous tiles (80 bytes)
-constexpr int LDT = BN + 8;   // bf16 row stride of the k-major tiles (144 bytes)
-constexpr int TILE_ELEMS = BM * LDS;  // >= BK * LDT
-constexpr int LDC = BN + 4;   // fp32 row stride of the accumulator tile
-constexpr int GEMM_THREADS = 128;
 constexpr int ATTN_THREADS = 256;
 constexpr int ROW_THREADS = 256;   // one warp per token row (the row passes)
 constexpr float LN_EPS = 1e-6f;
 
-static_assert(BK * LDT <= TILE_ELEMS, "k-major tile must fit the tile buffer");
-
+// The engine's operand layouts (hopper_gemm.cuh): A, W row-major bf16, W the
+// nn.Linear weight (out, in)
+//   NT  out[M, N] = A[M, K] . W[N, K]^T   (nn.Linear forward)
+//   NN  out[M, N] = A[M, K] . W[K, N]     (input gradients)
+//   TN  out[N, K] = sum_m A[m, n] W[m, k] (weight gradients)
 enum Layout { NT = 0, NN = 1, TN = 2 };
 
 enum Epilogue {
@@ -100,208 +85,10 @@ __device__ __forceinline__ float gelu_grad(float z) {
     return cdf + z * pdf;
 }
 
-// See the layouts above. A, W, R row-major bf16; W in NT is the nn.Linear
-// weight (out, in), in NN the same weight read as (K, N) = (out, in). With LN
-// (NT only) the A rows are layer-normalised (fp32 statistics, ln_w/ln_b fp32)
-// and rounded to bf16 as they enter shared memory. Needs the output's column
-// count % 64 == 0 and the reduction length % 32 == 0 (NT, NN); TN needs
-// N % 64 == 0 and K % 64 == 0 and reduces over rows [z * split, z * split +
-// split) of M.
-template <int LAYOUT, bool LN, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-            const bf16* __restrict__ bias, const bf16* __restrict__ R,
-            const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-            const float* __restrict__ Z, void* __restrict__ out,
-            float* __restrict__ out_z, int M, int N, int K, int split) {
-    static_assert(!LN || LAYOUT == NT, "the LayerNorm prologue is NT only");
-    __shared__ __align__(128) bf16 As[TILE_ELEMS];
-    __shared__ __align__(128) bf16 Bs[TILE_ELEMS];
-    __shared__ __align__(128) float Cs[BM * LDC];
-    __shared__ float mean_s[BM];
-    __shared__ float rstd_s[BM];
-
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
-    const int rows = (LAYOUT == TN) ? N : M;
-    const int cols = (LAYOUT == TN) ? K : N;
-    int k_begin = 0, k_end = K;
-    if (LAYOUT == TN) {
-        k_begin = blockIdx.z * split;
-        k_end = min(M, k_begin + split);
-    }
-
-    if (LN) {
-        for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-            const int m = r0 + r;
-            float s = 0.f, ss = 0.f;
-            if (m < M) {
-                const bf16* row = A + (size_t)m * K;
-                for (int k = lane * 2; k < K; k += 64) {
-                    const float2 v = load_bf162(row + k);
-                    s += v.x + v.y;
-                    ss += v.x * v.x + v.y * v.y;
-                }
-            }
-            s = warp_sum(s);
-            ss = warp_sum(ss);
-            if (lane == 0) {
-                const float mean = s / K;
-                const float var = ss / K - mean * mean;
-                mean_s[r] = mean;
-                rstd_s[r] = rsqrtf(var + LN_EPS);
-            }
-        }
-        __syncthreads();
-    }
-
-    using ALayout = typename std::conditional<LAYOUT == TN, wmma::col_major,
-                                              wmma::row_major>::type;
-    using BLayout = typename std::conditional<LAYOUT == NT, wmma::col_major,
-                                              wmma::row_major>::type;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-    const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
-
-    for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-        if (LAYOUT == TN) {
-            // BK token rows of A (M, N) cols [r0, r0+64) and of W (M, K)
-            // cols [c0, c0+64), both stored k-major
-            for (int c = tid; c < BK * (BM / 8); c += GEMM_THREADS) {
-                const int r = c / (BM / 8), cc = (c % (BM / 8)) * 8;
-                const int m = k0 + r;
-                uint4 va = zero4, vb = zero4;
-                if (m < k_end) {
-                    va = *reinterpret_cast<const uint4*>(A + (size_t)m * N + r0 + cc);
-                    vb = *reinterpret_cast<const uint4*>(W + (size_t)m * K + c0 + cc);
-                }
-                *reinterpret_cast<uint4*>(As + r * LDT + cc) = va;
-                *reinterpret_cast<uint4*>(Bs + r * LDT + cc) = vb;
-            }
-        } else {
-            // A tile: BM rows x BK cols as 16-byte chunks of 8 bf16
-            for (int c = tid; c < BM * (BK / 8); c += GEMM_THREADS) {
-                const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-                const int m = r0 + r;
-                uint4 v = zero4;
-                if (m < M) {
-                    v = *reinterpret_cast<const uint4*>(A + (size_t)m * K + k0 + kc);
-                    if (LN) {
-                        bf16* e = reinterpret_cast<bf16*>(&v);
-                        const float mean = mean_s[r], rstd = rstd_s[r];
-#pragma unroll
-                        for (int t = 0; t < 8; ++t) {
-                            const int k = k0 + kc + t;
-                            const float h = (__bfloat162float(e[t]) - mean) * rstd;
-                            e[t] = __float2bfloat16(h * ln_w[k] + ln_b[k]);
-                        }
-                    }
-                }
-                *reinterpret_cast<uint4*>(As + r * LDS + kc) = v;
-            }
-            if (LAYOUT == NT) {
-                // BN weight rows x BK cols
-                for (int c = tid; c < BN * (BK / 8); c += GEMM_THREADS) {
-                    const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-                    *reinterpret_cast<uint4*>(Bs + r * LDS + kc) =
-                        *reinterpret_cast<const uint4*>(W + (size_t)(c0 + r) * K + k0 + kc);
-                }
-            } else {
-                // NN: BK weight rows (K, N) x BN cols, k-major
-                for (int c = tid; c < BK * (BN / 8); c += GEMM_THREADS) {
-                    const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-                    *reinterpret_cast<uint4*>(Bs + r * LDT + nc) =
-                        *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * N + c0 + nc);
-                }
-            }
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                if (LAYOUT == TN)
-                    wmma::load_matrix_sync(a[i], As + kk * LDT + wm + i * 16, LDT);
-                else
-                    wmma::load_matrix_sync(a[i], As + (wm + i * 16) * LDS + kk, LDS);
-            }
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                if (LAYOUT == NT)
-                    wmma::load_matrix_sync(b[j], Bs + (wn + j * 16) * LDS + kk, LDS);
-                else
-                    wmma::load_matrix_sync(b[j], Bs + kk * LDT + wn + j * 16, LDT);
-            }
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-                    wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16,
-                                    acc[i][j], LDC, wmma::mem_row_major);
-    __syncthreads();
-
-    for (int e = tid; e < BM * (BN / 2); e += GEMM_THREADS) {
-        const int r = e / (BN / 2), c = (e % (BN / 2)) * 2;
-        const int m = r0 + r;
-        if (m >= rows) continue;
-        const int n = c0 + c;
-        const size_t o = (size_t)m * cols + n;
-        float v0 = Cs[r * LDC + c];
-        float v1 = Cs[r * LDC + c + 1];
-        if (EPI == EPI_F32) {
-            *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
-            continue;
-        }
-        if (EPI == EPI_PARTIAL) {
-            float* part = static_cast<float*>(out) + (size_t)blockIdx.z * rows * cols;
-            *reinterpret_cast<float2*>(part + o) = make_float2(v0, v1);
-            continue;
-        }
-        if (EPI == EPI_DGELU) {
-            const float2 z = *reinterpret_cast<const float2*>(Z + o);
-            v0 *= gelu_grad(z.x);
-            v1 *= gelu_grad(z.y);
-        }
-        if (EPI == EPI_BIAS || EPI == EPI_BIAS_RES || EPI == EPI_BIAS_GELU ||
-            EPI == EPI_BIAS_GELU_Z) {
-            const float2 bv = load_bf162(bias + n);
-            v0 += bv.x;
-            v1 += bv.y;
-        }
-        if (EPI == EPI_BIAS_RES || EPI == EPI_RES) {
-            const float2 rv = load_bf162(R + o);
-            v0 += rv.x;
-            v1 += rv.y;
-        }
-        if (EPI == EPI_BIAS_GELU_Z)
-            *reinterpret_cast<float2*>(out_z + o) = make_float2(v0, v1);
-        if (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_Z) {
-            v0 = gelu(v0);
-            v1 = gelu(v1);
-        }
-        *reinterpret_cast<bf162*>(static_cast<bf16*>(out) + o) = __floats2bfloat162_rn(v0, v1);
-    }
-}
-
 // Attention core over one (group, head) per block. q, k and v are bf16 token
-// rows with row stride ld (elements), each split into H heads of D: the pair
-// and block chains pass one packed (M, 3C) qkv as (qkv, qkv + C, qkv + 2C,
-// 3C), the standalone core (st_attention_kernels.cu) three (M, C) tensors and
+// rows with row stride ld (elements), each split into H heads of D: the W8A8
+// pair chain passes one packed (M, 3C) qkv as (qkv, qkv + C, qkv + 2C, 3C),
+// the standalone core (st_attention_kernels.cu) three (M, C) tensors and
 // C. The group's N tokens sit at rows base + t * stride. K and V of the group
 // stay in shared memory (row stride D + 2 so lanes reading different keys hit
 // different banks); each warp owns one query row at a time: fp32 scores,
@@ -395,27 +182,6 @@ attention_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
     }
 }
 
-template <int LAYOUT, bool LN, int EPI>
-cudaError_t launch_gemm(const void* A, const void* W, const void* bias, const void* R,
-                        const void* ln_w, const void* ln_b, const void* Z, void* out,
-                        void* out_z, int M, int N, int K, cudaStream_t stream,
-                        int splits = 1) {
-    dim3 grid;
-    int split = 0;
-    if (LAYOUT == TN) {
-        split = ((M + splits - 1) / splits + BK - 1) / BK * BK;
-        grid = dim3(K / BN, N / BM, splits);
-    } else {
-        grid = dim3(N / BN, (M + BM - 1) / BM);
-    }
-    gemm_kernel<LAYOUT, LN, EPI><<<grid, GEMM_THREADS, 0, stream>>>(
-        static_cast<const bf16*>(A), static_cast<const bf16*>(W),
-        static_cast<const bf16*>(bias), static_cast<const bf16*>(R),
-        static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
-        static_cast<const float*>(Z), out, static_cast<float*>(out_z), M, N, K, split);
-    return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch_attention(const void* q, const void* k, const void* v, int ld,
                              void* out, int B, int F, int J, int C, float scale,
@@ -444,7 +210,8 @@ cudaError_t launch_st_attention_any(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
 }
 
-// The attention core on one packed (M, 3C) qkv ([q | k | v] per row).
+// The attention core on one packed (M, 3C) qkv ([q | k | v] per row): the
+// W8A8 pair chain's.
 cudaError_t launch_attention_any(const void* qkv, void* out, int B, int F, int J, int C,
                                  int H, float scale, int temporal, cudaStream_t stream) {
     const bf16* q = static_cast<const bf16*>(qkv);

@@ -43,9 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from motionbert_tpu_torch.ops.attention import (
-    MAX_ROWS, block_library, check_ln_args, check_tensor, data_ptr,
-    device_kind, layer_norm, linear, ln_bwd_rows, ln_fwd_stats, no_ln_grads,
-    rows, slot_pointers, weight_grad, wide)
+    ENGINE_MAX_ROWS, block_library, check_aligned, check_ln_args,
+    check_tensor, data_ptr, device_kind, layer_norm, linear, ln_bwd_rows,
+    ln_fwd_stats, no_ln_grads, rows, slot_pointers, weight_grad, wide)
 
 
 def mlp_block(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2,
@@ -115,9 +115,9 @@ def check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2,
         raise ValueError("x must be (..., C)")
     C = x.shape[-1]
     M = x.numel() // max(C, 1)
-    if not 1 <= M <= MAX_ROWS:
-        raise ValueError(f"the MLP kernel takes 1..{MAX_ROWS} token rows, "
-                         f"got {M}")
+    if not 1 <= M <= ENGINE_MAX_ROWS:
+        raise ValueError(f"the MLP kernel takes 1..{ENGINE_MAX_ROWS} token "
+                         f"rows, got {M}")
     hidden = w1.shape[0]
     if C % 64 or hidden % 64:
         raise ValueError(f"the MLP kernel takes C % 64 == 0 and hidden % 64 "
@@ -132,13 +132,6 @@ def check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2,
     for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
         if t is not None:
             check_aligned(name, t)
-
-
-def check_aligned(name: str, t: torch.Tensor) -> None:
-    """The engine's TMA loads read from 16-byte-aligned addresses only."""
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: the GEMM engine needs a 16-byte-aligned "
-                         f"address, got one at offset {t.data_ptr() % 16}")
 
 
 # mbt_mlp_block_bwd's pointer array, in the order of the MlpSlot enum in
@@ -379,9 +372,9 @@ def engine_gemm(layout: str, epi: str, a, w, bias=None, r=None, z=None):
     if a.dim() != 2 or w.dim() != 2:
         raise ValueError("a and w must be 2-D")
     (M, N, K), out_shape = engine_shapes(layout, a, w)
-    if N % 64 or K % 64 or not 1 <= M <= MAX_ROWS:
+    if N % 64 or K % 64 or not 1 <= M <= ENGINE_MAX_ROWS:
         raise ValueError(f"the engine takes N % 64 == 0, K % 64 == 0 and "
-                         f"1..{MAX_ROWS} rows, got M={M}, N={N}, K={K}")
+                         f"1..{ENGINE_MAX_ROWS} rows, got M={M}, N={N}, K={K}")
     check_tensor("a", a, a.shape, bf16, dev)
     check_tensor("w", w, w.shape, bf16, dev)
     check_aligned("a", a)

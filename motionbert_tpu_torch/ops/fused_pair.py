@@ -57,10 +57,11 @@ import torch
 from motionbert_tpu_torch.ops import _build
 from motionbert_tpu_torch.ops.attention import (
     HEAD_DIMS, MAX_FRAMES, MAX_ROWS, NUM_JOINTS, attention_block,
-    check_tensor as _check, device_kind as _device_kind, from_groups, linear,
-    ln_bwd_rows, ln_fwd_stats, rows as _rows, st_attention_bwd_plain,
-    st_attention_plain, to_groups, weight_grad as _weight_grad, wide)
-from motionbert_tpu_torch.ops.fused_mlp import check_aligned, mlp_block
+    check_aligned, check_tensor as _check, core_max_rows,
+    device_kind as _device_kind, from_groups, linear, ln_bwd_rows,
+    ln_fwd_stats, rows as _rows, st_attention_bwd_plain, st_attention_plain,
+    to_groups, weight_grad as _weight_grad, wide)
+from motionbert_tpu_torch.ops.fused_mlp import mlp_block
 
 # the 12 parameters of a pair, in argument order
 PAIR_PARAMS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wproj", "bproj", "ln2_w",
@@ -218,18 +219,13 @@ def gated_pair_block_bwd_plain(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj,
 # kernel launch
 # ---------------------------------------------------------------------------
 
-# the tensor-core core numbers its (group, head) items with 32-bit ints: at
-# most B*F*J * heads of them (a temporal group of one frame)
-CORE_MAX_ITEMS = 2 ** 31 - 1
-
-
 def max_rows(num_heads: int, q8: bool = False) -> int:
     """Token rows (B*F*J) a pair chain takes: with ``q8`` the W8A8 chain's,
     whose int8 GEMM puts its 64-row tiles on the grid's y extent
     (``MAX_ROWS``); else the bf16 chains', whose engine walks its tiles with
     persistent blocks and takes any row count, so the tensor-core core's
     item count bounds them."""
-    return MAX_ROWS if q8 else CORE_MAX_ITEMS // num_heads
+    return MAX_ROWS if q8 else core_max_rows(num_heads)
 
 
 def check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,

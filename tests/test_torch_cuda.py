@@ -479,6 +479,65 @@ def test_attention_block_bwd_kernel_matches_plain(cuda, mode, use_ln,
             assert _rel(a, w) <= TOL, name
 
 
+def _misaligned(t):
+    """t's values at an address 2 bytes past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out.copy_(t.reshape(-1))
+    return out.view(t.shape)
+
+
+@pytest.mark.cuda
+def test_attention_block_raises_on_a_misaligned_input(cuda):
+    """Both attention block chains read x (and g) and the weights through
+    the engine's TMA loads, which take 16-byte-aligned addresses only: the
+    wrappers raise, never fall back and never reach a kernel (a misaligned
+    load would end the process's CUDA context), and the card works on."""
+    x, ap, _, H = _block_inputs(cuda, F=3)
+    g = _grad_out(cuda, x.shape)
+    fl = (H, 0.125, "temporal", True, False)
+    wqkv = list(ap)
+    wqkv[2] = _misaligned(ap[2])
+    for call in (lambda: at.fused_attention_block(_misaligned(x), *ap, *fl),
+                 lambda: at.fused_attention_block(x, *wqkv, *fl),
+                 lambda: at.fused_attention_block_bwd(_misaligned(x), g,
+                                                      *ap[:5], *fl),
+                 lambda: at.fused_attention_block_bwd(x, _misaligned(g),
+                                                      *ap[:5], *fl)):
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            call()
+    out = at.fused_attention_block(x, *ap, *fl)
+    grads = at.fused_attention_block_bwd(x, g, *ap[:5], *fl)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert all(torch.isfinite(t.float()).all() for t in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("use_ln", [False, True])
+def test_attention_block_runs_only_the_engine_and_the_tensor_core_core(
+        cuda, backward, use_ln):
+    """A call's profile holds the GEMM engine and the tensor-core core,
+    beside them only the LayerNorm rows, the column sums and the zero
+    LayerNorm gradients, with as many records as the chain launches: no
+    WMMA GEMM, no CUDA-core attention kernel."""
+    import chip_smoke
+
+    x, ap, _, H = _block_inputs(cuda, B=2)
+    g = _grad_out(cuda, x.shape)
+    fl = (H, 0.125, "temporal", use_ln, False)
+    if backward:
+        call = lambda: at.fused_attention_block_bwd(x, g, *ap[:5], *fl)
+    else:
+        call = lambda: at.fused_attention_block(x, *ap, *fl)
+    ms, rows = chip_smoke.device_profile(
+        call, chip_smoke.block_records("attention", backward, use_ln),
+        calls=2)
+    assert ms is not None, rows
+    assert not chip_smoke.block_profile_faults("attention", backward,
+                                               rows), rows
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_ln,residual", FLAGS)
 @pytest.mark.parametrize("C,hidden,shape", [(512, 1024, (2, 81, 17)),
