@@ -38,18 +38,26 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      ms per step, clips/s, peak memory, and one step under torch.profiler.
   9. driver: train_with_config on the synthetic smoke set at the flagship
      widths, 2 epochs with evaluation, then a resumed third epoch.
- 10. q8 kernels: the W8A8 pair (plain and gated, temporal and spatial) at the
-     phase-3 shape against its plain version (a max-based bar and a
-     relative-L2 bar that a moved rounding point fails), twice for bitwise
-     equality,
-     with its time, bound, the plain version's time, a library yardstick
-     (torch._int_mm products, PyTorch's own operators for the rest), the
-     bf16 pair's time from the same run (one call at a time, and enqueued
-     back to back), and the cost of quant_cols.
+ 10. q8 kernels: first the s8 engine alone (csrc/hopper_gemm_s8.cuh) at
+     the W8A8 pair's four products on the phase-3 rows and at ragged
+     shapes, against its plain twin (bit for bit but the fp32 GELU), twice
+     for bitwise equality, with its device time and TOP/s; then the W8A8
+     pair (plain and gated, temporal and spatial) at the phase-3 shape
+     against its plain version (a max-based bar and a relative-L2 bar that
+     a moved rounding point fails), twice for bitwise equality, with its
+     time (one call, back to back, and the device's own, split into the
+     chain's kernels and quant_cols's PyTorch operators), bound, the plain
+     version's time, a library yardstick (torch._int_mm products,
+     PyTorch's own operators for the rest) with its device time, the bf16
+     pair's time from the same run, and the cost of quant_cols; a call's
+     profile must hold the quantisers, the s8 engine and the tensor-core
+     core once a launch and no kernel of the first design.
  11. q8 main path: MotionBERT.from_config with attn_impl="kernel_q8" and the
      anchor; a flip-TTA lift and a representation through the int8 kernels;
      launch counts; relative L2 error against the fp32 plain path beside
-     the bf16 tier's; clips/s of both tiers; one q8 lift under the profiler.
+     the bf16 tier's; clips/s of both tiers; one q8 lift under the profiler,
+     which must hold the s8 engine and the tensor-core core and no kernel
+     of the first design.
  12. task gate: the H36M protocol on the synthetic smoke set with the anchor,
      for fp32 plain, bf16 kernels and q8 kernels; the q8 tier's MPJPE drift
      must stay within max(1 mm, 1 %) of the fp32 value.
@@ -68,7 +76,7 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      forward and backward, at groups of 1, 5, 16, 17, 100 and 243 rows,
      head dim 64 and 32, temporal and spatial, against the plain core (the
      max-based and the relative-L2 bar), twice for bitwise equality, and
-     its device time at the phase-3 shape beside the CUDA-core forward's;
+     its device time at the phase-3 shape;
      then the standalone attention block (B4, temporal and spatial, every
      (use_ln, residual) pair) and MLP block (B6, the flags the model uses
      and both on) at the phase-3 shape against their plain versions (the
@@ -90,12 +98,15 @@ Phases, each of which passes or ends the run with a non-zero exit code:
  19. pretraining: augment2d on a CUDA batch, then train_with_config on the
      synthetic pretraining set at the flagship widths through the kernels: a
      3D epoch, 2D epochs joining at epoch 1, a resumed third epoch.
- 20. attention core (B8): st_attention, temporal and spatial, at the phase-3
-     shape against its plain version (the max-based bar and a relative-L2
-     bar), twice for bitwise equality, with times (one call, and back to
-     back), bound, the plain version's time and a library yardstick
-     (scaled_dot_product_attention on permuted copies); the StAttention
-     backward against the fp32 plain backward, per tensor.
+ 20. attention core (B8): st_attention, temporal and spatial, at F 1, 27
+     and the phase-3 shape against its plain version (the max-based bar and
+     a relative-L2 bar), twice for bitwise equality, and on slices of a
+     packed projection equal to the contiguous call; at the phase-3 shape
+     with times (one call, back to back, and device), bound, the plain
+     version's time and a library yardstick (scaled_dot_product_attention
+     on permuted copies) with its device time; a call's profile must be one
+     tensor-core core launch; the StAttention backward against the fp32
+     plain backward, per tensor.
  21. legacy attention modes at the flagship width (C 512, 8 heads, hidden
      1024): vanilla, series, parallel, coupling (batch 2), spatial, temporal
      and Block(stage_para, att_fuse=True) on a seeded (4, 243, 17, 512)
@@ -122,7 +133,9 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      (B1 -> B1 / B2, B9 -> B9), with times (one call, back to back, and
      device), the chain's times in the same run, bound, the plain version's
      time and a library yardstick (each pair's PyTorch operators, twice)
-     with its device time.
+     with its device time; a W8A8 call's profile must hold both chains'
+     launches of the s8 engine, the tensor-core core and the quantisers
+     and no kernel of the first design.
  25. stream main path: the anchor's (8, 243) flip-TTA lift and
      representation through attn_impl "kernel_stream" and "kernel_stream_q8",
      bit for bit equal to "kernel" and "kernel_q8", with launch counts and
@@ -161,16 +174,21 @@ and 8; 1, 2 and 10-15; 1, 2 and 16-19; 1, 2 and 20-23; or 1, 2 and 24-27
 
 also builds the pair, W8A8 pair, block, pair backward, attention core and
 stream sources of the checkout at ROOT (the parent's, unpacked with git
-archive) after phase 2: holds this checkout's pairs (B1, B2, W8A8), streams
-(B10, both tiers), pair backward (B3), MLP blocks (B6, B7) and attention
-core (B8) against that build, bit for bit; holds this build's attention
-blocks (B4, B5, every flag pair), bf16 pairs and bf16 streams to their
-plain versions' bars and times both builds' in turns (other, this, this,
-other) at the phase-16/17, phase-3 and phase-24 inputs, the device time by
-kernel beside; runs phase 8's train steps and phase 18's drop-path steps
-in turns with the other build's pair or block library swapped in, then
-profiles one step of each; and times phase 4's lift in turns the same
-way. The in-turn times join the kernels line.
+archive) after phase 2: holds this checkout's bf16 pairs (B1, B2), bf16
+streams, pair backward (B3) and MLP blocks (B6, B7) against that build,
+bit for bit, and the s8 engine against that checkout's first-design int8
+GEMM (gemm_q8_kernel, where it has one, built behind a C entry generated
+here) on the same int8 operands at the W8A8 pair's four products, bit for
+bit, with both device times in turns; holds this build's attention blocks
+(B4, B5, every flag pair), bf16 pairs, W8A8 pairs (B9), streams (B10,
+both tiers) and attention core (B8) to their plain versions' bars and
+times both builds' in turns (other, this, this, other) at the
+phase-16/17, phase-10, phase-3, phase-24 and phase-20 inputs, the device
+time by kernel beside; runs phase 8's train steps and phase 18's
+drop-path steps in turns with the other build's pair or block library
+swapped in, then profiles one step of each; and times phase 4's lift and
+phase 11's W8A8 lift in turns the same way. The in-turn times join the
+kernels line.
 
 Imports nothing of JAX or of the JAX package motionbert_tpu.
 """
@@ -505,6 +523,20 @@ def stream_records(gated: bool, q8_tier: bool):
     return None if q8_tier else 2 * pair_records(False) + int(gated)
 
 
+def pair_q8_records(gated: bool) -> int:
+    """Device records of one W8A8 pair call's chain, from
+    csrc/pair_q8_common.cuh's q8_pair_chain: two LayerNorm quantisers, two
+    row quantisers, four products on the s8 engine and the tensor-core
+    core; the gated pair adds the gate. quant_cols's PyTorch operators run
+    beside them in the wrapper (q8_profile_split)."""
+    return 9 + int(gated)
+
+
+def stream_q8_records(gated: bool) -> int:
+    """Device records of one W8A8 stream call's chains and gate."""
+    return 2 * pair_q8_records(False) + int(gated)
+
+
 # kernel-name fragments a bf16 pair call must launch, and those of the
 # first design it must not (retired_kernels)
 PAIR_KERNELS = ("hg_gemm_kernel", "attn_tc_fwd_kernel", "ln_fwd_rows_kernel")
@@ -663,8 +695,8 @@ def phase_main_path(fp, records: list):
 
 
 # kernel-name fragments of the port's own kernels, for the profile's groups
-PROFILE_GROUPS = ("hg_gemm_kernel", "attn_tc_fwd_kernel", "attn_tc_bwd_kernel",
-                  "gemm_q8_kernel", "ln_quant_rows_kernel",
+PROFILE_GROUPS = ("hg_gemm_kernel", "hg_gemm_s8_kernel", "attn_tc_fwd_kernel",
+                  "attn_tc_bwd_kernel", "gemm_q8_kernel", "ln_quant_rows_kernel",
                   "quant_rows_kernel", "attention_bwd_kernel",
                   "attention_kernel", "gate_bwd_rows_kernel", "gate_kernel",
                   "gemm_kernel", "colsum_kernel", "reduce_splits_kernel",
@@ -708,6 +740,7 @@ def phase_profile(mb, x, tag: str = "profile"):
     log(f"{tag}: by group: " + json.dumps(
         {k: round(v, 3) for k, v in sorted(groups.items(),
                                             key=lambda kv: -kv[1])}))
+    return rows
 
 
 def phase_serving(mb=None, n_requests: int = 20, tag: str = "serving",
@@ -819,6 +852,104 @@ def pair_q8_library(p: dict, gated: bool, scale: float, mode: str):
     return out
 
 
+# kernel-name fragments of the W8A8 chain (q8_pair_chain and the gate): a
+# W8A8 call's other device records are quant_cols's PyTorch operators
+# ("quant_rows_kernel" also names the LayerNorm quantiser)
+Q8_CHAIN_KERNELS = ("hg_gemm_s8_kernel", "attn_tc_fwd_kernel",
+                    "quant_rows_kernel", "gate_kernel")
+
+
+def q8_profile_split(by: dict) -> dict:
+    """A W8A8 call's device ms by kernel (by_kernel) split into
+    quant_cols's PyTorch operators (at::) and the chain: the port's own
+    kernels, this build's or another's."""
+    quant_cols = sum(ms for k, ms in by.items() if k.startswith("at::"))
+    return dict(chain_device_ms=sum(by.values()) - quant_cols,
+                quant_cols_device_ms=quant_cols)
+
+
+def q8_profile_faults(rows, calls: int, records: int, gated: bool) -> list:
+    """What a W8A8 pair or stream call's profile must not show: a chain
+    kernel missing (the s8 engine, the tensor-core core, the quantisers,
+    the gate when gated), a chain record count other than `records` a call,
+    or a retired kernel."""
+    needed = Q8_CHAIN_KERNELS[:3] + (("gate_kernel",) if gated else ())
+    faults = [f"no {k}" for k in needed
+              if not any(k in key for key, _, _ in rows)]
+    got = sum(n for key, _, n in rows
+              if any(k in key for k in Q8_CHAIN_KERNELS)) / calls
+    if got != records:
+        faults.append(f"{got} chain records a call, expected {records}")
+    return faults + [f"retired {k}" for k in retired_kernels(rows)]
+
+
+# the s8 engine alone at the W8A8 pair's products (phase-3 rows): (epi,
+# N, K) of qkv, proj, fc1 and fc2, then ragged shapes
+Q8_ENGINE_SHAPES = (("bias", 3 * C, C), ("bias_res", C, C),
+                    ("bias_gelu_f32", HIDDEN, C), ("bias_res", C, HIDDEN))
+# fp32 GELU of the same sum, this card's erff against PyTorch's erf kernel
+Q8_ENGINE_GELU_TOL = 1e-6
+
+
+def q8_engine_operands(epi: str, M: int, N: int, K: int, seed: int) -> list:
+    """a8, ascale, w8, wscale, bias and (bias_res) r on the card from a
+    seeded numpy RNG, the scales of the sizes the quantisers give."""
+    rs = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    a8 = rs.randint(-127, 128, size=(M, K)).astype(np.int8)
+    w8 = rs.randint(-127, 128, size=(N, K)).astype(np.int8)
+    out = [torch.from_numpy(a).to(dev) for a in (
+        a8, rs.uniform(1e-3, 1e-1, M).astype(np.float32), w8,
+        rs.uniform(1e-4, 1e-2, N).astype(np.float32))]
+    out.append(torch.from_numpy(rs.normal(size=N).astype(np.float32)).to(
+        device=dev, dtype=torch.bfloat16))
+    out.append(torch.from_numpy(rs.normal(size=(M, N)).astype(np.float32))
+               .to(device=dev, dtype=torch.bfloat16)
+               if epi == "bias_res" else None)
+    return out
+
+
+def phase_q8_engine(q8) -> None:
+    """The s8 engine alone (csrc/hopper_gemm_s8.cuh, through
+    pair_q8.engine_gemm_q8) at the W8A8 pair's four products on the phase-3
+    token rows and at ragged shapes, against its plain twin on the same
+    card: bit for bit for bias and bias_res, Q8_ENGINE_GELU_TOL for the fp32
+    GELU; twice for bitwise repeatability; at the products' shapes one
+    call's time, the device time and TOP/s."""
+    M = B * FRAMES * J
+    cases = [(epi, (M, N, K), True) for epi, N, K in Q8_ENGINE_SHAPES]
+    cases += [(epi, shape, False) for epi in ("bias", "bias_res",
+                                              "bias_gelu_f32")
+              for shape in ((37, 64, 64), (M - 1, 192, 128))]
+    for epi, (m, n, k), timed_shape in cases:
+        args = q8_engine_operands(epi, m, n, k, seed=m + n + k)
+        got = q8.engine_gemm_q8(epi, *args)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got, q8.engine_gemm_q8(epi, *args))
+        want = q8.engine_gemm_q8_plain(epi, *args)
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not torch.isfinite(got).all():
+            fail(f"s8 engine {epi} {(m, n, k)}: shape, type or non-finite")
+        equal = torch.equal(got, want)
+        rec = dict(shape=[m, n, k], bitwise_repeatable=bitwise,
+                   equal_to_plain=equal, rel_err=rel_err(got, want)[1])
+        if timed_shape:
+            fn = lambda: q8.engine_gemm_q8(epi, *args)
+            ms, dev_ms = time_ms(fn), device_ms(fn, 1)
+            rec.update(ms=ms, device_ms=dev_ms, tops=None if dev_ms is None
+                       else 2 * m * n * k / (dev_ms * 1e-3) / 1e12)
+        log(f"s8 engine {epi}: " + json.dumps(rec))
+        exact = epi != "bias_gelu_f32"
+        if (exact and not equal) or rec["rel_err"] > Q8_ENGINE_GELU_TOL:
+            fail(f"s8 engine {epi} {(m, n, k)}: {rec['rel_err']:.3e} from "
+                 f"the plain twin (bit for bit: {exact})")
+        if not bitwise:
+            fail(f"s8 engine {epi} {(m, n, k)}: two runs gave different "
+                 f"bits")
+        del args, got, want
+    torch.cuda.empty_cache()
+
+
 def phase_q8_kernels(q8, fp) -> list:
     scale = (C // HEADS) ** -0.5
     dev = torch.device("cuda")
@@ -850,6 +981,13 @@ def phase_q8_kernels(q8, fp) -> list:
             t_ops, nbytes, int8_ops, bf16_flops = pair_q8_cost(mode, gated)
             t_bytes = nbytes / PEAK_HBM_BYTES
             weights = [p[k] for k in ("wqkv", "wproj", "w1", "w2")]
+            call = lambda: wrapper(*args, HEADS, scale, mode)
+            library = lambda: pair_q8_library(p, gated, scale, mode)
+            calls = 10
+            dev_ms, rows = device_profile(call, None, calls)
+            split = q8_profile_split(by_kernel(rows, calls))
+            faults = q8_profile_faults(rows, calls, pair_q8_records(gated),
+                                       gated)
             rec = dict(
                 max_abs_err=abs_err, rel_err=rel, tol=Q8_KERNEL_TOL,
                 rel_l2=l2, l2_tol=Q8_KERNEL_L2_TOL,
@@ -870,11 +1008,17 @@ def phase_q8_kernels(q8, fp) -> list:
                 library_ms=time_ms(
                     lambda: pair_q8_library(p, gated, scale, mode)),
                 library_rel_err=lib_rel,
+                library_device_ms=device_ms(library, None),
+                device_ms=dev_ms, chain_device_ms=split["chain_device_ms"],
+                quant_cols_device_ms=split["quant_cols_device_ms"],
+                device_by_kernel=by_kernel(rows, calls),
                 quant_cols_ms=time_ms(
                     lambda: [q8.quant_cols(w) for w in weights]),
                 int8_gop=int8_ops / 1e9, bf16_gflop=bf16_flops / 1e9,
                 mbytes=nbytes / 1e6)
             log(f"q8 kernel {name}/{mode}: " + json.dumps(rec))
+            if faults:
+                fail(f"{name}/{mode}: a call's profile: {faults}")
             if not (rel <= Q8_KERNEL_TOL and l2 <= Q8_KERNEL_L2_TOL):
                 fail(f"{name}/{mode}: max|d|/max|ref| {rel:.3e} (bar "
                      f"{Q8_KERNEL_TOL}), relative L2 {l2:.3e} (bar "
@@ -891,7 +1035,8 @@ def phase_q8_kernels(q8, fp) -> list:
             max_abs_err=max(m["max_abs_err"] for m in modes.values()),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], mode=main_mode,
+            library_ms=main["library_ms"], device_ms=main["device_ms"],
+            library_device_ms=main["library_device_ms"], mode=main_mode,
             shape=[B, FRAMES, J, C], modes=modes))
     torch.cuda.empty_cache()
     return records
@@ -1143,9 +1288,15 @@ def phase_straight_through(q8, fp):
 
 
 def phase_q8(q8, fp) -> list:
+    timed("s8 engine", phase_q8_engine, q8)
     records = phase_q8_kernels(q8, fp)
     mb8, mb16, x = phase_q8_main_path(q8, fp, records)
-    phase_profile(mb8, x, tag="q8 profile")
+    rows = phase_profile(mb8, x, tag="q8 profile")
+    faults = [k for k in Q8_CHAIN_KERNELS[:3]
+              if not any(k in key for key, _, _ in rows)]
+    if faults or retired_kernels(rows):
+        fail(f"q8 lift: the profile misses {faults} or runs "
+             f"{retired_kernels(rows)}")
     phase_task_gate(q8, fp)
     phase_wild(q8, fp, mb8, mb16)
     phase_straight_through(q8, fp)
@@ -1198,20 +1349,25 @@ def pair_bwd_records(gated: bool) -> int:
 
 
 # kernel-name fragments a pair backward call must launch (the engine, the
-# tensor-core core), and those it must not (the WMMA GEMM, the CUDA-core
-# attention kernels); "gemm_kernel" outside "hg_gemm_kernel" is the WMMA
-# GEMM's name
+# tensor-core core), and those of the first design no chain runs any more
+# (the CUDA-core attention kernels, the int8 mma.sync GEMM, and the WMMA
+# GEMM, whose name "gemm_kernel" follows no other letter: the engines'
+# hg_gemm_kernel and hg_gemm_s8_kernel never match it)
 PAIR_BWD_KERNELS = ("hg_gemm_kernel", "attn_tc_fwd_kernel",
                     "attn_tc_bwd_kernel")
-PAIR_BWD_RETIRED = ("attention_kernel", "attention_bwd_kernel")
+PAIR_BWD_RETIRED = ("attention_kernel", "attention_bwd_kernel",
+                    "gemm_q8_kernel")
+WMMA_GEMM = re.compile(r"(?<![A-Za-z0-9_])gemm_kernel")
 
 
 def retired_kernels(rows) -> list:
-    """The kernels of a profile that the bf16 chains (the pairs and the
-    blocks, forward and backward) no longer run."""
+    """The kernels of a profile that no chain runs any more: every chain
+    (the pairs, bf16 and W8A8, the blocks, forward and backward, the
+    streams and the attention core alone) runs the engines and the
+    tensor-core core."""
     return [key for key, _, _ in rows
             if any(k in key for k in PAIR_BWD_RETIRED)
-            or ("gemm_kernel" in key and "hg_gemm_kernel" not in key)]
+            or WMMA_GEMM.search(key)]
 
 
 def grad_errors(got, want) -> list:
@@ -1671,9 +1827,8 @@ def phase_core(fp, at) -> None:
     launch each) against the plain core at groups of CORE_SIZES rows, head
     dim 64 and 32, temporal and spatial: the max-based bar and the relative
     L2, twice for bitwise repeatability. Then at the phase-3 shape, D 64:
-    its device times beside the CUDA-core forward's in this run (the
-    CUDA-core backward is retired; --baseline profiles it in the other
-    build's B5)."""
+    its device times (the first design's CUDA-core kernels are retired;
+    --baseline profiles them in the other build's B5, B8 and B9)."""
     for mode in ("temporal", "spatial"):
         for heads in (HEADS, 2 * HEADS):
             scale = (C // heads) ** -0.5
@@ -1717,17 +1872,14 @@ def phase_core(fp, at) -> None:
         rec = dict(shape=[B, FRAMES, J, C], ms=time_ms(fwd),
                    device_ms=device_ms(fwd, 1), bwd_ms=time_ms(bwd),
                    bwd_device_ms=device_ms(bwd, 1),
-                   cuda_core_device_ms=device_ms(
-                       lambda: at.st_attention(q, k, v, mode, HEADS, scale),
-                       1),
                    gflop=flop / 1e9, bwd_gflop=2 * flop / 1e9)
         for key, f in (("tflops", "device_ms"), ("bwd_tflops", "bwd_device_ms")):
             ms = rec[f]
             rec[key] = None if ms is None else \
                 flop * (2 if key.startswith("bwd") else 1) / (ms * 1e-3) / 1e12
         log(f"core {mode} at the phase-3 shape: " + json.dumps(rec)
-            + "; the CUDA-core backward (attention_bwd_kernel) is retired: "
-            "--baseline profiles it in the other build's B5")
+            + "; the CUDA-core kernels are retired: --baseline profiles "
+            "them in the other build's B5, B8 and B9")
         del q, k, v, g
     torch.cuda.empty_cache()
 
@@ -2382,24 +2534,96 @@ def st_cost(mode: str) -> tuple:
     return 4 * groups * n * n * C, 4 * B * FRAMES * J * C * 2
 
 
+ST_FRAMES = (1, 27, FRAMES)
+
+
+def st_faults(out, again, ref, sliced, tag: str) -> tuple:
+    """(max-relative, relative L2) of a B8 output against its plain version;
+    fails on a wrong shape, a non-finite value, a bar missed, bits that do
+    not repeat, or a packed-slice call that differs from the contiguous
+    one."""
+    if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+        fail(f"st_attention/{tag}: shape {tuple(out.shape)} or non-finite")
+    rel, l2 = rel_err(out, ref)[1], rel_l2_t(out, ref)
+    if not (rel <= KERNEL_TOL and l2 <= ST_L2_TOL):
+        fail(f"st_attention/{tag}: max|d|/max|ref| {rel:.3e} (bar "
+             f"{KERNEL_TOL}), relative L2 {l2:.3e} (bar {ST_L2_TOL})")
+    if not torch.equal(out, again):
+        fail(f"st_attention/{tag}: two runs gave different bits")
+    if not torch.equal(out, sliced):
+        fail(f"st_attention/{tag}: slices of a packed qkv (row stride 3C) "
+             f"differ from the contiguous q, k, v")
+    return rel, l2
+
+
+def packed_call(at, q, k, v, mode: str, scale: float):
+    """st_attention on q, k, v as slices of one packed (B, F, J, 3C)
+    projection: row stride 3C, no copy."""
+    packed = torch.cat([q, k, v], -1)
+    Cx = q.shape[-1]
+    return at.st_attention(packed[..., :Cx], packed[..., Cx:2 * Cx],
+                           packed[..., 2 * Cx:], mode, HEADS, scale)
+
+
 def phase_st_attention(at) -> dict:
+    """B8 at F 1 and 27 (batch 4) and at the phase-3 shape, both modes,
+    against its plain version (the max-based and the relative-L2 bar), twice
+    for bitwise repeatability, and on slices of a packed projection equal to
+    the contiguous call; at the phase-3 shape with times (one call, back to
+    back, and device), bound, the plain version's time and the library
+    yardstick with its device time; a call's profile must hold the
+    tensor-core core alone. The StAttention backward against the fp32 plain
+    backward, per tensor."""
     scale = (C // HEADS) ** -0.5
     modes = {}
+    small = {}
+    for i, mode in enumerate(ST_MODES):
+        for frames in ST_FRAMES[:-1]:
+            rs = np.random.RandomState(70 + frames + i)
+            q, k, v = (torch.from_numpy(rs.normal(size=(B, frames, J, C))
+                                        .astype(np.float32)).to(
+                device="cuda", dtype=torch.bfloat16) for _ in range(3))
+            args = (q, k, v, mode, HEADS, scale)
+            small[f"{mode}/F{frames}"] = st_faults(
+                at.st_attention(*args), at.st_attention(*args),
+                at.st_attention_plain(*args),
+                packed_call(at, q, k, v, mode, scale), f"{mode}/F{frames}")
+            del q, k, v
+    log("st_attention: (max-relative, relative L2) at small F: "
+        + json.dumps(small))
     for i, mode in enumerate(ST_MODES):
         q, k, v = st_inputs(20 + i)
         args = (q, k, v, mode, HEADS, scale)
         out = at.st_attention(*args)
         torch.cuda.synchronize()
-        bitwise = torch.equal(out, at.st_attention(*args))
         ref = at.st_attention_plain(*args)
-        if out.shape != ref.shape or not torch.isfinite(out.float()).all():
-            fail(f"st_attention/{mode}: shape {tuple(out.shape)} or "
-                 f"non-finite")
-        abs_err, rel = rel_err(out, ref)
-        l2 = rel_l2_t(out, ref)
+        rel, l2 = st_faults(out, at.st_attention(*args), ref,
+                            packed_call(at, q, k, v, mode, scale),
+                            f"{mode}/F{FRAMES}")
+        abs_err = rel_err(out, ref)[0]
+        # the witness: kernel and plain version (both bf16) against the
+        # core in fp64; the kernel sums in another order than cuBLAS and
+        # PyTorch's softmax, so its distance from plain is no measure of
+        # its accuracy, this is
+        exact = at.st_attention_plain(q.double(), k.double(), v.double(),
+                                      mode, HEADS, scale)
+        witness = (rel_l2_t(out, exact), rel_l2_t(ref, exact))
+        del exact
+        if not witness[0] <= WITNESS_MARGIN * witness[1]:
+            fail(f"st_attention/{mode}: relative L2 {witness[0]:.3e} from "
+                 f"the fp64 core, over {WITNESS_MARGIN} times the plain "
+                 f"version's {witness[1]:.3e}")
         lib_rel = rel_err(st_library(q, k, v, mode, scale), ref)[1]
         flops, nbytes = st_cost(mode)
         t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+        library = lambda: st_library(q, k, v, mode, scale)
+        calls = 10
+        dev_ms, rows = device_profile(lambda: at.st_attention(*args), 1,
+                                      calls)
+        others = [key for key, _, _ in rows if "attn_tc_fwd_kernel" not in key]
+        if others or not rows:
+            fail(f"st_attention/{mode}: a call's profile is not one "
+                 f"tensor-core core launch: {[key[:80] for key, _, _ in rows]}")
         # the backward: the Function's (plain PyTorch, bf16) against the
         # fp32 plain backward, per tensor
         g = st_inputs(30 + i)[0]
@@ -2412,7 +2636,7 @@ def phase_st_attention(at) -> dict:
                    zip(("dq", "dk", "dv"), grads, want)}
         rec = dict(
             max_abs_err=abs_err, rel_err=rel, tol=KERNEL_TOL, rel_l2=l2,
-            l2_tol=ST_L2_TOL, bitwise_repeatable=bitwise,
+            l2_tol=ST_L2_TOL, bitwise_repeatable=True,
             ms=time_ms(lambda: at.st_attention(*args)),
             back_to_back_ms=time_ms_back_to_back(
                 lambda: at.st_attention(*args)),
@@ -2420,17 +2644,15 @@ def phase_st_attention(at) -> dict:
                              warmup=1),
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes > t_ops else "operations",
-            library_ms=time_ms(lambda: st_library(q, k, v, mode, scale)),
+            device_ms=dev_ms, device_by_kernel=by_kernel(rows, calls),
+            library_ms=time_ms(library),
+            library_device_ms=device_ms(library, None),
             library_rel_err=lib_rel, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+            rel_l2_vs_fp64=witness[0], plain_rel_l2_vs_fp64=witness[1],
             backward_rel_err_vs_fp32=bwd_rel,
             backward_plain_ms=time_ms(lambda: at.st_attention_bwd_plain(
                 q, k, v, g, mode, HEADS, scale), runs=5, warmup=1))
         log(f"st_attention/{mode}: " + json.dumps(rec))
-        if not (rel <= KERNEL_TOL and l2 <= ST_L2_TOL):
-            fail(f"st_attention/{mode}: max|d|/max|ref| {rel:.3e} (bar "
-                 f"{KERNEL_TOL}), relative L2 {l2:.3e} (bar {ST_L2_TOL})")
-        if not bitwise:
-            fail(f"st_attention/{mode}: two runs gave different bits")
         worst = max(bwd_rel.items(), key=lambda kv: kv[1])
         if not worst[1] <= KERNEL_TOL:
             fail(f"st_attention/{mode} backward: {worst[0]} {worst[1]:.3e} "
@@ -2447,6 +2669,8 @@ def phase_st_attention(at) -> dict:
         max_abs_err=max(m["max_abs_err"] for m in modes.values()),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
+        device_ms=main["device_ms"],
+        library_device_ms=main["library_device_ms"],
         mode="temporal", shape=[B, FRAMES, J, C], modes=modes)
 
 
@@ -3116,12 +3340,16 @@ def phase_stream_kernels(fp, q8, fs) -> list:
         library = lambda: stream_library(p1, p2, gated, scale, order,
                                          q8_tier)
         records_a_call = stream_records(gated, q8_tier)
+        calls = 10
+        dev_ms, rows = device_profile(call, records_a_call, calls)
+        faults = q8_profile_faults(rows, calls, stream_q8_records(gated),
+                                   gated) if q8_tier else []
         rec = dict(
             order="".join(order), max_abs_err=abs_err, rel_err=rel, tol=tol,
             rel_l2=l2, l2_tol=l2_tol, bitwise_repeatable=bitwise,
             bitwise_equal_to_pair_chain=equal_chain,
             ms=time_ms(call), back_to_back_ms=time_ms_back_to_back(call),
-            device_ms=device_ms(call, records_a_call),
+            device_ms=dev_ms, device_by_kernel=by_kernel(rows, calls),
             chain_ms=time_ms(chain),
             chain_back_to_back_ms=time_ms_back_to_back(chain),
             chain_device_ms=device_ms(chain, records_a_call),
@@ -3132,7 +3360,11 @@ def phase_stream_kernels(fp, q8, fs) -> list:
             library_ms=time_ms(library),
             library_device_ms=device_ms(library, None),
             library_rel_err=lib_rel, mbytes=nbytes / 1e6)
+        if q8_tier:
+            rec.update(q8_profile_split(rec["device_by_kernel"]))
         log(f"stream kernel {name}: " + json.dumps(rec))
+        if faults:
+            fail(f"{name}: a call's profile: {faults}")
         if not (rel <= tol and l2 <= l2_tol):
             fail(f"{name}: max|d|/max|ref| {rel:.3e} (bar {tol}), relative "
                  f"L2 {l2:.3e} (bar {l2_tol})")
@@ -3692,6 +3924,95 @@ def build_other(csrc: str, name: str, tmp: str):
     return ctypes.CDLL(so)
 
 
+# a C entry point for another checkout's first-design int8 GEMM
+# (launch_gemm_q8 in its csrc/pair_q8_common.cuh), which no library of that
+# checkout exports alone: --baseline holds the s8 engine to it bit for bit
+OTHER_Q8_GEMM = """
+#include "{header}"
+extern "C" int mbt_other_q8_gemm(int epi, const void* A, const void* as,
+                                 const void* W, const void* ws, const void* b,
+                                 const void* R, void* out, int M, int N,
+                                 int K, void* stream) {{
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (epi) {{
+#define OTHER_CASE(E) \\
+        case E: return (int)launch_gemm_q8<E>(A, as, W, ws, b, R, out, M, N, K, s);
+        OTHER_CASE(Q8_BIAS)
+        OTHER_CASE(Q8_BIAS_RES)
+        OTHER_CASE(Q8_BIAS_GELU_F32)
+        default: return (int)cudaErrorInvalidValue;
+    }}
+}}
+"""
+
+
+def build_other_q8_gemm(csrc: str, tmp: str):
+    """The other checkout's first-design int8 GEMM (gemm_q8_kernel through
+    its launch_gemm_q8) behind mbt_other_q8_gemm, built with this
+    checkout's nvcc flags into tmp and loaded; None when that checkout has
+    no such GEMM."""
+    import ctypes
+
+    from motionbert_tpu_torch.ops import _build
+
+    header = os.path.join(csrc, "pair_q8_common.cuh")
+    with open(header) as fh:
+        if "launch_gemm_q8" not in fh.read():
+            return None
+    src, so = (os.path.join(tmp, f"other_q8_gemm.{e}") for e in ("cu", "so"))
+    with open(src, "w") as fh:
+        fh.write(OTHER_Q8_GEMM.format(header=os.path.abspath(header)))
+    out = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"baseline: nvcc failed for the other int8 GEMM:\n"
+             f"{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(so)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.mbt_other_q8_gemm.argtypes = [i] + [vp] * 7 + [i] * 3 + [vp]
+    lib.mbt_other_q8_gemm.restype = i
+    return lib
+
+
+def baseline_q8_gemm(q8, other, results: dict) -> None:
+    """The s8 engine (this build's chain's products) against the other
+    build's int8 GEMM on the same int8 operands, at the W8A8 pair's four
+    products on the phase-3 rows and a ragged shape: bit for bit (into
+    results; int32 sums are exact in any order and both epilogues take the
+    same fp32 roundings), and each one's device time in turns."""
+    M = B * FRAMES * J
+    shapes = [(e, (M, n, k)) for e, n, k in Q8_ENGINE_SHAPES]
+    for epi, (m, n, k) in shapes + [(e, (37, 192, 128))
+                                    for e in q8.Q8_EPILOGUES]:
+        args = q8_engine_operands(epi, m, n, k, seed=m + n + k + 1)
+        a8, ascale, w8, wscale, bias, r = args
+
+        def theirs():
+            out = torch.empty((m, n), device="cuda", dtype=torch.float32
+                              if epi == "bias_gelu_f32" else torch.bfloat16)
+            rc = other.mbt_other_q8_gemm(
+                q8.Q8_EPILOGUES[epi], a8.data_ptr(), ascale.data_ptr(),
+                w8.data_ptr(), wscale.data_ptr(), bias.data_ptr(),
+                None if r is None else r.data_ptr(), out.data_ptr(), m, n, k,
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                fail(f"baseline: the other int8 GEMM failed with CUDA error "
+                     f"{rc}")
+            return out
+
+        ours = lambda: q8.engine_gemm_q8(epi, *args)
+        equal = torch.equal(ours(), theirs())
+        results[f"engine_gemm_q8/{epi}/{m}x{n}x{k}"] = equal
+        turns = [(w, device_ms(ours if w == "this" else theirs, 1))
+                 for w in ("other", "this", "this", "other")] \
+            if m == M else None
+        log(f"baseline: s8 engine {epi} {(m, n, k)} vs the other build's "
+            f"int8 GEMM on the same int8 operands: bitwise equal {equal}; "
+            f"device ms in turns {turns}")
+        del args, a8, ascale, w8, wscale, bias, r
+    torch.cuda.empty_cache()
+
+
 class swapped_library:
     """Within the block, the wrappers load `lib` for csrc/<name>.cu."""
 
@@ -3804,11 +4125,11 @@ def in_turns(call, records, lib_name: str, other) -> list:
 
 
 def baseline_pairs(fp, fs, other_pair, other_stream, results: dict) -> dict:
-    """B1 and B2 (both modes at the phase-3 inputs) and the bf16 B10 (both
+    """B1 and B2 (both modes at the phase-3 inputs) and B10 (all four
     variants at the phase-24 inputs) of this build held to their plain
-    versions' bars and to the other build's outputs bit for bit (into
-    results, with the W8A8 B10 variants'), and both builds timed in turns.
-    Returns {name/mode or name: turns}."""
+    versions' bars, the bf16 ones also to the other build's outputs bit for
+    bit (into results), and both builds timed in turns. Returns {name/mode
+    or name: turns}."""
     dev = torch.device("cuda")
     scale = (C // HEADS) ** -0.5
     fp._library()
@@ -3845,16 +4166,18 @@ def baseline_pairs(fp, fs, other_pair, other_stream, results: dict) -> dict:
         wrapper = getattr(fs, name)
         call = lambda: wrapper(*args, HEADS, scale, order)
         ours = call()
-        with swapped_library("stream_kernels", other_stream):
-            results[name] = torch.equal(ours, call())
-        if q8_tier:
-            del p1, p2, args, ours
-            continue
-        plain = getattr(fs, ("gated_" if gated else "") + "stream_block_plain")
+        if not q8_tier:     # the bf16 passes did not change
+            with swapped_library("stream_kernels", other_stream):
+                results[name] = torch.equal(ours, call())
+        plain = getattr(fs, ("gated_" if gated else "") + "stream_block"
+                        + ("_q8" if q8_tier else "") + "_plain")
         ref = plain(*args, HEADS, scale, order)
         errs = (rel_err(ours, ref)[1], rel_l2_t(ours, ref))
-        turns = in_turns(call, stream_records(gated, False), "stream_kernels",
-                         other_stream)
+        turns = in_turns(call, stream_records(gated, q8_tier),
+                         "stream_kernels", other_stream)
+        if q8_tier:
+            for turn in turns:
+                turn.update(q8_profile_split(turn["device_by_kernel"]))
         log(f"baseline: {name}: max|d|/max|plain| and relative L2 this "
             f"build {errs[0]:.3e} / {errs[1]:.3e}; in turns: "
             + json.dumps(turns))
@@ -3867,19 +4190,187 @@ def baseline_pairs(fp, fs, other_pair, other_stream, results: dict) -> dict:
     return out
 
 
-def baseline_st_attention(other_st, results: dict) -> None:
-    """B8 of this build against the other's, bit for bit, both modes at the
-    phase-20 shape."""
+def baseline_st_attention(other_st) -> dict:
+    """B8 of this build, both modes at the phase-20 shape, held to its
+    plain version's bars (the other build's errors logged beside) and timed
+    against the other build in turns. Returns {st_attention/mode: turns}."""
     from motionbert_tpu_torch.ops import attention as at
 
     scale = (C // HEADS) ** -0.5
     q, k, v = st_inputs(60)
+    out = {}
     for mode in ("temporal", "spatial"):
-        ours = at.st_attention(q, k, v, mode, HEADS, scale)
+        call = lambda: at.st_attention(q, k, v, mode, HEADS, scale)
+        ref = at.st_attention_plain(q, k, v, mode, HEADS, scale)
+        ours = call()
         with swapped_library("st_attention_kernels", other_st):
-            results[f"st_attention/{mode}"] = torch.equal(
-                ours, at.st_attention(q, k, v, mode, HEADS, scale))
+            theirs = call()
+        errs = {b: (rel_err(o, ref)[1], rel_l2_t(o, ref))
+                for b, o in (("this", ours), ("other", theirs))}
+        out[f"st_attention/{mode}"] = in_turns(call, 1, "st_attention_kernels",
+                                               other_st)
+        log(f"baseline: st_attention/{mode}: (max|d|/max|plain|, relative "
+            f"L2) {json.dumps(errs)}; in turns: "
+            + json.dumps(out[f"st_attention/{mode}"]))
+        if not (errs["this"][0] <= KERNEL_TOL and errs["this"][1] <= ST_L2_TOL):
+            fail(f"baseline: st_attention/{mode}: {errs['this']} over "
+                 f"({KERNEL_TOL}, {ST_L2_TOL})")
+        del ours, theirs, ref
     del q, k, v
+    return out
+
+
+def q8_models(attn_impls=("kernel_q8", "plain_q8")) -> tuple:
+    """tests/test_torch_cuda.py::test_model_q8_kernels_match_plain_q8's
+    models (a depth-2 model at the flagship width, one per attn_impl, in
+    the card's compute dtype but "plain" in fp32, the same weights) and its
+    input."""
+    from motionbert_tpu_torch.core.config import ConfigDict
+    from motionbert_tpu_torch.models.factory import load_backbone
+
+    cfg = ConfigDict(dim_feat=C, dim_rep=C, depth=2, num_heads=HEADS,
+                     mlp_ratio=HIDDEN // C, num_joints=J, maxlen=81)
+    models = []
+    for impl in attn_impls:
+        m = load_backbone(cfg, device="cuda", attn_impl=impl,
+                          dtype=torch.float32 if impl == "plain" else None)
+        if models:
+            m.load_state_dict(models[0].state_dict())
+        else:
+            m.init_weights(torch.Generator().manual_seed(0))
+        models.append(m)
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        -1, 1, (2, 81, J, 3)).astype(np.float32)).cuda()
+    return (*models, x)
+
+
+def q8_model_distance() -> tuple:
+    """test_model_q8_kernels_match_plain_q8's statistic: the depth-2 model's
+    representation through the W8A8 kernels against the plain q8 path in
+    bf16, and the plain q8 path against the fp32 full-precision one
+    (relative L2s)."""
+    model, plain, full, x = q8_models(("kernel_q8", "plain_q8", "plain"))
+    with torch.inference_mode():
+        out, want = model(x, return_rep=True), plain(x, return_rep=True)
+        ref = full(x, return_rep=True)
+    return rel_l2_t(out, want), rel_l2_t(out, ref), rel_l2_t(want, ref)
+
+
+def core_fp64(q, k, v, mode: str, num_heads: int, scale: float):
+    """The plain attention core's rounding points (P and the output rounded
+    to q's dtype) with everything between them in fp64: a core more
+    accurate than the plain one's fp32 sums, in no kernel's order."""
+    from motionbert_tpu_torch.ops.attention import from_groups, to_groups
+
+    qh, kh, vh = (to_groups(t, mode, num_heads).double() for t in (q, k, v))
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale,
+                      dim=-1).to(q.dtype)
+    return from_groups(torch.matmul(p.double(), vh).to(q.dtype), mode)
+
+
+@contextlib.contextmanager
+def plain_q8_core(core):
+    """Within the block the plain W8A8 pairs call `core` for their
+    attention core."""
+    from motionbert_tpu_torch.ops import pair_q8
+
+    saved = pair_q8.st_attention_plain
+    pair_q8.st_attention_plain = core
+    try:
+        yield
+    finally:
+        pair_q8.st_attention_plain = saved
+
+
+def q8_model_witnesses(other_st) -> dict:
+    """Where test_model_q8_kernels_match_plain_q8's distance comes from, on
+    its model and input. "core": the plain q8 path with nothing but its
+    attention core swapped, against the plain q8 path itself (relative L2
+    of the representation), for this build's B8 core, the other build's
+    and core_fp64. "calls": pair call by pair call (mode, gated), the
+    kernels' model against the plain one (cumulative) and one W8A8 kernel
+    call on the plain model's input against the plain call (single step:
+    relative L2 and the share of outputs that differ)."""
+    from motionbert_tpu_torch.models import dstformer
+    from motionbert_tpu_torch.ops import attention as at
+
+    model, plain, x = q8_models()
+
+    def other_core(*args):
+        with swapped_library("st_attention_kernels", other_st):
+            return at.st_attention(*args)
+
+    out = {"core": {}, "calls": []}
+    with torch.inference_mode():
+        want = plain(x, return_rep=True)
+        for tag, core in (("this", at.st_attention), ("other", other_core),
+                          ("fp64", core_fp64)):
+            with plain_q8_core(core):
+                out["core"][tag] = rel_l2_t(plain(x, return_rep=True), want)
+        calls = {"kernel_q8": [], "plain_q8": []}
+        saved = dict(dstformer.PAIR_IMPLS)
+
+        def recorder(fn, impl):
+            def call(*args):
+                y = fn(*args)
+                calls[impl].append((args, y))
+                return y
+            return call
+
+        try:
+            for impl in calls:
+                dstformer.PAIR_IMPLS[impl] = tuple(
+                    recorder(fn, impl) for fn in saved[impl])
+            model(x, return_rep=True)
+            plain(x, return_rep=True)
+        finally:
+            dstformer.PAIR_IMPLS.update(saved)
+        for (_, k_out), (args, p_out) in zip(calls["kernel_q8"],
+                                             calls["plain_q8"]):
+            gated = len(args) > 17
+            one = saved["kernel_q8"][int(gated)](*args)
+            out["calls"].append(
+                [args[-1], gated, rel_l2_t(k_out, p_out), rel_l2_t(one, p_out),
+                 (one != p_out).float().mean().item()])
+    return out
+
+
+def baseline_q8_pairs(q8, other_q8) -> dict:
+    """B9 of this build, both wrappers and modes at the phase-10 inputs,
+    held to its plain version's bars (the other build's errors logged
+    beside) and timed against the other build in turns. Returns
+    {name/mode: turns}."""
+    dev = torch.device("cuda")
+    scale = (C // HEADS) ** -0.5
+    q8._library()
+    out = {}
+    for wrapper, plain, gated in (
+            (q8.fused_pair_block_q8, q8.pair_block_q8_plain, False),
+            (q8.fused_gated_pair_block_q8, q8.gated_pair_block_q8_plain,
+             True)):
+        for mode in ("temporal", "spatial"):
+            p = pair_inputs(6 if mode == "temporal" else 7, gated, dev)
+            args = pair_args(p, gated)
+            call = lambda: wrapper(*args, HEADS, scale, mode)
+            ref = plain(*args, HEADS, scale, mode)
+            ours = call()
+            with swapped_library("pair_q8_kernels", other_q8):
+                theirs = call()
+            errs = {b: (rel_err(o, ref)[1], rel_l2_t(o, ref))
+                    for b, o in (("this", ours), ("other", theirs))}
+            tag = f"{wrapper.__name__}/{mode}"
+            out[tag] = in_turns(call, None, "pair_q8_kernels", other_q8)
+            for turn in out[tag]:
+                turn.update(q8_profile_split(turn["device_by_kernel"]))
+            log(f"baseline: {tag}: (max|d|/max|plain|, relative L2) "
+                f"{json.dumps(errs)}; in turns: " + json.dumps(out[tag]))
+            if not (errs["this"][0] <= Q8_KERNEL_TOL
+                    and errs["this"][1] <= Q8_KERNEL_L2_TOL):
+                fail(f"baseline: {tag}: {errs['this']} over "
+                     f"({Q8_KERNEL_TOL}, {Q8_KERNEL_L2_TOL})")
+            del p, args, ref, ours, theirs
+    torch.cuda.empty_cache()
+    return out
 
 
 def baseline_pair_bwd(fp, other_bwd, results: dict) -> None:
@@ -3955,49 +4446,53 @@ def baseline_steps(name: str, other, tag: str,
     torch.cuda.empty_cache()
 
 
-def baseline_lift(other_pair) -> None:
-    """Phase 4's flip-TTA lift of the anchor in turns (other, this, this,
-    other) with the other checkout's pair library swapped in: clips/s over
-    BASELINE_STEPS calls a turn."""
+def baseline_lift(other_pair, other_q8) -> None:
+    """Phase 4's flip-TTA lift of the anchor, and phase 11's in the W8A8
+    tier, in turns (other, this, this, other) with the other checkout's
+    pair or W8A8 pair library swapped in: clips/s over BASELINE_STEPS calls
+    a turn."""
     from motionbert_tpu_torch.api import MotionBERT
 
-    mb = MotionBERT.from_config(CONFIG, checkpoint=ANCHOR)
     x = seeded_motion(np.random.RandomState(0), LIFT_BATCH, FRAMES)
-    mb.lift(x)
-    turns = []
-    for which in ("other", "this", "this", "other"):
-        with (swapped_library("pair_kernels", other_pair)
-              if which == "other" else contextlib.nullcontext()):
-            mb.lift(x)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(BASELINE_STEPS):
+    for tag, attn_impl, name, other in (
+            ("lift", None, "pair_kernels", other_pair),
+            ("q8 lift", "kernel_q8", "pair_q8_kernels", other_q8)):
+        mb = MotionBERT.from_config(CONFIG, checkpoint=ANCHOR,
+                                    attn_impl=attn_impl)
+        mb.lift(x)
+        turns = []
+        for which in ("other", "this", "this", "other"):
+            with (swapped_library(name, other) if which == "other"
+                  else contextlib.nullcontext()):
                 mb.lift(x)
-            dt = (time.perf_counter() - t0) / BASELINE_STEPS
-            turns.append((which, LIFT_BATCH / dt))
-    log(f"baseline: lift ({LIFT_BATCH}, {FRAMES}) flip-TTA, "
-        f"{BASELINE_STEPS} calls a turn, clips/s in turns: "
-        + ", ".join(f"{w} {v:.2f}" for w, v in turns))
-    del mb
-    torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(BASELINE_STEPS):
+                    mb.lift(x)
+                dt = (time.perf_counter() - t0) / BASELINE_STEPS
+                turns.append((which, LIFT_BATCH / dt))
+        log(f"baseline: {tag} ({LIFT_BATCH}, {FRAMES}) flip-TTA, "
+            f"{BASELINE_STEPS} calls a turn, clips/s in turns: "
+            + ", ".join(f"{w} {v:.2f}" for w, v in turns))
+        del mb
+        torch.cuda.empty_cache()
 
 
 def phase_baseline(fp, q8, other_root: str) -> dict:
     """Build another checkout's pair, W8A8 pair, block, pair backward,
     attention core and stream sources (the parent's, say) with this one's
-    nvcc flags. Hold this checkout's W8A8 pairs, bf16 pairs (B1, B2),
-    streams (B10, both tiers), pair backward (B3), MLP blocks (B6, B7) and
-    attention core alone (B8) against that build bit for bit, through the
-    same wrappers; hold the attention blocks (B4, B5) and the bf16 pairs and
-    streams to their plain bars and time them against the other build in
-    turns; then the flagship train step, the drop-path step and the lift in
-    turns with the other build's pair or block library swapped in. Returns
-    the in-turn times by record and mode."""
+    nvcc flags. Hold this checkout's bf16 pairs (B1, B2), bf16 streams,
+    pair backward (B3) and MLP blocks (B6, B7) against that build bit for
+    bit, through the same wrappers; hold the attention blocks (B4, B5), the
+    bf16 pairs and streams, the W8A8 pairs (B9) and streams (B10) and the
+    attention core alone (B8) to their plain bars and time them against the
+    other build in turns; then the flagship train step, the drop-path step,
+    the lift and the W8A8 lift in turns with the other build's pair, block
+    or W8A8 pair library swapped in. Returns the in-turn times by record and
+    mode."""
     from motionbert_tpu_torch.ops import fused_stream as fs
 
     csrc = os.path.join(other_root, "motionbert_tpu_torch", "ops", "csrc")
-    scale = (C // HEADS) ** -0.5
-    dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
         from concurrent.futures import ThreadPoolExecutor
 
@@ -4007,20 +4502,26 @@ def phase_baseline(fp, q8, other_root: str) -> dict:
             libs = dict(zip(names, pool.map(
                 lambda name: build_other(csrc, name, tmp), names)))
         results = {}
-        q8._library()
-        for wrapper in (q8.fused_pair_block_q8, q8.fused_gated_pair_block_q8):
-            gated = "gated" in wrapper.__name__
-            for mode in ("temporal", "spatial"):
-                p = pair_inputs(50, gated, dev)
-                args = pair_args(p, gated)
-                ours = wrapper(*args, HEADS, scale, mode)
-                with swapped_library("pair_q8_kernels", libs["pair_q8_kernels"]):
-                    theirs = wrapper(*args, HEADS, scale, mode)
-                results[f"{wrapper.__name__}/{mode}"] = torch.equal(ours,
-                                                                    theirs)
-        turns = baseline_blocks(libs["block_kernels"], results)
+        other_gemm = build_other_q8_gemm(csrc, tmp)
+        if other_gemm is None:
+            log("baseline: the other checkout has no first-design int8 GEMM "
+                "(launch_gemm_q8) to hold the s8 engine against")
+        else:
+            baseline_q8_gemm(q8, other_gemm, results)
+        turns = baseline_q8_pairs(q8, libs["pair_q8_kernels"])
+        dist = {"this": q8_model_distance()}
+        with swapped_library("pair_q8_kernels", libs["pair_q8_kernels"]):
+            dist["other"] = q8_model_distance()
+        log("baseline: depth-2 W8A8 model, relative L2 of (kernels vs plain "
+            "q8, kernels vs fp32, plain q8 vs fp32): " + json.dumps(dist))
+        log("baseline: depth-2 W8A8 model, plain q8 with its attention core "
+            "swapped vs plain q8, and pair call by pair call (mode, gated, "
+            "kernels vs plain cumulative, one kernel call on the plain "
+            "input, share of its outputs that differ): " + json.dumps(
+                q8_model_witnesses(libs["st_attention_kernels"])))
+        turns.update(baseline_blocks(libs["block_kernels"], results))
         baseline_pair_bwd(fp, libs["pair_bwd_kernels"], results)
-        baseline_st_attention(libs["st_attention_kernels"], results)
+        turns.update(baseline_st_attention(libs["st_attention_kernels"]))
         turns.update(baseline_pairs(fp, fs, libs["pair_kernels"],
                                     libs["stream_kernels"], results))
         log(f"baseline ({other_root}): this checkout's outputs bitwise equal "
@@ -4030,7 +4531,7 @@ def phase_baseline(fp, q8, other_root: str) -> dict:
         baseline_steps("pair_kernels", libs["pair_kernels"], "train")
         baseline_steps("block_kernels", libs["block_kernels"], "drop-path",
                        DROP_PATH_RATE)
-        baseline_lift(libs["pair_kernels"])
+        baseline_lift(libs["pair_kernels"], libs["pair_q8_kernels"])
     return turns
 
 
@@ -4075,13 +4576,14 @@ def main() -> int:
                              "none of them prints the last line")
     parser.add_argument("--baseline", default=None, metavar="ROOT",
                         help="another checkout (the parent's, say): after the "
-                             "build, hold this checkout's pairs, streams, "
-                             "pair backward, MLP blocks and attention core "
-                             "against that checkout's build, bit for bit, "
-                             "hold its attention blocks, bf16 pairs and "
-                             "streams to their plain bars and time them, the "
-                             "train step, the drop-path step and the lift "
-                             "in turns with that build's")
+                             "build, hold this checkout's bf16 pairs and "
+                             "streams, pair backward and MLP blocks against "
+                             "that checkout's build, bit for bit, hold its "
+                             "attention blocks, pairs, W8A8 pairs, streams "
+                             "and attention core to their plain bars and "
+                             "time them, the train step, the drop-path step, "
+                             "the lift and the W8A8 lift in turns with that "
+                             "build's")
     opts = parser.parse_args()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -4107,8 +4609,10 @@ def main() -> int:
         for line in text.splitlines():
             if "Function properties for" in line:
                 found = re.search(r"(hg_gemm_kernel|attn_tc_fwd_kernel|"
-                                  r"attn_tc_bwd_kernel)ILi(\d+)ELi(\d+)E", line)
-                kernel = f"{found[1]}<{found[2]}, {found[3]}>: " if found else ""
+                                  r"attn_tc_bwd_kernel|hg_gemm_s8_kernel)"
+                                  r"ILi(\d+)E(?:Li(\d+)E)?", line)
+                kernel = "" if not found else f"{found[1]}<{found[2]}" + (
+                    f", {found[3]}>: " if found[3] else ">: ")
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"build: {name}: {kernel}{line.strip()}")
 

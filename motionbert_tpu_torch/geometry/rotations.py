@@ -169,7 +169,8 @@ def rectify_pose(pose) -> np.ndarray:
     rotation by pi about x, which turns an upside-down body upright
     (reference utils_mesh.py:441-456); numpy in, numpy out."""
     pose = np.array(pose, copy=True)
-    R_mod = batch_rodrigues(torch.tensor([[np.pi, 0.0, 0.0]]))[0]
+    R_mod = batch_rodrigues(torch.tensor([[np.pi, 0.0, 0.0]],
+                                         dtype=torch.float32))[0]
     R_root = batch_rodrigues(torch.as_tensor(pose[None, :3],
                                              dtype=torch.float32))[0]
     pose[:3] = rotmat_to_angle_axis((R_root @ R_mod)[None])[0].numpy()

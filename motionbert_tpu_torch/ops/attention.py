@@ -5,14 +5,14 @@ standalone attention block (B4, B5).
 frame ("spatial") or the F frames of a joint ("temporal") of separate q, k, v
 (B, F, J, C), differentiable (``StAttention``): the legacy attention modes
 run it between their projections. On a CUDA tensor it launches the kernel in
-``csrc/st_attention_kernels.cu`` (the W8A8 chain's attention core on three
-row-strided pointers) or raises; on a CPU tensor it runs
-``st_attention_plain``. Its backward is plain PyTorch
+``csrc/st_attention_kernels.cu`` (the chains' tensor-core core,
+``csrc/attention_tc.cuh``, on three row-strided pointers) or raises; on a
+CPU tensor it runs ``st_attention_plain``. Its backward is plain PyTorch
 (``st_attention_bwd_plain``), as the JAX package's is XLA. It counts its
 launches in ``st_attention.launches``. The kernel replaces
 ``motionbert_tpu/ops/attention.py:_temporal_pallas`` and ``_spatial_pallas``;
-it moves four (B, F, J, C) bf16 tensors and is bound by bytes on the H100,
-and computes on CUDA cores (see the note at the top of the ``.cu``).
+it moves four (B, F, J, C) bf16 tensors and is bound by bytes on the H100
+(see the note at the top of the ``.cu``).
 ``coupled_attention`` (all F*J tokens of a clip) stays plain PyTorch, as XLA
 computes it in the JAX package.
 
@@ -67,10 +67,6 @@ LN_EPS = 1e-6
 MAX_FRAMES = 243   # one temporal group's K and V stay in shared memory
 NUM_JOINTS = 17
 HEAD_DIMS = (32, 64)
-# the int8 GEMM's grid y extent times its 64-row tile: the token rows the
-# W8A8 pair chain (B9) takes; the attention core alone (B8) keeps the same
-# limit
-MAX_ROWS = 65535 * 64
 # the tensor-core core numbers its (group, head) items with 32-bit ints: at
 # most B*F*J * heads of them (a temporal group of one frame)
 CORE_MAX_ITEMS = 2 ** 31 - 1
@@ -300,8 +296,9 @@ def check_aligned(name: str, t: torch.Tensor) -> None:
 
 
 def core_max_rows(num_heads: int) -> int:
-    """Token rows (B*F*J) a chain of the engine and the tensor-core core
-    takes: the core's item count binds before ENGINE_MAX_ROWS does."""
+    """Token rows (B*F*J) a chain of the engine (bf16 or s8) and the
+    tensor-core core takes, and the core alone (B8): the core's item count
+    binds before ENGINE_MAX_ROWS does."""
     return CORE_MAX_ITEMS // num_heads
 
 
@@ -568,9 +565,12 @@ def coupled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def check_st_attention_args(q, k, v, num_heads: int, mode: str) -> int:
-    """Raise ValueError on anything the CUDA attention core does not take;
-    return the common row stride of q, k and v (C for contiguous tensors, 3C
-    for the slices of a packed qkv projection)."""
+    """Raise ValueError on anything the CUDA attention core (the tensor-core
+    core, csrc/attention_tc.cuh) does not take; return the common row stride
+    of q, k and v (C for contiguous tensors, 3C for the slices of a packed
+    qkv projection). The core copies 16-byte chunks, so each tensor sits at
+    a 16-byte-aligned address with a row stride of a multiple of 8, and it
+    numbers its (group, head) items with 32-bit ints (``core_max_rows``)."""
     if mode not in ("spatial", "temporal"):
         raise ValueError(f"unknown attention mode: {mode!r}")
     if q.dim() != 4:
@@ -582,13 +582,14 @@ def check_st_attention_args(q, k, v, num_heads: int, mode: str) -> int:
     if not 1 <= F <= MAX_FRAMES:
         raise ValueError(f"the attention kernel takes 1..{MAX_FRAMES} frames, "
                          f"got {F}")
-    if not 1 <= B * F * J <= MAX_ROWS:
-        raise ValueError(f"the attention kernel takes 1..{MAX_ROWS} token "
-                         f"rows (B*F*J), got {B * F * J}")
     if C % 64 or num_heads < 1 or C % num_heads \
             or C // num_heads not in HEAD_DIMS:
         raise ValueError(f"the attention kernel takes C % 64 == 0 and head "
                          f"dim in {HEAD_DIMS}, got C={C}, heads={num_heads}")
+    limit = core_max_rows(num_heads)
+    if not 1 <= B * F * J <= limit:
+        raise ValueError(f"the attention kernel takes 1..{limit} token rows "
+                         f"(B*F*J) at {num_heads} heads, got {B * F * J}")
     ld = q.stride(2)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if tuple(t.shape) != (B, F, J, C):
@@ -602,10 +603,14 @@ def check_st_attention_args(q, k, v, num_heads: int, mode: str) -> int:
         want = (F * J * ld, J * ld, ld, 1)
         if any(n > 1 and t.stride(i) != w
                for i, (n, w) in enumerate(zip(t.shape, want))) \
-                or ld < C or ld % 2 or t.data_ptr() % 4:
+                or ld < C or ld % 8:
             raise ValueError(f"{name}: the attention kernel takes token rows "
-                             f"of one common even row stride >= C (q's is "
-                             f"{ld}), got strides {t.stride()}")
+                             f"of one common row stride >= C and a multiple "
+                             f"of 8 (q's is {ld}), got strides {t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the tensor-core core copies 16-byte "
+                             f"chunks and needs a 16-byte-aligned address, "
+                             f"got one at offset {t.data_ptr() % 16}")
     return ld
 
 

@@ -1,18 +1,23 @@
 // The attention core on tensor cores, forward and backward, for NVIDIA
 // Hopper (sm_90a): bf16 operands and fp32 accumulation through
-// mma.sync.m16n8k16 fed by ldmatrix. The forward pairs (pair_chain.cuh) run
+// mma.sync.m16n8k16 fed by ldmatrix. The forward pairs (pair_chain.cuh), the
+// W8A8 pair (pair_q8_common.cuh), the attention block's forward
+// (block_kernels.cu) and the standalone core (st_attention_kernels.cu) run
 // the forward; the pair backward (pair_bwd_kernels.cu) and the attention
 // block's backward (block_kernels.cu) run both, the forward in their
-// recompute and the backward for dq, dk and dv; the attention block's
-// forward runs the forward. They replace the attention part of the TPU
-// kernels motionbert_tpu/ops/fused_pair.py:_pair_pallas, _pair_bwd_pallas
-// (_pair_bwd_body's per-head recompute of P and its attention backward) and
-// motionbert_tpu/ops/attention.py:_fused_block_pallas, _fused_block_bwd_pallas.
+// recompute and the backward for dq, dk and dv. They replace the attention
+// part of the TPU kernels motionbert_tpu/ops/fused_pair.py:_pair_pallas,
+// _pair_bwd_pallas (_pair_bwd_body's per-head recompute of P and its
+// attention backward), motionbert_tpu/ops/pair_q8.py:_q8_launch and
+// motionbert_tpu/ops/attention.py:_fused_block_pallas,
+// _fused_block_bwd_pallas, and the TPU cores _temporal_pallas and
+// _spatial_pallas whole.
 //
 // Rounding points, those of the JAX kernels' _pair_bwd_body
 // (motionbert_tpu/ops/fused_pair.py) and _fused_block_bwd_kernel
-// (motionbert_tpu/ops/attention.py), and of pair_common.cuh's
-// attention_kernel in the forward:
+// (motionbert_tpu/ops/attention.py), and in the forward those of the plain
+// core (ops/attention.py's st_attention_plain) and the TPU cores of B1 and
+// B8:
 //   S = (q . k) * scale in fp32; P = exp(S - rowmax) / rowsum in fp32
 //   (as exp(S - rowmax) times the row's fp32 reciprocal: one fp32 rounding
 //   apart, and far cheaper than a division per element);

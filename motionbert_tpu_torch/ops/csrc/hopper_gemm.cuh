@@ -45,6 +45,12 @@
 // tile, one block an SM) was measured beside this one and lost on the GELU'
 // epilogue: four warps could not keep up with it.
 //
+// The pipeline (hg_gemm_body) is a template on an MMA policy, which says
+// what a stage holds and which wgmma consumes it, and an epilogue functor:
+// HgBf16 and HgEpilogue here, under hg_gemm_kernel; the int8 policy and the
+// dequantising epilogue of hopper_gemm_s8.cuh, under hg_gemm_s8_kernel. One
+// launcher (hg_launch) puts either on the persistent grid.
+//
 // Everything is in an anonymous namespace, like the other headers: each .cu
 // that includes this file builds its own copy.
 
@@ -149,10 +155,31 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
+// The engine's MMA policies (this one and hopper_gemm_s8.cuh's HgS8): the
+// K a stage holds (BK elements, one 128-byte swizzled row of a K-major
+// tile), the accumulator's type, its register fence, and a stage's four
+// wgmmas from the A and B tiles' shared addresses. A bf16 k16 step advances
+// a K-major operand 32 bytes and an MN-major one 16 k-rows (2048 B).
+struct HgBf16 {
+    using Acc = float;
+    static constexpr int BK = HG_BK;
+    static __device__ __forceinline__ void fence(float (&d)[64]) { fence_acc(d); }
+    template <bool A_MN, bool B_MN>
+    static __device__ __forceinline__ void stage(float (&d)[64], uint32_t a, uint32_t b) {
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_m64n128k16<A_MN ? 1 : 0, B_MN ? 1 : 0>(
+                d, wgmma_desc(a + kk * (A_MN ? 2048 : 32), A_MN),
+                wgmma_desc(b + kk * (B_MN ? 2048 : 32), B_MN));
+    }
+};
+
 // The epilogue of four consecutive columns n..n+3 of one output row (o the
 // first's offset), as the Epilogue enum defines it: the bias and residual
 // added to the fp32 sum, GELU or GELU' applied to it in fp32, one rounding to
-// bf16 at the end; 8- and 16-byte loads and stores.
+// bf16 at the end; 8- and 16-byte loads (through the read-only path: the
+// operands reach the kernel in a functor, whose pointers carry no
+// __restrict__) and stores.
 template <int EPI>
 __device__ __forceinline__ void epilogue4(float (&v)[4], size_t o, int n,
                                           const bf16* __restrict__ bias,
@@ -165,7 +192,7 @@ __device__ __forceinline__ void epilogue4(float (&v)[4], size_t o, int n,
         return;
     }
     if (EPI == EPI_DGELU) {
-        const float4 z = *reinterpret_cast<const float4*>(Z + o);
+        const float4 z = __ldg(reinterpret_cast<const float4*>(Z + o));
         v[0] *= gelu_grad(z.x);
         v[1] *= gelu_grad(z.y);
         v[2] *= gelu_grad(z.z);
@@ -173,7 +200,7 @@ __device__ __forceinline__ void epilogue4(float (&v)[4], size_t o, int n,
     }
     if (EPI == EPI_BIAS || EPI == EPI_BIAS_RES || EPI == EPI_BIAS_GELU ||
         EPI == EPI_BIAS_GELU_Z) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(bias + n);
+        const uint2 raw = __ldg(reinterpret_cast<const uint2*>(bias + n));
         const float2 b01 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&raw.x));
         const float2 b23 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&raw.y));
         v[0] += b01.x;
@@ -182,7 +209,7 @@ __device__ __forceinline__ void epilogue4(float (&v)[4], size_t o, int n,
         v[3] += b23.y;
     }
     if (EPI == EPI_BIAS_RES || EPI == EPI_RES) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(R + o);
+        const uint2 raw = __ldg(reinterpret_cast<const uint2*>(R + o));
         const float2 r01 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&raw.x));
         const float2 r23 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&raw.y));
         v[0] += r01.x;
@@ -203,23 +230,40 @@ __device__ __forceinline__ void epilogue4(float (&v)[4], size_t o, int n,
     *reinterpret_cast<uint2*>(static_cast<bf16*>(out) + o) = packed;
 }
 
-// See the layouts above. rows x cols is the output's shape (M x N, or N x K
-// for TN) and k_len the reduction's length (K, or M for TN); TN reduces chunk
-// z over [z * split, z * split + split). A block takes tiles blockIdx.x,
-// blockIdx.x + gridDim.x, ... of the tiles_x * tiles_y * chunks tiles
-// (column tile fastest); the ring's stage and phase run on across its tiles.
-// bias (N) bf16, R (rows, cols) bf16 and Z (rows, cols) fp32 feed the
-// epilogues that name them; out_z takes EPI_BIAS_GELU_Z's fp32 z.
-template <int LAYOUT, int EPI>
-__global__ void __launch_bounds__(HG_THREADS, HG_MIN_BLOCKS)
-hg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
-               const __grid_constant__ CUtensorMap tma_b,
-               const bf16* __restrict__ bias, const bf16* __restrict__ R,
-               const float* __restrict__ Z, void* __restrict__ out,
-               float* __restrict__ out_z, int rows, int cols, int k_len, int split,
-               int tiles_x, int tiles_y, int n_tiles) {
+// The bf16 engine's epilogue functor: EPI's operands, and for EPI_PARTIAL
+// the elements of one TN chunk's fp32 partial tile (rows x cols).
+template <int EPI>
+struct HgEpilogue {
+    const bf16* bias;
+    const bf16* R;
+    const float* Z;
+    void* out;
+    float* out_z;
+    size_t chunk_elems;
+    __device__ __forceinline__ void operator()(float (&v)[4], int, int n, size_t o,
+                                               int chunk) const {
+        float* part = EPI == EPI_PARTIAL ? static_cast<float*>(out) + chunk * chunk_elems
+                                         : nullptr;
+        epilogue4<EPI>(v, o, n, bias, R, Z, out, out_z, part);
+    }
+};
+
+// The engine's pipeline, for any MMA policy and epilogue functor (see the
+// layouts above; int8 takes NT only). rows x cols is the output's shape (M x
+// N, or N x K for TN) and k_len the reduction's length (K, or M for TN); TN
+// reduces chunk z over [z * split, z * split + split). A block takes tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... of the tiles_x * tiles_y * chunks
+// tiles (column tile fastest); the ring's stage and phase run on across its
+// tiles. epi(v, m, n, offset, chunk) takes four consecutive columns of row m
+// below rows and cols.
+template <int LAYOUT, class MMA, class EPI>
+__device__ __forceinline__ void hg_gemm_body(const CUtensorMap& tma_a, const CUtensorMap& tma_b,
+                                             const EPI& epi, int rows, int cols, int k_len,
+                                             int split, int tiles_x, int tiles_y, int n_tiles) {
     constexpr bool A_MN = LAYOUT == TN;
     constexpr bool B_MN = LAYOUT != NT;
+    constexpr int BK = MMA::BK;
+    using Acc = typename MMA::Acc;
     extern __shared__ unsigned char hg_smem_raw[];
     unsigned char* smem = reinterpret_cast<unsigned char*>(
         (reinterpret_cast<uintptr_t>(hg_smem_raw) + 1023) & ~uintptr_t(1023));
@@ -248,7 +292,7 @@ hg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
             k_end = min(k_len, k_begin + split);
         }
         k0 = k_begin;
-        nk = k_end > k_begin ? (k_end - k_begin + HG_BK - 1) / HG_BK : 0;
+        nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
     };
 
     if (threadIdx.x >= HG_CONSUMER_THREADS) {
@@ -266,7 +310,7 @@ hg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                     mbar_wait(empty + 8 * s, ((step / HG_STAGES) & 1) ^ 1);
                     mbar_expect_tx(bar, HG_STAGE_BYTES);
                     const uint32_t a = tiles + s * HG_STAGE_BYTES, b = a + HG_A_BYTES;
-                    const int kk = k0 + k * HG_BK;
+                    const int kk = k0 + k * BK;
                     if (A_MN) {
                         tma_load(a, &tma_a, bar, r0, kk);
                         tma_load(a + HG_BOX_BYTES, &tma_a, bar, r0 + 64, kk);
@@ -290,35 +334,28 @@ hg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
         for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
             int r0, c0, k0, nk;
             tile_at(t, r0, c0, k0, nk);
-            float acc[64];
+            Acc acc[64];
 #pragma unroll
-            for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+            for (int i = 0; i < 64; ++i) acc[i] = 0;
             for (int k = 0; k < nk; ++k, ++step) {
                 const int s = step % HG_STAGES;
                 mbar_wait(full + 8 * s, (step / HG_STAGES) & 1);
                 // K-major A: 64 rows of 128 B; MN-major A: the cw-th 64-wide box
                 const uint32_t a = tiles + s * HG_STAGE_BYTES + cw * HG_BOX_BYTES;
                 const uint32_t b = tiles + s * HG_STAGE_BYTES + HG_A_BYTES;
-                fence_acc(acc);
+                MMA::fence(acc);
                 asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-                for (int kk = 0; kk < HG_BK / 16; ++kk) {
-                    const uint64_t da = wgmma_desc(a + kk * (A_MN ? 2048 : 32), A_MN);
-                    const uint64_t db = wgmma_desc(b + kk * (B_MN ? 2048 : 32), B_MN);
-                    wgmma_m64n128k16<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db);
-                }
+                MMA::template stage<A_MN, B_MN>(acc, a, b);
                 asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
                 asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-                fence_acc(acc);
+                MMA::fence(acc);
                 if (k > 0 && lane == 0) mbar_arrive(empty + 8 * ((step - 1) % HG_STAGES));
             }
             asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-            fence_acc(acc);
+            MMA::fence(acc);
             if (nk > 0 && lane == 0) mbar_arrive(empty + 8 * ((step - 1) % HG_STAGES));
 
-            float* part = nullptr;
-            if (EPI == EPI_PARTIAL)
-                part = static_cast<float*>(out) + (size_t)(t / (tiles_x * tiles_y)) * rows * cols;
+            const int chunk = t / (tiles_x * tiles_y);
             // lanes 2p and 2p+1 swap halves so that each holds four
             // consecutive columns of one row: the even lane row w*16 +
             // t/4, the odd one that row + 8
@@ -326,11 +363,11 @@ hg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
             const int m = r0 + cw * 64 + warp * 16 + (lane >> 2) + (upper ? 8 : 0);
 #pragma unroll
             for (int jn = 0; jn < HG_BN / 8; ++jn) {
-                const float s0 = upper ? acc[4 * jn] : acc[4 * jn + 2];
-                const float s1 = upper ? acc[4 * jn + 1] : acc[4 * jn + 3];
-                const float p0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-                const float p1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-                float v[4];
+                const Acc s0 = upper ? acc[4 * jn] : acc[4 * jn + 2];
+                const Acc s1 = upper ? acc[4 * jn + 1] : acc[4 * jn + 3];
+                const Acc p0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+                const Acc p1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+                Acc v[4];
                 if (upper) {
                     v[0] = p0; v[1] = p1; v[2] = acc[4 * jn + 2]; v[3] = acc[4 * jn + 3];
                 } else {
@@ -338,11 +375,23 @@ hg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                 }
                 const int n = c0 + jn * 8 + (lane & 2) * 2;
                 if (m >= rows || n >= cols) continue;
-                const size_t o = (size_t)m * cols + n;
-                epilogue4<EPI>(v, o, n, bias, R, Z, out, out_z, part);
+                epi(v, m, n, (size_t)m * cols + n, chunk);
             }
         }
     }
+}
+
+// The bf16 engine's kernel. The int8 engine's (hopper_gemm_s8.cuh) runs the
+// same body under its own name, so that a profile tells the two apart.
+template <int LAYOUT, int EPI>
+__global__ void __launch_bounds__(HG_THREADS, HG_MIN_BLOCKS)
+hg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
+               const __grid_constant__ CUtensorMap tma_b,
+               const __grid_constant__ HgEpilogue<EPI> epi,
+               int rows, int cols, int k_len, int split, int tiles_x, int tiles_y,
+               int n_tiles) {
+    hg_gemm_body<LAYOUT, HgBf16>(tma_a, tma_b, epi, rows, cols, k_len, split, tiles_x,
+                                 tiles_y, n_tiles);
 }
 
 // cuTensorMapEncodeTiled, a driver-API function, fetched through the runtime
@@ -369,19 +418,28 @@ TensorMapEncodeFn tensor_map_encoder() {
     return fn;
 }
 
-// Map of a row-major bf16 (outer, inner) tensor cut into boxes of 64 inner
-// elements (128 B, the swizzle's span) by box_outer rows.
-bool tensor_map_2d(CUtensorMap* map, const void* base, int inner, int outer, int box_outer) {
+// Map of a row-major (outer, inner) tensor of elem_bytes-wide elements cut
+// into boxes of 128 bytes along inner (the swizzle's span) by box_outer rows.
+// The encoder refuses a row stride that is not a multiple of 16 bytes.
+bool tensor_map_rows(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                     int elem_bytes, int inner, int outer, int box_outer) {
     const TensorMapEncodeFn encode = tensor_map_encoder();
     if (encode == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0) return false;
     const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-    const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(bf16)};
-    const cuuint32_t box[2] = {64u, (cuuint32_t)box_outer};
+    const cuuint64_t strides[1] = {(cuuint64_t)inner * elem_bytes};
+    const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_outer};
     const cuuint32_t elem_strides[2] = {1u, 1u};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                  strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+    return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Map of a row-major bf16 (outer, inner) tensor cut into boxes of 64 inner
+// elements by box_outer rows.
+bool tensor_map_2d(CUtensorMap* map, const void* base, int inner, int outer, int box_outer) {
+    return tensor_map_rows(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), inner,
+                           outer, box_outer);
 }
 
 // Token rows of one TN chunk: the split of M into HG_TN_SPLITS, rounded up to
@@ -396,6 +454,28 @@ int hg_resident_blocks(int dev) {
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
         return 0;
     return sms * HG_MIN_BLOCKS;
+}
+
+// Launches KERNEL, an instantiation of the engine, on the persistent grid:
+// min(n_tiles, the blocks the device holds at once) blocks of HG_THREADS
+// with HG_SMEM of shared memory, opted in once per kernel and device.
+template <auto KERNEL, class... Args>
+cudaError_t hg_launch(int n_tiles, cudaStream_t stream, Args... args) {
+    static std::atomic<unsigned long long> smem_set{0};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (!(smem_set.load() & bit)) {
+        err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   HG_SMEM);
+        if (err != cudaSuccess) return err;
+        smem_set.fetch_or(bit);
+    }
+    const int resident = hg_resident_blocks(dev);
+    if (resident == 0) return cudaErrorInvalidValue;
+    KERNEL<<<min(n_tiles, resident), HG_THREADS, HG_SMEM, stream>>>(args...);
+    return cudaGetLastError();
 }
 
 // The engine's launch: out = LAYOUT's product of A and W (M token rows, N
@@ -424,26 +504,11 @@ cudaError_t hg_gemm(const void* A, const void* W, const void* bias, const void* 
     if (!ok) return cudaErrorInvalidValue;
     const int tiles_x = (cols + HG_BN - 1) / HG_BN, tiles_y = (rows + HG_BM - 1) / HG_BM;
     const int n_tiles = tiles_x * tiles_y * chunks;
-    // the shared-memory opt-in, once per instantiation and device
-    static std::atomic<unsigned long long> smem_set{0};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    const unsigned long long bit = 1ull << (dev & 63);
-    if (!(smem_set.load() & bit)) {
-        err = cudaFuncSetAttribute(hg_gemm_kernel<LAYOUT, EPI>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, HG_SMEM);
-        if (err != cudaSuccess) return err;
-        smem_set.fetch_or(bit);
-    }
-    const int resident = hg_resident_blocks(dev);
-    if (resident == 0) return cudaErrorInvalidValue;
-    const int blocks = min(n_tiles, resident);
-    hg_gemm_kernel<LAYOUT, EPI><<<blocks, HG_THREADS, HG_SMEM, stream>>>(
-        ta, tb, static_cast<const bf16*>(bias), static_cast<const bf16*>(R),
-        static_cast<const float*>(Z), out, static_cast<float*>(out_z), rows, cols, k_len,
-        split, tiles_x, tiles_y, n_tiles);
-    return cudaGetLastError();
+    const HgEpilogue<EPI> epi{static_cast<const bf16*>(bias), static_cast<const bf16*>(R),
+                              static_cast<const float*>(Z), out, static_cast<float*>(out_z),
+                              (size_t)rows * cols};
+    return hg_launch<hg_gemm_kernel<LAYOUT, EPI>>(n_tiles, stream, ta, tb, epi, rows, cols,
+                                                  k_len, split, tiles_x, tiles_y, n_tiles);
 }
 
 // dW (rows, cols) bf16 = sum_m dY[m, :rows]^T A[m, :cols] on the engine:

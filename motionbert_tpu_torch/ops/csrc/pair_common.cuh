@@ -1,21 +1,16 @@
 // Shared device code of the DSTformer chains, bf16 with fp32 accumulation, for
 // NVIDIA Hopper (sm_90a): the constants, enums and helpers every chain uses
 // (the operand layouts and epilogues of hopper_gemm.cuh's engine, GELU,
-// rounding), the att_fuse gate, and the first design's CUDA-core attention
-// core, which the chains not yet redesigned still run:
+// rounding, a warp's sums), the token rows of an attention group
+// (attention_group, which attention_tc.cuh's core reads), and the att_fuse
+// gate of the gated pair (gate_kernel, a warp per token row).
 //
-// - attention_kernel<D>: softmax(q k^T * scale) v over one (group, head) per
-//   block, K and V of the group in shared memory, a warp per query row; q, k
-//   and v are three row-strided pointers, so the W8A8 chain's packed qkv and
-//   the standalone core's separate tensors (st_attention_kernels.cu) share
-//   it. Its users: the standalone core (B8) and the W8A8 pair chain
-//   (pair_q8_common.cuh, B9 and B10's W8A8 passes).
-// - gate_kernel: the att_fuse gate of the gated pair, a warp per token row.
-//
-// The bf16 chains (the pairs B1 and B2 and B10's bf16 passes in
-// pair_chain.cuh, the pair backward B3, the attention and MLP blocks B4-B7)
-// run every product on hopper_gemm.cuh's engine and their attention core on
-// attention_tc.cuh's tensor-core kernels instead.
+// Every chain runs its products on hopper_gemm.cuh's wgmma + TMA engine
+// (bf16) or on its int8 variant (hopper_gemm_s8.cuh, the W8A8 chain), and
+// its attention core on attention_tc.cuh's tensor-core kernels: the pairs B1
+// and B2 and B10's bf16 passes (pair_chain.cuh), the W8A8 pair B9 and B10's
+// W8A8 passes (pair_q8_common.cuh), the pair backward B3, the attention and
+// MLP blocks B4-B7, and the attention core alone B8.
 //
 // Everything is in an anonymous namespace: each .cu that includes this file
 // builds into its own shared library with its own copy.
@@ -31,7 +26,6 @@ namespace {
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
-constexpr int ATTN_THREADS = 256;
 constexpr int ROW_THREADS = 256;   // one warp per token row (the row passes)
 constexpr float LN_EPS = 1e-6f;
 
@@ -85,15 +79,9 @@ __device__ __forceinline__ float gelu_grad(float z) {
     return cdf + z * pdf;
 }
 
-// Attention core over one (group, head) per block. q, k and v are bf16 token
-// rows with row stride ld (elements), each split into H heads of D: the W8A8
-// pair chain passes one packed (M, 3C) qkv as (qkv, qkv + C, qkv + 2C, 3C),
-// the standalone core (st_attention_kernels.cu) three (M, C) tensors and
-// C. The group's N tokens sit at rows base + t * stride. K and V of the group
-// stay in shared memory (row stride D + 2 so lanes reading different keys hit
-// different banks); each warp owns one query row at a time: fp32 scores,
-// max-subtracted fp32 softmax, P rounded to bf16, fp32 P.V, bf16 output
-// (M, C).
+// The N token rows of attention group g: the F frames of joint g % J of
+// clip g / J ("temporal"), or the J joints of frame g ("spatial"), at rows
+// base + t * stride of the flattened (B*F*J) token rows.
 __device__ __forceinline__ void attention_group(int g, int F, int J, int temporal,
                                                 int* N, int* base, int* stride) {
     if (temporal) {
@@ -106,117 +94,6 @@ __device__ __forceinline__ void attention_group(int g, int F, int J, int tempora
         *base = g * J;
         *stride = 1;
     }
-}
-
-template <int D>
-__global__ void __launch_bounds__(ATTN_THREADS)
-attention_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
-                 const bf16* __restrict__ v_in, int ld, bf16* __restrict__ out,
-                 int F, int J, int C, float scale, int temporal) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    constexpr int LDK = D + 2;
-    const int h = blockIdx.y;
-    int N, base, stride;
-    attention_group(blockIdx.x, F, J, temporal, &N, &base, &stride);
-    const int nwarps = ATTN_THREADS / 32;
-    bf16* Ks = reinterpret_cast<bf16*>(smem);
-    bf16* Vs = Ks + N * LDK;
-    float* Ps = reinterpret_cast<float*>(Vs + N * LDK);
-
-    for (int idx = threadIdx.x; idx < N * (D / 2); idx += ATTN_THREADS) {
-        const int t = idx / (D / 2), c = (idx % (D / 2)) * 2;
-        const size_t r = (size_t)(base + t * stride) * ld + h * D + c;
-        *reinterpret_cast<bf162*>(Ks + t * LDK + c) =
-            *reinterpret_cast<const bf162*>(k_in + r);
-        *reinterpret_cast<bf162*>(Vs + t * LDK + c) =
-            *reinterpret_cast<const bf162*>(v_in + r);
-    }
-    __syncthreads();
-
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float* p = Ps + warp * N;
-    for (int i = warp; i < N; i += nwarps) {
-        const size_t qrow = (size_t)(base + i * stride);
-        const bf16* qp = q_in + qrow * ld + h * D;
-        float q[D];
-#pragma unroll
-        for (int c = 0; c < D; c += 2) {
-            const float2 v = load_bf162(qp + c);
-            q[c] = v.x;
-            q[c + 1] = v.y;
-        }
-        float mx = __int_as_float(0xff800000);  // -inf
-        for (int m = lane; m < N; m += 32) {
-            const bf16* kr = Ks + m * LDK;
-            float s = 0.f;
-#pragma unroll
-            for (int c = 0; c < D; c += 2) {
-                const float2 kv = load_bf162(kr + c);
-                s += q[c] * kv.x + q[c + 1] * kv.y;
-            }
-            s *= scale;
-            p[m] = s;
-            mx = fmaxf(mx, s);
-        }
-        mx = warp_max(mx);
-        float sum = 0.f;
-        for (int m = lane; m < N; m += 32) {
-            const float e = expf(p[m] - mx);
-            p[m] = e;
-            sum += e;
-        }
-        sum = warp_sum(sum);
-        for (int m = lane; m < N; m += 32) p[m] = round_bf16(p[m] / sum);
-        __syncwarp();
-        for (int c = lane * 2; c < D; c += 64) {
-            float a0 = 0.f, a1 = 0.f;
-            for (int m = 0; m < N; ++m) {
-                const float pm = p[m];
-                const float2 v = load_bf162(Vs + m * LDK + c);
-                a0 += pm * v.x;
-                a1 += pm * v.y;
-            }
-            *reinterpret_cast<bf162*>(out + qrow * C + h * D + c) = __floats2bfloat162_rn(a0, a1);
-        }
-        __syncwarp();
-    }
-}
-
-template <int D>
-cudaError_t launch_attention(const void* q, const void* k, const void* v, int ld,
-                             void* out, int B, int F, int J, int C, float scale,
-                             int temporal, cudaStream_t stream) {
-    const int N = temporal ? F : J;
-    const size_t smem = 2 * (size_t)N * (D + 2) * sizeof(bf16)
-                      + (size_t)(ATTN_THREADS / 32) * N * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(temporal ? B * J : B * F, C / D);
-    attention_kernel<D><<<grid, ATTN_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), ld, static_cast<bf16*>(out), F, J, C, scale,
-        temporal);
-    return cudaGetLastError();
-}
-
-// The attention core on separate q, k, v token rows of row stride ld.
-cudaError_t launch_st_attention_any(const void* q, const void* k, const void* v, int ld,
-                                    void* out, int B, int F, int J, int C, int H,
-                                    float scale, int temporal, cudaStream_t stream) {
-    const int D = C / H;
-    if (D == 64) return launch_attention<64>(q, k, v, ld, out, B, F, J, C, scale, temporal, stream);
-    if (D == 32) return launch_attention<32>(q, k, v, ld, out, B, F, J, C, scale, temporal, stream);
-    return cudaErrorInvalidValue;
-}
-
-// The attention core on one packed (M, 3C) qkv ([q | k | v] per row): the
-// W8A8 pair chain's.
-cudaError_t launch_attention_any(const void* qkv, void* out, int B, int F, int J, int C,
-                                 int H, float scale, int temporal, cudaStream_t stream) {
-    const bf16* q = static_cast<const bf16*>(qkv);
-    return launch_st_attention_any(q, q + C, q + 2 * C, 3 * C, out, B, F, J, C, H, scale,
-                                   temporal, stream);
 }
 
 constexpr int GATE_THREADS = 256;

@@ -19,42 +19,47 @@
 // needs the whole row's absolute maximum before any product of that row can
 // start, so quantisation gets passes of its own and the pair runs as a chain
 // of nine launches (ten when gated) over the flattened rows (M = B*F*J):
-//   1. ln_quant_rows        a8, s = q8(LN1(x))             a warp per row, LN in fp32
-//   2. gemm_q8<BIAS>        qkv  = bf16(deq + bqkv)
-//   3. attention<D>         attn = bf16(softmax(q k^T * scale) v)   (pair_common.cuh)
-//   4. quant_rows<bf16>     a8, s = q8(attn)
-//   5. gemm_q8<BIAS_RES>    yb   = bf16(deq + bproj + x)
-//   6. ln_quant_rows        a8, s = q8(LN2(yb))
-//   7. gemm_q8<BIAS_GELU>   act  = GELU(deq + b1), fp32, to device memory
-//   8. quant_rows<float>    a8, s = q8(act)
-//   9. gemm_q8<BIAS_RES>    out  = bf16(deq + b2 + yb)
-//  10. gate                 (gated only; pair_common.cuh)
-// gemm_q8 is an mma.sync m16n8k32 (s8 x s8 -> s32) product with 64x64 output
-// tiles and a 64-deep reduction step; int32 sums are exact, and the epilogue
-// dequantises as ((acc * row_scale) * col_scale) + bias in fp32, without fused
-// multiply-adds, the order the plain version takes. Nothing between launches
-// is rounded more than the TPU kernel rounds it: LN output goes straight into
+//   1. ln_quant_rows          a8, s = q8(LN1(x))             a warp per row, LN in fp32
+//   2. hg_gemm_s8<BIAS>       qkv  = bf16(deq + bqkv)
+//   3. attn_tc_fwd_kernel     attn = bf16(bf16(P) v)         (attention_tc.cuh)
+//   4. quant_rows<bf16>       a8, s = q8(attn)
+//   5. hg_gemm_s8<BIAS_RES>   yb   = bf16(deq + bproj + x)
+//   6. ln_quant_rows          a8, s = q8(LN2(yb))
+//   7. hg_gemm_s8<GELU_F32>   act  = GELU(deq + b1), fp32, to device memory
+//   8. quant_rows<float>      a8, s = q8(act)
+//   9. hg_gemm_s8<BIAS_RES>   out  = bf16(deq + b2 + yb)
+//  10. gate                   (gated only; pair_common.cuh)
+// hg_gemm_s8 (hopper_gemm_s8.cuh) is the wgmma + TMA engine of the bf16
+// chains with m64n128k32 s8 wgmmas and int32 accumulators; int32 sums are
+// exact, and the epilogue dequantises as ((acc * row_scale) * col_scale) +
+// bias in fp32, without fused multiply-adds, the order the plain version
+// takes. The core is the bf16 chains' tensor-core forward on the packed qkv
+// (tc_packed_args): fp32 scores, P = exp(S - max) times the row's fp32
+// reciprocal sum, rounded to bf16 before P.v. Nothing between launches is
+// rounded more than the TPU kernel rounds it: LN output goes straight into
 // the quantiser inside one kernel, GELU(z) is spilled in fp32, and qkv, attn
 // and yb are bf16 where the TPU kernel rounds them to bf16 as well. The
 // quantiser divides by the scale (a / s, then round half to even), as the TPU
 // kernel does. LN statistics and GELU use this card's rsqrtf / erff and their
-// own summation order, so a value that lies within an ulp of a rounding
-// boundary can land one int8 step from the plain version's: the two agree to
-// a tolerance, not bit for bit.
+// own summation order, the core's P is one fp32 rounding from the plain
+// version's division, so a value that lies within an ulp of a rounding
+// boundary can land one int8 or bf16 step from the plain version's: the two
+// agree to a tolerance, not bit for bit.
 //
 // Bound. At the flagship shape (4, 243, 17, 512), hidden 1024, the four
 // products are 69.3 GOP of the pair's 77.5 (temporal) or 69.9 (spatial); at
 // the H100's int8 peak (1,979 TOP/s) plus the core at the bf16 peak (989
 // TFLOP/s) that is about 0.043 ms temporal and 0.036 ms spatial, against
-// 0.011 ms for the 36 MB of x, out and weights: bound by operations. This
-// first design spends bytes to stay simple (a8, qkv, attn, yb and the fp32
-// activation all pass through device memory, ~17 KB per token row), its GEMM
-// has no cp.async or TMA pipeline and no wgmma, and the attention core is the
-// bf16 pair's fp32 CUDA-core one, so it sits far from that bound. Measured
-// times are in PERF.md (kernel B9).
+// 0.011 ms for the 36 MB of x, out and weights: bound by operations. The
+// chain passes a8, qkv, attn, yb and the fp32 activation through device
+// memory: ~27.7 KB read and written per token row, 0.136 ms at 3.35 TB/s at
+// that shape, so this design's own floor is bytes, about three times the
+// function's bound; fusing a quantiser into the epilogue before it (which
+// needs the whole row's maximum) or keeping the activation on chip is the
+// lever past it. Measured times are in PERF.md (kernel B9).
 //
-// The quantisers, the int8 GEMM and the chain (q8_pair_chain) live in
-// pair_q8_common.cuh, which the W8A8 stream (stream_kernels.cu) shares.
+// The quantisers and the chain (q8_pair_chain) live in pair_q8_common.cuh,
+// which the W8A8 stream (stream_kernels.cu) shares.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 on success).
@@ -88,4 +93,26 @@ extern "C" int mbt_pair_block_q8(
     if (err != cudaSuccess) return (int)err;
     if (gated) err = launch_gate(other, pair_out, wg, bg, out, B * F * J, C, stream);
     return (int)err;
+}
+
+// The int8 engine alone (ops/pair_q8.py engine_gemm_q8, tests and
+// chip_smoke.py): one hg_gemm_s8 launch with epilogue epi (Q8Epilogue) on
+// A8 (M, K) and W8 (N, K) int8, ascale (M,) and wscale (N,) fp32, bias (N,)
+// bf16 and R (M, N) bf16 for Q8_BIAS_RES; out (M, N) bf16, or fp32 for
+// Q8_BIAS_GELU_F32. Returns 0 or the CUDA error.
+extern "C" int mbt_q8_gemm_test(int epi, const void* A, const void* ascale, const void* W,
+                                const void* wscale, const void* bias, const void* R,
+                                void* out, int M, int N, int K, void* stream_ptr) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+    switch (epi) {
+        case Q8_BIAS:
+            return (int)hg_gemm_s8<Q8_BIAS>(A, ascale, W, wscale, bias, R, out, M, N, K, s);
+        case Q8_BIAS_RES:
+            return (int)hg_gemm_s8<Q8_BIAS_RES>(A, ascale, W, wscale, bias, R, out, M, N, K, s);
+        case Q8_BIAS_GELU_F32:
+            return (int)hg_gemm_s8<Q8_BIAS_GELU_F32>(A, ascale, W, wscale, bias, R, out, M, N,
+                                                     K, s);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }

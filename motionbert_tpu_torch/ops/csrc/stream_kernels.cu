@@ -27,8 +27,9 @@
 // output), so the stream needs one (M, C) buffer less than two pair calls.
 // The launches, their kernels and their operands are the pair chains', which
 // is what keeps the bits: the bf16 passes run the pair's products on
-// hopper_gemm.cuh's wgmma + TMA engine and its core on attention_tc.cuh's
-// tensor cores, the W8A8 passes the int8 GEMM and the CUDA-core core.
+// hopper_gemm.cuh's wgmma + TMA engine, the W8A8 passes on its int8 variant
+// (hopper_gemm_s8.cuh) between their quantisers, and both their core on
+// attention_tc.cuh's tensor-core forward.
 //
 // Bound. The work is the two pairs' (plus the gate): at (4, 243, 17, 512),
 // hidden 1024, about 0.149 ms of bf16 tensor-core operations for a temporal

@@ -56,7 +56,7 @@ import torch
 
 from motionbert_tpu_torch.ops import _build
 from motionbert_tpu_torch.ops.attention import (
-    HEAD_DIMS, MAX_FRAMES, MAX_ROWS, NUM_JOINTS, attention_block,
+    HEAD_DIMS, MAX_FRAMES, NUM_JOINTS, attention_block,
     check_aligned, check_tensor as _check, core_max_rows,
     device_kind as _device_kind, from_groups, linear, ln_bwd_rows,
     ln_fwd_stats, rows as _rows, st_attention_bwd_plain, st_attention_plain,
@@ -219,24 +219,17 @@ def gated_pair_block_bwd_plain(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj,
 # kernel launch
 # ---------------------------------------------------------------------------
 
-def max_rows(num_heads: int, q8: bool = False) -> int:
-    """Token rows (B*F*J) a pair chain takes: with ``q8`` the W8A8 chain's,
-    whose int8 GEMM puts its 64-row tiles on the grid's y extent
-    (``MAX_ROWS``); else the bf16 chains', whose engine walks its tiles with
-    persistent blocks and takes any row count, so the tensor-core core's
-    item count bounds them."""
-    return MAX_ROWS if q8 else core_max_rows(num_heads)
-
-
 def check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
                       ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads: int,
-                      mode: str, q8: bool = False) -> None:
+                      mode: str) -> None:
     """Raise ValueError on anything the CUDA pair kernels do not take: the
-    bf16 chains (forward and backward, on the engine and the tensor-core
-    core), or with ``q8`` the W8A8 chain (``ops/pair_q8.py``), whose int8
-    GEMM takes fewer rows. Every chain reads x, other, the weights and the
-    biases with vector loads (the engine's through TMA), so each must sit at
-    a 16-byte-aligned address."""
+    bf16 chains (forward and backward) and the W8A8 chain
+    (``ops/pair_q8.py``), all on the GEMM engine (bf16 or s8) and the
+    tensor-core core. The engine walks its tiles with persistent blocks and
+    takes any row count, so the core's 32-bit item count bounds the token
+    rows (``core_max_rows``). Every chain reads x, other, the weights and
+    the biases with vector loads (the engine's through TMA), so each must
+    sit at a 16-byte-aligned address."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, F, J, C), got shape {tuple(x.shape)}")
     B, F, J, C = x.shape
@@ -251,7 +244,7 @@ def check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
             or C // num_heads not in HEAD_DIMS:
         raise ValueError(f"the pair kernel takes C % 64 == 0 and head dim in "
                          f"{HEAD_DIMS}, got C={C}, heads={num_heads}")
-    limit = max_rows(num_heads, q8)
+    limit = core_max_rows(num_heads)
     if not 1 <= B * F * J <= limit:
         raise ValueError(f"the pair kernel takes 1..{limit} token rows "
                          f"(B*F*J) at {num_heads} heads, got {B * F * J}")

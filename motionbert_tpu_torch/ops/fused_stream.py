@@ -166,10 +166,9 @@ def _quantised(p: tuple) -> tuple:
 def _launch(x, other, p1, p2, wg, bg, num_heads, scale, order,
             q8: bool) -> torch.Tensor:
     m1, m2 = _modes(order)
-    # the pair kernels' conditions hold for each pass (the W8A8 chain's
-    # are ops/pair_q8.py's)
-    fp.check_kernel_args(x, None, *p1, None, None, num_heads, m1, q8=q8)
-    fp.check_kernel_args(x, other, *p2, wg, bg, num_heads, m2, q8=q8)
+    # the pair kernels' conditions hold for each pass, in both tiers
+    fp.check_kernel_args(x, None, *p1, None, None, num_heads, m1)
+    fp.check_kernel_args(x, other, *p2, wg, bg, num_heads, m2)
     hidden = p1[8].shape[0]
     if p2[8].shape[0] != hidden:
         raise ValueError(f"the two pairs of a stream share one hidden width, "

@@ -36,6 +36,14 @@ values: every partial sum is an integer below 2^24 while 127 * 127 * K < 2^24
 (K <= 1040), so the result is exact in any summation order; longer rows go
 through float64.
 
+The chain's four products run on the s8 variant of the wgmma + TMA GEMM
+engine (``csrc/hopper_gemm_s8.cuh``) and its attention core on the bf16
+pair's tensor-core forward (``csrc/attention_tc.cuh``).
+``engine_gemm_q8`` launches the s8 engine alone on int8 operands (plain twin
+``engine_gemm_q8_plain``, which it equals bit for bit in the bias and
+residual epilogues: the integer sums are exact and the dequantise is the
+same chain of fp32 roundings).
+
 Source note. The CUDA chain replaces the TPU kernel
 ``motionbert_tpu/ops/pair_q8.py:_q8_launch`` (``_pair_q8_kernel``,
 ``_gated_pair_q8_kernel``, body ``_pair_rows_q8``). Bound and design are in
@@ -50,7 +58,8 @@ import torch
 
 from motionbert_tpu_torch.ops import _build
 from motionbert_tpu_torch.ops.attention import (
-    ln_fwd_stats, st_attention_plain, wide)
+    ENGINE_MAX_ROWS, check_aligned, check_tensor, ln_fwd_stats,
+    st_attention_plain, wide)
 from motionbert_tpu_torch.ops.fused_pair import (
     _device_kind, check_kernel_args, fused_gated_pair_block_bwd,
     fused_pair_block_bwd, gate_plain)
@@ -102,6 +111,26 @@ def qdot_plain(a: torch.Tensor, w: torch.Tensor,
     return _int_matmul(a8, w8) * ascale * wscale + bias.float()
 
 
+# the s8 engine's epilogues (csrc/hopper_gemm.cuh's Q8Epilogue)
+Q8_EPILOGUES = {"bias": 0, "bias_res": 1, "bias_gelu_f32": 2}
+
+
+def engine_gemm_q8_plain(epi: str, a8, ascale, w8, wscale, bias,
+                         r=None) -> torch.Tensor:
+    """The s8 engine's function (``Q8_EPILOGUES``): the exact integer
+    product a8 (M, K) . w8 (N, K)^T dequantised as ((acc * ascale[m]) *
+    wscale[n]) + bias[n] in fp32, one rounding at a time, as ``qdot_plain``
+    takes it; "bias_res" adds r (M, N); both round once to bias's dtype.
+    "bias_gelu_f32" returns the fp32 GELU of the sum, as
+    ``pair_block_q8_plain`` takes it."""
+    acc = _int_matmul(a8, w8) * ascale.reshape(-1, 1) * wscale + bias.float()
+    if epi == "bias_gelu_f32":
+        return 0.5 * acc * (1.0 + torch.erf(acc * 0.7071067811865476))
+    if epi == "bias_res":
+        acc = acc + wide(r)
+    return acc.to(bias.dtype)
+
+
 def pair_block_q8_plain(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
                         ln2_b, w1, b1, w2, b2, num_heads: int, scale: float,
                         mode: str) -> torch.Tensor:
@@ -148,11 +177,11 @@ def _library() -> ctypes.CDLL:
 def _launch(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
             w1, b1, w2, b2, wg, bg, num_heads, scale, mode) -> torch.Tensor:
     # the bf16 kernels' conditions are the int8 chain's too: C and hidden
-    # multiples of 64 give whole 64-deep int8 reduction tiles and 16-byte
-    # row starts; its int8 GEMM's grid bounds the rows
+    # multiples of 64 give the s8 engine's TMA 16-byte row strides, the
+    # tensor-core core bounds the rows, and x and the biases sit at 16-byte-
+    # aligned addresses (the weights' int8 casts and the scratch are fresh)
     check_kernel_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
-                      ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads, mode,
-                      q8=True)
+                      ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads, mode)
     B, F, J, C = x.shape
     hidden = w1.shape[0]
     M = B * F * J
@@ -181,6 +210,74 @@ def _launch(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
     if rc != 0:
         raise RuntimeError(f"q8 pair kernel launch failed with CUDA error {rc}")
     return out
+
+
+def check_engine_q8_args(epi: str, a8, ascale, w8, wscale, bias, r) -> tuple:
+    """Raise ValueError on anything the s8 engine's test entry does not
+    take; return (M, N, K). The TMA reads int8 rows of K bytes at 16-byte
+    strides from 16-byte-aligned bases, and the chain's widths are whole
+    64-column tiles, so N and K are multiples of 64."""
+    if epi not in Q8_EPILOGUES:
+        raise ValueError(f"unknown s8 engine epilogue: {epi!r}")
+    if a8.dim() != 2 or w8.dim() != 2:
+        raise ValueError("a8 and w8 must be 2-D")
+    (M, K), N = a8.shape, w8.shape[0]
+    if N % 64 or K % 64 or not 1 <= M <= ENGINE_MAX_ROWS:
+        raise ValueError(f"the s8 engine takes N % 64 == 0, K % 64 == 0 and "
+                         f"1..{ENGINE_MAX_ROWS} rows, got M={M}, N={N}, K={K}")
+    dev, f32 = a8.device, torch.float32
+    for name, t, shape, dt in (
+            ("a8", a8, (M, K), torch.int8), ("w8", w8, (N, K), torch.int8),
+            ("ascale", ascale, (M,), f32), ("wscale", wscale, (N,), f32),
+            ("bias", bias, (N,), torch.bfloat16),
+            ("r", r, (M, N), torch.bfloat16)):
+        if t is None and name == "r" and epi != "bias_res":
+            continue
+        if t is None:
+            raise ValueError(f"{epi} reads {name}")
+        check_tensor(name, t, shape, dt, dev)
+        check_aligned(name, t)
+    return M, N, K
+
+
+def _engine_library() -> ctypes.CDLL:
+    lib = _library()
+    if lib.mbt_q8_gemm_test.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.mbt_q8_gemm_test.argtypes = [i] + [vp] * 7 + [i] * 3 + [vp]
+        lib.mbt_q8_gemm_test.restype = i
+    return lib
+
+
+def engine_gemm_q8(epi: str, a8, ascale, w8, wscale, bias,
+                   r=None) -> torch.Tensor:
+    """One launch of the s8 engine (the W8A8 chain's products, through the
+    test entry ``mbt_q8_gemm_test``) on CUDA tensors, counted in
+    ``engine_gemm_q8.launches``; ``engine_gemm_q8_plain`` on CPU tensors.
+    a8 (M, K) and w8 (N, K) int8, ascale (M,) and wscale (N,) fp32, bias
+    (N,) and r (M, N) bf16; out (M, N) bf16, or fp32 for "bias_gelu_f32".
+    The chain launches the engine itself; this entry is for the tests and
+    chip_smoke.py."""
+    if _device_kind(a8, "s8 engine") == "cpu":
+        return engine_gemm_q8_plain(epi, a8, ascale, w8, wscale, bias, r)
+    M, N, K = check_engine_q8_args(epi, a8, ascale, w8, wscale, bias, r)
+    lib = _engine_library()
+    dev = a8.device
+    with torch.cuda.device(dev):
+        out = torch.empty((M, N), device=dev, dtype=torch.float32
+                          if epi == "bias_gelu_f32" else torch.bfloat16)
+        rc = lib.mbt_q8_gemm_test(
+            Q8_EPILOGUES[epi], a8.data_ptr(), ascale.data_ptr(),
+            w8.data_ptr(), wscale.data_ptr(), bias.data_ptr(),
+            None if r is None else r.data_ptr(), out.data_ptr(), M, N, K,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"s8 engine launch failed with CUDA error {rc}")
+    engine_gemm_q8.launches += 1
+    return out
+
+
+engine_gemm_q8.launches = 0
 
 
 # ---------------------------------------------------------------------------

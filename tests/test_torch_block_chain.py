@@ -52,10 +52,12 @@ FLAGS = [(False, False), (True, False), (False, True), (True, True)]
 GRADS = ("dx", "dln_w", "dln_b", "dwqkv", "dbqkv", "dwproj", "dbproj")
 WEIGHT_GRADS = ("dwqkv", "dwproj")
 # the retired kernels and their launchers: the WMMA GEMM and its TN weight
-# gradient, the CUDA-core attention forward and backward
+# gradient, the CUDA-core attention forward and backward, the int8 mma.sync
+# GEMM
 RETIRED = ("launch_gemm", "gemm_kernel", "weight_grad(",
            "launch_attention_any", "launch_st_attention_any",
-           "attention_kernel", "launch_attention_bwd", "attention_bwd_kernel")
+           "attention_kernel", "launch_attention_bwd", "attention_bwd_kernel",
+           "ATTN_THREADS", "gemm_q8_kernel", "launch_gemm_q8", "mma_s8")
 # device records of each launcher (a weight gradient and a column sum are
 # the fixed-chunk partials and the in-order pass)
 RECORDS = {"hg_weight_grad": 2, "column_sum": 2}
@@ -111,9 +113,9 @@ def _hits(code: str, name: str) -> list:
 def test_block_chains_run_only_the_engine_and_the_tensor_core_core():
     """The attention block's chains launch every product on the GEMM
     engine, the attention core on tensor cores, and beside them only the
-    LayerNorm rows and the column sums; the WMMA GEMM, its weight gradient
-    and the CUDA-core attention backward are gone from the tree, and the
-    CUDA-core forward is left to the chains not yet redesigned (B8, B9)."""
+    LayerNorm rows and the column sums; the WMMA GEMM, its weight gradient,
+    the CUDA-core attention forward and backward and the int8 mma.sync GEMM
+    are gone from the tree."""
     code = _code("block_kernels.cu")
     for retired in RETIRED:
         assert not _hits(code, retired), retired
@@ -144,7 +146,8 @@ def test_block_chains_run_only_the_engine_and_the_tensor_core_core():
     for name in sorted(p.name for p in CSRC.glob("*.cu*")):
         src = _code(name)
         for retired in ("launch_gemm<", "gemm_kernel<", "weight_grad(",
-                        "attention_bwd_kernel", "launch_attention_bwd"):
+                        "attention_bwd_kernel", "launch_attention_bwd",
+                        "attention_kernel", "gemm_q8_kernel", "mma_s8"):
             assert not _hits(src, retired), (name, retired)
     assert "wmma" not in _code("pair_common.cuh")
     assert not re.search(r"\battention_bwd_kernel\b|\bweight_grad\(",

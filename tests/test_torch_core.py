@@ -105,7 +105,9 @@ def test_pair_bwd_chain_runs_only_the_engine_and_the_tensor_core_core():
     code = "\n".join(line.split("//")[0] for line in src.splitlines())
     for retired in ("launch_gemm", "gemm_kernel", "weight_grad(",
                     "launch_attention_any", "launch_attention_bwd_any",
-                    "attention_kernel", "attention_bwd_kernel"):
+                    "launch_st_attention_any", "attention_kernel",
+                    "attention_bwd_kernel", "ATTN_THREADS", "gemm_q8_kernel",
+                    "launch_gemm_q8", "mma_s8"):
         hits = [m.start() for m in re.finditer(re.escape(retired), code)
                 if not code[max(0, m.start() - 3):m.start()].endswith("hg_")]
         assert not hits, retired

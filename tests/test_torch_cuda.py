@@ -388,14 +388,37 @@ def test_autograd_through_the_q8_function_is_straight_through(cuda):
         assert torch.isfinite(a.float()).all() and torch.equal(a, b)
 
 
+def _core_fp64(q, k, v, mode, num_heads, scale):
+    """The plain attention core's rounding points with everything between
+    them in float64: scores and softmax in fp64, P rounded to q's dtype,
+    P.V in fp64, the output rounded to q's dtype. A core at least as exact
+    as the plain one, in no kernel's summation order."""
+    qh, kh, vh = (at.to_groups(t, mode, num_heads).double()
+                  for t in (q, k, v))
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale,
+                      dim=-1).to(q.dtype)
+    return at.from_groups(torch.matmul(p.double(), vh).to(q.dtype), mode)
+
+
 @pytest.mark.cuda
-def test_model_q8_kernels_match_plain_q8(cuda):
+def test_model_q8_kernels_match_plain_q8(cuda, monkeypatch):
     """A depth-2 model at the flagship width: the int8 kernels against the
     plain q8 path in the same dtype, and against the fp32 full-precision
-    plain path within the serving tier's gate (5 % relative L2). Through
-    eight pairs the single-step differences of the quantisers compound, so
-    the representation is held to 1e-2 relative L2 and 5e-2 of max|ref|
-    (one pair alone stays within Q8_TOL)."""
+    plain path within the serving tier's gate (5 % relative L2).
+
+    Through eight pairs the int8 row quantisers turn one-ulp bf16
+    differences of the attention output into different int8 bins, so the
+    representation's distance from plain q8 measures how the core sums, not
+    whether it is right: the plain q8 path itself, with only its core
+    evaluated in float64 at the same rounding points, lands ~1.2 % from
+    plain q8 (relative L2 0.0113-0.0125 over seeds 1-3 on the card). So the
+    relative-L2 bar is that spread of the reference, measured here on the
+    same model and input, by 1.25 (the tensor-core core measured 0.99-1.03
+    of it), and never below the old 1e-2; the max bar stays 5e-2 of
+    max|ref|. And the kernels must be no further from the fp32 model than
+    their plain twin, up to 2 %: a moved rounding point or a wrong scale
+    fails that, however the core sums (one pair alone stays within Q8_TOL,
+    test_q8_kernel_matches_plain)."""
     cfg = ConfigDict(dim_feat=512, dim_rep=512, depth=2, num_heads=8,
                      mlp_ratio=2, num_joints=17, maxlen=81)
     model = load_backbone(cfg, device=cuda, attn_impl="kernel_q8")
@@ -416,9 +439,109 @@ def test_model_q8_kernels_match_plain_q8(cuda):
             == [6, 2, 0, 0]
         want = plain(x, return_rep=True)
         full = ref(x, return_rep=True)
-    assert _rel_l2(out, want) <= 1e-2 and _rel(out, want) <= 5e-2, \
-        (_rel_l2(out, want), _rel(out, want))
+        monkeypatch.setattr(q8, "st_attention_plain", _core_fp64)
+        plain_fp64_core = plain(x, return_rep=True)
+    spread = _rel_l2(plain_fp64_core, want)
+    assert _rel_l2(out, want) <= max(1e-2, 1.25 * spread) \
+        and _rel(out, want) <= 5e-2, \
+        (_rel_l2(out, want), spread, _rel(out, want))
     assert 0 < _rel_l2(out, full) <= 0.05, _rel_l2(out, full)
+    assert _rel_l2(out, full) <= 1.02 * _rel_l2(want, full), \
+        (_rel_l2(out, full), _rel_l2(want, full))
+
+
+# the s8 engine's fp32 GELU epilogue against the plain twin's: the same
+# fp32 sum, then this card's erff in the kernel and PyTorch's erf kernel in
+# the plain version, a few ulps apart at most
+Q8_ENGINE_GELU_TOL = 1e-6
+
+
+def _q8_engine_operands(device, epi, M, N, K, seed=0):
+    """a8, ascale, w8, wscale, bias (and r for bias_res) on the card, with
+    scales of the sizes the quantisers give (row 0 of a8 and w8 all 127:
+    the largest sum a K-long row can take)."""
+    rs = np.random.RandomState(seed)
+    a8 = rs.randint(-127, 128, size=(M, K)).astype(np.int8)
+    w8 = rs.randint(-127, 128, size=(N, K)).astype(np.int8)
+    a8[0], w8[0] = 127, 127
+    arrays = [a8, rs.uniform(1e-3, 1e-1, M).astype(np.float32), w8,
+              rs.uniform(1e-4, 1e-2, N).astype(np.float32)]
+    out = [torch.from_numpy(a).to(device) for a in arrays]
+    out.append(torch.from_numpy(rs.normal(size=N).astype(np.float32)).to(
+        device=device, dtype=torch.bfloat16))
+    out.append(torch.from_numpy(rs.normal(size=(M, N)).astype(
+        np.float32)).to(device=device, dtype=torch.bfloat16)
+        if epi == "bias_res" else None)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", ["bias", "bias_res", "bias_gelu_f32"])
+@pytest.mark.parametrize("M,N,K", [(37, 64, 64), (300, 192, 128),
+                                   (1, 64, 1024), (16524, 1536, 512),
+                                   (16523, 512, 1024)])
+def test_q8_engine_matches_the_integer_product(cuda, epi, M, N, K):
+    """The s8 engine (csrc/hopper_gemm_s8.cuh) against its plain
+    twin on the same card: int32 sums are exact, and the epilogue takes the
+    plain version's order without fused multiply-adds, so bias and bias_res are
+    equal bit for bit (ragged M, partial column tiles and the W8A8 pair's
+    widths included); GELU within Q8_ENGINE_GELU_TOL; twice the same bits."""
+    args = _q8_engine_operands(cuda, epi, M, N, K, seed=M + N + K)
+    before = q8.engine_gemm_q8.launches
+    got = q8.engine_gemm_q8(epi, *args)
+    torch.cuda.synchronize()
+    assert q8.engine_gemm_q8.launches == before + 1
+    assert torch.equal(got, q8.engine_gemm_q8(epi, *args))
+    want = q8.engine_gemm_q8_plain(epi, *args)
+    assert got.dtype == want.dtype and got.shape == (M, N)
+    if epi == "bias_gelu_f32":
+        assert _rel(got, want) <= Q8_ENGINE_GELU_TOL, _rel(got, want)
+    else:
+        assert torch.equal(got, want), _rel(got, want)
+
+
+@pytest.mark.cuda
+def test_q8_engine_raises_and_never_falls_back(cuda):
+    """What the s8 engine's TMA and epilogue do not take raises
+    ValueError on a CUDA tensor: nothing is launched and the card works
+    on."""
+    args = _q8_engine_operands(cuda, "bias", 64, 128, 128)
+    before = q8.engine_gemm_q8.launches
+    w8 = args[2]
+    with pytest.raises(ValueError, match="N % 64"):
+        q8.engine_gemm_q8("bias", args[0], args[1], w8[:96].contiguous(),
+                          args[3][:96], args[4][:96])
+    shifted = torch.empty(w8.numel() + 8, dtype=torch.int8, device=cuda)[8:]
+    shifted.copy_(w8.reshape(-1))
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        q8.engine_gemm_q8("bias", args[0], args[1], shifted.view(w8.shape),
+                          *args[3:5])
+    with pytest.raises(ValueError, match="torch.int8"):
+        q8.engine_gemm_q8("bias", args[0].float(), *args[1:5])
+    with pytest.raises(ValueError, match="reads r"):
+        q8.engine_gemm_q8("bias_res", *args[:5])
+    assert q8.engine_gemm_q8.launches == before
+    out = q8.engine_gemm_q8("bias", *args[:5])
+    torch.cuda.synchronize()
+    assert torch.equal(out, q8.engine_gemm_q8_plain("bias", *args[:5]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+def test_q8_kernel_runs_only_the_s8_engine_and_the_tensor_core_core(cuda,
+                                                                   gated):
+    """A W8A8 pair call's profile holds the quantisers, the s8 engine,
+    the tensor-core core (and the gate) once a launch of the chain, beside
+    quant_cols's PyTorch operators, and no kernel of the first design."""
+    import chip_smoke
+
+    args, H = _inputs(cuda, gated, F=27)
+    wrapper, _ = _q8(gated)
+    ms, rows = chip_smoke.device_profile(
+        lambda: wrapper(*args, H, 0.125, "temporal"), None, calls=2)
+    assert ms is not None, rows
+    assert not chip_smoke.q8_profile_faults(
+        rows, 2, chip_smoke.pair_q8_records(gated), gated), rows
 
 
 # ---------------------------------------------------------------------------
@@ -789,6 +912,29 @@ def test_st_attention_raises_and_never_falls_back(cuda):
     with pytest.raises(ValueError, match="joints"):
         at.st_attention(*(t[:, :, :16] for t in (q, k, v)), "spatial", 8,
                         0.125)
+
+
+@pytest.mark.cuda
+def test_st_attention_raises_on_a_misaligned_input_or_row_stride(cuda):
+    """The tensor-core core copies rows with 16-byte cp.async: a q, k or v
+    off the 16-byte boundary, or a row stride that is not a multiple of 8,
+    raises ValueError on the card and launches nothing (a misaligned copy
+    would end the process's CUDA context); the card works on."""
+    q, k, v = _qkv(cuda, 512, 9)
+    packed = torch.zeros(2, 9, 17, 3 * 512 + 4, dtype=torch.bfloat16,
+                         device=cuda)
+    before = at.st_attention.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        at.st_attention(packed[..., :512], packed[..., 512:1024],
+                        packed[..., 1024:1536], "temporal", 8, 0.125)
+    for args in ((_misaligned(q), k, v), (q, k, _misaligned(v))):
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            at.st_attention(*args, "spatial", 8, 0.125)
+    assert at.st_attention.launches == before
+    out = at.st_attention(q, k, v, "spatial", 8, 0.125)
+    torch.cuda.synchronize()
+    assert _rel(out, at.st_attention_plain(q, k, v, "spatial", 8,
+                                           0.125)) <= TOL
 
 
 @pytest.mark.cuda

@@ -177,6 +177,35 @@ def test_st_attention_checks_what_the_kernel_takes():
                         0.25)
 
 
+@pytest.mark.parametrize("case", ["ld", "base", "rows"])
+def test_st_attention_checks_what_the_tensor_core_core_reads(case):
+    """The kernel is the tensor-core core, which copies rows with 16-byte
+    cp.async and numbers its (group, head) items with 32-bit ints: a row
+    stride that is not a multiple of 8, a base off the 16-byte boundary, or
+    more token rows than ``core_max_rows`` raise ValueError before any
+    launch; an aligned packed slice passes."""
+    if case == "ld":        # row stride 396: 792 bytes, not whole chunks
+        packed = torch.zeros(2, 5, 17, 396, dtype=torch.bfloat16)
+        q, k, v = (packed[..., i * 132:i * 132 + 128] for i in range(3))
+        match = "multiple of 8"
+    elif case == "base":    # the slices start 8 bytes past a boundary
+        packed = torch.zeros(2, 5, 17, 392, dtype=torch.bfloat16)
+        q, k, v = (packed[..., 4 + i * 128:4 + (i + 1) * 128]
+                   for i in range(3))
+        assert at.check_st_attention_args(
+            *(packed[..., 8 + i * 128:8 + (i + 1) * 128] for i in range(3)),
+            4, "spatial") == 392
+        match = "16-byte-aligned"
+    else:                   # one clip past the core's item count at 4 heads
+        limit = at.core_max_rows(4)
+        assert limit == (2 ** 31 - 1) // 4
+        q = k = v = torch.zeros(1, 1, 17, 128, dtype=torch.bfloat16).expand(
+            limit // 17 + 1, 1, 17, 128)
+        match = "token rows"
+    with pytest.raises(ValueError, match=match):
+        at.check_st_attention_args(q, k, v, 4, "spatial")
+
+
 def test_coupled_attention_is_attention_over_every_token():
     """coupling == spatial attention over one frame holding all F*J tokens."""
     (q, k, v), _ = _core_arrays()

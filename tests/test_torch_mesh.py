@@ -156,6 +156,21 @@ def test_rotations_match_jax(fn):
     np.testing.assert_allclose(got, want, atol=2e-5)
 
 
+def test_rectify_pose_under_float64_defaults_matches_jax():
+    """rectify_pose pins both of its rotations to float32, as the JAX
+    package does, so a float64 default dtype changes nothing (it raised a
+    dtype mismatch in the product of the two)."""
+    pose = np.random.RandomState(2).normal(0, 0.5, 72).astype(np.float32)
+    saved = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        got = trot.rectify_pose(pose)
+    finally:
+        torch.set_default_dtype(saved)
+    np.testing.assert_allclose(got, jrot.rectify_pose(pose), atol=2e-5)
+    np.testing.assert_array_equal(got, trot.rectify_pose(pose))
+
+
 def test_rotation_gradients_are_finite_at_the_identity():
     eye = torch.eye(3).repeat(4, 1, 1).requires_grad_()
     trot.rotmat_to_angle_axis(eye).sum().backward()

@@ -13,6 +13,7 @@ from motionbert_tpu.ops import fused_pair as jpair
 from motionbert_tpu_torch.ops import attention as tattn
 from motionbert_tpu_torch.ops import fused_mlp as tmlp
 from motionbert_tpu_torch.ops import fused_pair as tpair
+from motionbert_tpu_torch.ops import pair_q8 as tq8
 
 # fp32 on the CPU on both sides; the sums run in different orders
 TOL = dict(atol=3e-5, rtol=3e-5)
@@ -181,14 +182,14 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
     "fp32", "heads", "frames", "joints", "noncontig", "ln_dtype", "mode",
     "wshape", "empty", "rows", "rows_q8", "misaligned_x", "misaligned_w"])
 def test_check_kernel_args_rejects(case):
-    """rows: one row past what the bf16 chains take (the tensor-core core's
-    32-bit item count at these heads), rows_q8: past the W8A8 chain's int8
-    GEMM grid; misaligned: x or a weight off the 16-byte boundary that the
-    engine's TMA loads and every chain's vector loads need (the W8A8 chain
-    too)."""
+    """rows: one row past what the chains take (the tensor-core core's
+    32-bit item count at these heads), rows_q8: the same row through the
+    W8A8 launcher (its s8 engine walks its tiles with persistent blocks like
+    the bf16 engine, so the core binds it too); misaligned: x or a weight off
+    the 16-byte boundary that the engines' TMA loads and every chain's
+    vector loads need (the W8A8 launcher refuses them too)."""
     args, wg, bg, H = _bf16_kernel_args(False)
     mode = "spatial"
-    q8 = False
     if case == "fp32":
         args[0] = args[0].float()
     elif case == "heads":
@@ -208,9 +209,8 @@ def test_check_kernel_args_rejects(case):
     elif case == "empty":
         args[0] = torch.zeros(0, 9, J, 64, dtype=torch.bfloat16)
     elif case in ("rows", "rows_q8"):
-        q8 = case == "rows_q8"
-        limit = tpair.max_rows(H, q8)
-        assert limit == (tpair.MAX_ROWS if q8 else (2 ** 31 - 1) // H)
+        limit = tattn.core_max_rows(H)
+        assert limit == (2 ** 31 - 1) // H
         args[0] = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(
             limit // J + 1, 1, J, 64)
     elif case == "misaligned_x":
@@ -220,13 +220,13 @@ def test_check_kernel_args_rejects(case):
     match = {"rows": "token rows", "rows_q8": "token rows",
              "misaligned_x": "16-byte-aligned",
              "misaligned_w": "16-byte-aligned"}.get(case)
-    with pytest.raises(ValueError, match=match):
-        tpair.check_kernel_args(args[0], None, *args[1:], wg, bg, H, mode,
-                                q8=q8)
-    if case.startswith("misaligned"):
+    if case != "rows_q8":
         with pytest.raises(ValueError, match=match):
-            tpair.check_kernel_args(args[0], None, *args[1:], wg, bg, H,
-                                    mode, q8=True)
+            tpair.check_kernel_args(args[0], None, *args[1:], wg, bg, H, mode)
+    if case.startswith("misaligned") or case == "rows_q8":
+        # the W8A8 launcher checks before it quantises or loads its library
+        with pytest.raises(ValueError, match=match):
+            tq8._launch(args[0], None, *args[1:], wg, bg, H, 0.125, mode)
 
 
 def test_wrapper_refuses_other_devices():

@@ -141,7 +141,9 @@ def test_pair_chain_runs_only_the_engine_and_the_tensor_core_core():
     libraries take their bf16 chain from it."""
     code = _code("pair_chain.cuh")
     for retired in ("launch_gemm", "gemm_kernel", "launch_attention_any",
-                    "launch_st_attention_any", "attention_kernel"):
+                    "launch_st_attention_any", "attention_kernel",
+                    "ATTN_THREADS", "gemm_q8_kernel", "launch_gemm_q8",
+                    "mma_s8"):
         hits = [m.start() for m in re.finditer(re.escape(retired), code)
                 if not code[max(0, m.start() - 3):m.start()].endswith("hg_")]
         assert not hits, retired

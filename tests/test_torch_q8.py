@@ -11,10 +11,12 @@ import torch
 
 from motionbert_tpu.models.dstformer import DSTformer as JDSTformer
 from motionbert_tpu.ops import pair_q8 as jq8
+from motionbert_tpu.ops.fused_mlp import _erf as j_erf
 from motionbert_tpu_torch.core.config import ConfigDict
 from motionbert_tpu_torch.models import dstformer as tmodel
 from motionbert_tpu_torch.models import factory
 from motionbert_tpu_torch.models.convert import state_dict_from_jax
+from motionbert_tpu_torch.ops import attention as tattn
 from motionbert_tpu_torch.ops import fused_pair as tpair
 from motionbert_tpu_torch.ops import pair_q8 as tq8
 
@@ -104,6 +106,121 @@ def test_int_matmul_is_exact():
         got = tq8._int_matmul(torch.from_numpy(a), torch.from_numpy(w))
         np.testing.assert_array_equal(got.numpy(),
                                       want.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the s8 engine alone (engine_gemm_q8: the chain's four products)
+# ---------------------------------------------------------------------------
+
+def _engine_operands(M=37, N=192, K=128, seed=20):
+    """a (M, K) fp32 rows, the weight (N, K) and bias (N,) bf16, r (M, N)
+    bf16, and the port's int8 operands of a and the weight."""
+    a = torch.from_numpy(_mk((M, K), seed, 1.0))
+    a[3] = 0.0                                   # a row under the amax floor
+    w = torch.from_numpy(_mk((N, K), seed + 1, K ** -0.5)).bfloat16()
+    b = torch.from_numpy(_mk((N,), seed + 2)).bfloat16()
+    r = torch.from_numpy(_mk((M, N), seed + 3)).bfloat16()
+    a8, ascale = tq8.q8_rows(a)
+    w8, wscale = tq8.quant_cols(w)
+    return a, w, b, r, (a8, ascale.reshape(-1), w8, wscale)
+
+
+@pytest.mark.parametrize("epi", list(tq8.Q8_EPILOGUES))
+def test_engine_q8_plain_is_the_jax_qdot(epi):
+    """The s8 engine's function (the CPU path of engine_gemm_q8) against the
+    JAX kernel's _qdot on the same rows and weight, with the residual or the
+    GELU the pair applies after it: bit for bit but GELU's erf (1 ulp)."""
+    a, w, b, r, ops = _engine_operands()
+    w8j, wsj = jq8.quant_cols(jnp.asarray(w.float().numpy().T))
+    z = jq8._qdot(jnp.asarray(a.numpy()), w8j, wsj, jnp.asarray(
+        b.float().numpy()))
+    before = tq8.engine_gemm_q8.launches
+    got = tq8.engine_gemm_q8(epi, *ops, b, r if epi == "bias_res" else None)
+    assert tq8.engine_gemm_q8.launches == before
+    if epi == "bias_gelu_f32":
+        want = 0.5 * z * (1.0 + j_erf(z * np.float32(0.7071067811865476)))
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+        return
+    if epi == "bias_res":
+        z = z + jnp.asarray(r.float().numpy())
+    want = np.asarray(z.astype(jnp.bfloat16).astype(jnp.float32))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def _misaligned(t):
+    """t's values at an address one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype)
+    step = 16 // t.element_size()
+    base = (-flat.data_ptr() // t.element_size()) % step
+    out = flat[base + 1:base + 1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("case,match", [
+    ("epi", "epilogue"), ("n64", "N % 64"), ("k64", "K % 64"),
+    ("rows", "rows"), ("a8_dtype", "torch.int8"), ("w8_shape", "w8"),
+    ("ascale_dtype", "torch.float32"), ("no_r", "reads r"),
+    ("misaligned_a8", "16-byte-aligned"), ("misaligned_w8", "16-byte-aligned"),
+    ("misaligned_bias", "16-byte-aligned")])
+def test_engine_q8_checks_what_the_engine_takes(case, match):
+    """What the s8 engine does not take raises ValueError before any launch:
+    N and K not whole 64-wide tiles (K is also the TMA's row stride in
+    bytes, which must be a multiple of 16), no rows, other types or shapes,
+    a residual epilogue without its residual, and operands off the 16-byte
+    boundary that the TMA and the epilogue's vector loads need."""
+    _, _, b, r, (a8, ascale, w8, wscale) = _engine_operands()
+    epi = "bias_res"
+    if case == "epi":
+        epi = "bias_gelu"
+    elif case == "n64":
+        w8, wscale, b, r = w8[:96], wscale[:96], b[:96], r[:, :96]
+    elif case == "k64":
+        a8, w8 = a8[:, :96].contiguous(), w8[:, :96].contiguous()
+    elif case == "rows":
+        a8, ascale, r = a8[:0], ascale[:0], r[:0]
+    elif case == "a8_dtype":
+        a8 = a8.short()
+    elif case == "w8_shape":
+        w8 = w8[:, :64].contiguous()
+    elif case == "ascale_dtype":
+        ascale = ascale.double()
+    elif case == "no_r":
+        r = None
+    elif case == "misaligned_a8":
+        a8 = _misaligned(a8)
+    elif case == "misaligned_w8":
+        w8 = _misaligned(w8)
+    else:
+        b = _misaligned(b)
+    assert tq8.check_engine_q8_args(
+        "bias_res", *_engine_operands()[4], _engine_operands()[2],
+        _engine_operands()[3]) == (37, 192, 128)
+    with pytest.raises(ValueError, match=match):
+        tq8.check_engine_q8_args(epi, a8, ascale, w8, wscale, b, r)
+
+
+@pytest.mark.parametrize("H", [2, 4])           # head dim 64 and 32 at C 128
+def test_q8_wrapper_takes_the_core_row_limit(H):
+    """The W8A8 launcher checks its rows before it quantises or loads its
+    library: the s8 engine walks its tiles with persistent blocks, so the
+    tensor-core core's 32-bit item count bounds the rows (core_max_rows),
+    not the retired int8 GEMM's grid (65535 64-row tiles). Past that old
+    limit the row check passes (the next check, contiguity, refuses the
+    expanded view); one clip past core_max_rows it raises."""
+    args = _torch_args(_pair_np(False), False)
+    limit = tattn.core_max_rows(H)
+    assert limit == (2 ** 31 - 1) // H > 65535 * 64
+    for clips, match in ((65535 * 64 // (F * J) + 1, "contiguous"),
+                         (limit // (F * J) + 1, "token rows")):
+        args[0] = torch.zeros(1, F, J, C, dtype=torch.bfloat16).expand(
+            clips, F, J, C)
+        with pytest.raises(ValueError, match=match):
+            tq8._launch(args[0], None, *args[1:], None, None, H, SCALE,
+                        "spatial")
 
 
 @pytest.mark.parametrize("mode", ["spatial", "temporal"])

@@ -17,6 +17,7 @@ from motionbert_tpu_torch.core.config import ConfigDict
 from motionbert_tpu_torch.models import dstformer as tmodel
 from motionbert_tpu_torch.models import factory
 from motionbert_tpu_torch.models.convert import jax_from_state_dict
+from motionbert_tpu_torch.ops import attention as tattn
 from motionbert_tpu_torch.ops import fused_pair as tpair
 from motionbert_tpu_torch.ops import fused_stream as tfs
 
@@ -251,6 +252,32 @@ def test_wrappers_validate_and_count_no_cpu_launch():
     with pytest.raises(ValueError, match="no stream kernel"):
         tfs.fused_stream_block(*(a.to("meta") for a in args), H, SCALE,
                                ("s", "t"))
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("case,match", [("rows", "token rows"),
+                                        ("misaligned", "16-byte-aligned")])
+def test_launcher_checks_rows_and_alignment_in_both_tiers(q8, case, match):
+    """The stream's launcher holds each pass to the pair kernels' conditions
+    before it quantises or loads its library, in both tiers alike: the W8A8
+    passes' s8 engine walks its tiles with persistent blocks, so the
+    tensor-core core's 32-bit item count bounds their rows too
+    (core_max_rows), and x must sit at a 16-byte-aligned address for the
+    engines' TMA loads."""
+    heads = 2                                    # head dim 32 at C 64
+    args = _torch_args(*_inputs(3, False, C=64))
+    pairs = [[t if i in (0, 1, 6, 7) else t.bfloat16()
+              for i, t in enumerate(args[k:k + 12])] for k in (1, 13)]
+    x = args[0].bfloat16()
+    if case == "rows":
+        x = torch.zeros(1, 1, J, 64, dtype=torch.bfloat16).expand(
+            tattn.core_max_rows(heads) // J + 1, 1, J, 64)
+    else:
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype)[1:]
+        flat.copy_(x.reshape(-1))
+        x = flat.view(x.shape)
+    with pytest.raises(ValueError, match=match):
+        tfs._launch(x, None, *pairs, None, None, heads, 0.125, ("s", "t"), q8)
 
 
 # ---------------------------------------------------------------------------
