@@ -154,10 +154,31 @@ Phases, each of which passes or ends the run with a non-zero exit code:
  27. mesh drivers: train.mesh.train_with_config on the synthetic mesh set at
      the flagship widths, 2 epochs then a resumed third; the wild-mesh
      command line on a seeded Halpe-26 JSON with --attn_impl pallas_stream.
+ 28. data parallel at the flagship widths (phase 8's config, anchor and
+     seeded (8, 243) batch): (a) world size 1 under NCCL on a file store in
+     this process, the DistributedDataParallel step's loss and every gradient
+     bit for bit the unwrapped step's, the ms per step of both; (b) two
+     ranks on the one card (gloo, both on cuda:0, 4 clips each of the same
+     8), 3 AdamW steps with phase 18's drop-path and dropout rates (the
+     world-size-invariant draws), the losses, the first step's gradients
+     and the parameters after against (a)'s world-size-1 run at phase 8's
+     bars, its ms per step (two ranks sharing one card: not a scaling
+     figure); (c) the pose3d, action, one-shot and mesh drivers under
+     torchrun --nproc_per_node 2 --device cuda:0 --dist_backend gloo on the
+     synthetic smoke sets at the flagship widths, one epoch each, at once:
+     rank 0's checkpoints and logs alone, no "module." key; then the pose3d
+     checkpoint resumed at world size 1 for one more epoch.
+ 29. wild I/O and rendering: a seeded 1920 x 1080 mp4 of write_wild_json's
+     300 frames (cv2.VideoWriter) and read_video_meta; the wild_pose command
+     line with --vid_path and rendering, the flagship lift on the card with
+     the anchor, X3D.mp4 read back (frames, size, fps); the wild_mesh command
+     line the same way on the seeded 6890-vertex body model with 13,776
+     seeded faces, mesh.mp4 read back; the renderer's frames per second for
+     the 2D, 3D and mesh frames.
 Phases 10-15 run after phase 6, phases 16-19 after phase 9, phases 20-23
-after phase 19, phases 24-27 after phase 23. Then a JSON line of per-kernel
-numbers, the card's name and power limit, and as the last line
-{"ok": true, "device": {...}}.
+after phase 19, phases 24-27 after phase 23, phases 28-29 after phase 27.
+Then a JSON line of per-kernel numbers, the card's name and power limit,
+and as the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases pairs
     python3 chip_smoke.py --phases train
@@ -165,10 +186,13 @@ numbers, the card's name and power limit, and as the last line
     python3 chip_smoke.py --phases blocks
     python3 chip_smoke.py --phases action
     python3 chip_smoke.py --phases mesh
+    python3 chip_smoke.py --phases dist
+    python3 chip_smoke.py --phases render
 
 run only phases 1, 2, 3 and 24; 1, 2, the engine and core phases of 16, 7
-and 8; 1, 2 and 10-15; 1, 2 and 16-19; 1, 2 and 20-23; or 1, 2 and 24-27
-(while working on them), and print no last line.
+and 8; 1, 2 and 10-15; 1, 2 and 16-19; 1, 2 and 20-23; 1, 2 and 24-27;
+1, 2 and 28; or 1, 2 and 29 (while working on them), and print no last
+line.
 
     python3 chip_smoke.py --baseline ROOT [--phases ...]
 
@@ -706,12 +730,16 @@ PROFILE_GROUPS = ("hg_gemm_kernel", "hg_gemm_s8_kernel", "attn_tc_fwd_kernel",
 def device_rows(prof) -> list:
     """(name, device ms, count) of the kernels in a profile: only events
     that ran on the device, so host-side ranges that enclose kernels (aten
-    ops, the autograd Functions) do not count their time again."""
+    ops, the autograd Functions) do not count their time again; nor do the
+    user annotations the profiler also puts on the device's timeline
+    (``Optimizer.step#AdamW.step``, ``DistributedDataParallel.forward``),
+    which enclose kernels too."""
     from torch.autograd import DeviceType
 
     return [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0 and PRIMER_KERNEL not in e.key]
 
 
@@ -1502,21 +1530,23 @@ def loss_and_grads(model, x, y, lambdas, **kw) -> tuple:
 
 def compare_first_step(tag: str, what: str, loss, grads, ref_loss,
                        ref_grads, cosine_min: float = GRAD_COSINE_MIN,
-                       tensor_tol=grad_tensor_tol) -> None:
+                       tensor_tol=grad_tensor_tol,
+                       sides=("bf16 kernels", "plain")) -> None:
     """The first step's loss and gradients (bf16 kernels) against a plain
     path's: the loss, the cosine of all gradients as one vector, and each
-    tensor's max|d| / max|ref| (to ``tensor_tol(name)``)."""
+    tensor's max|d| / max|ref| (to ``tensor_tol(name)``). ``sides`` names
+    the two runs in the log."""
     per = {n: rel_err(grads[n], ref_grads[n])[1] for n in ref_grads}
     cosine = grad_cosine(grads, ref_grads)
     worst = sorted(per.items(), key=lambda kv: -kv[1])
     loss_rel = abs(loss - ref_loss) / abs(ref_loss)
-    log(f"{tag}: {what}: loss {loss:.6f} (bf16 kernels) vs {ref_loss:.6f} "
-        f"(plain), rel {loss_rel:.3e}; gradient cosine {cosine:.6f}; median "
+    log(f"{tag}: {what}: loss {loss:.6f} ({sides[0]}) vs {ref_loss:.6f} "
+        f"({sides[1]}), rel {loss_rel:.3e}; cosine {cosine:.6f}; median "
         f"tensor max|d|/max|ref| {statistics.median(per.values()):.3e}; worst "
         + ", ".join(f"{n} {e:.3e}" for n, e in worst[:12]))
     over = [(n, e) for n, e in worst if not e <= tensor_tol(n)]
     if not (loss_rel <= LOSS_TOL and cosine >= cosine_min) or over:
-        fail(f"{tag}: {what} disagrees with the plain path: loss rel "
+        fail(f"{tag}: {what} disagrees with the {sides[1]} run: loss rel "
              f"{loss_rel:.3e}, cosine {cosine:.6f} (bar {cosine_min}), over "
              f"the bar: {over}")
 
@@ -3902,6 +3932,523 @@ def phase_mesh_drivers(fp, fs) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 28: data parallel at the flagship widths
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3      # AdamW steps of the two-rank run and its reference
+DIST_WORLD = 2
+DIST_TIMEOUT = 600  # seconds: a rank's start-up, a collective, a driver run
+# the kernels a train step launches: phase 8's (the pairs), and with
+# phase 18's drop-path and dropout rates both on, the attention block's
+# (every layer leaves the pair path, the MLP runs in plain PyTorch)
+PAIR_TRAIN_KERNELS = ("fused_pair_block", "fused_gated_pair_block",
+                      "fused_pair_block_bwd", "fused_gated_pair_block_bwd")
+DROP_TRAIN_KERNELS = ("fused_attention_block", "fused_attention_block_bwd")
+
+
+def train_counters() -> tuple:
+    """The launch counters of every kernel a train step can launch."""
+    from motionbert_tpu_torch.ops import attention as at
+    from motionbert_tpu_torch.ops import fused_mlp as mlp
+    from motionbert_tpu_torch.ops import fused_pair as fp
+
+    return (fp.fused_pair_block, fp.fused_gated_pair_block,
+            fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd,
+            at.fused_attention_block, at.fused_attention_block_bwd,
+            mlp.fused_mlp_block, mlp.fused_mlp_block_bwd)
+
+
+def param_tensor_tol(name: str) -> float:
+    """Parameters after AdamW steps of two runs whose bf16 gradient sums
+    run in another order: phase 8's gradient bars, and a bias takes the
+    cancelling-sum bar. A bias's gradient sums every token row of the batch
+    (terms of both signs), so its small elements carry the sums' rounding,
+    and AdamW moves each element by about the learning rate whatever its
+    size: a small element can move the other way (measured on the card:
+    17 of phase 28's bias tensors at 0.10-0.14 of their largest value after
+    3 steps, every weight matrix below 0.1, the first step's gradients
+    within phase 8's bars)."""
+    return CANCELLING_SUM_TOL if name.endswith(".bias") \
+        else grad_tensor_tol(name)
+
+
+def dist_model(drops: bool) -> tuple:
+    """(args, lambdas, model): phase 8's flagship with the anchor weights on
+    the card; with drops, phase 18's drop-path and dropout rates too."""
+    from motionbert_tpu_torch.core.checkpoint import load_state_dict
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.losses.pose import LAMBDA_KEYS
+    from motionbert_tpu_torch.models.factory import load_backbone
+
+    args = get_config(TRAIN_CONFIG)
+    rates = dict(drop_path_rate=DROP_PATH_RATE, drop_rate=DROP_RATE) \
+        if drops else {}
+    model = load_backbone(args, device="cuda", **rates)
+    model.load_state_dict(load_state_dict(ANCHOR), strict=True)
+    return args, {k: args.get(k, 0.0) for k in LAMBDA_KEYS}, model
+
+
+def dist_steps(model, net, args, lambdas, x, y, steps: int) -> dict:
+    """``steps`` AdamW steps of ``net`` (the model, or its DDP wrapper) on
+    this rank's rows of the global batch (x, y), the generator seeded alike
+    on every rank:
+    {"loss": the global batch's loss per step, "grads": the first step's
+    gradients (averaged over the ranks), "params": after the steps, "ms":
+    the mean time of the steps after the first, "step": the step}."""
+    from motionbert_tpu_torch.parallel.mesh import mean_over_ranks, rank_rows
+    from motionbert_tpu_torch.train.pose3d import make_train_step
+    from motionbert_tpu_torch.train.state import make_adamw
+
+    opt = make_adamw(model.parameters(), args.learning_rate,
+                     args.weight_decay)
+    names = {p: n for n, p in model.named_parameters()}
+    grads = {}
+
+    def keep_first(optimizer, *_):
+        if not grads:
+            grads.update({names[p]: p.grad.detach().float().clone()
+                          for g in optimizer.param_groups
+                          for p in g["params"] if p.grad is not None})
+
+    opt.register_step_pre_hook(keep_first)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = make_train_step(net, opt, lambdas, rootrel=args.rootrel,
+                           no_conf=args.no_conf, flip_aug=bool(args.flip),
+                           generator=gen)
+    xr, yr = rank_rows((x, y))
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(mean_over_ranks(step(xr, yr))["total"].item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"loss": losses, "grads": grads,
+            "params": {n: p.detach().float().clone()
+                       for n, p in model.named_parameters()},
+            "ms": 1e3 * statistics.mean(times[1:]),
+            "step": lambda a, b: step(*rank_rows((a, b)))}
+
+
+def dist_rank(rank: int, store: str, out: str) -> None:
+    """One rank of phase 28 (b): gloo, cuda:0, phase 18's rates."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from motionbert_tpu_torch.parallel.mesh import wrap_ddp
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=DIST_WORLD,
+                            timeout=timedelta(seconds=DIST_TIMEOUT))
+    try:
+        args, lambdas, model = dist_model(True)
+        x, y = train_batch(TRAIN_BATCH)
+        net = wrap_ddp(model, torch.device("cuda", 0))
+        res, got = counted(train_counters(), lambda: dist_steps(
+            model, net, args, lambdas, x, y, DIST_STEPS))
+        res["launches"] = got
+        del res["step"]
+        if rank == 0:
+            torch.save({k: ({n: t.cpu() for n, t in v.items()}
+                            if isinstance(v, dict) and k != "launches" else v)
+                        for k, v in res.items()}, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(target, args_of_rank, world: int, timeout: float) -> None:
+    """Run target(*args_of_rank(r)) in ``world`` spawned processes; kill
+    them at the deadline; fail unless every one exits 0."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of_rank(r))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(10)
+    codes = [p.exitcode for p in procs]
+    if alive or codes != [0] * world:
+        fail(f"ranks exited {codes}" + (f", {len(alive)} killed at the "
+                                       f"{timeout:.0f} s deadline"
+                                       if alive else ""))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def flagship_smoke_configs(tmp: str, oneshot_pkl: str) -> dict:
+    """task -> the path of a YAML config: the task's synthetic smoke set at
+    the flagship widths, one epoch (phases 9, 23 and 27's sets)."""
+    import yaml
+
+    from motionbert_tpu_torch.core.config import get_config
+
+    flagship = dict(dim_feat=512, dim_rep=512, num_heads=8, depth=5,
+                    mlp_ratio=2, epochs=1)
+    specs = {
+        "pose3d": (SMOKE_CONFIG, {}),
+        "action": (ACTION_SMOKE_CONFIG, dict(hidden_dim=2048)),
+        "action_1shot": (ACTION_SMOKE_CONFIG, dict(
+            hidden_dim=2048, n_views=2, temp=0.1, data_path=oneshot_pkl,
+            data_path_1shot=oneshot_pkl)),
+        "mesh": (MESH_SMOKE_CONFIG, dict(hidden_dim=1024)),
+    }
+    paths = {}
+    for task, (base, extra) in specs.items():
+        args = dict(get_config(base))
+        args.update(flagship, **extra)
+        for key in ("data_root", "dt_root", "data_path", "smpl_model_path"):
+            if key in args and not os.path.isabs(args[key]):
+                args[key] = os.path.join(ROOT, args[key])
+        paths[task] = os.path.join(tmp, f"{task}.yaml")
+        with open(paths[task], "w") as f:
+            yaml.safe_dump(args, f)
+    return paths
+
+
+def run_commands(commands: dict, tmp: str) -> dict:
+    """Start every command at once (cwd ROOT), wait for each up to
+    DIST_TIMEOUT, and fail on a non-zero exit with the end of its output.
+    Returns name -> seconds."""
+    procs, logs, seconds = {}, {}, {}
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    for name, cmd in commands.items():
+        logs[name] = open(os.path.join(tmp, f"{name}.log"), "w+")
+        procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                       stdout=logs[name],
+                                       stderr=subprocess.STDOUT)
+    failed = []
+    for name, p in procs.items():
+        try:
+            p.wait(timeout=max(DIST_TIMEOUT - (time.perf_counter() - t0), 1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        seconds[name] = time.perf_counter() - t0
+        logs[name].seek(0)
+        text = logs[name].read()
+        logs[name].close()
+        if p.returncode != 0:
+            failed.append(name)
+            log(f"{name}: exit {p.returncode}; the end of its output:\n"
+                + text[-4000:])
+    if failed:
+        fail(f"data parallel drivers failed: {failed}")
+    return seconds
+
+
+def phase_dist(records: list) -> None:
+    """(a) world size 1 under NCCL on a file store: the DDP-wrapped step's
+    loss and gradients bit for bit the unwrapped step's, both timed; and
+    the reference of (b). (b) two ranks on the one card (gloo), the global
+    batch's rows 4 each, phase 18's rates: held to (a) at phase 8's bars.
+    (c) the four drivers under torchrun with two ranks on the card, then
+    the pose3d checkpoint resumed at world size 1."""
+    import torch.distributed as dist
+
+    from motionbert_tpu_torch.core.checkpoint import load_checkpoint
+    from motionbert_tpu_torch.parallel.mesh import wrap_ddp
+
+    counters = train_counters()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) world size 1, NCCL, in this process
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store1",
+                                rank=0, world_size=1)
+        try:
+            x, y = train_batch(TRAIN_BATCH)
+            args, lambdas, model = dist_model(False)
+            loss, grads = loss_and_grads(model, x, y, lambdas)
+            plain_ms = dist_steps(model, model, args, lambdas, x, y,
+                                  TRAIN_STEPS)["ms"]
+            args, lambdas, model = dist_model(False)
+            ddp = wrap_ddp(model, torch.device("cuda", 0))
+            (ddp_loss, ddp_grads), ddp_launches = counted(
+                counters, lambda: loss_and_grads(ddp, x, y, lambdas))
+            ddp_grads = {n[len("module."):]: g for n, g in ddp_grads.items()}
+            differ = [n for n in grads if not torch.equal(grads[n],
+                                                          ddp_grads[n])]
+            log(f"dist (a): world size 1, NCCL: DDP step loss {ddp_loss!r} "
+                f"against {loss!r} unwrapped; {len(grads) - len(differ)} of "
+                f"{len(grads)} gradients bit for bit; launches "
+                f"{json.dumps(ddp_launches)}")
+            if ddp_loss != loss or differ or ddp_grads.keys() != grads.keys():
+                fail(f"dist (a): the DDP step differs from the unwrapped "
+                     f"one: loss {ddp_loss} vs {loss}, gradients {differ}")
+            if sorted(ddp_launches) != sorted(PAIR_TRAIN_KERNELS):
+                fail(f"dist (a): the DDP step launched {ddp_launches}")
+            wrapped = dist_steps(model, ddp, args, lambdas, x, y,
+                                 TRAIN_STEPS)
+            log(f"dist (a): ({TRAIN_BATCH}, {FRAMES}) AdamW steps: "
+                f"{wrapped['ms']:.2f} ms per step DDP-wrapped at world size "
+                f"1, {plain_ms:.2f} ms unwrapped")
+            profile_step("dist (a) DDP profile", wrapped["step"], x, y)
+            del wrapped
+            del model, ddp
+            torch.cuda.empty_cache()
+            args, lambdas, model = dist_model(True)
+            ref = dist_steps(model, wrap_ddp(model, torch.device("cuda", 0)),
+                             args, lambdas, x, y, DIST_STEPS)
+            del model
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+        # (b) two ranks sharing the card, gloo
+        out = os.path.join(tmp, "world2.pt")
+        t0 = time.perf_counter()
+        spawn_ranks(dist_rank, lambda r: (r, f"{tmp}/store2", out),
+                    DIST_WORLD, DIST_TIMEOUT)
+        two = torch.load(out, weights_only=False)
+        log(f"dist (b): {DIST_WORLD} ranks sharing one card (gloo; not a "
+            f"scaling figure), {TRAIN_BATCH // DIST_WORLD} clips each, "
+            f"drop_path_rate {DROP_PATH_RATE}, drop_rate {DROP_RATE}: "
+            f"{two['ms']:.2f} ms per step, world size 1 {ref['ms']:.2f}; "
+            f"losses {two['loss']} against {ref['loss']}; launches per rank "
+            f"{json.dumps(two['launches'])}; {time.perf_counter() - t0:.1f} s "
+            f"with the ranks' start")
+        if sorted(two["launches"]) != sorted(DROP_TRAIN_KERNELS):
+            fail(f"dist (b): a rank launched {two['launches']}")
+        for i, (a, b) in enumerate(zip(two["loss"], ref["loss"])):
+            if not abs(a - b) <= LOSS_TOL * abs(b):
+                fail(f"dist (b): step {i} loss {a} against {b}")
+        sides = ("world size 2", "world size 1")
+        compare_first_step("dist (b)", "the first step's gradients",
+                           two["loss"][0], {n: g.cuda() for n, g in
+                                            two["grads"].items()},
+                           ref["loss"][0], ref["grads"], sides=sides)
+        compare_first_step("dist (b)", f"the parameters after {DIST_STEPS} "
+                           f"steps", two["loss"][-1],
+                           {n: p.cuda() for n, p in two["params"].items()},
+                           ref["loss"][-1], ref["params"], sides=sides,
+                           tensor_tol=param_tensor_tol)
+
+        # (c) the drivers under torchrun: two ranks on the card, gloo
+        pkl = os.path.join(tmp, "oneshot.pkl")
+        write_oneshot_pickle(pkl)
+        cfgs = flagship_smoke_configs(tmp, pkl)
+        run = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", str(DIST_WORLD), "--master_addr",
+               "localhost"]
+        commands = {task: run + ["--master_port", str(free_port()), "-m",
+                                 f"motionbert_tpu_torch.train.{task}",
+                                 "--config", cfg, "-c",
+                                 os.path.join(tmp, task), "--device",
+                                 "cuda:0", "--dist_backend", "gloo"]
+                    for task, cfg in cfgs.items()}
+        seconds = run_commands(commands, tmp)
+        for task in cfgs:
+            ckpt = os.path.join(tmp, task)
+            payload = load_checkpoint(os.path.join(ckpt, "latest_epoch.ckpt"))
+            scalars = open(os.path.join(ckpt, "logs",
+                                        "scalars.jsonl")).read().splitlines()
+            prefixed = [k for k in payload["model"] if k.startswith("module.")]
+            log(f"dist (c): {task} under torchrun, {DIST_WORLD} ranks: "
+                f"{seconds[task]:.1f} s, checkpoint epoch {payload['epoch']}, "
+                f"{len(scalars)} logged scalars; "
+                + "; ".join(json.loads(s)["tag"] + " " + str(round(
+                    json.loads(s)["value"], 5)) for s in scalars))
+            if payload["epoch"] != 1 or prefixed:
+                fail(f"dist (c): {task}: epoch {payload['epoch']}, keys "
+                     f"{prefixed[:3]}")
+            tags = [json.loads(s)["tag"] for s in scalars]
+            if len(tags) != len(set(tags)):
+                fail(f"dist (c): {task}: scalars logged twice: {tags}")
+        # the pose3d checkpoint of world size 2, resumed at world size 1
+        with open(cfgs["pose3d"]) as f:
+            text = f.read().replace("epochs: 1", "epochs: 2")
+        resume_cfg = os.path.join(tmp, "pose3d_resume.yaml")
+        with open(resume_cfg, "w") as f:
+            f.write(text)
+        seconds = run_commands({"pose3d resume": [
+            sys.executable, "-m", "motionbert_tpu_torch.train.pose3d",
+            "--config", resume_cfg, "-c", os.path.join(tmp, "pose3d"),
+            "--device", "cuda:0"]}, tmp)
+        payload = load_checkpoint(os.path.join(tmp, "pose3d",
+                                               "latest_epoch.ckpt"))
+        log(f"dist (c): the world-2 pose3d checkpoint resumed at world size "
+            f"1 for epoch 2 in {seconds['pose3d resume']:.1f} s: checkpoint "
+            f"epoch {payload['epoch']}, lr {payload['lr']}")
+        if payload["epoch"] != 2:
+            fail(f"dist (c): the resumed run saved epoch {payload['epoch']}")
+    for rec in records:
+        if rec["name"] in PAIR_TRAIN_KERNELS:
+            rec["launches_dist"] = ddp_launches.get(rec["name"], 0)
+    log(f"dist: phase 28 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 29: wild I/O and rendering on the card
+# ---------------------------------------------------------------------------
+
+WILD_FPS, WILD_SIZE = 25.0, (1920, 1080)   # write_wild_json's frame
+FACES = 13776   # the SMPL mesh's face count
+
+
+def write_seeded_video(path: str, frames: int, seed: int = 29) -> None:
+    """An mp4 of ``frames`` seeded frames of write_wild_json's size."""
+    import cv2
+
+    rs = np.random.RandomState(seed)
+    w, h = WILD_SIZE
+    base = rs.randint(0, 255, (h // 8, w // 8, 3)).astype(np.uint8)
+    base = cv2.resize(base, (w, h), interpolation=cv2.INTER_NEAREST)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), WILD_FPS,
+                             WILD_SIZE)
+    if not writer.isOpened():
+        fail(f"render: cv2.VideoWriter cannot open {path}")
+    for i in range(frames):
+        writer.write(np.roll(base, 4 * i, axis=1))
+    writer.release()
+
+
+def seeded_faces(v_template: np.ndarray, n: int = FACES) -> np.ndarray:
+    """n triangles over a body model's vertices: each vertex with its
+    nearest neighbours (1st and 2nd, then 2nd and 3rd)."""
+    from scipy.spatial import cKDTree
+
+    _, nn = cKDTree(v_template).query(v_template, k=4)
+    faces = np.concatenate([nn[:, [0, 1, 2]], nn[:, [0, 2, 3]]])
+    return faces[:n].astype(np.int64)
+
+
+def video_props(path: str) -> tuple:
+    """(frames read, fps, (w, h)) of a video through cv2.VideoCapture."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    fps = cap.get(cv2.CAP_PROP_FPS)
+    size = (int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+            int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n, fps, size
+
+
+def frames_per_second(make, n: int) -> float:
+    t0 = time.perf_counter()
+    frames = make()
+    if len(frames) != n:
+        fail(f"render: {len(frames)} frames of {n}")
+    return n / (time.perf_counter() - t0)
+
+
+def phase_render(fp, records: list) -> None:
+    """A seeded mp4 and read_video_meta; the wild_pose command line with
+    --vid_path and rendering (the flagship lift on the card), X3D.mp4 read
+    back; the wild_mesh command line the same way on the seeded 6890-vertex
+    body model, mesh.mp4 read back; the renderer's frames per second."""
+    import yaml
+
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.infer import (
+        read_video_meta, wild_mesh, wild_pose)
+    from motionbert_tpu_torch.models.smpl import (
+        _OPTIONAL, _REQUIRED, SMPLModel)
+    from motionbert_tpu_torch.viz import render
+
+    counters = (fp.fused_pair_block, fp.fused_gated_pair_block)
+    frames = (300, 100)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        json_path = os.path.join(tmp, "alphapose-results.json")
+        write_wild_json(json_path, frames)
+        video = os.path.join(tmp, "video.mp4")
+        t0 = time.perf_counter()
+        write_seeded_video(video, frames[0])
+        meta = read_video_meta(video)
+        log(f"render: a seeded {WILD_SIZE[0]} x {WILD_SIZE[1]} mp4 of "
+            f"{frames[0]} frames at {WILD_FPS} fps written in "
+            f"{time.perf_counter() - t0:.2f} s; read_video_meta {meta}")
+        if meta != (WILD_FPS, WILD_SIZE):
+            fail(f"render: read_video_meta gave {meta}")
+
+        out = os.path.join(tmp, "pose")
+        t0 = time.perf_counter()
+        x3d, got = counted(counters, lambda: wild_pose.main(
+            ["--config", CONFIG, "-e", ANCHOR, "-j", json_path, "-o", out,
+             "--vid_path", video, "--focus", "0"]))
+        dt = time.perf_counter() - t0
+        props = video_props(os.path.join(out, "X3D.mp4"))
+        want = (frames[0], WILD_FPS, (render.FRAME_SIZE,) * 2)
+        log(f"render: wild_pose --vid_path on the card in {dt:.2f} s: "
+            f"X3D.npy {x3d.shape}, X3D.mp4 (frames, fps, size) {props}; "
+            f"launches {json.dumps(got)}")
+        if props != want or x3d.shape != (frames[0], 17, 3):
+            fail(f"render: X3D.mp4 {props}, expected {want}")
+        if sorted(got) != ["fused_gated_pair_block", "fused_pair_block"]:
+            fail(f"render: the wild lift launched {got}")
+        launches.update(got)
+
+        smpl = SMPLModel.synthetic(num_verts=MESH_VERTS, seed=0)
+        faces = seeded_faces(smpl.numpy("v_template"))
+        npz = os.path.join(tmp, "smpl_seeded.npz")
+        np.savez(npz, faces=faces, parents=smpl.parents, **{
+            k: smpl.numpy(k) for k in _REQUIRED + _OPTIONAL
+            if getattr(smpl, k) is not None})
+        args = dict(get_config(MESH_SMOKE_CONFIG))
+        args.update(dim_feat=512, dim_rep=512, num_heads=8, depth=5,
+                    mlp_ratio=2, hidden_dim=1024, maxlen=243,
+                    data_root=os.path.join(ROOT, args["data_root"]),
+                    smpl_model_path=npz)
+        cfg = os.path.join(tmp, "mesh.yaml")
+        with open(cfg, "w") as f:
+            yaml.safe_dump(args, f)
+        out = os.path.join(tmp, "mesh")
+        t0 = time.perf_counter()
+        verts, got = counted(counters, lambda: wild_mesh.main(
+            ["--config", cfg, "-j", json_path, "-o", out, "--vid_path",
+             video, "--focus", "0"]))
+        dt = time.perf_counter() - t0
+        props = video_props(os.path.join(out, "mesh.mp4"))
+        log(f"render: wild_mesh --vid_path on the card, {MESH_VERTS} "
+            f"vertices, {len(faces)} faces, in {dt:.2f} s: mesh_verts.npy "
+            f"{verts.shape}, mesh.mp4 (frames, fps, size) {props}; launches "
+            f"{json.dumps(got)}")
+        if props != want or verts.shape != (frames[0], MESH_VERTS, 3):
+            fail(f"render: mesh.mp4 {props}, expected {want}")
+        if sorted(got) != ["fused_gated_pair_block", "fused_pair_block"]:
+            fail(f"render: the wild mesh launched {got}")
+        for k, v in got.items():
+            launches[k] += v
+
+        motion2d = np.load(os.path.join(tmp, "pose", "X3D.npy"))[..., :2]
+        n2d, n_mesh = 50, 50
+        fps = {
+            "2d": frames_per_second(lambda: render.skeleton_frames(
+                render._to_jdt(motion2d[:n2d]), render.hex2rgb(
+                    "#F96706#FB8D43#FDB381")), n2d),
+            "3d": frames_per_second(lambda: render.skeleton3d_frames(x3d),
+                                    len(x3d)),
+            "mesh": frames_per_second(lambda: render.mesh_frames(
+                verts[:n_mesh], faces), n_mesh)}
+        log(f"render: frames per second (frame generation, no encoding, "
+            f"this machine's host CPU): 2D ellipse skeleton 512 x 512 "
+            f"{fps['2d']:.1f}, 3D skeleton {fps['3d']:.1f}, mesh "
+            f"{MESH_VERTS} vertices / {len(faces)} faces {fps['mesh']:.1f}")
+    for rec in records:
+        if rec["name"] in launches:
+            rec["launches_render"] = launches[rec["name"]]
+
+
+# ---------------------------------------------------------------------------
 # --baseline: another checkout's kernels, bit for bit and in turns
 # ---------------------------------------------------------------------------
 
@@ -4566,14 +5113,16 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         choices=("all", "pairs", "train", "q8", "blocks",
-                                 "action", "mesh"),
+                                 "action", "mesh", "dist", "render"),
                         default="all",
                         help="pairs: only phases 1, 2, 3 and 24; train: only "
                              "phases 1, 2, the engine and core phases, 7 and "
                              "8; q8: only phases 1, 2 and 10-15; blocks: only "
                              "phases 1, 2 and 16-19; action: only phases 1, "
                              "2 and 20-23; mesh: only phases 1, 2 and 24-27; "
-                             "none of them prints the last line")
+                             "dist: only phases 1, 2 and 28; render: only "
+                             "phases 1, 2 and 29; none of them prints the "
+                             "last line")
     parser.add_argument("--baseline", default=None, metavar="ROOT",
                         help="another checkout (the parent's, say): after the "
                              "build, hold this checkout's bf16 pairs and "
@@ -4671,6 +5220,15 @@ def main() -> int:
         log("partial run (--phases action): no result line")
         return 0
 
+    if opts.phases == "dist":
+        timed("dist", phase_dist, [])
+    if opts.phases == "render":
+        timed("render", phase_render, fp, [])
+    if opts.phases in ("dist", "render"):
+        log(f"device: {smi}")
+        log(f"partial run (--phases {opts.phases}): no result line")
+        return 0
+
     records = timed("kernels", phase_kernels, fp)
     mb, x = timed("main path", phase_main_path, fp, records)
     timed("profile", phase_profile, mb, x)
@@ -4684,6 +5242,8 @@ def main() -> int:
     records += bwd_records + phase_blocks(fp) + q8_records
     records += phase_action_all(fp)
     records += phase_mesh_all(fp, q8)
+    timed("dist", phase_dist, records)
+    timed("render", phase_render, fp, records)
     if opts.baseline:
         attach_turns(records, turns)
 

@@ -4,6 +4,7 @@ The port of ``motionbert_tpu/core/logging.py``'s ``MetricsWriter``: scalars
 go to <logdir>/scalars.jsonl, one {"time", "step", "tag", "value"} per line,
 and to TensorBoard through ``tensorboardX`` when that imports (not
 ``torch.utils.tensorboard``, whose import can pull in all of TensorFlow).
+Under data parallelism the ranks other than 0 get a ``NullWriter``.
 """
 
 from __future__ import annotations
@@ -36,3 +37,21 @@ class MetricsWriter:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullWriter:
+    """``MetricsWriter``'s interface, writing nothing."""
+
+    def add_scalar(self, tag: str, value, step: int):
+        pass
+
+    def close(self):
+        pass
+
+
+def open_writer(logdir: str):
+    """A ``MetricsWriter`` on rank 0 (or with no process group), a
+    ``NullWriter`` on the other ranks."""
+    from motionbert_tpu_torch.parallel.mesh import is_main
+
+    return MetricsWriter(logdir) if is_main() else NullWriter()

@@ -15,7 +15,9 @@ ground-truth 2D keypoints look like a detector's output:
 Every draw comes from the ``torch.Generator`` the caller passes, on that
 generator's device, in a fixed order (noise: selector, Gaussian, uniform,
 frame jitter, confidence shift; mask: joints, frames), so a saved generator
-state reproduces the corruption.
+state reproduces the corruption. The per-clip draws are taken at the global
+batch's size under data parallelism (``parallel.mesh.rank_draw``); the
+frame jitter and the frame mask are shared by the batch.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from motionbert_tpu_torch.core.config import read_pkl
+from motionbert_tpu_torch.parallel.mesh import rank_draw
 
 NUM_KEYFRAMES = 27
 FRAME_NOISE_STD = 0.002
@@ -48,12 +51,17 @@ class NoiseParams:
 
     @classmethod
     def load(cls, noise_path: str, d2c_params_path: str) -> "NoiseParams":
-        if not noise_path.endswith(".npz"):
-            raise ValueError(f"noise_path must be an .npz file, got "
-                             f"{noise_path!r}")
+        """From an ``.npz`` (``params/synthetic_noise.npz``) or the
+        reference's ``synthetic_noise.pth`` (a dict of tensors and numbers,
+        read with ``torch.load(weights_only=True)``), and the d2c pickle."""
         d2c = read_pkl(d2c_params_path)
-        z = np.load(noise_path)
-        noise = {k: z[k] for k in z.files}
+        if noise_path.endswith(".npz"):
+            z = np.load(noise_path)
+            noise = {k: z[k] for k in z.files}
+        else:
+            noise = {k: v.numpy() if isinstance(v, torch.Tensor) else v
+                     for k, v in torch.load(noise_path, map_location="cpu",
+                                            weights_only=True).items()}
         return cls(
             mean=np.asarray(noise["mean"], np.float32),
             std=np.asarray(noise["std"], np.float32),
@@ -91,7 +99,7 @@ def dis2conf(generator: torch.Generator, dis: torch.Tensor,
     """Displacement -> confidence with a Gaussian shift (reference
     augmentation.py:22-27)."""
     f = p.a / (dis + p.a) + p.b * dis
-    return f + (_normal(dis.shape, generator) * p.s + p.m)
+    return f + (rank_draw(_normal, dis.shape, generator) * p.s + p.m)
 
 
 def add_noise(generator: torch.Generator, motion_2d: torch.Tensor,
@@ -105,10 +113,11 @@ def add_noise(generator: torch.Generator, motion_2d: torch.Tensor,
     std = torch.from_numpy(p.std).to(dev)
     weight = torch.from_numpy(p.weight).to(dev)[:, None]  # (J, 1)
 
-    sel = _uniform((N, NUM_KEYFRAMES, J, 1), generator)
-    gaussian = _normal((N, NUM_KEYFRAMES, J, 2), generator) * std + mean
-    uniform = (_uniform((N, NUM_KEYFRAMES, J, 2), generator) - 0.5) \
-        * p.uniform_range
+    sel = rank_draw(_uniform, (N, NUM_KEYFRAMES, J, 1), generator)
+    gaussian = rank_draw(_normal, (N, NUM_KEYFRAMES, J, 2), generator) * std \
+        + mean
+    uniform = (rank_draw(_uniform, (N, NUM_KEYFRAMES, J, 2), generator)
+               - 0.5) * p.uniform_range
     delta = torch.where(sel < weight, gaussian, uniform)
     delta = _interp_keyframes(delta, T)
     delta = delta + _normal((T, J, 2), generator) * FRAME_NOISE_STD
@@ -123,7 +132,7 @@ def add_mask(generator: torch.Generator, x: torch.Tensor, mask_ratio: float,
              mask_T_ratio: float) -> torch.Tensor:
     """Random joint and frame masking (reference augmentation.py:67-74)."""
     N, T, J, _ = x.shape
-    mask = _uniform((N, T, J, 1), generator) > mask_ratio
+    mask = rank_draw(_uniform, (N, T, J, 1), generator) > mask_ratio
     mask_T = _uniform((1, T, 1, 1), generator) > mask_T_ratio
     return x * mask * mask_T
 

@@ -1,5 +1,6 @@
-"""A reader of the native clip store: one flat float32 file (``.mbcs``) per
-split that ``tools/pack_clips.py`` packs from a pose3d clip directory, served
+"""The native clip store: one flat float32 file (``.mbcs``) per split, packed
+from a pose3d clip directory (``write_clipstore``, or ``tools/pack_clips.py``
+with the JAX package's writer of the same layout), served
 by ``mmap`` and a C++ thread pool that gathers a batch without Python per
 item (``native/clipstore.cpp``).
 
@@ -11,6 +12,7 @@ the source. The file layout: a 64-byte header (magic "MBCS", version 1, the
 clip count, whether an input stream is present, T, J, C), then the inputs
 (when present) and the labels, each (n, T, J, C) float32.
 
+    write_clipstore("train.mbcs", labels, inputs)
     store = ClipStore("train.mbcs")
     inputs, labels = store.gather([3, 1, 4])
     ds = ClipStoreDataset3D("train.mbcs")   # MotionDataset3D's items
@@ -38,8 +40,37 @@ ROOT = Path(__file__).resolve().parents[2]
 SOURCE = ROOT / "native" / "clipstore.cpp"
 BUILD_DIR = ROOT / "build" / "clipstore"
 
+MAGIC = 0x5343424D  # "MBCS"
+HEADER_BYTES = 64
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+
+def write_clipstore(path: str, labels: np.ndarray,
+                    inputs: Optional[np.ndarray] = None) -> None:
+    """Pack (n, T, J, C) float32 clips into one ``.mbcs`` file: the header
+    (magic, version 1, n as uint64, 1 when inputs are given, T, J, C as
+    uint32, zeros to 64 bytes), then the inputs, if any, and the labels."""
+    labels = np.ascontiguousarray(labels, np.float32)
+    n, T, J, C = labels.shape
+    if inputs is not None:
+        inputs = np.ascontiguousarray(inputs, np.float32)
+        if inputs.shape != labels.shape:
+            raise ValueError(f"inputs {inputs.shape} and labels "
+                             f"{labels.shape} differ in shape")
+    header = np.zeros(HEADER_BYTES, np.uint8)
+    header[0:4].view(np.uint32)[0] = MAGIC
+    header[4:8].view(np.uint32)[0] = 1
+    header[8:16].view(np.uint64)[0] = n
+    header[16:20].view(np.uint32)[0] = inputs is not None
+    header[20:32].view(np.uint32)[:] = (T, J, C)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        header.tofile(f)
+        if inputs is not None:
+            inputs.tofile(f)
+        labels.tofile(f)
 
 
 def build_native() -> Path:

@@ -11,7 +11,8 @@ the JAX package's loader. The random flip runs on the device in the train
 step (``train/pose3d.py``), not here. A dataset with a ``get_batch`` method
 (the native clip store, ``data/clipstore.py``) is gathered a batch at a
 time; a ``sampler`` (the one-shot task's ``MPerClassSampler``) orders the
-items in place of the shuffle.
+items in place of the shuffle. ``device_prefetch`` moves batches to the card
+ahead of the train step.
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ import json
 import os
 import queue
 import threading
-from collections import defaultdict
+from collections import defaultdict, deque
 from typing import Iterator, Sequence
 
 import numpy as np
+import torch
 
 from motionbert_tpu_torch.core.config import read_pkl
 from motionbert_tpu_torch.geometry.skeleton import posetrack2h36m
@@ -284,3 +286,50 @@ class BatchLoader:
                 except queue.Empty:
                     break
             t.join(timeout=10)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def device_prefetch(iterator, device, size: int = 2) -> Iterator:
+    """The batches of ``iterator`` (numpy arrays or tensors, or tuples,
+    lists and dicts of them) as tensors on ``device``, in order, ``size``
+    batches ahead of the consumer (the counterpart of
+    ``motionbert_tpu/data/datasets.py``'s ``device_prefetch``). On a CUDA
+    device each batch goes through pinned host memory and a non-blocking
+    copy on a side stream; the consuming stream waits on the copy's event
+    before it receives the batch, and the batch's memory is recorded on
+    that stream for the caching allocator. On the CPU the arrays become
+    tensors sharing their memory."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        for batch in iterator:
+            yield _tree_map(torch.as_tensor, batch)
+        return
+    side = torch.cuda.Stream(device)
+    ahead: deque = deque()
+
+    def load(host):
+        pinned = torch.as_tensor(host).pin_memory()
+        return pinned.to(device, non_blocking=True)
+
+    def hand_over():
+        batch, copied = ahead.popleft()
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(copied)
+        _tree_map(lambda t: t.record_stream(consumer), batch)
+        return batch
+
+    for host in iterator:
+        with torch.cuda.stream(side):
+            batch = _tree_map(load, host)
+            ahead.append((batch, side.record_event()))
+        if len(ahead) >= size:
+            yield hand_over()
+    while ahead:
+        yield hand_over()

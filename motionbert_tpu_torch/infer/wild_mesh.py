@@ -2,8 +2,8 @@
 
     python -m motionbert_tpu_torch.infer.wild_mesh \\
         --config configs/mesh/MB_ft_pw3d.yaml -e best_epoch.bin \\
-        -j alphapose-results.json -o out_dir \\
-        [--pixel --vid_size W H] [--focus ID] [--clip_len 243] \\
+        -j alphapose-results.json -o out_dir [-v video.mp4 | --vid_size W H] \\
+        [--pixel] [--focus ID] [--clip_len 243] [--no_render] \\
         [--ref_3d_motion_path X3D.npy] [--attn_impl pallas_stream] [--device cpu]
 
 The port of ``motionbert_tpu/infer/wild_mesh.py`` and the root
@@ -12,12 +12,12 @@ halpe2h36m -> normalise -> consecutive ``clip_len`` windows ->
 MeshRegressor with flip averaging in SMPL theta space (the mesh eval step)
 -> optionally the global trajectory: a scale fitted by grid search and
 least squares (scipy) between the regressed joints and a reference 3D
-motion, which places each frame's root -> ``mesh_verts.npy`` (T, V, 3), mm.
-Runs on the card unless ``--device cpu`` is given.
-
-Not ported yet: the mp4 rendering of ``viz/render.py`` (ROADMAP A.4), so
-``render=True`` raises and the command line does not render; and reading a
-video's size and frame rate, so the size is given as ``--vid_size W H``.
+motion, which places each frame's root -> ``mesh_verts.npy`` (T, V, 3), mm,
+and the mesh video ``mesh.mp4`` (``viz/render.py``'s ``motion2video_mesh``
+over the body model's faces, at the video's frame rate) unless
+``--no_render``. ``--vid_path`` / ``--vid_size`` as in ``infer.wild_pose``.
+Runs on the card unless ``--device cpu`` is given. A video that cannot be
+written raises.
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from motionbert_tpu_torch.infer.wild_pose import add_video_args, video_meta
 
 
 def err(p, x, y) -> float:
@@ -55,13 +57,14 @@ def solve_scale(x: np.ndarray, y: np.ndarray) -> float:
 
 
 def run_wild_mesh(args, *, json_path: str, out_path: str, model,
-                  vid_size=None, pixel: bool = False,
+                  vid_size=None, fps_in: float = 30.0, pixel: bool = False,
                   focus: Optional[int] = None, clip_len: int = 243,
                   ref_3d_motion_path: Optional[str] = None,
-                  render: bool = False) -> tuple:
+                  render: bool = True) -> tuple:
     """(vertices (T, V, 3), regressed H36M joints (T, 17, 3)) of the
     detections in ``json_path``, in mm, the vertices also written to
-    ``out_path``/mesh_verts.npy.
+    ``out_path``/mesh_verts.npy and with ``render`` drawn into
+    ``out_path``/mesh.mp4 at ``fps_in``.
 
     args: the config (infer_batch_size). model: the MeshRegressor, weights
     loaded, on the device to run on. vid_size: (w, h) of the source video;
@@ -72,10 +75,6 @@ def run_wild_mesh(args, *, json_path: str, out_path: str, model,
     from motionbert_tpu_torch.infer.batching import run_batched
     from motionbert_tpu_torch.train.mesh import make_mesh_eval_step
 
-    if render:
-        raise NotImplementedError(
-            "rendering mesh.mp4 needs viz/render.py, which is not ported yet "
-            "(ROADMAP A.4); call with render=False")
     if pixel and not vid_size:
         raise ValueError("pixel=True needs vid_size (w, h): pixel-space "
                          "input needs the video's resolution")
@@ -100,14 +99,18 @@ def run_wild_mesh(args, *, json_path: str, out_path: str, model,
                             reg3d_all - reg3d_all[:, :1])
         verts_all = verts_all - reg3d_all[:, :1] + ref_pose[:, :1] * scale
     np.save(os.path.join(out_path, "mesh_verts.npy"), verts_all)
+    if render:
+        from motionbert_tpu_torch.viz.render import motion2video_mesh
+
+        motion2video_mesh(verts_all, os.path.join(out_path, "mesh.mp4"),
+                          fps=fps_in, faces=model.head.smpl.faces)
     return verts_all, reg3d_all
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         description="In-the-wild mesh recovery: AlphaPose JSON in, "
-                    "mesh_verts.npy out. Does not render mesh.mp4 (the "
-                    "renderer is not ported yet).")
+                    "mesh_verts.npy and the mesh.mp4 video out.")
     parser.add_argument("--config", type=str,
                         default="configs/mesh/MB_ft_pw3d.yaml",
                         help="Path to the config file.")
@@ -119,15 +122,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="output path")
     parser.add_argument("--ref_3d_motion_path", type=str, default=None,
                         help="3D motion path (for global trajectory)")
-    parser.add_argument("--vid_size", type=int, nargs=2, default=None,
-                        metavar=("W", "H"),
-                        help="width and height of the source video")
-    parser.add_argument("--pixel", action="store_true",
-                        help="align with pixel coordinates (needs --vid_size)")
+    add_video_args(parser)
     parser.add_argument("--focus", type=int, default=None,
                         help="target person id")
     parser.add_argument("--clip_len", type=int, default=243,
                         help="clip length for network input")
+    parser.add_argument("--no_render", action="store_true",
+                        help="skip video rendering")
     parser.add_argument("--attn_impl", default=None,
                         help="pair implementation: kernel, plain, kernel_q8, "
                              "plain_q8, kernel_stream, kernel_stream_q8 "
@@ -147,9 +148,7 @@ def main(argv=None) -> np.ndarray:
         build_mesh_model, smpl_model_path)
 
     opts = parse_args(argv)
-    if opts.pixel and not opts.vid_size:
-        raise SystemExit("--pixel requires --vid_size W H (pixel-space "
-                         "input needs the video resolution)")
+    fps_in, vid_size = video_meta(opts)
     args = get_config(opts.config)
     model = build_mesh_model(args, SMPLModel.from_npz(smpl_model_path(args)),
                              device=opts.device, attn_impl=opts.attn_impl)
@@ -160,9 +159,9 @@ def main(argv=None) -> np.ndarray:
         model.init_weights(torch.Generator().manual_seed(0))
     verts, _ = run_wild_mesh(
         args, json_path=opts.json_path, out_path=opts.out_path, model=model,
-        vid_size=tuple(opts.vid_size) if opts.vid_size else None,
-        pixel=opts.pixel, focus=opts.focus, clip_len=opts.clip_len,
-        ref_3d_motion_path=opts.ref_3d_motion_path)
+        vid_size=vid_size, fps_in=fps_in, pixel=opts.pixel, focus=opts.focus,
+        clip_len=opts.clip_len, ref_3d_motion_path=opts.ref_3d_motion_path,
+        render=not opts.no_render)
     print("saved", os.path.join(opts.out_path, "mesh_verts.npy"),
           "shape", verts.shape)
     return verts

@@ -26,6 +26,7 @@ from torch import nn
 
 from motionbert_tpu_torch.geometry.rotations import f_normalize
 from motionbert_tpu_torch.models.dstformer import DSTformer, dropout
+from motionbert_tpu_torch.parallel.mesh import all_reduce_sum, world_size
 
 
 class BatchNorm1d(nn.BatchNorm1d):
@@ -35,7 +36,14 @@ class BatchNorm1d(nn.BatchNorm1d):
     BIASED batch variance, where torch's BatchNorm1d stores the unbiased one
     (at batch 32 the two drift apart by 1/31 per update). Running averages
     move by 0.1 (torch's momentum, flax's 1 - 0.9). The buffers keep torch's
-    names, so reference checkpoints load strictly."""
+    names, so reference checkpoints load strictly.
+
+    Under data parallelism the statistics are the global batch's, as the JAX
+    package's sharded step takes them: the fp32 sums of x and x^2 over the
+    rank's rows are summed over the ranks by a differentiable all-reduce
+    (``parallel.mesh.all_reduce_sum``), so every rank normalises alike and
+    keeps the same running averages. ``nn.SyncBatchNorm`` would store the
+    unbiased variance."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -43,8 +51,13 @@ class BatchNorm1d(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mean = xf.mean(0)
-            var = ((xf * xf).mean(0) - mean * mean).clamp_min(0.0)
+            if world_size() == 1:
+                mean, sq = xf.mean(0), (xf * xf).mean(0)
+            else:
+                sums = all_reduce_sum(torch.stack([xf.sum(0),
+                                                   (xf * xf).sum(0)]))
+                mean, sq = sums / (xf.shape[0] * world_size())
+            var = (sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)

@@ -57,7 +57,7 @@ from motionbert_tpu_torch.ops.attention import (
     layer_norm, linear, st_attention, st_attention_plain, wide)
 from motionbert_tpu_torch.ops.fused_mlp import fused_mlp_block, mlp_block_plain
 from motionbert_tpu_torch.ops.fused_pair import (
-    fused_gated_pair_block, fused_pair_block, gate_plain,
+    fused_gated_pair_block, fused_pair_block, gate_alpha, gate_plain,
     gated_pair_block_plain, pair_block_plain)
 from motionbert_tpu_torch.ops.fused_stream import (
     fused_gated_stream_block, fused_gated_stream_block_q8, fused_stream_block,
@@ -65,6 +65,7 @@ from motionbert_tpu_torch.ops.fused_stream import (
 from motionbert_tpu_torch.ops.pair_q8 import (
     fused_gated_pair_block_q8, fused_pair_block_q8, gated_pair_block_q8_plain,
     pair_block_q8_plain)
+from motionbert_tpu_torch.parallel.mesh import rank_draw
 
 # attn_impl -> (pair function, gated pair function). "kernel" goes through
 # the wrappers (CUDA kernel on the card, plain version on the CPU); "plain"
@@ -116,14 +117,21 @@ AXIS_MODES = ("spatial", "temporal")
 ATTENTION_MODES = AXIS_MODES + ("vanilla", "series", "parallel", "coupling")
 
 
+def uniform(shape, generator: torch.Generator) -> torch.Tensor:
+    """fp32 uniforms of ``shape`` on the generator's device."""
+    return torch.rand(shape, generator=generator, device=generator.device,
+                      dtype=torch.float32)
+
+
 def _drop(x: torch.Tensor, mask_shape, rate: float,
           generator: torch.Generator) -> torch.Tensor:
     """x / keep where a Bernoulli(keep = 1 - rate) mask of ``mask_shape``
     holds, else 0. The mask comes from fp32 uniforms on the generator's
-    device, whatever the dtype of x."""
+    device, whatever the dtype of x; its leading axis is the batch, drawn
+    at the global batch's size under data parallelism
+    (``parallel.mesh.rank_draw``)."""
     keep = 1.0 - rate
-    mask = torch.rand(mask_shape, generator=generator, device=generator.device,
-                      dtype=torch.float32) < keep
+    mask = rank_draw(uniform, mask_shape, generator) < keep
     return torch.where(mask, x / keep,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -478,12 +486,8 @@ class DSTformer(nn.Module):
                     "generator=...), a torch.Generator on the model's device")
         else:
             generator = None
-        F = x.shape[1]
         dt = self.compute_dtype
-        x = _linear(x.to(dt), self.joints_embed)
-        x = x + self.pos_embed.to(dt)
-        x = x + self.temp_embed[:, :F].to(dt)
-        x = dropout(x, self.drop_rate, generator)
+        x = dropout(self._embed(x), self.drop_rate, generator)
         for blk_st, blk_ts, gate in zip(self.blocks_st, self.blocks_ts,
                                         self.ts_attn):
             x_st = blk_st(x, generator=generator)
@@ -495,5 +499,39 @@ class DSTformer(nn.Module):
             return x
         return _linear(x, self.head)
 
+    def _embed(self, x: torch.Tensor) -> torch.Tensor:
+        """The joint embedding plus the spatial and temporal embeddings, in
+        the compute dtype."""
+        dt = self.compute_dtype
+        x = _linear(x.to(dt), self.joints_embed)
+        x = x + self.pos_embed.to(dt)
+        return x + self.temp_embed[:, :x.shape[1]].to(dt)
+
     def get_representation(self, x: torch.Tensor) -> torch.Tensor:
         return self(x, return_rep=True)
+
+
+@torch.no_grad()
+def attention_gate_stats(model: DSTformer, x: torch.Tensor) -> dict:
+    """Per-sample gate statistics, the functional counterpart of the
+    reference's count_attn accumulator (DSTformer.py:106-107, 202-212;
+    ``motionbert_tpu/models/dstformer.py``'s ``attention_gate_stats``).
+
+    Returns {"attn_count_s": (B, depth), "attn_count_t": (B, depth)} as
+    numpy: the mean over frames and joints of the att_fuse gate's weight
+    on the S->T and the T->S stream, per sample and layer. It runs its own
+    forward without masks, each layer's T->S stream through its ungated
+    pairs and the gate's weights (``ops.fused_pair.gate_alpha``) mixed in
+    after, so the model's own forward, whose last pair carries the gate
+    inside the kernel, keeps its bits."""
+    dt = model.compute_dtype
+    h = model._embed(x)
+    stats = []
+    for blk_st, blk_ts, gate in zip(model.blocks_st, model.blocks_ts,
+                                    model.ts_attn):
+        x_st, x_ts = blk_st(h), blk_ts(h)
+        a = gate_alpha(x_st, x_ts, gate.weight.to(dt), gate.bias.to(dt))
+        stats.append(a.float().mean((1, 2)))
+        h = x_st * a[..., 0:1] + x_ts * a[..., 1:2]
+    s = torch.stack(stats, 1).cpu().numpy()
+    return {"attn_count_s": s[..., 0], "attn_count_t": s[..., 1]}

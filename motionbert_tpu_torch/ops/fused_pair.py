@@ -80,14 +80,22 @@ def pair_block_plain(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
     return mlp_block(yb, ln2_w, ln2_b, w1, b1, w2, b2).to(x.dtype)
 
 
-def gate_plain(other: torch.Tensor, out: torch.Tensor, wg: torch.Tensor,
+def gate_alpha(other: torch.Tensor, out: torch.Tensor, wg: torch.Tensor,
                bg: torch.Tensor) -> torch.Tensor:
-    """att_fuse gate: fp32 logits, weights rounded to the compute dtype, mix
-    in the compute dtype. wg[:, :C] scores ``other`` (the S->T stream)."""
+    """The att_fuse gate's weights (..., 2): the softmax of fp32 logits,
+    rounded to the compute dtype. wg[:, :C] scores ``other`` (the S->T
+    stream)."""
     C = other.shape[-1]
     s = (torch.matmul(wide(other), wide(wg[:, :C]).t())
          + torch.matmul(wide(out), wide(wg[:, C:]).t()) + wide(bg))
-    a = torch.softmax(s, dim=-1).to(out.dtype)
+    return torch.softmax(s, dim=-1).to(out.dtype)
+
+
+def gate_plain(other: torch.Tensor, out: torch.Tensor, wg: torch.Tensor,
+               bg: torch.Tensor) -> torch.Tensor:
+    """att_fuse gate: fp32 logits, weights rounded to the compute dtype, mix
+    in the compute dtype."""
+    a = gate_alpha(other, out, wg, bg)
     return other * a[..., 0:1] + out * a[..., 1:2]
 
 

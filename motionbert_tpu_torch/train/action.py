@@ -6,20 +6,22 @@ epoch driver, with its command line:
 
 The port of ``motionbert_tpu/train/action.py`` and the root
 ``train_action.py`` (reference train_action.py). Flags as there (--config -c
--p -r -e -ms -sd -freq) plus --device, which defaults to the card, and
---attn_impl, which defaults to the config's key. The backbone runs through
-the pair kernels (bf16 on the card), the head in fp32; cross-entropy over
-the logits, top-1 / top-5 accuracy; AdamW in two groups (backbone and head
+-p -r -e -ms -sd -freq) plus --device, which defaults to the card,
+--attn_impl, which defaults to the config's key, and --dist_backend. The
+backbone runs through the pair kernels (bf16 on the card), the head in
+fp32; cross-entropy over the logits, top-1 / top-5 accuracy; AdamW in two groups (backbone and head
 learning rates) decayed per epoch (StepLR, step 1); the head's BatchNorm
 statistics update in the step. Dropout masks draw from one
 ``torch.Generator`` on the model's device whose state the checkpoints keep.
+Data parallel under ``torchrun`` as ``train.pose3d`` is: the head's
+BatchNorm takes the global batch's statistics, and the backbone's unused
+output head stays out of DDP's gradient reduction.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import random
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -28,6 +30,10 @@ import torch.nn.functional as F
 
 from motionbert_tpu_torch.core.metrics import AverageMeter, accuracy_topk
 from motionbert_tpu_torch.models.action_heads import ActionNet
+from motionbert_tpu_torch.parallel.mesh import (
+    add_dist_backend, barrier, check_batch_size, eval_rows, init_distributed,
+    is_main, mean_over_ranks, padded_eval_batches, rank_batches, run_main,
+    world_size, wrap_ddp)
 
 # keys a JAX ActionNet's state_dict lacks (module note of models/action_heads)
 JAX_MISSING_KEYS = ("backbone.head.weight", "backbone.head.bias")
@@ -77,15 +83,15 @@ def _logsumexp(x: np.ndarray) -> np.ndarray:
 
 def validate(test_loader, model: ActionNet) -> tuple:
     """(cross-entropy, top-1, top-5) over the validation loader (reference
-    train_action.py:41-75)."""
+    train_action.py:41-75), the rank's rows of each padded batch gathered."""
     device = next(model.parameters()).device
     eval_step = make_action_eval_step(model)
     losses, top1, top5 = AverageMeter(), AverageMeter(), AverageMeter()
-    for batch_input, batch_gt in test_loader:
-        logits = eval_step(torch.from_numpy(batch_input).to(device))
-        logits = logits.cpu().numpy().astype(np.float64)
+    for batch_input, batch_gt, n in padded_eval_batches(test_loader,
+                                                        world_size()):
+        logits = eval_rows(eval_step, batch_input, device, n).astype(
+            np.float64)
         labels = np.asarray(batch_gt)
-        n = len(labels)
         ce = -np.take_along_axis(logits - _logsumexp(logits), labels[:, None],
                                  axis=1).mean()
         a1, a5 = accuracy_topk(logits, labels, topk=(1, 5))
@@ -150,6 +156,17 @@ def restore_training(payload, optimizer, generator) -> tuple:
     return payload["epoch"], payload.get("best_metric") or 0.0
 
 
+def save_epoch(ckpt_mgr, epoch: int, model, optimizer, best_metric,
+               improved: bool, generator) -> None:
+    """The epoch's checkpoints at the first group's learning rate, written by
+    rank 0 alone; every rank waits for them."""
+    if is_main():
+        ckpt_mgr.save_epoch(epoch, optimizer.param_groups[0]["lr"], model,
+                            optimizer, best_metric=best_metric,
+                            improved=improved, rng=generator.get_state())
+    barrier()
+
+
 def resume_from(opts, ckpt_mgr) -> str:
     """The checkpoint to resume or evaluate: -e, else -r, else the
     directory's latest_epoch.ckpt when there is one (which also sets -r)."""
@@ -167,16 +184,16 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     from motionbert_tpu_torch.core.checkpoint import (
         CheckpointManager, is_port_checkpoint, load_checkpoint,
         load_state_dict)
-    from motionbert_tpu_torch.core.logging import MetricsWriter
+    from motionbert_tpu_torch.core.logging import open_writer
     from motionbert_tpu_torch.data.dataset_action import NTURGBD
     from motionbert_tpu_torch.data.datasets import BatchLoader
-    from motionbert_tpu_torch.models.factory import resolve_device
     from motionbert_tpu_torch.train.state import (
         freeze_except, make_two_group_adamw, scale_lr)
 
-    dev = resolve_device(device)
+    dev = init_distributed(device, getattr(opts, "dist_backend", None))
+    check_batch_size(args.batch_size)
     os.makedirs(opts.checkpoint, exist_ok=True)
-    writer = MetricsWriter(os.path.join(opts.checkpoint, "logs"))
+    writer = open_writer(os.path.join(opts.checkpoint, "logs"))
 
     model = build_action_model(args, device=dev, attn_impl=attn_impl)
     model.init_weights(torch.Generator().manual_seed(opts.seed))
@@ -223,7 +240,8 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     generator = torch.Generator(device=dev).manual_seed(opts.seed)
     st, best_acc = restore_training(payload, optimizer, generator)
 
-    train_step = make_action_train_step(model, optimizer, generator)
+    train_step = make_action_train_step(
+        wrap_ddp(model, dev, ignore=JAX_MISSING_KEYS), optimizer, generator)
     print(f"INFO: Training on {len(train_loader)} batches")
     print_freq = int(getattr(opts, "print_freq", 100) or 100)
     history = []
@@ -232,11 +250,11 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         train_loader.set_epoch(epoch)
         meters = {k: AverageMeter() for k in ("loss", "top1", "top5")}
         lr = optimizer.param_groups[0]["lr"]
-        for idx, (batch_input, batch_gt) in enumerate(train_loader):
-            m = train_step(torch.from_numpy(batch_input).to(dev),
-                           torch.from_numpy(batch_gt).long().to(dev))
+        for idx, (batch_input, batch_gt) in enumerate(
+                rank_batches(train_loader, dev)):
+            m = mean_over_ranks(train_step(batch_input, batch_gt.long()))
             for k, v in m.items():
-                meters[k].update(float(v), len(batch_input))
+                meters[k].update(float(v), len(batch_input) * world_size())
             if (idx + 1) % print_freq == 0:
                 print(f"Epoch: [{epoch}][{idx + 1}/{len(train_loader)}]\t"
                       f"Loss {meters['loss'].val:.4f} "
@@ -261,9 +279,8 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         scale_lr(optimizer, args.lr_decay)   # StepLR, step_size 1
         improved = test_top1 > best_acc
         best_acc = max(best_acc, test_top1)
-        ckpt_mgr.save_epoch(epoch, optimizer.param_groups[0]["lr"], model,
-                            optimizer, best_metric=best_acc,
-                            improved=improved, rng=generator.get_state())
+        save_epoch(ckpt_mgr, epoch, model, optimizer, best_acc, improved,
+                   generator)
     writer.close()
     return {"top1": best_acc, "history": history}
 
@@ -295,6 +312,7 @@ def parse_args(argv=None,
                              "plain_q8, kernel_stream, kernel_stream_q8 "
                              "(default: the config's attn_impl key, "
                              "else kernel)")
+    add_dist_backend(parser)
     return parser.parse_args(argv)
 
 
@@ -302,10 +320,7 @@ def main(argv=None) -> dict:
     from motionbert_tpu_torch.core.config import get_config
 
     opts = parse_args(argv)
-    random.seed(opts.seed)
-    np.random.seed(opts.seed)
-    return train_with_config(get_config(opts.config), opts, device=opts.device,
-                             attn_impl=opts.attn_impl)
+    return run_main(train_with_config, opts, get_config(opts.config))
 
 
 if __name__ == "__main__":

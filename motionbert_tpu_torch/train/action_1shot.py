@@ -10,13 +10,14 @@ The port of ``motionbert_tpu/train/action_1shot.py`` and the root
 ActionNet with the embed head; each batch holds ``n_views`` clips of each of
 ``batch_size // n_views`` classes (``MPerClassSampler``); the loss is
 ``supcon_loss`` over the embeddings reshaped (batch, -1, hidden_dim), with
-base temperature 0.07. Flags as in ``train.action``.
+base temperature 0.07. Flags as in ``train.action``. Data parallel under
+``torchrun`` as ``train.pose3d`` is, the loss over the global batch's
+embeddings.
 """
 
 from __future__ import annotations
 
 import os
-import random
 from typing import Callable, Optional
 
 import numpy as np
@@ -24,6 +25,9 @@ import torch
 
 from motionbert_tpu_torch.losses.supcon import supcon_loss
 from motionbert_tpu_torch.models.action_heads import ActionNet
+from motionbert_tpu_torch.parallel.mesh import (
+    check_batch_size, eval_rows, gather_rows, init_distributed,
+    padded_eval_batches, rank_batches, run_main, world_size, wrap_ddp)
 
 
 def make_supcon_train_step(model: ActionNet, optimizer: torch.optim.Optimizer,
@@ -34,14 +38,19 @@ def make_supcon_train_step(model: ActionNet, optimizer: torch.optim.Optimizer,
     a 0-d fp32 tensor on the device, after one update. Each embedding is its
     own anchor with a single view (reference train_action_1shot.py:193); the
     positives come from the labels, and the loss scale is temperature / 0.07
-    (the reference trainer passes only the temperature)."""
+    (the reference trainer passes only the temperature). Under data
+    parallelism each rank embeds its rows and the loss compares the global
+    batch's embeddings, gathered with their gradient
+    (``parallel.mesh.gather_rows``): every rank computes the same loss, and
+    DDP's average of the gradients is the one-process gradient."""
 
     def train_step(batch_input: torch.Tensor,
                    batch_gt: torch.Tensor) -> torch.Tensor:
         model.train()
-        feat = model(batch_input, generator=generator)
-        feat = feat.reshape(batch_input.shape[0], -1, hidden_dim)
-        loss = supcon_loss(feat, labels=batch_gt, temperature=temperature,
+        feat = gather_rows(model(batch_input, generator=generator))
+        labels = gather_rows(batch_gt)
+        feat = feat.reshape(labels.shape[0], -1, hidden_dim)
+        loss = supcon_loss(feat, labels=labels, temperature=temperature,
                            base_temperature=0.07)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -53,14 +62,15 @@ def make_supcon_train_step(model: ActionNet, optimizer: torch.optim.Optimizer,
 
 def extract_feats(loader, model: ActionNet) -> tuple:
     """(embeddings (n, hidden), labels (n,)) over a loader, in evaluation
-    mode, as numpy."""
+    mode, as numpy; the rank's rows of each padded batch gathered."""
     device = next(model.parameters()).device
     model.eval()
     feats, gts = [], []
     with torch.inference_mode():
-        for batch_input, batch_gt in loader:
-            feats.append(model(torch.from_numpy(np.asarray(batch_input)).to(
-                device)).float().cpu().numpy())
+        for batch_input, batch_gt, n in padded_eval_batches(loader,
+                                                            world_size()):
+            feats.append(eval_rows(lambda x: model(x).float(), batch_input,
+                                   device, n))
             gts.append(np.asarray(batch_gt))
     return np.concatenate(feats), np.concatenate(gts)
 
@@ -90,21 +100,21 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     from motionbert_tpu_torch.core.checkpoint import (
         CheckpointManager, is_port_checkpoint, load_checkpoint,
         load_state_dict)
-    from motionbert_tpu_torch.core.logging import MetricsWriter
+    from motionbert_tpu_torch.core.logging import open_writer
     from motionbert_tpu_torch.core.metrics import AverageMeter
     from motionbert_tpu_torch.data.dataset_action import (
         MPerClassSampler, NTURGBD, NTURGBD1Shot)
     from motionbert_tpu_torch.data.datasets import BatchLoader
-    from motionbert_tpu_torch.models.factory import resolve_device
     from motionbert_tpu_torch.train.action import (
-        build_action_model, load_action_state, load_pretrained_backbone,
-        restore_training, resume_from)
+        JAX_MISSING_KEYS, build_action_model, load_action_state,
+        load_pretrained_backbone, restore_training, resume_from, save_epoch)
     from motionbert_tpu_torch.train.state import (
         freeze_except, make_two_group_adamw, scale_lr)
 
-    dev = resolve_device(device)
+    dev = init_distributed(device, getattr(opts, "dist_backend", None))
+    check_batch_size(args.batch_size)
     os.makedirs(opts.checkpoint, exist_ok=True)
-    writer = MetricsWriter(os.path.join(opts.checkpoint, "logs"))
+    writer = open_writer(os.path.join(opts.checkpoint, "logs"))
 
     args.model_version = "embed"
     model = build_action_model(args, device=dev, attn_impl=attn_impl)
@@ -165,8 +175,8 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     st, best_acc = restore_training(payload, optimizer, generator)
 
     train_step = make_supcon_train_step(
-        model, optimizer, args.get("hidden_dim", 2048), args.get("temp", 0.1),
-        generator)
+        wrap_ddp(model, dev, ignore=JAX_MISSING_KEYS), optimizer,
+        args.get("hidden_dim", 2048), args.get("temp", 0.1), generator)
     print(f"INFO: Training on {len(train_loader)} batches")
     print_freq = int(getattr(opts, "print_freq", 100) or 100)
     history = []
@@ -175,10 +185,10 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         train_loader.set_epoch(epoch)
         losses = AverageMeter()
         lr = optimizer.param_groups[0]["lr"]
-        for idx, (batch_input, batch_gt) in enumerate(train_loader):
-            loss = train_step(torch.from_numpy(batch_input).to(dev),
-                              torch.from_numpy(batch_gt).long().to(dev))
-            losses.update(float(loss), len(batch_input))
+        for idx, (batch_input, batch_gt) in enumerate(
+                rank_batches(train_loader, dev)):
+            loss = train_step(batch_input, batch_gt.long())
+            losses.update(float(loss), len(batch_input) * world_size())
             if (idx + 1) % print_freq == 0:
                 print(f"Epoch: [{epoch}][{idx + 1}/{len(train_loader)}]\t"
                       f"Loss {losses.val:.4f} ({losses.avg:.4f})", flush=True)
@@ -191,9 +201,8 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         scale_lr(optimizer, args.lr_decay)
         improved = acc > best_acc
         best_acc = max(best_acc, acc)
-        ckpt_mgr.save_epoch(epoch, optimizer.param_groups[0]["lr"], model,
-                            optimizer, best_metric=best_acc,
-                            improved=improved, rng=generator.get_state())
+        save_epoch(ckpt_mgr, epoch, model, optimizer, best_acc, improved,
+                   generator)
     writer.close()
     return {"acc": best_acc, "history": history}
 
@@ -204,10 +213,7 @@ def main(argv=None) -> dict:
 
     opts = parse_args(
         argv, default_config="configs/action/MB_train_NTU120_oneshot.yaml")
-    random.seed(opts.seed)
-    np.random.seed(opts.seed)
-    return train_with_config(get_config(opts.config), opts, device=opts.device,
-                             attn_impl=opts.attn_impl)
+    return run_main(train_with_config, opts, get_config(opts.config))
 
 
 if __name__ == "__main__":

@@ -6,9 +6,10 @@ validation and the epoch driver, with its command line:
 
 The port of ``motionbert_tpu/train/mesh.py`` and the root ``train_mesh.py``
 (reference train_mesh.py). Flags as there (--config -c -p -r -e -ms -sd
--freq) plus --device, which defaults to the card, and --attn_impl, which
-defaults to the config's key. The backbone runs through the pair kernels
-(bf16 on the card), the head and the SMPL layer in fp32. The step: the ten
+-freq) plus --device, which defaults to the card, --attn_impl, which
+defaults to the config's key, and --dist_backend. The backbone runs
+through the pair kernels (bf16 on the card), the head and the SMPL layer in
+fp32. The step: the ten
 weighted loss terms (``losses.mesh``), AdamW in two groups (backbone and
 head learning rates) decayed per epoch, the head's BatchNorm statistics
 updated in the step, and the train-time MPJPE / MPVE. Each epoch trains on
@@ -17,14 +18,15 @@ h36m while epoch < warmup_h36m, on coco while epoch < warmup_coco and on
 3DPW (always, when the config names it), with flip averaging in SMPL theta
 space; the best checkpoint follows MPJPE, 3DPW's when present. Dropout masks
 draw from one ``torch.Generator`` on the model's device whose state the
-checkpoints keep.
+checkpoints keep. Data parallel under ``torchrun`` as ``train.pose3d`` is:
+the head's BatchNorms take the global batch's statistics, and the
+backbone's unused output head stays out of DDP's gradient reduction.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import random
 from typing import Callable, Optional
 
 import numpy as np
@@ -37,6 +39,10 @@ from motionbert_tpu_torch.losses.mesh import (
     LAMBDA_KEYS, evaluate_mesh, mesh_total_loss)
 from motionbert_tpu_torch.models.mesh_head import MeshRegressor
 from motionbert_tpu_torch.models.smpl import SMPLModel, smpl_forward
+from motionbert_tpu_torch.parallel.mesh import (
+    add_dist_backend, check_batch_size, eval_rows, init_distributed,
+    mean_over_ranks, padded_eval_batches, rank_batches, run_main, world_size,
+    wrap_ddp)
 
 # the best-MPJPE value before any validation (the reference's)
 NO_METRIC = 9999.0
@@ -110,7 +116,8 @@ def _to_device(batch_gt: dict, device) -> dict:
 def validate(test_loader, model: MeshRegressor, args,
              dataset_name: str = "h36m") -> tuple:
     """(loss, mpjpe, pa_mpjpe, mpve, {term: AverageMeter}) over the loader,
-    flip-averaged when ``args.flip``; the metrics by ``evaluate_mesh``."""
+    flip-averaged when ``args.flip``, the rank's rows of each padded batch
+    gathered; the metrics by ``evaluate_mesh``."""
     device = next(model.parameters()).device
     eval_step = make_mesh_eval_step(model, flip_tta=args.get("flip", False))
     lambdas = {k: float(args[k]) for k in LAMBDA_KEYS}
@@ -118,16 +125,17 @@ def validate(test_loader, model: MeshRegressor, args,
     losses = AverageMeter()
     meters: dict = {}
     results = {"kp_3d": [], "verts": [], "kp_3d_gt": [], "verts_gt": []}
-    for batch_input, batch_gt in test_loader:
-        out = eval_step(torch.from_numpy(batch_input).to(device))
-        gt = _to_device(batch_gt, device)
-        total, terms = mesh_total_loss(out, gt, lambdas, loss_type)
-        n = len(batch_input)
+    for batch_input, batch_gt, n in padded_eval_batches(test_loader,
+                                                        world_size()):
+        out = eval_rows(eval_step, batch_input, device, n)
+        total, terms = mesh_total_loss(_to_device(out, device),
+                                       _to_device(batch_gt, device), lambdas,
+                                       loss_type)
         losses.update(float(total), n)
         for k, v in terms.items():
             meters.setdefault(k, AverageMeter()).update(float(v), n)
         for k in ("kp_3d", "verts"):
-            results[k].append(out[k].cpu().numpy())
+            results[k].append(out[k])
             results[k + "_gt"].append(np.asarray(batch_gt[k]))
     err = evaluate_mesh({k: np.concatenate(v) for k, v in results.items()})
     print(f"=======================> {dataset_name} validation done:",
@@ -192,17 +200,19 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     from motionbert_tpu_torch.core.checkpoint import (
         CheckpointManager, is_port_checkpoint, load_checkpoint,
         load_state_dict)
-    from motionbert_tpu_torch.core.logging import MetricsWriter
-    from motionbert_tpu_torch.models.factory import resolve_device
+    from motionbert_tpu_torch.core.logging import open_writer
     from motionbert_tpu_torch.train.action import (
-        load_action_state, load_pretrained_backbone, restore_training,
-        resume_from)
+        JAX_MISSING_KEYS, load_action_state, load_pretrained_backbone,
+        restore_training, resume_from, save_epoch)
     from motionbert_tpu_torch.train.state import (
         freeze_except, make_two_group_adamw, scale_lr)
 
-    dev = resolve_device(device)
+    dev = init_distributed(device, getattr(opts, "dist_backend", None))
+    check_batch_size(args.batch_size)
+    if "dt_file_coco" in args:
+        check_batch_size(args.get("batch_size_img", args.batch_size))
     os.makedirs(opts.checkpoint, exist_ok=True)
-    writer = MetricsWriter(os.path.join(opts.checkpoint, "logs"))
+    writer = open_writer(os.path.join(opts.checkpoint, "logs"))
 
     # the loaders' body model stays on the host; the network gets its own
     model = build_mesh_model(args, SMPLModel.from_npz(smpl_model_path(args)),
@@ -248,17 +258,18 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         best_jpe = NO_METRIC
 
     lambdas = {k: args[k] for k in LAMBDA_KEYS}
-    train_step = make_mesh_train_step(model, optimizer, lambdas,
-                                      args.get("loss_type", "L1"), generator)
+    train_step = make_mesh_train_step(
+        wrap_ddp(model, dev, ignore=JAX_MISSING_KEYS), optimizer, lambdas,
+        args.get("loss_type", "L1"), generator)
     print_freq = int(getattr(opts, "print_freq", 100) or 100)
 
     def run_train(loader, meters):
-        for idx, (batch_input, batch_gt) in enumerate(loader):
-            terms = train_step(torch.from_numpy(batch_input).to(dev),
-                               _to_device(batch_gt, dev))
+        for idx, (batch_input, batch_gt) in enumerate(
+                rank_batches(loader, dev)):
+            terms = mean_over_ranks(train_step(batch_input, batch_gt))
             for k, v in terms.items():
                 meters.setdefault(k, AverageMeter()).update(
-                    float(v), len(batch_input))
+                    float(v), len(batch_input) * world_size())
             if (idx + 1) % print_freq == 0:
                 tm = meters["total"]
                 print(f"[{idx + 1}/{len(loader)}]\tloss {tm.val:.4f} "
@@ -308,9 +319,8 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
               f"best {best_jpe}")
         record.update(loss=loss, best_jpe=best_jpe)
         history.append(record)
-        ckpt_mgr.save_epoch(epoch, optimizer.param_groups[0]["lr"], model,
-                            optimizer, best_metric=best_jpe,
-                            improved=improved, rng=generator.get_state())
+        save_epoch(ckpt_mgr, epoch, model, optimizer, best_jpe, improved,
+                   generator)
     writer.close()
     return {"best_jpe": best_jpe, "history": history}
 
@@ -341,6 +351,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "plain_q8, kernel_stream, kernel_stream_q8 "
                              "(default: the config's attn_impl key, "
                              "else kernel)")
+    add_dist_backend(parser)
     return parser.parse_args(argv)
 
 
@@ -348,10 +359,7 @@ def main(argv=None) -> dict:
     from motionbert_tpu_torch.core.config import get_config
 
     opts = parse_args(argv)
-    random.seed(opts.seed)
-    np.random.seed(opts.seed)
-    return train_with_config(get_config(opts.config), opts, device=opts.device,
-                             attn_impl=opts.attn_impl)
+    return run_main(train_with_config, opts, get_config(opts.config))
 
 
 if __name__ == "__main__":

@@ -8,23 +8,36 @@ the H36M evaluation protocol and the epoch driver, with its command line:
 
 The port of ``motionbert_tpu/train/pose3d.py`` and the root ``train.py``
 (reference train.py). Flags as there (--config -c -p -r -e -ms -sd) plus
---device, which defaults to the card, and --attn_impl, which defaults to
-the config's key. Batch conditioning (root-relative targets, the confidence
-split), the random horizontal flip, the 2D corruption of pretraining
-(``data/augment.py``: ``noise``, ``mask_ratio``, ``mask_T_ratio``) and the
+--device, which defaults to the card, --attn_impl, which defaults to the
+config's key, and --dist_backend. Batch conditioning (root-relative
+targets, the confidence split), the random horizontal flip, the 2D
+corruption of pretraining (``data/augment.py``: ``noise``, ``mask_ratio``, ``mask_T_ratio``) and the
 model's dropout and drop-path masks all run on the device inside the step
 and draw, in that order, from one ``torch.Generator`` on the model's device
 whose state the checkpoints keep, so a resumed run draws what the
 uninterrupted run would have. With ``train_2d`` the 2D datasets (PoseTrack,
 InstaVariety) join from epoch ``pretrain_3d_curriculum`` on, each as an epoch
 of its own before the 3D epoch, trained with the confidence-weighted 2D loss.
+
+Data parallel under ``torchrun`` (``parallel/mesh.py``), one process per card:
+
+    torchrun --nproc_per_node N -m motionbert_tpu_torch.train.pose3d \\
+        --config configs/pose3d/MB_train_h36m.yaml -c ckpt_dir \\
+        [--dist_backend gloo]
+
+Every rank builds the same seeded loaders and trains on its rows of each
+global batch (``batch_size`` must divide over the ranks) through
+``DistributedDataParallel``; the random draws are the global batch's, so a
+run at any world size computes what one process computes, and its
+checkpoints resume at any world size. Evaluation pads the tail batch, runs
+the rank's rows and gathers the predictions. Rank 0 alone writes logs and
+checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import random
 import time
 from typing import Callable, Optional
 
@@ -36,6 +49,11 @@ from motionbert_tpu_torch.geometry.procrustes import mpjpe, p_mpjpe
 from motionbert_tpu_torch.geometry.skeleton import flip_data
 from motionbert_tpu_torch.losses.pose import (
     LAMBDA_KEYS, loss_2d_weighted, pose3d_total_loss)
+from motionbert_tpu_torch.models.dstformer import uniform
+from motionbert_tpu_torch.parallel.mesh import (
+    add_dist_backend, barrier, check_batch_size, eval_rows, init_distributed,
+    is_main, mean_over_ranks, padded_eval_batches, rank_batches, rank_draw,
+    run_main, world_size, wrap_ddp)
 
 # H36M test videos excluded from evaluation (reference train.py:109-111)
 BLOCK_LIST = ("s_09_act_05_subact_02", "s_09_act_10_subact_02",
@@ -88,9 +106,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                    has_3d: bool = True, has_gt: bool = True) -> dict:
         model.train()
         if flip_aug:
-            do = torch.rand((batch_input.shape[0], 1, 1, 1),
-                            generator=generator,
-                            device=generator.device) < 0.5
+            do = rank_draw(uniform, (batch_input.shape[0], 1, 1, 1),
+                           generator) < 0.5
             batch_input = torch.where(do, flip_data(batch_input), batch_input)
             batch_gt = torch.where(do, flip_data(batch_gt), batch_gt)
         batch_input, batch_gt, conf = preprocess_batch(
@@ -138,20 +155,19 @@ def make_eval_step(model: torch.nn.Module, *, no_conf: bool,
 def evaluate(args, model: torch.nn.Module, test_loader, datareader,
              return_results: bool = False):
     """The H36M protocol (reference train.py:56-153): flip-TTA inference over
-    the test loader, then ``evaluate_predictions``. Returns (e1, e2,
-    results_all[, per_action])."""
+    the test loader (the rank's rows of each padded batch, gathered), then
+    ``evaluate_predictions``. Returns (e1, e2, results_all[, per_action])."""
     model.eval()
     device = next(model.parameters()).device
     eval_step = make_eval_step(model, no_conf=args.get("no_conf", False),
                                flip_tta=args.get("flip", False))
     results_all = []
-    for batch_input, _ in test_loader:
-        pred = eval_step(torch.from_numpy(batch_input).to(device))
-        pred = pred.cpu().numpy()
+    for batch_input, _, n in padded_eval_batches(test_loader, world_size()):
+        pred = eval_rows(eval_step, batch_input, device, n)
         if args.get("rootrel", False):
             pred[:, :, 0, :] = 0
         if args.get("gt_2d", False):
-            pred[..., :2] = batch_input[..., :2]
+            pred[..., :2] = batch_input[:n, ..., :2]
         results_all.append(pred)
     results_all = np.concatenate(results_all)
     e1, e2, per_action = evaluate_predictions(results_all, datareader)
@@ -249,26 +265,30 @@ def build_dataset_3d(args, split: str):
 
 def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     """The epoch driver (reference train.py:208-377) on ``device`` (None:
-    the card). opts: checkpoint, pretrained, resume, evaluate, selection,
-    seed. attn_impl None takes the config's ``attn_impl`` key
+    the card, ``cuda:LOCAL_RANK`` under torchrun). opts: checkpoint,
+    pretrained, resume, evaluate, selection, seed, and optionally
+    dist_backend. attn_impl None takes the config's ``attn_impl`` key
     (``models.factory``). Resumes from the checkpoint directory's
-    latest_epoch.ckpt when there is one. Returns {"e1": best P1, "history":
-    one dict per epoch run (epoch, lr, mean loss terms, e1, e2)}."""
+    latest_epoch.ckpt when there is one. Data parallel over the process
+    group (``parallel.mesh.init_distributed``). Returns {"e1": best P1,
+    "history": one dict per epoch run (epoch, lr, mean loss terms of the
+    global batches, e1, e2)}."""
     from motionbert_tpu_torch.core.checkpoint import (
         CheckpointManager, is_port_checkpoint, load_checkpoint,
         load_state_dict)
-    from motionbert_tpu_torch.core.logging import MetricsWriter
+    from motionbert_tpu_torch.core.logging import open_writer
     from motionbert_tpu_torch.core.metrics import AverageMeter
     from motionbert_tpu_torch.data.datasets import (
         BatchLoader, InstaVDataset2D, PoseTrackDataset2D)
     from motionbert_tpu_torch.data.readers import DataReaderH36M
-    from motionbert_tpu_torch.models.factory import load_backbone, resolve_device
+    from motionbert_tpu_torch.models.factory import load_backbone
     from motionbert_tpu_torch.train.state import (
         freeze_except, make_adamw, scale_lr, set_lr)
 
-    dev = resolve_device(device)
+    dev = init_distributed(device, getattr(opts, "dist_backend", None))
+    check_batch_size(args.batch_size)
     os.makedirs(opts.checkpoint, exist_ok=True)
-    writer = MetricsWriter(os.path.join(opts.checkpoint, "logs"))
+    writer = open_writer(os.path.join(opts.checkpoint, "logs"))
 
     print("Loading dataset...")
     train_dataset = build_dataset_3d(args, "train")
@@ -360,7 +380,8 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
             args.get("noise_path", "params/synthetic_noise.npz"),
             args.get("d2c_params_path", "params/d2c_params.pkl"))
     train_step = make_train_step(
-        model, optimizer, {k: args.get(k, 0.0) for k in LAMBDA_KEYS},
+        wrap_ddp(model, dev), optimizer,
+        {k: args.get(k, 0.0) for k in LAMBDA_KEYS},
         rootrel=args.get("rootrel", False), no_conf=args.get("no_conf", False),
         use_mask=use_mask, use_noise=use_noise, noise_params=noise_params,
         mask_ratio=args.get("mask_ratio", 0.0),
@@ -368,13 +389,12 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         flip_aug=bool(args.get("flip", False)), generator=generator)
 
     def run_epoch(loader, losses, has_3d, has_gt):
-        for batch_input, batch_gt in loader:
-            terms = train_step(torch.from_numpy(batch_input).to(dev),
-                               torch.from_numpy(batch_gt).to(dev),
-                               has_3d=has_3d, has_gt=has_gt)
+        for batch_input, batch_gt in rank_batches(loader, dev):
+            terms = mean_over_ranks(train_step(batch_input, batch_gt,
+                                               has_3d=has_3d, has_gt=has_gt))
             for k, v in terms.items():
                 losses.setdefault(k, AverageMeter()).update(
-                    float(v), len(batch_input))
+                    float(v), len(batch_input) * world_size())
 
     history = []
     for epoch in range(st, args.epochs):
@@ -414,8 +434,11 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         # exponential per-epoch decay (reference train.py:359-362)
         lr *= args.lr_decay
         scale_lr(optimizer, args.lr_decay)
-        ckpt_mgr.save_epoch(epoch, lr, model, optimizer, best_metric=min_loss,
-                            improved=improved, rng=generator.get_state())
+        if is_main():
+            ckpt_mgr.save_epoch(epoch, lr, model, optimizer,
+                                best_metric=min_loss, improved=improved,
+                                rng=generator.get_state())
+        barrier()
     writer.close()
     return {"e1": min_loss, "history": history}
 
@@ -445,6 +468,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "plain_q8, kernel_stream, kernel_stream_q8 "
                              "(default: the config's attn_impl key, "
                              "else kernel)")
+    add_dist_backend(parser)
     return parser.parse_args(argv)
 
 
@@ -452,10 +476,7 @@ def main(argv=None) -> dict:
     from motionbert_tpu_torch.core.config import get_config
 
     opts = parse_args(argv)
-    random.seed(opts.seed)
-    np.random.seed(opts.seed)
-    return train_with_config(get_config(opts.config), opts, device=opts.device,
-                             attn_impl=opts.attn_impl)
+    return run_main(train_with_config, opts, get_config(opts.config))
 
 
 if __name__ == "__main__":

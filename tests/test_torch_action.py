@@ -509,3 +509,27 @@ def test_pose3d_driver_takes_a_packed_store(tmp_path):
     ds = build_dataset_3d(args, "train")
     assert isinstance(ds, ClipStoreDataset3D) and len(ds) == 4
     np.testing.assert_array_equal(ds[2][1], labels[2])
+
+
+def test_port_write_clipstore_is_the_jax_writers_file(tmp_path):
+    """The port's writer gives the JAX writer's bytes, with and without an
+    input stream, and its own reader gathers them back."""
+    from motionbert_tpu_torch.data.clipstore import (
+        write_clipstore as port_write_clipstore)
+
+    rs = np.random.RandomState(3)
+    labels = rs.normal(size=(5, 8, 17, 3)).astype(np.float64)
+    inputs = rs.normal(size=labels.shape).astype(np.float32)
+    for name, extra in (("both", (inputs,)), ("labels", ())):
+        port, ref = str(tmp_path / f"p_{name}.mbcs"), str(
+            tmp_path / "j" / f"{name}.mbcs")
+        port_write_clipstore(port, labels, *extra)
+        write_clipstore(ref, labels, *extra)
+        assert open(port, "rb").read() == open(ref, "rb").read()
+    store = ClipStore(str(tmp_path / "p_both.mbcs"))
+    gi, gl = store.gather([4, 2])
+    np.testing.assert_array_equal(gi, inputs[[4, 2]])
+    np.testing.assert_array_equal(gl, labels[[4, 2]].astype(np.float32))
+    store.close()
+    with pytest.raises(ValueError, match="differ in shape"):
+        port_write_clipstore(str(tmp_path / "bad.mbcs"), labels, inputs[:2])

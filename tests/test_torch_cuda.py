@@ -1416,3 +1416,26 @@ def test_bwd_raises_on_a_misaligned_input(cuda):
     bargs = _bwd_args(args, shifted.view(g.shape), False)
     with pytest.raises(ValueError, match="16-byte-aligned"):
         fp.fused_pair_block_bwd(*bargs, H, 0.125, "temporal")
+
+
+@pytest.mark.cuda
+def test_device_prefetch_moves_batches_to_the_card(cuda):
+    """Pinned host memory, a side stream, the consumer waiting: the batches
+    arrive on the card equal and in order, while the consumer writes to the
+    ones it already holds."""
+    from motionbert_tpu_torch.data.datasets import device_prefetch
+
+    rs = np.random.RandomState(3)
+    batches = [(rs.normal(size=(64, 243, 17, 3)).astype(np.float32),
+                {"y": rs.normal(size=(64, 17)).astype(np.float32)})
+               for _ in range(6)]
+    got = []
+    for x, y in device_prefetch(iter(batches), cuda, size=2):
+        assert x.device.type == "cuda" and y["y"].device.type == "cuda"
+        got.append((x.clone(), y["y"].clone()))
+        x.mul_(0)   # the consumer's own work on the batch it was given
+    torch.cuda.synchronize()
+    assert len(got) == len(batches)
+    for (x, y), (gx, gy) in zip(batches, got):
+        np.testing.assert_array_equal(gx.cpu().numpy(), x)
+        np.testing.assert_array_equal(gy.cpu().numpy(), y["y"])

@@ -50,6 +50,9 @@ def test_port_imports_no_jax():
         "motionbert_tpu_torch.data.dataset_mesh, "
         "motionbert_tpu_torch.train.mesh, "
         "motionbert_tpu_torch.infer.wild_mesh\n"
+        "import motionbert_tpu_torch.parallel.mesh, "
+        "motionbert_tpu_torch.viz.render, motionbert_tpu_torch.infer, "
+        "motionbert_tpu_torch.data.amass\n"
         "import runpy; runpy.run_module('motionbert_tpu_torch.train.pose3d', "
         "run_name='not_main')\n"
         "runpy.run_module('motionbert_tpu_torch.train.action', "
@@ -90,7 +93,11 @@ def test_port_imports_no_jax():
               "motionbert_tpu_torch.losses.mesh",
               "motionbert_tpu_torch.data.dataset_mesh",
               "motionbert_tpu_torch.train.mesh",
-              "motionbert_tpu_torch.infer.wild_mesh"):
+              "motionbert_tpu_torch.infer.wild_mesh",
+              "motionbert_tpu_torch.parallel.mesh",
+              "motionbert_tpu_torch.viz.render",
+              "motionbert_tpu_torch.infer",
+              "motionbert_tpu_torch.data.amass"):
         assert m in mods, m
     bad = [m for m in mods if _is_jax_package(m)]
     assert not bad, bad

@@ -598,7 +598,7 @@ def test_wild_mesh_cli_runs_the_stream_kernels(tmp_path, monkeypatch):
     """The command line with --attn_impl pallas_stream: one stream call per
     block and stream and clip batch; each clip equal to a direct flip-TTA
     eval step; the reference trajectory placed by the fitted scale;
-    rendering refused."""
+    mesh.mp4 rendered with a frame per frame."""
     calls = []
     monkeypatch.setattr(tmodel, "STREAM_IMPLS", {
         k: tuple((lambda f: lambda *a: calls.append(f.__name__) or f(*a))(f)
@@ -645,9 +645,12 @@ def test_wild_mesh_cli_runs_the_stream_kernels(tmp_path, monkeypatch):
     np.testing.assert_array_equal(y, kp - kp[:, :1])
     np.testing.assert_allclose(placed, direct - kp[:, :1] + ref[:, :1]
                                * scale, rtol=1e-6, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        twm.run_wild_mesh(args, json_path=json_path, out_path=str(out_dir),
-                          model=model, clip_len=16, render=True)
+    import cv2
+
+    cap = cv2.VideoCapture(str(out_dir / "mesh.mp4"))
+    assert cap.get(cv2.CAP_PROP_FRAME_COUNT) == 40
+    assert cap.get(cv2.CAP_PROP_FPS) == 30.0
+    cap.release()
 
 
 def test_mesh_entry_points_need_the_card_unless_told(tmp_path):
@@ -659,3 +662,26 @@ def test_mesh_entry_points_need_the_card_unless_told(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         twm.main(["--config", SMOKE, "-j", _write_wild_json(
             tmp_path / "a.json"), "-o", str(tmp_path / "o")])
+
+
+def test_amass_joints_match_the_tool():
+    """``data.amass.amass_to_h36m_joints`` against the JAX tool's on the
+    synthetic body model, SMPL-H poses (their finger block nonzero, the hand
+    joints zeroed on both sides), several batches of frames, 1e-5."""
+    from tools.preprocess_amass import amass_to_h36m_joints as jamass
+    from motionbert_tpu_torch.data.amass import amass_to_h36m_joints
+
+    rs = np.random.RandomState(8)
+    motions = [{"poses": rs.normal(0, 0.3, (n, 156)).astype(np.float32),
+                "betas": rs.normal(0, 1, 16).astype(np.float32),
+                "trans": rs.normal(0, 0.5, (n, 3)).astype(np.float32)}
+               for n in (37, 9)]
+    motions.append({"poses": rs.normal(0, 0.3, (5, 72))})  # no betas, trans
+    got = amass_to_h36m_joints(motions, tsmpl.SMPLModel.from_npz(SMPL_NPZ),
+                               batch_frames=16)
+    want = jamass(motions, jsmpl.SMPLModel.from_npz(SMPL_NPZ),
+                  batch_frames=16)
+    assert [g.shape for g in got] == [(17, 37, 3), (17, 9, 3), (17, 5, 3)]
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32
+        np.testing.assert_allclose(g, w, atol=1e-5)

@@ -243,3 +243,39 @@ def test_anchor_lift_and_representation_match_jax(anchor):
     np.testing.assert_allclose(no_tta, jmb.lift(x, flip_tta=False,
                                                 rootrel=False),
                                atol=1e-5, rtol=0)
+
+
+def test_attention_gate_stats_match_jax():
+    """Per-sample, per-layer gate weights against the JAX package's
+    ``attention_gate_stats`` on converted weights (the gate moved off its
+    uniform initialisation), 1e-5; the model's own forward keeps its bits."""
+    from motionbert_tpu.models.dstformer import DSTformer as JDSTformer
+    from motionbert_tpu.models.dstformer import (
+        attention_gate_stats as jgate_stats)
+    from motionbert_tpu_torch.models.dstformer import attention_gate_stats
+
+    cfg = dict(dim_feat=32, dim_rep=32, depth=2, num_heads=4, mlp_ratio=2,
+               maxlen=9, num_joints=17)
+    jmodel = JDSTformer(dim_in=3, dim_out=3, **cfg)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                  jnp.zeros((1, 9, 17, 3)))["params"]
+    rs = np.random.RandomState(3)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rs.normal(size=a.shape).astype(np.float32)
+        * 0.2, params)
+    x = rs.normal(size=(3, 9, 17, 3)).astype(np.float32)
+    want = jgate_stats(jmodel, {"params": params}, jnp.asarray(x))
+    model = _cpu_model(cfg)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    with torch.inference_mode():
+        before = model(torch.from_numpy(x))
+        got = attention_gate_stats(model, torch.from_numpy(x))
+        after = model(torch.from_numpy(x))
+    assert torch.equal(before, after)
+    for k in ("attn_count_s", "attn_count_t"):
+        assert got[k].shape == (3, 2)
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), atol=1e-5,
+                                   err_msg=k)
+    np.testing.assert_allclose(got["attn_count_s"] + got["attn_count_t"], 1.0,
+                               atol=1e-6)
+    assert np.ptp(got["attn_count_s"]) > 1e-3   # the gate is not uniform

@@ -45,16 +45,29 @@ def _params():
     return aug.NoiseParams.load(*NOISE), jaug.NoiseParams.load(*NOISE)
 
 
-def test_noise_params_load_matches_jax():
-    port, ref = _params()
+def _same_noise_params(port, ref):
     for name in ("mean", "std", "weight"):
         a, b = getattr(port, name), getattr(ref, name)
         assert a.dtype == np.float32 and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
     for name in ("uniform_range", "a", "b", "m", "s"):
         assert getattr(port, name) == getattr(ref, name)
-    with pytest.raises(ValueError, match="npz"):
-        aug.NoiseParams.load("params/synthetic_noise.pth", NOISE[1])
+
+
+def test_noise_params_load_matches_jax(tmp_path):
+    """The .npz, and the reference's .pth format (a dict of tensors and a
+    number, written here with torch.save), through both loaders."""
+    _same_noise_params(*_params())
+    z = np.load(NOISE[0])
+    pth = str(tmp_path / "synthetic_noise.pth")
+    torch.save({"mean": torch.from_numpy(z["mean"]),
+                "std": torch.from_numpy(z["std"]),
+                "weight": torch.from_numpy(z["weight"]),
+                "uniform_range": 0.05}, pth)
+    port = aug.NoiseParams.load(pth, NOISE[1])
+    _same_noise_params(port, jaug.NoiseParams.load(pth, NOISE[1]))
+    assert port.uniform_range == 0.05
+    np.testing.assert_array_equal(port.mean, _params()[0].mean)
 
 
 @pytest.mark.parametrize("frames", [1, 16, 27, 81, 243])

@@ -131,8 +131,11 @@ def test_run_wild_pose_matches_jax(wild_json, tmp_path, keys, pixel):
 
 
 def test_render_raises_until_the_renderer_is_ported(wild_json, tmp_path):
+    """The renderer is ported: a video that cannot be written raises (here
+    X3D.mp4 is a directory), and nothing is saved."""
     _, _, model = _models()
-    with pytest.raises(NotImplementedError, match="A.4"):
+    os.makedirs(tmp_path / "X3D.mp4")
+    with pytest.raises(OSError, match="X3D.mp4"):
         twp.run_wild_pose(ConfigDict(), json_path=wild_json,
                           out_path=str(tmp_path), model=model,
                           clip_len=CLIP_LEN, render=True)
@@ -211,7 +214,12 @@ def test_cli_needs_the_card_unless_told(wild_json, tmp_path):
 
 
 def test_cli_help_says_it_does_not_render(capsys):
+    """It renders unless --no_render, and takes --vid_path or --vid_size."""
     with pytest.raises(SystemExit):
         twp.parse_args(["--help"])
     text = " ".join(capsys.readouterr().out.split())
-    assert "Does not render" in text and "--vid_size W H" in text
+    assert "X3D.mp4 video out" in text and "--no_render" in text
+    assert "--vid_path" in text and "--vid_size W H" in text
+    with pytest.raises(SystemExit):
+        twp.parse_args(["-j", "a.json", "-o", "o", "--vid_path", "v.mp4",
+                        "--vid_size", "4", "3"])
