@@ -175,8 +175,26 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      line the same way on the seeded 6890-vertex body model with 13,776
      seeded faces, mesh.mp4 read back; the renderer's frames per second for
      the 2D, 3D and mesh frames.
+ 30. tensor parallelism (ranks share one card: not a scaling figure): (a)
+     the TP modes of the block kernels (B4_tp, B5_tp temporal and spatial,
+     B6_tp, B7_tp) and the LayerNorm backward at the phase-3 rows on model
+     rank 0's shards of 2 (Ci 256, 4 local heads, hidden slice 512) against
+     their plain twins (phase 16/17's bars), twice for bitwise
+     repeatability, with times (one call, back to back, device), bound,
+     the plain twin's time and a library yardstick on the same shards;
+     (b) phase 8's flagship with the anchor weights on a 1 x 2 grid (two
+     ranks, gloo, cuda:0), batch 2 x 243: the flip-TTA lift against world
+     size 1's kernels (largest difference, share of elements that differ),
+     the first step's loss and gathered gradients and the parameters after
+     3 AdamW steps against world size 1 at phase 8's and phase 28's bars,
+     the launches of a step (the TP modes only: no pair kernel); (c) a 2 x 2
+     grid (four ranks), one step against world size 1; (d) (b)'s
+     checkpoint (written by rank 0 after its 3 steps) resumed at 1 x 1 and
+     2 x 1 for one more step against (b)'s own next step; (e) (b)'s first
+     step under core.profiling.trace, rank 0's Chrome trace read back for
+     its CUDA kernels and its annotate region.
 Phases 10-15 run after phase 6, phases 16-19 after phase 9, phases 20-23
-after phase 19, phases 24-27 after phase 23, phases 28-29 after phase 27.
+after phase 19, phases 24-27 after phase 23, phases 28-30 after phase 27.
 Then a JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -188,11 +206,12 @@ and as the last line {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases mesh
     python3 chip_smoke.py --phases dist
     python3 chip_smoke.py --phases render
+    python3 chip_smoke.py --phases tp
 
 run only phases 1, 2, 3 and 24; 1, 2, the engine and core phases of 16, 7
 and 8; 1, 2 and 10-15; 1, 2 and 16-19; 1, 2 and 20-23; 1, 2 and 24-27;
-1, 2 and 28; or 1, 2 and 29 (while working on them), and print no last
-line.
+1, 2 and 28; 1, 2 and 29; or 1, 2 and 30 (while working on them), and
+print no last line.
 
     python3 chip_smoke.py --baseline ROOT [--phases ...]
 
@@ -4449,6 +4468,503 @@ def phase_render(fp, records: list) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 30: tensor parallelism
+# ---------------------------------------------------------------------------
+
+TP_T = 2            # model ranks of the kernels' shards and of the grids
+TP_BATCH = 2        # clips of the grids' global batch
+TP_STEPS = 3        # AdamW steps of (b) before its checkpoint
+SHARED_CARD = "ranks share one card: not a scaling figure"
+# the TP modes and the TPU kernels they stand in for (the LayerNorm
+# backward: B5's and B7's _ln_bwd_rows)
+TP_REPLACES = {
+    "fused_attention_block_tp": "motionbert_tpu/ops/attention.py:466",
+    "fused_attention_block_tp_bwd": "motionbert_tpu/ops/attention.py:633",
+    "fused_mlp_block_tp": "motionbert_tpu/ops/fused_mlp.py:50",
+    "fused_mlp_block_tp_bwd": "motionbert_tpu/ops/fused_mlp.py:151",
+    "fused_ln_bwd": "motionbert_tpu/ops/attention.py:416",
+}
+# device records of one call, from the chains in csrc/block_kernels.cu (a
+# weight gradient and a column sum are two each; tests/test_torch_tp_ops.py
+# reads the chains)
+TP_RECORDS = {"fused_attention_block_tp": 4,
+              "fused_attention_block_tp_bwd": 12, "fused_mlp_block_tp": 3,
+              "fused_mlp_block_tp_bwd": 10, "fused_ln_bwd": 5}
+
+
+def tp_counters() -> tuple:
+    from motionbert_tpu_torch.ops import attention as at
+    from motionbert_tpu_torch.ops import fused_mlp as mlp
+
+    return (at.fused_attention_block_tp, at.fused_attention_block_tp_bwd,
+            mlp.fused_mlp_block_tp, mlp.fused_mlp_block_tp_bwd,
+            at.fused_ln_bwd)
+
+
+def tp_shards(p: dict) -> dict:
+    """Model rank 0's shards of TP_T of pair_inputs' weights (the layout of
+    parallel.mesh.shard_params): heads [0, HEADS / TP_T) of qkv and proj, the
+    first hidden slice of fc1 and fc2."""
+    ci, hl = C // TP_T, HIDDEN // TP_T
+    rows = torch.cat([torch.arange(ci) + i * C for i in range(3)]).to(
+        p["wqkv"].device)
+    return dict(p, wqkv=p["wqkv"][rows].contiguous(),
+                bqkv=p["bqkv"][rows].contiguous(),
+                wproj=p["wproj"][:, :ci].contiguous(),
+                w1=p["w1"][:hl].contiguous(), b1=p["b1"][:hl].contiguous(),
+                w2=p["w2"][:, :hl].contiguous())
+
+
+def tp_cost(name: str, mode: str) -> tuple:
+    """(FLOPs, bytes) of a TP mode at the phase-3 rows and the shard shapes,
+    counted as block_cost counts the whole blocks (the backward's recompute:
+    the first product three times, the output product twice, the core three
+    times); the partials and dh are fp32 (4 bytes an element), the row
+    statistics 8 bytes a row. The LayerNorm backward: dh, x, g and the
+    statistics read, dx written, ~10 operations an element."""
+    M = B * FRAMES * J
+    ci, hl = C // TP_T, HIDDEN // TP_T
+    if name == "fused_ln_bwd":
+        return 10 * M * C, M * C * (4 + 2 + 2 + 2) + M * 8 + 3 * C * 4
+    if name.startswith("fused_attention"):
+        first, second, biases = 3 * ci * C, C * ci, 3 * ci
+        groups, n = (B * J, FRAMES) if mode == "temporal" else (B * FRAMES, J)
+        core = 4 * groups * n * n * ci
+    else:
+        first, second, biases, core = hl * C, C * hl, hl, 0
+    params = (first + second + biases) * 2 + 2 * C * 4
+    if name.endswith("_bwd"):
+        return (2 * M * (3 * first + 2 * second) + 3 * core,
+                M * C * (2 + 2 + 4) + M * 8 + 2 * params)
+    return 2 * M * (first + second) + core, M * C * (2 + 4) + params
+
+
+def tp_library(name: str, args: tuple, heads: int):
+    """The same function from PyTorch's own operators on the same shards: a
+    yardstick of speed the port never calls (the backwards through
+    autograd; the LayerNorm backward is aten's native_layer_norm_backward,
+    without the residual)."""
+    if name == "fused_ln_bwd":
+        dh, x, stats, ln_w, _ = args
+        xf, mean, rstd = x.float(), stats[..., :1], stats[..., 1:]
+        zeros = torch.zeros_like(ln_w)
+        return lambda: torch.ops.aten.native_layer_norm_backward(
+            dh, xf, [x.shape[-1]], mean, rstd, ln_w, zeros,
+            [True, True, True])
+    backward = name.endswith("_bwd")
+    if backward:
+        x, g, *w = args
+    else:
+        x, *w = args
+        g = None
+    if name.startswith("fused_attention"):
+        ln_w, ln_b, wqkv, bqkv, wproj, _, scale, mode = w
+
+        def fwd(x, wqkv, bqkv, wproj):
+            Bx, Fx, Jx, Cx = x.shape
+            ci = wqkv.shape[0] // 3
+            h = F.layer_norm(x, (Cx,), ln_w.to(x.dtype), ln_b.to(x.dtype),
+                             1e-6)
+            qkv = F.linear(h, wqkv, bqkv).reshape(Bx, Fx, Jx, 3, heads,
+                                                   ci // heads)
+            perm = (0, 1, 3, 2, 4) if mode == "spatial" else (0, 2, 3, 1, 4)
+            q, k, v = (qkv[:, :, :, i].permute(perm) for i in range(3))
+            o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+            o = o.permute([perm.index(i) for i in range(5)]).reshape(
+                Bx, Fx, Jx, ci)
+            return F.linear(o, wproj).float()
+        leaves = (x, wqkv, bqkv, wproj)
+    else:
+        ln_w, ln_b, w1, b1, w2 = w
+
+        def fwd(x, w1, b1, w2):
+            h = F.layer_norm(x, (x.shape[-1],), ln_w.to(x.dtype),
+                             ln_b.to(x.dtype), 1e-6)
+            return F.linear(F.gelu(F.linear(h, w1, b1)), w2).float()
+        leaves = (x, w1, b1, w2)
+    if not backward:
+        return lambda: fwd(*leaves)
+    leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    return lambda: torch.autograd.grad(fwd(*leaves), leaves, g.float())
+
+
+def tp_kernel_case(name: str, wrapper, plain, args: tuple, mode: str,
+                   heads: int) -> dict:
+    """One TP mode against its plain twin (the max-based bar, and for the
+    attention modes the relative-L2 bar, per output), twice for bitwise
+    repeatability, with times, bound and the library yardstick; a call's
+    profile must hold only the chain's kernels."""
+    call = lambda: wrapper(*args)
+    got = call()
+    torch.cuda.synchronize()
+    again, want = call(), plain(*args)
+    got, again, want = ((t,) if torch.is_tensor(t) else tuple(t)
+                        for t in (got, again, want))
+    errs = []
+    for i, (a, b, w) in enumerate(zip(got, again, want)):
+        if a.shape != w.shape or a.dtype != w.dtype or \
+                not torch.isfinite(a.float()).all():
+            fail(f"tp (a) {name}/{mode}: output {i} {tuple(a.shape)} "
+                 f"{a.dtype} or non-finite")
+        if not torch.equal(a, b):
+            fail(f"tp (a) {name}/{mode}: two runs gave different bits")
+        errs.append((*rel_err(a, w), rel_l2_t(a, w)))
+    l2_tol = BLOCK_L2_TOL if "attention" in name else float("inf")
+    if not all(e[1] <= KERNEL_TOL and e[2] <= l2_tol for e in errs):
+        fail(f"tp (a) {name}/{mode}: (max|d|, max|d|/max|ref|, relative L2) "
+             f"{errs} over ({KERNEL_TOL}, {l2_tol})")
+    flops, nbytes = tp_cost(name, mode)
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
+    library = tp_library(name, args, heads)
+    calls = 10
+    dev_ms, rows = device_profile(call, TP_RECORDS[name], calls)
+    needed = ["colsum_kernel"] if name == "fused_ln_bwd" else [
+        "hg_gemm_kernel"] + (["attn_tc_fwd_kernel"] if "attention" in name
+                             else [])
+    names = [key for key, _, _ in rows]
+    faults = [f"no {k}" for k in needed if not any(k in n for n in names)] \
+        + [f"runs {n[:80]}" for n in names
+           if not any(k in n for k in BLOCK_KERNELS)]
+    if faults:
+        fail(f"tp (a) {name}/{mode}: the profile of a call: {faults}")
+    rec = dict(
+        max_abs_err=max(e[0] for e in errs), rel_err=[e[1] for e in errs],
+        rel_l2=[e[2] for e in errs], tol=KERNEL_TOL,
+        l2_tol=None if l2_tol == float("inf") else l2_tol,
+        bitwise_repeatable=True, ms=time_ms(call),
+        back_to_back_ms=time_ms_back_to_back(call), device_ms=dev_ms,
+        device_by_kernel=by_kernel(rows, calls),
+        plain_ms=time_ms(lambda: plain(*args), runs=5, warmup=1),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes > t_ops else "operations",
+        library_ms=time_ms(library, runs=10),
+        library_device_ms=device_ms(library, None), gflop=flops / 1e9,
+        mbytes=nbytes / 1e6)
+    log(f"tp (a) kernel {name}/{mode} (shards of {TP_T}): " + json.dumps(rec))
+    return rec
+
+
+def phase_tp_kernels() -> list:
+    """(a) B4_tp-B7_tp and the LayerNorm backward at the phase-3 rows on
+    model rank 0's shards of TP_T (Ci 256, 4 local heads, hidden slice 512),
+    temporal and spatial, against their plain twins."""
+    from motionbert_tpu_torch.ops import attention as at
+    from motionbert_tpu_torch.ops import fused_mlp as mlp
+
+    dev = torch.device("cuda")
+    scale, heads = (C // HEADS) ** -0.5, HEADS // TP_T
+    modes = {name: {} for name in TP_REPLACES}
+    g = pair_inputs(5, False, dev)["x"]
+    for mode in ("temporal", "spatial"):
+        p = tp_shards(pair_inputs(30 if mode == "temporal" else 31, False,
+                                  dev))
+        x = p["x"]
+        attn = (p["ln1_w"], p["ln1_b"], p["wqkv"], p["bqkv"], p["wproj"])
+        fl = (heads, scale, mode)
+        cases = [("fused_attention_block_tp", at.fused_attention_block_tp,
+                  at.attention_block_tp_plain, (x, *attn, *fl)),
+                 ("fused_attention_block_tp_bwd",
+                  at.fused_attention_block_tp_bwd,
+                  at.attention_block_tp_bwd_plain, (x, g, *attn, *fl))]
+        if mode == "temporal":
+            m = (p["ln2_w"], p["ln2_b"], p["w1"], p["b1"], p["w2"])
+            dh, stats = at.fused_attention_block_tp_bwd(x, g, *attn, *fl)[3:]
+            cases += [("fused_mlp_block_tp", mlp.fused_mlp_block_tp,
+                       mlp.mlp_block_tp_plain, (x, *m)),
+                      ("fused_mlp_block_tp_bwd", mlp.fused_mlp_block_tp_bwd,
+                       mlp.mlp_block_tp_bwd_plain, (x, g, *m)),
+                      ("fused_ln_bwd", at.fused_ln_bwd, at.ln_bwd_plain,
+                       (dh, x, stats, p["ln1_w"], g))]
+        for name, wrapper, plain, args in cases:
+            tag = mode if "attention" in name else "tokens"
+            modes[name][tag] = tp_kernel_case(name, wrapper, plain, args,
+                                              mode, heads)
+        del p, x, cases
+    torch.cuda.empty_cache()
+    records = []
+    for name, m in modes.items():
+        main = m.get("temporal", m.get("tokens"))
+        records.append(dict(
+            name=name, route="cuda",
+            source="motionbert_tpu_torch/ops/csrc/block_kernels.cu",
+            replaces=TP_REPLACES[name], launches=None,
+            max_abs_err=max(r["max_abs_err"] for r in m.values()),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], device_ms=main["device_ms"],
+            library_device_ms=main["library_device_ms"],
+            mode="temporal" if "temporal" in m else "tokens",
+            shape=[B, FRAMES, J, C], shards=TP_T, modes=m))
+    return records
+
+
+def tp_model(mesh):
+    """(args, lambdas, model): phase 8's flagship with the anchor weights on
+    the card, sharded over ``mesh`` (None: whole)."""
+    from motionbert_tpu_torch.parallel.mesh import shard_params
+
+    args, lambdas, model = dist_model(False)
+    return args, lambdas, shard_params(model, mesh)
+
+
+def tp_batch() -> tuple:
+    x, y = train_batch(TRAIN_BATCH)
+    return x[:TP_BATCH], y[:TP_BATCH]
+
+
+def tp_trajectory(model, args, lambdas, x, y, steps: int, ckpt=None,
+                  profile_dir=None) -> dict:
+    """On this rank's grid: the flip-TTA lift of x (gathered), the first
+    step's loss and gradients (gathered whole), the launches of one step,
+    ``steps`` AdamW steps (the parameters after, gathered), then with
+    ``ckpt`` a checkpoint (every rank calls the save) and one more step
+    (its loss and parameters: the trajectory a resumed run must follow).
+    With ``profile_dir`` the first step runs under core.profiling.trace
+    with annotate regions."""
+    from motionbert_tpu_torch.core.checkpoint import CheckpointManager
+    from motionbert_tpu_torch.core.profiling import annotate, trace
+    from motionbert_tpu_torch.parallel.mesh import (
+        eval_rows, gather_named, mean_over_ranks, rank_rows, wrap_ddp)
+    from motionbert_tpu_torch.train.pose3d import (
+        make_eval_step, make_train_step)
+    from motionbert_tpu_torch.train.state import make_adamw
+
+    dev = torch.device("cuda", 0)
+    out = {"lift": torch.from_numpy(eval_rows(
+        make_eval_step(model, no_conf=args.no_conf, flip_tta=True),
+        x.cpu().numpy(), dev, x.shape[0]))}
+    opt = make_adamw(model.parameters(), args.learning_rate,
+                     args.weight_decay)
+    grads = {}
+
+    def keep_first(optimizer, *_):
+        if not grads:
+            grads.update({n: p.grad.detach().float().clone()
+                          for n, p in model.named_parameters()})
+
+    opt.register_step_pre_hook(keep_first)
+    step = make_train_step(wrap_ddp(model, dev), opt, lambdas,
+                           rootrel=args.rootrel, no_conf=args.no_conf)
+    xr, yr = rank_rows((x, y))
+
+    def one():
+        return mean_over_ranks(step(xr, yr))["total"].item()
+
+    losses, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            with trace(profile_dir), annotate("tp_train_step"):
+                (loss, launches) = counted(train_counters() + tp_counters(),
+                                           one)
+            out["launches"] = launches
+        else:
+            loss = one()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    out["grads"] = {n: g.cpu() for n, g in gather_named(model, grads).items()}
+    out.update(loss=losses, ms=[1e3 * t for t in times],
+               params={n: t.float().cpu() for n, t in
+                       model.state_dict().items()})
+    if ckpt is not None:
+        CheckpointManager(ckpt).save_epoch(0, args.learning_rate, model, opt)
+        out["next"] = {"loss": one(), "params": {
+            n: t.float().cpu() for n, t in model.state_dict().items()}}
+    return out
+
+
+def tp_resume(path: str, mesh) -> dict:
+    """(a checkpoint's next step) on ``mesh`` (None: one process): its loss
+    and the parameters after, gathered."""
+    from motionbert_tpu_torch.core.checkpoint import load_checkpoint
+    from motionbert_tpu_torch.parallel.mesh import (
+        mean_over_ranks, rank_rows, shard_optimizer_state, wrap_ddp)
+    from motionbert_tpu_torch.train.pose3d import make_train_step
+    from motionbert_tpu_torch.train.state import make_adamw
+
+    payload = load_checkpoint(path)
+    args, lambdas, model = tp_model(None)
+    model.load_state_dict(payload["model"], strict=True)
+    if mesh is not None:
+        from motionbert_tpu_torch.parallel.mesh import shard_params
+
+        shard_params(model, mesh)
+    opt = make_adamw(model.parameters(), args.learning_rate,
+                     args.weight_decay)
+    opt.load_state_dict(shard_optimizer_state(payload["optimizer"], opt,
+                                              model))
+    step = make_train_step(wrap_ddp(model, torch.device("cuda", 0)), opt,
+                           lambdas, rootrel=args.rootrel, no_conf=args.no_conf)
+    x, y = tp_batch()
+    loss = mean_over_ranks(step(*rank_rows((x, y))))["total"].item()
+    return {"loss": loss, "params": {n: t.float().cpu() for n, t in
+                                     model.state_dict().items()}}
+
+
+def tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of phase 30 (b) (world 2: the 1 x 2 grid, its checkpoint,
+    its profile, then the 2 x 1 grid resuming the checkpoint) or (c) (world
+    4: the 2 x 2 grid): gloo, cuda:0."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from motionbert_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=DIST_TIMEOUT))
+    try:
+        mesh = make_mesh(world // TP_T, TP_T)
+        args, lambdas, model = tp_model(mesh)
+        x, y = tp_batch()
+        if world == TP_T:
+            res = tp_trajectory(model, args, lambdas, x, y, TP_STEPS,
+                                ckpt=os.path.join(out_dir, "ckpt"),
+                                profile_dir=os.path.join(out_dir, "trace"))
+            dist.barrier()
+            res["resumed_2x1"] = tp_resume(
+                os.path.join(out_dir, "ckpt", "latest_epoch.ckpt"),
+                make_mesh(world, 1))
+        else:
+            res = tp_trajectory(model, args, lambdas, x, y, 1)
+        if rank == 0:
+            torch.save(res, os.path.join(out_dir, f"world{world}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_differs(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max|d|, max|d|/max|ref|, the share of elements that differ)."""
+    d = (got.float() - ref.float()).abs()
+    return (d.max().item(), d.max().item() / ref.float().abs().max().item(),
+            (d > 0).float().mean().item())
+
+
+def trace_contents(path: str) -> tuple:
+    """(CUDA kernel names, annotate regions) of a Chrome trace that
+    core.profiling.trace wrote."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"][:60] for e in events
+                      if e.get("cat") == "kernel"})
+    regions = sorted({e["name"] for e in events
+                      if e.get("cat") == "user_annotation"})
+    return kernels, regions
+
+
+def adamw_reach_tol(params: dict, lr: float, steps: int):
+    """Phase 28's parameter bars (``param_tensor_tol``), or AdamW's step
+    bound where that is the larger: two runs of ``steps`` AdamW steps whose
+    gradients differ by rounding move an element by about the learning rate
+    a step each, in opposite directions where its gradient is near zero, so
+    they may differ by 2 * steps * lr whatever the tensor's size (the bound
+    tests/test_torch_parallel.py holds such elements to). It binds only a
+    tensor whose largest value is within that reach: the anchor's att_fuse
+    gate weights (max |w| 0.005-0.013 against 2 * 3 * 2e-4), whose
+    gradient, like the gate bias's, sums dsg0 = -dsg1 over every row."""
+    reach = {n: 2 * steps * lr / max(p.abs().max().item(), 1e-30)
+             for n, p in params.items()}
+    return lambda n: max(param_tensor_tol(n), reach[n])
+
+
+def on_card(tensors: dict) -> dict:
+    """A rank's gathered tensors back on the card (the comparisons' fp32
+    sums over ~42M elements are the card's, as in phases 8 and 28)."""
+    return {n: t.cuda() for n, t in tensors.items()}
+
+
+def phase_tp(records: list) -> None:
+    """(a) the TP modes at the shard shapes; (b) the flagship on a 1 x 2
+    grid (two ranks, gloo, cuda:0) against world size 1: the lift, the
+    first step and 3 AdamW steps, the launches of a step; (c) a 2 x 2 grid
+    (four ranks on the card), one step; (d) (b)'s checkpoint resumed at 1 x
+    1 and 2 x 1 against (b)'s own next step; (e) (b)'s first step under
+    core.profiling.trace, rank 0's trace read back."""
+    t_phase = time.perf_counter()
+    tp_records = timed("tp (a) kernels", phase_tp_kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        # world size 1: the references, on whole weights through the pairs
+        args, lambdas, model = tp_model(None)
+        x, y = tp_batch()
+        ref = tp_trajectory(model, args, lambdas, x, y, TP_STEPS)
+        del model
+        torch.cuda.empty_cache()
+        log(f"tp: world size 1, ({TP_BATCH}, {FRAMES}) AdamW steps "
+            f"{[round(t, 2) for t in ref['ms']]} ms, launches "
+            f"{json.dumps(ref['launches'])}")
+        sides = ("tensor parallel", "world size 1")
+        for world, tag in ((TP_T, "(b) 1 x 2"), (2 * TP_T, "(c) 2 x 2")):
+            t0 = time.perf_counter()
+            spawn_ranks(tp_rank, lambda r: (r, world, f"{tmp}/store{world}",
+                                            tmp), world, DIST_TIMEOUT)
+            got = torch.load(os.path.join(tmp, f"world{world}.pt"),
+                             weights_only=False)
+            lift = tp_differs(got["lift"], ref["lift"])
+            log(f"tp {tag}: {world} ranks ({SHARED_CARD}), {TP_BATCH} clips "
+                f"x {FRAMES}: steps {[round(t, 2) for t in got['ms']]} ms "
+                f"against {[round(t, 2) for t in ref['ms']]} at world size "
+                f"1; {time.perf_counter() - t0:.1f} s with the ranks' start; "
+                f"lift against world size 1's kernels: max|d| {lift[0]:.4e}, "
+                f"max|d|/max|ref| {lift[1]:.4e}, {100 * lift[2]:.2f}% of the "
+                f"elements differ; losses {got['loss']} against "
+                f"{ref['loss'][:len(got['loss'])]}; launches of a step on "
+                f"rank 0 {json.dumps(got['launches'])}")
+            if not lift[1] <= KERNEL_TOL:
+                fail(f"tp {tag}: the lift is {lift[1]:.3e} of max from world "
+                     f"size 1's")
+            if sorted(got["launches"]) != sorted(TP_REPLACES):
+                fail(f"tp {tag}: a step launched {got['launches']}, not "
+                     f"exactly the TP modes (no pair kernel, B1-B3)")
+            compare_first_step(f"tp {tag}", "the first step's gradients",
+                               got["loss"][0], on_card(got["grads"]),
+                               ref["loss"][0], on_card(ref["grads"]),
+                               sides=sides)
+            if world == TP_T:
+                compare_first_step(
+                    f"tp {tag}", f"the parameters after {TP_STEPS} steps",
+                    got["loss"][-1], on_card(got["params"]),
+                    ref["loss"][-1], on_card(ref["params"]), sides=sides,
+                    tensor_tol=adamw_reach_tol(ref["params"],
+                                               args.learning_rate, TP_STEPS))
+                main = got
+        # (d) the 1 x 2 checkpoint resumed at 1 x 1 (here) and 2 x 1 (the
+        # ranks of (b))
+        ckpt = os.path.join(tmp, "ckpt", "latest_epoch.ckpt")
+        nxt = main["next"]
+        for where, res in (("1 x 1", tp_resume(ckpt, None)),
+                           ("2 x 1", main["resumed_2x1"])):
+            log(f"tp (d): the 1 x 2 checkpoint resumed at {where}: next "
+                f"loss {res['loss']!r} against {nxt['loss']!r} on 1 x 2")
+            compare_first_step(
+                f"tp (d) {where}", "the parameters after the next step",
+                res["loss"], on_card(res["params"]), nxt["loss"],
+                on_card(nxt["params"]),
+                sides=(f"resumed at {where}", "1 x 2"),
+                tensor_tol=adamw_reach_tol(nxt["params"], args.learning_rate,
+                                           1))
+        # (e) rank 0's trace of (b)'s first step
+        kernels, regions = trace_contents(os.path.join(
+            tmp, "trace", "trace.rank0.json"))
+        log(f"tp (e): rank 0's trace of a 1 x 2 step: {len(kernels)} CUDA "
+            f"kernels {kernels}; annotate regions {regions}")
+        needed = ("hg_gemm_kernel", "attn_tc_fwd_kernel", "attn_tc_bwd_kernel")
+        if "tp_train_step" not in regions or not all(
+                any(k in n for n in kernels) for k in needed):
+            fail(f"tp (e): the trace lacks the step's region or a kernel of "
+                 f"{needed}")
+    for rec in tp_records:
+        rec["launches"] = main["launches"].get(rec["name"], 0)
+        if not rec["launches"]:
+            fail(f"tp: {rec['name']} was not launched by a TP step")
+    records += tp_records
+    log(f"tp: phase 30 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # --baseline: another checkout's kernels, bit for bit and in turns
 # ---------------------------------------------------------------------------
 
@@ -5113,7 +5629,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         choices=("all", "pairs", "train", "q8", "blocks",
-                                 "action", "mesh", "dist", "render"),
+                                 "action", "mesh", "dist", "render",
+                                 "tp"),
                         default="all",
                         help="pairs: only phases 1, 2, 3 and 24; train: only "
                              "phases 1, 2, the engine and core phases, 7 and "
@@ -5121,8 +5638,8 @@ def main() -> int:
                              "phases 1, 2 and 16-19; action: only phases 1, "
                              "2 and 20-23; mesh: only phases 1, 2 and 24-27; "
                              "dist: only phases 1, 2 and 28; render: only "
-                             "phases 1, 2 and 29; none of them prints the "
-                             "last line")
+                             "phases 1, 2 and 29; tp: only phases 1, 2 and "
+                             "30; none of them prints the last line")
     parser.add_argument("--baseline", default=None, metavar="ROOT",
                         help="another checkout (the parent's, say): after the "
                              "build, hold this checkout's bf16 pairs and "
@@ -5220,6 +5737,14 @@ def main() -> int:
         log("partial run (--phases action): no result line")
         return 0
 
+    if opts.phases == "tp":
+        records = []
+        timed("tp", phase_tp, records)
+        log(json.dumps({"kernels": records}))
+        log(f"device: {smi}")
+        log("partial run (--phases tp): no result line")
+        return 0
+
     if opts.phases == "dist":
         timed("dist", phase_dist, [])
     if opts.phases == "render":
@@ -5244,6 +5769,7 @@ def main() -> int:
     records += phase_mesh_all(fp, q8)
     timed("dist", phase_dist, records)
     timed("render", phase_render, fp, records)
+    timed("tp", phase_tp, records)
     if opts.baseline:
         attach_turns(records, turns)
 

@@ -25,7 +25,13 @@ action tasks' backbone and head groups), lr, the epoch to resume from
 (epoch + 1), the best metric (P1 error, or top-1 accuracy), and the state of
 the train step's generator, so that a resumed run draws the flips and masks
 the uninterrupted run would have (the JAX package stores its PRNG key
-there).
+there). Under tensor parallelism the payload holds whole tensors, as the JAX
+checkpoint host-ifies its shards: the model's (its ``state_dict()`` gathers,
+``parallel.mesh.gather_params``) and AdamW's moments
+(``gather_optimizer_state``). A checkpoint written at any grid resumes at
+any other: load the model's whole weights, ``shard_params`` it (before or
+after), and load ``shard_optimizer_state`` of the optimizer's state into an
+optimizer over the sharded parameters.
 """
 
 from __future__ import annotations
@@ -157,13 +163,23 @@ class CheckpointManager:
         multiple of the frequency) and best (if improved). The payload
         records epoch + 1, the epoch a resumed run starts from
         (reference train.py:49, 297). One serialisation, written up to
-        three times."""
+        three times, by rank 0. A tensor-parallel model's weights and
+        optimizer state are gathered whole first: then every rank calls
+        this (the gathers are collectives)."""
+        from motionbert_tpu_torch.parallel.mesh import (
+            gather_optimizer_state, gather_params, is_main)
+
+        state = gather_params(model)
+        opt_state = None if optimizer is None else \
+            gather_optimizer_state(optimizer, model)
+        if not is_main():
+            return
         buf = io.BytesIO()
         torch.save({
             "epoch": epoch + 1,
             "lr": float(lr),
-            "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-            "optimizer": None if optimizer is None else optimizer.state_dict(),
+            "model": {k: v.detach().cpu() for k, v in state.items()},
+            "optimizer": opt_state,
             "best_metric": best_metric,
             "rng": None if rng is None else rng.cpu(),
         }, buf)

@@ -36,6 +36,15 @@ PyTorch, "coupling" runs ``coupled_attention``, and ``Block(st_mode=
 "stage_para")`` runs its two branches through the attention and MLP blocks
 (B4, B6) with the LayerNorms outside them.
 
+Tensor parallelism (``parallel.mesh.shard_params`` on a grid with
+``n_model > 1``) marks every block with a ``parallel.tensor.TpPlan``; its
+pairs then run ``tp_pair`` / ``tp_gated_pair`` on the model rank's head
+group and hidden slice (the TP modes of B4-B7, fp32 partials all-reduced
+over the model group) in place of the fused pair, and the T->S stream's
+gate runs after the last pair in plain PyTorch. What it covers, and what it
+does not (``tensor_parallel_gaps``): the pose3d DSTformer with attn_impl
+"kernel" or "plain" and no dropout, drop-path or attention dropout.
+
 Module and parameter names are the reference PyTorch ones, so a MotionBERT
 state_dict loads with ``load_state_dict(strict=True)``. Parameters stay
 fp32; ``compute_dtype`` (bf16 on the card) sets the activation dtype, with
@@ -66,6 +75,7 @@ from motionbert_tpu_torch.ops.pair_q8 import (
     fused_gated_pair_block_q8, fused_pair_block_q8, gated_pair_block_q8_plain,
     pair_block_q8_plain)
 from motionbert_tpu_torch.parallel.mesh import rank_draw
+from motionbert_tpu_torch.parallel.tensor import tp_gated_pair, tp_pair
 
 # attn_impl -> (pair function, gated pair function). "kernel" goes through
 # the wrappers (CUDA kernel on the card, plain version on the CPU); "plain"
@@ -319,6 +329,8 @@ class Block(nn.Module):
         self.att_fuse = st_mode == "stage_para" and att_fuse
         if self.att_fuse:
             self.ts_attn = nn.Linear(dim * 2, dim * 2)
+        # parallel.tensor.TpPlan under tensor parallelism (shard_params)
+        self.tp = None
 
     def _pair_params(self, axis: str, dtype: torch.dtype) -> list:
         attn = self.attn_s if axis == "s" else self.attn_t
@@ -350,6 +362,8 @@ class Block(nn.Module):
                 raise ValueError("the stage_para block takes no twin-stream "
                                  "gate")
             return self._stage_para(x, generator)
+        if self.tp is not None:
+            return self._tp_stream(x, order, gate)
         if not stochastic or (self.drop == 0.0 and self.droppath.rate == 0.0):
             if self.attn_impl in STREAM_IMPLS:
                 return self._stream(x, order, gate)
@@ -375,6 +389,20 @@ class Block(nn.Module):
         if gate is not None:
             other, wg, bg = gate
             x = gate_plain(other, x, wg, bg)
+        return x
+
+    def _tp_stream(self, x: torch.Tensor, order: tuple,
+                   gate) -> torch.Tensor:
+        """The stream's pairs on this model rank's shards (``tp_pair``), the
+        gate after the last one."""
+        for i, axis in enumerate(order):
+            params = self._pair_params(axis, x.dtype)
+            mode = "spatial" if axis == "s" else "temporal"
+            if gate is not None and i == len(order) - 1:
+                other, wg, bg = gate
+                return tp_gated_pair(x, other, *params, wg, bg, self.tp,
+                                     self.scale, mode, self.attn_impl)
+            x = tp_pair(x, *params, self.tp, self.scale, mode, self.attn_impl)
         return x
 
     def _stream(self, x: torch.Tensor, order: tuple, gate) -> torch.Tensor:
@@ -509,6 +537,38 @@ class DSTformer(nn.Module):
 
     def get_representation(self, x: torch.Tensor) -> torch.Tensor:
         return self(x, return_rep=True)
+
+
+def tensor_parallel_gaps(model: nn.Module) -> list:
+    """What keeps ``model`` from tensor parallelism (n_model > 1), in words:
+    empty for the pose3d DSTformer with attn_impl "kernel" or "plain" and
+    every dropout rate 0 (every shipped config). The action and mesh
+    models' heads hold fc1 / fc2 layers that the JAX package's rules would
+    shard too; the W8A8 and stream tiers and the dropout path have no TP
+    mode; the stage_para block runs no pair."""
+    if not isinstance(model, DSTformer):
+        kind = type(model).__name__
+        return [f"a {kind} (tensor parallelism covers the pose3d DSTformer; "
+                f"the action and mesh models' heads, whose fc1 / fc2 the JAX "
+                f"rules shard too, are not ported)"]
+    gaps = []
+    blocks = [*model.blocks_st, *model.blocks_ts]
+    impl = blocks[0].attn_impl
+    if impl not in ("kernel", "plain"):
+        tier = "W8A8" if impl.endswith("q8") else "stream"
+        gaps.append(f"attn_impl {impl!r} (the {tier} tier has no "
+                    f"tensor-parallel mode)")
+    if model.drop_rate > 0 or any(b.drop > 0 for b in blocks):
+        gaps.append("dropout (drop_rate > 0)")
+    if any(b.droppath.rate > 0 for b in blocks):
+        gaps.append("drop-path (drop_path_rate > 0)")
+    if any(b.attn_drop > 0 for b in blocks):
+        gaps.append("attention dropout (attn_drop_rate > 0)")
+    if any(b.st_mode == "stage_para" for b in blocks):
+        gaps.append("a stage_para block")
+    if any(b.tp is not None for b in blocks):
+        gaps.append("weights already sharded")
+    return gaps
 
 
 @torch.no_grad()

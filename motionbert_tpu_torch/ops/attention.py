@@ -44,13 +44,25 @@ the notes at the top of the ``.cu``). The engine reads x, g and the weights
 through TMA, so each must sit at a 16-byte-aligned address
 (``check_attention_args`` raises otherwise).
 
+Tensor-parallel modes (``parallel/tensor.py``). Under tensor parallelism a
+model rank holds a head group's rows of qkv, wqkv (3 Ci, C) with Ci = C / T,
+and the matching columns of proj, wproj (C, Ci).
+``fused_attention_block_tp`` runs B4's chain on those shards with the
+LayerNorm and returns the fp32 partial product (no bias, no residual), which
+the caller sums over the model ranks; ``fused_attention_block_tp_bwd`` runs
+B5's chain on them up to the fp32 gradient at the LayerNorm's output (dh)
+and returns it with the LayerNorm's row statistics, and ``fused_ln_bwd`` runs
+the LayerNorm backward from the summed dh with the residual gradient. Their
+plain twins are ``attention_block_tp_plain``, ``attention_block_tp_bwd_plain``
+and ``ln_bwd_plain``; each wrapper counts its launches in ``.launches``.
+
 The plain versions here are also what the CUDA pair kernel is held against
 (``ops/fused_pair.py``). They keep the kernels' rounding points: inputs arrive
 in the compute dtype, every sum is taken in fp32, and results are rounded back
 to the compute dtype where the kernel rounds. In fp32 they reduce to the JAX
 package's XLA formulation (``motionbert_tpu/ops/attention.py``:
 ``layer_norm``, ``_attention_xla``, ``_fused_block_xla``). Weights use
-nn.Linear's layout: wqkv (3C, C), wproj (C, C).
+nn.Linear's layout: wqkv (3C, C), wproj (C, C), or a head group's shards.
 """
 
 from __future__ import annotations
@@ -119,16 +131,28 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (out * wide(weight) + wide(bias)).to(x.dtype)
 
 
+def ln_row_stats(x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
+    """The LayerNorm's row statistics (..., 2): mean and rstd in fp32, as
+    the CUDA row pass writes them."""
+    xf = wide(x)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    return torch.cat([mu, torch.rsqrt(var + eps)], -1)
+
+
 def ln_fwd_stats(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                  eps: float = LN_EPS) -> tuple:
     """LayerNorm forward keeping what its backward needs: (xhat, rstd, h),
     all fp32 (the JAX package's ``_ln_fwd_stats``)."""
-    xf = wide(x)
-    mu = xf.mean(-1, keepdim=True)
-    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
-    rstd = torch.rsqrt(var + eps)
-    xhat = (xf - mu) * rstd
-    return xhat, rstd, xhat * wide(weight) + wide(bias)
+    return ln_from_stats(x, ln_row_stats(x, eps), weight, bias)
+
+
+def ln_from_stats(x, stats, weight, bias=None) -> tuple:
+    """(xhat, rstd, h) from the row statistics; h is None without bias."""
+    rstd = stats[..., 1:]
+    xhat = (wide(x) - stats[..., :1]) * rstd
+    h = None if bias is None else xhat * wide(weight) + wide(bias)
+    return xhat, rstd, h
 
 
 def ln_bwd_rows(dh: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
@@ -143,6 +167,18 @@ def ln_bwd_rows(dh: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
     m1 = dy.mean(-1, keepdim=True)
     m2 = (dy * xhat).mean(-1, keepdim=True)
     return rstd * (dy - m1 - xhat * m2), dweight, dbias
+
+
+def ln_bwd_plain(dh: torch.Tensor, x: torch.Tensor, stats: torch.Tensor,
+                 weight: torch.Tensor, g: torch.Tensor) -> tuple:
+    """The plain version of ``fused_ln_bwd``: the LayerNorm backward of x
+    from the fp32 gradient at its output dh and its row statistics (mean,
+    rstd), plus the residual gradient g: (bf16(dx + g), dweight, dbias), the
+    parameter gradients fp32."""
+    xhat, rstd, _ = ln_from_stats(x, stats, weight)
+    dx, dweight, dbias = ln_bwd_rows(dh, xhat, rstd, weight)
+    return ((dx + wide(g)).to(x.dtype), dweight.to(weight.dtype),
+            dbias.to(weight.dtype))
 
 
 # (B, F, J, H, d) -> groups of tokens, and back
@@ -181,19 +217,39 @@ def st_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return from_groups(o, mode)
 
 
+def _attend_packed(h: torch.Tensor, wqkv, bqkv, num_heads: int, scale: float,
+                   mode: str) -> torch.Tensor:
+    """The attention core on the packed qkv projection of h: (..., Ci) in
+    h's dtype, Ci = wqkv's rows / 3 (C, or a head group's width)."""
+    Ci = wqkv.shape[0] // 3
+    qkv = linear(h, wqkv, bqkv).to(h.dtype)
+    return st_attention_plain(qkv[..., :Ci], qkv[..., Ci:2 * Ci],
+                              qkv[..., 2 * Ci:], mode, num_heads, scale)
+
+
 def attention_block(x: torch.Tensor, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
                     num_heads: int, scale: float, mode: str,
                     use_ln: bool = True, residual: bool = True) -> torch.Tensor:
     """Attention sub-block ``[x +] proj(attn(qkv([LN] x)))``, returned in
     fp32 (the caller rounds it). The pair uses the pre-LN form with the
     residual."""
-    C = x.shape[-1]
     h = layer_norm(x, ln_w, ln_b) if use_ln else x
-    qkv = linear(h, wqkv, bqkv).to(x.dtype)
-    attn = st_attention_plain(qkv[..., :C], qkv[..., C:2 * C],
-                              qkv[..., 2 * C:], mode, num_heads, scale)
-    out = linear(attn, wproj, bproj)
+    out = linear(_attend_packed(h, wqkv, bqkv, num_heads, scale, mode), wproj,
+                 bproj)
     return out + wide(x) if residual else out
+
+
+def attention_block_tp_plain(x, ln_w, ln_b, wqkv, bqkv, wproj,
+                             num_heads: int, scale: float,
+                             mode: str) -> torch.Tensor:
+    """The plain version of ``fused_attention_block_tp``: LN, qkv on a head
+    group's rows wqkv (3 Ci, C), attention over its ``num_heads`` heads, and
+    the fp32 product with proj's columns of those heads wproj (C, Ci),
+    without bias or residual. Summed over the groups, plus proj's bias and
+    x, it is ``attention_block``'s output."""
+    attn = _attend_packed(layer_norm(x, ln_w, ln_b), wqkv, bqkv, num_heads,
+                          scale, mode)
+    return torch.matmul(wide(attn), wide(wproj).t())
 
 
 # ---------------------------------------------------------------------------
@@ -239,15 +295,51 @@ def attention_block_bwd_plain(x, g, ln_w, ln_b, wqkv, bqkv, wproj,
     dwqkv, dbqkv, dwproj, dbproj), each in its tensor's dtype (dbproj in
     wproj's); without use_ln, ``no_ln_grads``."""
     dt = x.dtype
-    C = x.shape[-1]
-    # ---- forward recompute ----
+    stats = ln_row_stats(x) if use_ln else None
+    dh, dwqkv, dbqkv, dwproj = _attention_bwd_products(
+        x, g, stats, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale, mode)
+    dbproj = rows(g).sum(0)
+    # ---- LayerNorm backward and residual ----
     if use_ln:
-        xhat, rstd, hf = ln_fwd_stats(x, ln_w, ln_b)
-        h = hf.to(dt)
+        xhat, rstd, _ = ln_from_stats(x, stats, ln_w)
+        dx, dln_w, dln_b = ln_bwd_rows(dh, xhat, rstd, ln_w)
+        dln_w, dln_b = dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype)
     else:
-        h = x
+        dx, (dln_w, dln_b) = dh, no_ln_grads(ln_w, ln_b)
+    if residual:
+        dx = dx + wide(g)
+    return (dx.to(dt), dln_w, dln_b,
+            dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dwproj.to(wproj.dtype),
+            dbproj.to(wproj.dtype))
+
+
+def attention_block_tp_bwd_plain(x, g, ln_w, ln_b, wqkv, bqkv, wproj,
+                                 num_heads: int, scale: float,
+                                 mode: str) -> tuple:
+    """The plain version of ``fused_attention_block_tp_bwd``: the gradients
+    of ``attention_block_tp_plain`` for the output gradient g, at
+    ``attention_block_bwd_plain``'s rounding points, up to the fp32 gradient
+    at the LayerNorm's output. Returns (dwqkv, dbqkv, dwproj, dh fp32, the
+    LayerNorm's row statistics (..., 2) fp32)."""
+    stats = ln_row_stats(x)
+    dh, dwqkv, dbqkv, dwproj = _attention_bwd_products(
+        x, g, stats, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale, mode)
+    return (dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype),
+            dwproj.to(wproj.dtype), dh, stats)
+
+
+def _attention_bwd_products(x, g, stats, ln_w, ln_b, wqkv, bqkv, wproj,
+                            num_heads: int, scale: float, mode: str) -> tuple:
+    """The attention block's backward up to the fp32 gradient at the qkv
+    product's input (the LayerNorm's output with ``stats``, else x): (dh,
+    dwqkv, dbqkv, dwproj), the gradients fp32. wqkv (3 Ci, C), wproj
+    (C, Ci)."""
+    dt = x.dtype
+    Ci = wqkv.shape[0] // 3
+    # ---- forward recompute ----
+    h = x if stats is None else ln_from_stats(x, stats, ln_w, ln_b)[2].to(dt)
     qkv = linear(h, wqkv, bqkv)
-    q, k, v = (wide(to_groups(qkv[..., i * C:(i + 1) * C].to(dt), mode,
+    q, k, v = (wide(to_groups(qkv[..., i * Ci:(i + 1) * Ci].to(dt), mode,
                               num_heads)) for i in range(3))
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     e = torch.exp(s - s.amax(-1, keepdim=True))
@@ -257,7 +349,6 @@ def attention_block_bwd_plain(x, g, ln_w, ln_b, wqkv, bqkv, wproj,
     # ---- output projection backward ----
     dattn = torch.matmul(wide(g), wide(wproj))
     dwproj = weight_grad(g, attn)
-    dbproj = rows(g).sum(0)
     # ---- attention core and qkv projection backward ----
     dah = wide(to_groups(dattn.to(dt), mode, num_heads))
     dv = torch.matmul(pb.transpose(-1, -2), dah)
@@ -270,18 +361,7 @@ def attention_block_bwd_plain(x, g, ln_w, ln_b, wqkv, bqkv, wproj,
     dqkvb = dqkv.to(dt)
     dwqkv = weight_grad(dqkvb, h)
     dbqkv = rows(dqkv).sum(0)
-    dh = torch.matmul(wide(dqkvb), wide(wqkv))
-    # ---- LayerNorm backward and residual ----
-    if use_ln:
-        dx, dln_w, dln_b = ln_bwd_rows(dh, xhat, rstd, ln_w)
-        dln_w, dln_b = dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype)
-    else:
-        dx, (dln_w, dln_b) = dh, no_ln_grads(ln_w, ln_b)
-    if residual:
-        dx = dx + wide(g)
-    return (dx.to(dt), dln_w, dln_b,
-            dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dwproj.to(wproj.dtype),
-            dbproj.to(wproj.dtype))
+    return torch.matmul(wide(dqkvb), wide(wqkv)), dwqkv, dbqkv, dwproj
 
 
 # ---------------------------------------------------------------------------
@@ -312,13 +392,15 @@ def check_ln_args(ln_w, ln_b, C: int, use_ln: bool, dev) -> None:
 
 
 def check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
-                         num_heads: int, mode: str,
-                         use_ln: bool = True) -> None:
+                         num_heads: int, mode: str, use_ln: bool = True,
+                         tp: bool = False) -> None:
     """Raise ValueError on anything the CUDA attention block does not take
-    (bproj None: the backward, which does not read it). Its chains run the
-    GEMM engine and the tensor-core core, so the row limit is
-    ``core_max_rows``, and x, the weights and the biases must sit at
-    16-byte-aligned addresses (the engine's TMA and vector loads)."""
+    (bproj None: the backward, or a tensor-parallel mode, which do not read
+    it). Its chains run the GEMM engine and the tensor-core core, so the row
+    limit is ``core_max_rows``, and x, the weights and the biases must sit
+    at 16-byte-aligned addresses (the engine's TMA and vector loads). With
+    ``tp`` the weights are a head group's shards: wqkv (3 Ci, C), wproj
+    (C, Ci), with ``num_heads`` local heads of Ci / num_heads channels."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, F, J, C), got shape {tuple(x.shape)}")
     B, F, J, C = x.shape
@@ -330,10 +412,12 @@ def check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     if not 1 <= F <= MAX_FRAMES:
         raise ValueError(f"the attention kernel takes 1..{MAX_FRAMES} frames, "
                          f"got {F}")
-    if C % 64 or num_heads < 1 or C % num_heads \
-            or C // num_heads not in HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes C % 64 == 0 and head "
-                         f"dim in {HEAD_DIMS}, got C={C}, heads={num_heads}")
+    Ci = wqkv.shape[0] // 3 if tp else C
+    if C % 64 or Ci % 64 or num_heads < 1 or Ci % num_heads \
+            or Ci // num_heads not in HEAD_DIMS:
+        raise ValueError(f"the attention kernel takes C % 64 == 0, an inner "
+                         f"width Ci % 64 == 0 and head dim Ci / heads in "
+                         f"{HEAD_DIMS}, got C={C}, Ci={Ci}, heads={num_heads}")
     limit = core_max_rows(num_heads)
     if not 1 <= B * F * J <= limit:
         raise ValueError(f"the attention block kernel takes 1..{limit} token "
@@ -341,8 +425,9 @@ def check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     dev, bf16 = x.device, torch.bfloat16
     check_tensor("x", x, (B, F, J, C), bf16, dev)
     check_ln_args(ln_w, ln_b, C, use_ln, dev)
-    for name, t, shape in (("wqkv", wqkv, (3 * C, C)), ("bqkv", bqkv, (3 * C,)),
-                           ("wproj", wproj, (C, C)), ("bproj", bproj, (C,))):
+    for name, t, shape in (("wqkv", wqkv, (3 * Ci, C)),
+                           ("bqkv", bqkv, (3 * Ci,)),
+                           ("wproj", wproj, (C, Ci)), ("bproj", bproj, (C,))):
         if t is not None:
             check_tensor(name, t, shape, bf16, dev)
     for name, t in (("x", x), ("wqkv", wqkv), ("bqkv", bqkv),
@@ -357,6 +442,11 @@ ATTN_BWD_SLOTS = (
     "x", "g", "ln_w", "ln_b", "wqkv", "bqkv", "wproj",
     "dx", "dln_w", "dln_b", "dwqkv", "dbqkv", "dwproj", "dbproj",
     "h", "st", "qkv", "attn", "dattn", "dqkv", "dqkvb", "dh", "work")
+# mbt_attention_block_tp_bwd's, in the order of the AttnTpSlot enum
+ATTN_TP_BWD_SLOTS = (
+    "x", "g", "ln_w", "ln_b", "wqkv", "bqkv", "wproj",
+    "dwqkv", "dbqkv", "dwproj", "dh", "st",
+    "h", "qkv", "attn", "dattn", "dqkv", "dqkvb", "work")
 
 
 def block_library() -> ctypes.CDLL:
@@ -370,15 +460,26 @@ def block_library() -> ctypes.CDLL:
                 (lib.mbt_attention_block_bwd, [slots] + [i] * 5 + [f] + [i] * 3 + [vp]),
                 (lib.mbt_mlp_block, [vp] * 9 + [i] * 5 + [vp]),
                 (lib.mbt_mlp_block_bwd, [slots] + [i] * 5 + [vp]),
+                (lib.mbt_attention_block_tp, [vp] * 9 + [i] * 6 + [f, i, vp]),
+                (lib.mbt_attention_block_tp_bwd,
+                 [slots] + [i] * 6 + [f, i, vp]),
+                (lib.mbt_mlp_block_tp, [vp] * 8 + [i] * 3 + [vp]),
+                (lib.mbt_mlp_block_tp_bwd, [slots] + [i] * 3 + [vp]),
+                (lib.mbt_ln_bwd, [vp] * 9 + [i] * 2 + [vp]),
                 (lib.mbt_attention_bwd_slot_count, []),
-                (lib.mbt_mlp_bwd_slot_count, [])):
+                (lib.mbt_mlp_bwd_slot_count, []),
+                (lib.mbt_attention_tp_bwd_slot_count, []),
+                (lib.mbt_mlp_tp_bwd_slot_count, [])):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.mbt_block_work_floats.argtypes = [i, i]
         lib.mbt_block_work_floats.restype = ctypes.c_longlong
-        if lib.mbt_attention_bwd_slot_count() != len(ATTN_BWD_SLOTS):
-            raise RuntimeError("block_kernels.cu and ATTN_BWD_SLOTS disagree "
-                               "on the pointer slots")
+        if lib.mbt_attention_bwd_slot_count() != len(ATTN_BWD_SLOTS) or \
+                lib.mbt_attention_tp_bwd_slot_count() != \
+                len(ATTN_TP_BWD_SLOTS):
+            raise RuntimeError("block_kernels.cu and ATTN_BWD_SLOTS / "
+                               "ATTN_TP_BWD_SLOTS disagree on the pointer "
+                               "slots")
     return lib
 
 
@@ -512,6 +613,153 @@ def fused_attention_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
 
 
 fused_attention_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel modes (B4_tp, B5_tp) and the LayerNorm backward
+# ---------------------------------------------------------------------------
+
+def check_ln_bwd_args(dh, x, stats, ln_w, g) -> None:
+    """Raise ValueError on anything ``mbt_ln_bwd`` does not take: dh (..., C)
+    fp32, x and g (..., C) bf16, stats (..., 2) and ln_w (C,) fp32, on one
+    device, contiguous and 16-byte aligned."""
+    C = x.shape[-1] if x.dim() else 0
+    M = x.numel() // max(C, 1)
+    if not C or C % 2 or not 1 <= M <= ENGINE_MAX_ROWS:
+        raise ValueError(f"the LayerNorm backward takes an even C and "
+                         f"1..{ENGINE_MAX_ROWS} rows, got shape "
+                         f"{tuple(x.shape)}")
+    dev, f32 = x.device, torch.float32
+    check_tensor("x", x, x.shape, torch.bfloat16, dev)
+    check_tensor("g", g, x.shape, torch.bfloat16, dev)
+    check_tensor("dh", dh, x.shape, f32, dev)
+    check_tensor("stats", stats, tuple(x.shape[:-1]) + (2,), f32, dev)
+    check_tensor("ln_w", ln_w, (C,), f32, dev)
+    for name, t in (("x", x), ("g", g), ("dh", dh), ("stats", stats)):
+        check_aligned(name, t)
+
+
+def _launch_tp(x, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale,
+               mode) -> torch.Tensor:
+    check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, None, num_heads,
+                         mode, True, tp=True)
+    B, F, J, C = x.shape
+    Ci, M = wqkv.shape[0] // 3, B * F * J
+    lib = block_library()
+    with torch.cuda.device(x.device):
+        qkv = torch.empty((M, 3 * Ci), dtype=x.dtype, device=x.device)
+        # the LayerNorm rows (M, C), then the core's output (M, Ci)
+        attn = torch.empty(M * max(C, Ci), dtype=x.dtype, device=x.device)
+        out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        rc = lib.mbt_attention_block_tp(
+            x.data_ptr(), out.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+            ln_w.data_ptr(), ln_b.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), wproj.data_ptr(), B, F, J, C, Ci, num_heads,
+            float(scale), int(mode == "temporal"),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tensor-parallel attention block kernel launch "
+                           f"failed with CUDA error {rc}")
+    return out
+
+
+def _launch_tp_bwd(x, g, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale,
+                   mode) -> tuple:
+    check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, None, num_heads,
+                         mode, True, tp=True)
+    check_tensor("g", g, x.shape, x.dtype, x.device)
+    check_aligned("g", g)
+    B, F, J, C = x.shape
+    Ci, M = wqkv.shape[0] // 3, B * F * J
+    lib = block_library()
+    dev = x.device
+    with torch.cuda.device(dev):
+        bf = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+        t = dict(x=x, g=g, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, bqkv=bqkv,
+                 wproj=wproj, dwqkv=bf(3 * Ci, C), dbqkv=bf(3 * Ci),
+                 dwproj=bf(C, Ci), dh=f32(B, F, J, C), st=f32(B, F, J, 2),
+                 h=bf(M, C), qkv=bf(M, 3 * Ci), attn=bf(M, Ci),
+                 dattn=bf(M, Ci), dqkv=f32(M, 3 * Ci), dqkvb=bf(M, 3 * Ci),
+                 work=f32(lib.mbt_block_work_floats(3 * Ci, C)))
+        rc = lib.mbt_attention_block_tp_bwd(
+            slot_pointers(ATTN_TP_BWD_SLOTS, t), B, F, J, C, Ci, num_heads,
+            float(scale), int(mode == "temporal"),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tensor-parallel attention block backward kernel "
+                           f"launch failed with CUDA error {rc}")
+    return tuple(t[n] for n in ("dwqkv", "dbqkv", "dwproj", "dh", "st"))
+
+
+def _launch_ln_bwd(dh, x, stats, ln_w, g) -> tuple:
+    check_ln_bwd_args(dh, x, stats, ln_w, g)
+    C = x.shape[-1]
+    M = x.numel() // C
+    lib = block_library()
+    dev = x.device
+    with torch.cuda.device(dev):
+        f32 = lambda n: torch.empty(n, dtype=torch.float32, device=dev)
+        dx, dln_w, dln_b = torch.empty_like(x), f32(C), f32(C)
+        work = f32(lib.mbt_block_work_floats(C, 1))
+        rc = lib.mbt_ln_bwd(
+            dh.data_ptr(), x.data_ptr(), stats.data_ptr(), ln_w.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
+            work.data_ptr(), M, C, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"LayerNorm backward kernel launch failed with "
+                           f"CUDA error {rc}")
+    return dx, dln_w, dln_b
+
+
+def fused_attention_block_tp(x, ln_w, ln_b, wqkv, bqkv, wproj,
+                             num_heads: int, scale: float,
+                             mode: str) -> torch.Tensor:
+    """B4's tensor-parallel mode on x (B, F, J, C) and a head group's shards
+    (see ``attention_block_tp_plain``): the fp32 partial product, to be
+    summed over the model ranks. The CUDA chain for a CUDA tensor, the plain
+    version for a CPU tensor. Not differentiable by itself:
+    ``parallel.tensor`` pairs it with ``fused_attention_block_tp_bwd``."""
+    args = (x, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale, mode)
+    if device_kind(x, "attention block") == "cpu":
+        return attention_block_tp_plain(*args)
+    out = _launch_tp(*args)
+    fused_attention_block_tp.launches += 1
+    return out
+
+
+fused_attention_block_tp.launches = 0
+
+
+def fused_attention_block_tp_bwd(x, g, ln_w, ln_b, wqkv, bqkv, wproj,
+                                 num_heads: int, scale: float,
+                                 mode: str) -> tuple:
+    """B5's tensor-parallel mode (see ``attention_block_tp_bwd_plain``):
+    (dwqkv, dbqkv, dwproj, dh fp32, row statistics)."""
+    args = (x, g, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale, mode)
+    if device_kind(x, "attention block") == "cpu":
+        return attention_block_tp_bwd_plain(*args)
+    grads = _launch_tp_bwd(*args)
+    fused_attention_block_tp_bwd.launches += 1
+    return grads
+
+
+fused_attention_block_tp_bwd.launches = 0
+
+
+def fused_ln_bwd(dh, x, stats, ln_w, g) -> tuple:
+    """The LayerNorm backward from the fp32 gradient at its output, with the
+    residual gradient g (see ``ln_bwd_plain``): (dx, dln_w, dln_b). The CUDA
+    column sums and row pass for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    if device_kind(x, "LayerNorm backward") == "cpu":
+        return ln_bwd_plain(dh, x, stats, ln_w, g)
+    out = _launch_ln_bwd(dh, x, stats, ln_w, g)
+    fused_ln_bwd.launches += 1
+    return out
+
+
+fused_ln_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------

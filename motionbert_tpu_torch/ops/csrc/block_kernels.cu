@@ -61,6 +61,26 @@
 // backward; the chains still write their intermediates (qkv, attn, dattn,
 // dqkv; h, z, a, dz) to device memory.
 //
+// Tensor-parallel modes (parallel/tensor.py). Under tensor parallelism over T
+// model ranks each rank holds a head group's rows of qkv, Wqkv_r (3 Ci, C)
+// with Ci = C / T, and the matching columns of proj, Wproj_r (C, Ci), and a
+// hidden slice of the MLP: W1_r (hid_r, C), W2_r (C, hid_r). The TP modes
+// run the same chains on those shards, always with the LayerNorm, and stop
+// where the ranks' parts must be summed:
+//   B4_tp  ln_fwd_rows (into attn) -> NT qkv + bias (M, 3 Ci) -> core on
+//          the Hl = H / T local heads -> NT proj into fp32 (EPI_F32): the
+//          partial product, no bias, no residual
+//   B6_tp  ln_fwd_rows -> NT fc1 + GELU -> NT fc2 into fp32
+//   B5_tp  B5's chain at the shard widths up to the fp32 dh = dqkv Wqkv_r
+//          (NN, EPI_F32), with the LayerNorm row statistics out; no dbproj
+//   B7_tp  B7's chain at the shard widths up to dh = dz W1_r; no db2
+//   ln_bwd from the summed dh: the two column sums (dln_b, dln_w) and
+//          ln_bwd_rows dx = bf16(LN-backward(dh) + g), input_grad's calls
+// The caller all-reduces the fp32 partials and dh over the model ranks and
+// adds the output bias and the residual, in fp32, before the one rounding
+// (x + proj and x + fc2 round where B1 rounds). At T = 1 each mode is the
+// non-TP chain's arithmetic launch for launch.
+//
 // Every entry point launches on the caller's stream, allocates nothing (the
 // caller passes every buffer) and returns 0 or the first CUDA error.
 
@@ -93,6 +113,29 @@ enum MlpSlot {
     // scratch
     M_H, M_ST, M_Z, M_A, M_DZ, M_DH, M_WORK,
     M_COUNT
+};
+
+// Pointer slots of mbt_attention_block_tp_bwd (ops/attention.py's
+// ATTN_TP_BWD_SLOTS) and of mbt_mlp_block_tp_bwd (ops/fused_mlp.py's
+// MLP_TP_BWD_SLOTS).
+enum AttnTpSlot {
+    // inputs
+    AT_X, AT_G, AT_LN_W, AT_LN_B, AT_WQKV, AT_BQKV, AT_WPROJ,
+    // outputs
+    AT_DWQKV, AT_DBQKV, AT_DWPROJ, AT_DH, AT_ST,
+    // scratch
+    AT_H, AT_QKV, AT_ATTN, AT_DATTN, AT_DQKV, AT_DQKVB, AT_WORK,
+    AT_COUNT
+};
+
+enum MlpTpSlot {
+    // inputs
+    MT_X, MT_G, MT_LN_W, MT_LN_B, MT_W1, MT_B1, MT_W2,
+    // outputs
+    MT_DW1, MT_DB1, MT_DW2, MT_DH, MT_ST,
+    // scratch
+    MT_H, MT_Z, MT_A, MT_DZ, MT_WORK,
+    MT_COUNT
 };
 
 // out = bf16(A W^T + bias [+ R]) (M, N): the NT product of a block's last
@@ -131,6 +174,8 @@ cudaError_t input_grad(const void* dY, const void* W, int M, int C, int N, bool 
 
 extern "C" int mbt_attention_bwd_slot_count() { return A_COUNT; }
 extern "C" int mbt_mlp_bwd_slot_count() { return M_COUNT; }
+extern "C" int mbt_attention_tp_bwd_slot_count() { return AT_COUNT; }
+extern "C" int mbt_mlp_tp_bwd_slot_count() { return MT_COUNT; }
 
 // Floats of fp32 workspace the partials of a (rows, cols) weight gradient and
 // of a column sum over `rows` columns need.
@@ -274,6 +319,142 @@ extern "C" int mbt_mlp_block_bwd(void* const* p, int M, int C, int hidden, int u
     CHECK(input_grad(p[M_DZ], p[M_W1], M, C, hidden, use_ln != 0, residual != 0, p[M_X],
                      p[M_G], p[M_ST], p[M_LN_W], p[M_DH], work, p[M_DLN_W], p[M_DLN_B],
                      p[M_DX], stream));
+    return 0;
+}
+
+// ---------------------------------------------------------------------------
+// tensor-parallel modes (see the note at the top)
+// ---------------------------------------------------------------------------
+
+// B4_tp on x (B, F, J, C) bf16: out (M, C) fp32 = attention over the Hl local
+// heads of LN(x), projected through Wproj_r (C, Ci), without bias or
+// residual. Scratch: qkv (M, 3 Ci) and attn (M, max(C, Ci)) bf16 (attn holds
+// the LayerNorm rows until the core overwrites its first Ci columns of each
+// row). 4 device records. Alignment as for mbt_attention_block.
+extern "C" int mbt_attention_block_tp(
+    const void* x, void* out, void* qkv, void* attn, const void* ln_w, const void* ln_b,
+    const void* wqkv, const void* bqkv, const void* wproj, int B, int F, int J, int C,
+    int Ci, int Hl, float scale, int temporal, void* stream_ptr) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    const int M = B * F * J;
+    CHECK(launch_ln_fwd_rows(x, ln_w, ln_b, attn, nullptr, M, C, stream));
+    CHECK((hg_gemm<NT, EPI_BIAS>(attn, wqkv, bqkv, nullptr, nullptr, qkv, nullptr, M, 3 * Ci,
+                                 C, stream)));
+    TcArgs core = tc_packed_args(qkv, B, F, J, Ci, Hl, scale, temporal);
+    core.out = attn;
+    core.ld_out = Ci;
+    CHECK(launch_attention_tc(core, false, stream));
+    CHECK((hg_gemm<NT, EPI_F32>(attn, wproj, nullptr, nullptr, nullptr, out, nullptr, M, C, Ci,
+                                stream)));
+    return 0;
+}
+
+// B5_tp: B4_tp's gradients for the (replicated) output gradient g (M, C)
+// bf16. p holds AT_COUNT device pointers in AttnTpSlot order. Outputs:
+// dWqkv_r (3 Ci, C), dbqkv_r (3 Ci), dWproj_r (C, Ci) bf16; dh (M, C) fp32,
+// this rank's part of the gradient at the LayerNorm's output; st (M, 2) fp32,
+// the LayerNorm's row statistics (mean, rstd) for mbt_ln_bwd. Scratch: h
+// (M, C), attn, dattn (M, Ci), qkv, dqkvb (M, 3 Ci) bf16; dqkv (M, 3 Ci)
+// fp32; work mbt_block_work_floats(3 Ci, C). 12 device records (a weight
+// gradient and a column sum are two each).
+extern "C" int mbt_attention_block_tp_bwd(void* const* p, int B, int F, int J, int C, int Ci,
+                                          int Hl, float scale, int temporal,
+                                          void* stream_ptr) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    const int M = B * F * J;
+    float* work = static_cast<float*>(p[AT_WORK]);
+
+    // ---- forward recompute ----
+    CHECK(launch_ln_fwd_rows(p[AT_X], p[AT_LN_W], p[AT_LN_B], p[AT_H], p[AT_ST], M, C,
+                             stream));
+    CHECK((hg_gemm<NT, EPI_BIAS>(p[AT_H], p[AT_WQKV], p[AT_BQKV], nullptr, nullptr,
+                                 p[AT_QKV], nullptr, M, 3 * Ci, C, stream)));
+    TcArgs core = tc_packed_args(p[AT_QKV], B, F, J, Ci, Hl, scale, temporal);
+    core.out = p[AT_ATTN];
+    core.ld_out = Ci;
+    CHECK(launch_attention_tc(core, false, stream));
+
+    // ---- output projection backward (no bias: the caller sums g) ----
+    CHECK((hg_gemm<NN, EPI_BF16>(p[AT_G], p[AT_WPROJ], nullptr, nullptr, nullptr, p[AT_DATTN],
+                                 nullptr, M, Ci, C, stream)));
+    CHECK(hg_weight_grad(p[AT_G], p[AT_ATTN], M, C, Ci, work, p[AT_DWPROJ], stream));
+
+    // ---- attention core and qkv projection backward ----
+    float* dqkv = static_cast<float*>(p[AT_DQKV]);
+    bf16* dqkvb = static_cast<bf16*>(p[AT_DQKVB]);
+    core.g = p[AT_DATTN];
+    core.ld_g = Ci;
+    core.dqf = dqkv, core.dkf = dqkv + Ci, core.dvf = dqkv + 2 * Ci;
+    core.dqb = dqkvb, core.dkb = dqkvb + Ci, core.dvb = dqkvb + 2 * Ci;
+    core.ld_out = 3 * Ci;
+    CHECK(launch_attention_tc(core, true, stream));
+    CHECK(hg_weight_grad(dqkvb, p[AT_H], M, 3 * Ci, C, work, p[AT_DWQKV], stream));
+    CHECK(column_sum<COL_F32>(dqkv, nullptr, nullptr, nullptr, M, 3 * Ci, work, p[AT_DBQKV],
+                              true, stream));
+    CHECK((hg_gemm<NN, EPI_F32>(dqkvb, p[AT_WQKV], nullptr, nullptr, nullptr, p[AT_DH],
+                                nullptr, M, C, 3 * Ci, stream)));
+    return 0;
+}
+
+// B6_tp on x (M, C) bf16: out (M, C) fp32 = GELU(LN(x) W1_r^T + b1_r) W2_r^T
+// without bias or residual. Scratch: hid (M, hid_r) bf16 followed by h
+// (M, C) bf16: M * (hid_r + C) elements. 3 device records.
+extern "C" int mbt_mlp_block_tp(
+    const void* x, void* out, void* hid, const void* ln_w, const void* ln_b, const void* w1,
+    const void* b1, const void* w2, int M, int C, int hidden, void* stream_ptr) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    bf16* h = static_cast<bf16*>(hid) + (size_t)M * hidden;
+    CHECK(launch_ln_fwd_rows(x, ln_w, ln_b, h, nullptr, M, C, stream));
+    CHECK((hg_gemm<NT, EPI_BIAS_GELU>(h, w1, b1, nullptr, nullptr, hid, nullptr, M, hidden, C,
+                                      stream)));
+    CHECK((hg_gemm<NT, EPI_F32>(hid, w2, nullptr, nullptr, nullptr, out, nullptr, M, C, hidden,
+                                stream)));
+    return 0;
+}
+
+// B7_tp: B6_tp's gradients for the output gradient g (M, C) bf16. p holds
+// MT_COUNT device pointers in MlpTpSlot order. Outputs: dW1_r (hid_r, C),
+// db1_r (hid_r), dW2_r (C, hid_r) bf16; dh (M, C) fp32 and st (M, 2) fp32 as
+// for B5_tp. Scratch: h (M, C) bf16; z (M, hid_r) fp32; a, dz (M, hid_r)
+// bf16; work mbt_block_work_floats(hid_r, C). 10 device records.
+extern "C" int mbt_mlp_block_tp_bwd(void* const* p, int M, int C, int hidden,
+                                    void* stream_ptr) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    float* work = static_cast<float*>(p[MT_WORK]);
+
+    // ---- forward recompute ----
+    CHECK(launch_ln_fwd_rows(p[MT_X], p[MT_LN_W], p[MT_LN_B], p[MT_H], p[MT_ST], M, C,
+                             stream));
+    CHECK((hg_gemm<NT, EPI_BIAS_GELU_Z>(p[MT_H], p[MT_W1], p[MT_B1], nullptr, nullptr, p[MT_A],
+                                        p[MT_Z], M, hidden, C, stream)));
+
+    // ---- fc2 backward (no bias: the caller sums g) ----
+    CHECK(hg_weight_grad(p[MT_G], p[MT_A], M, C, hidden, work, p[MT_DW2], stream));
+    CHECK((hg_gemm<NN, EPI_DGELU>(p[MT_G], p[MT_W2], nullptr, nullptr, p[MT_Z], p[MT_DZ],
+                                  nullptr, M, hidden, C, stream)));
+
+    // ---- fc1 backward ----
+    CHECK(hg_weight_grad(p[MT_DZ], p[MT_H], M, hidden, C, work, p[MT_DW1], stream));
+    CHECK(column_sum<COL_BF16>(p[MT_DZ], nullptr, nullptr, nullptr, M, hidden, work, p[MT_DB1],
+                               true, stream));
+    CHECK((hg_gemm<NN, EPI_F32>(p[MT_DZ], p[MT_W1], nullptr, nullptr, nullptr, p[MT_DH],
+                                nullptr, M, C, hidden, stream)));
+    return 0;
+}
+
+// The LayerNorm backward of a TP half from the summed fp32 dh (M, C), x
+// (M, C) bf16, the row statistics st (M, 2) and ln_w (C,) fp32, with the
+// residual gradient g (M, C) bf16: dln_b = sum_m dh, dln_w = sum_m dh * xhat
+// (fp32), dx = bf16(LN-backward(dh) + g). work: mbt_block_work_floats(C, 1)
+// floats. 5 device records.
+extern "C" int mbt_ln_bwd(const void* dh, const void* x, const void* st, const void* ln_w,
+                          const void* g, void* dx, void* dln_w, void* dln_b, float* work,
+                          int M, int C, void* stream_ptr) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    CHECK(column_sum<COL_F32>(dh, nullptr, nullptr, nullptr, M, C, work, dln_b, false,
+                              stream));
+    CHECK(column_sum<COL_LN_W>(dh, x, st, nullptr, M, C, work, dln_w, false, stream));
+    CHECK(launch_ln_bwd_rows(dh, x, st, ln_w, g, dx, M, C, stream));
     return 0;
 }
 

@@ -29,6 +29,14 @@ port uses the exact erf (``erff`` on the card, ``torch.erf`` here).
 ``engine_gemm`` runs one engine launch alone, for its tests; its plain
 version is ``engine_gemm_plain``.
 
+Tensor-parallel modes (``parallel/tensor.py``): a model rank holds a hidden
+slice of the MLP, w1 (hid_r, C) and w2 (C, hid_r). ``fused_mlp_block_tp``
+runs B6's chain on it with the LayerNorm and returns the fp32 partial
+product (no b2, no residual), ``fused_mlp_block_tp_bwd`` B7's chain up to
+the fp32 gradient at the LayerNorm's output, with the row statistics
+(plain twins ``mlp_block_tp_plain``, ``mlp_block_tp_bwd_plain``); the
+LayerNorm backward is ``ops.attention.fused_ln_bwd``.
+
 The hidden activation is rounded to x's dtype before fc2, as the kernels
 round it. Weights use nn.Linear's layout: w1 (hidden, C), w2 (C, hidden).
 ``mlp_block`` (pre-LN, residual, fp32 result) is the MLP half of the plain
@@ -43,9 +51,10 @@ import torch
 import torch.nn.functional as F
 
 from motionbert_tpu_torch.ops.attention import (
-    ENGINE_MAX_ROWS, block_library, check_aligned, check_ln_args,
-    check_tensor, data_ptr, device_kind, layer_norm, linear, ln_bwd_rows,
-    ln_fwd_stats, no_ln_grads, rows, slot_pointers, weight_grad, wide)
+    ENGINE_MAX_ROWS, ln_from_stats, block_library, check_aligned,
+    check_ln_args, check_tensor, data_ptr, device_kind, layer_norm, linear,
+    ln_bwd_rows, ln_row_stats, no_ln_grads, rows, slot_pointers, weight_grad,
+    wide)
 
 
 def mlp_block(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2,
@@ -56,6 +65,16 @@ def mlp_block(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2,
     z = F.gelu(linear(h, w1, b1)).to(x.dtype)
     out = linear(z, w2, b2)
     return out + wide(x) if residual else out
+
+
+def mlp_block_tp_plain(x, ln_w, ln_b, w1, b1, w2) -> torch.Tensor:
+    """The plain version of ``fused_mlp_block_tp``: LN, fc1 on a hidden
+    slice w1 (hid_r, C) and GELU, rounded, and the fp32 product with fc2's
+    columns of the slice w2 (C, hid_r), without bias or residual. Summed
+    over the slices, plus fc2's bias and x, it is ``mlp_block``'s
+    output."""
+    z = F.gelu(linear(layer_norm(x, ln_w, ln_b), w1, b1)).to(x.dtype)
+    return torch.matmul(wide(z), wide(w2).t())
 
 
 def mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, use_ln: bool = False,
@@ -75,23 +94,11 @@ def mlp_block_bwd_plain(x, g, ln_w, ln_b, w1, b1, w2, use_ln: bool = False,
     sums the rounded dz. Returns (dx, dln_w, dln_b, dw1, db1, dw2, db2), each
     in its tensor's dtype (db2 in w2's); without use_ln, ``no_ln_grads``."""
     dt = x.dtype
-    if use_ln:
-        xhat, rstd, hf = ln_fwd_stats(x, ln_w, ln_b)
-        h = hf.to(dt)
-    else:
-        h = x
-    z = linear(h, w1, b1)
-    cdf = 0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
-    a = (z * cdf).to(dt)
-    dw2 = weight_grad(g, a)
+    stats = ln_row_stats(x) if use_ln else None
+    dh, dw1, db1, dw2 = _mlp_bwd_products(x, g, stats, ln_w, ln_b, w1, b1, w2)
     db2 = rows(g).sum(0)
-    da = torch.matmul(wide(g), wide(w2))
-    pdf = torch.exp(-0.5 * z * z) * 0.3989422804014327
-    dz = (da * (cdf + z * pdf)).to(dt)
-    dw1 = weight_grad(dz, h)
-    db1 = rows(dz).sum(0)
-    dh = torch.matmul(wide(dz), wide(w1))
     if use_ln:
+        xhat, rstd, _ = ln_from_stats(x, stats, ln_w)
         dx, dln_w, dln_b = ln_bwd_rows(dh, xhat, rstd, ln_w)
         dln_w, dln_b = dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype)
     else:
@@ -101,6 +108,35 @@ def mlp_block_bwd_plain(x, g, ln_w, ln_b, w1, b1, w2, use_ln: bool = False,
     return (dx.to(dt), dln_w, dln_b,
             dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
             db2.to(w2.dtype))
+
+
+def mlp_block_tp_bwd_plain(x, g, ln_w, ln_b, w1, b1, w2) -> tuple:
+    """The plain version of ``fused_mlp_block_tp_bwd``: the gradients of
+    ``mlp_block_tp_plain`` for the output gradient g, at
+    ``mlp_block_bwd_plain``'s rounding points, up to the fp32 gradient at
+    the LayerNorm's output. Returns (dw1, db1, dw2, dh fp32, the LayerNorm's
+    row statistics (..., 2) fp32)."""
+    stats = ln_row_stats(x)
+    dh, dw1, db1, dw2 = _mlp_bwd_products(x, g, stats, ln_w, ln_b, w1, b1, w2)
+    return dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), dh, stats
+
+
+def _mlp_bwd_products(x, g, stats, ln_w, ln_b, w1, b1, w2) -> tuple:
+    """The MLP block's backward up to the fp32 gradient at fc1's input (the
+    LayerNorm's output with ``stats``, else x): (dh, dw1, db1, dw2), fp32.
+    w1 (hid, C), w2 (C, hid), whole or a hidden slice."""
+    dt = x.dtype
+    h = x if stats is None else ln_from_stats(x, stats, ln_w, ln_b)[2].to(dt)
+    z = linear(h, w1, b1)
+    cdf = 0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+    a = (z * cdf).to(dt)
+    dw2 = weight_grad(g, a)
+    da = torch.matmul(wide(g), wide(w2))
+    pdf = torch.exp(-0.5 * z * z) * 0.3989422804014327
+    dz = (da * (cdf + z * pdf)).to(dt)
+    dw1 = weight_grad(dz, h)
+    db1 = rows(dz).sum(0)
+    return torch.matmul(wide(dz), wide(w1)), dw1, db1, dw2
 
 
 # ---------------------------------------------------------------------------
@@ -140,13 +176,19 @@ MLP_BWD_SLOTS = (
     "x", "g", "ln_w", "ln_b", "w1", "b1", "w2",
     "dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2",
     "h", "st", "z", "a", "dz", "dh", "work")
+# mbt_mlp_block_tp_bwd's, in the order of the MlpTpSlot enum
+MLP_TP_BWD_SLOTS = (
+    "x", "g", "ln_w", "ln_b", "w1", "b1", "w2",
+    "dw1", "db1", "dw2", "dh", "st",
+    "h", "z", "a", "dz", "work")
 
 
 def _library():
     lib = block_library()
-    if lib.mbt_mlp_bwd_slot_count() != len(MLP_BWD_SLOTS):
-        raise RuntimeError("block_kernels.cu and MLP_BWD_SLOTS disagree on "
-                           "the pointer slots")
+    if lib.mbt_mlp_bwd_slot_count() != len(MLP_BWD_SLOTS) or \
+            lib.mbt_mlp_tp_bwd_slot_count() != len(MLP_TP_BWD_SLOTS):
+        raise RuntimeError("block_kernels.cu and MLP_BWD_SLOTS / "
+                           "MLP_TP_BWD_SLOTS disagree on the pointer slots")
     return lib
 
 
@@ -203,9 +245,82 @@ def _launch_bwd(x, g, ln_w, ln_b, w1, b1, w2, use_ln, residual) -> tuple:
                                 "db2"))
 
 
+def _launch_tp(x, ln_w, ln_b, w1, b1, w2) -> torch.Tensor:
+    check_mlp_args(x, ln_w, ln_b, w1, b1, w2, None, True)
+    C, hidden = x.shape[-1], w1.shape[0]
+    M = x.numel() // C
+    lib = _library()
+    with torch.cuda.device(x.device):
+        # hid (M, hid_r), then the LayerNorm rows h (M, C)
+        hid = torch.empty(M * (hidden + C), dtype=x.dtype, device=x.device)
+        out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        rc = lib.mbt_mlp_block_tp(
+            x.data_ptr(), out.data_ptr(), hid.data_ptr(), ln_w.data_ptr(),
+            ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), M,
+            C, hidden, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tensor-parallel MLP block kernel launch failed "
+                           f"with CUDA error {rc}")
+    return out
+
+
+def _launch_tp_bwd(x, g, ln_w, ln_b, w1, b1, w2) -> tuple:
+    check_mlp_args(x, ln_w, ln_b, w1, b1, w2, None, True)
+    check_tensor("g", g, x.shape, x.dtype, x.device)
+    check_aligned("g", g)
+    C, hidden = x.shape[-1], w1.shape[0]
+    M = x.numel() // C
+    lib = _library()
+    dev = x.device
+    with torch.cuda.device(dev):
+        bf = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+        t = dict(x=x, g=g, ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, w2=w2,
+                 dw1=bf(hidden, C), db1=bf(hidden), dw2=bf(C, hidden),
+                 dh=f32(*x.shape), st=f32(*x.shape[:-1], 2), h=bf(M, C),
+                 z=f32(M, hidden), a=bf(M, hidden), dz=bf(M, hidden),
+                 work=f32(lib.mbt_block_work_floats(hidden, C)))
+        rc = lib.mbt_mlp_block_tp_bwd(
+            slot_pointers(MLP_TP_BWD_SLOTS, t), M, C, hidden,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tensor-parallel MLP block backward kernel launch "
+                           f"failed with CUDA error {rc}")
+    return tuple(t[n] for n in ("dw1", "db1", "dw2", "dh", "st"))
+
+
 # ---------------------------------------------------------------------------
 # public wrappers
 # ---------------------------------------------------------------------------
+
+def fused_mlp_block_tp(x, ln_w, ln_b, w1, b1, w2) -> torch.Tensor:
+    """B6's tensor-parallel mode on x (..., C) and a hidden slice (see
+    ``mlp_block_tp_plain``): the fp32 partial product, to be summed over the
+    model ranks. The CUDA chain for a CUDA tensor, the plain version for a
+    CPU tensor; ``parallel.tensor`` pairs it with ``fused_mlp_block_tp_bwd``."""
+    if device_kind(x, "MLP block") == "cpu":
+        return mlp_block_tp_plain(x, ln_w, ln_b, w1, b1, w2)
+    out = _launch_tp(x, ln_w, ln_b, w1, b1, w2)
+    fused_mlp_block_tp.launches += 1
+    return out
+
+
+fused_mlp_block_tp.launches = 0
+
+
+def fused_mlp_block_tp_bwd(x, g, ln_w, ln_b, w1, b1, w2) -> tuple:
+    """B7's tensor-parallel mode (see ``mlp_block_tp_bwd_plain``): (dw1,
+    db1, dw2, dh fp32, row statistics)."""
+    args = (x, g, ln_w, ln_b, w1, b1, w2)
+    if device_kind(x, "MLP block") == "cpu":
+        return mlp_block_tp_bwd_plain(*args)
+    grads = _launch_tp_bwd(*args)
+    fused_mlp_block_tp_bwd.launches += 1
+    return grads
+
+
+fused_mlp_block_tp_bwd.launches = 0
+
 
 def fused_mlp_block_bwd(x, g, ln_w, ln_b, w1, b1, w2, use_ln: bool = False,
                         residual: bool = False) -> tuple:

@@ -99,6 +99,32 @@ def gate_plain(other: torch.Tensor, out: torch.Tensor, wg: torch.Tensor,
     return other * a[..., 0:1] + out * a[..., 1:2]
 
 
+def gate_bwd_plain(other, out, g, wg, bg) -> tuple:
+    """The att_fuse gate's backward at the rounding points of the JAX
+    package's ``_pair_bwd_body`` (and of B3's gate row pass and column sums):
+    fp32 logits and softmax alpha; dsg = alpha * (dal - dal.alpha) in fp32,
+    rounded to the compute dtype for its products; dother = g * a0 +
+    dsgb.wg[:, :C] and dout = g * a1 + dsgb.wg[:, C:], rounded; dwg from
+    dsgb, dbg from the fp32 dsg. Returns (dother, dout, dwg, dbg), the
+    weight gradients in wg's and bg's dtypes."""
+    dt = out.dtype
+    C = out.shape[-1]
+    sg = (torch.matmul(wide(other), wide(wg[:, :C]).t())
+          + torch.matmul(wide(out), wide(wg[:, C:]).t()) + wide(bg))
+    e = torch.exp(sg - sg.amax(-1, keepdim=True))
+    alpha = e / e.sum(-1, keepdim=True)
+    ga = wide(g)
+    dal = torch.stack([(ga * wide(other)).sum(-1),
+                       (ga * wide(out)).sum(-1)], -1)
+    dsg = alpha * (dal - (dal * alpha).sum(-1, keepdim=True))
+    dsgb = dsg.to(dt)
+    dother = ga * alpha[..., 0:1] + torch.matmul(wide(dsgb), wide(wg[:, :C]))
+    dout = ga * alpha[..., 1:2] + torch.matmul(wide(dsgb), wide(wg[:, C:]))
+    dwg = torch.cat([_weight_grad(dsgb, other), _weight_grad(dsgb, out)], -1)
+    return (dother.to(dt), dout.to(dt), dwg.to(wg.dtype),
+            _rows(dsg).sum(0).to(bg.dtype))
+
+
 def gated_pair_block_plain(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
                            ln2_w, ln2_b, w1, b1, w2, b2, wg, bg,
                            num_heads: int, scale: float,
@@ -140,23 +166,7 @@ def _pair_bwd_plain(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
     # ---- att_fuse gate backward ----
     if gated:
         out_b = (linear(a, w2, b2) + wide(yb)).to(dt)
-        sg = (torch.matmul(wide(other), wide(wg[:, :C]).t())
-              + torch.matmul(wide(out_b), wide(wg[:, C:]).t()) + wide(bg))
-        e = torch.exp(sg - sg.amax(-1, keepdim=True))
-        alpha = e / e.sum(-1, keepdim=True)
-        ga = wide(g)
-        dal = torch.stack([(ga * wide(other)).sum(-1),
-                           (ga * wide(out_b)).sum(-1)], -1)
-        dsg = alpha * (dal - (dal * alpha).sum(-1, keepdim=True))
-        dsgb = dsg.to(dt)
-        dother = ga * alpha[..., 0:1] + torch.matmul(wide(dsgb),
-                                                     wide(wg[:, :C]))
-        dout = ga * alpha[..., 1:2] + torch.matmul(wide(dsgb),
-                                                   wide(wg[:, C:]))
-        dwg = torch.cat([_weight_grad(dsgb, other),
-                         _weight_grad(dsgb, out_b)], -1)
-        dbg = _rows(dsg).sum(0)
-        gmlp = dout.to(dt)
+        dother, gmlp, dwg, dbg = gate_bwd_plain(other, out_b, g, wg, bg)
     else:
         gmlp = g
 
@@ -191,13 +201,13 @@ def _pair_bwd_plain(x, other, g, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
     dx, dln1_w, dln1_b = ln_bwd_rows(dh1, xhat1, rstd1, ln1_w)
     dx = (dx + wide(dyb)).to(dt)
 
-    grads = [dx] + ([dother.to(dt)] if gated else [])
+    grads = [dx] + ([dother] if gated else [])
     grads += [t.to(ref.dtype) for t, ref in (
         (dln1_w, ln1_w), (dln1_b, ln1_b), (dwqkv, wqkv), (dbqkv, bqkv),
         (dwproj, wproj), (dbproj, bproj), (dln2_w, ln2_w), (dln2_b, ln2_b),
         (dw1, w1), (db1, b1), (dw2, w2), (db2, b2))]
     if gated:
-        grads += [dwg.to(wg.dtype), dbg.to(bg.dtype)]
+        grads += [dwg, dbg]
     return tuple(grads)
 
 

@@ -1,9 +1,11 @@
-"""Data parallelism over ``torch.distributed``: process groups, the rank's
-rows of a global batch, padded evaluation batches, gathers, and the DDP
-wrap.
+"""Data and tensor parallelism over ``torch.distributed``: process groups,
+the ("data", "model") process grid, the rank's rows of a global batch,
+padded evaluation batches, gathers, the DDP wrap, and the tensor-parallel
+sharding of the pose3d model's weights.
 
-The port of ``motionbert_tpu/parallel/mesh.py``'s data axis
-(``make_mesh``, ``shard_batch``, ``padded_eval_batches``) in PyTorch idiom:
+The port of ``motionbert_tpu/parallel/mesh.py`` (``make_mesh``,
+``shard_batch``, ``padded_eval_batches``, ``_TP_RULES``,
+``param_partition_spec``, ``shard_params``) in PyTorch idiom. The data axis:
 one process per device (``torchrun --nproc_per_node N``), every process
 holding the whole model and the rows ``[r * B / W, (r + 1) * B / W)`` of
 the same global batch of B clips, gradients averaged by
@@ -20,9 +22,26 @@ computes on the same global batch:
 - evaluation pads the tail batch, runs the rank's rows and gathers the
   outputs back to the global batch.
 
-Tensor parallelism (the JAX package's ``_TP_RULES``, ``n_model > 1``) is
-not ported. With no process group every function here is the one-process
-identity, and the single-process paths keep their bits.
+The model axis (``make_mesh(n_data, n_model)`` with ``n_model > 1``): rank r
+of W = n_data * n_model ranks sits at (r // n_model, r % n_model), as the
+JAX package's ``devices.reshape(n_data, n_model)``. The JAX package puts
+column-parallel specs on qkv / fc1 and row-parallel ones on proj / fc2 and
+lets GSPMD derive the collectives (and gather the operands of an opaque
+Pallas call); the port computes on the shards for real, Megatron style:
+``shard_params`` leaves each model rank a head group of every attention
+(qkv's q, k and v rows of heads [r H / T, (r + 1) H / T) and proj's
+matching columns) and a hidden slice of every MLP, the pairs run the TP
+modes of the block kernels on them and all-reduce their fp32 partials over
+the model group (``parallel/tensor.py``), and DDP averages gradients over
+the data group, whose ranks hold the same shards. A sharded model's
+``state_dict()`` gathers whole tensors (``gather_params``) and its
+``load_state_dict`` takes whole tensors and keeps its shards, so a
+checkpoint written at any grid loads at any other. With a grid, the rows,
+draws, gathers and means below go by the data rank and size: the model
+ranks of one data rank see the same rows and draw the same numbers.
+
+With no process group every function here is the one-process identity, and
+the single-process paths keep their bits.
 """
 
 from __future__ import annotations
@@ -30,8 +49,11 @@ from __future__ import annotations
 import argparse
 import os
 import random
+import re
+import warnings
+from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +69,82 @@ def world_size() -> int:
 
 def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+@dataclass
+class Mesh:
+    """This rank's place on the ("data", "model") process grid: the grid's
+    sizes, the rank's indices on both axes, and the process groups of its
+    model ranks (consecutive ranks, one data index) and of its data ranks
+    (one model index). The groups are None without a process group (the
+    1 x 1 grid)."""
+
+    n_data: int
+    n_model: int
+    data_index: int = 0
+    model_index: int = 0
+    model_group: Optional[object] = field(default=None, repr=False)
+    data_group: Optional[object] = field(default=None, repr=False)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.n_data, "model": self.n_model}
+
+
+# the grid make_mesh last built on this process and the world size it was
+# built in; the data axis's helpers read it (a grid of another world size is
+# stale and ignored)
+_GRID: Tuple[Optional[Mesh], int] = (None, 1)
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
+    """The ("data", "model") grid over the started process group's W ranks
+    (``motionbert_tpu.parallel.make_mesh``): n_data defaults to W //
+    n_model; rank r sits at (r // n_model, r % n_model). A grid larger than
+    W raises ValueError (the JAX package's assert); a smaller one warns, and
+    the ranks outside it get None and take no part. Every rank calls it (it creates the process
+    groups). Without a process group it is the 1 x 1 grid."""
+    global _GRID
+    W, r = world_size(), rank()
+    if n_data is None:
+        n_data = W // n_model
+    if not (n_data >= 1 and n_model >= 1 and n_data * n_model <= W):
+        raise ValueError(f"mesh {n_data}x{n_model} does not fit {W} "
+                         f"device(s)")
+    if n_data * n_model != W:
+        warnings.warn(f"mesh {n_data}x{n_model} uses {n_data * n_model} of "
+                      f"{W} devices; the rest sit idle", stacklevel=2)
+    if W == 1:
+        _GRID = (Mesh(1, 1), 1)
+        return _GRID[0]
+    groups = {}
+    for d in range(n_data):
+        ranks = list(range(d * n_model, (d + 1) * n_model))
+        groups["model", d] = dist.new_group(ranks)
+    for m in range(n_model):
+        ranks = list(range(m, n_data * n_model, n_model))
+        groups["data", m] = dist.new_group(ranks)
+    mesh = None
+    if r < n_data * n_model:
+        d, m = divmod(r, n_model)
+        mesh = Mesh(n_data, n_model, d, m, groups["model", d],
+                    groups["data", m])
+    _GRID = (mesh, W)
+    return mesh
+
+
+def _data_axis() -> Tuple[int, int, Optional[object]]:
+    """(size, this rank's index, process group) of the data axis: the
+    grid's when make_mesh built one for this world, else every rank."""
+    g, W = _GRID
+    if g is not None and W == world_size() > 1:
+        return g.n_data, g.data_index, g.data_group
+    return world_size(), rank(), None
+
+
+def data_size() -> int:
+    """The number of data-parallel ranks: the ranks that split a batch."""
+    return _data_axis()[0]
 
 
 def is_main() -> bool:
@@ -116,10 +214,10 @@ def barrier() -> None:
 
 def rank_rows(batch):
     """The rank's rows ``[r * B / W, (r + 1) * B / W)`` of a global batch: an
-    array or tensor, or a tuple, list or dict of them, each with B rows. B
-    must divide over the W ranks (``motionbert_tpu/train/pose3d.py``'s
-    assert)."""
-    W = world_size()
+    array or tensor, or a tuple, list or dict of them, each with B rows, r
+    and W the data rank and size. B must divide over the W ranks
+    (``motionbert_tpu/train/pose3d.py``'s assert)."""
+    W, r, _ = _data_axis()
     if W == 1:
         return batch
     if isinstance(batch, dict):
@@ -131,14 +229,14 @@ def rank_rows(batch):
         raise ValueError(f"a batch of {n} rows does not divide over {W} "
                          f"ranks")
     b = n // W
-    return batch[rank() * b:(rank() + 1) * b]
+    return batch[r * b:(r + 1) * b]
 
 
 def check_batch_size(batch_size: int) -> None:
-    """A batch must split evenly over the ranks."""
-    if batch_size % world_size():
+    """A batch must split evenly over the data ranks."""
+    if batch_size % data_size():
         raise ValueError(f"batch_size {batch_size} does not divide over "
-                         f"{world_size()} ranks")
+                         f"{data_size()} ranks")
 
 
 def rank_batches(loader, device):
@@ -153,13 +251,14 @@ def rank_draw(draw, shape, generator: torch.Generator) -> torch.Tensor:
     """``draw(shape, generator)`` for a draw whose leading axis is the batch:
     the draw at the global batch's shape (``shape[0] * W`` rows), and the
     rank's rows of it. Every rank draws the same numbers, so the generators
-    advance alike and the masks do not depend on the world size."""
-    W = world_size()
+    advance alike and the masks do not depend on the world size. W and the
+    rank's index are the data axis's."""
+    W, r, _ = _data_axis()
     if W == 1:
         return draw(shape, generator)
     b = shape[0]
     full = draw((b * W,) + tuple(shape[1:]), generator)
-    return full[rank() * b:(rank() + 1) * b]
+    return full[r * b:(r + 1) * b]
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
@@ -171,36 +270,37 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     loss computed on every rank from the gathered rows, its gradients
     averaged by DDP, has the one-process gradient: the all-reduce multiplies
     by W and DDP divides by it. All-reduce is the one collective that gloo
-    also runs on CUDA tensors."""
-    W = world_size()
+    also runs on CUDA tensors. With a grid, over the data ranks."""
+    W, r, group = _data_axis()
     if W == 1:
         return x
     b = x.shape[0]
     full = x.new_zeros((W * b,) + tuple(x.shape[1:]))
-    full[rank() * b:(rank() + 1) * b] = x
-    return all_reduce_sum(full)
+    full[r * b:(r + 1) * b] = x
+    return all_reduce_sum(full, group)
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of x over the ranks, differentiable (its gradient is summed
-    over the ranks too); x itself with no group."""
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of x over the ranks of ``group`` (None: every rank),
+    differentiable (its gradient is summed over the ranks too); x itself
+    with no process group."""
     if world_size() == 1:
         return x
     from torch.distributed.nn.functional import all_reduce
 
-    return all_reduce(x)
+    return all_reduce(x, group=group or dist.group.WORLD)
 
 
 def mean_over_ranks(terms: dict) -> dict:
     """The mean over the ranks of 0-d tensors (the loss terms of the rank's
     rows): the global batch's terms where each is a mean over its rows.
-    One all-reduce for the lot."""
-    W = world_size()
+    One all-reduce for the lot, over the data ranks."""
+    W, _, group = _data_axis()
     if W == 1:
         return terms
     keys = list(terms)
     stacked = torch.stack([terms[k].detach().float() for k in keys])
-    dist.all_reduce(stacked)
+    dist.all_reduce(stacked, group=group)
     stacked /= W
     return dict(zip(keys, stacked))
 
@@ -248,7 +348,8 @@ def eval_rows(step, batch_input: np.ndarray, device, n: int):
 def wrap_ddp(model: torch.nn.Module, device: torch.device,
              ignore: tuple = ()) -> torch.nn.Module:
     """The model wrapped in ``DistributedDataParallel`` when a process group
-    is started (even of one rank), else the model itself. ``ignore``: the
+    is started (even of one rank), else the model itself; with a grid, over
+    the data group (whose ranks hold the same shards). ``ignore``: the
     names of parameters the forward never uses (an ActionNet's or a
     MeshRegressor's ``backbone.head``), left out of the gradient
     reduction, which would otherwise wait for them. Buffers are not
@@ -265,4 +366,201 @@ def wrap_ddp(model: torch.nn.Module, device: torch.device,
     ids = [device.index if device.index is not None
            else torch.cuda.current_device()] if device.type == "cuda" else None
     return DistributedDataParallel(model, device_ids=ids,
-                                   broadcast_buffers=False)
+                                   broadcast_buffers=False,
+                                   process_group=_data_axis()[2])
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the JAX package's partitioning rules on the port's
+# state_dict names, the sharding of the pose3d model, the gathers
+# ---------------------------------------------------------------------------
+
+# _TP_RULES of motionbert_tpu/parallel/mesh.py on nn.Linear's (out, in)
+# layout: the torch dimension that the rule's "model" axis shards. flax's
+# qkv / fc1 kernel P(None, "model") and bias P("model") shard the output
+# features (torch dim 0), proj / fc2 kernel P("model", None) the input ones
+# (torch dim 1).
+_TP_RULES = [
+    (re.compile(r".*(qkv|fc1)\.weight$"), 0),
+    (re.compile(r".*(qkv|fc1)\.bias$"), 0),
+    (re.compile(r".*(proj|fc2)\.weight$"), 1),
+]
+
+
+def param_partition_spec(name: str, value=None) -> Optional[int]:
+    """The dimension of the state_dict entry ``name`` that the JAX package's
+    rules shard over the model axis, or None (replicated). ``value`` is
+    taken for the JAX signature's sake."""
+    for pat, dim in _TP_RULES:
+        if pat.match(name):
+            return dim
+    return None
+
+
+def _tp_plan(model, mesh: Mesh) -> dict:
+    """{state_dict name: (dim, the model rank's indices along it)} of every
+    weight the rules shard whose pair divides over the model axis: qkv's
+    rows of the rank's head group (its q, k and v rows of heads [r H / T,
+    (r + 1) H / T)), proj's columns of those heads, fc1's rows and fc2's
+    columns of the rank's hidden slice. A pair whose heads (or hidden
+    width) do not divide stays whole on every rank, as JAX replicates a
+    dimension that does not divide."""
+    T, r = mesh.n_model, mesh.model_index
+    plan = {}
+    for name, _ in model.named_parameters():
+        dim = param_partition_spec(name)
+        if dim is None:
+            continue
+        owner, layer, _ = name.rsplit(".", 2)
+        block = model.get_submodule(owner)
+        if layer in ("qkv", "proj"):
+            if block.num_heads % T:
+                continue
+            C = block.proj.weight.shape[0]
+            ci = C // T
+            cols = torch.arange(r * ci, (r + 1) * ci)
+            idx = torch.cat([cols + i * C for i in range(3)]) \
+                if layer == "qkv" else cols
+        else:
+            hidden = block.fc1.weight.shape[0]
+            if hidden % T:
+                continue
+            idx = torch.arange(r * (hidden // T), (r + 1) * (hidden // T))
+        plan[name] = (dim, idx)
+    return plan
+
+
+def shard_params(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
+    """Leave this model rank the shards ``_tp_plan`` gives it of every pair's
+    weights (the same Parameter objects, so an optimizer made before keeps
+    them) and mark the model tensor-parallel: its pairs then run the TP
+    modes of the block kernels on the shards and all-reduce over
+    ``mesh.model_group``; its ``state_dict()`` gathers whole tensors and its
+    ``load_state_dict`` takes whole ones. A pair whose heads or hidden width
+    do not divide over the model axis stays whole and warns once. On a grid
+    without a model axis (n_model 1) the model is returned as it is, for any
+    model. Tensor parallelism covers the pose3d DSTformer with attn_impl
+    "kernel" or "plain" and no dropout, drop-path or attention dropout;
+    anything else raises ValueError naming what it lacks
+    (``models.dstformer.tensor_parallel_gaps``). Call it on a whole model,
+    after loading its weights or before, on every rank of the grid."""
+    from motionbert_tpu_torch.models.dstformer import tensor_parallel_gaps
+    from motionbert_tpu_torch.parallel.tensor import TpPlan
+
+    if mesh is None or mesh.n_model == 1:
+        return model
+    gaps = tensor_parallel_gaps(model)
+    if gaps:
+        raise ValueError("tensor parallelism (n_model > 1) is ported for "
+                         "the pose3d DSTformer with attn_impl 'kernel' or "
+                         "'plain' and no dropout; this model has "
+                         + "; ".join(gaps))
+    plan = _tp_plan(model, mesh)
+    attn, mlp = (any(key in n for n in plan) for key in (".qkv.", ".fc1."))
+    for half, sharded in (("attention heads", attn), ("MLP hidden width",
+                                                       mlp)):
+        if not sharded:
+            warnings.warn(f"the pairs' {half} does not divide over "
+                          f"{mesh.n_model} model ranks: those weights stay "
+                          f"whole on every rank", stacklevel=2)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, (dim, idx) in plan.items():
+            p = params[name]
+            p.data = p.data.index_select(dim, idx.to(p.device)).contiguous()
+            p.grad = None
+    heads = model.blocks_st[0].num_heads
+    tp = TpPlan(mesh.model_group if attn else None,
+                mesh.model_group if mlp else None,
+                heads // mesh.n_model if attn else heads)
+    for blk in (*model.blocks_st, *model.blocks_ts):
+        blk.tp = tp
+    model.tp_mesh, model.tp_plan = mesh, plan
+    model.register_state_dict_post_hook(_gather_hook)
+    model.register_load_state_dict_pre_hook(_shard_hook)
+    return model
+
+
+def _gather(t: torch.Tensor, dim: int, idx: torch.Tensor,
+            mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of which every model rank holds the entries ``idx``
+    (its own) along ``dim``: each rank's shard in a zero tensor, summed over
+    the model group (exact: one value and zeros per element; all-reduce is
+    the collective gloo also runs on CUDA tensors)."""
+    shape = list(t.shape)
+    shape[dim] *= mesh.n_model
+    full = t.new_zeros(shape).index_copy_(dim, idx.to(t.device), t.detach())
+    dist.all_reduce(full, group=mesh.model_group)
+    return full
+
+
+def gather_named(model: torch.nn.Module, tensors: dict) -> dict:
+    """Whole tensors from a dict keyed by the model's parameter names (its
+    weights, or their gradients): each sharded one gathered over the model
+    group (every model rank calls it), the others as they are."""
+    plan = getattr(model, "tp_plan", {})
+    return {k: _gather(v, *plan[k], model.tp_mesh) if k in plan else v
+            for k, v in tensors.items()}
+
+
+def _gather_hook(module, state_dict, prefix, local_metadata) -> None:
+    mine = {k[len(prefix):]: state_dict[k] for k in list(state_dict)
+            if k.startswith(prefix) and k[len(prefix):] in module.tp_plan}
+    for name, t in gather_named(module, mine).items():
+        state_dict[prefix + name] = t
+
+
+def _shard_hook(module, state_dict, prefix, *args) -> None:
+    """load_state_dict of whole tensors into a sharded model: each keeps
+    this rank's shard."""
+    params = dict(module.named_parameters())
+    for name, (dim, idx) in module.tp_plan.items():
+        t = state_dict.get(prefix + name)
+        if t is not None and t.shape[dim] != params[name].shape[dim]:
+            state_dict[prefix + name] = t.index_select(dim, idx.to(t.device))
+
+
+def gather_params(model: torch.nn.Module) -> dict:
+    """The model's whole state_dict on every rank: for a sharded model its
+    ``state_dict()`` gathers each shard over the model group (every model
+    rank calls it), else the state_dict itself."""
+    return model.state_dict()
+
+
+def _optimizer_shards(optimizer, model) -> dict:
+    """{index in the optimizer's state_dict: (dim, idx)} of the sharded
+    parameters an optimizer holds."""
+    plan = getattr(model, "tp_plan", {})
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    return {i: plan[names[id(p)]] for i, p in enumerate(params)
+            if names.get(id(p)) in plan}
+
+
+def gather_optimizer_state(optimizer, model) -> dict:
+    """The optimizer's state_dict with each sharded parameter's state
+    (AdamW's moments) gathered whole, as ``gather_params`` gathers the
+    weights; the state_dict itself for a model that is not sharded."""
+    state = optimizer.state_dict()
+    shards = _optimizer_shards(optimizer, model)
+    for i, (dim, idx) in shards.items():
+        if i in state["state"]:
+            state["state"][i] = {
+                k: _gather(v, dim, idx, model.tp_mesh) if v.dim() else v
+                for k, v in state["state"][i].items()}
+    return state
+
+
+def shard_optimizer_state(state: dict, optimizer, model) -> dict:
+    """A gathered optimizer state_dict (``gather_optimizer_state``, a
+    checkpoint's) cut to this model rank's shards, for ``optimizer`` over
+    the sharded ``model``'s parameters; unchanged for a model that is not
+    sharded."""
+    shards = _optimizer_shards(optimizer, model)
+    out = {**state, "state": dict(state["state"])}
+    for i, (dim, idx) in shards.items():
+        if i in out["state"]:
+            out["state"][i] = {
+                k: v.index_select(dim, idx.to(v.device)) if v.dim() else v
+                for k, v in out["state"][i].items()}
+    return out

@@ -32,6 +32,14 @@ run at any world size computes what one process computes, and its
 checkpoints resume at any world size. Evaluation pads the tail batch, runs
 the rank's rows and gathers the predictions. Rank 0 alone writes logs and
 checkpoints.
+
+Tensor parallel through the API, as in the JAX package, whose trainers all
+take ``make_mesh()`` with ``n_model`` 1: on a grid from
+``parallel.mesh.make_mesh(n_data, n_model)``, ``shard_params(model, mesh)``
+leaves each model rank its shards, and ``make_train_step`` (on the model
+wrapped by ``wrap_ddp``, over the data group) and ``make_eval_step`` run on
+the sharded model as they are; the batches go by data rank
+(``rank_rows``). ``CheckpointManager.save_epoch`` gathers the shards.
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ from motionbert_tpu_torch.models.dstformer import uniform
 from motionbert_tpu_torch.parallel.mesh import (
     add_dist_backend, barrier, check_batch_size, eval_rows, init_distributed,
     is_main, mean_over_ranks, padded_eval_batches, rank_batches, rank_draw,
-    run_main, world_size, wrap_ddp)
+    data_size, run_main, wrap_ddp)
 
 # H36M test videos excluded from evaluation (reference train.py:109-111)
 BLOCK_LIST = ("s_09_act_05_subact_02", "s_09_act_10_subact_02",
@@ -162,7 +170,7 @@ def evaluate(args, model: torch.nn.Module, test_loader, datareader,
     eval_step = make_eval_step(model, no_conf=args.get("no_conf", False),
                                flip_tta=args.get("flip", False))
     results_all = []
-    for batch_input, _, n in padded_eval_batches(test_loader, world_size()):
+    for batch_input, _, n in padded_eval_batches(test_loader, data_size()):
         pred = eval_rows(eval_step, batch_input, device, n)
         if args.get("rootrel", False):
             pred[:, :, 0, :] = 0
@@ -394,7 +402,7 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
                                                has_3d=has_3d, has_gt=has_gt))
             for k, v in terms.items():
                 losses.setdefault(k, AverageMeter()).update(
-                    float(v), len(batch_input) * world_size())
+                    float(v), len(batch_input) * data_size())
 
     history = []
     for epoch in range(st, args.epochs):

@@ -1439,3 +1439,160 @@ def test_device_prefetch_moves_batches_to_the_card(cuda):
     for (x, y), (gx, gy) in zip(batches, got):
         np.testing.assert_array_equal(gx.cpu().numpy(), x)
         np.testing.assert_array_equal(gy.cpu().numpy(), y["y"])
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel modes of the block kernels (B4_tp-B7_tp) and the
+# LayerNorm backward (csrc/block_kernels.cu)
+# ---------------------------------------------------------------------------
+
+def _tp_shard(ap, mp, T, r=0):
+    """Head group r's and hidden slice r's shards of T (parallel.mesh's
+    layout): (ln1_w, ln1_b, wqkv, bqkv, wproj), (ln2_w, ln2_b, w1, b1,
+    w2)."""
+    ln1_w, ln1_b, wqkv, bqkv, wproj, _ = ap
+    ln2_w, ln2_b, w1, b1, w2, _ = mp
+    C, hid = wproj.shape[0], w1.shape[0]
+    ci, hl = C // T, hid // T
+    rows = torch.cat([torch.arange(r * ci, (r + 1) * ci) + i * C
+                      for i in range(3)]).to(wqkv.device)
+    return ((ln1_w, ln1_b, wqkv[rows].contiguous(), bqkv[rows].contiguous(),
+             wproj[:, r * ci:(r + 1) * ci].contiguous()),
+            (ln2_w, ln2_b, w1[r * hl:(r + 1) * hl].contiguous(),
+             b1[r * hl:(r + 1) * hl].contiguous(),
+             w2[:, r * hl:(r + 1) * hl].contiguous()))
+
+
+def _tp_counters():
+    return (at.fused_attention_block_tp, at.fused_attention_block_tp_bwd,
+            mlp.fused_mlp_block_tp, mlp.fused_mlp_block_tp_bwd,
+            at.fused_ln_bwd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+@pytest.mark.parametrize("C,H,T", [(512, 8, 2), (256, 8, 2), (512, 8, 4)])
+def test_tp_kernels_match_their_twins(cuda, mode, C, H, T):
+    """B4_tp-B7_tp and the LayerNorm backward on a head group's and a
+    hidden slice's shards (head dims 64 and 32) against their plain twins:
+    the fp32 partials, the shard gradients, dh and the row statistics, and
+    dx, dln_w, dln_b from the all-reduced dh; twice for bitwise
+    repeatability; one launch each."""
+    x, ap, mp, H = _block_inputs(cuda, C=C, H=H, B=2)
+    g = _grad_out(cuda, x.shape)
+    (a_args, m_args), heads = _tp_shard(ap, mp, T), H // T
+    scale = (C // H) ** -0.5
+    before = [c.launches for c in _tp_counters()]
+    cases = (
+        (at.fused_attention_block_tp, at.attention_block_tp_plain,
+         (x, *a_args, heads, scale, mode)),
+        (at.fused_attention_block_tp_bwd, at.attention_block_tp_bwd_plain,
+         (x, g, *a_args, heads, scale, mode)),
+        (mlp.fused_mlp_block_tp, mlp.mlp_block_tp_plain, (x, *m_args)),
+        (mlp.fused_mlp_block_tp_bwd, mlp.mlp_block_tp_bwd_plain,
+         (x, g, *m_args)))
+    for wrapper, plain, args in cases:
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        again, want = wrapper(*args), plain(*args)
+        got, again, want = ((t,) if torch.is_tensor(t) else t
+                            for t in (got, again, want))
+        for i, (a, b, w) in enumerate(zip(got, again, want)):
+            assert a.dtype == w.dtype and a.shape == w.shape, (wrapper, i)
+            assert torch.equal(a, b), (wrapper, i, "two runs differ")
+            assert _rel(a, w) <= TOL, (wrapper, i, _rel(a, w))
+    dh, stats = at.attention_block_tp_bwd_plain(x, g, *a_args, heads, scale,
+                                                mode)[3:]
+    got = at.fused_ln_bwd(dh, x, stats, ap[0], g)
+    want = at.ln_bwd_plain(dh, x, stats, ap[0], g)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and _rel(a, w) <= TOL
+    after = [c.launches for c in _tp_counters()]
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 2, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_tp_kernels_at_one_rank_are_the_block_chains_bitwise(cuda, mode):
+    """T = 1: B4_tp's partial plus proj's bias plus x, rounded once, is B4
+    with LayerNorm and residual bit for bit; B5_tp then the LayerNorm
+    backward is B5's dx, LayerNorm and weight gradients; the same for
+    B6_tp / B7_tp against B6 / B7."""
+    x, ap, mp, H = _block_inputs(cuda, B=2)
+    g = _grad_out(cuda, x.shape)
+    scale = (x.shape[-1] // H) ** -0.5
+    wide = at.wide
+    a = at.fused_attention_block_tp(x, *ap[:5], H, scale, mode)
+    y = ((a + wide(ap[5])) + wide(x)).to(x.dtype)
+    assert torch.equal(y, at.fused_attention_block(x, *ap, H, scale, mode,
+                                                   True, True))
+    dwqkv, dbqkv, dwproj, dh, st = at.fused_attention_block_tp_bwd(
+        x, g, *ap[:5], H, scale, mode)
+    dx, dln_w, dln_b = at.fused_ln_bwd(dh, x, st, ap[0], g)
+    want = at.fused_attention_block_bwd(x, g, *ap[:5], H, scale, mode, True,
+                                        True)
+    for got, w in zip((dx, dln_w, dln_b, dwqkv, dbqkv, dwproj), want):
+        assert torch.equal(got, w)
+    b = mlp.fused_mlp_block_tp(y, *mp[:5])
+    out = ((b + wide(mp[5])) + wide(y)).to(y.dtype)
+    assert torch.equal(out, mlp.fused_mlp_block(y, *mp, True, True))
+    dw1, db1, dw2, dh, st = mlp.fused_mlp_block_tp_bwd(y, g, *mp[:5])
+    dy, dln_w, dln_b = at.fused_ln_bwd(dh, y, st, mp[0], g)
+    want = mlp.fused_mlp_block_bwd(y, g, *mp[:5], True, True)
+    for got, w in zip((dy, dln_w, dln_b, dw1, db1, dw2), want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+def test_tp_kernels_raise_on_misaligned_shards_and_never_fall_back(cuda):
+    x, ap, mp, H = _block_inputs(cuda, F=3)
+    g = _grad_out(cuda, x.shape)
+    a_args, m_args = _tp_shard(ap, mp, 2)
+    bad = list(a_args)
+    bad[2] = _misaligned(a_args[2])
+    before = [c.launches for c in _tp_counters()]
+    for call in (lambda: at.fused_attention_block_tp(x, *bad, 4, 0.125,
+                                                     "temporal"),
+                 lambda: at.fused_attention_block_tp_bwd(
+                     x, _misaligned(g), *a_args, 4, 0.125, "temporal"),
+                 lambda: mlp.fused_mlp_block_tp(_misaligned(x), *m_args),
+                 lambda: at.fused_ln_bwd(_misaligned(x.float()), x,
+                                         torch.zeros(*x.shape[:-1], 2,
+                                                     device=cuda),
+                                         ap[0], g)):
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            call()
+    with pytest.raises(ValueError, match="head dim"):
+        at.fused_attention_block_tp(x, *a_args, 3, 0.125, "temporal")
+    assert [c.launches for c in _tp_counters()] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+def test_tp_pair_on_one_rank_matches_the_fused_pair(cuda, gated):
+    """parallel.tensor's pair with no collective (one rank) through the TP
+    kernels against the fused pair (B1, B2): the output, and the gradients
+    through both backwards, within the bf16 bar."""
+    from motionbert_tpu_torch.parallel.tensor import (
+        TpPlan, tp_gated_pair, tp_pair)
+
+    args, H = _inputs(cuda, gated)
+    scale = 0.125
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    ref_leaves = [t.detach().clone().requires_grad_() for t in args]
+    plan = TpPlan(None, None, H)
+    if gated:
+        x, other, *p = leaves
+        out = tp_gated_pair(x, other, *p, plan, scale, "temporal")
+        ref = fp.fused_gated_pair_block(*ref_leaves, H, scale, "temporal")
+    else:
+        out = tp_pair(*leaves, plan, scale, "temporal")
+        ref = fp.fused_pair_block(*ref_leaves, H, scale, "temporal")
+    assert _rel(out, ref) <= TOL
+    g = _grad_out(cuda, out.shape)
+    out.backward(g)
+    ref.backward(g)
+    for i, (a, b) in enumerate(zip(leaves, ref_leaves)):
+        cos = torch.nn.functional.cosine_similarity(
+            a.grad.float().flatten(), b.grad.float().flatten(), dim=0)
+        assert cos >= 0.999, (i, cos.item())

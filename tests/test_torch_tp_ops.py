@@ -1,0 +1,533 @@
+"""The tensor-parallel modes of the block kernels (B4_tp, B5_tp, B6_tp, B7_tp)
+and the LayerNorm backward entry (``mbt_ln_bwd``, csrc/block_kernels.cu) on
+the CPU: their plain twins at small widths, the chains' launches read from
+the source and mirrored launch by launch, and the wrappers' argument checks.
+
+A head group's shards of a block with T model ranks: wqkv (3 Ci, C), the q,
+k and v rows of the group's heads, and wproj (C, Ci), proj's columns of
+those heads, Ci = C / T; a hidden slice of the MLP, w1 (hid / T, C) and w2
+(C, hid / T). Held:
+- in fp32 against the JAX package's XLA formulation
+  (``motionbert_tpu/ops/attention.py`` ``layer_norm`` and
+  ``_attention_xla``, ``motionbert_tpu/ops/fused_mlp.py``
+  ``_fused_mlp_xla``) on the same shard-sliced weights, each shard's
+  partial product and, summed over the shards in fp32 with the output bias
+  and x, the JAX package's whole block (``_fused_block_xla``,
+  ``_fused_mlp_xla`` with use_ln and the residual): 3e-5 of max|reference|
+  forward, as ``tests/test_torch_blocks.py`` holds the plain blocks (the
+  same math, sums in another order); the backward twins' weight and bias
+  gradients and the fp32 gradient at the LayerNorm's output against
+  ``jax.vjp`` of the shard's partial, 1e-4;
+- at T = 1 in bf16 against the non-TP twins, bit for bit: the partial plus
+  the output bias plus x, rounded once, is ``attention_block_plain`` /
+  ``mlp_block_plain`` with LayerNorm and residual, and the backward twin
+  followed by ``ln_bwd_plain`` is ``attention_block_bwd_plain`` /
+  ``mlp_block_bwd_plain``;
+- ``ln_bwd_plain`` against ``jax.vjp`` of the JAX package's LayerNorm
+  reference (``layer_norm``), 2e-5 of max|reference| (fp32; the analytic
+  backward against autodiff of var = E[x^2] - mean^2);
+- the autograd Functions of ``parallel/tensor.py`` (one rank, no
+  collective) by ``torch.autograd.gradcheck`` in float64.
+"""
+
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from motionbert_tpu.ops import attention as jat
+from motionbert_tpu.ops import fused_mlp as jmlp
+from motionbert_tpu_torch.ops import attention as at
+from motionbert_tpu_torch.ops import fused_mlp as mlp
+from motionbert_tpu_torch.ops.fused_mlp import engine_gemm_plain
+from motionbert_tpu_torch.parallel import tensor as tpt
+
+CSRC = Path(at.__file__).with_name("csrc")
+B, F, J, C, HID = 1, 6, 17, 128, 256
+MODES = ["temporal", "spatial"]
+FWD_TOL, BWD_TOL, LN_TOL = 3e-5, 1e-4, 2e-5
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
+def _mk(shape, seed, scale=1.0, shift=0.0):
+    return (np.random.RandomState(seed).normal(size=shape) * scale
+            + shift).astype(np.float32)
+
+
+def _params() -> dict:
+    """A block's inputs in nn.Linear's layout, fp32 numpy."""
+    return dict(x=_mk((B, F, J, C), 0), ln_w=_mk((C,), 1, 0.1, 1.0),
+                ln_b=_mk((C,), 2, 0.1), wqkv=_mk((3 * C, C), 3, C ** -0.5),
+                bqkv=_mk((3 * C,), 4, 0.1), wproj=_mk((C, C), 5, C ** -0.5),
+                bproj=_mk((C,), 6, 0.1), w1=_mk((HID, C), 7, C ** -0.5),
+                b1=_mk((HID,), 8, 0.1), w2=_mk((C, HID), 9, HID ** -0.5),
+                b2=_mk((C,), 10, 0.1), g=_mk((B, F, J, C), 11))
+
+
+def _heads_idx(r: int, T: int) -> np.ndarray:
+    """qkv's rows of head group r of T: its q, k and v rows."""
+    ci = C // T
+    return np.concatenate([np.arange(r * ci, (r + 1) * ci) + i * C
+                           for i in range(3)])
+
+
+def _shard(p: dict, r: int, T: int) -> dict:
+    """Head group r's and hidden slice r's weights (parallel.mesh's
+    layout)."""
+    ci, hl = C // T, HID // T
+    return dict(wqkv=p["wqkv"][_heads_idx(r, T)],
+                bqkv=p["bqkv"][_heads_idx(r, T)],
+                wproj=p["wproj"][:, r * ci:(r + 1) * ci],
+                w1=p["w1"][r * hl:(r + 1) * hl],
+                b1=p["b1"][r * hl:(r + 1) * hl],
+                w2=p["w2"][:, r * hl:(r + 1) * hl])
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+
+
+def _rel_close(got, want, tol, what):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    err = np.abs(got - want).max()
+    assert err <= tol * max(np.abs(want).max(), 1e-30), (what, err)
+
+
+# ---------------------------------------------------------------------------
+# the JAX side: a shard's partial from the JAX package's XLA pieces
+# ---------------------------------------------------------------------------
+
+def _j_attn_partial(x, ln_w, ln_b, wqkv, bqkv, wproj, heads, scale, mode):
+    """nn.Linear-layout shards; flax computes h @ W^T."""
+    ci = wqkv.shape[0] // 3
+    h = jat.layer_norm(x, ln_w, ln_b)
+    qkv = h @ wqkv.T + bqkv
+    attn = jat._attention_xla(qkv[..., :ci], qkv[..., ci:2 * ci],
+                              qkv[..., 2 * ci:], heads, scale, mode)
+    return attn @ wproj.T
+
+
+def _j_mlp_partial(x, ln_w, ln_b, w1, b1, w2):
+    return jmlp._fused_mlp_xla(x, ln_w, ln_b, w1.T, b1, w2.T,
+                               jnp.zeros((w2.shape[0],), jnp.float32), True,
+                               False)
+
+
+@pytest.mark.parametrize("T", [1, 2, 4])
+@pytest.mark.parametrize("mode", MODES)
+def test_tp_twins_match_the_jax_blocks_on_shards(mode, T):
+    """Each shard's fp32 partial against the JAX package's XLA pieces on the
+    same shard; the partials summed with the output bias and x against the
+    JAX package's whole block."""
+    p, H = _params(), 4
+    heads, scale = H // T, (C // H) ** -0.5
+    x = _t(p["x"])
+    ln = (_t(p["ln_w"]), _t(p["ln_b"]))
+    jx, jln = jnp.asarray(p["x"]), (jnp.asarray(p["ln_w"]),
+                                    jnp.asarray(p["ln_b"]))
+    attn_sum = np.zeros(x.shape, np.float64)
+    mlp_sum = np.zeros(x.shape, np.float64)
+    for r in range(T):
+        s = _shard(p, r, T)
+        got = at.attention_block_tp_plain(
+            x, *ln, _t(s["wqkv"]), _t(s["bqkv"]), _t(s["wproj"]), heads,
+            scale, mode)
+        want = _j_attn_partial(jx, *jln, s["wqkv"], s["bqkv"], s["wproj"],
+                               heads, scale, mode)
+        assert got.dtype == torch.float32
+        _rel_close(got.numpy(), want, FWD_TOL, f"attention shard {r}")
+        attn_sum += got.numpy()
+        got = mlp.mlp_block_tp_plain(x, *ln, _t(s["w1"]), _t(s["b1"]),
+                                     _t(s["w2"]))
+        want = _j_mlp_partial(jx, *jln, s["w1"], s["b1"], s["w2"])
+        _rel_close(got.numpy(), want, FWD_TOL, f"MLP shard {r}")
+        mlp_sum += got.numpy()
+    whole = jat._fused_block_xla(
+        jx, *jln, p["wqkv"].T, p["bqkv"], p["wproj"].T, p["bproj"], H,
+        scale, mode, True, True)
+    _rel_close(attn_sum + p["bproj"] + p["x"], whole, FWD_TOL,
+               "attention, summed")
+    whole = jmlp._fused_mlp_xla(jx, *jln, p["w1"].T, p["b1"], p["w2"].T,
+                                p["b2"], True, True)
+    _rel_close(mlp_sum + p["b2"] + p["x"], whole, FWD_TOL, "MLP, summed")
+
+
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("mode", MODES)
+def test_tp_bwd_twins_match_jax_vjp_on_shards(mode, T):
+    """The backward twins' shard gradients and the fp32 gradient at the
+    LayerNorm's output against jax.vjp of the shard's partial (as a
+    function of the LayerNorm's output and the shard's weights); the row
+    statistics against the LayerNorm's mean and rstd."""
+    p, H = _params(), 4
+    heads, scale = H // T, (C // H) ** -0.5
+    x, g = _t(p["x"]), _t(p["g"])
+    ln = (_t(p["ln_w"]), _t(p["ln_b"]))
+    h = np.asarray(jat.layer_norm(jnp.asarray(p["x"]),
+                                  jnp.asarray(p["ln_w"]),
+                                  jnp.asarray(p["ln_b"])))
+    xf = p["x"].astype(np.float64)
+    mean = xf.mean(-1, keepdims=True)
+    rstd = 1 / np.sqrt((xf * xf).mean(-1, keepdims=True) - mean ** 2 + 1e-6)
+    for r in range(T):
+        s = _shard(p, r, T)
+
+        def attn_of_h(h, wqkv, bqkv, wproj):
+            ci = wqkv.shape[0] // 3
+            qkv = h @ wqkv.T + bqkv
+            attn = jat._attention_xla(qkv[..., :ci], qkv[..., ci:2 * ci],
+                                      qkv[..., 2 * ci:], heads, scale, mode)
+            return attn @ wproj.T
+
+        _, vjp = jax.vjp(attn_of_h, h, s["wqkv"], s["bqkv"], s["wproj"])
+        dh, dwqkv, dbqkv, dwproj = vjp(jnp.asarray(p["g"]))
+        got = at.attention_block_tp_bwd_plain(
+            x, g, *ln, _t(s["wqkv"]), _t(s["bqkv"]), _t(s["wproj"]), heads,
+            scale, mode)
+        for name, a, w in zip(("dwqkv", "dbqkv", "dwproj", "dh"), got,
+                              (dwqkv, dbqkv, dwproj, dh)):
+            _rel_close(a.numpy(), w, BWD_TOL, f"attention shard {r} {name}")
+        _rel_close(got[4].numpy(), np.concatenate([mean, rstd], -1), 1e-6,
+                   "row statistics")
+
+        def mlp_of_h(h, w1, b1, w2):
+            z = jax.nn.gelu(h @ w1.T + b1, approximate=False)
+            return z @ w2.T
+
+        _, vjp = jax.vjp(mlp_of_h, h, s["w1"], s["b1"], s["w2"])
+        dh, dw1, db1, dw2 = vjp(jnp.asarray(p["g"]))
+        got = mlp.mlp_block_tp_bwd_plain(x, g, *ln, _t(s["w1"]), _t(s["b1"]),
+                                         _t(s["w2"]))
+        for name, a, w in zip(("dw1", "db1", "dw2", "dh"), got,
+                              (dw1, db1, dw2, dh)):
+            _rel_close(a.numpy(), w, BWD_TOL, f"MLP shard {r} {name}")
+
+
+def test_ln_bwd_twin_matches_jax_vjp_of_layer_norm():
+    """ln_bwd_plain(dh, x, stats, w, g) = (vjp of layer_norm's x + g, its
+    scale and bias gradients), fp32."""
+    p = _params()
+    dh = _mk(p["x"].shape, 12)
+    _, vjp = jax.vjp(jat.layer_norm, jnp.asarray(p["x"]),
+                     jnp.asarray(p["ln_w"]), jnp.asarray(p["ln_b"]))
+    dx, dw, db = vjp(jnp.asarray(dh))
+    x = _t(p["x"])
+    got = at.ln_bwd_plain(_t(dh), x, at.ln_row_stats(x), _t(p["ln_w"]),
+                          _t(p["g"]))
+    for name, a, w in zip(("dx", "dln_w", "dln_b"), got,
+                          (np.asarray(dx) + p["g"], dw, db)):
+        assert a.dtype == torch.float32
+        _rel_close(a.numpy(), w, LN_TOL, name)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_tp_twins_at_one_rank_are_the_whole_block_bitwise(mode):
+    """bf16, T = 1: the TP forward plus its epilogue is the non-TP block
+    with LayerNorm and residual bit for bit, and the TP backward with the
+    LayerNorm backward is its backward."""
+    p, H = _params(), 4
+    scale = (C // H) ** -0.5
+    bf = torch.bfloat16
+    t = {k: (_t(v) if k.startswith("ln") else _t(v, bf))
+         for k, v in p.items()}
+    x, g, ln = t["x"], t["g"], (t["ln_w"], t["ln_b"])
+    a = at.attention_block_tp_plain(x, *ln, t["wqkv"], t["bqkv"], t["wproj"],
+                                    H, scale, mode)
+    y = ((a + at.wide(t["bproj"])) + at.wide(x)).to(bf)
+    assert torch.equal(y, at.attention_block_plain(
+        x, *ln, t["wqkv"], t["bqkv"], t["wproj"], t["bproj"], H, scale, mode,
+        True, True))
+    dwqkv, dbqkv, dwproj, dh, stats = at.attention_block_tp_bwd_plain(
+        x, g, *ln, t["wqkv"], t["bqkv"], t["wproj"], H, scale, mode)
+    dx, dln_w, dln_b = at.ln_bwd_plain(dh, x, stats, t["ln_w"], g)
+    want = at.attention_block_bwd_plain(x, g, *ln, t["wqkv"], t["bqkv"],
+                                        t["wproj"], H, scale, mode, True,
+                                        True)
+    got = (dx, dln_w, dln_b, dwqkv, dbqkv, dwproj,
+           at.rows(g).sum(0).to(bf))
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    b = mlp.mlp_block_tp_plain(y, *ln, t["w1"], t["b1"], t["w2"])
+    out = ((b + at.wide(t["b2"])) + at.wide(y)).to(bf)
+    assert torch.equal(out, mlp.mlp_block_plain(
+        y, *ln, t["w1"], t["b1"], t["w2"], t["b2"], True, True))
+    dw1, db1, dw2, dh, stats = mlp.mlp_block_tp_bwd_plain(
+        y, g, *ln, t["w1"], t["b1"], t["w2"])
+    dy, dln_w, dln_b = at.ln_bwd_plain(dh, y, stats, t["ln_w"], g)
+    want = mlp.mlp_block_bwd_plain(y, g, *ln, t["w1"], t["b1"], t["w2"],
+                                   True, True)
+    got = (dy, dln_w, dln_b, dw1, db1, dw2, at.rows(g).sum(0).to(bf))
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+def test_tp_gate_gradcheck():
+    """The gate Function (gate_plain forward, gate_bwd_plain backward at
+    B3's rounding points) is the gate's derivative in float64."""
+    rs = np.random.RandomState(4)
+    c = 8
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy(rs.normal(size=shape) * scale).to(
+            torch.float64).requires_grad_()
+
+    args = (r(1, 3, J, c), r(1, 3, J, c), r(2, 2 * c, scale=0.3),
+            r(2, scale=0.1))
+    assert torch.autograd.gradcheck(tpt.Gate.apply, args, eps=1e-6,
+                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("half", ["attention", "mlp"])
+def test_tp_halves_gradcheck(half):
+    """The halves' autograd Functions on one rank (no collective), float64:
+    the backward the TP twins and the LayerNorm backward compose is the
+    forward's derivative."""
+    rs = np.random.RandomState(3)
+    c, hid, heads = 8, 16, 2
+    d = torch.float64
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy(rs.normal(size=shape) * scale).to(
+            d).requires_grad_()
+
+    x = r(1, 3, J, c)
+    ln = (r(c, scale=0.1) + 1.0, r(c, scale=0.1))
+    ln = tuple(t.detach().requires_grad_() for t in ln)
+    if half == "attention":
+        args = (x, *ln, r(3 * c, c, scale=0.3), r(3 * c, scale=0.1),
+                r(c, c, scale=0.3), r(c, scale=0.1))
+
+        def fn(*a):
+            return tpt.TpAttentionHalf.apply(*a, heads, (c // heads) ** -0.5,
+                                             "temporal", None, "plain")
+    else:
+        args = (x, *ln, r(hid, c, scale=0.3), r(hid, scale=0.1),
+                r(c, hid, scale=0.3), r(c, scale=0.1))
+
+        def fn(*a):
+            return tpt.TpMlpHalf.apply(*a, None, "plain")
+    assert torch.autograd.gradcheck(fn, args, eps=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the chains in csrc/block_kernels.cu
+# ---------------------------------------------------------------------------
+
+def _code() -> str:
+    text = (CSRC / "block_kernels.cu").read_text()
+    return "\n".join(line.split("//")[0] for line in text.splitlines())
+
+
+def _body(code: str, signature: str) -> str:
+    start = code.index("{", code.index(signature))
+    depth = 0
+    for i in range(start, len(code)):
+        depth += {"{": 1, "}": -1}.get(code[i], 0)
+        if depth == 0:
+            return code[start:i + 1]
+    raise AssertionError(signature)
+
+
+def _launches(body: str) -> list:
+    found = re.findall(
+        r"(hg_gemm<\w+, \w+>|hg_weight_grad|column_sum<\w+>|"
+        r"launch_ln_fwd_rows|launch_ln_bwd_rows)\(|"
+        r"(launch_attention_tc)\(core, (true|false)", body)
+    return [a or f"{b}/{'bwd' if c == 'true' else 'fwd'}"
+            for a, b, c in found]
+
+
+TP_CHAINS = {
+    "int mbt_attention_block_tp(": [
+        "launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS>",
+        "launch_attention_tc/fwd", "hg_gemm<NT, EPI_F32>"],
+    "int mbt_attention_block_tp_bwd(": [
+        "launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS>",
+        "launch_attention_tc/fwd", "hg_gemm<NN, EPI_BF16>", "hg_weight_grad",
+        "launch_attention_tc/bwd", "hg_weight_grad", "column_sum<COL_F32>",
+        "hg_gemm<NN, EPI_F32>"],
+    "int mbt_mlp_block_tp(": [
+        "launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS_GELU>",
+        "hg_gemm<NT, EPI_F32>"],
+    "int mbt_mlp_block_tp_bwd(": [
+        "launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS_GELU_Z>",
+        "hg_weight_grad", "hg_gemm<NN, EPI_DGELU>", "hg_weight_grad",
+        "column_sum<COL_BF16>", "hg_gemm<NN, EPI_F32>"],
+    "int mbt_ln_bwd(": [
+        "column_sum<COL_F32>", "column_sum<COL_LN_W>", "launch_ln_bwd_rows"],
+}
+
+
+@pytest.mark.parametrize("signature", sorted(TP_CHAINS))
+def test_tp_chains_launch_what_their_mirrors_mirror(signature):
+    """The TP entry points launch, in order, what the mirrors below take
+    the plain twin of: the engine, the tensor-core core, the row passes and
+    the column sums, nothing else."""
+    assert _launches(_body(_code(), signature)) == TP_CHAINS[signature]
+
+
+def _tp_args(T: int, dtype=torch.bfloat16) -> dict:
+    p = _params()
+    s = _shard(p, 0, T)
+    return {k: (_t(v) if k.startswith("ln") else _t(v, dtype))
+            for k, v in {**p, **s}.items()}
+
+
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("mode", MODES)
+def test_tp_attention_chains_mirror_the_twins(mode, T):
+    """mbt_attention_block_tp and _tp_bwd launch by launch, each launch's
+    plain twin on the chain's buffers, bf16: the forward's fp32 partial and
+    the backward's dh, bias gradient and row statistics bit for bit, the
+    weight gradients (fixed-chunk sums) to one bf16 step."""
+    t, H = _tp_args(T), 4
+    heads, scale = H // T, (C // H) ** -0.5
+    ci = C // T
+    x2, g2 = t["x"].reshape(-1, C), t["g"].reshape(-1, C)
+    h = at.layer_norm(x2, t["ln_w"], t["ln_b"])
+    qkv = engine_gemm_plain("NT", "bias", h, t["wqkv"], t["bqkv"])
+    q, k, v = (qkv.reshape(B, F, J, 3 * ci)[..., i * ci:(i + 1) * ci]
+               for i in range(3))
+    attn = at.st_attention_plain(q, k, v, mode, heads, scale).reshape(-1, ci)
+    out = engine_gemm_plain("NT", "f32", attn, t["wproj"])
+    args = (t["x"], t["ln_w"], t["ln_b"], t["wqkv"], t["bqkv"], t["wproj"],
+            heads, scale, mode)
+    assert torch.equal(out.reshape(t["x"].shape),
+                       at.attention_block_tp_plain(*args))
+    # backward: the same recompute, then the chain's products
+    stats = at.ln_row_stats(x2)
+    dattn = engine_gemm_plain("NN", "bf16", g2, t["wproj"])
+    dwproj = engine_gemm_plain("TN", "partial", g2, attn).sum(0)
+    dq, dk, dv = at.st_attention_bwd_plain(q, k, v, dattn.reshape(B, F, J, ci),
+                                           mode, heads, scale)
+    dqkvb = torch.cat([dq, dk, dv], -1).reshape(-1, 3 * ci)
+    dwqkv = engine_gemm_plain("TN", "partial", dqkvb, h).sum(0)
+    dh = engine_gemm_plain("NN", "f32", dqkvb, t["wqkv"])
+    got = at.attention_block_tp_bwd_plain(args[0], t["g"], *args[1:])
+    assert torch.equal(got[3], dh.reshape(t["x"].shape))
+    assert torch.equal(got[4], stats.reshape(B, F, J, 2))
+    _rel_close(dwqkv.to(torch.bfloat16).float(), got[0].float(), 2 ** -7,
+               "dwqkv")
+    _rel_close(dwproj.to(torch.bfloat16).float(), got[2].float(), 2 ** -7,
+               "dwproj")
+
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_tp_mlp_chains_mirror_the_twins(T):
+    """mbt_mlp_block_tp and _tp_bwd, and mbt_ln_bwd, launch by launch, as
+    above."""
+    t = _tp_args(T)
+    x2, g2 = t["x"].reshape(-1, C), t["g"].reshape(-1, C)
+    h = at.layer_norm(x2, t["ln_w"], t["ln_b"])
+    a = engine_gemm_plain("NT", "bias_gelu", h, t["w1"], t["b1"])
+    out = engine_gemm_plain("NT", "f32", a, t["w2"])
+    args = (t["x"], t["ln_w"], t["ln_b"], t["w1"], t["b1"], t["w2"])
+    assert torch.equal(out.reshape(t["x"].shape), mlp.mlp_block_tp_plain(*args))
+    a, z = engine_gemm_plain("NT", "bias_gelu_z", h, t["w1"], t["b1"])
+    dw2 = engine_gemm_plain("TN", "partial", g2, a).sum(0)
+    dz = engine_gemm_plain("NN", "dgelu", g2, t["w2"], z=z)
+    dw1 = engine_gemm_plain("TN", "partial", dz, h).sum(0)
+    db1 = at.wide(dz).sum(0)
+    dh = engine_gemm_plain("NN", "f32", dz, t["w1"])
+    got = mlp.mlp_block_tp_bwd_plain(args[0], t["g"], *args[1:])
+    assert torch.equal(got[3], dh.reshape(t["x"].shape))
+    assert torch.equal(got[1], db1.to(torch.bfloat16))
+    for name, mine, want in (("dw1", dw1, got[0]), ("dw2", dw2, got[2])):
+        _rel_close(mine.to(torch.bfloat16).float(), want.float(), 2 ** -7,
+                   name)
+    # mbt_ln_bwd: two column sums, then the row backward with g
+    stats = got[4]
+    xhat = (at.wide(t["x"]) - stats[..., :1]) * stats[..., 1:]
+    dx, dln_w, dln_b = at.ln_bwd_plain(got[3], t["x"], stats, t["ln_w"],
+                                       t["g"])
+    _rel_close(dln_b.numpy(), got[3].sum((0, 1, 2)).numpy(), 1e-6, "dln_b")
+    _rel_close(dln_w.numpy(), (got[3] * xhat).sum((0, 1, 2)).numpy(), 1e-6,
+               "dln_w")
+    assert dx.dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# what the CUDA wrappers refuse (checked before any launch)
+# ---------------------------------------------------------------------------
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    return flat[1:].view(t.shape)
+
+
+def test_tp_attention_args_refuse_what_the_chains_do_not_take():
+    """A head group of 2 heads of 32 at C 128 (T 2) passes; a misaligned
+    shard, a head count that does not divide the group's width (or gives a
+    head dim outside 32 / 64), a group narrower than 64 and more token rows
+    than ``core_max_rows`` of the local heads raise."""
+    t = _tp_args(2)
+    args = [t[k] for k in ("x", "ln_w", "ln_b", "wqkv", "bqkv", "wproj")]
+    at.check_attention_args(*args, None, 2, "temporal", True, tp=True)
+    for i in (0, 3, 4, 5):
+        bad = list(args)
+        bad[i] = _misaligned(args[i])
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            at.check_attention_args(*bad, None, 2, "temporal", True, tp=True)
+    for heads in (3, 8):
+        with pytest.raises(ValueError, match="head dim"):
+            at.check_attention_args(*args, None, heads, "temporal", True,
+                                    tp=True)
+    narrow = _tp_args(4)
+    with pytest.raises(ValueError, match="Ci % 64"):
+        at.check_attention_args(
+            *[narrow[k] for k in ("x", "ln_w", "ln_b", "wqkv", "bqkv",
+                                  "wproj")], None, 1, "temporal", True,
+            tp=True)
+    # the whole block's shapes are refused as a shard, and the reverse
+    whole = _tp_args(1)
+    with pytest.raises(ValueError, match="wproj"):
+        at.check_attention_args(*args[:3], args[3], args[4], whole["wproj"],
+                                None, 2, "temporal", True, tp=True)
+    assert at.core_max_rows(2) == (2 ** 31 - 1) // 2
+    big = torch.empty((1, 243, 17, C), dtype=torch.bfloat16).expand(
+        at.core_max_rows(2) // (243 * 17) + 1, -1, -1, -1)
+    with pytest.raises(ValueError, match="token rows"):
+        at.check_attention_args(big, *args[1:], None, 2, "temporal", True,
+                                tp=True)
+    # rows within the limit get past it (to the expanded view's stride)
+    with pytest.raises(ValueError, match="contiguous"):
+        at.check_attention_args(big[:at.core_max_rows(2) // (243 * 17)],
+                                *args[1:], None, 2, "temporal", True,
+                                tp=True)
+
+
+def test_tp_mlp_and_ln_bwd_args_refuse_what_the_chains_do_not_take():
+    t = _tp_args(2)
+    args = [t[k] for k in ("x", "ln_w", "ln_b", "w1", "b1", "w2")]
+    mlp.check_mlp_args(*args, None, True)
+    for i in (0, 3, 5):
+        bad = list(args)
+        bad[i] = _misaligned(args[i])
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            mlp.check_mlp_args(*bad, None, True)
+    narrow = _tp_args(8)
+    with pytest.raises(ValueError, match="hidden % 64"):
+        mlp.check_mlp_args(*[narrow[k] for k in ("x", "ln_w", "ln_b", "w1",
+                                                  "b1", "w2")], None, True)
+    x, g = t["x"], t["g"]
+    dh = torch.zeros(x.shape)
+    stats = torch.zeros(*x.shape[:-1], 2)
+    at.check_ln_bwd_args(dh, x, stats, t["ln_w"], g)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        at.check_ln_bwd_args(_misaligned(dh), x, stats, t["ln_w"], g)
+    with pytest.raises(ValueError, match="dh"):
+        at.check_ln_bwd_args(dh.to(torch.bfloat16), x, stats, t["ln_w"], g)
+    with pytest.raises(ValueError, match="stats"):
+        at.check_ln_bwd_args(dh, x, stats[..., :1].contiguous(), t["ln_w"], g)
