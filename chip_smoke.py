@@ -193,8 +193,31 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      2 x 1 for one more step against (b)'s own next step; (e) (b)'s first
      step under core.profiling.trace, rank 0's Chrome trace read back for
      its CUDA kernels and its annotate region.
+ 31. tensor parallelism beyond the pose3d pairs (ranks share one card):
+     (a) the W8A8 pair on shards (B9_tp), temporal and spatial, gated and
+     not, at the phase-3 rows on model rank 0's shards of 2 (Ci 256, 4
+     local heads, hidden slice 512) against its plain twin at phase 10's
+     bars, twice for bitwise repeatability, with times (one call, back to
+     back, device), bound, the plain twin's time and a library yardstick
+     (torch._int_mm and scaled_dot_product_attention on the same shards);
+     (b) one spawn of two gloo ranks on cuda:0, a 1 x 2 grid at the
+     flagship widths (dim 512, depth 5, 8 heads; the backbones with the
+     anchor weights): one step each of the action model (classifier,
+     dropout 0.5, 1 x 2 x 243), the one-shot model (embedding, SupCon, 4 x
+     2 x 100), the mesh model (dropout 0.1, 2 x 16 frames; the heads'
+     BatchNorms on their running statistics, as in phases 22 and 26) and
+     phase 8's pose3d model with drop-path 0.1 and dropout 0.1 (2 x 243),
+     against world size 1 at phase 28 / 30's bars (loss, gradient cosine,
+     the parameters after the step; each gradient tensor to the larger of
+     phase 8's bar and twice the bf16 plain path's distance from the
+     kernels, phase 26's witness rule: the mesh loss sums cancelling frame
+     differences); the kernel_q8 and kernel_stream_q8 lifts bit for bit
+     the world-size-1 lifts, the kernel_stream lift at phase 30's lift
+     bar; the launches of each (B9_tp and the TP modes, no B9 and no B10
+     on the grid); (c) the 1 x 2 action checkpoint resumed at 1 x 1
+     against the grid's own next step.
 Phases 10-15 run after phase 6, phases 16-19 after phase 9, phases 20-23
-after phase 19, phases 24-27 after phase 23, phases 28-30 after phase 27.
+after phase 19, phases 24-27 after phase 23, phases 28-31 after phase 27.
 Then a JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -207,11 +230,12 @@ and as the last line {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases dist
     python3 chip_smoke.py --phases render
     python3 chip_smoke.py --phases tp
+    python3 chip_smoke.py --phases tp2
 
 run only phases 1, 2, 3 and 24; 1, 2, the engine and core phases of 16, 7
 and 8; 1, 2 and 10-15; 1, 2 and 16-19; 1, 2 and 20-23; 1, 2 and 24-27;
-1, 2 and 28; 1, 2 and 29; or 1, 2 and 30 (while working on them), and
-print no last line.
+1, 2 and 28; 1, 2 and 29; 1, 2 and 30; or 1, 2 and 31 (while working on
+them), and print no last line.
 
     python3 chip_smoke.py --baseline ROOT [--phases ...]
 
@@ -871,21 +895,23 @@ def q8_linear_library(a: torch.Tensor, w: torch.Tensor,
     return torch._int_mm(a8, w8.t()).float() * s * ws + b.float()
 
 
-def pair_q8_library(p: dict, gated: bool, scale: float, mode: str):
+def pair_q8_library(p: dict, gated: bool, scale: float, mode: str,
+                    heads: int = HEADS):
     """The W8A8 pair from PyTorch's own operators (layer_norm, _int_mm,
-    scaled_dot_product_attention): a yardstick of speed the port never
-    calls."""
+    scaled_dot_product_attention), on whole weights or on a rank's shards
+    (``heads`` local heads of a head group, a hidden slice; the partials
+    then unreduced): a yardstick of speed the port never calls."""
     x = p["x"]
     Bx, Fx, Jx, Cx = x.shape
-    d = Cx // HEADS
+    ci = p["wqkv"].shape[0] // 3
     rows = lambda t: t.reshape(-1, t.shape[-1])
     h = F.layer_norm(x.float(), (Cx,), p["ln1_w"], p["ln1_b"], 1e-6)
     qkv = q8_linear_library(rows(h), p["wqkv"], p["bqkv"]).to(x.dtype)
-    qkv = qkv.reshape(Bx, Fx, Jx, 3, HEADS, d)
+    qkv = qkv.reshape(Bx, Fx, Jx, 3, heads, ci // heads)
     perm = (0, 1, 3, 2, 4) if mode == "spatial" else (0, 2, 3, 1, 4)
     q, k, v = (qkv[:, :, :, i].permute(perm) for i in range(3))
     o = F.scaled_dot_product_attention(q, k, v, scale=scale)
-    o = o.permute([perm.index(i) for i in range(5)]).reshape(Bx, Fx, Jx, Cx)
+    o = o.permute([perm.index(i) for i in range(5)]).reshape(Bx, Fx, Jx, ci)
     y = (q8_linear_library(rows(o.float()), p["wproj"], p["bproj"])
          .reshape(x.shape) + x.float()).to(x.dtype)
     h2 = F.layer_norm(y.float(), (Cx,), p["ln2_w"], p["ln2_b"], 1e-6)
@@ -4965,6 +4991,466 @@ def phase_tp(records: list) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 31: the W8A8 pair on shards, the stream tiers, the task models and
+# dropout / drop-path on a grid
+# ---------------------------------------------------------------------------
+
+Q8_TP_REPLACES = "motionbert_tpu/ops/pair_q8.py:147"
+# kernel-name fragments of B9_tp's stages (csrc/pair_q8_kernels.cu): the s8
+# engine, the core, the quantisers (ln_quant_rows, quant_rows_given), the
+# row maxima, the dequantising row pass, the gate; its other device records
+# are quant_cols's and quant_cols_tp's PyTorch operators
+Q8_TP_KERNELS = ("hg_gemm_s8_kernel", "attn_tc_fwd_kernel", "quant_rows",
+                 "row_amax_kernel", "gate_kernel")
+# clips of each task's global batch in (b): SupCon needs two of each of
+# two classes; the pose3d model takes tp_batch's 2
+TP2_CLIPS = {"action": 1, "supcon": 4, "mesh": 2}
+TP2_LIFT_TIERS = ("kernel_q8", "kernel_stream_q8", "kernel_stream")
+
+
+def pair_q8_tp_records(gated: bool) -> int:
+    """Device records of one B9_tp call's stages: the attention stage 4,
+    each partial product 2, the MLP stage 4, the output pass 1 (2
+    gated)."""
+    return 13 + int(gated)
+
+
+def pair_q8_tp_cost(mode: str, gated: bool) -> tuple:
+    """(seconds by operations, bytes, int8 operations, bf16 FLOPs) of
+    B9_tp on model rank 0's shards at the phase-3 rows: the four products
+    on the shards at the int8 peak, the core over the local heads and the
+    gate at the bf16 peak; bytes: x (and other) read, the output written,
+    the shards of the weights (bf16) and the LayerNorm parameters read,
+    and each int32 partial (M x C) written for the sum and read back
+    summed."""
+    M = B * FRAMES * J
+    ci, hl = C // TP_T, HIDDEN // TP_T
+    int8_ops = 2 * M * (3 * ci * C + C * ci + 2 * C * hl)
+    groups, n = (B * J, FRAMES) if mode == "temporal" else (B * FRAMES, J)
+    bf16_flops = 4 * groups * n * n * ci + (4 * M * 2 * C if gated else 0)
+    weights = (3 * ci * C + C * ci + 2 * C * hl + 3 * ci + hl + 2 * C) * 2
+    nbytes = M * C * 2 * (2 + int(gated)) + weights + 4 * C * 4 \
+        + 2 * 2 * M * C * 4
+    t_ops = int8_ops / PEAK_INT8_OPS + bf16_flops / PEAK_BF16_FLOPS
+    return t_ops, nbytes, int8_ops, bf16_flops
+
+
+def q8_tp_args(p: dict, gated: bool) -> list:
+    """B9_tp's arguments from tp_shards' inputs: x, other (None), the 12
+    parameters, wg, bg (None)."""
+    g = (p["other"], p["wg"], p["bg"]) if gated else (None, None, None)
+    return [p["x"], g[0], *(p[k] for k in PAIR_KEYS), g[1], g[2]]
+
+
+def phase_q8_tp_kernels() -> list:
+    """(a) B9_tp at the phase-3 rows on model rank 0's shards of TP_T,
+    ungated and gated, temporal and spatial, against its plain twin (no
+    collective: rank 0's function alone, on the kernel and on the twin)."""
+    from motionbert_tpu_torch.ops import pair_q8 as q8
+
+    dev = torch.device("cuda")
+    scale, heads = (C // HEADS) ** -0.5, HEADS // TP_T
+    modes = {}
+    for gated in (False, True):
+        for mode in ("temporal", "spatial"):
+            tag = ("gated " if gated else "") + mode
+            p = tp_shards(pair_inputs(40 + 2 * gated + (mode == "spatial"),
+                                      gated, dev))
+            args = q8_tp_args(p, gated)
+            call = lambda: q8.fused_pair_block_q8_tp(*args, heads, scale,
+                                                     mode)
+            plain = lambda: q8.pair_block_q8_tp_plain(*args, heads, scale,
+                                                      mode)
+            out = call()
+            torch.cuda.synchronize()
+            bitwise = torch.equal(out, call())
+            ref = plain()
+            if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+                fail(f"q8 tp (a) {tag}: shape {tuple(out.shape)} or "
+                     f"non-finite")
+            abs_err, rel = rel_err(out, ref)
+            l2 = rel_l2_t(out, ref)
+            t_ops, nbytes, int8_ops, bf16_flops = pair_q8_tp_cost(mode, gated)
+            t_bytes = nbytes / PEAK_HBM_BYTES
+            library = lambda: pair_q8_library(p, gated, scale, mode, heads)
+            calls = 10
+            dev_ms, rows = device_profile(call, None, calls)
+            split = q8_profile_split(by_kernel(rows, calls))
+            chain = sum(n for key, _, n in rows
+                        if any(k in key for k in Q8_TP_KERNELS)) / calls
+            needed = Q8_TP_KERNELS[:4] + (("gate_kernel",) if gated else ())
+            faults = [f"no {k}" for k in needed
+                      if not any(k in key for key, _, _ in rows)]
+            if chain != pair_q8_tp_records(gated):
+                faults.append(f"{chain} stage records a call, expected "
+                              f"{pair_q8_tp_records(gated)}")
+            rec = dict(
+                max_abs_err=abs_err, rel_err=rel, tol=Q8_KERNEL_TOL,
+                rel_l2=l2, l2_tol=Q8_KERNEL_L2_TOL,
+                outputs_that_differ=(out != ref).float().mean().item(),
+                bitwise_repeatable=bitwise, ms=time_ms(call),
+                back_to_back_ms=time_ms_back_to_back(call),
+                plain_ms=time_ms(plain, runs=5, warmup=1),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                library_ms=time_ms(library),
+                library_device_ms=device_ms(library, None),
+                device_ms=dev_ms, chain_device_ms=split["chain_device_ms"],
+                quant_cols_device_ms=split["quant_cols_device_ms"],
+                device_by_kernel=by_kernel(rows, calls),
+                int8_gop=int8_ops / 1e9, bf16_gflop=bf16_flops / 1e9,
+                mbytes=nbytes / 1e6)
+            log(f"q8 tp (a) fused_pair_block_q8_tp/{tag} (shards of {TP_T}): "
+                + json.dumps(rec))
+            if faults:
+                fail(f"q8 tp (a) {tag}: a call's profile: {faults}")
+            if not (rel <= Q8_KERNEL_TOL and l2 <= Q8_KERNEL_L2_TOL):
+                fail(f"q8 tp (a) {tag}: max|d|/max|ref| {rel:.3e} (bar "
+                     f"{Q8_KERNEL_TOL}), relative L2 {l2:.3e} (bar "
+                     f"{Q8_KERNEL_L2_TOL})")
+            if not bitwise:
+                fail(f"q8 tp (a) {tag}: two runs gave different bits")
+            modes[tag] = rec
+            del p, args, out, ref
+    torch.cuda.empty_cache()
+    main = modes["temporal"]
+    return [dict(
+        name="fused_pair_block_q8_tp", route="cuda",
+        source="motionbert_tpu_torch/ops/csrc/pair_q8_kernels.cu",
+        replaces=Q8_TP_REPLACES, launches=None,
+        max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        device_ms=main["device_ms"],
+        library_device_ms=main["library_device_ms"], mode="temporal",
+        shape=[B, FRAMES, J, C], shards=TP_T, modes=modes)]
+
+
+def tp2_counters() -> tuple:
+    """Every counter a step or lift on the grid can move: the pair and
+    block kernels, the TP modes, B9 and B9_tp, the stream kernels."""
+    from motionbert_tpu_torch.ops import fused_stream as fs
+    from motionbert_tpu_torch.ops import pair_q8 as q8
+
+    return (train_counters() + tp_counters()
+            + (q8.fused_pair_block_q8, q8.fused_gated_pair_block_q8,
+               q8.fused_pair_block_q8_tp, fs.fused_stream_block,
+               fs.fused_gated_stream_block, fs.fused_stream_block_q8,
+               fs.fused_gated_stream_block_q8))
+
+
+def tp2_task(kind: str) -> tuple:
+    """(model, its step factory's arguments, the global batch, its
+    learning rates) of a task of (b) at the flagship widths, the backbone
+    with the anchor weights and the head drawn from a seed: "action"
+    (MB_train_NTU60_xsub: classifier, dropout 0.5), "supcon"
+    (MB_train_NTU120_oneshot: embedding, dropout 0.1), "mesh"
+    (MB_train_h36m: dropout 0.1, a seeded 6890-vertex body model), "pose"
+    (phase 8's with drop-path 0.1 and dropout 0.1)."""
+    from motionbert_tpu_torch.core.checkpoint import load_state_dict
+    from motionbert_tpu_torch.core.config import get_config
+
+    if kind == "pose":
+        args, lambdas, model = dist_model(True)
+        return model, (args, lambdas), tp_batch(), (args.learning_rate,) * 2
+    anchor = load_state_dict(ANCHOR)
+    if kind == "mesh":
+        from motionbert_tpu_torch.losses.mesh import LAMBDA_KEYS
+        from motionbert_tpu_torch.models.smpl import SMPLModel
+        from motionbert_tpu_torch.train.mesh import build_mesh_model
+
+        args = get_config(MESH_CONFIG)
+        smpl = SMPLModel.synthetic(num_verts=MESH_VERTS, seed=0).cuda()
+        model = build_mesh_model(args, smpl, device="cuda")
+        batch = mesh_batch(smpl, TP2_CLIPS[kind], args.clip_len, 91)
+        extra = ({k: args[k] for k in LAMBDA_KEYS},
+                 args.get("loss_type", "L1"))
+    else:
+        from motionbert_tpu_torch.train.action import build_action_model
+
+        args = get_config(ACTION_CONFIG if kind == "action"
+                          else ONESHOT_CONFIG)
+        model = build_action_model(args, device="cuda")
+        batch = action_batch(TP2_CLIPS[kind], args.clip_len,
+                             args.action_classes if kind == "action"
+                             else None, 92)
+        extra = (args,)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.backbone.load_state_dict(anchor, strict=True)
+    bn_on_running_stats(model)
+    return model, extra, batch, (args.lr_backbone, args.lr_head)
+
+
+def bn_on_running_stats(model) -> None:
+    """Keep a task model's BatchNorms on their running statistics in
+    training mode too, as phases 22 and 26 hold the first steps: at 2 clips
+    the batch statistics normalise each feature to about +-1 over two
+    values, and a rounding apart in fc1's output moves them by orders of
+    magnitude more than the kernels' own difference (measured on the card
+    at 2 clips with the classifier's BatchNorm in training mode: gradient
+    cosine 0.9757 against world size 1, fc1's bias, whose gradient is zero
+    in exact arithmetic, 3.0 of its largest value). The training-mode
+    BatchNorm on shards, its statistics over the data group, is held by
+    tests/test_torch_tp_models.py against the JAX mesh."""
+    from motionbert_tpu_torch.models.action_heads import BatchNorm1d
+
+    for m in model.modules():
+        if isinstance(m, BatchNorm1d):
+            m.train = types.MethodType(
+                lambda self, mode=True: torch.nn.Module.train(self, False), m)
+            m.eval()
+
+
+def tp2_step(kind: str, model, extra, lrs, gen):
+    """(optimizer, step(x, y) -> the global batch's loss) through the
+    task's own step factory on the DDP-wrapped model; gen, the masks'
+    generator, seeded alike on every rank."""
+    from motionbert_tpu_torch.parallel.mesh import mean_over_ranks, wrap_ddp
+    from motionbert_tpu_torch.train import action, action_1shot, mesh, pose3d
+    from motionbert_tpu_torch.train.state import (
+        make_adamw, make_two_group_adamw)
+
+    dev = torch.device("cuda", 0)
+    if kind == "pose":
+        args, lambdas = extra
+        opt = make_adamw(model.parameters(), lrs[0], args.weight_decay)
+        step = pose3d.make_train_step(
+            wrap_ddp(model, dev), opt, lambdas, rootrel=args.rootrel,
+            no_conf=args.no_conf, flip_aug=bool(args.flip), generator=gen)
+        return opt, lambda x, y: mean_over_ranks(step(x, y))["total"].item()
+    opt = make_two_group_adamw(model, *lrs, 0.01)
+    net = wrap_ddp(model, dev, ignore=action.JAX_MISSING_KEYS)
+    if kind == "action":
+        step = action.make_action_train_step(net, opt, gen)
+        return opt, lambda x, y: mean_over_ranks(step(x, y))["loss"].item()
+    if kind == "supcon":
+        args, = extra
+        step = action_1shot.make_supcon_train_step(
+            net, opt, args.hidden_dim, args.temp, gen)
+        return opt, lambda x, y: step(x, y).item()
+    lambdas, loss_type = extra
+    step = mesh.make_mesh_train_step(net, opt, lambdas, loss_type, gen)
+    return opt, lambda x, y: mean_over_ranks(step(x, y))["total"].item()
+
+
+def tp2_trajectory(kind: str, model, extra, batch, lrs,
+                   ckpt=None) -> dict:
+    """One step of a task on this rank's grid (or in one process): its
+    loss, the first step's gradients and the parameters after (gathered
+    whole), the launches; with ``ckpt`` a checkpoint after it and the next
+    step (the trajectory a resumed run must follow)."""
+    from motionbert_tpu_torch.core.checkpoint import CheckpointManager
+    from motionbert_tpu_torch.parallel.mesh import gather_named, rank_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    opt, step = tp2_step(kind, model, extra, lrs, gen)
+    grads = {}
+
+    def keep_first(optimizer, *_):
+        if not grads:
+            grads.update({n: p.grad.detach().float().clone()
+                          for n, p in model.named_parameters()
+                          if p.grad is not None})
+
+    opt.register_step_pre_hook(keep_first)
+    x, y = rank_rows(batch)
+    loss, launches = counted(tp2_counters(), lambda: step(x, y))
+    out = {"loss": loss, "launches": launches,
+           "grads": {n: g.cpu() for n, g in gather_named(model,
+                                                         grads).items()},
+           "params": {n: t.float().cpu()
+                      for n, t in model.state_dict().items()}}
+    if ckpt is not None:
+        CheckpointManager(ckpt).save_epoch(0, lrs[0], model, opt,
+                                           rng=gen.get_state())
+        out["next"] = {"loss": step(x, y), "params": {
+            n: t.float().cpu() for n, t in model.state_dict().items()}}
+    return out
+
+
+def tp2_lift(tier: str, mesh) -> tuple:
+    """(the flip-TTA lift of tp_batch's clips, the launches) of phase 8's
+    flagship with the anchor weights in ``tier``, sharded over ``mesh``
+    (None: whole)."""
+    from motionbert_tpu_torch.core.checkpoint import load_state_dict
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.models.factory import load_backbone
+    from motionbert_tpu_torch.parallel.mesh import eval_rows, shard_params
+    from motionbert_tpu_torch.train.pose3d import make_eval_step
+
+    args = get_config(TRAIN_CONFIG)
+    model = load_backbone(args, device="cuda", attn_impl=tier)
+    model.load_state_dict(load_state_dict(ANCHOR), strict=True)
+    shard_params(model, mesh)
+    x = tp_batch()[0]
+    return counted(tp2_counters(), lambda: torch.from_numpy(eval_rows(
+        make_eval_step(model, no_conf=args.no_conf, flip_tta=True),
+        x.cpu().numpy(), torch.device("cuda", 0), x.shape[0])))
+
+
+def tp2_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of phase 31 (b): the 1 x 2 grid (gloo, cuda:0)."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from motionbert_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=TP_T,
+                            timeout=timedelta(seconds=DIST_TIMEOUT))
+    try:
+        mesh = make_mesh(1, TP_T)
+        res = {}
+        for kind in ("action", "supcon", "mesh", "pose"):
+            model, extra, batch, lrs = tp2_task(kind)
+            t0 = time.perf_counter()
+            res[kind] = tp2_trajectory(
+                kind, shard_params(model, mesh), extra, batch, lrs,
+                ckpt=os.path.join(out_dir, "ckpt") if kind == "action"
+                else None)
+            res[kind]["s"] = time.perf_counter() - t0
+            del model
+            torch.cuda.empty_cache()
+        for tier in TP2_LIFT_TIERS:
+            res[tier] = tp2_lift(tier, mesh)
+        if rank == 0:
+            torch.save(res, os.path.join(out_dir, "tp2.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp2_reach_tol(params: dict, lrs: tuple):
+    """Phase 28's parameter bars, or AdamW's reach after one step where
+    that is larger, with each tensor's own learning rate (a task's head
+    takes lr_head): two runs whose first gradients differ by rounding move
+    an element by at most lr each, opposite ways where its gradient is near
+    zero, so they differ by up to 2 lr, plus the fp32 rounding of the two
+    stored values (4 ulps of the largest value). It binds the mesh head's
+    residual layers (xavier gain 0.01: max |w| ~8e-4 against 2e-4)."""
+    def tol(n):
+        lr = lrs[1] if n.startswith("head.") else lrs[0]
+        top = max(params[n].abs().max().item(), 1e-30)
+        return max(param_tensor_tol(n), 2 * lr / top + 4 * 2.0 ** -23)
+    return tol
+
+
+def phase_tp2(records: list) -> None:
+    """(a) B9_tp at the shard shapes; (b) the task models, dropout /
+    drop-path and the tiers' lifts on a 1 x 2 grid against world size 1;
+    (c) the grid's action checkpoint resumed at 1 x 1."""
+    from motionbert_tpu_torch.core.checkpoint import load_checkpoint
+    from motionbert_tpu_torch.parallel.mesh import shard_optimizer_state
+
+    t_phase = time.perf_counter()
+    q8_records = timed("q8 tp (a) kernels", phase_q8_tp_kernels)
+    sides = ("1 x 2", "world size 1")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(tp2_rank, lambda r: (r, f"{tmp}/store", tmp), TP_T,
+                    DIST_TIMEOUT)
+        got = torch.load(os.path.join(tmp, "tp2.pt"), weights_only=False)
+        log(f"q8 tp (b): {TP_T} ranks ({SHARED_CARD}) in "
+            f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+        grid_launches = {}
+        for kind in ("action", "supcon", "mesh", "pose"):
+            model, extra, batch, lrs = tp2_task(kind)
+            ref = tp2_trajectory(kind, model, extra, batch, lrs)
+            # the witness: the same step through the bf16 plain path
+            model, extra, batch, lrs = tp2_task(kind)
+            for m in model.modules():
+                if hasattr(m, "attn_impl"):
+                    m.attn_impl = "plain"
+            witness = tp2_trajectory(kind, model, extra, batch, lrs)["grads"]
+            witness = witness_by_kind({n: rel_err(witness[n], t)[1]
+                                       for n, t in ref["grads"].items()})
+            del model
+            torch.cuda.empty_cache()
+            g = got[kind]
+            log(f"q8 tp (b) {kind}: loss {g['loss']!r} on 1 x 2 against "
+                f"{ref['loss']!r}; {g['s']:.2f} s on the grid; launches "
+                f"{json.dumps(g['launches'])} against "
+                f"{json.dumps(ref['launches'])} at world size 1")
+            log(f"q8 tp (b) {kind}: the witness, the bf16 plain path "
+                f"against the kernels at world size 1, by bar: "
+                + json.dumps({f"{grad_tensor_tol(n)}": w
+                              for n, w in witness.items()}))
+            compare_first_step(
+                f"q8 tp (b) {kind}", "the first step's gradients", g["loss"],
+                on_card(g["grads"]), ref["loss"], on_card(ref["grads"]),
+                sides=sides, tensor_tol=lambda n: max(
+                    grad_tensor_tol(n), WITNESS_MARGIN * witness[n]))
+            compare_first_step(f"q8 tp (b) {kind}", "the parameters after "
+                               "the step", g["loss"], on_card(g["params"]),
+                               ref["loss"], on_card(ref["params"]),
+                               sides=sides,
+                               tensor_tol=tp2_reach_tol(ref["params"], lrs))
+            wanted = {"fused_attention_block_tp", "fused_attention_block_tp_bwd",
+                      "fused_ln_bwd"}
+            if kind != "pose":     # the MLP's dropout keeps pose's MLP plain
+                wanted |= {"fused_mlp_block_tp", "fused_mlp_block_tp_bwd"}
+            if set(g["launches"]) != wanted:
+                fail(f"q8 tp (b) {kind}: the grid's step launched "
+                     f"{g['launches']}, not exactly {sorted(wanted)}")
+            for name, n in g["launches"].items():
+                grid_launches[name] = grid_launches.get(name, 0) + n
+        for tier in TP2_LIFT_TIERS:
+            lift, launches = got[tier]
+            ref, ref_launches = tp2_lift(tier, None)
+            d = tp_differs(lift, ref)
+            log(f"q8 tp (b) {tier} lift: max|d| {d[0]:.4e}, max|d|/max|ref| "
+                f"{d[1]:.4e}, {100 * d[2]:.2f}% of the elements differ; "
+                f"launches {json.dumps(launches)} on 1 x 2 against "
+                f"{json.dumps(ref_launches)} at world size 1")
+            if "q8" in tier and not torch.equal(lift, ref):
+                fail(f"q8 tp (b) {tier}: the grid's lift is not world size "
+                     f"1's bit for bit")
+            if d[1] > KERNEL_TOL:
+                fail(f"q8 tp (b) {tier}: the lift is {d[1]:.3e} of max from "
+                     f"world size 1's")
+            wanted = {"fused_pair_block_q8_tp"} if "q8" in tier else {
+                "fused_attention_block_tp", "fused_mlp_block_tp"}
+            if set(launches) != wanted:
+                fail(f"q8 tp (b) {tier}: the grid's lift launched "
+                     f"{launches}, not exactly {sorted(wanted)} (no B9, no "
+                     f"B10)")
+            for name, n in launches.items():
+                grid_launches[name] = grid_launches.get(name, 0) + n
+        # (c) the 1 x 2 action checkpoint resumed at 1 x 1
+        payload = load_checkpoint(os.path.join(tmp, "ckpt",
+                                               "latest_epoch.ckpt"))
+        model, extra, batch, lrs = tp2_task("action")
+        model.load_state_dict(payload["model"], strict=True)
+        gen = torch.Generator(device="cuda")
+        gen.set_state(payload["rng"])
+        opt, step = tp2_step("action", model, extra, lrs, gen)
+        opt.load_state_dict(shard_optimizer_state(payload["optimizer"], opt,
+                                                  model))
+        loss = step(*batch)
+        nxt = got["action"]["next"]
+        log(f"q8 tp (c): the 1 x 2 action checkpoint resumed at 1 x 1: next "
+            f"loss {loss!r} against {nxt['loss']!r} on 1 x 2")
+        compare_first_step(
+            "q8 tp (c)", "the parameters after the next step", loss,
+            on_card({n: t.float() for n, t in model.state_dict().items()}),
+            nxt["loss"], on_card(nxt["params"]),
+            sides=("resumed at 1 x 1", "1 x 2"),
+            tensor_tol=tp2_reach_tol(nxt["params"], lrs))
+        del model
+        torch.cuda.empty_cache()
+    q8_records[0]["launches"] = grid_launches.get("fused_pair_block_q8_tp",
+                                                  0)
+    if not q8_records[0]["launches"]:
+        fail("q8 tp: fused_pair_block_q8_tp was not launched on the grid")
+    for rec in records:
+        if rec["name"] in grid_launches:
+            rec["tp2_launches"] = grid_launches[rec["name"]]
+    records += q8_records
+    log(f"q8 tp: phase 31 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # --baseline: another checkout's kernels, bit for bit and in turns
 # ---------------------------------------------------------------------------
 
@@ -5630,7 +6116,7 @@ def main() -> int:
     parser.add_argument("--phases",
                         choices=("all", "pairs", "train", "q8", "blocks",
                                  "action", "mesh", "dist", "render",
-                                 "tp"),
+                                 "tp", "tp2"),
                         default="all",
                         help="pairs: only phases 1, 2, 3 and 24; train: only "
                              "phases 1, 2, the engine and core phases, 7 and "
@@ -5639,7 +6125,8 @@ def main() -> int:
                              "2 and 20-23; mesh: only phases 1, 2 and 24-27; "
                              "dist: only phases 1, 2 and 28; render: only "
                              "phases 1, 2 and 29; tp: only phases 1, 2 and "
-                             "30; none of them prints the last line")
+                             "30; tp2: only phases 1, 2 and 31; none of them "
+                             "prints the last line")
     parser.add_argument("--baseline", default=None, metavar="ROOT",
                         help="another checkout (the parent's, say): after the "
                              "build, hold this checkout's bf16 pairs and "
@@ -5745,6 +6232,14 @@ def main() -> int:
         log("partial run (--phases tp): no result line")
         return 0
 
+    if opts.phases == "tp2":
+        records = []
+        timed("tp2", phase_tp2, records)
+        log(json.dumps({"kernels": records}))
+        log(f"device: {smi}")
+        log("partial run (--phases tp2): no result line")
+        return 0
+
     if opts.phases == "dist":
         timed("dist", phase_dist, [])
     if opts.phases == "render":
@@ -5770,6 +6265,7 @@ def main() -> int:
     timed("dist", phase_dist, records)
     timed("render", phase_render, fp, records)
     timed("tp", phase_tp, records)
+    timed("tp2", phase_tp2, records)
     if opts.baseline:
         attach_turns(records, turns)
 

@@ -9,7 +9,11 @@ fp32, as the JAX heads keep ``dtype=float32``. It pools over time, flattens
 the joints, averages the two persons, and classifies (fc1 -> BatchNorm ->
 ReLU -> fc2) or embeds (fc1 -> L2 normalisation) for the one-shot task's
 metric learning. The head's dropout draws from the ``torch.Generator``
-passed to ``forward``, as the backbone's masks do.
+passed to ``forward``, as the backbone's masks do. Under tensor parallelism
+(``parallel.mesh.shard_params``) the heads follow the JAX package's rules:
+fc1 column-parallel, the classifier's fc2 row-parallel, the embedding's
+slices gathered over the model ranks before the normalisation; the pooled
+feature and its dropout mask are the same on every model rank.
 
 Parameter and buffer names are the reference's (``backbone.*``,
 ``head.fc1``, ``head.bn`` with ``running_mean``, ``running_var`` and
@@ -26,7 +30,9 @@ from torch import nn
 
 from motionbert_tpu_torch.geometry.rotations import f_normalize
 from motionbert_tpu_torch.models.dstformer import DSTformer, dropout
-from motionbert_tpu_torch.parallel.mesh import all_reduce_sum, world_size
+from motionbert_tpu_torch.parallel.mesh import data_size, sum_over_data
+from motionbert_tpu_torch.parallel.tensor import (
+    WHOLE_HEAD, copy_to_model, gather_from_model, reduce_from_model)
 
 
 class BatchNorm1d(nn.BatchNorm1d):
@@ -40,10 +46,15 @@ class BatchNorm1d(nn.BatchNorm1d):
 
     Under data parallelism the statistics are the global batch's, as the JAX
     package's sharded step takes them: the fp32 sums of x and x^2 over the
-    rank's rows are summed over the ranks by a differentiable all-reduce
-    (``parallel.mesh.all_reduce_sum``), so every rank normalises alike and
-    keeps the same running averages. ``nn.SyncBatchNorm`` would store the
-    unbiased variance."""
+    rank's rows are summed over the data ranks by a differentiable
+    all-reduce (``parallel.mesh.sum_over_data``), so every rank normalises
+    alike and keeps the same running averages. ``nn.SyncBatchNorm`` would
+    store the unbiased variance. Under tensor parallelism the BatchNorm
+    after a column-parallel fc1 holds the rank's slice of the features
+    (weight, bias and running averages, cut by ``parallel.mesh.
+    shard_params`` and gathered whole by ``state_dict()``), and its sums go
+    over the data group only: each model rank's slice is then the 1 x 1
+    run's."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -51,12 +62,12 @@ class BatchNorm1d(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            if world_size() == 1:
+            if data_size() == 1:
                 mean, sq = xf.mean(0), (xf * xf).mean(0)
             else:
-                sums = all_reduce_sum(torch.stack([xf.sum(0),
-                                                   (xf * xf).sum(0)]))
-                mean, sq = sums / (xf.shape[0] * world_size())
+                sums = sum_over_data(torch.stack([xf.sum(0),
+                                                  (xf * xf).sum(0)]))
+                mean, sq = sums / (xf.shape[0] * data_size())
             var = (sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
@@ -77,7 +88,31 @@ def _pool_feat(feat: torch.Tensor, rate: float, generator) -> torch.Tensor:
     return feat.mean(2).reshape(N, M, J * C).mean(1)
 
 
+def column_parallel(x: torch.Tensor, layer: nn.Linear, group) -> torch.Tensor:
+    """``layer(x)``; with a model group, the layer's rows are the rank's
+    output features and x (replicated) goes through ``copy_to_model``, so
+    its gradient is summed over the model ranks."""
+    if group is None:
+        return layer(x)
+    return nn.functional.linear(copy_to_model(x, group), layer.weight,
+                                layer.bias)
+
+
+def row_parallel(x: torch.Tensor, layer: nn.Linear, group) -> torch.Tensor:
+    """``layer(x)``; with a model group, x and the layer's columns are the
+    rank's input features: the fp32 partial product is summed over the
+    model ranks (``reduce_from_model``) and the bias added once after."""
+    if group is None:
+        return layer(x)
+    return reduce_from_model(torch.matmul(x, layer.weight.t()), group) \
+        + layer.bias
+
+
 class ActionHeadClassification(nn.Module):
+    """fc1 -> BatchNorm -> ReLU -> fc2. Under tensor parallelism (``tp``, a
+    ``parallel.tensor.HeadPlan``) fc1 is column-parallel, the BatchNorm and
+    the ReLU run on the rank's hidden slice, and fc2 is row-parallel."""
+
     def __init__(self, dropout_ratio: float = 0.0, dim_rep: int = 512,
                  num_classes: int = 60, num_joints: int = 17,
                  hidden_dim: int = 2048):
@@ -86,22 +121,33 @@ class ActionHeadClassification(nn.Module):
         self.fc1 = nn.Linear(dim_rep * num_joints, hidden_dim)
         self.bn = BatchNorm1d(hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, num_classes)
+        self.tp = None
 
     def forward(self, feat: torch.Tensor, generator=None) -> torch.Tensor:
         feat = _pool_feat(feat, self.dropout_ratio, generator)
-        return self.fc2(torch.relu(self.bn(self.fc1(feat))))
+        tp = self.tp or WHOLE_HEAD
+        hid = torch.relu(self.bn(column_parallel(feat, self.fc1, tp.fc1)))
+        return row_parallel(hid, self.fc2, tp.fc2)
 
 
 class ActionHeadEmbed(nn.Module):
+    """fc1 -> L2 normalisation; under tensor parallelism fc1 is
+    column-parallel and its slices are gathered before the
+    normalisation."""
+
     def __init__(self, dropout_ratio: float = 0.0, dim_rep: int = 512,
                  num_joints: int = 17, hidden_dim: int = 2048):
         super().__init__()
         self.dropout_ratio = float(dropout_ratio)
         self.fc1 = nn.Linear(dim_rep * num_joints, hidden_dim)
+        self.tp = None
 
     def forward(self, feat: torch.Tensor, generator=None) -> torch.Tensor:
         feat = _pool_feat(feat, self.dropout_ratio, generator)
-        return f_normalize(self.fc1(feat))
+        tp = self.tp or WHOLE_HEAD
+        emb = column_parallel(feat, self.fc1, tp.fc1)
+        return f_normalize(gather_from_model(emb, tp.fc1, tp.n_model,
+                                             tp.index))
 
 
 class ActionNet(nn.Module):

@@ -39,11 +39,18 @@ PyTorch, "coupling" runs ``coupled_attention``, and ``Block(st_mode=
 Tensor parallelism (``parallel.mesh.shard_params`` on a grid with
 ``n_model > 1``) marks every block with a ``parallel.tensor.TpPlan``; its
 pairs then run ``tp_pair`` / ``tp_gated_pair`` on the model rank's head
-group and hidden slice (the TP modes of B4-B7, fp32 partials all-reduced
-over the model group) in place of the fused pair, and the T->S stream's
-gate runs after the last pair in plain PyTorch. What it covers, and what it
-does not (``tensor_parallel_gaps``): the pose3d DSTformer with attn_impl
-"kernel" or "plain" and no dropout, drop-path or attention dropout.
+group and hidden slice in place of the fused pair: the TP modes of B4-B7
+(fp32 partials all-reduced over the model group) for the bf16 tiers, the
+W8A8 pair on shards (B9_tp) for the W8A8 tiers, with the T->S stream's gate
+after the last pair. The stream tiers run their pairs so on a grid (each
+pair needs its reductions between its halves, which no single B10 launch
+can hold), so B10 launches nothing there. With dropout or drop-path live,
+each half runs without its residual (``tp_attention_branch``,
+``tp_mlp_branch``, or ``tp_mlp_dropout`` when the MLP's own dropout is
+live) and the block adds ``x + droppath(dropout(branch))``, drawing the
+masks of a 1 x 1 run. What it does not cover (``tensor_parallel_gaps``):
+attention dropout, which training refuses anyway, and the stage_para
+block, which runs no pair.
 
 Module and parameter names are the reference PyTorch ones, so a MotionBERT
 state_dict loads with ``load_state_dict(strict=True)``. Parameters stay
@@ -75,7 +82,9 @@ from motionbert_tpu_torch.ops.pair_q8 import (
     fused_gated_pair_block_q8, fused_pair_block_q8, gated_pair_block_q8_plain,
     pair_block_q8_plain)
 from motionbert_tpu_torch.parallel.mesh import rank_draw
-from motionbert_tpu_torch.parallel.tensor import tp_gated_pair, tp_pair
+from motionbert_tpu_torch.parallel.tensor import (
+    TIER_IMPLS, tp_attention_branch, tp_gated_pair, tp_mlp_branch,
+    tp_mlp_dropout, tp_pair, tp_q8_pairs)
 
 # attn_impl -> (pair function, gated pair function). "kernel" goes through
 # the wrappers (CUDA kernel on the card, plain version on the CPU); "plain"
@@ -124,6 +133,7 @@ CORE_IMPLS = {
 }
 
 AXIS_MODES = ("spatial", "temporal")
+AXIS_MODE = {"s": "spatial", "t": "temporal"}
 ATTENTION_MODES = AXIS_MODES + ("vanilla", "series", "parallel", "coupling")
 
 
@@ -134,24 +144,33 @@ def uniform(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def _drop(x: torch.Tensor, mask_shape, rate: float,
-          generator: torch.Generator) -> torch.Tensor:
+          generator: torch.Generator, cols=None) -> torch.Tensor:
     """x / keep where a Bernoulli(keep = 1 - rate) mask of ``mask_shape``
     holds, else 0. The mask comes from fp32 uniforms on the generator's
     device, whatever the dtype of x; its leading axis is the batch, drawn
     at the global batch's size under data parallelism
-    (``parallel.mesh.rank_draw``)."""
+    (``parallel.mesh.rank_draw``). cols (lo, hi): x holds those columns of
+    the last axis, a model rank's slice, and the mask is cut to them."""
     keep = 1.0 - rate
     mask = rank_draw(uniform, mask_shape, generator) < keep
+    if cols is not None:
+        mask = mask[..., cols[0]:cols[1]]
     return torch.where(mask, x / keep,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator,
+            width: int = None, cols=None) -> torch.Tensor:
     """Inverted dropout: each element kept with probability 1 - rate and
-    divided by it. generator None (evaluation) or rate 0 returns x."""
+    divided by it. generator None (evaluation) or rate 0 returns x. x may be
+    the columns ``cols`` (lo, hi) of a tensor ``width`` wide: the mask is
+    drawn at the whole width and cut to them, so every rank of a tensor-
+    parallel grid draws the same numbers."""
     if rate == 0.0 or generator is None:
         return x
-    return _drop(x, x.shape, rate, generator)
+    if cols is None:
+        return _drop(x, x.shape, rate, generator)
+    return _drop(x, tuple(x.shape[:-1]) + (width,), rate, generator, cols)
 
 
 class DropPath(nn.Module):
@@ -315,7 +334,7 @@ class Block(nn.Module):
         self.attn_impl = attn_impl
         self.drop = float(drop)
         self.attn_drop = float(attn_drop)
-        hidden = int(dim * mlp_ratio)
+        hidden = self.hidden = int(dim * mlp_ratio)
         self.norm1_s = nn.LayerNorm(dim, eps=1e-6)
         self.norm1_t = nn.LayerNorm(dim, eps=1e-6)
         self.norm2_s = nn.LayerNorm(dim, eps=1e-6)
@@ -362,9 +381,12 @@ class Block(nn.Module):
                 raise ValueError("the stage_para block takes no twin-stream "
                                  "gate")
             return self._stage_para(x, generator)
+        live = stochastic and (self.drop > 0.0 or self.droppath.rate > 0.0)
         if self.tp is not None:
+            if live:
+                return self._tp_drop_stream(x, order, gate, generator)
             return self._tp_stream(x, order, gate)
-        if not stochastic or (self.drop == 0.0 and self.droppath.rate == 0.0):
+        if not live:
             if self.attn_impl in STREAM_IMPLS:
                 return self._stream(x, order, gate)
             pair_fn, gated_fn = PAIR_IMPLS[self.attn_impl]
@@ -393,16 +415,55 @@ class Block(nn.Module):
 
     def _tp_stream(self, x: torch.Tensor, order: tuple,
                    gate) -> torch.Tensor:
-        """The stream's pairs on this model rank's shards (``tp_pair``), the
-        gate after the last one."""
-        for i, axis in enumerate(order):
-            params = self._pair_params(axis, x.dtype)
-            mode = "spatial" if axis == "s" else "temporal"
-            if gate is not None and i == len(order) - 1:
+        """The stream's pairs on this model rank's shards (``tp_pair``, in
+        the tier's bf16 or W8A8 form), the gate after the last one."""
+        impl, q8 = TIER_IMPLS[self.attn_impl]
+        pairs = [self._pair_params(a, x.dtype) for a in order]
+        modes = [AXIS_MODE[a] for a in order]
+        if q8:
+            # one Function a pair, or both pairs of the W8A8 stream in one,
+            # whose backward recomputes the inter-pair activation in bf16
+            step = len(pairs) if self.attn_impl in STREAM_IMPLS else 1
+            for i in range(0, len(pairs), step):
+                last = i + step == len(pairs)
+                x = tp_q8_pairs(x, gate if last else None, pairs[i:i + step],
+                                self.tp, self.scale, modes[i:i + step], impl)
+            return x
+        for i, (params, mode) in enumerate(zip(pairs, modes)):
+            if gate is not None and i == len(pairs) - 1:
                 other, wg, bg = gate
                 return tp_gated_pair(x, other, *params, wg, bg, self.tp,
-                                     self.scale, mode, self.attn_impl)
-            x = tp_pair(x, *params, self.tp, self.scale, mode, self.attn_impl)
+                                     self.scale, mode, impl)
+            x = tp_pair(x, *params, self.tp, self.scale, mode, impl)
+        return x
+
+    def _tp_drop_stream(self, x: torch.Tensor, order: tuple, gate,
+                        generator) -> torch.Tensor:
+        """The dropout path on shards: each half without its residual, the
+        masks drawn as the unsharded path draws them (in its order, at its
+        shapes), the gate in plain PyTorch after the stream. The W8A8 tiers
+        take the bf16 halves here, as their unsharded blocks do."""
+        impl = TIER_IMPLS[self.attn_impl][0]
+        for axis in order:
+            (ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2,
+             b2) = self._pair_params(axis, x.dtype)
+            branch = tp_attention_branch(x, ln1_w, ln1_b, wqkv, bqkv, wproj,
+                                         bproj, self.tp, self.scale,
+                                         AXIS_MODE[axis], impl)
+            x = x + self.droppath(dropout(branch, self.drop, generator),
+                                  generator)
+            if self.drop == 0.0:
+                branch = tp_mlp_branch(x, ln2_w, ln2_b, w1, b1, w2, b2,
+                                       self.tp, impl)
+            else:
+                branch = tp_mlp_dropout(
+                    layer_norm(x, ln2_w, ln2_b), w1, b1, w2, b2, self.tp,
+                    lambda t, cols: dropout(t, self.drop, generator,
+                                            self.hidden, cols))
+            x = x + self.droppath(branch, generator)
+        if gate is not None:
+            other, wg, bg = gate
+            x = gate_plain(other, x, wg, bg)
         return x
 
     def _stream(self, x: torch.Tensor, order: tuple, gate) -> torch.Tensor:
@@ -541,27 +602,17 @@ class DSTformer(nn.Module):
 
 def tensor_parallel_gaps(model: nn.Module) -> list:
     """What keeps ``model`` from tensor parallelism (n_model > 1), in words:
-    empty for the pose3d DSTformer with attn_impl "kernel" or "plain" and
-    every dropout rate 0 (every shipped config). The action and mesh
-    models' heads hold fc1 / fc2 layers that the JAX package's rules would
-    shard too; the W8A8 and stream tiers and the dropout path have no TP
-    mode; the stage_para block runs no pair."""
-    if not isinstance(model, DSTformer):
+    empty for a DSTformer, or an ActionNet or MeshRegressor on one, in any
+    tier and with any dropout or drop-path rate. Attention dropout has no
+    training path to shard (training refuses it), the stage_para block runs
+    no pair, and a model is sharded once."""
+    backbone = getattr(model, "backbone", model)
+    if not isinstance(backbone, DSTformer):
         kind = type(model).__name__
-        return [f"a {kind} (tensor parallelism covers the pose3d DSTformer; "
-                f"the action and mesh models' heads, whose fc1 / fc2 the JAX "
-                f"rules shard too, are not ported)"]
+        return [f"a {kind} (tensor parallelism covers the DSTformer and the "
+                f"action and mesh models built on it)"]
     gaps = []
-    blocks = [*model.blocks_st, *model.blocks_ts]
-    impl = blocks[0].attn_impl
-    if impl not in ("kernel", "plain"):
-        tier = "W8A8" if impl.endswith("q8") else "stream"
-        gaps.append(f"attn_impl {impl!r} (the {tier} tier has no "
-                    f"tensor-parallel mode)")
-    if model.drop_rate > 0 or any(b.drop > 0 for b in blocks):
-        gaps.append("dropout (drop_rate > 0)")
-    if any(b.droppath.rate > 0 for b in blocks):
-        gaps.append("drop-path (drop_path_rate > 0)")
+    blocks = [*backbone.blocks_st, *backbone.blocks_ts]
     if any(b.attn_drop > 0 for b in blocks):
         gaps.append("attention dropout (attn_drop_rate > 0)")
     if any(b.st_mode == "stage_para" for b in blocks):

@@ -12,7 +12,14 @@ the 17 H36M joints through ``J_regressor_h36m``. Outputs: theta (the 72
 axis-angle pose values and the betas), verts, kp_3d.
 
 The BatchNorms are ``models.action_heads.BatchNorm1d`` (flax's: the biased
-batch variance, momentum 0.1, eps 1e-5). Dropout draws from the
+batch variance, momentum 0.1, eps 1e-5). Under tensor parallelism
+(``parallel.mesh.shard_params``) the head follows the JAX package's rules
+as they are: the pose branch's fc1 is column-parallel, with bn1 and the
+ReLU on the rank's hidden slice and the slices gathered before head_pose;
+the rules shard fc2's kernel on its first axis, the input features J*C, so
+the shape branch's fc2 is row-parallel on the rank's columns of the pooled
+feature, reduced, then given its bias and the replicated bn2. head_pose,
+head_shape and the SMPL forward stay replicated. Dropout draws from the
 ``torch.Generator`` passed to ``forward``, as the backbone's masks do.
 Parameter and buffer names are the reference's (``backbone.*``,
 ``head.fc1``, ``head.bn1``, ``head.fc2``, ``head.bn2``, ``head.head_pose``,
@@ -32,9 +39,12 @@ from torch import nn
 
 from motionbert_tpu_torch.geometry.rotations import (
     rot6d_to_rotmat, rotmat_to_angle_axis)
-from motionbert_tpu_torch.models.action_heads import BatchNorm1d
+from motionbert_tpu_torch.models.action_heads import (
+    BatchNorm1d, column_parallel, row_parallel)
 from motionbert_tpu_torch.models.dstformer import DSTformer, dropout
 from motionbert_tpu_torch.models.smpl import SMPLModel, smpl_forward
+from motionbert_tpu_torch.parallel.tensor import (
+    WHOLE_HEAD, copy_to_model, gather_from_model)
 
 # xavier-uniform gain of the residual heads (reference model_mesh.py:23-24)
 HEAD_GAIN = 0.01
@@ -53,6 +63,8 @@ class SMPLRegressor(nn.Module):
         self.bn2 = BatchNorm1d(hidden_dim)
         self.head_pose = nn.Linear(hidden_dim, 24 * 6)
         self.head_shape = nn.Linear(hidden_dim, smpl_model.num_betas)
+        # parallel.tensor.HeadPlan under tensor parallelism
+        self.tp = None
 
     def forward(self, feat: torch.Tensor, generator=None) -> dict:
         """feat (N, T, J, C) fp32 -> {"theta" (N*T, 72 + n_betas), "verts"
@@ -61,9 +73,14 @@ class SMPLRegressor(nn.Module):
         feat = feat.reshape(N, T, J * C)
         pose = dropout(feat.reshape(N * T, J * C), self.dropout_ratio,
                        generator)
-        pose = torch.relu(self.bn1(self.fc1(pose)))
         shape = dropout(feat.mean(1), self.dropout_ratio, generator)
-        shape = torch.relu(self.bn2(self.fc2(shape)))
+        fc1, fc2, n_model, index = self.tp or WHOLE_HEAD
+        pose = torch.relu(self.bn1(column_parallel(pose, self.fc1, fc1)))
+        pose = gather_from_model(pose, fc1, n_model, index)
+        if fc2 is not None:
+            k = self.fc2.weight.shape[1]
+            shape = copy_to_model(shape, fc2)[:, index * k:(index + 1) * k]
+        shape = torch.relu(self.bn2(row_parallel(shape, self.fc2, fc2)))
         m = self.smpl
         pred_pose = self.head_pose(pose) + m.mean_pose
         pred_shape = self.head_shape(shape) + m.mean_shape

@@ -55,6 +55,9 @@ and returns it with the LayerNorm's row statistics, and ``fused_ln_bwd`` runs
 the LayerNorm backward from the summed dh with the residual gradient. Their
 plain twins are ``attention_block_tp_plain``, ``attention_block_tp_bwd_plain``
 and ``ln_bwd_plain``; each wrapper counts its launches in ``.launches``.
+Without the residual (the dropout path's branch) the LayerNorm backward
+leaves g out: dx = bf16(LN-backward(dh)), B5's rounding without the
+residual.
 
 The plain versions here are also what the CUDA pair kernel is held against
 (``ops/fused_pair.py``). They keep the kernels' rounding points: inputs arrive
@@ -170,15 +173,17 @@ def ln_bwd_rows(dh: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
 
 
 def ln_bwd_plain(dh: torch.Tensor, x: torch.Tensor, stats: torch.Tensor,
-                 weight: torch.Tensor, g: torch.Tensor) -> tuple:
+                 weight: torch.Tensor, g=None) -> tuple:
     """The plain version of ``fused_ln_bwd``: the LayerNorm backward of x
     from the fp32 gradient at its output dh and its row statistics (mean,
     rstd), plus the residual gradient g: (bf16(dx + g), dweight, dbias), the
-    parameter gradients fp32."""
+    parameter gradients fp32; g None (a half without the residual):
+    bf16(dx)."""
     xhat, rstd, _ = ln_from_stats(x, stats, weight)
     dx, dweight, dbias = ln_bwd_rows(dh, xhat, rstd, weight)
-    return ((dx + wide(g)).to(x.dtype), dweight.to(weight.dtype),
-            dbias.to(weight.dtype))
+    if g is not None:
+        dx = dx + wide(g)
+    return dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(weight.dtype)
 
 
 # (B, F, J, H, d) -> groups of tokens, and back
@@ -621,8 +626,8 @@ fused_attention_block.launches = 0
 
 def check_ln_bwd_args(dh, x, stats, ln_w, g) -> None:
     """Raise ValueError on anything ``mbt_ln_bwd`` does not take: dh (..., C)
-    fp32, x and g (..., C) bf16, stats (..., 2) and ln_w (C,) fp32, on one
-    device, contiguous and 16-byte aligned."""
+    fp32, x and g (..., C) bf16 (g may be None), stats (..., 2) and ln_w (C,)
+    fp32, on one device, contiguous and 16-byte aligned."""
     C = x.shape[-1] if x.dim() else 0
     M = x.numel() // max(C, 1)
     if not C or C % 2 or not 1 <= M <= ENGINE_MAX_ROWS:
@@ -631,12 +636,14 @@ def check_ln_bwd_args(dh, x, stats, ln_w, g) -> None:
                          f"{tuple(x.shape)}")
     dev, f32 = x.device, torch.float32
     check_tensor("x", x, x.shape, torch.bfloat16, dev)
-    check_tensor("g", g, x.shape, torch.bfloat16, dev)
+    if g is not None:
+        check_tensor("g", g, x.shape, torch.bfloat16, dev)
     check_tensor("dh", dh, x.shape, f32, dev)
     check_tensor("stats", stats, tuple(x.shape[:-1]) + (2,), f32, dev)
     check_tensor("ln_w", ln_w, (C,), f32, dev)
     for name, t in (("x", x), ("g", g), ("dh", dh), ("stats", stats)):
-        check_aligned(name, t)
+        if t is not None:
+            check_aligned(name, t)
 
 
 def _launch_tp(x, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale,
@@ -704,7 +711,7 @@ def _launch_ln_bwd(dh, x, stats, ln_w, g) -> tuple:
         work = f32(lib.mbt_block_work_floats(C, 1))
         rc = lib.mbt_ln_bwd(
             dh.data_ptr(), x.data_ptr(), stats.data_ptr(), ln_w.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
+            data_ptr(g), dx.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
             work.data_ptr(), M, C, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"LayerNorm backward kernel launch failed with "
@@ -747,11 +754,11 @@ def fused_attention_block_tp_bwd(x, g, ln_w, ln_b, wqkv, bqkv, wproj,
 fused_attention_block_tp_bwd.launches = 0
 
 
-def fused_ln_bwd(dh, x, stats, ln_w, g) -> tuple:
+def fused_ln_bwd(dh, x, stats, ln_w, g=None) -> tuple:
     """The LayerNorm backward from the fp32 gradient at its output, with the
-    residual gradient g (see ``ln_bwd_plain``): (dx, dln_w, dln_b). The CUDA
-    column sums and row pass for a CUDA tensor, the plain version for a CPU
-    tensor."""
+    residual gradient g, or without it for g None (see ``ln_bwd_plain``):
+    (dx, dln_w, dln_b). The CUDA column sums and row pass for a CUDA tensor,
+    the plain version for a CPU tensor."""
     if device_kind(x, "LayerNorm backward") == "cpu":
         return ln_bwd_plain(dh, x, stats, ln_w, g)
     out = _launch_ln_bwd(dh, x, stats, ln_w, g)

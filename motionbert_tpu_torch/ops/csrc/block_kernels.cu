@@ -445,8 +445,10 @@ extern "C" int mbt_mlp_block_tp_bwd(void* const* p, int M, int C, int hidden,
 // The LayerNorm backward of a TP half from the summed fp32 dh (M, C), x
 // (M, C) bf16, the row statistics st (M, 2) and ln_w (C,) fp32, with the
 // residual gradient g (M, C) bf16: dln_b = sum_m dh, dln_w = sum_m dh * xhat
-// (fp32), dx = bf16(LN-backward(dh) + g). work: mbt_block_work_floats(C, 1)
-// floats. 5 device records.
+// (fp32), dx = bf16(LN-backward(dh) + g); g == nullptr (a half without the
+// residual, the dropout path's branch) leaves it out: dx = bf16(LN-backward(
+// dh)), as B5 writes it without the residual. work: mbt_block_work_floats(C,
+// 1) floats. 5 device records.
 extern "C" int mbt_ln_bwd(const void* dh, const void* x, const void* st, const void* ln_w,
                           const void* g, void* dx, void* dln_w, void* dln_b, float* work,
                           int M, int C, void* stream_ptr) {

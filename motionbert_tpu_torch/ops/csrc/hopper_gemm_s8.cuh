@@ -26,7 +26,11 @@
 // + R for Q8_BIAS_RES, one rounding to bf16; Q8_BIAS_GELU_F32 writes fp32
 // GELU(v). So for a given A8 the outputs are a plain integer product's with
 // the same epilogue (engine_gemm_q8_plain) bit for bit for Q8_BIAS and
-// Q8_BIAS_RES; GELU goes through this card's erff.
+// Q8_BIAS_RES; GELU goes through this card's erff. Q8_ACC_S32 writes the
+// int32 accumulators themselves, unscaled and unsaturated: the pair on
+// shards (B9_tp) sums them over the model ranks, exactly, and dequantises
+// the sum with Q8_BIAS_RES's operations (pair_q8_common.cuh,
+// dequant_rows_kernel).
 //
 // Bound. At the W8A8 pair's shapes (K 512 or 1024) an int8 product does
 // about 2K operations for every byte of its bf16 output, below the ~590
@@ -46,7 +50,8 @@ namespace {
 enum Q8Epilogue {
     Q8_BIAS = 0,          // bf16(deq + bias)
     Q8_BIAS_RES = 1,      // bf16(deq + bias + R)
-    Q8_BIAS_GELU_F32 = 2  // fp32 GELU(deq + bias)
+    Q8_BIAS_GELU_F32 = 2, // fp32 GELU(deq + bias)
+    Q8_ACC_S32 = 3        // the int32 accumulator itself (a row-parallel partial)
 };
 
 // d[64 x 128] += A[64 x 32] . B[32 x 128], s8 operands K-major from shared
@@ -98,6 +103,11 @@ __device__ __forceinline__ void q8_epilogue4(const int (&acc)[4], float as, size
                                              const float* __restrict__ wscale,
                                              const bf16* __restrict__ bias,
                                              const bf16* __restrict__ R, void* __restrict__ out) {
+    if (EPI == Q8_ACC_S32) {
+        *reinterpret_cast<int4*>(static_cast<int*>(out) + o) =
+            make_int4(acc[0], acc[1], acc[2], acc[3]);
+        return;
+    }
     const float4 ws = __ldg(reinterpret_cast<const float4*>(wscale + n));
     const uint2 braw = __ldg(reinterpret_cast<const uint2*>(bias + n));
     const float2 b01 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&braw.x));
@@ -138,7 +148,8 @@ struct HgQ8Epilogue {
     void* out;
     __device__ __forceinline__ void operator()(const int (&v)[4], int m, int n, size_t o,
                                                int) const {
-        q8_epilogue4<EPI>(v, __ldg(ascale + m), o, n, wscale, bias, R, out);
+        q8_epilogue4<EPI>(v, EPI == Q8_ACC_S32 ? 0.f : __ldg(ascale + m), o, n, wscale, bias,
+                          R, out);
     }
 };
 
@@ -155,7 +166,8 @@ hg_gemm_s8_kernel(const __grid_constant__ CUtensorMap tma_a,
 
 // The int8 engine's launch: out = EPI of A8 (M, K) . W8 (N, K)^T with the
 // row scales ascale (M,), the column scales wscale (N,), bias (N,) bf16 and,
-// for Q8_BIAS_RES, R (M, N) bf16. Needs N % 64 == 0, K % 64 == 0, M >= 1,
+// for Q8_BIAS_RES, R (M, N) bf16; Q8_ACC_S32 reads none of the four and
+// writes int32 out. Needs N % 64 == 0, K % 64 == 0, M >= 1,
 // 16-byte-aligned A8, W8, wscale, bias and R; returns cudaErrorInvalidValue
 // otherwise (a tensor map that cannot be built included).
 template <int EPI>

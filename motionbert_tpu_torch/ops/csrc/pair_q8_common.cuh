@@ -1,10 +1,12 @@
 // Shared device code of the W8A8 DSTformer pair (pair_q8_kernels.cu) and the
 // W8A8 stream (stream_kernels.cu), for NVIDIA Hopper (sm_90a): the per-row
-// quantisers (ln_quant_rows_kernel, quant_rows_kernel) and the pair's chain
-// of nine launches (q8_pair_chain), whose products run on the int8 engine
-// (hopper_gemm_s8.cuh) and whose attention core is the tensor-core forward
-// (attention_tc.cuh). The scheme, the rounding points and the bound are in
-// the note at the top of pair_q8_kernels.cu.
+// quantisers (ln_quant_rows_kernel, quant_rows_kernel and its two halves for
+// the pair on shards), the pair's chain of nine launches (q8_pair_chain),
+// whose products run on the int8 engine (hopper_gemm_s8.cuh) and whose
+// attention core is the tensor-core forward (attention_tc.cuh), and the
+// dequantising row pass of the pair on shards (dequant_rows_kernel). The
+// scheme, the rounding points and the bound are in the note at the top of
+// pair_q8_kernels.cu.
 //
 // Everything is in an anonymous namespace, as in pair_common.cuh: each .cu
 // that includes this file builds into its own shared library with its own
@@ -50,6 +52,35 @@ __device__ __forceinline__ void store_q4(signed char* dst, const float v[4], flo
     *reinterpret_cast<char4*>(dst) = q;
 }
 
+// The absolute maximum of one row's K values (lane-strided, K % 4 == 0),
+// reduced over the warp: every lane holds it.
+template <typename T>
+__device__ __forceinline__ float row_amax(const T* __restrict__ s, int K, int lane) {
+    float v[4];
+    float amax = 0.f;
+    for (int k = lane * 4; k < K; k += 128) {
+        load4(s + k, v);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) amax = fmaxf(amax, fabsf(v[t]));
+    }
+    return warp_max(amax);
+}
+
+// One row's K values quantised with the row's absolute maximum amax:
+// ascale = row_scale(amax), q = clip(rint(v / scale)).
+template <typename T>
+__device__ __forceinline__ void quant_row(const T* __restrict__ s, float amax,
+                                          signed char* __restrict__ dst,
+                                          float* __restrict__ ascale, int K, int lane) {
+    float v[4];
+    const float scale = row_scale(amax);
+    if (lane == 0) *ascale = scale;
+    for (int k = lane * 4; k < K; k += 128) {
+        load4(s + k, v);
+        store_q4(dst + k, v, scale);
+    }
+}
+
 // Per-row symmetric int8 of src (M, K), a warp per row: the row's absolute
 // maximum, then q = clip(rint(v / scale)). The row is read twice (the second
 // time from cache). K % 4 == 0.
@@ -61,20 +92,33 @@ quant_rows_kernel(const T* __restrict__ src, signed char* __restrict__ a8,
     const int lane = threadIdx.x & 31;
     if (row >= M) return;
     const T* s = src + (size_t)row * K;
-    float v[4];
-    float amax = 0.f;
-    for (int k = lane * 4; k < K; k += 128) {
-        load4(s + k, v);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) amax = fmaxf(amax, fabsf(v[t]));
-    }
-    const float scale = row_scale(warp_max(amax));
-    if (lane == 0) ascale[row] = scale;
-    signed char* dst = a8 + (size_t)row * K;
-    for (int k = lane * 4; k < K; k += 128) {
-        load4(s + k, v);
-        store_q4(dst + k, v, scale);
-    }
+    quant_row(s, row_amax(s, K, lane), a8 + (size_t)row * K, ascale + row, K, lane);
+}
+
+// quant_rows_kernel split in two for the W8A8 pair on shards (B9_tp), whose
+// rank holds K of a row's columns: row_amax_kernel writes each row's maximum
+// over the rank's columns, the caller takes the maximum over the model ranks
+// (an exact all-reduce), and quant_rows_given_kernel quantises the rank's
+// columns with it. Over a whole row the two give quant_rows_kernel's bits.
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+row_amax_kernel(const T* __restrict__ src, float* __restrict__ amax, int M, int K) {
+    const int row = blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= M) return;
+    const float m = row_amax(src + (size_t)row * K, K, lane);
+    if (lane == 0) amax[row] = m;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+quant_rows_given_kernel(const T* __restrict__ src, const float* __restrict__ amax,
+                        signed char* __restrict__ a8, float* __restrict__ ascale, int M,
+                        int K) {
+    const int row = blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= M) return;
+    quant_row(src + (size_t)row * K, amax[row], a8 + (size_t)row * K, ascale + row, K, lane);
 }
 
 __device__ __forceinline__ void ln4(const bf16* row, const float* ln_w, const float* ln_b,
@@ -146,6 +190,52 @@ cudaError_t launch_quant_rows(const void* src, void* a8, void* ascale, int M, in
     quant_rows_kernel<T><<<row_blocks(M), ROW_THREADS, 0, stream>>>(
         static_cast<const T*>(src), static_cast<signed char*>(a8),
         static_cast<float*>(ascale), M, K);
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_row_amax(const void* src, void* amax, int M, int K, cudaStream_t stream) {
+    row_amax_kernel<T><<<row_blocks(M), ROW_THREADS, 0, stream>>>(
+        static_cast<const T*>(src), static_cast<float*>(amax), M, K);
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_quant_rows_given(const void* src, const void* amax, void* a8, void* ascale,
+                                    int M, int K, cudaStream_t stream) {
+    quant_rows_given_kernel<T><<<row_blocks(M), ROW_THREADS, 0, stream>>>(
+        static_cast<const T*>(src), static_cast<const float*>(amax),
+        static_cast<signed char*>(a8), static_cast<float*>(ascale), M, K);
+    return cudaGetLastError();
+}
+
+// B9_tp's dequantising epilogue after the int32 all-reduce, four columns a
+// thread: out = bf16(((float)acc * ascale[m]) * wscale[n] + bias[n] + R),
+// q8_epilogue4<Q8_BIAS_RES> itself, so the output is the s8 engine's
+// Q8_BIAS_RES output of the same sums bit for bit. N % 4 == 0.
+constexpr int DEQUANT_THREADS = 256;
+
+__global__ void __launch_bounds__(DEQUANT_THREADS)
+dequant_rows_kernel(const int* __restrict__ acc, const float* __restrict__ ascale,
+                    const float* __restrict__ wscale, const bf16* __restrict__ bias,
+                    const bf16* __restrict__ R, bf16* __restrict__ out, int M, int N) {
+    const size_t o = ((size_t)blockIdx.x * DEQUANT_THREADS + threadIdx.x) * 4;
+    if (o >= (size_t)M * N) return;
+    const int m = (int)(o / N), n = (int)(o % N);
+    const int4 a = *reinterpret_cast<const int4*>(acc + o);
+    const int v[4] = {a.x, a.y, a.z, a.w};
+    q8_epilogue4<Q8_BIAS_RES>(v, __ldg(ascale + m), o, n, wscale, bias, R, out);
+}
+
+cudaError_t launch_dequant_rows(const void* acc, const void* ascale, const void* wscale,
+                                const void* bias, const void* R, void* out, int M, int N,
+                                cudaStream_t stream) {
+    const size_t quads = (size_t)M * N / 4;
+    dequant_rows_kernel<<<(unsigned)((quads + DEQUANT_THREADS - 1) / DEQUANT_THREADS),
+                          DEQUANT_THREADS, 0, stream>>>(
+        static_cast<const int*>(acc), static_cast<const float*>(ascale),
+        static_cast<const float*>(wscale), static_cast<const bf16*>(bias),
+        static_cast<const bf16*>(R), static_cast<bf16*>(out), M, N);
     return cudaGetLastError();
 }
 

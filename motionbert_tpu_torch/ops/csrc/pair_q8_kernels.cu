@@ -95,11 +95,111 @@ extern "C" int mbt_pair_block_q8(
     return (int)err;
 }
 
+// ---------------------------------------------------------------------------
+// B9_tp: the W8A8 pair on a model rank's shards (ops/pair_q8.py
+// fused_pair_block_q8_tp). A rank holds a head group of the attention (wqkv
+// rows 3 Ci, wproj columns Ci, Hl heads) and a hidden slice of the MLP (w1
+// rows hid_r, w2 columns hid_r), x is replicated. Four entries, with the
+// caller's collectives over the model ranks between them:
+//   mbt_pair_q8_tp_attn      ln_quant_rows (whole C), hg_gemm_s8<BIAS> qkv_r,
+//                            the core on the local heads, row_amax(attn_r)
+//       all-reduce MAX of the row maxima (M floats)
+//   mbt_pair_q8_tp_partial   quant_rows_given(attn_r), hg_gemm_s8<ACC_S32>
+//       all-reduce SUM of the int32 partials (M x C)
+//   mbt_pair_q8_tp_mlp       dequant_rows (y = bf16(deq + bproj + x)),
+//                            ln_quant_rows (whole C), hg_gemm_s8<GELU_F32>
+//                            act_r, row_amax(act_r)
+//       all-reduce MAX
+//   mbt_pair_q8_tp_partial   quant_rows_given(act_r), hg_gemm_s8<ACC_S32>
+//       all-reduce SUM
+//   mbt_pair_q8_tp_out       dequant_rows (out = bf16(deq + b2 + y)) [+ gate]
+// The column scales of wproj and w2, whose rows a rank holds only K of, are
+// the caller's too (the maximum over the rank's columns, all-reduced with
+// MAX). Every row scale is then the whole row's, every column scale the
+// whole column's, every int32 sum the whole product's (exact: 127^2 K stays
+// below 2^31 for K up to 133,000), and dequant_rows runs q8_epilogue4<
+// Q8_BIAS_RES> on it: the output is B9's bit for bit at any model size T.
+// Scratch: a8 (M, max(C, Ci, hid_r)) int8, ascale and amax (M,) fp32, qkv
+// (M, 3 Ci) and attn (M, Ci) bf16, acc (M, C) int32, y (M, C) bf16, act
+// (M, hid_r) fp32, pair_out (M, C) bf16 when gated. Ci, hid_r and C are
+// multiples of 64 (the s8 engine's N and K).
+// ---------------------------------------------------------------------------
+
+// 4 launches. Writes a8 / ascale (LN1's rows, whole), qkv, attn and amax.
+extern "C" int mbt_pair_q8_tp_attn(
+    const void* x, void* a8, void* ascale, void* qkv, void* attn, void* amax,
+    const void* ln1_w, const void* ln1_b, const void* wqkv8, const void* sqkv,
+    const void* bqkv, int B, int F, int J, int C, int Ci, int Hl, float scale, int temporal,
+    void* stream_ptr) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    const int M = B * F * J;
+    cudaError_t err = launch_ln_quant(x, ln1_w, ln1_b, a8, ascale, M, C, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = hg_gemm_s8<Q8_BIAS>(a8, ascale, wqkv8, sqkv, bqkv, nullptr, qkv, M, 3 * Ci, C,
+                              stream);
+    if (err != cudaSuccess) return (int)err;
+    TcArgs core = tc_packed_args(qkv, B, F, J, Ci, Hl, scale, temporal);
+    core.out = attn;
+    core.ld_out = Ci;
+    err = launch_attention_tc(core, false, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_row_amax<bf16>(attn, amax, M, Ci, stream);
+}
+
+// 2 launches: src (M, K), bf16 (src_f32 0) or fp32, quantised with the
+// all-reduced row maxima amax, times w8 (N, K): acc (M, N) int32, this
+// rank's partial. ascale gets the rows' scales.
+extern "C" int mbt_pair_q8_tp_partial(const void* src, int src_f32, const void* amax,
+                                      void* a8, void* ascale, const void* w8,
+                                      const void* wscale, void* acc, int M, int N, int K,
+                                      void* stream_ptr) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    cudaError_t err = src_f32
+        ? launch_quant_rows_given<float>(src, amax, a8, ascale, M, K, stream)
+        : launch_quant_rows_given<bf16>(src, amax, a8, ascale, M, K, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)hg_gemm_s8<Q8_ACC_S32>(a8, ascale, w8, wscale, nullptr, nullptr, acc, M, N, K,
+                                       stream);
+}
+
+// 4 launches: y from the summed proj products, then fc1 on the rank's slice
+// and its rows' maxima. ascale holds the proj input's scales on entry and
+// LN2's rows' on exit.
+extern "C" int mbt_pair_q8_tp_mlp(
+    const void* acc, void* ascale, const void* sproj, const void* bproj, const void* x, void* y,
+    void* a8, const void* ln2_w, const void* ln2_b, const void* w18, const void* s1,
+    const void* b1, void* act, void* amax, int M, int C, int hid_r, void* stream_ptr) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    cudaError_t err = launch_dequant_rows(acc, ascale, sproj, bproj, x, y, M, C, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_ln_quant(y, ln2_w, ln2_b, a8, ascale, M, C, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = hg_gemm_s8<Q8_BIAS_GELU_F32>(a8, ascale, w18, s1, b1, nullptr, act, M, hid_r, C,
+                                       stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_row_amax<float>(act, amax, M, hid_r, stream);
+}
+
+// 1 launch, 2 when gated (other != nullptr): out = bf16(deq(acc) + b2 + y),
+// through pair_out and the gate against other when gated.
+extern "C" int mbt_pair_q8_tp_out(const void* acc, const void* ascale, const void* s2,
+                                  const void* b2, const void* y, const void* other,
+                                  const void* wg, const void* bg, void* pair_out, void* out,
+                                  int M, int C, void* stream_ptr) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    const bool gated = other != nullptr;
+    cudaError_t err = launch_dequant_rows(acc, ascale, s2, b2, y, gated ? pair_out : out, M, C,
+                                          stream);
+    if (err != cudaSuccess) return (int)err;
+    if (gated) err = launch_gate(other, pair_out, wg, bg, out, M, C, stream);
+    return (int)err;
+}
+
 // The int8 engine alone (ops/pair_q8.py engine_gemm_q8, tests and
 // chip_smoke.py): one hg_gemm_s8 launch with epilogue epi (Q8Epilogue) on
 // A8 (M, K) and W8 (N, K) int8, ascale (M,) and wscale (N,) fp32, bias (N,)
-// bf16 and R (M, N) bf16 for Q8_BIAS_RES; out (M, N) bf16, or fp32 for
-// Q8_BIAS_GELU_F32. Returns 0 or the CUDA error.
+// bf16 and R (M, N) bf16 for Q8_BIAS_RES; out (M, N) bf16, fp32 for
+// Q8_BIAS_GELU_F32, int32 for Q8_ACC_S32. Returns 0 or the CUDA error.
 extern "C" int mbt_q8_gemm_test(int epi, const void* A, const void* ascale, const void* W,
                                 const void* wscale, const void* bias, const void* R,
                                 void* out, int M, int N, int K, void* stream_ptr) {
@@ -112,6 +212,8 @@ extern "C" int mbt_q8_gemm_test(int epi, const void* A, const void* ascale, cons
         case Q8_BIAS_GELU_F32:
             return (int)hg_gemm_s8<Q8_BIAS_GELU_F32>(A, ascale, W, wscale, bias, R, out, M, N,
                                                      K, s);
+        case Q8_ACC_S32:
+            return (int)hg_gemm_s8<Q8_ACC_S32>(A, ascale, W, wscale, bias, R, out, M, N, K, s);
         default:
             return (int)cudaErrorInvalidValue;
     }

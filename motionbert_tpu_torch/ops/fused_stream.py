@@ -27,6 +27,16 @@ gated. The W8A8 Functions take the bf16 stream's backward unchanged
 calls on the card; the B3 launches inside them count as the pair
 backward's.
 
+On a tensor-parallel grid (``parallel.mesh.shard_params`` with a model
+axis) B10 launches nothing: its one launch spans both pairs, and on shards
+each pair needs its two model-group reductions between its halves, which no
+single launch can hold. The stream tiers' pairs then run the TP modes in
+its place (``parallel.tensor``): "kernel_stream" the bf16 halves (B4_tp /
+B6_tp), "kernel_stream_q8" the W8A8 pair on shards (B9_tp), whose output is
+the W8A8 pair chain's, and so this stream's, bit for bit. The grid chooses
+them, not a failure: they are hand-written kernels, counted in their own
+wrappers' launches.
+
 Source note. The kernel replaces the TPU kernel
 ``motionbert_tpu/ops/fused_stream.py:_stream_pallas`` (``_stream_kernel``).
 On the TPU it keeps the whole clip resident in VMEM, so that the inter-pair

@@ -44,6 +44,22 @@ pair's tensor-core forward (``csrc/attention_tc.cuh``).
 residual epilogues: the integer sums are exact and the dequantise is the
 same chain of fp32 roundings).
 
+The pair on shards (B9_tp). Under tensor parallelism a model rank holds a
+head group of the attention (wqkv's rows of Hl heads, wproj's matching Ci
+columns) and a hidden slice of the MLP (w1's rows, w2's columns), and x is
+replicated. ``fused_pair_block_q8_tp`` runs the W8A8 pair on them with the
+model group's collectives between its stages: qkv and fc1 are
+column-parallel, and a per-output-channel scale sees its whole column on
+the rank's rows; the rows that proj and fc2 quantise (the attention output,
+GELU(hid)) and the columns of wproj and w2 are the rank's K of them, so
+their absolute maxima are all-reduced with MAX before quantising, and the
+raw int32 products are all-reduced with SUM (exact) before one dequantising
+row pass. Every scale, integer and rounding is then the unsharded pair's:
+the output equals B9's (and its plain twin ``pair_block_q8_tp_plain`` the
+plain pair's) bit for bit at any model size. With a group of None that half
+is whole on every rank. The backward is the caller's
+(``parallel.tensor.TpPairsQ8``: the bf16 TP halves', straight-through).
+
 Source note. The CUDA chain replaces the TPU kernel
 ``motionbert_tpu/ops/pair_q8.py:_q8_launch`` (``_pair_q8_kernel``,
 ``_gated_pair_q8_kernel``, body ``_pair_rows_q8``). Bound and design are in
@@ -55,11 +71,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed as dist
 
 from motionbert_tpu_torch.ops import _build
 from motionbert_tpu_torch.ops.attention import (
-    ENGINE_MAX_ROWS, check_aligned, check_tensor, ln_fwd_stats,
-    st_attention_plain, wide)
+    ENGINE_MAX_ROWS, HEAD_DIMS, MAX_FRAMES, NUM_JOINTS, check_aligned,
+    check_tensor, core_max_rows, ln_fwd_stats, st_attention_plain, wide)
 from motionbert_tpu_torch.ops.fused_pair import (
     _device_kind, check_kernel_args, fused_gated_pair_block_bwd,
     fused_pair_block_bwd, gate_plain)
@@ -102,6 +119,12 @@ def _int_matmul(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a8.to(dt), w8.to(dt).t()).float()
 
 
+def _int_products(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """The exact integer product a8 (..., K) . w8 (N, K)^T as int32."""
+    dt = torch.float32 if a8.shape[-1] <= EXACT_FP32_K else torch.float64
+    return torch.matmul(a8.to(dt), w8.to(dt).t()).to(torch.int32)
+
+
 def qdot_plain(a: torch.Tensor, w: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
     """Quantise the fp32 rows of ``a`` and the weight (out, in), take the
@@ -111,8 +134,8 @@ def qdot_plain(a: torch.Tensor, w: torch.Tensor,
     return _int_matmul(a8, w8) * ascale * wscale + bias.float()
 
 
-# the s8 engine's epilogues (csrc/hopper_gemm.cuh's Q8Epilogue)
-Q8_EPILOGUES = {"bias": 0, "bias_res": 1, "bias_gelu_f32": 2}
+# the s8 engine's epilogues (csrc/hopper_gemm_s8.cuh's Q8Epilogue)
+Q8_EPILOGUES = {"bias": 0, "bias_res": 1, "bias_gelu_f32": 2, "acc_s32": 3}
 
 
 def engine_gemm_q8_plain(epi: str, a8, ascale, w8, wscale, bias,
@@ -122,7 +145,10 @@ def engine_gemm_q8_plain(epi: str, a8, ascale, w8, wscale, bias,
     wscale[n]) + bias[n] in fp32, one rounding at a time, as ``qdot_plain``
     takes it; "bias_res" adds r (M, N); both round once to bias's dtype.
     "bias_gelu_f32" returns the fp32 GELU of the sum, as
-    ``pair_block_q8_plain`` takes it."""
+    ``pair_block_q8_plain`` takes it; "acc_s32" the int32 product itself
+    (B9_tp's row-parallel partials), reading no scale, bias or r."""
+    if epi == "acc_s32":
+        return _int_products(a8, w8)
     acc = _int_matmul(a8, w8) * ascale.reshape(-1, 1) * wscale + bias.float()
     if epi == "bias_gelu_f32":
         return 0.5 * acc * (1.0 + torch.erf(acc * 0.7071067811865476))
@@ -231,7 +257,8 @@ def check_engine_q8_args(epi: str, a8, ascale, w8, wscale, bias, r) -> tuple:
             ("ascale", ascale, (M,), f32), ("wscale", wscale, (N,), f32),
             ("bias", bias, (N,), torch.bfloat16),
             ("r", r, (M, N), torch.bfloat16)):
-        if t is None and name == "r" and epi != "bias_res":
+        if t is None and (name == "r" and epi != "bias_res"
+                          or name == "bias" and epi == "acc_s32"):
             continue
         if t is None:
             raise ValueError(f"{epi} reads {name}")
@@ -255,7 +282,8 @@ def engine_gemm_q8(epi: str, a8, ascale, w8, wscale, bias,
     test entry ``mbt_q8_gemm_test``) on CUDA tensors, counted in
     ``engine_gemm_q8.launches``; ``engine_gemm_q8_plain`` on CPU tensors.
     a8 (M, K) and w8 (N, K) int8, ascale (M,) and wscale (N,) fp32, bias
-    (N,) and r (M, N) bf16; out (M, N) bf16, or fp32 for "bias_gelu_f32".
+    (N,) and r (M, N) bf16; out (M, N) bf16, fp32 for "bias_gelu_f32",
+    int32 for "acc_s32".
     The chain launches the engine itself; this entry is for the tests and
     chip_smoke.py."""
     if _device_kind(a8, "s8 engine") == "cpu":
@@ -264,11 +292,13 @@ def engine_gemm_q8(epi: str, a8, ascale, w8, wscale, bias,
     lib = _engine_library()
     dev = a8.device
     with torch.cuda.device(dev):
-        out = torch.empty((M, N), device=dev, dtype=torch.float32
-                          if epi == "bias_gelu_f32" else torch.bfloat16)
+        out = torch.empty((M, N), device=dev, dtype={
+            "bias_gelu_f32": torch.float32, "acc_s32": torch.int32}.get(
+                epi, torch.bfloat16))
         rc = lib.mbt_q8_gemm_test(
             Q8_EPILOGUES[epi], a8.data_ptr(), ascale.data_ptr(),
-            w8.data_ptr(), wscale.data_ptr(), bias.data_ptr(),
+            w8.data_ptr(), wscale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
             None if r is None else r.data_ptr(), out.data_ptr(), M, N, K,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -358,3 +388,259 @@ def fused_gated_pair_block_q8(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj,
 
 
 fused_gated_pair_block_q8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the pair on shards (B9_tp)
+# ---------------------------------------------------------------------------
+
+def all_reduce_group(t: torch.Tensor, group,
+                     op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """t, in place, reduced with ``op`` over the ranks of ``group`` (nothing
+    with None). Exact for both of B9_tp's uses: the maximum, and the sum of
+    int32 partial products, none of which nears 2^31."""
+    if group is not None:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def quant_cols_tp(w: torch.Tensor, group) -> tuple:
+    """``quant_cols`` of the whole weight on a rank's columns of it, w (out,
+    K_r): each output channel's absolute maximum over the rank's columns,
+    all-reduced with MAX over ``group``, scales every rank's columns."""
+    wf = w.float()
+    q, scale = _quantise(wf, all_reduce_group(wf.abs().amax(1, keepdim=True),
+                                              group, dist.ReduceOp.MAX),
+                         COL_AMAX_FLOOR)
+    return q, scale.reshape(-1)
+
+
+class _PlainTp:
+    """B9_tp's stages in plain PyTorch, at ``pair_block_q8_plain``'s
+    rounding points: the plain twin."""
+
+    def attn(self, x, ln1_w, ln1_b, wqkv8, sqkv, bqkv, heads, scale, mode):
+        dt = x.dtype
+        a8, ascale = q8_rows(ln_fwd_stats(x, ln1_w, ln1_b)[2])
+        qkv = _int_matmul(a8, wqkv8) * ascale * sqkv + bqkv.float()
+        ci = wqkv8.shape[0] // 3
+        attn = st_attention_plain(qkv[..., :ci].to(dt),
+                                  qkv[..., ci:2 * ci].to(dt),
+                                  qkv[..., 2 * ci:].to(dt), mode, heads, scale)
+        return attn, attn.float().abs().amax(-1)
+
+    def partial(self, src, amax, w8, wscale):
+        a8, self.ascale = _quantise(src.float(), amax[..., None],
+                                    ROW_AMAX_FLOOR)
+        return _int_products(a8, w8)
+
+    def mlp(self, acc, sproj, bproj, x, ln2_w, ln2_b, w18, s1, b1):
+        y = (acc.float() * self.ascale * sproj + bproj.float()
+             + wide(x)).to(x.dtype)
+        a8, ascale = q8_rows(ln_fwd_stats(y, ln2_w, ln2_b)[2])
+        z = _int_matmul(a8, w18) * ascale * s1 + b1.float()
+        act = 0.5 * z * (1.0 + torch.erf(z * 0.7071067811865476))
+        return y, act, act.abs().amax(-1)
+
+    def out(self, acc, s2, b2, y, other, wg, bg):
+        out = (acc.float() * self.ascale * s2 + b2.float()
+               + wide(y)).to(y.dtype)
+        return out if other is None else gate_plain(other, out, wg, bg)
+
+
+_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# B9_tp's C entries (csrc/pair_q8_kernels.cu) and their argument types
+TP_ARGTYPES = {
+    "mbt_pair_q8_tp_attn": [_vp] * 11 + [_i] * 6 + [_f, _i, _vp],
+    "mbt_pair_q8_tp_partial": [_vp, _i] + [_vp] * 6 + [_i] * 3 + [_vp],
+    "mbt_pair_q8_tp_mlp": [_vp] * 14 + [_i] * 3 + [_vp],
+    "mbt_pair_q8_tp_out": [_vp] * 10 + [_i] * 2 + [_vp],
+}
+
+
+def _tp_library() -> ctypes.CDLL:
+    lib = _library()
+    if lib.mbt_pair_q8_tp_attn.argtypes is None:
+        for name, argtypes in TP_ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+class _KernelTp:
+    """B9_tp's stages on the card: the entries ``mbt_pair_q8_tp_*`` of
+    ``csrc/pair_q8_kernels.cu`` over one set of scratch buffers."""
+
+    def __init__(self, x, ci: int, hid_r: int):
+        B, F, J, C = x.shape
+        self.M, self.C, self.dev = B * F * J, C, x.device
+        self.lib = _tp_library()
+        self.stream = torch.cuda.current_stream(self.dev).cuda_stream
+        new = lambda *shape, dtype: torch.empty(shape, dtype=dtype,
+                                                device=self.dev)
+        self.a8 = new(self.M, max(C, ci, hid_r), dtype=torch.int8)
+        self.ascale = new(self.M, dtype=torch.float32)
+        self.amax = new(self.M, dtype=torch.float32)
+        self.acc = new(self.M, C, dtype=torch.int32)
+
+    @staticmethod
+    def _check(rc: int, what: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"q8 pair on shards: {what} launch failed "
+                               f"with CUDA error {rc}")
+
+    def attn(self, x, ln1_w, ln1_b, wqkv8, sqkv, bqkv, heads, scale, mode):
+        B, F, J, C = x.shape
+        ci = wqkv8.shape[0] // 3
+        qkv = torch.empty((self.M, 3 * ci), dtype=x.dtype, device=self.dev)
+        attn = torch.empty((self.M, ci), dtype=x.dtype, device=self.dev)
+        self._check(self.lib.mbt_pair_q8_tp_attn(
+            x.data_ptr(), self.a8.data_ptr(), self.ascale.data_ptr(),
+            qkv.data_ptr(), attn.data_ptr(), self.amax.data_ptr(),
+            ln1_w.data_ptr(), ln1_b.data_ptr(), wqkv8.data_ptr(),
+            sqkv.data_ptr(), bqkv.data_ptr(), B, F, J, C, ci, heads,
+            float(scale), int(mode == "temporal"), self.stream), "attention")
+        return attn, self.amax
+
+    def partial(self, src, amax, w8, wscale):
+        self._check(self.lib.mbt_pair_q8_tp_partial(
+            src.data_ptr(), int(src.dtype == torch.float32), amax.data_ptr(),
+            self.a8.data_ptr(), self.ascale.data_ptr(), w8.data_ptr(),
+            wscale.data_ptr(), self.acc.data_ptr(), self.M, self.C,
+            src.shape[-1], self.stream), "partial product")
+        return self.acc
+
+    def mlp(self, acc, sproj, bproj, x, ln2_w, ln2_b, w18, s1, b1):
+        hid_r = w18.shape[0]
+        y = torch.empty_like(x)
+        act = torch.empty((self.M, hid_r), dtype=torch.float32,
+                          device=self.dev)
+        self._check(self.lib.mbt_pair_q8_tp_mlp(
+            acc.data_ptr(), self.ascale.data_ptr(), sproj.data_ptr(),
+            bproj.data_ptr(), x.data_ptr(), y.data_ptr(), self.a8.data_ptr(),
+            ln2_w.data_ptr(), ln2_b.data_ptr(), w18.data_ptr(),
+            s1.data_ptr(), b1.data_ptr(), act.data_ptr(),
+            self.amax.data_ptr(), self.M, self.C, hid_r, self.stream), "MLP")
+        return y, act, self.amax
+
+    def out(self, acc, s2, b2, y, other, wg, bg):
+        out = torch.empty_like(y)
+        pair_out = None if other is None else torch.empty_like(y)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        self._check(self.lib.mbt_pair_q8_tp_out(
+            acc.data_ptr(), self.ascale.data_ptr(), s2.data_ptr(),
+            b2.data_ptr(), y.data_ptr(), ptr(other), ptr(wg), ptr(bg),
+            ptr(pair_out), out.data_ptr(), self.M, self.C, self.stream),
+            "output")
+        return out
+
+
+def check_tp_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
+                  ln2_b, w1, b1, w2, b2, wg, bg, num_heads: int,
+                  mode: str) -> None:
+    """Raise ValueError on anything B9_tp does not take: the pair kernels'
+    conditions (``check_kernel_args``) with the weights a rank's shards: a
+    head group wqkv (3 Ci, C), wproj (C, Ci) of ``num_heads`` local heads
+    and a hidden slice w1 (hid_r, C), w2 (C, hid_r), Ci and hid_r multiples
+    of 64 (the s8 engine's N and K), Ci / num_heads a head dim of the
+    core."""
+    if x.dim() != 4 or wqkv.dim() != 2 or w1.dim() != 2:
+        raise ValueError("x must be (B, F, J, C) and the weights 2-D")
+    B, F, J, C = x.shape
+    ci, hid_r = wqkv.shape[0] // 3, w1.shape[0]
+    if mode not in ("spatial", "temporal"):
+        raise ValueError(f"unknown attention mode: {mode!r}")
+    if J != NUM_JOINTS or not 1 <= F <= MAX_FRAMES:
+        raise ValueError(f"the pair kernel takes J={NUM_JOINTS} joints and "
+                         f"1..{MAX_FRAMES} frames, got J={J}, F={F}")
+    if C % 64 or ci % 64 or hid_r % 64 or num_heads < 1 or ci % num_heads \
+            or ci // num_heads not in HEAD_DIMS:
+        raise ValueError(f"the W8A8 pair on shards takes C % 64 == 0, a head "
+                         f"group of Ci % 64 == 0 channels with a head dim in "
+                         f"{HEAD_DIMS} and a hidden slice % 64 == 0, got "
+                         f"C={C}, Ci={ci}, heads={num_heads}, hidden "
+                         f"slice={hid_r}")
+    limit = core_max_rows(num_heads)
+    if not 1 <= B * F * J <= limit:
+        raise ValueError(f"the pair kernel takes 1..{limit} token rows "
+                         f"(B*F*J) at {num_heads} heads, got {B * F * J}")
+    dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
+    check_tensor("x", x, (B, F, J, C), bf16, dev)
+    if other is not None:
+        check_tensor("other", other, (B, F, J, C), bf16, dev)
+        check_tensor("wg", wg, (2, 2 * C), bf16, dev)
+        check_tensor("bg", bg, (2,), bf16, dev)
+    for name, t in (("ln1_w", ln1_w), ("ln1_b", ln1_b), ("ln2_w", ln2_w),
+                    ("ln2_b", ln2_b)):
+        check_tensor(name, t, (C,), f32, dev)
+    for name, t, shape in (
+            ("wqkv", wqkv, (3 * ci, C)), ("bqkv", bqkv, (3 * ci,)),
+            ("wproj", wproj, (C, ci)), ("bproj", bproj, (C,)),
+            ("w1", w1, (hid_r, C)), ("b1", b1, (hid_r,)),
+            ("w2", w2, (C, hid_r)), ("b2", b2, (C,))):
+        check_tensor(name, t, shape, bf16, dev)
+    for name, t in (("x", x), ("other", other), ("bqkv", bqkv),
+                    ("bproj", bproj), ("b1", b1), ("b2", b2), ("wg", wg),
+                    ("bg", bg)):
+        if t is not None:
+            check_aligned(name, t)
+
+
+def _q8_tp(stages, x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
+           ln2_b, w1, b1, w2, b2, wg, bg, num_heads, scale, mode, attn_group,
+           mlp_group) -> torch.Tensor:
+    """B9_tp's stages with the collectives between them (module note)."""
+    wqkv8, sqkv = quant_cols(wqkv)
+    w18, s1 = quant_cols(w1)
+    wproj8, sproj = quant_cols_tp(wproj, attn_group)
+    w28, s2 = quant_cols_tp(w2, mlp_group)
+    attn, amax = stages.attn(x, ln1_w, ln1_b, wqkv8, sqkv, bqkv, num_heads,
+                             scale, mode)
+    MAX = dist.ReduceOp.MAX
+    acc = stages.partial(attn, all_reduce_group(amax, attn_group, MAX),
+                         wproj8, sproj)
+    y, act, amax = stages.mlp(all_reduce_group(acc, attn_group), sproj,
+                              bproj, x, ln2_w, ln2_b, w18, s1, b1)
+    acc = stages.partial(act, all_reduce_group(amax, mlp_group, MAX), w28, s2)
+    return stages.out(all_reduce_group(acc, mlp_group), s2, b2, y, other, wg,
+                      bg)
+
+
+def pair_block_q8_tp_plain(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
+                           ln2_w, ln2_b, w1, b1, w2, b2, wg, bg,
+                           num_heads: int, scale: float, mode: str,
+                           attn_group=None, mlp_group=None) -> torch.Tensor:
+    """The plain twin of ``fused_pair_block_q8_tp``: on a rank's shards
+    (module note), with the model group's collectives, ``pair_block_q8_plain``
+    (gated: ``gated_pair_block_q8_plain``) of the whole weights bit for
+    bit. other None: the ungated pair. Every rank of the groups calls it."""
+    return _q8_tp(_PlainTp(), x, other, ln1_w, ln1_b, wqkv, bqkv, wproj,
+                  bproj, ln2_w, ln2_b, w1, b1, w2, b2, wg, bg, num_heads,
+                  scale, mode, attn_group, mlp_group)
+
+
+def fused_pair_block_q8_tp(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj,
+                           ln2_w, ln2_b, w1, b1, w2, b2, wg, bg,
+                           num_heads: int, scale: float, mode: str,
+                           attn_group=None, mlp_group=None) -> torch.Tensor:
+    """B9_tp: the W8A8 pair (other None) or gated pair on a model rank's
+    shards, ``num_heads`` the local heads, with the collectives over
+    ``attn_group`` / ``mlp_group`` (None: that half's weights are whole).
+    The CUDA stages for a CUDA tensor (counted once a call in
+    ``fused_pair_block_q8_tp.launches``), the plain twin for a CPU tensor.
+    Forward only: ``parallel.tensor.TpPairsQ8`` gives it the straight-through
+    backward. Every rank of the groups calls it."""
+    args = (x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
+            w1, b1, w2, b2, wg, bg, num_heads, scale, mode)
+    if _device_kind(x, "q8 pair on shards") == "cpu":
+        return pair_block_q8_tp_plain(*args, attn_group, mlp_group)
+    check_tp_args(*args[:17], mode)
+    with torch.cuda.device(x.device):
+        out = _q8_tp(_KernelTp(x, wqkv.shape[0] // 3, w1.shape[0]), *args,
+                     attn_group, mlp_group)
+    fused_pair_block_q8_tp.launches += 1
+    return out
+
+
+fused_pair_block_q8_tp.launches = 0

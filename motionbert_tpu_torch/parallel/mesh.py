@@ -1,7 +1,7 @@
 """Data and tensor parallelism over ``torch.distributed``: process groups,
 the ("data", "model") process grid, the rank's rows of a global batch,
 padded evaluation batches, gathers, the DDP wrap, and the tensor-parallel
-sharding of the pose3d model's weights.
+sharding of the DSTformer's weights and of the action and mesh heads'.
 
 The port of ``motionbert_tpu/parallel/mesh.py`` (``make_mesh``,
 ``shard_batch``, ``padded_eval_batches``, ``_TP_RULES``,
@@ -33,7 +33,11 @@ Pallas call); the port computes on the shards for real, Megatron style:
 matching columns) and a hidden slice of every MLP, the pairs run the TP
 modes of the block kernels on them and all-reduce their fp32 partials over
 the model group (``parallel/tensor.py``), and DDP averages gradients over
-the data group, whose ranks hold the same shards. A sharded model's
+the data group, whose ranks hold the same shards. The action and mesh
+heads' fc1 / fc2 layers, which the same rules name, are cut the same way
+(column- and row-parallel, Megatron's operators around them), and a
+BatchNorm after a sliced fc1 keeps the rank's features, its statistics
+summed over the data group. A sharded model's
 ``state_dict()`` gathers whole tensors (``gather_params``) and its
 ``load_state_dict`` takes whole tensors and keeps its shards, so a
 checkpoint written at any grid loads at any other. With a grid, the rows,
@@ -291,6 +295,14 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     return all_reduce(x, group=group or dist.group.WORLD)
 
 
+def sum_over_data(x: torch.Tensor) -> torch.Tensor:
+    """The sum of x over the data ranks (with a grid, the ranks of this
+    rank's data group: its model ranks hold other features), differentiable;
+    x itself with one data rank."""
+    W, _, group = _data_axis()
+    return x if W == 1 else all_reduce_sum(x, group)
+
+
 def mean_over_ranks(terms: dict) -> dict:
     """The mean over the ranks of 0-d tensors (the loss terms of the rank's
     rows): the global batch's terms where each is a mean over its rows.
@@ -397,84 +409,136 @@ def param_partition_spec(name: str, value=None) -> Optional[int]:
     return None
 
 
+def _engine_widths(model) -> bool:
+    """Whether the model's pairs run the CUDA chains (a kernel tier on a
+    CUDA device), whose shards must be whole 64-column tiles of the GEMM
+    engines (bf16 and s8): a half whose shard is not then stays whole, as
+    one whose heads do not divide does."""
+    from motionbert_tpu_torch.parallel.tensor import TIER_IMPLS
+
+    backbone = getattr(model, "backbone", model)
+    return TIER_IMPLS[backbone.blocks_st[0].attn_impl][0] == "kernel" and \
+        next(backbone.parameters()).device.type == "cuda"
+
+
 def _tp_plan(model, mesh: Mesh) -> dict:
     """{state_dict name: (dim, the model rank's indices along it)} of every
-    weight the rules shard whose pair divides over the model axis: qkv's
-    rows of the rank's head group (its q, k and v rows of heads [r H / T,
-    (r + 1) H / T)), proj's columns of those heads, fc1's rows and fc2's
-    columns of the rank's hidden slice. A pair whose heads (or hidden
-    width) do not divide stays whole on every rank, as JAX replicates a
-    dimension that does not divide."""
+    tensor the rules shard that divides over the model axis. The pairs:
+    qkv's rows of the rank's head group (its q, k and v rows of heads
+    [r H / T, (r + 1) H / T)), proj's columns of those heads, fc1's rows and
+    fc2's columns of the rank's hidden slice; a pair whose heads (or hidden
+    width) do not divide, or on the card whose shard is not whole 64-column
+    tiles, stays whole on every rank, as JAX replicates a dimension that
+    does not divide. The heads: each fc1 / fc2 weight and bias the rules
+    name, on the rule's dimension, the rank's contiguous slice of it (whole
+    when it does not divide: the JAX rule's fallback per parameter), and
+    the BatchNorm after a sliced fc1 (weight, bias, running averages) on
+    the same features."""
+    from motionbert_tpu_torch.models.dstformer import Attention, Mlp
+
     T, r = mesh.n_model, mesh.model_index
+    tiles = _engine_widths(model)
+
+    def own(n: int) -> torch.Tensor:
+        return torch.arange(r * (n // T), (r + 1) * (n // T))
+
     plan = {}
-    for name, _ in model.named_parameters():
+    tensors = dict(model.named_parameters())
+    for name, t in tensors.items():
         dim = param_partition_spec(name)
         if dim is None:
             continue
         owner, layer, _ = name.rsplit(".", 2)
         block = model.get_submodule(owner)
-        if layer in ("qkv", "proj"):
-            if block.num_heads % T:
-                continue
+        if isinstance(block, Attention):
             C = block.proj.weight.shape[0]
             ci = C // T
-            cols = torch.arange(r * ci, (r + 1) * ci)
+            if block.num_heads % T or (tiles and ci % 64):
+                continue
+            cols = own(C)
             idx = torch.cat([cols + i * C for i in range(3)]) \
                 if layer == "qkv" else cols
-        else:
+        elif isinstance(block, Mlp):
             hidden = block.fc1.weight.shape[0]
-            if hidden % T:
+            if hidden % T or (tiles and (hidden // T) % 64):
                 continue
-            idx = torch.arange(r * (hidden // T), (r + 1) * (hidden // T))
+            idx = own(hidden)
+        else:
+            if t.shape[dim] % T:
+                continue
+            idx = own(t.shape[dim])
         plan[name] = (dim, idx)
+    for head, bn in (("head", "bn"), ("head", "bn1")):
+        if f"{head}.fc1.weight" in plan and hasattr(
+                model.get_submodule(head), bn):
+            idx = plan[f"{head}.fc1.weight"][1]
+            for key in ("weight", "bias", "running_mean", "running_var"):
+                plan[f"{head}.{bn}.{key}"] = (0, idx)
     return plan
 
 
 def shard_params(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
-    """Leave this model rank the shards ``_tp_plan`` gives it of every pair's
-    weights (the same Parameter objects, so an optimizer made before keeps
-    them) and mark the model tensor-parallel: its pairs then run the TP
-    modes of the block kernels on the shards and all-reduce over
-    ``mesh.model_group``; its ``state_dict()`` gathers whole tensors and its
-    ``load_state_dict`` takes whole ones. A pair whose heads or hidden width
-    do not divide over the model axis stays whole and warns once. On a grid
-    without a model axis (n_model 1) the model is returned as it is, for any
-    model. Tensor parallelism covers the pose3d DSTformer with attn_impl
-    "kernel" or "plain" and no dropout, drop-path or attention dropout;
-    anything else raises ValueError naming what it lacks
-    (``models.dstformer.tensor_parallel_gaps``). Call it on a whole model,
+    """Leave this model rank the shards ``_tp_plan`` gives it (the same
+    Parameter and buffer objects, so an optimizer made before keeps them)
+    and mark the model tensor-parallel: its pairs then run on the shards
+    and all-reduce over ``mesh.model_group`` (``parallel/tensor.py``: the
+    TP modes of the block kernels in the bf16 and stream tiers, the W8A8
+    pair on shards in the W8A8 tiers, the halves without their residual
+    under dropout and drop-path), and an action or mesh model's head runs
+    its column- and row-parallel layers on its slices; its ``state_dict()``
+    gathers whole tensors and its ``load_state_dict`` takes whole ones. A
+    pair whose heads or hidden width do not divide over the model axis (or,
+    on the card, whose shards are not whole 64-column tiles), and a head
+    layer whose width does not divide, stays whole and warns once. On a
+    grid without a model axis (n_model 1) the model is returned as it is,
+    for any model. Covered: the DSTformer, and the ActionNet (classifier
+    and embedding) and MeshRegressor on it, in every attn_impl tier, with
+    any dropout or drop-path rate; not covered, raising ValueError that
+    names it (``models.dstformer.tensor_parallel_gaps``): attention dropout,
+    a stage_para block, a model already sharded. Call it on a whole model,
     after loading its weights or before, on every rank of the grid."""
     from motionbert_tpu_torch.models.dstformer import tensor_parallel_gaps
-    from motionbert_tpu_torch.parallel.tensor import TpPlan
+    from motionbert_tpu_torch.parallel.tensor import HeadPlan, TpPlan
 
     if mesh is None or mesh.n_model == 1:
         return model
     gaps = tensor_parallel_gaps(model)
     if gaps:
-        raise ValueError("tensor parallelism (n_model > 1) is ported for "
-                         "the pose3d DSTformer with attn_impl 'kernel' or "
-                         "'plain' and no dropout; this model has "
+        raise ValueError("tensor parallelism (n_model > 1) is not ported for "
                          + "; ".join(gaps))
     plan = _tp_plan(model, mesh)
-    attn, mlp = (any(key in n for n in plan) for key in (".qkv.", ".fc1."))
-    for half, sharded in (("attention heads", attn), ("MLP hidden width",
-                                                       mlp)):
-        if not sharded:
-            warnings.warn(f"the pairs' {half} does not divide over "
-                          f"{mesh.n_model} model ranks: those weights stay "
-                          f"whole on every rank", stacklevel=2)
-    params = dict(model.named_parameters())
+    backbone = getattr(model, "backbone", model)
+    prefix = "backbone." if backbone is not model else ""
+    attn, mlp = (any(n.startswith(prefix + "blocks") and key in n
+                     for n in plan) for key in (".qkv.", ".fc1."))
+    whole = [half for half, sharded in (("the pairs' attention heads", attn),
+                                        ("the pairs' MLP hidden width", mlp))
+             if not sharded]
+    head = getattr(model, "head", None) if backbone is not model else None
+    if head is not None:
+        whole += [f"the head's {layer}" for layer in ("fc1", "fc2")
+                  if hasattr(head, layer) and f"head.{layer}.weight"
+                  not in plan]
+    for what in whole:
+        warnings.warn(f"{what} does not divide over {mesh.n_model} model "
+                      f"ranks: those weights stay whole on every rank",
+                      stacklevel=2)
+    tensors = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     with torch.no_grad():
         for name, (dim, idx) in plan.items():
-            p = params[name]
-            p.data = p.data.index_select(dim, idx.to(p.device)).contiguous()
-            p.grad = None
-    heads = model.blocks_st[0].num_heads
-    tp = TpPlan(mesh.model_group if attn else None,
-                mesh.model_group if mlp else None,
-                heads // mesh.n_model if attn else heads)
-    for blk in (*model.blocks_st, *model.blocks_ts):
+            t = tensors[name]
+            t.data = t.data.index_select(dim, idx.to(t.device)).contiguous()
+            t.grad = None
+    heads = backbone.blocks_st[0].num_heads
+    group = mesh.model_group
+    tp = TpPlan(group if attn else None, group if mlp else None,
+                heads // mesh.n_model if attn else heads, mesh.model_index)
+    for blk in (*backbone.blocks_st, *backbone.blocks_ts):
         blk.tp = tp
+    if head is not None:
+        head.tp = HeadPlan(*(group if f"head.{layer}.weight" in plan else None
+                             for layer in ("fc1", "fc2")),
+                           mesh.n_model, mesh.model_index)
     model.tp_mesh, model.tp_plan = mesh, plan
     model.register_state_dict_post_hook(_gather_hook)
     model.register_load_state_dict_pre_hook(_shard_hook)
@@ -513,7 +577,8 @@ def _gather_hook(module, state_dict, prefix, local_metadata) -> None:
 def _shard_hook(module, state_dict, prefix, *args) -> None:
     """load_state_dict of whole tensors into a sharded model: each keeps
     this rank's shard."""
-    params = dict(module.named_parameters())
+    params = {**dict(module.named_parameters()),
+              **dict(module.named_buffers())}
     for name, (dim, idx) in module.tp_plan.items():
         t = state_dict.get(prefix + name)
         if t is not None and t.shape[dim] != params[name].shape[dim]:

@@ -15,7 +15,10 @@ statistics update in the step. Dropout masks draw from one
 ``torch.Generator`` on the model's device whose state the checkpoints keep.
 Data parallel under ``torchrun`` as ``train.pose3d`` is: the head's
 BatchNorm takes the global batch's statistics, and the backbone's unused
-output head stays out of DDP's gradient reduction.
+output head stays out of DDP's gradient reduction. Tensor parallel through
+the API as ``train.pose3d`` is (``shard_params`` on a grid's model axis,
+then these steps on the sharded model): the head's fc1 / fc2 on slices, its
+BatchNorm on the rank's features.
 """
 
 from __future__ import annotations
@@ -31,9 +34,9 @@ import torch.nn.functional as F
 from motionbert_tpu_torch.core.metrics import AverageMeter, accuracy_topk
 from motionbert_tpu_torch.models.action_heads import ActionNet
 from motionbert_tpu_torch.parallel.mesh import (
-    add_dist_backend, barrier, check_batch_size, eval_rows, init_distributed,
-    is_main, mean_over_ranks, padded_eval_batches, rank_batches, run_main,
-    world_size, wrap_ddp)
+    add_dist_backend, barrier, check_batch_size, data_size, eval_rows,
+    init_distributed, is_main, mean_over_ranks, padded_eval_batches,
+    rank_batches, run_main, wrap_ddp)
 
 # keys a JAX ActionNet's state_dict lacks (module note of models/action_heads)
 JAX_MISSING_KEYS = ("backbone.head.weight", "backbone.head.bias")
@@ -88,7 +91,7 @@ def validate(test_loader, model: ActionNet) -> tuple:
     eval_step = make_action_eval_step(model)
     losses, top1, top5 = AverageMeter(), AverageMeter(), AverageMeter()
     for batch_input, batch_gt, n in padded_eval_batches(test_loader,
-                                                        world_size()):
+                                                        data_size()):
         logits = eval_rows(eval_step, batch_input, device, n).astype(
             np.float64)
         labels = np.asarray(batch_gt)
@@ -254,7 +257,7 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
                 rank_batches(train_loader, dev)):
             m = mean_over_ranks(train_step(batch_input, batch_gt.long()))
             for k, v in m.items():
-                meters[k].update(float(v), len(batch_input) * world_size())
+                meters[k].update(float(v), len(batch_input) * data_size())
             if (idx + 1) % print_freq == 0:
                 print(f"Epoch: [{epoch}][{idx + 1}/{len(train_loader)}]\t"
                       f"Loss {meters['loss'].val:.4f} "

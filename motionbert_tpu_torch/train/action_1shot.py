@@ -26,8 +26,8 @@ import torch
 from motionbert_tpu_torch.losses.supcon import supcon_loss
 from motionbert_tpu_torch.models.action_heads import ActionNet
 from motionbert_tpu_torch.parallel.mesh import (
-    check_batch_size, eval_rows, gather_rows, init_distributed,
-    padded_eval_batches, rank_batches, run_main, world_size, wrap_ddp)
+    check_batch_size, data_size, eval_rows, gather_rows, init_distributed,
+    padded_eval_batches, rank_batches, run_main, wrap_ddp)
 
 
 def make_supcon_train_step(model: ActionNet, optimizer: torch.optim.Optimizer,
@@ -42,7 +42,9 @@ def make_supcon_train_step(model: ActionNet, optimizer: torch.optim.Optimizer,
     parallelism each rank embeds its rows and the loss compares the global
     batch's embeddings, gathered with their gradient
     (``parallel.mesh.gather_rows``): every rank computes the same loss, and
-    DDP's average of the gradients is the one-process gradient."""
+    DDP's average of the gradients is the one-process gradient. On a grid
+    with a model axis the head has gathered its embedding's slices over the
+    model ranks already, and ``gather_rows`` gathers over the data ranks."""
 
     def train_step(batch_input: torch.Tensor,
                    batch_gt: torch.Tensor) -> torch.Tensor:
@@ -68,7 +70,7 @@ def extract_feats(loader, model: ActionNet) -> tuple:
     feats, gts = [], []
     with torch.inference_mode():
         for batch_input, batch_gt, n in padded_eval_batches(loader,
-                                                            world_size()):
+                                                            data_size()):
             feats.append(eval_rows(lambda x: model(x).float(), batch_input,
                                    device, n))
             gts.append(np.asarray(batch_gt))
@@ -188,7 +190,7 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         for idx, (batch_input, batch_gt) in enumerate(
                 rank_batches(train_loader, dev)):
             loss = train_step(batch_input, batch_gt.long())
-            losses.update(float(loss), len(batch_input) * world_size())
+            losses.update(float(loss), len(batch_input) * data_size())
             if (idx + 1) % print_freq == 0:
                 print(f"Epoch: [{epoch}][{idx + 1}/{len(train_loader)}]\t"
                       f"Loss {losses.val:.4f} ({losses.avg:.4f})", flush=True)

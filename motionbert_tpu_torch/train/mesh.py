@@ -20,7 +20,9 @@ space; the best checkpoint follows MPJPE, 3DPW's when present. Dropout masks
 draw from one ``torch.Generator`` on the model's device whose state the
 checkpoints keep. Data parallel under ``torchrun`` as ``train.pose3d`` is:
 the head's BatchNorms take the global batch's statistics, and the
-backbone's unused output head stays out of DDP's gradient reduction.
+backbone's unused output head stays out of DDP's gradient reduction. Tensor
+parallel through the API as ``train.pose3d`` is (``shard_params`` on a
+grid's model axis, then these steps on the sharded model).
 """
 
 from __future__ import annotations
@@ -40,9 +42,8 @@ from motionbert_tpu_torch.losses.mesh import (
 from motionbert_tpu_torch.models.mesh_head import MeshRegressor
 from motionbert_tpu_torch.models.smpl import SMPLModel, smpl_forward
 from motionbert_tpu_torch.parallel.mesh import (
-    add_dist_backend, check_batch_size, eval_rows, init_distributed,
-    mean_over_ranks, padded_eval_batches, rank_batches, run_main, world_size,
-    wrap_ddp)
+    add_dist_backend, check_batch_size, data_size, eval_rows, init_distributed,
+    mean_over_ranks, padded_eval_batches, rank_batches, run_main, wrap_ddp)
 
 # the best-MPJPE value before any validation (the reference's)
 NO_METRIC = 9999.0
@@ -126,7 +127,7 @@ def validate(test_loader, model: MeshRegressor, args,
     meters: dict = {}
     results = {"kp_3d": [], "verts": [], "kp_3d_gt": [], "verts_gt": []}
     for batch_input, batch_gt, n in padded_eval_batches(test_loader,
-                                                        world_size()):
+                                                        data_size()):
         out = eval_rows(eval_step, batch_input, device, n)
         total, terms = mesh_total_loss(_to_device(out, device),
                                        _to_device(batch_gt, device), lambdas,
@@ -269,7 +270,7 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
             terms = mean_over_ranks(train_step(batch_input, batch_gt))
             for k, v in terms.items():
                 meters.setdefault(k, AverageMeter()).update(
-                    float(v), len(batch_input) * world_size())
+                    float(v), len(batch_input) * data_size())
             if (idx + 1) % print_freq == 0:
                 tm = meters["total"]
                 print(f"[{idx + 1}/{len(loader)}]\tloss {tm.val:.4f} "

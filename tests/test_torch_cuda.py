@@ -476,7 +476,8 @@ def _q8_engine_operands(device, epi, M, N, K, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("epi", ["bias", "bias_res", "bias_gelu_f32"])
+@pytest.mark.parametrize("epi", ["bias", "bias_res", "bias_gelu_f32",
+                                 "acc_s32"])
 @pytest.mark.parametrize("M,N,K", [(37, 64, 64), (300, 192, 128),
                                    (1, 64, 1024), (16524, 1536, 512),
                                    (16523, 512, 1024)])
@@ -485,7 +486,8 @@ def test_q8_engine_matches_the_integer_product(cuda, epi, M, N, K):
     twin on the same card: int32 sums are exact, and the epilogue takes the
     plain version's order without fused multiply-adds, so bias and bias_res are
     equal bit for bit (ragged M, partial column tiles and the W8A8 pair's
-    widths included); GELU within Q8_ENGINE_GELU_TOL; twice the same bits."""
+    widths included), and acc_s32's raw sums too; GELU within
+    Q8_ENGINE_GELU_TOL; twice the same bits."""
     args = _q8_engine_operands(cuda, epi, M, N, K, seed=M + N + K)
     before = q8.engine_gemm_q8.launches
     got = q8.engine_gemm_q8(epi, *args)
@@ -1596,3 +1598,138 @@ def test_tp_pair_on_one_rank_matches_the_fused_pair(cuda, gated):
         cos = torch.nn.functional.cosine_similarity(
             a.grad.float().flatten(), b.grad.float().flatten(), dim=0)
         assert cos >= 0.999, (i, cos.item())
+
+
+# ---------------------------------------------------------------------------
+# the W8A8 pair on shards (B9_tp: ops/pair_q8.py fused_pair_block_q8_tp)
+# ---------------------------------------------------------------------------
+
+def _q8_tp_args(args, gated, T, r):
+    """Model rank r's arguments of T for B9_tp from a pair's (_inputs):
+    x, other, the 12 parameters with wqkv / bqkv / wproj a head group's and
+    w1 / b1 / w2 a hidden slice's, wg, bg."""
+    x, *rest = args
+    other = rest.pop(0) if gated else None
+    p = list(rest[:12])
+    wg, bg = (rest[12], rest[13]) if gated else (None, None)
+    (a, m) = _tp_shard(p[:6], p[6:], T, r)
+    p = [*a, p[5], *m, p[11]]
+    return [x, other, *p, wg, bg]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("C,H", [(512, 8), (256, 8)])
+def test_q8_tp_at_one_rank_is_b9_bitwise(cuda, mode, gated, C, H):
+    """T = 1 (no collective): B9_tp's stages (the split quantiser, the
+    int32 products, the dequantising row pass) give B9's output bit for
+    bit; one launch counted."""
+    args, H = _inputs(cuda, gated, C=C, H=H, B=2, F=27)
+    scale = (C // H) ** -0.5
+    before = q8.fused_pair_block_q8_tp.launches
+    got = q8.fused_pair_block_q8_tp(*_q8_tp_args(args, gated, 1, 0), H,
+                                    scale, mode)
+    want = (q8.fused_gated_pair_block_q8 if gated
+            else q8.fused_pair_block_q8)(*args, H, scale, mode)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert q8.fused_pair_block_q8_tp.launches == before + 1
+
+
+def _q8_tp_rank(rank: int, store: str, out: str) -> None:
+    """One of two gloo ranks on cuda:0: the MAX and int32 SUM all-reduces
+    on CUDA tensors, then B9_tp on the rank's shards of T 2."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=2, timeout=timedelta(seconds=120))
+    try:
+        dev = torch.device("cuda", 0)
+        m = torch.tensor([1.0 + rank, 5.0 - rank], device=dev)
+        q8.all_reduce_group(m, dist.group.WORLD, dist.ReduceOp.MAX)
+        s = torch.tensor([2 ** 30 - 1, -7 + rank], dtype=torch.int32,
+                         device=dev)
+        q8.all_reduce_group(s, dist.group.WORLD)
+        res = {"max": m.cpu(), "sum": s.cpu(), "outs": {}}
+        for gated in (False, True):
+            for mode in ("spatial", "temporal"):
+                args, H = _inputs(dev, gated, C=512, H=8, B=2, F=27)
+                res["outs"][gated, mode] = q8.fused_pair_block_q8_tp(
+                    *_q8_tp_args(args, gated, 2, rank), H // 2, 0.125, mode,
+                    dist.group.WORLD, dist.group.WORLD).cpu()
+        if rank == 0:
+            torch.save(res, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_q8_tp_on_two_ranks_is_b9_bitwise(cuda, tmp_path):
+    """Two gloo ranks on the card: gloo's MAX and int32 SUM all-reduces run
+    on CUDA tensors (exact), and B9_tp on two head groups and hidden slices
+    gives B9's output bit for bit, gated and not, both modes."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    out = str(tmp_path / "rank0.pt")
+    procs = [ctx.Process(target=_q8_tp_rank,
+                         args=(r, str(tmp_path / "store"), out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    assert [p.exitcode for p in procs] == [0, 0]
+    res = torch.load(out)
+    assert res["max"].tolist() == [2.0, 5.0]
+    assert res["sum"].tolist() == [2 ** 31 - 2, -13]
+    for (gated, mode), got in res["outs"].items():
+        args, H = _inputs(cuda, gated, C=512, H=8, B=2, F=27)
+        want = (q8.fused_gated_pair_block_q8 if gated
+                else q8.fused_pair_block_q8)(*args, H, 0.125, mode)
+        assert torch.equal(got, want.cpu()), (gated, mode)
+
+
+@pytest.mark.cuda
+def test_q8_tp_raises_on_misaligned_or_non_dividing_shards(cuda):
+    """A head group of Ci = 32 (not whole 64-column tiles of the s8
+    engine), a hidden slice of 96, a misaligned bias: ValueError before any
+    launch."""
+    args, H = _inputs(cuda, False, C=256, H=8, F=3)
+    before = q8.fused_pair_block_q8_tp.launches
+    narrow = _q8_tp_args(args, False, 8, 0)
+    with pytest.raises(ValueError, match="Ci % 64"):
+        q8.fused_pair_block_q8_tp(*narrow, 1, 0.125, "temporal")
+    ragged = _q8_tp_args(args, False, 2, 0)
+    ragged[10], ragged[11] = ragged[10][:96], ragged[11][:96]
+    ragged[12] = ragged[12][:, :96].contiguous()
+    with pytest.raises(ValueError, match="hidden"):
+        q8.fused_pair_block_q8_tp(*ragged, 4, 0.125, "temporal")
+    bad = _q8_tp_args(args, False, 2, 0)
+    bad[5] = _misaligned(bad[5])
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        q8.fused_pair_block_q8_tp(*bad, 4, 0.125, "temporal")
+    assert q8.fused_pair_block_q8_tp.launches == before
+
+
+@pytest.mark.cuda
+def test_shards_that_are_not_whole_engine_tiles_stay_whole(cuda):
+    """On the card a kernel tier's pairs take only shards of whole 64-column
+    tiles of the GEMM engines: at width 128, 4 heads, over 4 model ranks a
+    head group is 32 channels, so the attention halves stay whole (with a
+    warning), while the MLP's hidden slices of 64 are cut."""
+    from motionbert_tpu_torch.models.dstformer import DSTformer
+    from motionbert_tpu_torch.parallel.mesh import Mesh, shard_params
+
+    model = DSTformer(dim_in=3, dim_out=3, dim_feat=128, dim_rep=128,
+                      depth=1, num_heads=4, mlp_ratio=2, num_joints=17,
+                      maxlen=27, attn_impl="kernel_q8").to(cuda)
+    with pytest.warns(UserWarning, match="attention heads does not divide"):
+        shard_params(model, Mesh(n_data=1, n_model=4))
+    blk = model.blocks_st[0]
+    assert blk.attn_s.qkv.weight.shape == (384, 128)
+    assert blk.mlp_s.fc1.weight.shape == (64, 128)
+    assert blk.tp.heads == 4 and blk.tp.attn_group is None

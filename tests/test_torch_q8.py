@@ -129,9 +129,18 @@ def _engine_operands(M=37, N=192, K=128, seed=20):
 def test_engine_q8_plain_is_the_jax_qdot(epi):
     """The s8 engine's function (the CPU path of engine_gemm_q8) against the
     JAX kernel's _qdot on the same rows and weight, with the residual or the
-    GELU the pair applies after it: bit for bit but GELU's erf (1 ulp)."""
+    GELU the pair applies after it: bit for bit but GELU's erf (1 ulp);
+    acc_s32 (the raw int32 product of the pair on shards) against the
+    integer product of the JAX quantisers' int8 operands, exactly."""
     a, w, b, r, ops = _engine_operands()
     w8j, wsj = jq8.quant_cols(jnp.asarray(w.float().numpy().T))
+    if epi == "acc_s32":
+        a8j = np.asarray(jq8._q8_rows(jnp.asarray(a.numpy()))[0])
+        got = tq8.engine_gemm_q8(epi, *ops, b)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), a8j.astype(np.int64)
+                                      @ np.asarray(w8j).astype(np.int64))
+        return
     z = jq8._qdot(jnp.asarray(a.numpy()), w8j, wsj, jnp.asarray(
         b.float().numpy()))
     before = tq8.engine_gemm_q8.launches

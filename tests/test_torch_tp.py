@@ -36,8 +36,10 @@ fp32 on the CPU, where the pairs take the TP modes' plain twins. Held:
   attention whole (and warns) and shards its MLP, and steps as world size 1;
 - ``param_partition_spec`` against the JAX package's for every parameter
   name of the pose3d model, the grid's rank layout, its refusal and its
-  warning, and every combination outside tensor parallelism's scope
-  raising ValueError.
+  warning, what stays outside tensor parallelism's scope (attention
+  dropout, a stage_para block) raising ValueError, and the tiers, rates
+  and task models it covers taking their plans
+  (``tests/test_torch_tp_models.py`` runs them on grids).
 """
 
 import multiprocessing
@@ -556,13 +558,14 @@ def _scope_model(kind: str):
         model = DSTformer(**CFG)
         model.blocks_st[0].st_mode = "stage_para"
         return model
-    if kind == "action":
+    if kind in ("action", "embed"):
         from motionbert_tpu_torch.train.action import build_action_model
 
         return build_action_model(ConfigDict(
             {k: v for k, v in CFG.items() if k not in ("dim_in", "dim_out")},
-            hidden_dim=64, action_classes=6, dropout_ratio=0.0,
-            model_version="class"), device="cpu")
+            hidden_dim=64, action_classes=6, dropout_ratio=0.5,
+            model_version="class" if kind == "action" else "embed"),
+            device="cpu")
     if kind == "mesh":
         from motionbert_tpu_torch.models.smpl import SMPLModel
         from motionbert_tpu_torch.train.mesh import build_mesh_model
@@ -572,15 +575,11 @@ def _scope_model(kind: str):
             root, "data", "synthetic", "mesh", "smpl_model.npz"))
         return build_mesh_model(ConfigDict(
             {k: v for k, v in CFG.items() if k not in ("dim_in", "dim_out")},
-            hidden_dim=64, dropout=0.0), smpl, device="cpu")
+            hidden_dim=64, dropout=0.1), smpl, device="cpu")
     raise AssertionError(kind)
 
 
-SCOPE = {"kernel_q8": "W8A8", "plain_q8": "W8A8", "kernel_stream": "stream",
-         "kernel_stream_q8": "W8A8", "drop_rate": "dropout",
-         "drop_path_rate": "drop-path", "attn_drop_rate": "attention dropout",
-         "stage_para": "stage_para", "action": "ActionNet",
-         "mesh": "MeshRegressor"}
+SCOPE = {"attn_drop_rate": "attention dropout", "stage_para": "stage_para"}
 
 
 @pytest.mark.parametrize("kind", sorted(SCOPE))
@@ -594,3 +593,30 @@ def test_what_tensor_parallelism_does_not_cover_raises(kind):
     with pytest.raises(ValueError, match=SCOPE[kind]):
         shard_params(model, Mesh(n_data=1, n_model=2))
     assert shard_params(model, Mesh(n_data=2, n_model=1)) is model
+
+
+COVERED = ("kernel_q8", "plain_q8", "kernel_stream", "kernel_stream_q8",
+           "drop_rate", "drop_path_rate", "action", "embed", "mesh")
+
+
+@pytest.mark.parametrize("kind", COVERED)
+def test_shard_params_takes_every_tier_rate_and_task_model(kind):
+    """The W8A8 and stream tiers, dropout and drop-path, and the action
+    (classifier and embedding) and mesh models shard on a grid with a
+    model axis: every block gets its plan, a task model's head its own,
+    model rank 0 keeps its halves of the pairs' and the heads' fc1; a
+    second shard_params refuses (already sharded)."""
+    from motionbert_tpu_torch.parallel.mesh import Mesh, shard_params
+
+    model = _scope_model(kind)
+    assert shard_params(model, Mesh(n_data=1, n_model=2)) is model
+    backbone = getattr(model, "backbone", model)
+    assert all(b.tp is not None and b.tp.heads == CFG["num_heads"] // 2
+               for b in (*backbone.blocks_st, *backbone.blocks_ts))
+    C = CFG["dim_feat"]
+    assert backbone.blocks_ts[1].mlp_t.fc1.weight.shape == (C, C)
+    if backbone is not model:
+        assert model.head.tp is not None and model.head.tp.n_model == 2
+        assert model.head.fc1.weight.shape == (32, 17 * C)
+    with pytest.raises(ValueError, match="already sharded"):
+        shard_params(model, Mesh(n_data=1, n_model=2))
