@@ -469,16 +469,17 @@ def block_records(kind: str, backward: bool, use_ln: bool) -> int:
     csrc/block_kernels.cu: the forward's products and the attention core,
     and the LayerNorm's rows when use_ln; in the backward a weight gradient
     and a column sum are two launches each (the fixed-chunk partials, the
-    in-order pass), the LayerNorm adds its rows forward and backward, an
-    fp32 dh and two column sums in place of the bf16 dx, and without it the
-    wrapper zeroes the two LayerNorm gradients (no_ln_grads). Another
-    checkout's chains may launch otherwise."""
+    in-order pass), the LayerNorm adds its forward rows, an fp32 dh and its
+    backward (one pass and the in-order sum of its parameter partials) in
+    place of the bf16 dx, and without it the wrapper zeroes the two
+    LayerNorm gradients (no_ln_grads). Another checkout's chains may launch
+    otherwise."""
     if not backward:
         return 2 + int(use_ln) + int(kind == "attention")
     # recompute 1, two weight gradients 4, two column sums 4, dz / dattn 1,
     # dx 1; the attention core forward and backward 2 more
     base = 11 + (2 if kind == "attention" else 0)
-    return base + (6 if use_ln else 2)
+    return base + (3 if use_ln else 2)
 
 
 def timed(name: str, fn, *args, **kw):
@@ -762,12 +763,31 @@ def phase_main_path(fp, records: list):
 
 
 # kernel-name fragments of the port's own kernels, for the profile's groups
+# (with the retired ones, which another checkout's build, under --baseline,
+# may still run)
 PROFILE_GROUPS = ("hg_gemm_kernel", "hg_gemm_s8_kernel", "attn_tc_fwd_kernel",
                   "attn_tc_bwd_kernel", "gemm_q8_kernel", "ln_quant_rows_kernel",
                   "quant_rows_kernel", "attention_bwd_kernel",
                   "attention_kernel", "gate_bwd_rows_kernel", "gate_kernel",
-                  "gemm_kernel", "colsum_kernel", "reduce_splits_kernel",
-                  "ln_fwd_rows_kernel", "ln_bwd_rows_kernel")
+                  "gemm_kernel", "colsum_chunks_kernel", "chunk_sum_kernel",
+                  "colsum_kernel", "reduce_splits_kernel",
+                  "ln_fwd_rows_kernel", "ln_bwd_fused_kernel",
+                  "ln_bwd_rows_kernel")
+# the column-sum pass and the one-pass LayerNorm backward (every backward
+# chain with a LayerNorm runs all three), and the kernels they replaced
+COLUMN_SUM_KERNELS = ("colsum_chunks_kernel", "chunk_sum_kernel",
+                      "ln_bwd_fused_kernel")
+COLUMN_SUM_RETIRED = ("colsum_kernel", "ln_bwd_rows_kernel")
+
+
+def column_sum_faults(rows) -> list:
+    """A backward's profile without the column-sum pass or the one-pass
+    LayerNorm backward, or with a kernel they replaced."""
+    names = [key for key, _, _ in rows]
+    return ([f"no {k}" for k in COLUMN_SUM_KERNELS
+             if not any(k in n for n in names)]
+            + [f"runs {n[:80]}" for n in names
+               if any(k in n for k in COLUMN_SUM_RETIRED)])
 
 
 def device_rows(prof) -> list:
@@ -1411,14 +1431,16 @@ def pair_bwd_cost(mode: str, gated: bool) -> tuple:
 
 
 def pair_bwd_records(gated: bool) -> int:
-    """Device records of one pair backward call, from the chain in
-    csrc/pair_bwd_kernels.cu (this checkout's and the parent's alike): the
+    """Device records of one pair backward call, from this checkout's chain
+    in csrc/pair_bwd_kernels.cu (tests/test_torch_core.py reads it): the
     recompute's two LayerNorm rows, four products and the attention core;
-    four weight gradients and eight column sums of two launches each; dz,
-    dh2, dattn, dh1, two LayerNorm backward rows and the attention
-    backward. The gated chain adds out_b, the gate's rows and five more
-    column sums."""
-    return 37 + (12 if gated else 0)
+    four weight gradients, four bias column sums and two LayerNorm
+    backwards (the one pass and the in-order sum of its parameter partials)
+    of two launches each; dz, dh2, dattn, dh1 and the attention backward.
+    The gated chain adds out_b, the gate's rows and five more column sums.
+    Another checkout's chain may launch otherwise: under --baseline its
+    profiles are held to whole multiples of the calls (in_turns)."""
+    return 31 + (12 if gated else 0)
 
 
 # kernel-name fragments a pair backward call must launch (the engine, the
@@ -1447,7 +1469,80 @@ def grad_errors(got, want) -> list:
     return [rel_err(a, b) for a, b in zip(got, want)]
 
 
+# the bias column sums of one pair backward call at the phase-7 rows:
+# (mode, N, the gradients they give)
+COLUMN_SUM_CASES = (("f32", 3 * C, "dbqkv"), ("bf16", HIDDEN, "db1"),
+                    ("bf16", C, "db2, dbproj"), ("gate", C, "a dwg row"),
+                    ("f32", 2, "dbg"))
+
+
+def order_bound(terms: torch.Tensor, splits: int) -> torch.Tensor:
+    """Per column, how far a sum of the (M, N) terms in the kernels' fixed
+    order may lie from the exact sum: a chain of at most ceil(M / splits)
+    + 8 + splits fp32 additions (a chunk's rows, the LayerNorm backward's 8
+    warps, the chunks), each rounding by at most 2^-24 of a partial sum, so
+    (ceil(M / splits) + 8 + splits) * 2^-24 * sum|terms|."""
+    depth = -(-terms.shape[0] // splits) + 8 + splits
+    return depth * 2.0 ** -24 * terms.double().abs().sum(0)
+
+
+def phase_column_sums() -> None:
+    """The bias column sums of one B3 call alone (ops.attention.column_sum,
+    the test entry of the chains' pass) at the phase-7 rows: against the
+    float64 sum within order_bound, bitwise repeatable, the bf16 output the
+    fp32 one rounded; ms one call, device and back to back beside the byte
+    bound and one torch.sum."""
+    from motionbert_tpu_torch.ops import attention as at
+
+    dev = torch.device("cuda")
+    M = B * FRAMES * J
+    rs = np.random.RandomState(7)
+    for mode, N, what in COLUMN_SUM_CASES:
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+        src = torch.from_numpy(rs.normal(size=(M, N)).astype(
+            np.float32)).to(dev, dt)
+        w = torch.from_numpy(rs.normal(size=(M, 2)).astype(
+            np.float32)).to(dev) if mode == "gate" else None
+        call = lambda: at.column_sum(src, mode, w)
+        got, again = call(), call()
+        terms = src.double()
+        if mode == "gate":
+            terms = terms * w[:, :1].to(torch.bfloat16).double()
+        err = (got.double() - terms.sum(0)).abs()
+        slack = (err / order_bound(terms, at.COLSUM_CONSTANTS["splits"])
+                 ).max().item()
+        rounded = torch.equal(at.column_sum(src, mode, w, torch.bfloat16),
+                              got.to(torch.bfloat16))
+        nbytes = M * N * src.element_size() + (M * 8 if w is not None
+                                               else 0) + N * 4
+        dev_ms, rows = device_profile(call, 2)
+        library = (None if mode == "gate" else
+                   lambda: torch.sum(src, 0, dtype=torch.float32))
+        rec = dict(
+            what=what, shape=[M, N], max_abs_err=err.max().item(),
+            err_over_order_bound=slack, bitwise_repeatable=torch.equal(
+                got, again), bf16_is_fp32_rounded=rounded, ms=time_ms(call),
+            device_ms=dev_ms, back_to_back_ms=time_ms_back_to_back(call),
+            device_by_kernel=by_kernel(rows, 10),
+            bound_ms=nbytes / PEAK_HBM_BYTES * 1e3, bound_by="bytes",
+            library_ms=None if library is None else time_ms(library),
+            library_device_ms=None if library is None
+            else device_ms(library, None))
+        log(f"column sum {mode}/{N}: " + json.dumps(rec))
+        names = [key for key, _, _ in rows]
+        missing = [k for k in COLUMN_SUM_KERNELS[:2]
+                   if not any(k in n for n in names)]
+        if not (slack <= 1 and rec["bitwise_repeatable"] and rounded) \
+                or missing:
+            fail(f"column sum {mode}/{N}: {slack:.3f} of the order bound, "
+                 f"repeatable {rec['bitwise_repeatable']}, bf16 the fp32 "
+                 f"sum rounded {rounded}, profile without {missing}")
+        del src, w, got, again, terms
+    torch.cuda.empty_cache()
+
+
 def phase_backward(fp) -> list:
+    timed("column sums", phase_column_sums)
     scale = (C // HEADS) ** -0.5
     dev = torch.device("cuda")
     records = []
@@ -1508,9 +1603,10 @@ def phase_backward(fp) -> list:
             log(f"backward {name}/{mode}: " + json.dumps(rec))
             missing = [k for k in PAIR_BWD_KERNELS
                        if not any(k in key for key, _, _ in rows)]
-            if missing or retired_kernels(rows):
+            if missing or retired_kernels(rows) or column_sum_faults(rows):
                 fail(f"{name}/{mode}: the profile of a call misses "
-                     f"{missing} or runs {retired_kernels(rows)}")
+                     f"{missing} or runs {retired_kernels(rows)}; "
+                     f"{column_sum_faults(rows)}")
             worst = max(rec["rel_err"].items(), key=lambda kv: kv[1])
             if not worst[1] <= KERNEL_TOL:
                 fail(f"{name}/{mode}: {worst[0]} max|d|/max|ref| "
@@ -1603,10 +1699,12 @@ def grad_cosine(grads: dict, ref_grads: dict) -> float:
     return F.cosine_similarity(flat, ref_flat, dim=0).item()
 
 
-def profile_step(tag: str, step, x, y) -> tuple:
+def profile_step(tag: str, step, x, y, column_sums: bool = False) -> tuple:
     """One more train step under torch.profiler: device time by kernel and
-    by group, and the device's busy share of the wall time. Returns (device
-    busy ms, {group: ms})."""
+    by group, and the device's busy share of the wall time; with
+    column_sums, fail unless the step ran the column-sum pass and the
+    one-pass LayerNorm backward and none of the kernels they replaced.
+    Returns (device busy ms, {group: ms})."""
     with card_profile() as prof:
         t0 = time.perf_counter()
         step(x, y)
@@ -1629,6 +1727,8 @@ def profile_step(tag: str, step, x, y) -> tuple:
     log(f"{tag}: by group: " + json.dumps(
         {k: round(v, 3) for k, v in sorted(groups.items(),
                                             key=lambda kv: -kv[1])}))
+    if column_sums and column_sum_faults(rows):
+        fail(f"{tag}: {column_sum_faults(rows)}")
     return busy_ms, groups
 
 
@@ -1717,7 +1817,7 @@ def phase_train(fp, fwd_records: list, bwd_records: list):
     for rec in bwd_records:
         rec["launches"] = launches[rec["name"]]
 
-    profile_step("train profile", step, x, y)
+    profile_step("train profile", step, x, y, column_sums=True)
     del model, opt, step
     torch.cuda.empty_cache()
 
@@ -1974,22 +2074,29 @@ MLP_KEYS = ("ln2_w", "ln2_b", "w1", "b1", "w2", "b2")
 ATTN_FLAGS = ((True, False), (False, False), (True, True), (False, True))
 MLP_FLAGS = ((False, False), (True, True))
 # kernel-name fragments a block call's profile may hold: the engine, the
-# tensor-core core, the LayerNorm rows, the column sums and their in-order
-# pass, and PyTorch's fills (the zero LayerNorm gradients without use_ln)
+# tensor-core core, the LayerNorm forward rows and one-pass backward, the
+# bias column sums, the in-order passes, and PyTorch's fills (the zero
+# LayerNorm gradients without use_ln)
 BLOCK_KERNELS = ("hg_gemm_kernel", "attn_tc_fwd_kernel", "attn_tc_bwd_kernel",
-                 "ln_fwd_rows_kernel", "ln_bwd_rows_kernel", "colsum_kernel",
+                 "ln_fwd_rows_kernel", "ln_bwd_fused_kernel",
+                 "colsum_chunks_kernel", "chunk_sum_kernel",
                  "reduce_splits_kernel", "FillFunctor")
 
 
-def block_profile_faults(kind: str, backward: bool, rows) -> list:
+def block_profile_faults(kind: str, backward: bool, rows,
+                         use_ln: bool = False) -> list:
     """What a block call's profile must not show: the engine (and for the
     attention block the tensor-core core, forward and in the backward its
-    backward too) missing, a kernel outside BLOCK_KERNELS, or a retired one
-    (the WMMA GEMM, the CUDA-core attention kernels)."""
+    backward too; in a backward the bias column sums, and with use_ln the
+    one-pass LayerNorm backward) missing, a kernel outside BLOCK_KERNELS,
+    or a retired one (the WMMA GEMM, the CUDA-core attention kernels)."""
     needed = ["hg_gemm_kernel"]
     if kind == "attention":
         needed += ["attn_tc_fwd_kernel"] + (["attn_tc_bwd_kernel"]
                                             if backward else [])
+    if backward:
+        needed += ["colsum_chunks_kernel", "chunk_sum_kernel"] + (
+            ["ln_bwd_fused_kernel"] if use_ln else [])
     names = [key for key, _, _ in rows]
     retired = retired_kernels(rows)
     return ([f"no {k}" for k in needed if not any(k in n for n in names)]
@@ -2263,7 +2370,7 @@ def phase_block_backward(at, mlp) -> list:
                 library_device_ms=device_ms(library_bwd, None),
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
             log(f"block backward {kind}/{tag}: " + json.dumps(rec))
-            faults = block_profile_faults(kind, True, rows)
+            faults = block_profile_faults(kind, True, rows, use_ln)
             if faults:
                 fail(f"{kind} block backward {tag}: the profile of a call: "
                      f"{faults}")
@@ -2413,7 +2520,7 @@ def phase_drop_path(fp, at, mlp, fwd_records: list, bwd_records: list):
     for rec in fwd_records + bwd_records:
         rec["launches"] = launches[rec["name"]]
 
-    profile_step("drop-path profile", step, x, y)
+    profile_step("drop-path profile", step, x, y, column_sums=True)
 
     # evaluation on the same model: the pair path, whatever the rates
     model.eval()
@@ -3871,7 +3978,7 @@ def phase_mesh(fp, fs) -> None:
             and bn.num_batches_tracked.item() == MESH_STEPS):
         fail("mesh: BatchNorm statistics not finite or not moved")
     smpl_share(smpl, args.batch_size * args.clip_len, dt * 1e3)
-    profile_step("mesh profile", step, x, gt)
+    profile_step("mesh profile", step, x, gt, column_sums=True)
     del opt, step
     torch.cuda.empty_cache()
 
@@ -4515,7 +4622,7 @@ TP_REPLACES = {
 # reads the chains)
 TP_RECORDS = {"fused_attention_block_tp": 4,
               "fused_attention_block_tp_bwd": 12, "fused_mlp_block_tp": 3,
-              "fused_mlp_block_tp_bwd": 10, "fused_ln_bwd": 5}
+              "fused_mlp_block_tp_bwd": 10, "fused_ln_bwd": 2}
 
 
 def tp_counters() -> tuple:
@@ -4644,9 +4751,10 @@ def tp_kernel_case(name: str, wrapper, plain, args: tuple, mode: str,
     library = tp_library(name, args, heads)
     calls = 10
     dev_ms, rows = device_profile(call, TP_RECORDS[name], calls)
-    needed = ["colsum_kernel"] if name == "fused_ln_bwd" else [
-        "hg_gemm_kernel"] + (["attn_tc_fwd_kernel"] if "attention" in name
-                             else [])
+    needed = (["ln_bwd_fused_kernel", "chunk_sum_kernel"]
+              if name == "fused_ln_bwd" else
+              ["hg_gemm_kernel"] + (["attn_tc_fwd_kernel"]
+                                    if "attention" in name else []))
     names = [key for key, _, _ in rows]
     faults = [f"no {k}" for k in needed if not any(k in n for n in names)] \
         + [f"runs {n[:80]}" for n in names
@@ -4666,8 +4774,46 @@ def tp_kernel_case(name: str, wrapper, plain, args: tuple, mode: str,
         library_ms=time_ms(library, runs=10),
         library_device_ms=device_ms(library, None), gflop=flops / 1e9,
         mbytes=nbytes / 1e6)
+    if name == "fused_ln_bwd":
+        rec["l2_ms"] = l2_protocol_ms({"kernel": call, "library": library})
     log(f"tp (a) kernel {name}/{mode} (shards of {TP_T}): " + json.dumps(rec))
     return rec
+
+
+L2_FLUSH_BYTES = 256 * 2 ** 20      # five times the H100's 50 MB L2
+
+
+def l2_protocol_ms(fns: dict, runs: int = 20) -> dict:
+    """ms of one call of each fn, timed the same way for all: CUDA events
+    around the call, a spin kernel enqueued before the first event so that
+    the host has enqueued the call before the card reaches it (the events
+    time the card); before the spin, either a 256 MB buffer written (the L2
+    "flushed") or the same call ("warm": the L2 holds what the call last
+    touched, as far as it fits). Median of runs, by "<name>_<state>"."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    out = {}
+    for name, fn in fns.items():
+        for state in ("flushed", "warm"):
+            fn()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(runs):
+                if state == "flushed":
+                    flush.zero_()
+                else:
+                    fn()
+                torch.cuda._sleep(1_000_000)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            out[f"{name}_{state}"] = statistics.median(times)
+    del flush
+    return out
 
 
 def phase_tp_kernels() -> list:
@@ -4712,7 +4858,9 @@ def phase_tp_kernels() -> list:
         main = m.get("temporal", m.get("tokens"))
         records.append(dict(
             name=name, route="cuda",
-            source="motionbert_tpu_torch/ops/csrc/block_kernels.cu",
+            source="motionbert_tpu_torch/ops/csrc/" + (
+                "pair_bwd_common.cuh" if name == "fused_ln_bwd"
+                else "block_kernels.cu"),
             replaces=TP_REPLACES[name], launches=None,
             max_abs_err=max(r["max_abs_err"] for r in m.values()),
             ms=main["ms"], plain_ms=main["plain_ms"],
@@ -5579,11 +5727,12 @@ class swapped_library:
 
 
 def baseline_blocks(other_block, results: dict) -> dict:
-    """B6 and B7 of this build against the other's, bit for bit, at the
-    phase-16/17 shape with the flags the model calls; B4 and B5, every flag
-    pair, both modes, held to their plain bars (the other build's errors
-    logged beside) and timed against the other build in turns. Returns
-    {name/mode/flags: turns}."""
+    """B6 and B7 of this build against the other's at the phase-16/17 shape
+    with the flags the model calls: B6 bit for bit, B7 as split_bitwise
+    holds it, and B7 timed against the other build in turns; B4 and B5,
+    every flag pair, both modes, held to their plain bars (the other
+    build's errors logged beside) and timed against the other build in
+    turns. Returns {name/mode/flags: turns}."""
     from motionbert_tpu_torch.ops import attention as at
     from motionbert_tpu_torch.ops import fused_mlp as mlp
 
@@ -5639,17 +5788,81 @@ def baseline_blocks(other_block, results: dict) -> dict:
     bwd_args = [p["x"], g] + [p[k] for k in MLP_KEYS[:-1]]
     for use_ln, residual in MLP_FLAGS:
         tag = f"tokens/ln{int(use_ln)}res{int(residual)}"
-        ours = (mlp.fused_mlp_block(*mlp_args, use_ln, residual),
-                mlp.fused_mlp_block_bwd(*bwd_args, use_ln, residual))
+        bwd = lambda: mlp.fused_mlp_block_bwd(*bwd_args, use_ln, residual)
+        ours = (mlp.fused_mlp_block(*mlp_args, use_ln, residual), bwd())
         with swapped_library("block_kernels", other_block):
             theirs = (mlp.fused_mlp_block(*mlp_args, use_ln, residual),
-                      mlp.fused_mlp_block_bwd(*bwd_args, use_ln, residual))
+                      bwd())
         results[f"fused_mlp_block/{tag}"] = torch.equal(ours[0], theirs[0])
-        results[f"fused_mlp_block_bwd/{tag}"] = all(
-            torch.equal(a, b) for a, b in zip(ours[1], theirs[1]))
+        results[f"fused_mlp_block_bwd/{tag}"] = split_bitwise(
+            f"baseline: MLP block backward {tag}",
+            ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2"), ours[1],
+            theirs[1],
+            bwd(), mlp.mlp_block_bwd_plain(*bwd_args, use_ln, residual))
+        out[f"fused_mlp_block_bwd/{tag}"] = in_turns(
+            bwd, block_records("mlp", True, use_ln), "block_kernels",
+            other_block)
+        log(f"baseline: MLP block backward {tag} in turns: "
+            + json.dumps(out[f"fused_mlp_block_bwd/{tag}"]))
     del p, g, attn, mlp_args, bwd_args
     torch.cuda.empty_cache()
     return out
+
+
+def baseline_ln_bwd(other_block, results: dict) -> dict:
+    """The LayerNorm backward at phase 30's shape (fused_ln_bwd's inputs),
+    this build's through fused_ln_bwd and the other build's through its
+    mbt_ln_bwd: dx bit for bit (into results); both in turns (other, this,
+    this, other), device ms by kernel back to back and one call with the L2
+    flushed and warm (l2_protocol_ms). Returns {"fused_ln_bwd/tokens":
+    turns}."""
+    from motionbert_tpu_torch.ops import attention as at
+
+    dev = torch.device("cuda")
+    p = tp_shards(pair_inputs(30, False, dev))
+    g = pair_inputs(5, False, dev)["x"]
+    x, w = p["x"], p["ln1_w"]
+    dh, stats = at.fused_attention_block_tp_bwd(
+        x, g, p["ln1_w"], p["ln1_b"], p["wqkv"], p["bqkv"], p["wproj"],
+        HEADS // TP_T, (C // HEADS) ** -0.5, "temporal")[3:]
+    M = x.numel() // C
+    # the scratch a checkout's mbt_ln_bwd takes, under either of the sizings
+    # the library has documented: mbt_block_work_floats(0, C) or (C, 1)
+    work = torch.empty(max(other_block.mbt_block_work_floats(0, C),
+                           other_block.mbt_block_work_floats(C, 1)),
+                       dtype=torch.float32, device=dev)
+    dx, dln = torch.empty_like(x), torch.empty((2, C), device=dev)
+
+    def other():
+        rc = other_block.mbt_ln_bwd(
+            dh.data_ptr(), x.data_ptr(), stats.data_ptr(), w.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), dln[0].data_ptr(), dln[1].data_ptr(),
+            work.data_ptr(), M, C, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"baseline: the other build's mbt_ln_bwd returned {rc}")
+
+    def this():
+        return at.fused_ln_bwd(dh, x, stats, w, g)
+
+    ours = this()
+    other()
+    torch.cuda.synchronize()
+    results["fused_ln_bwd/dx"] = torch.equal(ours[0], dx)
+    turns = []
+    for which, call in (("other", other), ("this", this), ("this", this),
+                        ("other", other)):
+        ms, rows = device_profile(call, None if which == "other"
+                                  else TP_RECORDS["fused_ln_bwd"], 20)
+        turns.append(dict(build=which, device_ms=ms,
+                          device_by_kernel=by_kernel(rows, 20),
+                          l2_ms=l2_protocol_ms({"call": call})))
+    log(f"baseline: fused_ln_bwd ({M}, {C}): dx bit for bit the other "
+        f"build's {results['fused_ln_bwd/dx']}; dln_w, dln_b max|d|/max "
+        f"{rel_err(ours[1], dln[0])[1]:.3e}, {rel_err(ours[2], dln[1])[1]:.3e}; "
+        f"in turns: " + json.dumps(turns))
+    del p, g, dh, stats, work, dx, dln, ours
+    torch.cuda.empty_cache()
+    return {"fused_ln_bwd/tokens": turns}
 
 
 def in_turns(call, records, lib_name: str, other) -> list:
@@ -5922,28 +6135,70 @@ def baseline_q8_pairs(q8, other_q8) -> dict:
     return out
 
 
-def baseline_pair_bwd(fp, other_bwd, results: dict) -> None:
-    """B3's four variants of this build against the other's, bit for bit,
-    on the phase-7 inputs."""
+# the gradients a column sum in a new fixed order produces (the LayerNorm
+# backward's one pass sums its chunks in another order than the column sums
+# it replaced); split_bitwise holds them to the plain bar, not to the other
+# build's bits
+NEW_ORDER_GRADS = ("dln_w", "dln_b", "dln1_w", "dln1_b", "dln2_w", "dln2_b")
+
+
+def split_bitwise(tag: str, names, ours, theirs, again, plain) -> bool:
+    """A backward's outputs of this build (ours, and again for run-to-run
+    bits) against the other build's (theirs): every output bit for bit but
+    NEW_ORDER_GRADS, which are held to KERNEL_TOL of the plain twin's (the
+    other build's distance logged beside); every output of this build
+    bitwise repeatable. Logs and returns whether all held."""
+    bitwise = {n: torch.equal(a, b) for n, a, b in zip(names, ours, theirs)
+               if n not in NEW_ORDER_GRADS}
+    repeat = all(torch.equal(a, b) for a, b in zip(ours, again))
+    errs = {n: (rel_err(a, w)[1], rel_err(b, w)[1])
+            for n, a, b, w in zip(names, ours, theirs, plain)
+            if n in NEW_ORDER_GRADS and w.abs().max() > 0}
+    held = all(bitwise.values()) and repeat and all(
+        e[0] <= KERNEL_TOL for e in errs.values())
+    log(f"{tag}: bit for bit the other build's "
+        f"{sorted(n for n, v in bitwise.items() if v)}, not "
+        f"{sorted(n for n, v in bitwise.items() if not v)}; bitwise "
+        f"repeatable {repeat}; new-order sums max|d|/max|plain| (this, "
+        f"other) " + json.dumps(errs))
+    return held
+
+
+def baseline_pair_bwd(fp, other_bwd, results: dict) -> dict:
+    """B3's four variants of this build against the other's on the phase-7
+    inputs, as split_bitwise holds them, and timed against the other build
+    in turns. Returns {name/mode: turns}."""
     dev = torch.device("cuda")
     scale = (C // HEADS) ** -0.5
     fp._bwd_library()
-    for name, kernel, gated in (
-            ("fused_pair_block_bwd", fp.fused_pair_block_bwd, False),
+    out = {}
+    for name, kernel, plain, gated in (
+            ("fused_pair_block_bwd", fp.fused_pair_block_bwd,
+             fp.pair_block_bwd_plain, False),
             ("fused_gated_pair_block_bwd", fp.fused_gated_pair_block_bwd,
-             True)):
+             fp.gated_pair_block_bwd_plain, True)):
+        names = ["dx"] + (["dother"] if gated else []) \
+            + [f"d{k}" for k in fp.PAIR_PARAMS] \
+            + (["dwg", "dbg"] if gated else [])
         for mode in ("temporal", "spatial"):
             p = pair_inputs(3 if mode == "temporal" else 4, gated, dev)
             g = pair_inputs(5, False, dev)["x"]
             fwd = pair_args(p, gated)
             args = fwd[:2 if gated else 1] + [g] + fwd[2 if gated else 1:]
-            ours = kernel(*args, HEADS, scale, mode)
+            call = lambda: kernel(*args, HEADS, scale, mode)
+            ours = call()
             with swapped_library("pair_bwd_kernels", other_bwd):
-                theirs = kernel(*args, HEADS, scale, mode)
-            results[f"{name}/{mode}"] = all(
-                torch.equal(a, b) for a, b in zip(ours, theirs))
+                theirs = call()
+            results[f"{name}/{mode}"] = split_bitwise(
+                f"baseline: {name}/{mode}", names, ours, theirs, call(),
+                plain(*args, HEADS, scale, mode))
+            out[f"{name}/{mode}"] = in_turns(
+                call, pair_bwd_records(gated), "pair_bwd_kernels", other_bwd)
+            log(f"baseline: {name}/{mode} in turns: "
+                + json.dumps(out[f"{name}/{mode}"]))
             del p, g, fwd, args, ours, theirs
     torch.cuda.empty_cache()
+    return out
 
 
 def baseline_steps(name: str, other, tag: str,
@@ -5969,7 +6224,17 @@ def baseline_steps(name: str, other, tag: str,
                            no_conf=args.no_conf, flip_aug=bool(args.flip),
                            generator=torch.Generator(device="cuda").manual_seed(0))
     x, y = train_batch(TRAIN_BATCH)
+    steps_in_turns(f"{tag} step ({TRAIN_BATCH}, {FRAMES})", name, other,
+                   step, x, y)
+    del model, opt, step
+    torch.cuda.empty_cache()
 
+
+def steps_in_turns(tag: str, name: str, other, step, x, y) -> None:
+    """step(x, y) in turns (other, this, this, other) with the other
+    checkout's library for csrc/<name>.cu swapped in: ms per step over
+    BASELINE_STEPS steps a turn, after a warm-up; then one step of each
+    build profiled (this build's held to the column-sum pass)."""
     def steps() -> float:
         step(x, y)
         torch.cuda.synchronize()
@@ -5985,13 +6250,41 @@ def baseline_steps(name: str, other, tag: str,
         with (swapped_library(name, other) if which == "other"
               else contextlib.nullcontext()):
             turns.append((which, steps()))
-    log(f"baseline: {tag} step ({TRAIN_BATCH}, {FRAMES}), "
-        f"{BASELINE_STEPS} steps a turn, ms per step in turns: "
-        + ", ".join(f"{w} {ms:.2f}" for w, ms in turns))
+    log(f"baseline: {tag}, {BASELINE_STEPS} steps a turn, ms per step in "
+        f"turns: " + ", ".join(f"{w} {ms:.2f}" for w, ms in turns))
+    profile_tag = tag.split(" step")[0]
     with swapped_library(name, other):
-        profile_step(f"baseline {tag} profile (other)", step, x, y)
-    profile_step(f"baseline {tag} profile (this)", step, x, y)
-    del model, opt, step
+        profile_step(f"baseline {profile_tag} profile (other)", step, x, y)
+    profile_step(f"baseline {profile_tag} profile (this)", step, x, y,
+                 column_sums=True)
+
+
+def baseline_mesh_step(other) -> None:
+    """Phase 26's mesh train step (configs/mesh/MB_train_h36m.yaml at its
+    batch, the seeded body model) in turns (other, this, this, other) with
+    the other checkout's pair backward library swapped in: ms per step; then
+    one step of each build profiled."""
+    from motionbert_tpu_torch.core.config import get_config
+    from motionbert_tpu_torch.losses.mesh import LAMBDA_KEYS
+    from motionbert_tpu_torch.models.smpl import SMPLModel
+    from motionbert_tpu_torch.train.mesh import (
+        build_mesh_model, make_mesh_train_step)
+    from motionbert_tpu_torch.train.state import make_two_group_adamw
+
+    args = get_config(MESH_CONFIG)
+    smpl = SMPLModel.synthetic(num_verts=MESH_VERTS, seed=0).cuda()
+    model = build_mesh_model(args, smpl, device="cuda")
+    model.init_weights(torch.Generator().manual_seed(0))
+    opt = make_two_group_adamw(model, args.lr_backbone, args.lr_head,
+                               args.weight_decay)
+    step = make_mesh_train_step(
+        model, opt, {k: args[k] for k in LAMBDA_KEYS},
+        args.get("loss_type", "L1"),
+        torch.Generator(device="cuda").manual_seed(0))
+    x, gt = mesh_batch(smpl, args.batch_size, args.clip_len, 84)
+    steps_in_turns(f"mesh step ({args.batch_size}, {args.clip_len})",
+                   "pair_bwd_kernels", other, step, x, gt)
+    del model, opt, step, smpl
     torch.cuda.empty_cache()
 
 
@@ -6032,13 +6325,16 @@ def phase_baseline(fp, q8, other_root: str) -> dict:
     attention core and stream sources (the parent's, say) with this one's
     nvcc flags. Hold this checkout's bf16 pairs (B1, B2), bf16 streams,
     pair backward (B3) and MLP blocks (B6, B7) against that build bit for
-    bit, through the same wrappers; hold the attention blocks (B4, B5), the
-    bf16 pairs and streams, the W8A8 pairs (B9) and streams (B10) and the
-    attention core alone (B8) to their plain bars and time them against the
-    other build in turns; then the flagship train step, the drop-path step,
-    the lift and the W8A8 lift in turns with the other build's pair, block
-    or W8A8 pair library swapped in. Returns the in-turn times by record and
-    mode."""
+    bit, through the same wrappers (B3's and B7's LayerNorm gradients, a
+    sum in a new fixed order, to their plain bars: split_bitwise); hold the
+    attention blocks (B4, B5), the bf16 pairs and streams, the W8A8 pairs
+    (B9) and streams (B10) and the attention core alone (B8) to their plain
+    bars and time them, B3 and B7 too, against the other build in turns;
+    time the LayerNorm backward against the other build's, its dx bit for
+    bit; then the flagship train step, the drop-path step, the mesh step,
+    the lift and the W8A8 lift in turns with the other build's pair backward,
+    block, pair or W8A8 pair library swapped in. Returns the in-turn times
+    by record and mode."""
     from motionbert_tpu_torch.ops import fused_stream as fs
 
     csrc = os.path.join(other_root, "motionbert_tpu_torch", "ops", "csrc")
@@ -6069,7 +6365,9 @@ def phase_baseline(fp, q8, other_root: str) -> dict:
             "input, share of its outputs that differ): " + json.dumps(
                 q8_model_witnesses(libs["st_attention_kernels"])))
         turns.update(baseline_blocks(libs["block_kernels"], results))
-        baseline_pair_bwd(fp, libs["pair_bwd_kernels"], results)
+        turns.update(baseline_ln_bwd(libs["block_kernels"], results))
+        turns.update(baseline_pair_bwd(fp, libs["pair_bwd_kernels"],
+                                       results))
         turns.update(baseline_st_attention(libs["st_attention_kernels"]))
         turns.update(baseline_pairs(fp, fs, libs["pair_kernels"],
                                     libs["stream_kernels"], results))
@@ -6077,9 +6375,11 @@ def phase_baseline(fp, q8, other_root: str) -> dict:
             f"to the other build's: {json.dumps(results)}")
         if not all(results.values()):
             fail(f"baseline: outputs differ: {results}")
-        baseline_steps("pair_kernels", libs["pair_kernels"], "train")
+        baseline_steps("pair_bwd_kernels", libs["pair_bwd_kernels"],
+                       "train")
         baseline_steps("block_kernels", libs["block_kernels"], "drop-path",
                        DROP_PATH_RATE)
+        baseline_mesh_step(libs["pair_bwd_kernels"])
         baseline_lift(libs["pair_kernels"], libs["pair_q8_kernels"])
     return turns
 
@@ -6131,12 +6431,14 @@ def main() -> int:
                         help="another checkout (the parent's, say): after the "
                              "build, hold this checkout's bf16 pairs and "
                              "streams, pair backward and MLP blocks against "
-                             "that checkout's build, bit for bit, hold its "
-                             "attention blocks, pairs, W8A8 pairs, streams "
-                             "and attention core to their plain bars and "
-                             "time them, the train step, the drop-path step, "
-                             "the lift and the W8A8 lift in turns with that "
-                             "build's")
+                             "that checkout's build, bit for bit (the "
+                             "LayerNorm gradients of the backwards to their "
+                             "plain bars), hold its attention blocks, pairs, "
+                             "W8A8 pairs, streams and attention core to "
+                             "their plain bars and time them, the pair and "
+                             "MLP backwards, the train, drop-path and mesh "
+                             "steps, the lift and the W8A8 lift in turns "
+                             "with that build's")
     opts = parser.parse_args()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -6162,10 +6464,15 @@ def main() -> int:
         for line in text.splitlines():
             if "Function properties for" in line:
                 found = re.search(r"(hg_gemm_kernel|attn_tc_fwd_kernel|"
-                                  r"attn_tc_bwd_kernel|hg_gemm_s8_kernel)"
+                                  r"attn_tc_bwd_kernel|hg_gemm_s8_kernel|"
+                                  r"colsum_chunks_kernel)"
                                   r"ILi(\d+)E(?:Li(\d+)E)?", line)
                 kernel = "" if not found else f"{found[1]}<{found[2]}" + (
                     f", {found[3]}>: " if found[3] else ">: ")
+                plain = re.search(r"(ln_bwd_fused_kernel|chunk_sum_kernel)",
+                                  line)
+                if plain:
+                    kernel = f"{plain[1]}: "
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"build: {name}: {kernel}{line.strip()}")
 

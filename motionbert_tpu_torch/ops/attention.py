@@ -59,6 +59,15 @@ Without the residual (the dropout path's branch) the LayerNorm backward
 leaves g out: dx = bf16(LN-backward(dh)), B5's rounding without the
 residual.
 
+The LayerNorm backward (``fused_ln_bwd``, and inside B3, B5 and B7) is one
+pass over the rows that writes dx and sums the parameter gradients into
+fixed row chunks, then an in-order sum of the chunks
+(``csrc/pair_bwd_common.cuh`` ``launch_ln_bwd``); the chains' bias
+gradients are column sums of the same shape (``column_sum``, the test entry
+of one, with its plain twin ``column_sum_plain``). It replaces the TPU
+function ``motionbert_tpu/ops/attention.py:_ln_bwd_rows`` and is bound by
+bytes: it reads dh and x once (see the note above the kernel).
+
 The plain versions here are also what the CUDA pair kernel is held against
 (``ops/fused_pair.py``). They keep the kernels' rounding points: inputs arrive
 in the compute dtype, every sum is taken in fp32, and results are rounded back
@@ -708,7 +717,7 @@ def _launch_ln_bwd(dh, x, stats, ln_w, g) -> tuple:
     with torch.cuda.device(dev):
         f32 = lambda n: torch.empty(n, dtype=torch.float32, device=dev)
         dx, dln_w, dln_b = torch.empty_like(x), f32(C), f32(C)
-        work = f32(lib.mbt_block_work_floats(C, 1))
+        work = f32(lib.mbt_block_work_floats(0, C))
         rc = lib.mbt_ln_bwd(
             dh.data_ptr(), x.data_ptr(), stats.data_ptr(), ln_w.data_ptr(),
             data_ptr(g), dx.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
@@ -757,8 +766,9 @@ fused_attention_block_tp_bwd.launches = 0
 def fused_ln_bwd(dh, x, stats, ln_w, g=None) -> tuple:
     """The LayerNorm backward from the fp32 gradient at its output, with the
     residual gradient g, or without it for g None (see ``ln_bwd_plain``):
-    (dx, dln_w, dln_b). The CUDA column sums and row pass for a CUDA tensor,
-    the plain version for a CPU tensor."""
+    (dx, dln_w, dln_b). The CUDA pass with its parameter sums, and their
+    in-order chunk sum, for a CUDA tensor; the plain version for a CPU
+    tensor."""
     if device_kind(x, "LayerNorm backward") == "cpu":
         return ln_bwd_plain(dh, x, stats, ln_w, g)
     out = _launch_ln_bwd(dh, x, stats, ln_w, g)
@@ -767,6 +777,109 @@ def fused_ln_bwd(dh, x, stats, ln_w, g=None) -> tuple:
 
 
 fused_ln_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# a bias column sum alone (csrc/pair_bwd_common.cuh's column_sum through
+# block_kernels.cu's test entry)
+# ---------------------------------------------------------------------------
+
+# csrc/pair_bwd_common.cuh's column-sum constants by the names
+# mbt_colsum_constant (csrc/block_kernels.cu) maps to them: the bias sums'
+# fixed row chunks and the loads a thread issues before it adds, the
+# LayerNorm backward's fixed row chunks and column slice, and the ColMode
+# values of the sources ("gate": bf16(w[:, 0]) * src); _colsum_library holds
+# them against the library's
+COLSUM_CONSTANTS = {"splits": 64, "batch": 32, "ln_splits": 256,
+                    "ln_slice": 512, "bf16": 0, "f32": 1, "gate": 2}
+COLSUM_MODES = ("bf16", "f32", "gate")
+
+
+def column_sum_plain(src: torch.Tensor, mode: str, w=None,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """The plain version of ``column_sum``: the fp32 sum over src's rows of
+    src ("bf16", "f32") or of bf16(w[:, 0]) * src ("gate"), in
+    out_dtype."""
+    terms = rows(src)
+    if mode == "gate":
+        terms = terms * wide(w[:, :1].to(torch.bfloat16))
+    return terms.sum(0).to(out_dtype)
+
+
+def check_column_sum_args(src, mode: str, w, out_dtype) -> None:
+    """Raise ValueError on anything column_sum's kernel does not take: src
+    (M, N) contiguous, N even, bf16 (fp32 for "f32") at an address of a
+    whole column pair; w (M, 2) fp32 for "gate"; a bf16 or fp32 output."""
+    if mode not in COLSUM_MODES:
+        raise ValueError(f"unknown column-sum mode: {mode!r}")
+    if src.dim() != 2 or src.shape[1] % 2 or \
+            not 1 <= src.shape[0] <= ENGINE_MAX_ROWS:
+        raise ValueError(f"the column sum takes (M, N) sources with N even "
+                         f"and 1..{ENGINE_MAX_ROWS} rows, got shape "
+                         f"{tuple(src.shape)}")
+    dt = torch.float32 if mode == "f32" else torch.bfloat16
+    check_tensor("src", src, src.shape, dt, src.device)
+    if mode == "gate":
+        if w is None:
+            raise ValueError("the gate column sum reads w (M, 2) fp32")
+        check_tensor("w", w, (src.shape[0], 2), torch.float32, src.device)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the column sum writes bf16 or fp32, not "
+                         f"{out_dtype}")
+    if src.data_ptr() % (2 * src.element_size()):
+        raise ValueError(f"src: the column sum loads column pairs and needs "
+                         f"an address of a whole pair, got one at offset "
+                         f"{src.data_ptr() % (2 * src.element_size())}")
+
+
+def _colsum_library() -> ctypes.CDLL:
+    lib = block_library()
+    if lib.mbt_colsum_test.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.mbt_colsum_test.argtypes = [i, vp, vp, i, i, vp, vp, i, vp]
+        lib.mbt_colsum_constant.argtypes = [ctypes.c_char_p]
+        for fn in (lib.mbt_colsum_test, lib.mbt_colsum_constant):
+            fn.restype = i
+        drift = {name: (value, lib.mbt_colsum_constant(name.encode()))
+                 for name, value in COLSUM_CONSTANTS.items()
+                 if lib.mbt_colsum_constant(name.encode()) != value}
+        if drift:
+            lib.mbt_colsum_test.argtypes = None
+            raise RuntimeError(f"attention's column-sum constants disagree "
+                               f"with the library's (ours, the library's): "
+                               f"{drift}")
+    return lib
+
+
+def column_sum(src: torch.Tensor, mode: str, w=None,
+               out_dtype=torch.float32) -> torch.Tensor:
+    """The column sums of an (M, N) source as the backward chains take
+    their bias gradients (see ``column_sum_plain``): COLSUM_CONSTANTS'
+    "splits" fixed row chunks, each a serial sum in row order, added in
+    chunk order. The CUDA passes for a CUDA tensor, the plain version for a
+    CPU tensor."""
+    check_column_sum_args(src, mode, w, out_dtype)
+    if device_kind(src, "column sum") == "cpu":
+        return column_sum_plain(src, mode, w, out_dtype)
+    M, N = src.shape
+    lib = _colsum_library()
+    dev = src.device
+    with torch.cuda.device(dev):
+        out = torch.empty(N, dtype=out_dtype, device=dev)
+        work = torch.empty(COLSUM_CONSTANTS["splits"] * N,
+                           dtype=torch.float32, device=dev)
+        rc = lib.mbt_colsum_test(
+            COLSUM_CONSTANTS[mode], src.data_ptr(), data_ptr(w), M, N,
+            work.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"column sum kernel launch failed with CUDA error "
+                           f"{rc}")
+    column_sum.launches += 1
+    return out
+
+
+column_sum.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -38,10 +38,11 @@
 //                       TN dW2 = g^T a; NN dz = bf16(g W2 * GELU'(z));
 //                       TN dW1 = dz^T h; db1 from the rounded dz; then dx
 //                       with dY = dz, W = W1
-//   dx                  with LN: NN dh = dY W (fp32), the LayerNorm
-//                       parameter gradients, ln_bwd_rows dx = bf16(LN-
-//                       backward(dh) [+ g]); without: NN dx = bf16(dY W [+ g])
-//                       in the product's epilogue
+//   dx                  with LN: NN dh = dY W (fp32), then launch_ln_bwd:
+//                       dx = bf16(LN-backward(dh) [+ g]) and the LayerNorm
+//                       parameter gradients in one pass, and their chunk
+//                       sums; without: NN dx = bf16(dY W [+ g]) in the
+//                       product's epilogue
 // Spatial groups are the 17 joints of one frame; the TPU's 8-frame tile, its
 // same-frame mask and its zeroed tail rows are layout and have no counterpart.
 // GELU is the exact erff form (the TPU kernel approximates erf with a
@@ -56,10 +57,10 @@
 // and outputs; the backwards 120.0 and 86.6 GFLOP, the recompute counted (the
 // first product three times, the output product twice, the core three times):
 // tensor-core operations bound all four. What stays on CUDA cores is the row
-// passes (LayerNorm forward and backward) and the column sums (the biases and
-// the LayerNorm parameters), which pair_bwd_common.cuh shares with the pair
-// backward; the chains still write their intermediates (qkv, attn, dattn,
-// dqkv; h, z, a, dz) to device memory.
+// passes (LayerNorm forward, and the backward with the LayerNorm parameter
+// sums) and the bias column sums, which pair_bwd_common.cuh shares with the
+// pair backward; the chains still write their intermediates (qkv, attn,
+// dattn, dqkv; h, z, a, dz) to device memory.
 //
 // Tensor-parallel modes (parallel/tensor.py). Under tensor parallelism over T
 // model ranks each rank holds a head group's rows of qkv, Wqkv_r (3 Ci, C)
@@ -74,8 +75,8 @@
 //   B5_tp  B5's chain at the shard widths up to the fp32 dh = dqkv Wqkv_r
 //          (NN, EPI_F32), with the LayerNorm row statistics out; no dbproj
 //   B7_tp  B7's chain at the shard widths up to dh = dz W1_r; no db2
-//   ln_bwd from the summed dh: the two column sums (dln_b, dln_w) and
-//          ln_bwd_rows dx = bf16(LN-backward(dh) + g), input_grad's calls
+//   ln_bwd from the summed dh: launch_ln_bwd, dx = bf16(LN-backward(dh) +
+//          g) with dln_w and dln_b, input_grad's call
 // The caller all-reduces the fp32 partials and dh over the model ranks and
 // adds the output bias and the residual, in fp32, before the one rounding
 // (x + proj and x + fc2 round where B1 rounds). At T = 1 each mode is the
@@ -148,8 +149,8 @@ cudaError_t nt_out(const void* A, const void* W, const void* bias, const void* R
 }
 
 // dx from dh = dY W (NN product of dY (M, N) bf16 with the nn.Linear weight
-// W (N, C)). With LN: fp32 dh, the LayerNorm parameter gradients, then the
-// row backward [+ g]. Without: the product's epilogue writes bf16(dh [+ g]).
+// W (N, C)). With LN: fp32 dh, then the LayerNorm backward [+ g] with its
+// parameter gradients. Without: the product's epilogue writes bf16(dh [+ g]).
 cudaError_t input_grad(const void* dY, const void* W, int M, int C, int N, bool use_ln,
                        bool residual, const void* x, const void* g, const void* stats,
                        const void* ln_w, void* dh, float* work, void* dln_w, void* dln_b,
@@ -163,11 +164,8 @@ cudaError_t input_grad(const void* dY, const void* W, int M, int C, int N, bool 
     }
     err = hg_gemm<NN, EPI_F32>(dY, W, nullptr, nullptr, nullptr, dh, nullptr, M, C, N, stream);
     if (err != cudaSuccess) return err;
-    err = column_sum<COL_F32>(dh, nullptr, nullptr, nullptr, M, C, work, dln_b, false, stream);
-    if (err != cudaSuccess) return err;
-    err = column_sum<COL_LN_W>(dh, x, stats, nullptr, M, C, work, dln_w, false, stream);
-    if (err != cudaSuccess) return err;
-    return launch_ln_bwd_rows(dh, x, stats, ln_w, residual ? g : nullptr, dx, M, C, stream);
+    return launch_ln_bwd(dh, x, stats, ln_w, residual ? g : nullptr, dx, dln_w, dln_b, work, M,
+                         C, stream);
 }
 
 }  // namespace
@@ -177,11 +175,13 @@ extern "C" int mbt_mlp_bwd_slot_count() { return M_COUNT; }
 extern "C" int mbt_attention_tp_bwd_slot_count() { return AT_COUNT; }
 extern "C" int mbt_mlp_tp_bwd_slot_count() { return MT_COUNT; }
 
-// Floats of fp32 workspace the partials of a (rows, cols) weight gradient and
-// of a column sum over `rows` columns need.
+// Floats of fp32 workspace the partials of a (rows, cols) weight gradient, of
+// a column sum over `rows` columns and of the LayerNorm backward over `cols`
+// columns need (rows 0: the LayerNorm backward alone, mbt_ln_bwd).
 extern "C" long long mbt_block_work_floats(int rows, int cols) {
-    const long long a = (long long)HG_TN_SPLITS * rows * cols, b = (long long)COL_SPLITS * rows;
-    return a > b ? a : b;
+    const long long a = (long long)HG_TN_SPLITS * rows * cols, b = (long long)COL_SPLITS * rows,
+                    c = (long long)LN_SPLITS * 2 * cols;
+    return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }
 
 // Attention block on x (B, F, J, C) bf16. Scratch from the caller: qkv
@@ -245,8 +245,7 @@ extern "C" int mbt_attention_block_bwd(void* const* p, int B, int F, int J, int 
     CHECK((hg_gemm<NN, EPI_BF16>(p[A_G], p[A_WPROJ], nullptr, nullptr, nullptr, p[A_DATTN],
                                  nullptr, M, C, C, stream)));
     CHECK(hg_weight_grad(p[A_G], p[A_ATTN], M, C, C, work, p[A_DWPROJ], stream));
-    CHECK(column_sum<COL_BF16>(p[A_G], nullptr, nullptr, nullptr, M, C, work, p[A_DBPROJ],
-                               true, stream));
+    CHECK(column_sum<COL_BF16>(p[A_G], nullptr, M, C, work, p[A_DBPROJ], true, stream));
 
     // ---- attention core and qkv projection backward ----
     float* dqkv = static_cast<float*>(p[A_DQKV]);
@@ -258,8 +257,7 @@ extern "C" int mbt_attention_block_bwd(void* const* p, int B, int F, int J, int 
     core.ld_out = 3 * C;
     CHECK(launch_attention_tc(core, true, stream));
     CHECK(hg_weight_grad(dqkvb, h, M, 3 * C, C, work, p[A_DWQKV], stream));
-    CHECK(column_sum<COL_F32>(dqkv, nullptr, nullptr, nullptr, M, 3 * C, work, p[A_DBQKV],
-                              true, stream));
+    CHECK(column_sum<COL_F32>(dqkv, nullptr, M, 3 * C, work, p[A_DBQKV], true, stream));
     CHECK(input_grad(dqkvb, p[A_WQKV], M, C, 3 * C, use_ln != 0, residual != 0, p[A_X],
                      p[A_G], p[A_ST], p[A_LN_W], p[A_DH], work, p[A_DLN_W], p[A_DLN_B],
                      p[A_DX], stream));
@@ -307,15 +305,13 @@ extern "C" int mbt_mlp_block_bwd(void* const* p, int M, int C, int hidden, int u
 
     // ---- fc2 backward ----
     CHECK(hg_weight_grad(p[M_G], p[M_A], M, C, hidden, work, p[M_DW2], stream));
-    CHECK(column_sum<COL_BF16>(p[M_G], nullptr, nullptr, nullptr, M, C, work, p[M_DB2], true,
-                               stream));
+    CHECK(column_sum<COL_BF16>(p[M_G], nullptr, M, C, work, p[M_DB2], true, stream));
     CHECK((hg_gemm<NN, EPI_DGELU>(p[M_G], p[M_W2], nullptr, nullptr, p[M_Z], p[M_DZ], nullptr,
                                   M, hidden, C, stream)));
 
     // ---- fc1 backward ----
     CHECK(hg_weight_grad(p[M_DZ], h, M, hidden, C, work, p[M_DW1], stream));
-    CHECK(column_sum<COL_BF16>(p[M_DZ], nullptr, nullptr, nullptr, M, hidden, work, p[M_DB1],
-                               true, stream));
+    CHECK(column_sum<COL_BF16>(p[M_DZ], nullptr, M, hidden, work, p[M_DB1], true, stream));
     CHECK(input_grad(p[M_DZ], p[M_W1], M, C, hidden, use_ln != 0, residual != 0, p[M_X],
                      p[M_G], p[M_ST], p[M_LN_W], p[M_DH], work, p[M_DLN_W], p[M_DLN_B],
                      p[M_DX], stream));
@@ -389,8 +385,7 @@ extern "C" int mbt_attention_block_tp_bwd(void* const* p, int B, int F, int J, i
     core.ld_out = 3 * Ci;
     CHECK(launch_attention_tc(core, true, stream));
     CHECK(hg_weight_grad(dqkvb, p[AT_H], M, 3 * Ci, C, work, p[AT_DWQKV], stream));
-    CHECK(column_sum<COL_F32>(dqkv, nullptr, nullptr, nullptr, M, 3 * Ci, work, p[AT_DBQKV],
-                              true, stream));
+    CHECK(column_sum<COL_F32>(dqkv, nullptr, M, 3 * Ci, work, p[AT_DBQKV], true, stream));
     CHECK((hg_gemm<NN, EPI_F32>(dqkvb, p[AT_WQKV], nullptr, nullptr, nullptr, p[AT_DH],
                                 nullptr, M, C, 3 * Ci, stream)));
     return 0;
@@ -435,8 +430,7 @@ extern "C" int mbt_mlp_block_tp_bwd(void* const* p, int M, int C, int hidden,
 
     // ---- fc1 backward ----
     CHECK(hg_weight_grad(p[MT_DZ], p[MT_H], M, hidden, C, work, p[MT_DW1], stream));
-    CHECK(column_sum<COL_BF16>(p[MT_DZ], nullptr, nullptr, nullptr, M, hidden, work, p[MT_DB1],
-                               true, stream));
+    CHECK(column_sum<COL_BF16>(p[MT_DZ], nullptr, M, hidden, work, p[MT_DB1], true, stream));
     CHECK((hg_gemm<NN, EPI_F32>(p[MT_DZ], p[MT_W1], nullptr, nullptr, nullptr, p[MT_DH],
                                 nullptr, M, C, hidden, stream)));
     return 0;
@@ -447,17 +441,43 @@ extern "C" int mbt_mlp_block_tp_bwd(void* const* p, int M, int C, int hidden,
 // residual gradient g (M, C) bf16: dln_b = sum_m dh, dln_w = sum_m dh * xhat
 // (fp32), dx = bf16(LN-backward(dh) + g); g == nullptr (a half without the
 // residual, the dropout path's branch) leaves it out: dx = bf16(LN-backward(
-// dh)), as B5 writes it without the residual. work: mbt_block_work_floats(C,
-// 1) floats. 5 device records.
+// dh)), as B5 writes it without the residual. work: mbt_block_work_floats(0,
+// C) floats. 2 device records: pair_bwd_common.cuh's launch_ln_bwd, the one
+// pass and the in-order sum of its chunk partials.
 extern "C" int mbt_ln_bwd(const void* dh, const void* x, const void* st, const void* ln_w,
                           const void* g, void* dx, void* dln_w, void* dln_b, float* work,
                           int M, int C, void* stream_ptr) {
-    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    CHECK(column_sum<COL_F32>(dh, nullptr, nullptr, nullptr, M, C, work, dln_b, false,
-                              stream));
-    CHECK(column_sum<COL_LN_W>(dh, x, st, nullptr, M, C, work, dln_w, false, stream));
-    CHECK(launch_ln_bwd_rows(dh, x, st, ln_w, g, dx, M, C, stream));
+    CHECK(launch_ln_bwd(dh, x, st, ln_w, g, dx, dln_w, dln_b, work, M, C,
+                        static_cast<cudaStream_t>(stream_ptr)));
     return 0;
+}
+
+// The column-sum constants ops/attention.py names (COLSUM_CONSTANTS) by its
+// names: the chunk counts, the load batch, the LayerNorm backward's slice
+// and the ColMode values; -1 for any other name.
+extern "C" int mbt_colsum_constant(const char* name) {
+    static const struct { const char* name; int value; } table[] = {
+        {"splits", COL_SPLITS}, {"batch", COL_BATCH}, {"ln_splits", LN_SPLITS},
+        {"ln_slice", LN_SLICE}, {"bf16", COL_BF16}, {"f32", COL_F32}, {"gate", COL_GATE}};
+    for (const auto& entry : table)
+        if (strcmp(entry.name, name) == 0) return entry.value;
+    return -1;
+}
+
+// One bias column sum alone, for its tests: out (N) = column_sum<mode> of the
+// (M, N) source src (bf16, or fp32 for COL_F32), w the (M, 2) fp32 row
+// weights of COL_GATE (column 0 read); work COL_SPLITS * N floats. Any other
+// mode returns cudaErrorInvalidValue.
+extern "C" int mbt_colsum_test(int mode, const void* src, const void* w, int M, int N,
+                               float* work, void* out, int out_bf16, void* stream_ptr) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+    const float* wf = static_cast<const float*>(w);
+    switch (mode) {
+        case COL_BF16: return (int)column_sum<COL_BF16>(src, wf, M, N, work, out, out_bf16, s);
+        case COL_F32: return (int)column_sum<COL_F32>(src, wf, M, N, work, out, out_bf16, s);
+        case COL_GATE: return (int)column_sum<COL_GATE>(src, wf, M, N, work, out, out_bf16, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // ---------------------------------------------------------------------------

@@ -22,16 +22,18 @@
 //   gate        NT gemm + yb (out_b) -> gate_bwd_rows (dother, gmlp, dsg)
 //   MLP         TN dW2 = gmlp^T a; NN dz = bf16(gmlp W2 * GELU'(z));
 //               TN dW1 = dz^T h2; NN dh2 = dz W1 (fp32);
-//               ln_bwd_rows: dyb = bf16(LN2-backward(dh2) + gmlp)
+//               launch_ln_bwd: dyb = bf16(LN2-backward(dh2) + gmlp) with
+//               dln2_w and dln2_b
 //   attention   NN dattn = bf16(dyb Wproj); TN dWproj = dyb^T attn;
 //               attention backward (fp32 and bf16 dqkv);
 //               TN dWqkv = bf16(dqkv)^T h1; NN dh1 = bf16(dqkv) Wqkv (fp32);
-//               ln_bwd_rows: dx = bf16(LN1-backward(dh1) + dyb)
-//   biases, LN parameters and the gate weights: column sums.
-// Every reduction over M is deterministic: the weight-gradient GEMMs and the
-// column sums cut M into fixed chunks, write fp32 partials and add them in
-// chunk order (reduce_splits_kernel); there are no float atomics, so two runs
-// give the same bits.
+//               launch_ln_bwd: dx = bf16(LN1-backward(dh1) + dyb) with
+//               dln1_w and dln1_b
+//   biases and the gate weights: column sums.
+// Every reduction over M is deterministic: the weight-gradient GEMMs, the
+// LayerNorm backward's parameter sums and the column sums cut M into fixed
+// chunks, write fp32 partials and add them in chunk order (reduce_splits,
+// chunk_sum); there are no float atomics, so two runs give the same bits.
 //
 // Bound. With the recompute, a call does each forward product three times
 // (forward, input gradient, weight gradient) but fc2, which the ungated
@@ -46,9 +48,10 @@
 // tensor-core kernels (a group's q, k, v and dO in shared memory; a
 // query-major pass for the row statistics, D and dq, then a key-major pass
 // for dk and dv). What stays on CUDA cores is the row passes (LayerNorm
-// forward and backward, the gate) and the column sums, all in
-// pair_bwd_common.cuh, which block_kernels.cu shares. The chain still writes
-// its intermediates (~30 KB per token row) to device memory.
+// forward, the backward with the LayerNorm parameter sums, the gate) and
+// the bias column sums, all in pair_bwd_common.cuh, which block_kernels.cu
+// shares. The chain still writes its intermediates (~30 KB per token row)
+// to device memory.
 //
 // The entry point launches on the caller's stream, allocates nothing (the
 // caller passes every buffer) and returns 0 or the first CUDA error.
@@ -79,12 +82,14 @@ enum Slot {
 
 extern "C" int mbt_pair_bwd_slot_count() { return S_COUNT; }
 
-// Floats of fp32 workspace the weight-gradient and column-sum partials need.
+// Floats of fp32 workspace the weight-gradient, column-sum and LayerNorm
+// backward partials need.
 extern "C" long long mbt_pair_bwd_work_floats(int C, int hidden) {
     const long long wmax = (long long)(3 * C > hidden ? 3 * C : hidden) * C;
     const long long cmax = (long long)(3 * C > hidden ? 3 * C : hidden);
-    const long long a = HG_TN_SPLITS * wmax, b = COL_SPLITS * cmax;
-    return a > b ? a : b;
+    const long long a = HG_TN_SPLITS * wmax, b = COL_SPLITS * cmax,
+                    c = (long long)LN_SPLITS * 2 * C;
+    return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }
 
 // Pair backward (p[S_OTHER] == nullptr) or gated pair backward on x
@@ -144,42 +149,31 @@ extern "C" int mbt_pair_block_bwd(void* const* p, int B, int F, int J, int C, in
         const float* dsg = static_cast<const float*>(p[S_DSG]);
         bf16* dwg = static_cast<bf16*>(p[S_DWG]);
         for (int k = 0; k < 2; ++k) {
-            CHECK(column_sum<COL_GATE>(p[S_OTHER], nullptr, nullptr, dsg + k, M, C, work,
+            CHECK(column_sum<COL_GATE>(p[S_OTHER], dsg + k, M, C, work,
                                        dwg + (size_t)k * 2 * C, true, stream));
-            CHECK(column_sum<COL_GATE>(p[S_OUTB], nullptr, nullptr, dsg + k, M, C, work,
+            CHECK(column_sum<COL_GATE>(p[S_OUTB], dsg + k, M, C, work,
                                        dwg + (size_t)k * 2 * C + C, true, stream));
         }
-        CHECK(column_sum<COL_F32>(dsg, nullptr, nullptr, nullptr, M, 2, work, p[S_DBG],
-                                  true, stream));
+        CHECK(column_sum<COL_F32>(dsg, nullptr, M, 2, work, p[S_DBG], true, stream));
     }
 
     // ---- MLP backward ----
     CHECK(hg_weight_grad(gm, p[S_A], M, C, hidden, work, p[S_DW2], stream));
-    CHECK(column_sum<COL_BF16>(gm, nullptr, nullptr, nullptr, M, C, work, p[S_DB2], true,
-                               stream));
+    CHECK(column_sum<COL_BF16>(gm, nullptr, M, C, work, p[S_DB2], true, stream));
     CHECK((hg_gemm<NN, EPI_DGELU>(gm, p[S_W2], nullptr, nullptr, p[S_Z], dz, nullptr, M,
                                   hidden, C, stream)));
     CHECK(hg_weight_grad(dz, p[S_H2], M, hidden, C, work, p[S_DW1], stream));
-    CHECK(column_sum<COL_BF16>(dz, nullptr, nullptr, nullptr, M, hidden, work, p[S_DB1],
-                               true, stream));
+    CHECK(column_sum<COL_BF16>(dz, nullptr, M, hidden, work, p[S_DB1], true, stream));
     CHECK((hg_gemm<NN, EPI_F32>(dz, p[S_W1], nullptr, nullptr, nullptr, p[S_DH], nullptr, M,
                                 C, hidden, stream)));
-    CHECK(column_sum<COL_F32>(p[S_DH], nullptr, nullptr, nullptr, M, C, work, p[S_DLN2_B],
-                              false, stream));
-    CHECK(column_sum<COL_LN_W>(p[S_DH], p[S_YB], p[S_ST2], nullptr, M, C, work, p[S_DLN2_W],
-                               false, stream));
-    ln_bwd_rows_kernel<<<row_blocks, ROW_THREADS, 0, stream>>>(
-        static_cast<const float*>(p[S_DH]), static_cast<const bf16*>(p[S_YB]),
-        static_cast<const float2*>(p[S_ST2]), static_cast<const float*>(p[S_LN2_W]),
-        static_cast<const bf16*>(gm), static_cast<bf16*>(p[S_DYB]), M, C);
-    CHECK(cudaGetLastError());
+    CHECK(launch_ln_bwd(p[S_DH], p[S_YB], p[S_ST2], p[S_LN2_W], gm, p[S_DYB], p[S_DLN2_W],
+                        p[S_DLN2_B], work, M, C, stream));
 
     // ---- attention backward ----
     CHECK((hg_gemm<NN, EPI_BF16>(p[S_DYB], p[S_WPROJ], nullptr, nullptr, nullptr, dattn,
                                  nullptr, M, C, C, stream)));
     CHECK(hg_weight_grad(p[S_DYB], p[S_ATTN], M, C, C, work, p[S_DWPROJ], stream));
-    CHECK(column_sum<COL_BF16>(p[S_DYB], nullptr, nullptr, nullptr, M, C, work, p[S_DBPROJ],
-                               true, stream));
+    CHECK(column_sum<COL_BF16>(p[S_DYB], nullptr, M, C, work, p[S_DBPROJ], true, stream));
     float* dqkv = static_cast<float*>(p[S_DQKV]);
     bf16* dqkvb = static_cast<bf16*>(p[S_DQKVB]);
     core.g = dattn;
@@ -189,19 +183,12 @@ extern "C" int mbt_pair_block_bwd(void* const* p, int B, int F, int J, int C, in
     core.ld_out = 3 * C;
     CHECK(launch_attention_tc(core, true, stream));
     CHECK(hg_weight_grad(p[S_DQKVB], p[S_H1], M, 3 * C, C, work, p[S_DWQKV], stream));
-    CHECK(column_sum<COL_F32>(p[S_DQKV], nullptr, nullptr, nullptr, M, 3 * C, work,
-                              p[S_DBQKV], true, stream));
+    CHECK(column_sum<COL_F32>(p[S_DQKV], nullptr, M, 3 * C, work, p[S_DBQKV], true, stream));
     CHECK((hg_gemm<NN, EPI_F32>(p[S_DQKVB], p[S_WQKV], nullptr, nullptr, nullptr, p[S_DH],
                                 nullptr, M, C, 3 * C, stream)));
-    CHECK(column_sum<COL_F32>(p[S_DH], nullptr, nullptr, nullptr, M, C, work, p[S_DLN1_B],
-                              false, stream));
-    CHECK(column_sum<COL_LN_W>(p[S_DH], p[S_X], p[S_ST1], nullptr, M, C, work, p[S_DLN1_W],
-                               false, stream));
-    ln_bwd_rows_kernel<<<row_blocks, ROW_THREADS, 0, stream>>>(
-        static_cast<const float*>(p[S_DH]), static_cast<const bf16*>(p[S_X]),
-        static_cast<const float2*>(p[S_ST1]), static_cast<const float*>(p[S_LN1_W]),
-        static_cast<const bf16*>(p[S_DYB]), static_cast<bf16*>(p[S_DX]), M, C);
-    return (int)cudaGetLastError();
+    CHECK(launch_ln_bwd(p[S_DH], p[S_X], p[S_ST1], p[S_LN1_W], p[S_DYB], p[S_DX], p[S_DLN1_W],
+                        p[S_DLN1_B], work, M, C, stream));
+    return 0;
 }
 
 // ---------------------------------------------------------------------------

@@ -58,9 +58,13 @@ RETIRED = ("launch_gemm", "gemm_kernel", "weight_grad(",
            "launch_attention_any", "launch_st_attention_any",
            "attention_kernel", "launch_attention_bwd", "attention_bwd_kernel",
            "ATTN_THREADS", "gemm_q8_kernel", "launch_gemm_q8", "mma_s8")
-# device records of each launcher (a weight gradient and a column sum are
-# the fixed-chunk partials and the in-order pass)
-RECORDS = {"hg_weight_grad": 2, "column_sum": 2}
+# device records of each launcher (a weight gradient, a column sum and the
+# LayerNorm backward are the fixed-chunk partials and the in-order pass)
+RECORDS = {"hg_weight_grad": 2, "column_sum": 2, "launch_ln_bwd": 2}
+# the separate LayerNorm parameter sums and row pass that the one-pass
+# LayerNorm backward (launch_ln_bwd) took the place of
+RETIRED_LN = ("COL_LN_W", "ln_bwd_rows_kernel", "launch_ln_bwd_rows",
+              "colsum_kernel<")
 
 
 @pytest.fixture(autouse=True)
@@ -94,11 +98,11 @@ def _body(code: str, signature: str) -> str:
 def _launches(body: str) -> list:
     """The launch sites of a chain, in order: the engine (with its layout
     and epilogue), its weight gradient and the block's last product, the
-    core (forward or backward), the row passes, the column sums and the
-    input gradient."""
+    core (forward or backward), the LayerNorm rows forward, its one-pass
+    backward, the column sums and the input gradient."""
     found = re.findall(
         r"(hg_gemm<\w+, \w+>|hg_weight_grad|nt_out|column_sum<\w+>|"
-        r"launch_ln_fwd_rows|launch_ln_bwd_rows|input_grad)\(|"
+        r"launch_ln_fwd_rows|launch_ln_bwd|input_grad)\(|"
         r"(launch_attention_tc)\(core, (true|false)", body)
     return [a or f"{b}/{'bwd' if c == 'true' else 'fwd'}"
             for a, b, c in found]
@@ -134,8 +138,7 @@ def test_block_chains_run_only_the_engine_and_the_tensor_core_core():
         "column_sum<COL_F32>", "input_grad"]
     assert _launches(dx) == [
         "hg_gemm<NN, EPI_RES>", "hg_gemm<NN, EPI_BF16>",
-        "hg_gemm<NN, EPI_F32>", "column_sum<COL_F32>",
-        "column_sum<COL_LN_W>", "launch_ln_bwd_rows"]
+        "hg_gemm<NN, EPI_F32>", "launch_ln_bwd"]
     assert _launches(last) == ["hg_gemm<NT, EPI_BIAS_RES>",
                                "hg_gemm<NT, EPI_BIAS>"]
     # the LayerNorm rows run only with use_ln
@@ -152,6 +155,20 @@ def test_block_chains_run_only_the_engine_and_the_tensor_core_core():
     assert "wmma" not in _code("pair_common.cuh")
     assert not re.search(r"\battention_bwd_kernel\b|\bweight_grad\(",
                          _code("pair_bwd_common.cuh"))
+
+
+def test_no_chain_sums_the_layer_norm_parameters_apart():
+    """Every LayerNorm backward of the chains (B3's two, B5's and B7's
+    through input_grad, mbt_ln_bwd) is launch_ln_bwd, the one pass with its
+    parameter sums and their in-order chunk sum: no csrc file defines or
+    launches a LayerNorm-parameter column sum (COL_LN_W) or a separate
+    LayerNorm backward row pass any more."""
+    for name in sorted(p.name for p in CSRC.glob("*.cu*")):
+        code = _code(name)
+        for retired in RETIRED_LN:
+            assert retired not in code, (name, retired)
+    assert _code("pair_bwd_kernels.cu").count("launch_ln_bwd(") == 2
+    assert _code("block_kernels.cu").count("launch_ln_bwd(") == 2
 
 
 def _chain_records(body: str, use_ln: bool, dx_records: int = 0) -> int:
@@ -171,9 +188,9 @@ def _chain_records(body: str, use_ln: bool, dx_records: int = 0) -> int:
 def test_block_records_count_the_chain_launches(backward, use_ln):
     """chip_smoke's device-record counts of one attention block call are the
     launches in the sources: the chain's, the input gradient's (one product
-    without LayerNorm; with it an fp32 product, two column sums and the
-    row backward), and without LayerNorm the wrapper's two zero LayerNorm
-    gradients."""
+    without LayerNorm; with it an fp32 product and the one-pass LayerNorm
+    backward with its chunk sum), and without LayerNorm the wrapper's two
+    zero LayerNorm gradients."""
     code = _code("block_kernels.cu")
     if not backward:
         want = _chain_records(_body(code, "int mbt_attention_block("), use_ln)

@@ -116,6 +116,51 @@ def test_pair_bwd_chain_runs_only_the_engine_and_the_tensor_core_core():
     assert code.count("launch_attention_tc(core") == 2
 
 
+def _body(code: str, signature: str) -> str:
+    """The braced body of the block that starts with ``signature``."""
+    start = code.index("{", code.index(signature))
+    depth = 0
+    for i in range(start, len(code)):
+        depth += {"{": 1, "}": -1}.get(code[i], 0)
+        if depth == 0:
+            return code[start:i + 1]
+    raise AssertionError(signature)
+
+
+# device records of each launch site of the pair backward's chain: a row
+# pass (<<<), a product, the core; a weight gradient, a column sum and the
+# LayerNorm backward are fixed-chunk partials and an in-order pass
+PAIR_BWD_LAUNCHES = ((r"\w+_kernel<<<", 1), (r"hg_gemm<", 1),
+                     (r"launch_attention_tc\(core", 1),
+                     (r"hg_weight_grad\(", 2), (r"column_sum<", 2),
+                     (r"launch_ln_bwd\(", 2))
+
+
+def _records(code: str) -> int:
+    return sum(n * len(re.findall(pattern, code))
+               for pattern, n in PAIR_BWD_LAUNCHES)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_pair_bwd_records_count_the_chain_launches(gated):
+    """chip_smoke's device-record count of one pair backward call
+    (pair_bwd_records, which phase 7 holds each call's profile to) is the
+    launches of mbt_pair_block_bwd in the source: the ungated chain's, and
+    the gated branch's on top, its loop over the two gate rows twice."""
+    src = (CSRC / "pair_bwd_kernels.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    body = _body(code, "int mbt_pair_block_bwd(")
+    branch = _body(body, "if (gated)")
+    loop = _body(branch, "for (int k = 0; k < 2; ++k)")
+    want = _records(body) - _records(branch)
+    if gated:
+        want += _records(branch) + _records(loop)
+    assert chip_smoke.pair_bwd_records(gated) == want
+    # both LayerNorm backwards are the one pass with its chunk sum
+    assert body.count("launch_ln_bwd(") == 2
+    assert "ln_bwd_rows" not in body and "COL_LN_W" not in body
+
+
 @pytest.mark.parametrize("mode,gflop", [("temporal", 215.3),
                                         ("spatial", 192.3)])
 def test_pair_bwd_bound_counts_fc2_twice_when_ungated(mode, gflop):

@@ -1733,3 +1733,121 @@ def test_shards_that_are_not_whole_engine_tiles_stay_whole(cuda):
     assert blk.attn_s.qkv.weight.shape == (384, 128)
     assert blk.mlp_s.fc1.weight.shape == (64, 128)
     assert blk.tp.heads == 4 and blk.tp.attn_group is None
+
+
+# ---------------------------------------------------------------------------
+# the one-pass LayerNorm backward and the bias column sums
+# (csrc/pair_bwd_common.cuh's launch_ln_bwd and column_sum)
+# ---------------------------------------------------------------------------
+
+def _ln_inputs(device, M, C):
+    rs = np.random.RandomState(M + C)
+
+    def t(*shape, dt=torch.float32, scale=1.0, shift=0.0):
+        a = rs.normal(size=shape).astype(np.float32) * scale + shift
+        return torch.from_numpy(a).to(device=device, dtype=dt)
+
+    x = t(M, C, dt=torch.bfloat16, scale=2.0, shift=0.5)
+    return t(M, C), x, at.ln_row_stats(x), t(C, scale=0.1, shift=1.0), \
+        t(M, C, dt=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("C", [64, 256, 512, 1024])
+@pytest.mark.parametrize("M", [1, 17, 4131, 16524, 33048])
+def test_ln_bwd_one_pass_matches_plain(cuda, M, C, residual):
+    """fused_ln_bwd (the pass with its parameter sums, then their chunk
+    sum) against ln_bwd_plain: dx within one bf16 step of max|dx| (the
+    plain twin takes the row means in another order); dln_w and dln_b
+    against the float64 sums of the same fp32 terms (dh * xhat, xhat as the
+    kernel forms it) within chip_smoke's order bound; twice, bit for bit;
+    one launch a call."""
+    import chip_smoke
+
+    dh, x, stats, w, g = _ln_inputs(cuda, M, C)
+    g = g if residual else None
+    before = at.fused_ln_bwd.launches
+    got = at.fused_ln_bwd(dh, x, stats, w, g)
+    torch.cuda.synchronize()
+    again = at.fused_ln_bwd(dh, x, stats, w, g)
+    assert at.fused_ln_bwd.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = at.ln_bwd_plain(dh, x, stats, w, g)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == x.shape
+    assert _rel(got[0], want[0]) <= 2 ** -7
+    xhat = (x.float() - stats[:, :1]) * stats[:, 1:]
+    splits = at.COLSUM_CONSTANTS["ln_splits"]
+    for a, terms in ((got[1], dh.double() * xhat.double()),
+                     (got[2], dh.double())):
+        assert a.dtype == torch.float32 and a.shape == (C,)
+        err = (a.double() - terms.sum(0)).abs()
+        bound = chip_smoke.order_bound(terms, splits)
+        assert (err <= bound).all(), err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [2, 512, 1024, 1536])
+@pytest.mark.parametrize("mode", ["bf16", "f32", "gate"])
+@pytest.mark.parametrize("M", [17, 33048])
+def test_colsum_matches_float64(cuda, M, mode, N):
+    """A bias column sum (the chains' pass through its test entry) against
+    the float64 sum of its terms within chip_smoke's order bound; its bf16
+    output is the fp32 one rounded; twice, bit for bit."""
+    import chip_smoke
+
+    rs = np.random.RandomState(N)
+    dt = torch.float32 if mode == "f32" else torch.bfloat16
+    src = torch.from_numpy(rs.normal(size=(M, N)).astype(np.float32)).to(
+        cuda, dt)
+    w = torch.from_numpy(rs.normal(size=(M, 2)).astype(np.float32)).to(
+        cuda) if mode == "gate" else None
+    before = at.column_sum.launches
+    got = at.column_sum(src, mode, w)
+    again = at.column_sum(src, mode, w)
+    rounded = at.column_sum(src, mode, w, torch.bfloat16)
+    assert at.column_sum.launches == before + 3
+    assert torch.equal(got, again)
+    assert torch.equal(rounded, got.to(torch.bfloat16))
+    terms = src.double()
+    if mode == "gate":
+        terms = terms * w[:, :1].to(torch.bfloat16).double()
+    err = (got.double() - terms.sum(0)).abs()
+    bound = chip_smoke.order_bound(terms, at.COLSUM_CONSTANTS["splits"])
+    assert (err <= bound).all(), err.max().item()
+
+
+@pytest.mark.cuda
+def test_colsum_constants_match_the_library(cuda):
+    """The wrapper's COLSUM_CONSTANTS are the library's (mbt_colsum_constant
+    name for name): _colsum_library raises otherwise."""
+    lib = at._colsum_library()
+    for name, value in at.COLSUM_CONSTANTS.items():
+        assert lib.mbt_colsum_constant(name.encode()) == value
+    assert lib.mbt_colsum_constant(b"no such constant") == -1
+
+
+@pytest.mark.cuda
+def test_ln_bwd_and_colsum_raise_on_misaligned_operands(cuda):
+    """What the passes do not take raises before any launch: a misaligned
+    dh, x, g or statistics (the LayerNorm backward's vector loads), a
+    source off its column pairs or of odd width, a gate sum without w; the
+    card works on."""
+    dh, x, stats, w, g = _ln_inputs(cuda, 4131, 512)
+    before = (at.fused_ln_bwd.launches, at.column_sum.launches)
+    for args in ((_misaligned(dh), x, stats, w, g),
+                 (dh, _misaligned(x), stats, w, g),
+                 (dh, x, _misaligned(stats), w, g),
+                 (dh, x, stats, w, _misaligned(g))):
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            at.fused_ln_bwd(*args)
+    with pytest.raises(ValueError, match="whole pair"):
+        at.column_sum(_misaligned(x), "bf16")
+    with pytest.raises(ValueError, match="N even"):
+        at.column_sum(x[:, :3].contiguous(), "bf16")
+    with pytest.raises(ValueError, match="reads w"):
+        at.column_sum(x, "gate")
+    assert (at.fused_ln_bwd.launches, at.column_sum.launches) == before
+    got = at.fused_ln_bwd(dh, x, stats, w, g)
+    assert _rel(got[0], at.ln_bwd_plain(dh, x, stats, w, g)[0]) <= 2 ** -7

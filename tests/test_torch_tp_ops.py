@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from motionbert_tpu.ops import attention as jat
 from motionbert_tpu.ops import fused_mlp as jmlp
 from motionbert_tpu_torch.ops import attention as at
@@ -215,19 +216,23 @@ def test_tp_bwd_twins_match_jax_vjp_on_shards(mode, T):
             _rel_close(a.numpy(), w, BWD_TOL, f"MLP shard {r} {name}")
 
 
-def test_ln_bwd_twin_matches_jax_vjp_of_layer_norm():
-    """ln_bwd_plain(dh, x, stats, w, g) = (vjp of layer_norm's x + g, its
-    scale and bias gradients), fp32."""
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("shape", [(B, F, J, C), (4131, C)])
+def test_ln_bwd_twin_matches_jax_vjp_of_layer_norm(shape, residual):
+    """ln_bwd_plain(dh, x, stats, w, g) = (vjp of layer_norm's x [+ g], its
+    scale and bias gradients), fp32, LN_TOL of max|reference|, at 102 and
+    4131 rows: neither a multiple of the kernels' chunk counts (64, 256) nor
+    of their load batch (32)."""
     p = _params()
-    dh = _mk(p["x"].shape, 12)
-    _, vjp = jax.vjp(jat.layer_norm, jnp.asarray(p["x"]),
+    xa, dh, ga = _mk(shape, 0), _mk(shape, 12), _mk(shape, 11)
+    _, vjp = jax.vjp(jat.layer_norm, jnp.asarray(xa),
                      jnp.asarray(p["ln_w"]), jnp.asarray(p["ln_b"]))
     dx, dw, db = vjp(jnp.asarray(dh))
-    x = _t(p["x"])
+    x = _t(xa)
     got = at.ln_bwd_plain(_t(dh), x, at.ln_row_stats(x), _t(p["ln_w"]),
-                          _t(p["g"]))
-    for name, a, w in zip(("dx", "dln_w", "dln_b"), got,
-                          (np.asarray(dx) + p["g"], dw, db)):
+                          _t(ga) if residual else None)
+    want_dx = np.asarray(dx) + (ga if residual else 0.0)
+    for name, a, w in zip(("dx", "dln_w", "dln_b"), got, (want_dx, dw, db)):
         assert a.dtype == torch.float32
         _rel_close(a.numpy(), w, LN_TOL, name)
 
@@ -343,7 +348,7 @@ def _body(code: str, signature: str) -> str:
 def _launches(body: str) -> list:
     found = re.findall(
         r"(hg_gemm<\w+, \w+>|hg_weight_grad|column_sum<\w+>|"
-        r"launch_ln_fwd_rows|launch_ln_bwd_rows)\(|"
+        r"launch_ln_fwd_rows|launch_ln_bwd)\(|"
         r"(launch_attention_tc)\(core, (true|false)", body)
     return [a or f"{b}/{'bwd' if c == 'true' else 'fwd'}"
             for a, b, c in found]
@@ -365,9 +370,18 @@ TP_CHAINS = {
         "launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS_GELU_Z>",
         "hg_weight_grad", "hg_gemm<NN, EPI_DGELU>", "hg_weight_grad",
         "column_sum<COL_BF16>", "hg_gemm<NN, EPI_F32>"],
-    "int mbt_ln_bwd(": [
-        "column_sum<COL_F32>", "column_sum<COL_LN_W>", "launch_ln_bwd_rows"],
+    "int mbt_ln_bwd(": ["launch_ln_bwd"],
 }
+# the wrapper each TP chain is launched by
+TP_WRAPPERS = {"int mbt_attention_block_tp(": "fused_attention_block_tp",
+               "int mbt_attention_block_tp_bwd(":
+                   "fused_attention_block_tp_bwd",
+               "int mbt_mlp_block_tp(": "fused_mlp_block_tp",
+               "int mbt_mlp_block_tp_bwd(": "fused_mlp_block_tp_bwd",
+               "int mbt_ln_bwd(": "fused_ln_bwd"}
+# device records of each launcher: a weight gradient, a column sum and the
+# LayerNorm backward are fixed-chunk partials and an in-order pass
+LAUNCH_RECORDS = {"hg_weight_grad": 2, "column_sum": 2, "launch_ln_bwd": 2}
 
 
 @pytest.mark.parametrize("signature", sorted(TP_CHAINS))
@@ -376,6 +390,16 @@ def test_tp_chains_launch_what_their_mirrors_mirror(signature):
     the plain twin of: the engine, the tensor-core core, the row passes and
     the column sums, nothing else."""
     assert _launches(_body(_code(), signature)) == TP_CHAINS[signature]
+
+
+@pytest.mark.parametrize("signature", sorted(TP_CHAINS))
+def test_tp_records_count_the_chain_launches(signature):
+    """chip_smoke's device-record counts of one TP call (TP_RECORDS, which
+    phase 30 holds each call's profile to) are its chain's launches in the
+    source."""
+    want = sum(LAUNCH_RECORDS.get(launch.split("<")[0].split("/")[0], 1)
+               for launch in _launches(_body(_code(), signature)))
+    assert chip_smoke.TP_RECORDS[TP_WRAPPERS[signature]] == want
 
 
 def _tp_args(T: int, dtype=torch.bfloat16) -> dict:
@@ -447,7 +471,7 @@ def test_tp_mlp_chains_mirror_the_twins(T):
     for name, mine, want in (("dw1", dw1, got[0]), ("dw2", dw2, got[2])):
         _rel_close(mine.to(torch.bfloat16).float(), want.float(), 2 ** -7,
                    name)
-    # mbt_ln_bwd: two column sums, then the row backward with g
+    # mbt_ln_bwd: the one pass with its parameter sums, g added
     stats = got[4]
     xhat = (at.wide(t["x"]) - stats[..., :1]) * stats[..., 1:]
     dx, dln_w, dln_b = at.ln_bwd_plain(got[3], t["x"], stats, t["ln_w"],
