@@ -41,20 +41,25 @@ Phases, each of which passes or ends the run with a non-zero exit code:
  10. q8 kernels: first the s8 engine alone (csrc/hopper_gemm_s8.cuh) at
      the W8A8 pair's four products on the phase-3 rows and at ragged
      shapes, against its plain twin (bit for bit but the fp32 GELU), twice
-     for bitwise equality, with its device time and TOP/s; then the W8A8
+     for bitwise equality, with its device time and TOP/s; then the column
+     quantiser (quant_cols_kernel, one launch a call) at a pair call's four
+     weights and a stream call's eight, bf16, and the four in fp32, bit for
+     bit its plain version, twice, with its time, device time, plain time
+     and byte bound; then the W8A8
      pair (plain and gated, temporal and spatial) at the phase-3 shape
      against its plain version (a max-based bar and a relative-L2 bar that
      a moved rounding point fails), twice for bitwise equality, with its
      time (one call, back to back, and the device's own, split into the
-     chain's kernels and quant_cols's PyTorch operators), bound, the plain
+     chain's kernels and the column quantiser's), bound, the plain
      version's time, a library yardstick (torch._int_mm products,
      PyTorch's own operators for the rest) with its device time, the bf16
      pair's time from the same run, and the cost of quant_cols; a call's
      profile must hold the quantisers, the s8 engine and the tensor-core
-     core once a launch and no kernel of the first design.
+     core once a launch, no PyTorch operator and no kernel of the first
+     design.
  11. q8 main path: MotionBERT.from_config with attn_impl="kernel_q8" and the
      anchor; a flip-TTA lift and a representation through the int8 kernels;
-     launch counts; relative L2 error against the fp32 plain path beside
+     launch counts (the column quantiser's among them); relative L2 error against the fp32 plain path beside
      the bf16 tier's; clips/s of both tiers; one q8 lift under the profiler,
      which must hold the s8 engine and the tensor-core core and no kernel
      of the first design.
@@ -198,8 +203,14 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      not, at the phase-3 rows on model rank 0's shards of 2 (Ci 256, 4
      local heads, hidden slice 512) against its plain twin at phase 10's
      bars, twice for bitwise repeatability, with times (one call, back to
-     back, device), bound, the plain twin's time and a library yardstick
-     (torch._int_mm and scaled_dot_product_attention on the same shards);
+     back, device, split into the stages and the column quantisers),
+     bound, the plain twin's time and a library yardstick (torch._int_mm
+     and scaled_dot_product_attention on the same shards); a call's
+     profile must hold its 13 kernel records by name (no row-maximum pass,
+     no dequantising pass before the LayerNorm, no PyTorch operator); the
+     split column quantiser at the shards' wproj and w2 against its plain
+     version with times, and over 2 and 4 ranks' slices bit for bit the
+     whole weights' quantiser;
      (b) one spawn of two gloo ranks on cuda:0, a 1 x 2 grid at the
      flagship widths (dim 512, depth 5, 8 heads; the backbones with the
      anchor weights): one step each of the action model (classifier,
@@ -251,7 +262,11 @@ bit, with both device times in turns; holds this build's attention blocks
 both tiers) and attention core (B8) to their plain versions' bars and
 times both builds' in turns (other, this, this, other) at the
 phase-16/17, phase-10, phase-3, phase-24 and phase-20 inputs, the device
-time by kernel beside; runs phase 8's train steps and phase 18's
+time by kernel beside; holds B9, B10 W8A8 and B9_tp (phase 31 (a)'s
+inputs) to the other build's outputs bit for bit and times B9_tp in turns
+too (an other checkout without the column-quantiser kernels quantises its
+weights with PyTorch's operators, as it did, and runs its own B9_tp
+entries); runs phase 8's train steps and phase 18's
 drop-path steps in turns with the other build's pair or block library
 swapped in, then profiles one step of each; and times phase 4's lift and
 phase 11's W8A8 lift in turns the same way. The in-turn times join the
@@ -265,6 +280,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import ctypes
 import json
 import os
 import re
@@ -452,14 +468,19 @@ def device_profile(fn, records, calls: int = 10) -> tuple:
     return None, rows
 
 
+def kernel_name(key: str) -> str:
+    """A profile key's kernel name with its template arguments (the
+    engine's layout and epilogue, the core's head dim and key tiles) and
+    without its parameter list."""
+    name = key.replace("(anonymous namespace)::", "").replace("void ", "")
+    return re.sub(r"\((?!anonymous).*$", "", name)[:72]
+
+
 def by_kernel(rows, calls: int) -> dict:
-    """Device ms per call of each kernel of a profile, by its name with its
-    template arguments (the engine's layout and epilogue, the core's head
-    dim and key tiles) and without its parameter list."""
+    """Device ms per call of each kernel of a profile, by kernel_name."""
     out = {}
     for key, ms, _ in rows:
-        name = key.replace("(anonymous namespace)::", "").replace("void ", "")
-        name = re.sub(r"\((?!anonymous).*$", "", name)[:72]
+        name = kernel_name(key)
         out[name] = out.get(name, 0.0) + ms / calls
     return out
 
@@ -585,24 +606,32 @@ def pair_records(gated: bool) -> int:
 
 def stream_records(gated: bool, q8_tier: bool):
     """Device records of one stream call: both passes' chains and the gate
-    (csrc/stream_kernels.cu); None in the W8A8 tier, whose wrapper runs
-    quant_cols's PyTorch operators before its launch (device_profile then
-    takes every kernel a whole multiple of the calls)."""
+    (csrc/stream_kernels.cu); None in the W8A8 tier, whose call and the
+    pair chain it is held against quantise their weights in one launch and
+    in two (device_profile then takes every kernel a whole multiple of the
+    calls)."""
     return None if q8_tier else 2 * pair_records(False) + int(gated)
 
 
+# column-quantiser launches of a W8A8 pair call (ops/pair_q8.py _launch:
+# its four weights) and of a W8A8 stream call (ops/fused_stream.py _launch:
+# both pairs' eight)
+Q8_WEIGHT_LAUNCHES = 1
+
+
 def pair_q8_records(gated: bool) -> int:
-    """Device records of one W8A8 pair call's chain, from
-    csrc/pair_q8_common.cuh's q8_pair_chain: two LayerNorm quantisers, two
+    """Device records of one W8A8 pair call: the chain, from
+    csrc/pair_q8_common.cuh's q8_pair_chain (two LayerNorm quantisers, two
     row quantisers, four products on the s8 engine and the tensor-core
-    core; the gated pair adds the gate. quant_cols's PyTorch operators run
-    beside them in the wrapper (q8_profile_split)."""
-    return 9 + int(gated)
+    core; the gated pair adds the gate), and the column quantiser's launch
+    before it."""
+    return 9 + int(gated) + Q8_WEIGHT_LAUNCHES
 
 
 def stream_q8_records(gated: bool) -> int:
-    """Device records of one W8A8 stream call's chains and gate."""
-    return 2 * pair_q8_records(False) + int(gated)
+    """Device records of one W8A8 stream call: both chains, the gate and
+    the column quantiser's one launch for both pairs' weights."""
+    return 2 * 9 + int(gated) + Q8_WEIGHT_LAUNCHES
 
 
 # kernel-name fragments a bf16 pair call must launch, and those of the
@@ -762,12 +791,19 @@ def phase_main_path(fp, records: list):
     return mb, x
 
 
+# the column quantisers (csrc/pair_q8_common.cuh): B9's and B10's one, and
+# B9_tp's split
+COL_QUANT_KERNELS = ("quant_cols_kernel", "col_amax_kernel",
+                     "quant_cols_given_kernel")
 # kernel-name fragments of the port's own kernels, for the profile's groups
 # (with the retired ones, which another checkout's build, under --baseline,
 # may still run)
 PROFILE_GROUPS = ("hg_gemm_kernel", "hg_gemm_s8_kernel", "attn_tc_fwd_kernel",
-                  "attn_tc_bwd_kernel", "gemm_q8_kernel", "ln_quant_rows_kernel",
-                  "quant_rows_kernel", "attention_bwd_kernel",
+                  "attn_tc_bwd_kernel", "gemm_q8_kernel",
+                  "dequant_ln_quant_rows_kernel", "ln_quant_rows_kernel",
+                  "quant_rows_kernel", "quant_rows_given_kernel",
+                  "dequant_rows_kernel", "dequant_gate_rows_kernel",
+                  *COL_QUANT_KERNELS, "row_amax_kernel", "attention_bwd_kernel",
                   "attention_kernel", "gate_bwd_rows_kernel", "gate_kernel",
                   "gemm_kernel", "colsum_chunks_kernel", "chunk_sum_kernel",
                   "colsum_kernel", "reduce_splits_kernel",
@@ -826,7 +862,7 @@ def phase_profile(mb, x, tag: str = "profile"):
     groups = {}
     for key, ms, n in rows:
         name = next((g for g in PROFILE_GROUPS if g in key),
-                    "other (PyTorch operators: casts, quant_cols, embed, head)")
+                    "other (PyTorch operators: casts, embed, head)")
         groups[name] = groups.get(name, 0.0) + ms
     log(f"{tag}: by group: " + json.dumps(
         {k: round(v, 3) for k, v in sorted(groups.items(),
@@ -945,34 +981,46 @@ def pair_q8_library(p: dict, gated: bool, scale: float, mode: str,
     return out
 
 
-# kernel-name fragments of the W8A8 chain (q8_pair_chain and the gate): a
-# W8A8 call's other device records are quant_cols's PyTorch operators
-# ("quant_rows_kernel" also names the LayerNorm quantiser)
+# kernel-name fragments of a W8A8 call (q8_pair_chain, the gate and the
+# column quantiser; "quant_rows_kernel" also names the LayerNorm quantiser)
 Q8_CHAIN_KERNELS = ("hg_gemm_s8_kernel", "attn_tc_fwd_kernel",
-                    "quant_rows_kernel", "gate_kernel")
+                    "quant_rows_kernel", "quant_cols_kernel", "gate_kernel")
+
+
+def torch_operator(name: str) -> bool:
+    """A profile record of one of PyTorch's own kernels (by_kernel's name or
+    a raw key), not the port's."""
+    return name.replace("void ", "").startswith("at::")
 
 
 def q8_profile_split(by: dict) -> dict:
-    """A W8A8 call's device ms by kernel (by_kernel) split into
-    quant_cols's PyTorch operators (at::) and the chain: the port's own
-    kernels, this build's or another's."""
-    quant_cols = sum(ms for k, ms in by.items() if k.startswith("at::"))
-    return dict(chain_device_ms=sum(by.values()) - quant_cols,
-                quant_cols_device_ms=quant_cols)
+    """A W8A8 call's device ms by kernel (by_kernel) split into the column
+    quantisers' kernels, by name; PyTorch's operators (at::, which a build
+    that quantised its weights with them, the parent's under --baseline,
+    runs); and the chain: the port's other kernels, this build's or
+    another's."""
+    out = {f"{k}_device_ms": sum(ms for n, ms in by.items() if k in n)
+           for k in COL_QUANT_KERNELS}
+    out["torch_operators_device_ms"] = sum(
+        ms for n, ms in by.items() if torch_operator(n))
+    out["chain_device_ms"] = sum(by.values()) - sum(out.values())
+    return out
 
 
 def q8_profile_faults(rows, calls: int, records: int, gated: bool) -> list:
-    """What a W8A8 pair or stream call's profile must not show: a chain
-    kernel missing (the s8 engine, the tensor-core core, the quantisers,
-    the gate when gated), a chain record count other than `records` a call,
-    or a retired kernel."""
-    needed = Q8_CHAIN_KERNELS[:3] + (("gate_kernel",) if gated else ())
+    """What a W8A8 pair or stream call's profile must not show: a kernel
+    missing (the s8 engine, the tensor-core core, the row quantisers, the
+    column quantiser, the gate when gated), a record count other than
+    `records` a call, a PyTorch operator, or a retired kernel."""
+    needed = Q8_CHAIN_KERNELS[:4] + (("gate_kernel",) if gated else ())
     faults = [f"no {k}" for k in needed
               if not any(k in key for key, _, _ in rows)]
     got = sum(n for key, _, n in rows
               if any(k in key for k in Q8_CHAIN_KERNELS)) / calls
     if got != records:
-        faults.append(f"{got} chain records a call, expected {records}")
+        faults.append(f"{got} records a call, expected {records}")
+    faults += [f"PyTorch operator {key[:60]}" for key, _, _ in rows
+               if torch_operator(key)]
     return faults + [f"retired {k}" for k in retired_kernels(rows)]
 
 
@@ -1043,6 +1091,81 @@ def phase_q8_engine(q8) -> None:
     torch.cuda.empty_cache()
 
 
+QUANT_COLS_REPLACES = ("motionbert_tpu/ops/pair_q8.py:71 (quant_cols, XLA "
+                       "outside _q8_launch's pallas_call, :188-191)")
+
+
+def quant_cols_cost(ws) -> float:
+    """Bytes the column quantisers must move for weights ws: each read
+    once, its int8 and fp32 scales written (the operations, a division an
+    element, are far below the card's fp32 rate)."""
+    return sum(w.numel() * (w.element_size() + 1) + 4 * w.shape[0]
+               for w in ws)
+
+
+def quant_cols_case(tag: str, call, plain, ws, records: int) -> dict:
+    """One column-quantiser call on the card (call() -> [(int8, scale)])
+    against its plain version bit for bit, twice for bitwise repeatability,
+    with one call's time, the device's own (the profile holding `records`
+    kernel records a call and nothing else), the plain version's and the
+    byte bound; no single PyTorch call computes the function."""
+    got = call()
+    torch.cuda.synchronize()
+    again = call()
+    want = plain()
+    equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                for a, b in zip(got, want))
+    bitwise = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                  for a, b in zip(got, again))
+    calls = 10
+    dev_ms, rows = device_profile(call, records, calls)
+    names = [key for key, _, _ in rows]
+    nbytes = quant_cols_cost(ws)
+    rec = dict(shapes=[list(w.shape) for w in ws],
+               dtype=str(ws[0].dtype).replace("torch.", ""),
+               equal_to_plain=equal, bitwise_repeatable=bitwise,
+               max_abs_err=max((a[0].int() - b[0].int()).abs().max().item()
+                               for a, b in zip(got, want)),
+               ms=time_ms(call), back_to_back_ms=time_ms_back_to_back(call),
+               device_ms=dev_ms, device_by_kernel=by_kernel(rows, calls),
+               plain_ms=time_ms(plain, runs=10, warmup=1),
+               bound_ms=nbytes / PEAK_HBM_BYTES * 1e3, bound_by="bytes",
+               library_ms=None, mbytes=nbytes / 1e6)
+    log(f"column quantiser {tag}: " + json.dumps(rec))
+    if not (equal and bitwise):
+        fail(f"column quantiser {tag}: equal to the plain quantiser {equal}, "
+             f"bitwise repeatable {bitwise}")
+    if any(not any(k in n for k in COL_QUANT_KERNELS) for n in names):
+        fail(f"column quantiser {tag}: the profile holds {names}")
+    return rec
+
+
+def phase_quant_cols(q8) -> list:
+    """The column quantiser (quant_cols_kernel, one launch a call) at the
+    weights of a W8A8 pair call (the flagship's four, bf16, as the model
+    hands them) and of a W8A8 stream call (two pairs' eight), and fp32."""
+    dev = torch.device("cuda")
+    cases = {}
+    for tag, seeds, dtype in (("pair", (6,), torch.bfloat16),
+                              ("stream", (30, 40), torch.bfloat16),
+                              ("pair fp32", (6,), torch.float32)):
+        ws = [pair_inputs(seed, False, dev)[k].to(dtype) for seed in seeds
+              for k in ("wqkv", "wproj", "w1", "w2")]
+        cases[tag] = quant_cols_case(
+            tag, lambda: q8.quant_cols(*ws),
+            lambda: [q8.quant_cols_plain(w) for w in ws], ws, 1)
+        del ws
+    main = cases["pair"]
+    return [dict(
+        name="quant_cols", route="cuda",
+        source="motionbert_tpu_torch/ops/csrc/pair_q8_common.cuh",
+        replaces=QUANT_COLS_REPLACES, launches=None,
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by="bytes", library_ms=None, device_ms=main["device_ms"],
+        cases=cases)]
+
+
 def phase_q8_kernels(q8, fp) -> list:
     scale = (C // HEADS) ** -0.5
     dev = torch.device("cuda")
@@ -1102,11 +1225,9 @@ def phase_q8_kernels(q8, fp) -> list:
                     lambda: pair_q8_library(p, gated, scale, mode)),
                 library_rel_err=lib_rel,
                 library_device_ms=device_ms(library, None),
-                device_ms=dev_ms, chain_device_ms=split["chain_device_ms"],
-                quant_cols_device_ms=split["quant_cols_device_ms"],
+                device_ms=dev_ms, **split,
                 device_by_kernel=by_kernel(rows, calls),
-                quant_cols_ms=time_ms(
-                    lambda: [q8.quant_cols(w) for w in weights]),
+                quant_cols_ms=time_ms(lambda: q8.quant_cols(*weights)),
                 int8_gop=int8_ops / 1e9, bf16_gflop=bf16_flops / 1e9,
                 mbytes=nbytes / 1e6)
             log(f"q8 kernel {name}/{mode}: " + json.dumps(rec))
@@ -1141,7 +1262,7 @@ def rel_l2(out: np.ndarray, ref: np.ndarray) -> float:
 
 def pair_counters(q8, fp) -> tuple:
     return (q8.fused_pair_block_q8, q8.fused_gated_pair_block_q8,
-            fp.fused_pair_block, fp.fused_gated_pair_block)
+            fp.fused_pair_block, fp.fused_gated_pair_block, q8.quant_cols)
 
 
 def phase_q8_main_path(q8, fp, records: list):
@@ -1162,7 +1283,8 @@ def phase_q8_main_path(q8, fp, records: list):
     log(f"q8 main: launches in one flip-TTA lift: {json.dumps(launches)}")
     expect = {"fused_pair_block_q8": 3 * 5 * 2,
               "fused_gated_pair_block_q8": 5 * 2,
-              "fused_pair_block": 0, "fused_gated_pair_block": 0}
+              "fused_pair_block": 0, "fused_gated_pair_block": 0,
+              "quant_cols": 4 * 5 * 2}
     if launches != expect:
         fail(f"q8 lift launched {launches}, expected {expect}")
     for rec in records:
@@ -1382,10 +1504,11 @@ def phase_straight_through(q8, fp):
 
 def phase_q8(q8, fp) -> list:
     timed("s8 engine", phase_q8_engine, q8)
-    records = phase_q8_kernels(q8, fp)
+    records = timed("column quantiser", phase_quant_cols, q8)
+    records += phase_q8_kernels(q8, fp)
     mb8, mb16, x = phase_q8_main_path(q8, fp, records)
     rows = phase_profile(mb8, x, tag="q8 profile")
-    faults = [k for k in Q8_CHAIN_KERNELS[:3]
+    faults = [k for k in Q8_CHAIN_KERNELS[:4]
               if not any(k in key for key, _, _ in rows)]
     if faults or retired_kernels(rows):
         fail(f"q8 lift: the profile misses {faults} or runs "
@@ -5144,23 +5267,48 @@ def phase_tp(records: list) -> None:
 # ---------------------------------------------------------------------------
 
 Q8_TP_REPLACES = "motionbert_tpu/ops/pair_q8.py:147"
-# kernel-name fragments of B9_tp's stages (csrc/pair_q8_kernels.cu): the s8
-# engine, the core, the quantisers (ln_quant_rows, quant_rows_given), the
-# row maxima, the dequantising row pass, the gate; its other device records
-# are quant_cols's and quant_cols_tp's PyTorch operators
-Q8_TP_KERNELS = ("hg_gemm_s8_kernel", "attn_tc_fwd_kernel", "quant_rows",
-                 "row_amax_kernel", "gate_kernel")
+# B9_tp's device records a call by kernel (csrc/pair_q8_kernels.cu's note):
+# the weights' three (the whole quantiser for wqkv and w1, the split for
+# wproj and w2), the attention stage's three (its core taking the row
+# maxima), two a partial product, the MLP stage's two (its row pass taking
+# the dequantise, LN2 and the quantiser; fc1 its row maxima), the output's
+# one (the gate in it when gated); nothing else, no PyTorch operator
+Q8_TP_KERNELS = {"quant_cols_kernel": 1, "col_amax_kernel": 1,
+                 "quant_cols_given_kernel": 1, "ln_quant_rows_kernel": 1,
+                 "hg_gemm_s8_kernel": 4, "attn_tc_fwd_kernel": 1,
+                 "quant_rows_given_kernel": 2,
+                 "dequant_ln_quant_rows_kernel": 1}
 # clips of each task's global batch in (b): SupCon needs two of each of
 # two classes; the pose3d model takes tp_batch's 2
 TP2_CLIPS = {"action": 1, "supcon": 4, "mesh": 2}
 TP2_LIFT_TIERS = ("kernel_q8", "kernel_stream_q8", "kernel_stream")
 
 
+def pair_q8_tp_kernels(gated: bool) -> dict:
+    """Device records of one B9_tp call by kernel: Q8_TP_KERNELS and the
+    output pass (dequant_rows_kernel, or dequant_gate_rows_kernel)."""
+    out = "dequant_gate_rows_kernel" if gated else "dequant_rows_kernel"
+    return {**Q8_TP_KERNELS, out: 1}
+
+
 def pair_q8_tp_records(gated: bool) -> int:
-    """Device records of one B9_tp call's stages: the attention stage 4,
-    each partial product 2, the MLP stage 4, the output pass 1 (2
-    gated)."""
-    return 13 + int(gated)
+    """Device records of one B9_tp call: 13, gated or not."""
+    return sum(pair_q8_tp_kernels(gated).values())
+
+
+def q8_tp_profile_faults(rows, calls: int, gated: bool) -> list:
+    """Where a B9_tp call's profile differs from pair_q8_tp_kernels: a
+    kernel missing or launched another number of times a call, or any
+    other kernel (a PyTorch operator, the retired row_amax_kernel or
+    gate_kernel)."""
+    got = {}
+    for key, _, n in rows:
+        name = kernel_name(key).split("<")[0]
+        got[name] = got.get(name, 0) + n / calls
+    want = pair_q8_tp_kernels(gated)
+    return [f"{k}: {got.get(k, 0)} a call, expected {want.get(k, 0)}"
+            for k in sorted(set(got) | set(want))
+            if got.get(k, 0) != want.get(k, 0)]
 
 
 def pair_q8_tp_cost(mode: str, gated: bool) -> tuple:
@@ -5222,16 +5370,10 @@ def phase_q8_tp_kernels() -> list:
             t_bytes = nbytes / PEAK_HBM_BYTES
             library = lambda: pair_q8_library(p, gated, scale, mode, heads)
             calls = 10
-            dev_ms, rows = device_profile(call, None, calls)
+            dev_ms, rows = device_profile(call, pair_q8_tp_records(gated),
+                                          calls)
             split = q8_profile_split(by_kernel(rows, calls))
-            chain = sum(n for key, _, n in rows
-                        if any(k in key for k in Q8_TP_KERNELS)) / calls
-            needed = Q8_TP_KERNELS[:4] + (("gate_kernel",) if gated else ())
-            faults = [f"no {k}" for k in needed
-                      if not any(k in key for key, _, _ in rows)]
-            if chain != pair_q8_tp_records(gated):
-                faults.append(f"{chain} stage records a call, expected "
-                              f"{pair_q8_tp_records(gated)}")
+            faults = q8_tp_profile_faults(rows, calls, gated)
             rec = dict(
                 max_abs_err=abs_err, rel_err=rel, tol=Q8_KERNEL_TOL,
                 rel_l2=l2, l2_tol=Q8_KERNEL_L2_TOL,
@@ -5243,8 +5385,7 @@ def phase_q8_tp_kernels() -> list:
                 bound_by="bytes" if t_bytes > t_ops else "operations",
                 library_ms=time_ms(library),
                 library_device_ms=device_ms(library, None),
-                device_ms=dev_ms, chain_device_ms=split["chain_device_ms"],
-                quant_cols_device_ms=split["quant_cols_device_ms"],
+                device_ms=dev_ms, **split,
                 device_by_kernel=by_kernel(rows, calls),
                 int8_gop=int8_ops / 1e9, bf16_gflop=bf16_flops / 1e9,
                 mbytes=nbytes / 1e6)
@@ -5271,7 +5412,48 @@ def phase_q8_tp_kernels() -> list:
         bound_by=main["bound_by"], library_ms=main["library_ms"],
         device_ms=main["device_ms"],
         library_device_ms=main["library_device_ms"], mode="temporal",
-        shape=[B, FRAMES, J, C], shards=TP_T, modes=modes)]
+        shape=[B, FRAMES, J, C], shards=TP_T, modes=modes),
+        phase_quant_cols_tp(q8)]
+
+
+def phase_quant_cols_tp(q8) -> dict:
+    """The split column quantiser of B9_tp's row-parallel weights: on model
+    rank 0's shards of TP_T (wproj (C, C / TP_T), w2 (C, HIDDEN / TP_T), the
+    phase-3 weights, bf16) one quant_cols_tp call (col_amax_kernel and
+    quant_cols_given_kernel; no group, so no all-reduce) against its plain
+    version, timed; and over all T ranks' slices, T 2 and 4, col_amax_kernel
+    on each, their maximum (the all-reduce's MAX), quant_cols_given_kernel
+    on each: the plain quantiser of the whole weights bit for bit."""
+    dev = torch.device("cuda")
+    p = pair_inputs(40, False, dev)
+    shards = tp_shards(p)
+    ws = [shards["wproj"], shards["w2"]]
+    rec = quant_cols_case(
+        f"split (shards of {TP_T})", lambda: q8.quant_cols_tp(ws, [None] * 2),
+        lambda: [q8.quant_cols_plain(w) for w in ws], ws, 2)
+    for T in (2, 4):
+        for name in ("wproj", "w2"):
+            w = p[name]
+            parts = [t.contiguous() for t in w.split(w.shape[1] // T, 1)]
+            amax = [torch.empty(w.shape[0], device=dev) for _ in parts]
+            q8._col_quant(q8.COLQ_AMAX, parts, amax)
+            split = q8._col_quant(q8.COLQ_GIVEN, parts,
+                                  [torch.stack(amax).amax(0)] * T)
+            want = q8.quant_cols_plain(w)
+            if not (torch.equal(torch.cat([q for q, _ in split], 1), want[0])
+                    and all(torch.equal(sc, want[1]) for _, sc in split)):
+                fail(f"column quantiser split over {T} ranks' slices of "
+                     f"{name}: not the whole weight's quantiser bit for bit")
+    log("column quantiser split over 2 and 4 ranks' slices of wproj and w2: "
+        "the whole weights' bits")
+    del p, shards, ws
+    return dict(name="quant_cols_tp", route="cuda",
+                source="motionbert_tpu_torch/ops/csrc/pair_q8_common.cuh",
+                replaces=QUANT_COLS_REPLACES, launches=None,
+                max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+                plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                bound_by="bytes", library_ms=None,
+                device_ms=rec["device_ms"], shards=TP_T, detail=rec)
 
 
 def tp2_counters() -> tuple:
@@ -5282,9 +5464,9 @@ def tp2_counters() -> tuple:
 
     return (train_counters() + tp_counters()
             + (q8.fused_pair_block_q8, q8.fused_gated_pair_block_q8,
-               q8.fused_pair_block_q8_tp, fs.fused_stream_block,
-               fs.fused_gated_stream_block, fs.fused_stream_block_q8,
-               fs.fused_gated_stream_block_q8))
+               q8.fused_pair_block_q8_tp, q8.quant_cols, q8.quant_cols_tp,
+               fs.fused_stream_block, fs.fused_gated_stream_block,
+               fs.fused_stream_block_q8, fs.fused_gated_stream_block_q8))
 
 
 def tp2_task(kind: str) -> tuple:
@@ -5557,12 +5739,18 @@ def phase_tp2(records: list) -> None:
             if d[1] > KERNEL_TOL:
                 fail(f"q8 tp (b) {tier}: the lift is {d[1]:.3e} of max from "
                      f"world size 1's")
-            wanted = {"fused_pair_block_q8_tp"} if "q8" in tier else {
+            wanted = {"fused_pair_block_q8_tp", "quant_cols",
+                      "quant_cols_tp"} if "q8" in tier else {
                 "fused_attention_block_tp", "fused_mlp_block_tp"}
             if set(launches) != wanted:
                 fail(f"q8 tp (b) {tier}: the grid's lift launched "
                      f"{launches}, not exactly {sorted(wanted)} (no B9, no "
                      f"B10)")
+            if "q8" in tier and not (
+                    launches["quant_cols"] == launches["quant_cols_tp"]
+                    == launches["fused_pair_block_q8_tp"]):
+                fail(f"q8 tp (b) {tier}: {launches}: not one launch of each "
+                     f"column quantiser a B9_tp call")
             for name, n in launches.items():
                 grid_launches[name] = grid_launches.get(name, 0) + n
         # (c) the 1 x 2 action checkpoint resumed at 1 x 1
@@ -5587,10 +5775,10 @@ def phase_tp2(records: list) -> None:
             tensor_tol=tp2_reach_tol(nxt["params"], lrs))
         del model
         torch.cuda.empty_cache()
-    q8_records[0]["launches"] = grid_launches.get("fused_pair_block_q8_tp",
-                                                  0)
-    if not q8_records[0]["launches"]:
-        fail("q8 tp: fused_pair_block_q8_tp was not launched on the grid")
+    for rec in q8_records:
+        rec["launches"] = grid_launches.get(rec["name"], 0)
+        if not rec["launches"]:
+            fail(f"q8 tp: {rec['name']} was not launched on the grid")
     for rec in records:
         if rec["name"] in grid_launches:
             rec["tp2_launches"] = grid_launches[rec["name"]]
@@ -5710,20 +5898,48 @@ def baseline_q8_gemm(q8, other, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# whether the other checkout (--baseline) quantises the W8A8 weights with
+# its own column-quantiser kernels (its W8A8 pair library has
+# mbt_quant_cols); set by phase_baseline
+OTHER_QUANT_KERNELS = True
+
+
+def earlier_quant_cols(*ws):
+    """The W8A8 wrappers' weight quantisation as a checkout without the
+    column-quantiser kernels ran it: PyTorch's operators a weight
+    (quant_cols_plain: the same operators and bits)."""
+    from motionbert_tpu_torch.ops import pair_q8 as q8
+
+    out = [q8.quant_cols_plain(w) for w in ws]
+    return out[0] if len(ws) == 1 else out
+
+
 class swapped_library:
-    """Within the block, the wrappers load `lib` for csrc/<name>.cu."""
+    """Within the block, the wrappers load `lib` for csrc/<name>.cu. Where
+    that is another checkout's W8A8 pair or stream library and the other
+    checkout has no column-quantiser kernels, the W8A8 wrappers quantise
+    their weights as it did (earlier_quant_cols)."""
 
     def __init__(self, name: str, lib):
         from motionbert_tpu_torch.ops import _build
+        from motionbert_tpu_torch.ops import fused_stream as fs
+        from motionbert_tpu_torch.ops import pair_q8 as q8
 
         self.libs, self.name, self.lib = _build._libs, name, lib
+        self.quant = [] if OTHER_QUANT_KERNELS or name not in (
+            "pair_q8_kernels", "stream_kernels") else [q8, fs]
 
     def __enter__(self):
         self.saved = self.libs[self.name]
         self.libs[self.name] = self.lib
+        self.saved_quant = [m.quant_cols for m in self.quant]
+        for m in self.quant:
+            m.quant_cols = earlier_quant_cols
 
     def __exit__(self, *exc):
         self.libs[self.name] = self.saved
+        for m, fn in zip(self.quant, self.saved_quant):
+            m.quant_cols = fn
 
 
 def baseline_blocks(other_block, results: dict) -> dict:
@@ -5865,22 +6081,25 @@ def baseline_ln_bwd(other_block, results: dict) -> dict:
     return {"fused_ln_bwd/tokens": turns}
 
 
-def in_turns(call, records, lib_name: str, other) -> list:
+def in_turns(call, records, lib_name: str, other, other_call=None) -> list:
     """call() timed in turns (other, this, this, other), with the other
     checkout's library for csrc/<lib_name>.cu swapped in on the other's
-    turns: one call, back to back and device ms (this build's profile held
-    to `records` a call; the other's, whose chain may launch otherwise, to
-    whole multiples of the calls), and the device ms by kernel."""
+    turns (and other_call run there instead, where the other checkout's
+    entries take other arguments): one call, back to back and device ms
+    (this build's profile held to `records` a call; the other's, whose
+    chain may launch otherwise, to whole multiples of the calls), and the
+    device ms by kernel."""
     turns = []
     calls = 10
     for which in ("other", "this", "this", "other"):
+        fn = other_call if which == "other" and other_call else call
         with (swapped_library(lib_name, other) if which == "other"
               else contextlib.nullcontext()):
             dev_ms, rows = device_profile(
-                call, None if which == "other" else records, calls)
+                fn, None if which == "other" else records, calls)
             turns.append(dict(
-                build=which, ms=time_ms(call),
-                back_to_back_ms=time_ms_back_to_back(call),
+                build=which, ms=time_ms(fn),
+                back_to_back_ms=time_ms_back_to_back(fn),
                 device_ms=dev_ms,
                 device_by_kernel=by_kernel(rows, calls)))
     return turns
@@ -5928,9 +6147,8 @@ def baseline_pairs(fp, fs, other_pair, other_stream, results: dict) -> dict:
         wrapper = getattr(fs, name)
         call = lambda: wrapper(*args, HEADS, scale, order)
         ours = call()
-        if not q8_tier:     # the bf16 passes did not change
-            with swapped_library("stream_kernels", other_stream):
-                results[name] = torch.equal(ours, call())
+        with swapped_library("stream_kernels", other_stream):
+            results[name] = torch.equal(ours, call())
         plain = getattr(fs, ("gated_" if gated else "") + "stream_block"
                         + ("_q8" if q8_tier else "") + "_plain")
         ref = plain(*args, HEADS, scale, order)
@@ -6097,11 +6315,11 @@ def q8_model_witnesses(other_st) -> dict:
     return out
 
 
-def baseline_q8_pairs(q8, other_q8) -> dict:
+def baseline_q8_pairs(q8, other_q8, results: dict) -> dict:
     """B9 of this build, both wrappers and modes at the phase-10 inputs,
     held to its plain version's bars (the other build's errors logged
-    beside) and timed against the other build in turns. Returns
-    {name/mode: turns}."""
+    beside) and to the other build's output bit for bit (into results), and
+    timed against the other build in turns. Returns {name/mode: turns}."""
     dev = torch.device("cuda")
     scale = (C // HEADS) ** -0.5
     q8._library()
@@ -6121,6 +6339,7 @@ def baseline_q8_pairs(q8, other_q8) -> dict:
             errs = {b: (rel_err(o, ref)[1], rel_l2_t(o, ref))
                     for b, o in (("this", ours), ("other", theirs))}
             tag = f"{wrapper.__name__}/{mode}"
+            results[tag] = torch.equal(ours, theirs)
             out[tag] = in_turns(call, None, "pair_q8_kernels", other_q8)
             for turn in out[tag]:
                 turn.update(q8_profile_split(turn["device_by_kernel"]))
@@ -6131,6 +6350,104 @@ def baseline_q8_pairs(q8, other_q8) -> dict:
                 fail(f"baseline: {tag}: {errs['this']} over "
                      f"({Q8_KERNEL_TOL}, {Q8_KERNEL_L2_TOL})")
             del p, args, ref, ours, theirs
+    torch.cuda.empty_cache()
+    return out
+
+
+# argument types of B9_tp's four entries in a checkout from before the
+# column-quantiser kernels (its mbt_pair_q8_tp_out takes a pair_out scratch)
+EARLIER_TP_ARGTYPES = {
+    "mbt_pair_q8_tp_attn": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "mbt_pair_q8_tp_partial": [ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "mbt_pair_q8_tp_mlp": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+    "mbt_pair_q8_tp_out": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p]}
+
+
+def earlier_q8_tp(lib, args, heads: int, scale: float, mode: str):
+    """B9_tp as a checkout from before the column-quantiser kernels ran it
+    on one rank's shards without a group: its weights quantised with
+    PyTorch's operators (earlier_quant_cols), then its four entries
+    (attention stage with a row-maximum pass, the partial products, the MLP
+    stage with its dequantising and LayerNorm passes, the output pass with
+    pair_out and the gate), the stages' buffers as its wrapper made them."""
+    x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, \
+        w2, b2, wg, bg = args
+    for name, argtypes in EARLIER_TP_ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    B_, F_, J_, C_ = x.shape
+    M, ci, hl, dev = B_ * F_ * J_, wqkv.shape[0] // 3, w1.shape[0], x.device
+    (wqkv8, sqkv), (w18, s1), (wproj8, sproj), (w28, s2) = (
+        earlier_quant_cols(w) for w in (wqkv, w1, wproj, w2))
+    new = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt,
+                                                       device=dev)
+    a8, ascale, amax = new(M, max(C_, ci, hl), dt=torch.int8), new(M), new(M)
+    acc = new(M, C_, dt=torch.int32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()
+    qkv, attn = new(M, 3 * ci, dt=x.dtype), new(M, ci, dt=x.dtype)
+    rc = [lib.mbt_pair_q8_tp_attn(
+        ptr(x), ptr(a8), ptr(ascale), ptr(qkv), ptr(attn), ptr(amax),
+        ptr(ln1_w), ptr(ln1_b), ptr(wqkv8), ptr(sqkv), ptr(bqkv), B_, F_, J_,
+        C_, ci, heads, float(scale), int(mode == "temporal"), stream)]
+    partial = lambda src, w8, ws: lib.mbt_pair_q8_tp_partial(
+        ptr(src), int(src.dtype == torch.float32), ptr(amax), ptr(a8),
+        ptr(ascale), ptr(w8), ptr(ws), ptr(acc), M, C_, src.shape[-1],
+        stream)
+    rc.append(partial(attn, wproj8, sproj))
+    y, act = torch.empty_like(x), new(M, hl)
+    rc.append(lib.mbt_pair_q8_tp_mlp(
+        ptr(acc), ptr(ascale), ptr(sproj), ptr(bproj), ptr(x), ptr(y),
+        ptr(a8), ptr(ln2_w), ptr(ln2_b), ptr(w18), ptr(s1), ptr(b1),
+        ptr(act), ptr(amax), M, C_, hl, stream))
+    rc.append(partial(act, w28, s2))
+    out = torch.empty_like(x)
+    pair_out = None if other is None else torch.empty_like(x)
+    rc.append(lib.mbt_pair_q8_tp_out(
+        ptr(acc), ptr(ascale), ptr(s2), ptr(b2), ptr(y), ptr(other), ptr(wg),
+        ptr(bg), ptr(pair_out), ptr(out), M, C_, stream))
+    if any(rc):
+        fail(f"baseline: the other build's B9_tp entries returned {rc}")
+    return out
+
+
+def baseline_q8_tp(q8, other_q8, results: dict) -> dict:
+    """B9_tp at phase 31 (a)'s inputs (model rank 0's shards of TP_T, no
+    group), both modes, gated and not: this build's output bit for bit the
+    other build's (into results), and both timed in turns (other, this,
+    this, other) with the device time by kernel. The other checkout runs
+    through earlier_q8_tp where it has no column-quantiser kernels, else
+    through this checkout's wrapper on its library. Returns
+    {fused_pair_block_q8_tp/tag: turns}."""
+    dev = torch.device("cuda")
+    scale, heads = (C // HEADS) ** -0.5, HEADS // TP_T
+    out = {}
+    for gated in (False, True):
+        for mode in ("temporal", "spatial"):
+            tag = ("gated " if gated else "") + mode
+            p = tp_shards(pair_inputs(40 + 2 * gated + (mode == "spatial"),
+                                      gated, dev))
+            args = q8_tp_args(p, gated)
+            call = lambda: q8.fused_pair_block_q8_tp(*args, heads, scale,
+                                                     mode)
+            other_call = None if OTHER_QUANT_KERNELS else (
+                lambda: earlier_q8_tp(other_q8, args, heads, scale, mode))
+            ours = call()
+            with swapped_library("pair_q8_kernels", other_q8):
+                theirs = (other_call or call)()
+            key = f"fused_pair_block_q8_tp/{tag}"
+            results[key] = torch.equal(ours, theirs)
+            out[key] = in_turns(call, pair_q8_tp_records(gated),
+                                "pair_q8_kernels", other_q8, other_call)
+            for turn in out[key]:
+                turn.update(q8_profile_split(turn["device_by_kernel"]))
+            log(f"baseline: {key}: bit for bit the other build's "
+                f"{results[key]}; in turns: " + json.dumps(out[key]))
+            del p, args, ours, theirs
     torch.cuda.empty_cache()
     return out
 
@@ -6347,13 +6664,19 @@ def phase_baseline(fp, q8, other_root: str) -> dict:
             libs = dict(zip(names, pool.map(
                 lambda name: build_other(csrc, name, tmp), names)))
         results = {}
+        global OTHER_QUANT_KERNELS
+        OTHER_QUANT_KERNELS = hasattr(libs["pair_q8_kernels"],
+                                      "mbt_quant_cols")
+        log(f"baseline: the other checkout has column-quantiser kernels: "
+            f"{OTHER_QUANT_KERNELS}")
         other_gemm = build_other_q8_gemm(csrc, tmp)
         if other_gemm is None:
             log("baseline: the other checkout has no first-design int8 GEMM "
                 "(launch_gemm_q8) to hold the s8 engine against")
         else:
             baseline_q8_gemm(q8, other_gemm, results)
-        turns = baseline_q8_pairs(q8, libs["pair_q8_kernels"])
+        turns = baseline_q8_pairs(q8, libs["pair_q8_kernels"], results)
+        turns.update(baseline_q8_tp(q8, libs["pair_q8_kernels"], results))
         dist = {"this": q8_model_distance()}
         with swapped_library("pair_q8_kernels", libs["pair_q8_kernels"]):
             dist["other"] = q8_model_distance()
@@ -6466,7 +6789,7 @@ def main() -> int:
                 found = re.search(r"(hg_gemm_kernel|attn_tc_fwd_kernel|"
                                   r"attn_tc_bwd_kernel|hg_gemm_s8_kernel|"
                                   r"colsum_chunks_kernel)"
-                                  r"ILi(\d+)E(?:Li(\d+)E)?", line)
+                                  r"ILi(\d+)E(?:L[ib](\d+)E)?", line)
                 kernel = "" if not found else f"{found[1]}<{found[2]}" + (
                     f", {found[3]}>: " if found[3] else ">: ")
                 plain = re.search(r"(ln_bwd_fused_kernel|chunk_sum_kernel)",
@@ -6511,7 +6834,10 @@ def main() -> int:
         return 0
 
     if opts.phases == "q8":
-        log(json.dumps({"kernels": timed("q8", phase_q8, q8, fp)}))
+        records = timed("q8", phase_q8, q8, fp)
+        if opts.baseline:
+            attach_turns(records, turns)
+        log(json.dumps({"kernels": records}))
         log(f"device: {smi}")
         log("partial run (--phases q8): no result line")
         return 0
@@ -6542,6 +6868,8 @@ def main() -> int:
     if opts.phases == "tp2":
         records = []
         timed("tp2", phase_tp2, records)
+        if opts.baseline:
+            attach_turns(records, turns)
         log(json.dumps({"kernels": records}))
         log(f"device: {smi}")
         log("partial run (--phases tp2): no result line")

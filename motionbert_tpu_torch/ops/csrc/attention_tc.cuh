@@ -287,34 +287,54 @@ __device__ __forceinline__ void tc_mma_rows(float (&acc)[D / 8][4], const uint32
 }
 
 // A warp's 16 x D accumulator to the token rows of its tile (rows < N only):
-// bf16 to outb, and fp32 to outf when it is not null; row stride ld.
+// bf16 to outb, and fp32 to outf when it is not null; row stride ld. Where
+// amax is not null (the W8A8 pair on shards), each row's max |bf16 value|
+// over these D columns is folded into amax[token row] with an atomicMax on
+// the float's bits (non-negative floats order as their bit patterns); max is
+// exact in any order, so the bits repeat.
 template <int D>
 __device__ __forceinline__ void tc_store(const float (&acc)[D / 8][4], float* outf, bf16* outb,
-                                         int ld, int col, int r0, int N, int base, int stride) {
+                                         int ld, int col, int r0, int N, int base, int stride,
+                                         float* amax = nullptr) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
         const int row = r0 + (lane >> 2) + half * 8;
-        if (row >= N) continue;
-        const size_t o = (size_t)(base + row * stride) * ld + col + 2 * (lane & 3);
+        const size_t token = (size_t)base + (size_t)row * stride;
+        float m = 0.f;
+        if (row < N) {
+            const size_t o = token * ld + col + 2 * (lane & 3);
 #pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
-            const float v0 = acc[nt][2 * half], v1 = acc[nt][2 * half + 1];
-            if (outf != nullptr)
-                *reinterpret_cast<float2*>(outf + o + nt * 8) = make_float2(v0, v1);
-            *reinterpret_cast<bf162*>(outb + o + nt * 8) = __floats2bfloat162_rn(v0, v1);
+            for (int nt = 0; nt < D / 8; ++nt) {
+                const float v0 = acc[nt][2 * half], v1 = acc[nt][2 * half + 1];
+                if (outf != nullptr)
+                    *reinterpret_cast<float2*>(outf + o + nt * 8) = make_float2(v0, v1);
+                const bf162 b = __floats2bfloat162_rn(v0, v1);
+                *reinterpret_cast<bf162*>(outb + o + nt * 8) = b;
+                if (amax != nullptr)
+                    m = fmaxf(m, fmaxf(fabsf(__low2float(b)), fabsf(__high2float(b))));
+            }
+        }
+        if (amax != nullptr) {
+            // the four lanes of a row hold its D columns between them
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+            if ((lane & 3) == 0 && row < N)
+                atomicMax(reinterpret_cast<int*>(amax) + token, __float_as_int(m));
         }
     }
 }
 
 // The forward core: out = bf16(bf16(P) v) of (group, head) items
 // [blockIdx.x * ITEMS, + ITEMS). q, k, v row stride ld, out row stride
-// ld_out, head h at column h * D of each.
+// ld_out, head h at column h * D of each. amax, when not null, takes each
+// token row's max |out| over every head (tc_store); the caller zeroes it.
 template <int D, int KT>
 __global__ void __launch_bounds__(TC_THREADS, KT >= 8 ? 1 : 2)
 attn_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, int ld, bf16* __restrict__ out, int ld_out,
-                   int F, int J, int H, float scale, int temporal, int n_items) {
+                   float* __restrict__ amax, int F, int J, int H, float scale, int temporal,
+                   int n_items) {
     using S = TcShape<D, KT>;
     extern __shared__ __align__(16) unsigned char tc_smem[];
     bf16* sm = reinterpret_cast<bf16*>(tc_smem);
@@ -345,7 +365,7 @@ attn_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         int n, base, stride;
         attention_group(gi / H, F, J, temporal, &n, &base, &stride);
-        tc_store<D>(o, nullptr, out, ld_out, (gi % H) * D, r0, N, base, stride);
+        tc_store<D>(o, nullptr, out, ld_out, (gi % H) * D, r0, N, base, stride, amax);
     }
 }
 
@@ -525,11 +545,13 @@ size_t tc_smem_bytes(bool backward) {
 }
 
 // Pointers and shapes of one core launch: q, k, v with row stride ld; the
-// forward's out, or the backward's dO (g, row stride ld_g) and its outputs
-// (the fp32 ones may be null), with row stride ld_out.
+// forward's out (and, where not null, the token rows' max |out|, amax (M,)
+// fp32, zeroed by the caller), or the backward's dO (g, row stride ld_g) and
+// its outputs (the fp32 ones may be null), with row stride ld_out.
 struct TcArgs {
     const void *q, *k, *v, *g;
     void *out, *dqf, *dkf, *dvf, *dqb, *dkb, *dvb;
+    float* amax;
     int ld, ld_g, ld_out, B, F, J, C, H;
     float scale;
     int temporal;
@@ -575,8 +597,8 @@ cudaError_t tc_launch(const TcArgs& a, bool backward, cudaStream_t stream) {
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
         attn_tc_fwd_kernel<D, KT><<<blocks, TC_THREADS, smem, stream>>>(
-            q, k, v, a.ld, static_cast<bf16*>(a.out), a.ld_out, a.F, a.J, a.H, a.scale,
-            a.temporal, n_items);
+            q, k, v, a.ld, static_cast<bf16*>(a.out), a.ld_out, a.amax, a.F, a.J, a.H,
+            a.scale, a.temporal, n_items);
     }
     return cudaGetLastError();
 }

@@ -50,7 +50,11 @@
 // normalises P by the row sum's fp32 reciprocal (attention_tc.cuh), one fp32
 // rounding from the JAX kernels' division. Every reduction over the rows goes
 // through fixed chunks and a second pass, without atomics, and every output
-// is written once, so two runs give the same bits.
+// is written once, so two runs give the same bits. (The one atomic of the
+// port's kernels is elsewhere: B9_tp's row maxima, folded into their buffer
+// with atomicMax by the attention core's and the s8 engine's epilogues,
+// pair_q8_kernels.cu; a maximum does not depend on the order, so its bits
+// repeat too. The chains here pass a null amax and take no atomic.)
 //
 // Bound. At (4, 243, 17, 512), 8 heads, hidden 1024, the attention block does
 // 42.9 GFLOP (temporal) and the MLP block 34.7 GFLOP against ~36 MB of inputs

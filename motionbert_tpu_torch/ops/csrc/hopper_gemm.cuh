@@ -234,6 +234,7 @@ __device__ __forceinline__ void epilogue4(float (&v)[4], size_t o, int n,
 // the elements of one TN chunk's fp32 partial tile (rows x cols).
 template <int EPI>
 struct HgEpilogue {
+    static constexpr bool ROW_AMAX = false;   // see hg_gemm_body
     const bf16* bias;
     const bf16* R;
     const float* Z;
@@ -255,7 +256,10 @@ struct HgEpilogue {
 // blockIdx.x, blockIdx.x + gridDim.x, ... of the tiles_x * tiles_y * chunks
 // tiles (column tile fastest); the ring's stage and phase run on across its
 // tiles. epi(v, m, n, offset, chunk) takes four consecutive columns of row m
-// below rows and cols.
+// below rows and cols. An epilogue with ROW_AMAX returns the largest |value|
+// it wrote, and epi.row_amax(amax, m) takes each row's largest over the
+// tile's columns, once a row and tile (the W8A8 pair on shards:
+// hopper_gemm_s8.cuh).
 template <int LAYOUT, class MMA, class EPI>
 __device__ __forceinline__ void hg_gemm_body(const CUtensorMap& tma_a, const CUtensorMap& tma_b,
                                              const EPI& epi, int rows, int cols, int k_len,
@@ -361,6 +365,7 @@ __device__ __forceinline__ void hg_gemm_body(const CUtensorMap& tma_a, const CUt
             // t/4, the odd one that row + 8
             const bool upper = lane & 1;
             const int m = r0 + cw * 64 + warp * 16 + (lane >> 2) + (upper ? 8 : 0);
+            float amax = 0.f;
 #pragma unroll
             for (int jn = 0; jn < HG_BN / 8; ++jn) {
                 const Acc s0 = upper ? acc[4 * jn] : acc[4 * jn + 2];
@@ -375,7 +380,15 @@ __device__ __forceinline__ void hg_gemm_body(const CUtensorMap& tma_a, const CUt
                 }
                 const int n = c0 + jn * 8 + (lane & 2) * 2;
                 if (m >= rows || n >= cols) continue;
-                epi(v, m, n, (size_t)m * cols + n, chunk);
+                if constexpr (EPI::ROW_AMAX)
+                    amax = fmaxf(amax, epi(v, m, n, (size_t)m * cols + n, chunk));
+                else
+                    epi(v, m, n, (size_t)m * cols + n, chunk);
+            }
+            if constexpr (EPI::ROW_AMAX) {
+                // lanes lane and lane ^ 2 hold row m's two halves of the tile
+                amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+                if (!(lane & 2) && m < rows) epi.row_amax(amax, m);
             }
         }
     }

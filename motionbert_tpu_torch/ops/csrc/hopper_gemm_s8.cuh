@@ -29,8 +29,10 @@
 // Q8_BIAS_RES; GELU goes through this card's erff. Q8_ACC_S32 writes the
 // int32 accumulators themselves, unscaled and unsaturated: the pair on
 // shards (B9_tp) sums them over the model ranks, exactly, and dequantises
-// the sum with Q8_BIAS_RES's operations (pair_q8_common.cuh,
-// dequant_rows_kernel).
+// the sum with Q8_BIAS_RES's operations (q8_dequant4, in pair_q8_common.cuh's
+// row passes). B9_tp's fc1 takes Q8_BIAS_GELU_F32 with AMAX: the epilogue
+// also takes each row's max |act|, which the next quantiser needs, so no
+// pass re-reads the fp32 activation for it (HgQ8Epilogue).
 //
 // Bound. At the W8A8 pair's shapes (K 512 or 1024) an int8 product does
 // about 2K operations for every byte of its bf16 output, below the ~590
@@ -95,28 +97,29 @@ struct HgS8 {
 static_assert(HG_BM * HgS8::BK + HG_BN * HgS8::BK == HG_STAGE_BYTES,
               "an int8 stage holds the bf16 engine's bytes");
 
-// The dequantising epilogue of four consecutive columns n..n+3 of one output
-// row (o the first's offset, as its row scale): see the note above; 8- and
-// 16-byte loads and stores.
+// The dequantise of one sum: ((float)acc * as) * ws + b, one fp32 rounding
+// a step (no fused multiply-add).
+__device__ __forceinline__ float q8_deq(int acc, float as, float ws, float b) {
+    return __fadd_rn(__fmul_rn(__fmul_rn((float)acc, as), ws), b);
+}
+
+// The dequantise of four consecutive columns n..n+3 of one output row (o
+// the first's offset, as its row scale): v = ((float)acc * as) * wscale[n] +
+// bias[n], then + R for Q8_BIAS_RES, each step one fp32 rounding (see the
+// note above); 8- and 16-byte loads.
 template <int EPI>
-__device__ __forceinline__ void q8_epilogue4(const int (&acc)[4], float as, size_t o, int n,
-                                             const float* __restrict__ wscale,
-                                             const bf16* __restrict__ bias,
-                                             const bf16* __restrict__ R, void* __restrict__ out) {
-    if (EPI == Q8_ACC_S32) {
-        *reinterpret_cast<int4*>(static_cast<int*>(out) + o) =
-            make_int4(acc[0], acc[1], acc[2], acc[3]);
-        return;
-    }
+__device__ __forceinline__ void q8_dequant4(const int (&acc)[4], float as, size_t o, int n,
+                                            const float* __restrict__ wscale,
+                                            const bf16* __restrict__ bias,
+                                            const bf16* __restrict__ R, float (&v)[4]) {
     const float4 ws = __ldg(reinterpret_cast<const float4*>(wscale + n));
     const uint2 braw = __ldg(reinterpret_cast<const uint2*>(bias + n));
     const float2 b01 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&braw.x));
     const float2 b23 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&braw.y));
-    float v[4];
-    v[0] = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[0], as), ws.x), b01.x);
-    v[1] = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[1], as), ws.y), b01.y);
-    v[2] = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[2], as), ws.z), b23.x);
-    v[3] = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[3], as), ws.w), b23.y);
+    v[0] = q8_deq(acc[0], as, ws.x, b01.x);
+    v[1] = q8_deq(acc[1], as, ws.y, b01.y);
+    v[2] = q8_deq(acc[2], as, ws.z, b23.x);
+    v[3] = q8_deq(acc[3], as, ws.w, b23.y);
     if (EPI == Q8_BIAS_RES) {
         const uint2 rraw = __ldg(reinterpret_cast<const uint2*>(R + o));
         const float2 r01 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&rraw.x));
@@ -126,39 +129,70 @@ __device__ __forceinline__ void q8_epilogue4(const int (&acc)[4], float as, size
         v[2] = __fadd_rn(v[2], r23.x);
         v[3] = __fadd_rn(v[3], r23.y);
     }
+}
+
+// The dequantising epilogue of four consecutive columns n..n+3 of one output
+// row: q8_dequant4, then the GELU or the rounding to bf16, and the store.
+// Returns the largest |value| written for Q8_BIAS_GELU_F32 (the row maxima of
+// the pair on shards), 0 otherwise.
+template <int EPI>
+__device__ __forceinline__ float q8_epilogue4(const int (&acc)[4], float as, size_t o, int n,
+                                              const float* __restrict__ wscale,
+                                              const bf16* __restrict__ bias,
+                                              const bf16* __restrict__ R,
+                                              void* __restrict__ out) {
+    if (EPI == Q8_ACC_S32) {
+        *reinterpret_cast<int4*>(static_cast<int*>(out) + o) =
+            make_int4(acc[0], acc[1], acc[2], acc[3]);
+        return 0.f;
+    }
+    float v[4];
+    q8_dequant4<EPI>(acc, as, o, n, wscale, bias, R, v);
     if (EPI == Q8_BIAS_GELU_F32) {
-        *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
-            make_float4(gelu(v[0]), gelu(v[1]), gelu(v[2]), gelu(v[3]));
-        return;
+        const float4 g = make_float4(gelu(v[0]), gelu(v[1]), gelu(v[2]), gelu(v[3]));
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + o) = g;
+        return fmaxf(fmaxf(fabsf(g.x), fabsf(g.y)), fmaxf(fabsf(g.z), fabsf(g.w)));
     }
     const bf162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
     uint2 packed;
     packed.x = *reinterpret_cast<const uint32_t*>(&lo);
     packed.y = *reinterpret_cast<const uint32_t*>(&hi);
     *reinterpret_cast<uint2*>(static_cast<bf16*>(out) + o) = packed;
+    return 0.f;
 }
 
-// The dequantising epilogue functor of hg_gemm_body.
-template <int EPI>
+// The dequantising epilogue functor of hg_gemm_body. With AMAX (taken only
+// with Q8_BIAS_GELU_F32: B9_tp's fc1) it also folds each row's max |act|
+// over the tile's columns (hg_gemm_body takes it) into amax[m], zeroed by
+// the caller, with one atomicMax on the float's bits a row and tile:
+// non-negative floats order as their bit patterns, and a maximum is exact in
+// any order, so the bits repeat.
+template <int EPI, bool AMAX = false>
 struct HgQ8Epilogue {
+    static_assert(!AMAX || EPI == Q8_BIAS_GELU_F32, "row maxima of the fp32 activation only");
+    static constexpr bool ROW_AMAX = AMAX;
     const float* ascale;
     const float* wscale;
     const bf16* bias;
     const bf16* R;
     void* out;
-    __device__ __forceinline__ void operator()(const int (&v)[4], int m, int n, size_t o,
-                                               int) const {
-        q8_epilogue4<EPI>(v, EPI == Q8_ACC_S32 ? 0.f : __ldg(ascale + m), o, n, wscale, bias,
-                          R, out);
+    float* amax;
+    __device__ __forceinline__ float operator()(const int (&v)[4], int m, int n, size_t o,
+                                                int) const {
+        return q8_epilogue4<EPI>(v, EPI == Q8_ACC_S32 ? 0.f : __ldg(ascale + m), o, n, wscale,
+                                 bias, R, out);
+    }
+    __device__ __forceinline__ void row_amax(float v, int m) const {
+        atomicMax(reinterpret_cast<int*>(amax) + m, __float_as_int(v));
     }
 };
 
 // The int8 engine's kernel: hg_gemm_body, NT, under HgS8.
-template <int EPI>
+template <int EPI, bool AMAX>
 __global__ void __launch_bounds__(HG_THREADS, HG_MIN_BLOCKS)
 hg_gemm_s8_kernel(const __grid_constant__ CUtensorMap tma_a,
                   const __grid_constant__ CUtensorMap tma_b,
-                  const __grid_constant__ HgQ8Epilogue<EPI> epi, int rows, int cols,
+                  const __grid_constant__ HgQ8Epilogue<EPI, AMAX> epi, int rows, int cols,
                   int k_len, int split, int tiles_x, int tiles_y, int n_tiles) {
     hg_gemm_body<NT, HgS8>(tma_a, tma_b, epi, rows, cols, k_len, split, tiles_x, tiles_y,
                            n_tiles);
@@ -167,25 +201,28 @@ hg_gemm_s8_kernel(const __grid_constant__ CUtensorMap tma_a,
 // The int8 engine's launch: out = EPI of A8 (M, K) . W8 (N, K)^T with the
 // row scales ascale (M,), the column scales wscale (N,), bias (N,) bf16 and,
 // for Q8_BIAS_RES, R (M, N) bf16; Q8_ACC_S32 reads none of the four and
-// writes int32 out. Needs N % 64 == 0, K % 64 == 0, M >= 1,
-// 16-byte-aligned A8, W8, wscale, bias and R; returns cudaErrorInvalidValue
-// otherwise (a tensor map that cannot be built included).
-template <int EPI>
+// writes int32 out. With AMAX (Q8_BIAS_GELU_F32 only) also each row's max
+// |out| into amax (M,) fp32, which the caller zeroes. Needs N % 64 == 0, K %
+// 64 == 0, M >= 1, 16-byte-aligned A8, W8, wscale, bias and R; returns
+// cudaErrorInvalidValue otherwise (a tensor map that cannot be built
+// included).
+template <int EPI, bool AMAX = false>
 cudaError_t hg_gemm_s8(const void* A, const void* ascale, const void* W, const void* wscale,
                        const void* bias, const void* R, void* out, int M, int N, int K,
-                       cudaStream_t stream) {
-    if (M < 1 || N % 64 || K % 64) return cudaErrorInvalidValue;
+                       cudaStream_t stream, float* amax = nullptr) {
+    if (M < 1 || N % 64 || K % 64 || AMAX != (amax != nullptr)) return cudaErrorInvalidValue;
     CUtensorMap ta, tb;
     if (!tensor_map_rows(&ta, A, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, M, HG_BM) ||
         !tensor_map_rows(&tb, W, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, HG_BN))
         return cudaErrorInvalidValue;
     const int tiles_x = (N + HG_BN - 1) / HG_BN, tiles_y = (M + HG_BM - 1) / HG_BM;
-    const HgQ8Epilogue<EPI> epi{static_cast<const float*>(ascale),
-                                static_cast<const float*>(wscale),
-                                static_cast<const bf16*>(bias), static_cast<const bf16*>(R),
-                                out};
-    return hg_launch<hg_gemm_s8_kernel<EPI>>(tiles_x * tiles_y, stream, ta, tb, epi, M, N, K,
-                                             0, tiles_x, tiles_y, tiles_x * tiles_y);
+    const HgQ8Epilogue<EPI, AMAX> epi{static_cast<const float*>(ascale),
+                                      static_cast<const float*>(wscale),
+                                      static_cast<const bf16*>(bias),
+                                      static_cast<const bf16*>(R), out, amax};
+    return hg_launch<hg_gemm_s8_kernel<EPI, AMAX>>(tiles_x * tiles_y, stream, ta, tb, epi, M,
+                                                   N, K, 0, tiles_x, tiles_y,
+                                                   tiles_x * tiles_y);
 }
 
 }  // namespace

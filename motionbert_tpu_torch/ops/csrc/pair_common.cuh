@@ -3,7 +3,7 @@
 // (the operand layouts and epilogues of hopper_gemm.cuh's engine, GELU,
 // rounding, a warp's sums), the token rows of an attention group
 // (attention_group, which attention_tc.cuh's core reads), and the att_fuse
-// gate of the gated pair (gate_kernel, a warp per token row).
+// gate of the gated pair (gate_row; gate_kernel, a warp per token row).
 //
 // Every chain runs its products on hopper_gemm.cuh's wgmma + TMA engine
 // (bf16) or on its int8 variant (hopper_gemm_s8.cuh, the W8A8 chain), and
@@ -98,24 +98,22 @@ __device__ __forceinline__ void attention_group(int g, int F, int J, int tempora
 
 constexpr int GATE_THREADS = 256;
 
-// att_fuse gate, one warp per token row: s_k = other.wg[k, :C] + pair.wg[k, C:]
-// + bg[k] in fp32, (a0, a1) = bf16(softmax(s)), out = bf16(bf16(other * a0) +
-// bf16(pair * a1)). wg is the nn.Linear weight (2, 2C).
-__global__ void __launch_bounds__(GATE_THREADS)
-gate_kernel(const bf16* __restrict__ other, const bf16* __restrict__ pair,
-            const bf16* __restrict__ wg, const bf16* __restrict__ bg,
-            bf16* __restrict__ out, int M, int C) {
-    const int row = blockIdx.x * (GATE_THREADS / 32) + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (row >= M) return;
-    const bf16* o = other + (size_t)row * C;
-    const bf16* u = pair + (size_t)row * C;
+// att_fuse gate of one token row, a warp: s_k = other.wg[k, :C] + pair.wg[k,
+// C:] + bg[k] in fp32, (a0, a1) = bf16(softmax(s)), out = bf16(bf16(other *
+// a0) + bf16(pair * a1)). wg is the nn.Linear weight (2, 2C). pair(c) gives
+// the pair's values at columns c and c + 1 (a lane takes two columns every
+// 64), so the order of every sum is the same whatever holds the pair row.
+template <class Pair>
+__device__ __forceinline__ void gate_row(const bf16* __restrict__ o, const Pair& pair,
+                                         const bf16* __restrict__ wg,
+                                         const bf16* __restrict__ bg, bf16* __restrict__ dst,
+                                         int C, int lane) {
     const bf16* w0 = wg;
     const bf16* w1 = wg + 2 * C;
     float s0a = 0.f, s1a = 0.f, s0b = 0.f, s1b = 0.f;
     for (int c = lane * 2; c < C; c += 64) {
         const float2 ov = __bfloat1622float2(*reinterpret_cast<const bf162*>(o + c));
-        const float2 uv = __bfloat1622float2(*reinterpret_cast<const bf162*>(u + c));
+        const float2 uv = pair(c);
         const float2 w0a = __bfloat1622float2(*reinterpret_cast<const bf162*>(w0 + c));
         const float2 w1a = __bfloat1622float2(*reinterpret_cast<const bf162*>(w1 + c));
         const float2 w0b = __bfloat1622float2(*reinterpret_cast<const bf162*>(w0 + C + c));
@@ -135,14 +133,27 @@ gate_kernel(const bf16* __restrict__ other, const bf16* __restrict__ pair,
     const float e0 = expf(s0 - mx), e1 = expf(s1 - mx);
     const float a0 = round_bf16(e0 / (e0 + e1));
     const float a1 = round_bf16(e1 / (e0 + e1));
-    bf16* dst = out + (size_t)row * C;
     for (int c = lane * 2; c < C; c += 64) {
         const float2 ov = __bfloat1622float2(*reinterpret_cast<const bf162*>(o + c));
-        const float2 uv = __bfloat1622float2(*reinterpret_cast<const bf162*>(u + c));
+        const float2 uv = pair(c);
         const float r0 = round_bf16(ov.x * a0) + round_bf16(uv.x * a1);
         const float r1 = round_bf16(ov.y * a0) + round_bf16(uv.y * a1);
         *reinterpret_cast<bf162*>(dst + c) = __floats2bfloat162_rn(r0, r1);
     }
+}
+
+// The gate on a pair output in device memory, one warp per token row.
+__global__ void __launch_bounds__(GATE_THREADS)
+gate_kernel(const bf16* __restrict__ other, const bf16* __restrict__ pair,
+            const bf16* __restrict__ wg, const bf16* __restrict__ bg,
+            bf16* __restrict__ out, int M, int C) {
+    const int row = blockIdx.x * (GATE_THREADS / 32) + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= M) return;
+    const bf16* u = pair + (size_t)row * C;
+    gate_row(other + (size_t)row * C,
+             [u](int c) { return __bfloat1622float2(*reinterpret_cast<const bf162*>(u + c)); },
+             wg, bg, out + (size_t)row * C, C, lane);
 }
 
 cudaError_t launch_gate(const void* other, const void* pair, const void* wg,

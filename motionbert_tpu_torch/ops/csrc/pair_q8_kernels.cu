@@ -58,6 +58,9 @@
 // needs the whole row's maximum) or keeping the activation on chip is the
 // lever past it. Measured times are in PERF.md (kernel B9).
 //
+// The weights reach the chain quantised: one launch of quant_cols_kernel
+// (mbt_quant_cols) takes all four per call, as the TPU kernel's wrapper
+// quantises them outside its pallas_call (W8A8 stream: both pairs' eight).
 // The quantisers and the chain (q8_pair_chain) live in pair_q8_common.cuh,
 // which the W8A8 stream (stream_kernels.cu) shares.
 //
@@ -96,36 +99,85 @@ extern "C" int mbt_pair_block_q8(
 }
 
 // ---------------------------------------------------------------------------
+// The weight quantisers (ops/pair_q8.py quant_cols, quant_cols_tp): mode 0
+// quant_cols_kernel on n weights, 1 col_amax_kernel (a rank's maxima into
+// amax), 2 quant_cols_given_kernel (with amax after the caller's MAX
+// all-reduce); one launch for the n <= COLQ_MAX weights (pair_q8_common.cuh).
+// Weight e: src[e] (rows[e], K[e]), bf16 or fp32 (src_f32[e] 1), into q8[e]
+// (rows[e], K[e]) int8 and scale[e] (rows[e],) fp32; amax may be null in
+// mode 0, q8 and scale in mode 1. K % 4 == 0, 8-byte-aligned bf16 or
+// 16-byte-aligned fp32 rows. Returns 0 or the CUDA error.
+// ---------------------------------------------------------------------------
+
+extern "C" int mbt_quant_cols(int mode, int n, const void* const* src, const int* src_f32,
+                              void* const* q8, void* const* scale, void* const* amax,
+                              const int* rows, const int* K, void* stream_ptr) {
+    if (n < 1 || n > COLQ_MAX) return (int)cudaErrorInvalidValue;
+    ColQuantTable t{};
+    t.n = n;
+    for (int e = 0; e < n; ++e) {
+        t.src[e] = src[e];
+        t.f32[e] = src_f32[e];
+        t.q8[e] = q8 != nullptr ? q8[e] : nullptr;
+        t.scale[e] = scale != nullptr ? scale[e] : nullptr;
+        t.amax[e] = amax != nullptr ? amax[e] : nullptr;
+        t.K[e] = K[e];
+        t.first[e + 1] = t.first[e] + rows[e];
+    }
+    return (int)launch_col_quant(mode, t, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// ---------------------------------------------------------------------------
 // B9_tp: the W8A8 pair on a model rank's shards (ops/pair_q8.py
 // fused_pair_block_q8_tp). A rank holds a head group of the attention (wqkv
 // rows 3 Ci, wproj columns Ci, Hl heads) and a hidden slice of the MLP (w1
-// rows hid_r, w2 columns hid_r), x is replicated. Four entries, with the
-// caller's collectives over the model ranks between them:
-//   mbt_pair_q8_tp_attn      ln_quant_rows (whole C), hg_gemm_s8<BIAS> qkv_r,
-//                            the core on the local heads, row_amax(attn_r)
+// rows hid_r, w2 columns hid_r), x is replicated. Before the entries the
+// caller quantises the weights: wqkv and w1 whole (quant_cols_kernel, one
+// launch), wproj and w2 split (col_amax_kernel, the MAX all-reduce of each
+// over its group, quant_cols_given_kernel: two launches). Four entries, with
+// the caller's collectives over the model ranks between them:
+//   mbt_pair_q8_tp_attn      ln_quant_rows (whole C; amax zeroed),
+//                            hg_gemm_s8<BIAS> qkv_r, the core on the local
+//                            heads, its store taking the row maxima of attn_r
 //       all-reduce MAX of the row maxima (M floats)
 //   mbt_pair_q8_tp_partial   quant_rows_given(attn_r), hg_gemm_s8<ACC_S32>
 //       all-reduce SUM of the int32 partials (M x C)
-//   mbt_pair_q8_tp_mlp       dequant_rows (y = bf16(deq + bproj + x)),
-//                            ln_quant_rows (whole C), hg_gemm_s8<GELU_F32>
-//                            act_r, row_amax(act_r)
+//   mbt_pair_q8_tp_mlp       dequant_ln_quant_rows (y = bf16(deq + bproj +
+//                            x) written, LN2(y) quantised from the
+//                            registers; amax zeroed), hg_gemm_s8<GELU_F32,
+//                            AMAX> act_r with its row maxima
 //       all-reduce MAX
 //   mbt_pair_q8_tp_partial   quant_rows_given(act_r), hg_gemm_s8<ACC_S32>
 //       all-reduce SUM
-//   mbt_pair_q8_tp_out       dequant_rows (out = bf16(deq + b2 + y)) [+ gate]
-// The column scales of wproj and w2, whose rows a rank holds only K of, are
-// the caller's too (the maximum over the rank's columns, all-reduced with
-// MAX). Every row scale is then the whole row's, every column scale the
-// whole column's, every int32 sum the whole product's (exact: 127^2 K stays
-// below 2^31 for K up to 133,000), and dequant_rows runs q8_epilogue4<
-// Q8_BIAS_RES> on it: the output is B9's bit for bit at any model size T.
+//   mbt_pair_q8_tp_out       dequant_rows (out = bf16(deq + b2 + y)), or
+//                            gated dequant_gate_rows (the gate on the
+//                            dequantised row, never stored)
+// 10 launches a call besides the weights' 3. Every row scale is the whole
+// row's, every column scale the whole column's, every int32 sum the whole
+// product's (exact: 127^2 K stays below 2^31 for K up to 133,000), and each
+// row pass dequantises with q8_dequant4<Q8_BIAS_RES>'s operations and keeps
+// the lane order and arithmetic of the passes it replaced (ln_quant_rows,
+// gate_kernel): the output is B9's bit for bit at any model size T.
+//
+// Bound and design. At the flagship's rows on shards of 2 the function must
+// move x, the output, the weights' shards and each int32 partial (M x C)
+// written for the all-reduce and read back summed: 4 x 33.8 MB of its ~172
+// MB, 0.0511 ms at 3.35 TB/s; bit-exactness needs the partials, so they
+// stay. What the design keeps off device memory: the row maxima ride in the
+// producers' epilogues (no pass re-reads attn_r or the fp32 act_r for
+// them), y goes from the dequantise into LN2 in registers, the gated pair's
+// output goes from the dequantise into the gate, and the weight quantisers
+// take one launch for all weights of a pass instead of PyTorch operators.
+// The one atomic of this file: the row maxima's atomicMax, whose order does
+// not change a maximum. The quantise of attn_r and act_r stays a pass of
+// its own: its scale needs the all-reduced maximum.
 // Scratch: a8 (M, max(C, Ci, hid_r)) int8, ascale and amax (M,) fp32, qkv
 // (M, 3 Ci) and attn (M, Ci) bf16, acc (M, C) int32, y (M, C) bf16, act
-// (M, hid_r) fp32, pair_out (M, C) bf16 when gated. Ci, hid_r and C are
-// multiples of 64 (the s8 engine's N and K).
+// (M, hid_r) fp32. Ci, hid_r and C are multiples of 64 (the s8 engine's N
+// and K), C <= 1024 (dequant_ln_quant_rows holds a row in registers).
 // ---------------------------------------------------------------------------
 
-// 4 launches. Writes a8 / ascale (LN1's rows, whole), qkv, attn and amax.
+// 3 launches. Writes a8 / ascale (LN1's rows, whole), qkv, attn and amax.
 extern "C" int mbt_pair_q8_tp_attn(
     const void* x, void* a8, void* ascale, void* qkv, void* attn, void* amax,
     const void* ln1_w, const void* ln1_b, const void* wqkv8, const void* sqkv,
@@ -133,7 +185,8 @@ extern "C" int mbt_pair_q8_tp_attn(
     void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const int M = B * F * J;
-    cudaError_t err = launch_ln_quant(x, ln1_w, ln1_b, a8, ascale, M, C, stream);
+    cudaError_t err = launch_ln_quant(x, ln1_w, ln1_b, a8, ascale, M, C, stream,
+                                      static_cast<float*>(amax));
     if (err != cudaSuccess) return (int)err;
     err = hg_gemm_s8<Q8_BIAS>(a8, ascale, wqkv8, sqkv, bqkv, nullptr, qkv, M, 3 * Ci, C,
                               stream);
@@ -141,9 +194,8 @@ extern "C" int mbt_pair_q8_tp_attn(
     TcArgs core = tc_packed_args(qkv, B, F, J, Ci, Hl, scale, temporal);
     core.out = attn;
     core.ld_out = Ci;
-    err = launch_attention_tc(core, false, stream);
-    if (err != cudaSuccess) return (int)err;
-    return (int)launch_row_amax<bf16>(attn, amax, M, Ci, stream);
+    core.amax = static_cast<float*>(amax);
+    return (int)launch_attention_tc(core, false, stream);
 }
 
 // 2 launches: src (M, K), bf16 (src_f32 0) or fp32, quantised with the
@@ -162,37 +214,33 @@ extern "C" int mbt_pair_q8_tp_partial(const void* src, int src_f32, const void* 
                                        stream);
 }
 
-// 4 launches: y from the summed proj products, then fc1 on the rank's slice
-// and its rows' maxima. ascale holds the proj input's scales on entry and
-// LN2's rows' on exit.
+// 2 launches: y from the summed proj products and LN2's quantised rows in
+// one pass, then fc1 on the rank's slice with its rows' maxima. ascale holds
+// the proj input's scales on entry and LN2's rows' on exit.
 extern "C" int mbt_pair_q8_tp_mlp(
     const void* acc, void* ascale, const void* sproj, const void* bproj, const void* x, void* y,
     void* a8, const void* ln2_w, const void* ln2_b, const void* w18, const void* s1,
     const void* b1, void* act, void* amax, int M, int C, int hid_r, void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    cudaError_t err = launch_dequant_rows(acc, ascale, sproj, bproj, x, y, M, C, stream);
+    cudaError_t err = launch_dequant_ln_quant(acc, ascale, sproj, bproj, x, y, ln2_w, ln2_b, a8,
+                                              amax, M, C, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_ln_quant(y, ln2_w, ln2_b, a8, ascale, M, C, stream);
-    if (err != cudaSuccess) return (int)err;
-    err = hg_gemm_s8<Q8_BIAS_GELU_F32>(a8, ascale, w18, s1, b1, nullptr, act, M, hid_r, C,
-                                       stream);
-    if (err != cudaSuccess) return (int)err;
-    return (int)launch_row_amax<float>(act, amax, M, hid_r, stream);
+    return (int)hg_gemm_s8<Q8_BIAS_GELU_F32, true>(a8, ascale, w18, s1, b1, nullptr, act, M,
+                                                   hid_r, C, stream,
+                                                   static_cast<float*>(amax));
 }
 
-// 1 launch, 2 when gated (other != nullptr): out = bf16(deq(acc) + b2 + y),
-// through pair_out and the gate against other when gated.
+// 1 launch: out = bf16(deq(acc) + b2 + y), or with other not null the gate
+// of other against it.
 extern "C" int mbt_pair_q8_tp_out(const void* acc, const void* ascale, const void* s2,
                                   const void* b2, const void* y, const void* other,
-                                  const void* wg, const void* bg, void* pair_out, void* out,
-                                  int M, int C, void* stream_ptr) {
+                                  const void* wg, const void* bg, void* out, int M, int C,
+                                  void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const bool gated = other != nullptr;
-    cudaError_t err = launch_dequant_rows(acc, ascale, s2, b2, y, gated ? pair_out : out, M, C,
-                                          stream);
-    if (err != cudaSuccess) return (int)err;
-    if (gated) err = launch_gate(other, pair_out, wg, bg, out, M, C, stream);
-    return (int)err;
+    if (other != nullptr)
+        return (int)launch_dequant_gate(acc, ascale, s2, b2, y, other, wg, bg, out, M, C,
+                                        stream);
+    return (int)launch_dequant_rows(acc, ascale, s2, b2, y, out, M, C, stream);
 }
 
 // The int8 engine alone (ops/pair_q8.py engine_gemm_q8, tests and

@@ -163,14 +163,15 @@ def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _quantised(p: tuple) -> tuple:
-    """A pair's 12 parameters -> the W8A8 chain's 16: each of the four
-    weights becomes its int8 values and fp32 scales, as the TPU stream
-    quantises outside its kernel."""
-    out = []
-    for i, t in enumerate(p):
-        out += list(quant_cols(t)) if i in _WEIGHTS else [t]
-    return tuple(out)
+def _quantised(p1: tuple, p2: tuple) -> tuple:
+    """The two pairs' 12 parameters -> the W8A8 chain's 16 each: each of the
+    eight weights becomes its int8 values and fp32 scales (one launch of the
+    column quantiser for all eight), as the TPU stream quantises outside its
+    kernel."""
+    q = iter(quant_cols(*(p[i] for p in (p1, p2) for i in _WEIGHTS)))
+    return tuple(tuple(v for i, t in enumerate(p)
+                       for v in (next(q) if i in _WEIGHTS else (t,)))
+                 for p in (p1, p2))
 
 
 def _launch(x, other, p1, p2, wg, bg, num_heads, scale, order,
@@ -197,7 +198,7 @@ def _launch(x, other, p1, p2, wg, bg, num_heads, scale, order,
         dims = (B, F, J, C, num_heads, hidden, float(scale),
                 int(m1 == "temporal"), stream)
         if q8:
-            q1, q2 = _quantised(p1), _quantised(p2)
+            q1, q2 = _quantised(p1, p2)
             a8 = empty(max(C, hidden), torch.int8)
             ascale = torch.empty((M,), dtype=torch.float32, device=dev)
             act = empty(hidden, torch.float32)

@@ -26,10 +26,13 @@ pair's backward on the full-precision weights (``fused_pair_block_bwd`` /
 ``fused_gated_pair_block_bwd``), so a q8 backward counts as a launch of that
 kernel. Each wrapper counts its forward launches in ``launches``.
 
-Weight quantisation runs per call, in plain PyTorch outside the kernel, as in
-the JAX package: the model hands each pair a fresh cast of its fp32
+Weight quantisation runs per call, before the chain, as the JAX package runs
+it outside its kernel: the model hands each pair a fresh cast of its fp32
 parameters, so there is no weight version to key a cache on at this level.
-Its cost is part of every time measured for the wrappers (PERF.md, B9).
+On a CUDA tensor ``quant_cols`` takes all the weights of a call in one
+launch of ``csrc/pair_q8_common.cuh``'s ``quant_cols_kernel`` (the plain
+``quant_cols_plain`` on a CPU tensor), bit for bit the plain version. Its
+cost is part of every time measured for the wrappers (PERF.md, B9).
 
 The plain versions take the integer products as fp32 ``matmul``s of the int8
 values: every partial sum is an integer below 2^24 while 127 * 127 * K < 2^24
@@ -52,9 +55,12 @@ model group's collectives between its stages: qkv and fc1 are
 column-parallel, and a per-output-channel scale sees its whole column on
 the rank's rows; the rows that proj and fc2 quantise (the attention output,
 GELU(hid)) and the columns of wproj and w2 are the rank's K of them, so
-their absolute maxima are all-reduced with MAX before quantising, and the
-raw int32 products are all-reduced with SUM (exact) before one dequantising
-row pass. Every scale, integer and rounding is then the unsharded pair's:
+their absolute maxima are all-reduced with MAX before quantising
+(``quant_cols_tp`` for the weights; the activations' row maxima come out of
+the attention core's and fc1's epilogues), and the raw int32 products are
+all-reduced with SUM (exact) before the dequantising row passes (the one
+after proj takes LN2 and its quantiser along, the gated one after fc2 the
+gate). Every scale, integer and rounding is then the unsharded pair's:
 the output equals B9's (and its plain twin ``pair_block_q8_tp_plain`` the
 plain pair's) bit for bit at any model size. With a group of None that half
 is whole on every rank. The backward is the caller's
@@ -104,13 +110,112 @@ def q8_rows(a: torch.Tensor) -> tuple:
     return _quantise(a, a.abs().amax(-1, keepdim=True), ROW_AMAX_FLOOR)
 
 
-def quant_cols(w: torch.Tensor) -> tuple:
+def quant_cols_plain(w: torch.Tensor) -> tuple:
     """Per-output-channel symmetric int8 of an nn.Linear weight (out, in):
     (int8 (out, in), fp32 scale (out,)), one scale per row of the stored
     weight."""
     wf = w.float()
-    q, scale = _quantise(wf, wf.abs().amax(1, keepdim=True), COL_AMAX_FLOOR)
+    return quant_cols_given_plain(wf, col_amax_plain(wf))
+
+
+def col_amax_plain(w: torch.Tensor) -> torch.Tensor:
+    """Each output channel's |w| maximum over the weight's columns, fp32
+    (out,): the first half of the split quantiser."""
+    return w.float().abs().amax(1)
+
+
+def quant_cols_given_plain(w: torch.Tensor, amax: torch.Tensor) -> tuple:
+    """``quant_cols_plain`` with each output channel's maximum given (the
+    split quantiser's second half, after the MAX over the model ranks)."""
+    q, scale = _quantise(w.float(), amax[:, None], COL_AMAX_FLOOR)
     return q, scale.reshape(-1)
+
+
+# the column quantisers' passes (csrc/pair_q8_common.cuh ColQuantMode) and
+# the weights one launch takes (COLQ_MAX)
+COLQ_WHOLE, COLQ_AMAX, COLQ_GIVEN = 0, 1, 2
+COLQ_MAX = 8
+
+
+def check_quant_cols_args(ws) -> None:
+    """Raise ValueError on weights the column quantisers do not take: 1 to
+    COLQ_MAX of them, each 2-D, bf16 or fp32, contiguous, on one CUDA
+    device, K % 4 == 0 (a lane reads four values) and 8-byte (bf16) or
+    16-byte (fp32) aligned."""
+    if not 1 <= len(ws) <= COLQ_MAX:
+        raise ValueError(f"a column quantiser launch takes 1..{COLQ_MAX} "
+                         f"weights, got {len(ws)}")
+    dev = ws[0].device
+    for i, w in enumerate(ws):
+        if w.dim() != 2 or w.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"weight {i}: the column quantiser takes 2-D "
+                             f"bf16 or fp32, got {w.dtype} {tuple(w.shape)}")
+        N, K = w.shape
+        if N < 1 or K < 4 or K % 4:
+            raise ValueError(f"weight {i}: the column quantiser takes K % 4 "
+                             f"== 0 and a row or more, got {tuple(w.shape)}")
+        if w.device != dev or not w.is_contiguous():
+            raise ValueError(f"weight {i}: contiguous, on {dev}")
+        if w.data_ptr() % (4 * w.element_size()):
+            raise ValueError(f"weight {i}: the column quantiser reads "
+                             f"{4 * w.element_size()}-byte-aligned rows")
+
+
+# argument types of the column quantisers' C entry (csrc/pair_q8_kernels.cu)
+QUANT_COLS_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+
+
+def _quant_cols_library() -> ctypes.CDLL:
+    lib = _library()
+    fn = lib.mbt_quant_cols
+    if fn.argtypes is None:
+        fn.argtypes = QUANT_COLS_ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _col_quant(mode: int, ws, amax=None):
+    """One launch of the column quantisers' pass ``mode`` for the weights
+    ``ws`` (checked by the caller): COLQ_WHOLE and COLQ_GIVEN return
+    [(int8, scale)], COLQ_AMAX fills ``amax`` (a fp32 (out,) tensor a
+    weight)."""
+    lib = _quant_cols_library()
+    dev, n = ws[0].device, len(ws)
+    pairs = [] if mode == COLQ_AMAX else [
+        (torch.empty(w.shape, dtype=torch.int8, device=dev),
+         torch.empty((w.shape[0],), dtype=torch.float32, device=dev))
+        for w in ws]
+    ints = lambda vals: (ctypes.c_int * n)(*vals)
+    ptrs = lambda ts: None if not ts else (ctypes.c_void_p * n)(
+        *(t.data_ptr() for t in ts))
+    rc = lib.mbt_quant_cols(
+        mode, n, ptrs(ws), ints(int(w.dtype == torch.float32) for w in ws),
+        ptrs([q for q, _ in pairs]), ptrs([s for _, s in pairs]), ptrs(amax),
+        ints(w.shape[0] for w in ws), ints(w.shape[1] for w in ws),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"column quantiser launch failed with CUDA error "
+                           f"{rc}")
+    return pairs
+
+
+def quant_cols(*ws: torch.Tensor):
+    """Per-output-channel symmetric int8 of nn.Linear weights (out, in):
+    for one weight (int8 (out, in), fp32 scale (out,)), for several a list
+    of those pairs. On CUDA tensors one launch of ``quant_cols_kernel``
+    takes them all (up to COLQ_MAX, counted in ``quant_cols.launches``),
+    bit for bit ``quant_cols_plain``, which CPU tensors take."""
+    if _device_kind(ws[0], "column quantiser") == "cpu":
+        out = [quant_cols_plain(w) for w in ws]
+    else:
+        check_quant_cols_args(ws)
+        with torch.cuda.device(ws[0].device):
+            out = _col_quant(COLQ_WHOLE, ws)
+        quant_cols.launches += 1
+    return out[0] if len(ws) == 1 else out
+
+
+quant_cols.launches = 0
 
 
 def _int_matmul(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
@@ -130,7 +235,7 @@ def qdot_plain(a: torch.Tensor, w: torch.Tensor,
     """Quantise the fp32 rows of ``a`` and the weight (out, in), take the
     integer product, dequantise and add the bias: fp32 rows (..., out)."""
     a8, ascale = q8_rows(a)
-    w8, wscale = quant_cols(w)
+    w8, wscale = quant_cols_plain(w)
     return _int_matmul(a8, w8) * ascale * wscale + bias.float()
 
 
@@ -214,8 +319,8 @@ def _launch(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b,
     lib = _library()
     dev = x.device
     with torch.cuda.device(dev):
-        (wqkv8, sqkv), (wproj8, sproj), (w18, s1), (w28, s2) = (
-            quant_cols(w) for w in (wqkv, wproj, w1, w2))
+        (wqkv8, sqkv), (wproj8, sproj), (w18, s1), (w28, s2) = quant_cols(
+            wqkv, wproj, w1, w2)
         empty = lambda n, dtype: torch.empty((M, n), dtype=dtype, device=dev)
         a8 = empty(max(C, hidden), torch.int8)
         ascale = torch.empty((M,), dtype=torch.float32, device=dev)
@@ -404,20 +509,46 @@ def all_reduce_group(t: torch.Tensor, group,
     return t
 
 
-def quant_cols_tp(w: torch.Tensor, group) -> tuple:
-    """``quant_cols`` of the whole weight on a rank's columns of it, w (out,
-    K_r): each output channel's absolute maximum over the rank's columns,
-    all-reduced with MAX over ``group``, scales every rank's columns."""
-    wf = w.float()
-    q, scale = _quantise(wf, all_reduce_group(wf.abs().amax(1, keepdim=True),
-                                              group, dist.ReduceOp.MAX),
-                         COL_AMAX_FLOOR)
-    return q, scale.reshape(-1)
+def _quant_cols_tp_plain(ws, groups) -> list:
+    """``quant_cols_tp`` in plain PyTorch, weight after weight."""
+    return [quant_cols_given_plain(w, all_reduce_group(
+        col_amax_plain(w), g, dist.ReduceOp.MAX)) for w, g in zip(ws, groups)]
+
+
+def quant_cols_tp(ws, groups) -> list:
+    """``quant_cols`` of whole weights on a rank's columns of them, each
+    w (out, K_r) with its model group in ``groups`` (None: whole): each
+    output channel's absolute maximum over the rank's columns, all-reduced
+    with MAX over the group (weight after weight, in order), scales every
+    rank's columns. [(int8, scale)] a weight. On CUDA tensors two launches
+    for all of them, ``col_amax_kernel`` before the all-reduces and
+    ``quant_cols_given_kernel`` after (counted once a call in
+    ``quant_cols_tp.launches``); the plain split on CPU tensors."""
+    if _device_kind(ws[0], "column quantiser") == "cpu":
+        return _quant_cols_tp_plain(ws, groups)
+    check_quant_cols_args(ws)
+    dev = ws[0].device
+    with torch.cuda.device(dev):
+        amax = [torch.empty((w.shape[0],), dtype=torch.float32, device=dev)
+                for w in ws]
+        _col_quant(COLQ_AMAX, ws, amax)
+        for a, g in zip(amax, groups):
+            all_reduce_group(a, g, dist.ReduceOp.MAX)
+        out = _col_quant(COLQ_GIVEN, ws, amax)
+    quant_cols_tp.launches += 1
+    return out
+
+
+quant_cols_tp.launches = 0
 
 
 class _PlainTp:
     """B9_tp's stages in plain PyTorch, at ``pair_block_q8_plain``'s
     rounding points: the plain twin."""
+
+    def weights(self, wqkv, wproj, w1, w2, attn_group, mlp_group) -> list:
+        return [quant_cols_plain(wqkv), quant_cols_plain(w1),
+                *_quant_cols_tp_plain((wproj, w2), (attn_group, mlp_group))]
 
     def attn(self, x, ln1_w, ln1_b, wqkv8, sqkv, bqkv, heads, scale, mode):
         dt = x.dtype
@@ -454,7 +585,7 @@ TP_ARGTYPES = {
     "mbt_pair_q8_tp_attn": [_vp] * 11 + [_i] * 6 + [_f, _i, _vp],
     "mbt_pair_q8_tp_partial": [_vp, _i] + [_vp] * 6 + [_i] * 3 + [_vp],
     "mbt_pair_q8_tp_mlp": [_vp] * 14 + [_i] * 3 + [_vp],
-    "mbt_pair_q8_tp_out": [_vp] * 10 + [_i] * 2 + [_vp],
+    "mbt_pair_q8_tp_out": [_vp] * 9 + [_i] * 2 + [_vp],
 }
 
 
@@ -483,6 +614,11 @@ class _KernelTp:
         self.ascale = new(self.M, dtype=torch.float32)
         self.amax = new(self.M, dtype=torch.float32)
         self.acc = new(self.M, C, dtype=torch.int32)
+
+    @staticmethod
+    def weights(wqkv, wproj, w1, w2, attn_group, mlp_group) -> list:
+        return [*quant_cols(wqkv, w1),
+                *quant_cols_tp((wproj, w2), (attn_group, mlp_group))]
 
     @staticmethod
     def _check(rc: int, what: str) -> None:
@@ -526,14 +662,17 @@ class _KernelTp:
 
     def out(self, acc, s2, b2, y, other, wg, bg):
         out = torch.empty_like(y)
-        pair_out = None if other is None else torch.empty_like(y)
         ptr = lambda t: None if t is None else t.data_ptr()
         self._check(self.lib.mbt_pair_q8_tp_out(
             acc.data_ptr(), self.ascale.data_ptr(), s2.data_ptr(),
             b2.data_ptr(), y.data_ptr(), ptr(other), ptr(wg), ptr(bg),
-            ptr(pair_out), out.data_ptr(), self.M, self.C, self.stream),
-            "output")
+            out.data_ptr(), self.M, self.C, self.stream), "output")
         return out
+
+
+# the widest C of B9_tp: its row pass after proj holds a row in registers
+# (csrc/pair_q8_common.cuh DEQUANT_LN_MAX_STEPS x 128)
+TP_MAX_WIDTH = 1024
 
 
 def check_tp_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
@@ -544,7 +683,7 @@ def check_tp_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
     head group wqkv (3 Ci, C), wproj (C, Ci) of ``num_heads`` local heads
     and a hidden slice w1 (hid_r, C), w2 (C, hid_r), Ci and hid_r multiples
     of 64 (the s8 engine's N and K), Ci / num_heads a head dim of the
-    core."""
+    core, C at most TP_MAX_WIDTH."""
     if x.dim() != 4 or wqkv.dim() != 2 or w1.dim() != 2:
         raise ValueError("x must be (B, F, J, C) and the weights 2-D")
     B, F, J, C = x.shape
@@ -554,13 +693,14 @@ def check_tp_args(x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
     if J != NUM_JOINTS or not 1 <= F <= MAX_FRAMES:
         raise ValueError(f"the pair kernel takes J={NUM_JOINTS} joints and "
                          f"1..{MAX_FRAMES} frames, got J={J}, F={F}")
-    if C % 64 or ci % 64 or hid_r % 64 or num_heads < 1 or ci % num_heads \
+    if C % 64 or C > TP_MAX_WIDTH or ci % 64 or hid_r % 64 \
+            or num_heads < 1 or ci % num_heads \
             or ci // num_heads not in HEAD_DIMS:
-        raise ValueError(f"the W8A8 pair on shards takes C % 64 == 0, a head "
-                         f"group of Ci % 64 == 0 channels with a head dim in "
-                         f"{HEAD_DIMS} and a hidden slice % 64 == 0, got "
-                         f"C={C}, Ci={ci}, heads={num_heads}, hidden "
-                         f"slice={hid_r}")
+        raise ValueError(f"the W8A8 pair on shards takes C % 64 == 0 up to "
+                         f"{TP_MAX_WIDTH}, a head group of Ci % 64 == 0 "
+                         f"channels with a head dim in {HEAD_DIMS} and a "
+                         f"hidden slice % 64 == 0, got C={C}, Ci={ci}, "
+                         f"heads={num_heads}, hidden slice={hid_r}")
     limit = core_max_rows(num_heads)
     if not 1 <= B * F * J <= limit:
         raise ValueError(f"the pair kernel takes 1..{limit} token rows "
@@ -591,10 +731,8 @@ def _q8_tp(stages, x, other, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w,
            ln2_b, w1, b1, w2, b2, wg, bg, num_heads, scale, mode, attn_group,
            mlp_group) -> torch.Tensor:
     """B9_tp's stages with the collectives between them (module note)."""
-    wqkv8, sqkv = quant_cols(wqkv)
-    w18, s1 = quant_cols(w1)
-    wproj8, sproj = quant_cols_tp(wproj, attn_group)
-    w28, s2 = quant_cols_tp(w2, mlp_group)
+    (wqkv8, sqkv), (w18, s1), (wproj8, sproj), (w28, s2) = stages.weights(
+        wqkv, wproj, w1, w2, attn_group, mlp_group)
     attn, amax = stages.attn(x, ln1_w, ln1_b, wqkv8, sqkv, bqkv, num_heads,
                              scale, mode)
     MAX = dist.ReduceOp.MAX

@@ -533,8 +533,9 @@ def test_q8_engine_raises_and_never_falls_back(cuda):
 def test_q8_kernel_runs_only_the_s8_engine_and_the_tensor_core_core(cuda,
                                                                    gated):
     """A W8A8 pair call's profile holds the quantisers, the s8 engine,
-    the tensor-core core (and the gate) once a launch of the chain, beside
-    quant_cols's PyTorch operators, and no kernel of the first design."""
+    the tensor-core core (and the gate) once a launch of the chain, and the
+    column quantiser's one launch for the four weights; no PyTorch operator
+    and no kernel of the first design."""
     import chip_smoke
 
     args, H = _inputs(cuda, gated, F=27)
@@ -544,6 +545,107 @@ def test_q8_kernel_runs_only_the_s8_engine_and_the_tensor_core_core(cuda,
     assert ms is not None, rows
     assert not chip_smoke.q8_profile_faults(
         rows, 2, chip_smoke.pair_q8_records(gated), gated), rows
+
+
+# ---------------------------------------------------------------------------
+# the column quantisers (csrc/pair_q8_common.cuh quant_cols_kernel,
+# col_amax_kernel, quant_cols_given_kernel)
+# ---------------------------------------------------------------------------
+
+def _weights(device, dtype, C=512, hidden=1024, seed=3):
+    """The four weights of a pair (wqkv, wproj, w1, w2) at the flagship's
+    widths, each with an all-zero output channel (the floor)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for shape in ((3 * C, C), (C, C), (hidden, C), (C, hidden)):
+        w = rs.normal(size=shape).astype(np.float32) * shape[1] ** -0.5
+        w[5] = 0.0
+        out.append(torch.from_numpy(w).to(device=device, dtype=dtype))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [1, 2, 4])
+def test_quant_cols_kernel_is_the_plain_quantiser(cuda, dtype, T):
+    """One launch of quant_cols_kernel for a pair's four weights, whole (T
+    = 1) or model rank 0's shards of T (wqkv and w1 column-parallel, wproj
+    and w2 a K slice), bit for bit quant_cols_plain; and the split of
+    B9_tp's row-parallel weights over all T ranks' slices (col_amax_kernel,
+    the MAX over the ranks, quant_cols_given_kernel) bit for bit the plain
+    quantiser of the whole weight."""
+    wqkv, wproj, w1, w2 = _weights(cuda, dtype)
+    C, hid = wproj.shape[0], w1.shape[0]
+    ci, hl = C // T, hid // T
+    shards = [wqkv[torch.cat([torch.arange(ci) + i * C for i in range(3)])
+                   .to(cuda)].contiguous(), wproj[:, :ci].contiguous(),
+              w1[:hl].contiguous(), w2[:, :hl].contiguous()]
+    before = q8.quant_cols.launches
+    got = q8.quant_cols(*shards)
+    torch.cuda.synchronize()
+    assert q8.quant_cols.launches == before + 1
+    for w, (q, scale) in zip(shards, got):
+        want = q8.quant_cols_plain(w)
+        assert torch.equal(q, want[0]) and torch.equal(scale, want[1])
+    again = q8.quant_cols(*shards)
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(got, again))
+    # the split over every rank's K slice of wproj and w2
+    for w, k in ((wproj, ci), (w2, hl)):
+        parts = [p.contiguous() for p in w.split(k, dim=1)]
+        amax = [torch.empty(w.shape[0], device=cuda) for _ in parts]
+        q8._col_quant(q8.COLQ_AMAX, parts, amax)
+        top = torch.stack(amax).amax(0)
+        split = q8._col_quant(q8.COLQ_GIVEN, parts, [top] * T)
+        want = q8.quant_cols_plain(w)
+        assert torch.equal(torch.cat([q for q, _ in split], 1), want[0])
+        assert all(torch.equal(s, want[1]) for _, s in split)
+    before = q8.quant_cols_tp.launches
+    tp = q8.quant_cols_tp(shards[1::2], [None, None])
+    assert q8.quant_cols_tp.launches == before + 1
+    for (q, scale), (wq, ws) in zip(tp, got[1::2]):
+        assert torch.equal(q, wq) and torch.equal(scale, ws)
+
+
+@pytest.mark.cuda
+def test_quant_cols_kernel_raises_and_never_falls_back(cuda):
+    """A weight the column quantisers do not take raises before a launch."""
+    w = torch.zeros(8, 64, device=cuda)
+    before = q8.quant_cols.launches
+    with pytest.raises(ValueError, match="K % 4"):
+        q8.quant_cols(w[:, :62].contiguous())
+    with pytest.raises(ValueError, match="aligned"):
+        q8.quant_cols(w.reshape(-1)[2:66].reshape(1, 64))
+    assert q8.quant_cols.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8_tier_fn", ["pair", "gated_pair", "stream",
+                                        "gated_stream"])
+def test_kernel_quantiser_keeps_b9_and_the_w8a8_stream_bits(cuda, q8_tier_fn,
+                                                            monkeypatch):
+    """B9 and the W8A8 stream with their weights quantised by the kernel
+    give the output they give with the plain quantiser (PyTorch's operators,
+    the earlier design), bit for bit."""
+    from motionbert_tpu_torch.ops import fused_stream as fs
+
+    gated = q8_tier_fn.startswith("gated")
+    if q8_tier_fn.endswith("stream"):
+        args, H = _stream_args(cuda, gated)
+        fn = _stream_fns(gated, True)[0]
+        call = lambda: fn(*args, H, 0.125, ("s", "t"))
+    else:
+        args, H = _inputs(cuda, gated, F=27, B=2)
+        fn = _q8(gated)[0]
+        call = lambda: fn(*args, H, 0.125, "temporal")
+    got = call()
+
+    def plain_quant_cols(*ws):
+        out = [q8.quant_cols_plain(w) for w in ws]
+        return out[0] if len(ws) == 1 else out
+
+    monkeypatch.setattr(q8, "quant_cols", plain_quant_cols)
+    monkeypatch.setattr(fs, "quant_cols", plain_quant_cols)
+    assert torch.equal(got, call())
 
 
 # ---------------------------------------------------------------------------
@@ -1634,6 +1736,35 @@ def test_q8_tp_at_one_rank_is_b9_bitwise(cuda, mode, gated, C, H):
             else q8.fused_pair_block_q8)(*args, H, scale, mode)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
     assert q8.fused_pair_block_q8_tp.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["spatial", "temporal"])
+def test_q8_tp_row_maxima_come_from_the_producers(cuda, mode):
+    """B9_tp's row maxima, taken in the attention core's store and in fc1's
+    epilogue (atomicMax on the float's bits), equal the row maxima of the
+    attn and act they wrote, and repeat bit for bit; the stages' buffer is
+    zeroed by the row pass before each producer."""
+    args, H = _inputs(cuda, False, B=2, F=27)
+    x, _, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, w1, b1, w2, \
+        b2, _, _ = _q8_tp_args(args, False, 2, 0)
+    k = q8._KernelTp(x, wqkv.shape[0] // 3, w1.shape[0])
+    (wqkv8, sqkv), (w18, s1), (wproj8, sproj), (w28, s2) = k.weights(
+        wqkv, wproj, w1, w2, None, None)
+    seen = []
+    for _ in range(2):
+        k.amax.fill_(float("nan"))
+        attn, amax = k.attn(x, ln1_w, ln1_b, wqkv8, sqkv, bqkv, H // 2, 0.125,
+                            mode)
+        attn_max = amax.clone()
+        assert torch.equal(attn_max, attn.float().abs().amax(-1))
+        acc = k.partial(attn, amax, wproj8, sproj)
+        k.amax.fill_(float("nan"))
+        y, act, amax = k.mlp(acc, sproj, bproj, x, ln2_w, ln2_b, w18, s1, b1)
+        torch.cuda.synchronize()
+        assert torch.equal(amax, act.abs().amax(-1))
+        seen.append((attn_max, amax.clone(), y, act))
+    assert all(torch.equal(a, b) for a, b in zip(*seen))
 
 
 def _q8_tp_rank(rank: int, store: str, out: str) -> None:

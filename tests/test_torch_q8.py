@@ -96,6 +96,75 @@ def test_quant_cols_takes_bf16_weights():
     assert torch.all((back - w.float()).abs() <= step * 0.5 + 1e-7)
 
 
+def _col_quant_weight(seed):
+    """A weight in the JAX layout (in, out) with an all-zero output channel
+    (the floor), and channels whose maximum is 127 and that hold exact
+    +-0.5 and +-1.5 ties once their scale is 1."""
+    w = _mk((4 * 64, 96), seed, 1.0)
+    w[:, 7] = 0.0
+    for ch in (3, 40):
+        w[:, ch] = np.clip(w[:, ch], -100.0, 100.0)
+        w[0, ch] = 127.0
+        w[1:9, ch] = (0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 126.5, -126.5)
+    return w
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_column_quantiser_equals_jax(shards, dtype):
+    """The plain split quantiser of B9_tp's row-parallel weights: each of
+    ``shards`` column shards' maxima (col_amax_plain), their MAX (what the
+    all-reduce takes), then each shard quantised with it
+    (quant_cols_given_plain): concatenated, the JAX package's quant_cols of
+    the whole weight bit for bit, scales too; bf16 weights as their fp32
+    values. quant_cols and quant_cols_tp without a group give the same on
+    the CPU."""
+    w = torch.from_numpy(_col_quant_weight(shards).T.copy()).to(dtype)
+    qj, sj = jq8.quant_cols(jnp.asarray(w.float().numpy().T))
+    parts = w.chunk(shards, dim=1)
+    amax = torch.stack([tq8.col_amax_plain(p) for p in parts]).amax(0)
+    got = [tq8.quant_cols_given_plain(p, amax) for p in parts]
+    q = torch.cat([g[0] for g in got], 1)
+    assert q.dtype == torch.int8
+    np.testing.assert_array_equal(q.numpy().T, np.asarray(qj))
+    for _, s in got:
+        np.testing.assert_array_equal(s.numpy(), np.asarray(sj)[0])
+    np.testing.assert_array_equal(q[3, :9].numpy(),
+                                  [127, 0, -0, 2, -2, 2, -2, 126, -126])
+    assert (q[7] == 0).all()
+    (q1, s1), = tq8.quant_cols_tp([w], [None])
+    q2, s2 = tq8.quant_cols(w)
+    for a, b in ((q1, q), (q2, q), (s1, got[0][1]), (s2, got[0][1])):
+        assert torch.equal(a, b)
+
+
+def test_quant_cols_takes_several_weights():
+    """quant_cols(*ws): one weight gives its pair, several a list of pairs,
+    each the plain quantiser's (on the card one launch for all)."""
+    ws = [torch.from_numpy(_mk(shape, 30 + i, 1.0))
+          for i, shape in enumerate(((96, 64), (64, 128), (32, 64)))]
+    ws[1] = ws[1].bfloat16()
+    out = tq8.quant_cols(*ws)
+    assert isinstance(out, list) and len(out) == 3
+    for w, (q, s) in zip(ws, out):
+        want = tq8.quant_cols_plain(w)
+        assert torch.equal(q, want[0]) and torch.equal(s, want[1])
+
+
+def test_column_quantiser_argument_checks():
+    """What the card's column quantisers refuse, checked before a launch:
+    K % 4, 1-D, an integer weight, a misaligned row, none or more than a
+    launch's table holds."""
+    w = torch.zeros(8, 64)
+    tq8.check_quant_cols_args([w, w.bfloat16()])
+    for bad, match in (([w[:, :62].contiguous()], "K % 4"),
+                       ([w[0]], "2-D"), ([w.int()], "bf16 or fp32"),
+                       ([w.reshape(-1)[2:66].reshape(1, 64)], "aligned"),
+                       ([], "1..8 weights"), ([w] * 9, "1..8 weights")):
+        with pytest.raises(ValueError, match=match):
+            tq8.check_quant_cols_args(bad)
+
+
 def test_int_matmul_is_exact():
     rs = np.random.RandomState(3)
     for K in (1024, 2048):   # fp32 route and float64 route

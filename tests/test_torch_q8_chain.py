@@ -209,12 +209,65 @@ def test_the_first_design_is_gone_from_the_sources(name):
 
 @pytest.mark.parametrize("gated", [False, True])
 def test_q8_records_count_the_chain_launches(gated):
-    """chip_smoke's count of a W8A8 pair call's chain kernels is the
-    launches in the sources: the chain's nine and the gate."""
+    """chip_smoke's count of a W8A8 pair call's kernels is the launches in
+    the sources: the chain's nine, the gate, and the column quantiser's one
+    launch for the call's weights (the pair's four, the stream's eight)."""
+    import inspect
+
+    from motionbert_tpu_torch.ops import fused_stream as fs
+
     chain = len(LAUNCH.findall(_body(_code("pair_q8_common.cuh"),
                                      "cudaError_t q8_pair_chain(")))
-    assert chip_smoke.pair_q8_records(gated) == chain + int(gated)
-    assert chip_smoke.stream_q8_records(gated) == 2 * chain + int(gated)
+    assert inspect.getsource(q8._launch).count("quant_cols(") == 1
+    assert inspect.getsource(fs._launch).count("_quantised(") == 1
+    assert inspect.getsource(fs._quantised).count("quant_cols(") == 1
+    weights = chip_smoke.Q8_WEIGHT_LAUNCHES
+    assert weights == 1
+    assert chip_smoke.pair_q8_records(gated) == chain + int(gated) + weights
+    assert chip_smoke.stream_q8_records(gated) == (2 * chain + int(gated)
+                                                    + weights)
+
+
+# B9_tp's four entries (pair_q8_kernels.cu): the launches of one call, a
+# branch's alternatives in a tuple
+TP_ENTRIES = {
+    "int mbt_pair_q8_tp_attn(": ["launch_ln_quant", "hg_gemm_s8<Q8_BIAS>",
+                                 "launch_attention_tc"],
+    "int mbt_pair_q8_tp_partial(": [("launch_quant_rows_given<float>",
+                                     "launch_quant_rows_given<bf16>"),
+                                    "hg_gemm_s8<Q8_ACC_S32>"],
+    "int mbt_pair_q8_tp_mlp(": ["launch_dequant_ln_quant",
+                                "hg_gemm_s8<Q8_BIAS_GELU_F32, true>"],
+    "int mbt_pair_q8_tp_out(": [("launch_dequant_gate",
+                                 "launch_dequant_rows")]}
+TP_LAUNCH = re.compile(r"\b(launch_\w+(?:<\w+>)?|hg_gemm\w*<[\w, ]+>)\s*\(")
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_q8_tp_records_count_the_entries_launches(gated):
+    """B9_tp's entries launch what TP_ENTRIES lists (the attention core and
+    fc1 with the row maxima, the gate inside the output pass), and
+    chip_smoke's count of a call's records, which phase 31 (a) holds each
+    profile to by kernel, is theirs: the attention stage, two partial
+    products, the MLP stage, the output pass, and the weights' three
+    column-quantiser launches (quant_cols for wqkv and w1, quant_cols_tp's
+    two for wproj and w2)."""
+    code = _code("pair_q8_kernels.cu")
+    for signature, launches in TP_ENTRIES.items():
+        flat = [x for item in launches
+                for x in (item if isinstance(item, tuple) else (item,))]
+        assert TP_LAUNCH.findall(_body(code, signature)) == flat, signature
+    assert "core.amax = " in _body(code, "int mbt_pair_q8_tp_attn(")
+    stages = [len(v) for v in TP_ENTRIES.values()]
+    want = 3 + stages[0] + 2 * stages[1] + stages[2] + stages[3]
+    kernels = chip_smoke.pair_q8_tp_kernels(gated)
+    assert chip_smoke.pair_q8_tp_records(gated) == want == 13
+    sources = "".join(_code(n) for n in ("pair_q8_common.cuh",
+                                         "hopper_gemm_s8.cuh",
+                                         "attention_tc.cuh"))
+    for name in kernels:
+        assert re.search(rf"\b{name}\(", sources), name
+    assert ("dequant_gate_rows_kernel" in kernels) == gated
 
 
 @pytest.mark.parametrize("kernel,policy", [("hg_gemm_kernel", "HgBf16"),

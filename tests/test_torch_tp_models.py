@@ -1092,11 +1092,14 @@ def test_megatron_operators_without_a_group_are_the_identity():
 
 @pytest.mark.parametrize("name", ["mbt_pair_q8_tp_attn",
                                   "mbt_pair_q8_tp_partial",
-                                  "mbt_pair_q8_tp_mlp", "mbt_pair_q8_tp_out"])
+                                  "mbt_pair_q8_tp_mlp", "mbt_pair_q8_tp_out",
+                                  "mbt_quant_cols"])
 def test_q8_tp_argtypes_match_the_c_entries(name):
-    """The ctypes argument types of B9_tp's entries against their
-    signatures in csrc/pair_q8_kernels.cu: a pointer for each pointer and
-    the stream, a 32-bit int for each int, a float for the scale."""
+    """The ctypes argument types of B9_tp's entries and of the column
+    quantisers' entry against their signatures in
+    csrc/pair_q8_kernels.cu: a pointer for each pointer (a table's arrays
+    too) and the stream, a 32-bit int for each int, a float for the
+    scale."""
     import ctypes
     import re
     from pathlib import Path
@@ -1114,4 +1117,5 @@ def test_q8_tp_argtypes_match_the_c_entries(name):
         kinds.append(ctypes.c_void_p if "*" in param else
                       ctypes.c_float if param.startswith("float") else
                       ctypes.c_int)
-    assert q8.TP_ARGTYPES[name] == kinds
+    assert {**q8.TP_ARGTYPES,
+            "mbt_quant_cols": q8.QUANT_COLS_ARGTYPES}[name] == kinds
