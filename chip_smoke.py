@@ -798,15 +798,17 @@ COL_QUANT_KERNELS = ("quant_cols_kernel", "col_amax_kernel",
 # kernel-name fragments of the port's own kernels, for the profile's groups
 # (with the retired ones, which another checkout's build, under --baseline,
 # may still run)
-PROFILE_GROUPS = ("hg_gemm_kernel", "hg_gemm_s8_kernel", "attn_tc_fwd_kernel",
-                  "attn_tc_bwd_kernel", "gemm_q8_kernel",
+PROFILE_GROUPS = ("hg_gemm_kernel", "hg_gemm_s8_kernel", "hg_gemm_pair_kernel",
+                  "attn_tc_fwd_kernel", "attn_tc_bwd_kernel",
+                  "attn_tc_bwd_query_kernel", "attn_tc_bwd_key_kernel",
+                  "gemm_q8_kernel",
                   "dequant_ln_quant_rows_kernel", "ln_quant_rows_kernel",
                   "quant_rows_kernel", "quant_rows_given_kernel",
                   "dequant_rows_kernel", "dequant_gate_rows_kernel",
                   *COL_QUANT_KERNELS, "row_amax_kernel", "attention_bwd_kernel",
                   "attention_kernel", "gate_bwd_rows_kernel", "gate_kernel",
                   "gemm_kernel", "colsum_chunks_kernel", "chunk_sum_kernel",
-                  "colsum_kernel", "reduce_splits_kernel",
+                  "colsum_kernel", "reduce_splits_kernel", "reduce_partials_kernel",
                   "ln_fwd_rows_kernel", "ln_bwd_fused_kernel",
                   "ln_bwd_rows_kernel")
 # the column-sum pass and the one-pass LayerNorm backward (every backward
@@ -2200,10 +2202,12 @@ MLP_FLAGS = ((False, False), (True, True))
 # tensor-core core, the LayerNorm forward rows and one-pass backward, the
 # bias column sums, the in-order passes, and PyTorch's fills (the zero
 # LayerNorm gradients without use_ln)
-BLOCK_KERNELS = ("hg_gemm_kernel", "attn_tc_fwd_kernel", "attn_tc_bwd_kernel",
-                 "ln_fwd_rows_kernel", "ln_bwd_fused_kernel",
-                 "colsum_chunks_kernel", "chunk_sum_kernel",
-                 "reduce_splits_kernel", "FillFunctor")
+BLOCK_KERNELS = ("hg_gemm_kernel", "hg_gemm_pair_kernel", "attn_tc_fwd_kernel",
+                 "attn_tc_bwd_kernel", "attn_tc_bwd_query_kernel",
+                 "attn_tc_bwd_key_kernel", "ln_fwd_rows_kernel",
+                 "ln_bwd_fused_kernel", "colsum_chunks_kernel",
+                 "chunk_sum_kernel", "reduce_splits_kernel",
+                 "reduce_partials_kernel", "FillFunctor")
 
 
 def block_profile_faults(kind: str, backward: bool, rows,
@@ -4740,12 +4744,32 @@ TP_REPLACES = {
     "fused_mlp_block_tp_bwd": "motionbert_tpu/ops/fused_mlp.py:151",
     "fused_ln_bwd": "motionbert_tpu/ops/attention.py:416",
 }
-# device records of one call, from the chains in csrc/block_kernels.cu (a
-# weight gradient and a column sum are two each; tests/test_torch_tp_ops.py
-# reads the chains)
-TP_RECORDS = {"fused_attention_block_tp": 4,
-              "fused_attention_block_tp_bwd": 12, "fused_mlp_block_tp": 3,
-              "fused_mlp_block_tp_bwd": 10, "fused_ln_bwd": 2}
+# device records of one call by mode, from the chains in
+# csrc/block_kernels.cu at FRAMES frames (a weight gradient pair and a column
+# sum are two each; B5_tp's core backward is two launches on 243-frame
+# groups, one on a frame's joints; tests/test_torch_tp_ops.py reads the
+# chains)
+TP_RECORDS = {"fused_attention_block_tp": {"temporal": 4, "spatial": 4},
+              "fused_attention_block_tp_bwd": {"temporal": 10, "spatial": 9},
+              "fused_mlp_block_tp": {"tokens": 3},
+              "fused_mlp_block_tp_bwd": {"tokens": 7},
+              "fused_ln_bwd": {"tokens": 2}}
+# the kernels a TP call's profile must hold, by mode, and those it must not
+TP_NEEDED = {
+    "fused_attention_block_tp": {"temporal": ["hg_gemm_kernel",
+                                              "attn_tc_fwd_kernel"],
+                                 "spatial": ["hg_gemm_kernel",
+                                             "attn_tc_fwd_kernel"]},
+    "fused_attention_block_tp_bwd": {
+        "temporal": ["hg_gemm_kernel", "hg_gemm_pair_kernel",
+                     "attn_tc_bwd_query_kernel", "attn_tc_bwd_key_kernel"],
+        "spatial": ["hg_gemm_kernel", "hg_gemm_pair_kernel",
+                    "attn_tc_bwd_kernel"]},
+    "fused_mlp_block_tp": {"tokens": ["hg_gemm_kernel"]},
+    "fused_mlp_block_tp_bwd": {"tokens": ["hg_gemm_kernel",
+                                          "hg_gemm_pair_kernel"]},
+    "fused_ln_bwd": {"tokens": ["ln_bwd_fused_kernel", "chunk_sum_kernel"]}}
+TP_BARRED = {"fused_attention_block_tp_bwd": ["attn_tc_fwd_kernel"]}
 
 
 def tp_counters() -> tuple:
@@ -4873,17 +4897,17 @@ def tp_kernel_case(name: str, wrapper, plain, args: tuple, mode: str,
     t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS
     library = tp_library(name, args, heads)
     calls = 10
-    dev_ms, rows = device_profile(call, TP_RECORDS[name], calls)
-    needed = (["ln_bwd_fused_kernel", "chunk_sum_kernel"]
-              if name == "fused_ln_bwd" else
-              ["hg_gemm_kernel"] + (["attn_tc_fwd_kernel"]
-                                    if "attention" in name else []))
+    tag = mode if "attention" in name else "tokens"
+    dev_ms, rows = device_profile(call, TP_RECORDS[name][tag], calls)
     names = [key for key, _, _ in rows]
-    faults = [f"no {k}" for k in needed if not any(k in n for n in names)] \
+    faults = [f"no {k}" for k in TP_NEEDED[name][tag]
+              if not any(k in n for n in names)] \
         + [f"runs {n[:80]}" for n in names
-           if not any(k in n for k in BLOCK_KERNELS)]
-    if faults:
-        fail(f"tp (a) {name}/{mode}: the profile of a call: {faults}")
+           if not any(k in n for k in BLOCK_KERNELS)
+           or any(k in n for k in TP_BARRED.get(name, ()))]
+    if dev_ms is None or faults:
+        fail(f"tp (a) {name}/{mode}: the profile of a call: {faults}, "
+             f"{TP_RECORDS[name][tag]} device records expected")
     rec = dict(
         max_abs_err=max(e[0] for e in errs), rel_err=[e[1] for e in errs],
         rel_l2=[e[2] for e in errs], tol=KERNEL_TOL,
@@ -4899,8 +4923,66 @@ def tp_kernel_case(name: str, wrapper, plain, args: tuple, mode: str,
         mbytes=nbytes / 1e6)
     if name == "fused_ln_bwd":
         rec["l2_ms"] = l2_protocol_ms({"kernel": call, "library": library})
+    if name == "fused_attention_block_tp_bwd":
+        from motionbert_tpu_torch.ops import attention as at
+
+        rec["core_grid"] = at.attn_tp_bwd_core_grid(args[0].shape, heads,
+                                                    C // HEADS, mode)
     log(f"tp (a) kernel {name}/{mode} (shards of {TP_T}): " + json.dumps(rec))
     return rec
+
+
+def tp_groupings() -> dict:
+    """The grouped engine launches of B5_tp and B7_tp at phase 30's shard
+    shapes (FRAMES-frame rows, Ci and the hidden slice of TP_T), each
+    against its two products launched one after the other: bit for bit
+    (into the result, a failure otherwise), and device ms in turns
+    (separate, grouped, grouped, separate)."""
+    from motionbert_tpu_torch.ops import fused_mlp as mlp
+
+    dev = torch.device("cuda")
+    M, ci, hl = B * FRAMES * J, C // TP_T, HIDDEN // TP_T
+    rs = np.random.RandomState(18)
+
+    def bf(*shape):
+        return torch.from_numpy(rs.normal(size=shape).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    g, h, dz = bf(M, C), bf(M, C), bf(M, hl)
+    z = torch.from_numpy(rs.normal(size=(M, hl)).astype(np.float32)).to(dev)
+    cases = {
+        "B5_tp dWqkv + dWproj": (("TN", "partial", bf(M, 3 * ci), h),
+                                 ("TN", "partial", g, bf(M, ci))),
+        "B7_tp dW2 + dz": (("TN", "partial", g, bf(M, hl)),
+                           ("NN", "dgelu", g, bf(C, hl), None, None, z)),
+        "B7_tp dW1 + dh": (("TN", "partial", dz, h),
+                           ("NN", "f32", dz, bf(hl, C)))}
+    out = {}
+    for tag, (first, second) in cases.items():
+        grouped = lambda: mlp.engine_gemm_pair(first, second)
+        separate = lambda: (mlp.engine_gemm(*first), mlp.engine_gemm(*second))
+        bitwise = all(torch.equal(a, b) for a, b in zip(grouped(), separate()))
+        if not bitwise:
+            fail(f"tp (a) grouped {tag}: not its two launches' bits")
+        turns = []
+        for which, call, records in (("separate", separate, 2),
+                                     ("grouped", grouped, 1),
+                                     ("grouped", grouped, 1),
+                                     ("separate", separate, 2)):
+            ms, rows = device_profile(call, records, 20)
+            turns.append(dict(which=which, device_ms=ms,
+                              device_by_kernel=by_kernel(rows, 20)))
+        # the grouped launch at each lead (hg_gemm_pair's rule picks one)
+        leads = {lead: device_profile(
+            lambda: mlp.engine_gemm_pair(first, second, lead), 1, 20)[0]
+            for lead in range(1, 6)}
+        out[tag] = dict(bitwise=bitwise, turns=turns, leads=leads)
+        log(f"tp (a) grouped {tag} (shards of {TP_T}): bit for bit its two "
+            f"launches; in turns " + json.dumps(turns) + "; device ms by "
+            f"lead " + json.dumps(leads))
+    del g, h, dz, z, cases
+    torch.cuda.empty_cache()
+    return out
 
 
 L2_FLUSH_BYTES = 256 * 2 ** 20      # five times the H100's 50 MB L2
@@ -4992,6 +5074,14 @@ def phase_tp_kernels() -> list:
             library_device_ms=main["library_device_ms"],
             mode="temporal" if "temporal" in m else "tokens",
             shape=[B, FRAMES, J, C], shards=TP_T, modes=m))
+    groupings = tp_groupings()
+    for rec in records:
+        if rec["name"] in ("fused_attention_block_tp_bwd",
+                           "fused_mlp_block_tp_bwd"):
+            rec["groupings"] = {tag: g for tag, g in groupings.items()
+                                if tag.startswith(
+                                    "B5" if "attention" in rec["name"]
+                                    else "B7")}
     return records
 
 
@@ -5954,8 +6044,7 @@ def baseline_blocks(other_block, results: dict) -> dict:
 
     at.block_library()
     mlp._library()
-    with swapped_library("block_kernels", other_block):
-        at.block_library()          # argtypes on the other library
+    at.bind_block_library(other_block)
     dev = torch.device("cuda")
     scale = (C // HEADS) ** -0.5
     p = pair_inputs(51, False, dev)
@@ -6068,7 +6157,8 @@ def baseline_ln_bwd(other_block, results: dict) -> dict:
     for which, call in (("other", other), ("this", this), ("this", this),
                         ("other", other)):
         ms, rows = device_profile(call, None if which == "other"
-                                  else TP_RECORDS["fused_ln_bwd"], 20)
+                                  else TP_RECORDS["fused_ln_bwd"]["tokens"],
+                                  20)
         turns.append(dict(build=which, device_ms=ms,
                           device_by_kernel=by_kernel(rows, 20),
                           l2_ms=l2_protocol_ms({"call": call})))
@@ -6079,6 +6169,111 @@ def baseline_ln_bwd(other_block, results: dict) -> dict:
     del p, g, dh, stats, work, dx, dln, ours
     torch.cuda.empty_cache()
     return {"fused_ln_bwd/tokens": turns}
+
+
+def other_constant(root: str, module: str, name: str):
+    """A literal module-level constant (a slot tuple, say) of another
+    checkout's motionbert_tpu_torch/ops/<module>, read from its source
+    without importing it."""
+    import ast
+
+    with open(os.path.join(root, "motionbert_tpu_torch", "ops", module)) as fh:
+        tree = ast.parse(fh.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == name for t in node.targets):
+            return ast.literal_eval(node.value)
+    fail(f"baseline: {module} of {root} has no {name}")
+
+
+def baseline_tp_blocks(other_block, other_root: str, results: dict) -> dict:
+    """B5_tp (both modes) and B7_tp at phase 30's shard shapes, this build
+    against the other's: every output bit for bit (into results), and both
+    timed in turns (other, this, this, other). B5_tp's other call passes the
+    other checkout's pointer slots (read from its source; its scratch is a
+    subset of this build's, sized here for both), B7_tp's runs this build's
+    wrapper on the other library, whose slots are the same. Returns
+    {name/mode: turns}."""
+    from motionbert_tpu_torch.ops import attention as at
+    from motionbert_tpu_torch.ops import fused_mlp as mlp
+
+    at.block_library()
+    mlp._library()
+    at.bind_block_library(other_block)
+    slots = other_constant(other_root, "attention.py", "ATTN_TP_BWD_SLOTS")
+    dev = torch.device("cuda")
+    scale, heads = (C // HEADS) ** -0.5, HEADS // TP_T
+    g = pair_inputs(5, False, dev)["x"]
+    names = ("dwqkv", "dbqkv", "dwproj", "dh", "st")
+    out = {}
+    for mode in ("temporal", "spatial"):
+        p = tp_shards(pair_inputs(30 if mode == "temporal" else 31, False,
+                                  dev))
+        x = p["x"]
+        w = (p["ln1_w"], p["ln1_b"], p["wqkv"], p["bqkv"], p["wproj"])
+        ci = p["wqkv"].shape[0] // 3
+        t = at.tp_bwd_tensors(x, g, *w, heads)
+        t["work"] = torch.empty(max(
+            t["work"].numel(), other_block.mbt_block_work_floats(3 * ci, C)),
+            dtype=torch.float32, device=dev)
+        ptrs = at.slot_pointers(slots, t)
+
+        def other_call():
+            rc = other_block.mbt_attention_block_tp_bwd(
+                ptrs, B, FRAMES, J, C, ci, heads, scale,
+                int(mode == "temporal"),
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                fail(f"baseline: the other build's B5_tp returned {rc}")
+
+        call = lambda: at.fused_attention_block_tp_bwd(x, g, *w, heads, scale,
+                                                       mode)
+        ours = call()
+        other_call()
+        torch.cuda.synchronize()
+        same = {n: torch.equal(a, t[n]) for n, a in zip(names, ours)}
+        results[f"fused_attention_block_tp_bwd/{mode}"] = all(same.values())
+        out[f"fused_attention_block_tp_bwd/{mode}"] = in_turns(
+            call, TP_RECORDS["fused_attention_block_tp_bwd"][mode],
+            "block_kernels", other_block, other_call)
+        log(f"baseline: B5_tp/{mode} (shards of {TP_T}): bit for bit the "
+            f"other build's {json.dumps(same)}; in turns "
+            + json.dumps(out[f"fused_attention_block_tp_bwd/{mode}"]))
+        del p, x, w, t, ours
+    p = tp_shards(pair_inputs(30, False, dev))
+    m = (p["x"], g, p["ln2_w"], p["ln2_b"], p["w1"], p["b1"], p["w2"])
+    call = lambda: mlp.fused_mlp_block_tp_bwd(*m)
+    ours = call()
+    with swapped_library("block_kernels", other_block):
+        theirs = call()
+    same = {n: torch.equal(a, b) for n, a, b in zip(
+        ("dw1", "db1", "dw2", "dh", "st"), ours, theirs)}
+    results["fused_mlp_block_tp_bwd/tokens"] = all(same.values())
+    out["fused_mlp_block_tp_bwd/tokens"] = in_turns(
+        call, TP_RECORDS["fused_mlp_block_tp_bwd"]["tokens"], "block_kernels",
+        other_block)
+    log(f"baseline: B7_tp (shards of {TP_T}): bit for bit the other build's "
+        f"{json.dumps(same)}; in turns "
+        + json.dumps(out["fused_mlp_block_tp_bwd/tokens"]))
+    del p, m, g, ours, theirs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_baseline_tp(other_root: str) -> dict:
+    """--phases tp's baseline: another checkout's block library built with
+    this one's nvcc flags, and B5_tp and B7_tp held to it bit for bit and
+    timed against it in turns (baseline_tp_blocks)."""
+    csrc = os.path.join(other_root, "motionbert_tpu_torch", "ops", "csrc")
+    with tempfile.TemporaryDirectory() as tmp:
+        results = {}
+        turns = baseline_tp_blocks(build_other(csrc, "block_kernels", tmp),
+                                   other_root, results)
+        log(f"baseline ({other_root}): B5_tp and B7_tp bit for bit the other "
+            f"build's: {json.dumps(results)}")
+        if not all(results.values()):
+            fail(f"baseline: outputs differ: {results}")
+    return turns
 
 
 def in_turns(call, records, lib_name: str, other, other_call=None) -> list:
@@ -6689,6 +6884,8 @@ def phase_baseline(fp, q8, other_root: str) -> dict:
                 q8_model_witnesses(libs["st_attention_kernels"])))
         turns.update(baseline_blocks(libs["block_kernels"], results))
         turns.update(baseline_ln_bwd(libs["block_kernels"], results))
+        turns.update(baseline_tp_blocks(libs["block_kernels"], other_root,
+                                        results))
         turns.update(baseline_pair_bwd(fp, libs["pair_bwd_kernels"],
                                        results))
         turns.update(baseline_st_attention(libs["st_attention_kernels"]))
@@ -6788,10 +6985,12 @@ def main() -> int:
             if "Function properties for" in line:
                 found = re.search(r"(hg_gemm_kernel|attn_tc_fwd_kernel|"
                                   r"attn_tc_bwd_kernel|hg_gemm_s8_kernel|"
-                                  r"colsum_chunks_kernel)"
-                                  r"ILi(\d+)E(?:L[ib](\d+)E)?", line)
-                kernel = "" if not found else f"{found[1]}<{found[2]}" + (
-                    f", {found[3]}>: " if found[3] else ">: ")
+                                  r"colsum_chunks_kernel|hg_gemm_pair_kernel|"
+                                  r"attn_tc_bwd_query_kernel|"
+                                  r"attn_tc_bwd_key_kernel)"
+                                  r"I((?:L[ib]\d+E)+)E", line)
+                kernel = "" if not found else f"{found[1]}<" + ", ".join(
+                    re.findall(r"L[ib](\d+)E", found[2])) + ">: "
                 plain = re.search(r"(ln_bwd_fused_kernel|chunk_sum_kernel)",
                                   line)
                 if plain:
@@ -6799,7 +6998,9 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"build: {name}: {kernel}{line.strip()}")
 
-    if opts.baseline:
+    if opts.baseline and opts.phases == "tp":
+        turns = timed("baseline", phase_baseline_tp, opts.baseline)
+    elif opts.baseline:
         turns = timed("baseline", phase_baseline, fp, q8, opts.baseline)
 
     if opts.phases == "train":
@@ -6860,6 +7061,8 @@ def main() -> int:
     if opts.phases == "tp":
         records = []
         timed("tp", phase_tp, records)
+        if opts.baseline:
+            attach_turns(records, turns)
         log(json.dumps({"kernels": records}))
         log(f"device: {smi}")
         log("partial run (--phases tp): no result line")

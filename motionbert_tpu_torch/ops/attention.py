@@ -57,7 +57,13 @@ plain twins are ``attention_block_tp_plain``, ``attention_block_tp_bwd_plain``
 and ``ln_bwd_plain``; each wrapper counts its launches in ``.launches``.
 Without the residual (the dropout path's branch) the LayerNorm backward
 leaves g out: dx = bf16(LN-backward(dh)), B5's rounding without the
-residual.
+residual. B5_tp's core backward also writes attn, the forward core's bits,
+so no forward core runs; on 243-frame groups it is two launches, a
+query-major half (dq, attn and each row's max, reciprocal sum and D) and a
+key-major half (dk, dv), whose plain mirrors are
+``st_attention_bwd_query_plain`` and ``st_attention_bwd_key_plain`` and
+whose test entry is ``attention_core_bwd_attn``; its two weight gradients
+run in one grouped launch of the engine.
 
 The LayerNorm backward (``fused_ln_bwd``, and inside B3, B5 and B7) is one
 pass over the rows that writes dx and sums the parameter gradients into
@@ -460,34 +466,45 @@ ATTN_BWD_SLOTS = (
 ATTN_TP_BWD_SLOTS = (
     "x", "g", "ln_w", "ln_b", "wqkv", "bqkv", "wproj",
     "dwqkv", "dbqkv", "dwproj", "dh", "st",
-    "h", "qkv", "attn", "dattn", "dqkv", "dqkvb", "work")
+    "h", "qkv", "attn", "dattn", "dqkv", "dqkvb", "core_st", "work")
+
+
+def bind_block_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of csrc/block_kernels.cu's entry
+    points on lib (this checkout's library, or another checkout's whose
+    entries take the same arguments); entries lib lacks are skipped."""
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    slots = ctypes.POINTER(vp)
+    for name, argtypes in (
+            ("mbt_attention_block", [vp] * 10 + [i] * 5 + [f] + [i] * 3 + [vp]),
+            ("mbt_attention_block_bwd", [slots] + [i] * 5 + [f] + [i] * 3 + [vp]),
+            ("mbt_mlp_block", [vp] * 9 + [i] * 5 + [vp]),
+            ("mbt_mlp_block_bwd", [slots] + [i] * 5 + [vp]),
+            ("mbt_attention_block_tp", [vp] * 9 + [i] * 6 + [f, i, vp]),
+            ("mbt_attention_block_tp_bwd", [slots] + [i] * 6 + [f, i, vp]),
+            ("mbt_mlp_block_tp", [vp] * 8 + [i] * 3 + [vp]),
+            ("mbt_mlp_block_tp_bwd", [slots] + [i] * 3 + [vp]),
+            ("mbt_ln_bwd", [vp] * 9 + [i] * 2 + [vp]),
+            ("mbt_attn_core_bwd_attn_test", [vp] * 12 + [i] * 5 + [f, i, i, vp]),
+            ("mbt_attn_tp_bwd_core_grid", [i] * 6 + [ctypes.POINTER(i)]),
+            ("mbt_attention_bwd_slot_count", []),
+            ("mbt_mlp_bwd_slot_count", []),
+            ("mbt_attention_tp_bwd_slot_count", []),
+            ("mbt_mlp_tp_bwd_slot_count", [])):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.mbt_block_work_floats.argtypes = [i, i]
+    lib.mbt_block_work_floats.restype = ctypes.c_longlong
+    return lib
 
 
 def block_library() -> ctypes.CDLL:
     """csrc/block_kernels.cu, loaded, with its argument types set."""
     lib = _build.load("block_kernels")
     if lib.mbt_attention_block.argtypes is None:
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        slots = ctypes.POINTER(vp)
-        for fn, argtypes in (
-                (lib.mbt_attention_block, [vp] * 10 + [i] * 5 + [f] + [i] * 3 + [vp]),
-                (lib.mbt_attention_block_bwd, [slots] + [i] * 5 + [f] + [i] * 3 + [vp]),
-                (lib.mbt_mlp_block, [vp] * 9 + [i] * 5 + [vp]),
-                (lib.mbt_mlp_block_bwd, [slots] + [i] * 5 + [vp]),
-                (lib.mbt_attention_block_tp, [vp] * 9 + [i] * 6 + [f, i, vp]),
-                (lib.mbt_attention_block_tp_bwd,
-                 [slots] + [i] * 6 + [f, i, vp]),
-                (lib.mbt_mlp_block_tp, [vp] * 8 + [i] * 3 + [vp]),
-                (lib.mbt_mlp_block_tp_bwd, [slots] + [i] * 3 + [vp]),
-                (lib.mbt_ln_bwd, [vp] * 9 + [i] * 2 + [vp]),
-                (lib.mbt_attention_bwd_slot_count, []),
-                (lib.mbt_mlp_bwd_slot_count, []),
-                (lib.mbt_attention_tp_bwd_slot_count, []),
-                (lib.mbt_mlp_tp_bwd_slot_count, [])):
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.mbt_block_work_floats.argtypes = [i, i]
-        lib.mbt_block_work_floats.restype = ctypes.c_longlong
+        bind_block_library(lib)
         if lib.mbt_attention_bwd_slot_count() != len(ATTN_BWD_SLOTS) or \
                 lib.mbt_attention_tp_bwd_slot_count() != \
                 len(ATTN_TP_BWD_SLOTS):
@@ -679,6 +696,26 @@ def _launch_tp(x, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale,
     return out
 
 
+def tp_bwd_tensors(x, g, ln_w, ln_b, wqkv, bqkv, wproj,
+                   num_heads: int) -> dict:
+    """Every buffer of ``mbt_attention_block_tp_bwd`` by its slot name,
+    the outputs and scratch allocated on x's device: the core's split row
+    statistics 3 * heads floats a token row, and the workspace of dWqkv's
+    and dWproj's partials side by side."""
+    B, F, J, C = x.shape
+    Ci, M = wqkv.shape[0] // 3, B * F * J
+    dev = x.device
+    bf = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    return dict(x=x, g=g, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, bqkv=bqkv,
+                wproj=wproj, dwqkv=bf(3 * Ci, C), dbqkv=bf(3 * Ci),
+                dwproj=bf(C, Ci), dh=f32(B, F, J, C), st=f32(B, F, J, 2),
+                h=bf(M, C), qkv=bf(M, 3 * Ci), attn=bf(M, Ci),
+                dattn=bf(M, Ci), dqkv=f32(M, 3 * Ci), dqkvb=bf(M, 3 * Ci),
+                core_st=f32(3 * num_heads * M),
+                work=f32(block_library().mbt_block_work_floats(4 * Ci, C)))
+
+
 def _launch_tp_bwd(x, g, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale,
                    mode) -> tuple:
     check_attention_args(x, ln_w, ln_b, wqkv, bqkv, wproj, None, num_heads,
@@ -686,18 +723,11 @@ def _launch_tp_bwd(x, g, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale,
     check_tensor("g", g, x.shape, x.dtype, x.device)
     check_aligned("g", g)
     B, F, J, C = x.shape
-    Ci, M = wqkv.shape[0] // 3, B * F * J
+    Ci = wqkv.shape[0] // 3
     lib = block_library()
     dev = x.device
     with torch.cuda.device(dev):
-        bf = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device=dev)
-        f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-        t = dict(x=x, g=g, ln_w=ln_w, ln_b=ln_b, wqkv=wqkv, bqkv=bqkv,
-                 wproj=wproj, dwqkv=bf(3 * Ci, C), dbqkv=bf(3 * Ci),
-                 dwproj=bf(C, Ci), dh=f32(B, F, J, C), st=f32(B, F, J, 2),
-                 h=bf(M, C), qkv=bf(M, 3 * Ci), attn=bf(M, Ci),
-                 dattn=bf(M, Ci), dqkv=f32(M, 3 * Ci), dqkvb=bf(M, 3 * Ci),
-                 work=f32(lib.mbt_block_work_floats(3 * Ci, C)))
+        t = tp_bwd_tensors(x, g, ln_w, ln_b, wqkv, bqkv, wproj, num_heads)
         rc = lib.mbt_attention_block_tp_bwd(
             slot_pointers(ATTN_TP_BWD_SLOTS, t), B, F, J, C, Ci, num_heads,
             float(scale), int(mode == "temporal"),
@@ -908,6 +938,114 @@ def st_attention_bwd_plain(q, k, v, g, mode: str, num_heads: int,
     dq = torch.matmul(ds, kh)
     dk = torch.matmul(ds.transpose(-1, -2), qh)
     return tuple(from_groups(t, mode).to(dt) for t in (dq, dk, dv))
+
+
+def st_attention_bwd_query_plain(q, k, v, g, mode: str, num_heads: int,
+                                 scale: float) -> tuple:
+    """The query-major half of the split core backward
+    (``csrc/attention_tc.cuh`` ``attn_tc_bwd_query_kernel``) in plain
+    PyTorch: (dq, attn, stats). dq is ``st_attention_bwd_plain``'s, attn
+    ``st_attention_plain``'s, bit for bit; stats (B, groups, H, 3, N) fp32
+    holds each query row's max score, the reciprocal of its exp sum and D =
+    rowsum(dP * P), the kernel's [item][3][N] buffer. P is the plain
+    versions' softmax (the kernel's exp(S - max) * (1 / sum) is one fp32
+    rounding from it)."""
+    dt = q.dtype
+    qh, kh, vh, gh = (wide(to_groups(t, mode, num_heads))
+                      for t in (q, k, v, g))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1)
+    attn = torch.matmul(wide(p.to(dt)), vh).to(dt)
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    d = (dp * p).sum(-1, keepdim=True)
+    ds = wide((p * (dp - d) * scale).to(dt))
+    dq = torch.matmul(ds, kh)
+    mx = s.amax(-1, keepdim=True)
+    inv = 1.0 / torch.exp(s - mx).sum(-1, keepdim=True)
+    stats = torch.cat([mx, inv, d], -1).transpose(-1, -2)
+    return from_groups(dq, mode).to(dt), from_groups(attn, mode), stats
+
+
+def st_attention_bwd_key_plain(q, k, v, g, stats, mode: str, num_heads: int,
+                               scale: float) -> tuple:
+    """The key-major half (``attn_tc_bwd_key_kernel``) in plain PyTorch:
+    (dk, dv) from the query-major half's statistics, P recomputed as the
+    query-major half computes it and D read from stats; bit for bit
+    ``st_attention_bwd_plain``'s dk and dv."""
+    dt = q.dtype
+    qh, kh, vh, gh = (wide(to_groups(t, mode, num_heads))
+                      for t in (q, k, v, g))
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(wide(p.to(g.dtype)).transpose(-1, -2), gh)
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    ds = wide((p * (dp - stats[..., 2, :].unsqueeze(-1)) * scale).to(dt))
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return tuple(from_groups(t, mode).to(dt) for t in (dk, dv))
+
+
+def attention_core_bwd_attn(q, k, v, g, mode: str, num_heads: int,
+                            scale: float, split: bool) -> tuple:
+    """B5_tp's core backward alone on (B, F, J, C) q, k, v and the output
+    gradient g: (dq, dk, dv, attn) bf16, (dq, dk, dv) fp32 and the row
+    statistics. On CUDA tensors one call of ``mbt_attn_core_bwd_attn_test``:
+    with split the query-major and key-major launches (groups of 65..256
+    rows), else the one-launch backward with attn; counted in
+    ``attention_core_bwd_attn.launches``. On CPU tensors the plain halves
+    (fp32 gradients before their rounding are not kept: None)."""
+    if device_kind(q, "attention core") == "cpu":
+        dq, attn, stats = st_attention_bwd_query_plain(q, k, v, g, mode,
+                                                       num_heads, scale)
+        dk, dv = st_attention_bwd_key_plain(q, k, v, g, stats, mode,
+                                            num_heads, scale)
+        return dq, dk, dv, attn, None, None, None, stats
+    row_stride = check_st_attention_args(q, k, v, num_heads, mode)
+    B, F, J, C = q.shape
+    if row_stride != C or not g.is_contiguous() or g.shape != q.shape \
+            or g.dtype != q.dtype or g.data_ptr() % 16:
+        raise ValueError("attention_core_bwd_attn takes contiguous, 16-byte-"
+                         "aligned q, k, v and g of one shape and dtype")
+    lib = block_library()
+    with torch.cuda.device(q.device):
+        out = [torch.empty_like(q) for _ in range(4)] + [
+            torch.empty(q.shape, dtype=torch.float32, device=q.device)
+            for _ in range(3)]
+        stats = torch.empty(3 * num_heads * B * F * J, dtype=torch.float32,
+                            device=q.device)
+        dqb, dkb, dvb, attn, dqf, dkf, dvf = out
+        rc = lib.mbt_attn_core_bwd_attn_test(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            dqf.data_ptr(), dkf.data_ptr(), dvf.data_ptr(), dqb.data_ptr(),
+            dkb.data_ptr(), dvb.data_ptr(), attn.data_ptr(), stats.data_ptr(),
+            B, F, J, C, num_heads, float(scale), int(mode == "temporal"),
+            int(split), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tensor-core attention backward with attn launch "
+                           f"failed with CUDA error {rc}")
+    attention_core_bwd_attn.launches += 1
+    return (*out, stats)
+
+
+attention_core_bwd_attn.launches = 0
+
+
+def attn_tp_bwd_core_grid(x_shape, num_heads: int, head_dim: int,
+                          mode: str) -> dict:
+    """The core backward's launches in ``mbt_attention_block_tp_bwd`` at
+    x_shape (B, F, J, C) with num_heads local heads of head_dim: each
+    launch's blocks, the blocks an SM holds of it (the runtime's occupancy
+    for its threads and shared memory) and its waves over the device's
+    SMs. Launches nothing."""
+    B, F, J, _ = x_shape
+    out = (ctypes.c_int * 6)()
+    rc = block_library().mbt_attn_tp_bwd_core_grid(
+        B, F, J, num_heads * head_dim, num_heads, int(mode == "temporal"), out)
+    if rc != 0:
+        raise RuntimeError(f"core grid query failed with CUDA error {rc}")
+    sms = out[5]
+    return dict(sms=sms, launches=[
+        dict(blocks=out[1 + 2 * i], blocks_an_sm=out[2 + 2 * i],
+             waves=out[1 + 2 * i] / (out[2 + 2 * i] * sms))
+        for i in range(out[0])])
 
 
 def coupled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,8 +5,9 @@
 // (block_kernels.cu) and the standalone core (st_attention_kernels.cu) run
 // the forward; the pair backward (pair_bwd_kernels.cu) and the attention
 // block's backward (block_kernels.cu) run both, the forward in their
-// recompute and the backward for dq, dk and dv. They replace the attention
-// part of the TPU kernels motionbert_tpu/ops/fused_pair.py:_pair_pallas,
+// recompute and the backward for dq, dk and dv (the block's backward on
+// shards, B5_tp, takes attn from its backward instead). They replace the
+// attention part of the TPU kernels motionbert_tpu/ops/fused_pair.py:_pair_pallas,
 // _pair_bwd_pallas (_pair_bwd_body's per-head recompute of P and its
 // attention backward), motionbert_tpu/ops/pair_q8.py:_q8_launch and
 // motionbert_tpu/ops/attention.py:_fused_block_pallas,
@@ -53,6 +54,42 @@
 // addresses of an ldmatrix land on distinct banks. A 243-frame group's four
 // matrices at D 64 take 147 KB (one block an SM); KT <= 8 takes 74 KB.
 //
+// attn from the backward (the attention block on shards, B5_tp: ATTN, and
+// the split halves below). The backward's pass 1 already holds P in
+// registers and v in shared memory, so it writes attn = bf16(bf16(P) v)
+// with the forward's loop over 16-key chunks, order and rounding (tc_pv),
+// before dq reuses the accumulator's registers: the forward core's bits,
+// and no forward launch to make them. ptxas (sm_90a, CUDA 12.8): the flag
+// adds no register and no spill where the flag-off kernel spills (the
+// spatial <64, 2>: 128 registers, 20 bytes of spill stores either way;
+// <64, 4>: 36 bytes with it, 44 without).
+//
+// The split backward (KT 8 and 16, where the one-launch kernel is one item
+// a block: a 243-frame item's block holds 8 warps at 255 registers and 147
+// KB, one an SM, so at 4 local heads and batch 4 its 272 blocks run 3 waves
+// on 132 SMs for 2.06 waves of work). Its two passes become two launches
+// over (item, slice) blocks of TC_SLICE_WARPS warps, each warp one 16-row
+// tile as in the one-launch kernel and with its loops (the same helpers,
+// tc_bwd_p, tc_bwd_dq and tc_bwd_kv), so every value is that kernel's:
+//   query-major  (attn_tc_bwd_query_kernel) the item's k and v whole and a
+//                slice of TC_SLICE_ROWS q and dO rows: dq, attn and each
+//                row's max, reciprocal sum and D to a global buffer of
+//                3 N floats an item
+//   key-major    (attn_tc_bwd_key_kernel) q and dO whole, a slice of k and
+//                v rows and the item's row statistics: dk and dv
+// At D 64 and KT 16 a block is 4 warps with 92 KB (query-major, 255
+// registers a thread) or 95 KB (key-major, 161 registers) of shared memory:
+// two blocks an SM (the runtime's occupancy, chip_smoke's core_grid), the
+// same 8 warps an SM as the one-launch kernel, now with one block's copies
+// beside the other's products. At batch 4 the grid is 272 items x 4 slices
+// = 1088 blocks at 4 local heads (4.12 waves of 264) and 2176 at 8 (8.24
+// waves): a warp takes 5 tiles where the one-launch kernel gave it 6 (3
+// waves of 2). 243 frames make 16 tiles an item and 17 joints make the
+// item count a multiple of 17, so no slice width gives whole waves at batch
+// 4: 64-row slices give the least tail at the occupancy the query-major
+// half's registers allow (8 warps an SM; a 96-row key-major slice would
+// run 816 blocks in 3.09 waves).
+//
 // Bound. At (4, 243, 17, 512), 8 heads, the forward reads q, k, v (51 MB)
 // and writes the output (17 MB), 0.020 ms at 3.35 TB/s, against 8.2 GFLOP
 // (temporal; 0.6 spatial), 0.008 ms at 989 TFLOP/s: bytes bound it. The
@@ -75,6 +112,9 @@ constexpr int TC_WARPS = TC_THREADS / 32;
 constexpr int TC_KEY_TILE = 16;          // an MMA's k-step, and a warp's rows
 constexpr int TC_MAX_KEYS = 256;         // 16 key tiles: a 243-frame group
 constexpr int TC_PAD = 8;                // bf16 padding of a shared row
+constexpr int TC_SLICE_WARPS = 4;        // a split-backward block's warps
+constexpr int TC_SLICE_THREADS = TC_SLICE_WARPS * 32;
+constexpr int TC_SLICE_ROWS = TC_SLICE_WARPS * TC_KEY_TILE;  // its rows of one side
 
 // Rows, items and strides of a block's shared tiles at head dim D with KT
 // key tiles.
@@ -85,6 +125,18 @@ struct TcShape {
     static constexpr int LD = D + TC_PAD;
     static constexpr int ROW_BYTES = LD * 2;
     static constexpr int MAT_BYTES = NP * ROW_BYTES;
+};
+
+// The split backward's slices of an item and the shared bytes of its two
+// halves: one side's matrices whole, the other's slice, and for the
+// key-major half the item's row statistics.
+template <int D, int KT>
+struct TcSplit {
+    using S = TcShape<D, KT>;
+    static constexpr int SLICES = S::NP / TC_SLICE_ROWS;
+    static constexpr int SLICE_BYTES = TC_SLICE_ROWS * S::ROW_BYTES;
+    static constexpr size_t QUERY_SMEM = 2 * (size_t)S::MAT_BYTES + 2 * SLICE_BYTES;
+    static constexpr size_t KEY_SMEM = QUERY_SMEM + 3 * S::NP * sizeof(float);
 };
 
 __device__ __forceinline__ uint32_t tc_addr(const void* p) {
@@ -179,6 +231,25 @@ __device__ __forceinline__ int tc_load(bf16* sm, const bf16* q, const bf16* k, c
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
     __syncthreads();
     return N;
+}
+
+// Copy rows [row0, row0 + ROWS) of one item's row-strided bf16 matrix (token
+// rows base + r * stride, row stride ld, the head's D columns from col) into
+// shared memory at dst as [row][LD], zero from the group's N-th row on; the
+// caller waits for the copies.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void tc_load_rows(bf16* dst, const bf16* src, int ld, int row0,
+                                             int N, int base, int stride, int col) {
+    constexpr int CHUNKS = D / 8, LD = D + TC_PAD;
+    for (int c = threadIdx.x; c < ROWS * CHUNKS; c += THREADS) {
+        const int chunk = c % CHUNKS, row = c / CHUNKS;
+        const int r = row0 + row;
+        const bool valid = r < N;
+        const bf16* p = valid ? src + (size_t)(base + r * stride) * ld + col + chunk * 8 : src;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                     :: "r"(tc_addr(dst + row * LD + chunk * 8)), "l"(p),
+                        "r"(valid ? 16 : 0) : "memory");
+    }
 }
 
 // S = (q . k) * scale of the warp's 16 query rows [r0, r0 + 16) against every
@@ -369,17 +440,171 @@ attn_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+// o = bf16(P) v of a warp's 16 query rows over every key: attn_tc_fwd_kernel's
+// loop over 16-key chunks, in its order and with its rounding.
+template <int D, int KT>
+__device__ __forceinline__ void tc_pv(float (&o)[D / 8][4], const float (&p)[2 * KT][4],
+                                      uint32_t vs, int N) {
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+        if (kt * TC_KEY_TILE >= N) continue;
+        uint32_t pa[4];
+        tc_to_a(pa, p[2 * kt], p[2 * kt + 1]);
+        tc_mma_rows<D, KT>(o, pa, vs, kt * 16);
+    }
+}
+
+// The split kernels' passes: attn_tc_bwd_kernel's, statement for statement.
+//
+// The backward's pass 1 up to dq, for a warp's 16 query rows (rows rq of the
+// q and dO tiles qs, gs) against the item's N keys (k and v tiles ks, vs):
+// P in p, and of rows g and g + 8 (g = lane / 4) the row max, the reciprocal
+// of the row sum and D = rowsum(dP * P), each reduced over the row's four
+// lanes; dO's A fragments in ga.
+template <int D, int KT>
+__device__ __forceinline__ void tc_bwd_p(float (&p)[2 * KT][4], uint32_t (&ga)[D / 16][4],
+                                         float (&mx)[2], float (&inv)[2], float (&dsum)[2],
+                                         uint32_t qs, uint32_t ks, uint32_t vs, uint32_t gs,
+                                         int rq, int N, float scale) {
+    using S = TcShape<D, KT>;
+    const int lane = threadIdx.x & 31;
+    tc_scores<D, KT>(p, qs, ks, rq, N, scale);
+    tc_softmax<KT>(p, mx, inv);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+        tc_ldsm(ga[kk], tc_a_addr(gs, S::ROW_BYTES, rq, kk * 16, lane));
+    dsum[0] = dsum[1] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+        if (kt * TC_KEY_TILE >= N) continue;
+        float dp[2][4];
+        tc_dp_chunk<D, KT>(dp, ga, vs, kt);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dsum[e >> 1] += dp[h][e] * p[2 * kt + h][e];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
+    }
+}
+
+// The rest of pass 1: dq = sum over 16-key chunks of bf16(dS) k, dP again
+// from dO and v.
+template <int D, int KT>
+__device__ __forceinline__ void tc_bwd_dq(float (&dq)[D / 8][4], const float (&p)[2 * KT][4],
+                                          const uint32_t (&ga)[D / 16][4],
+                                          const float (&dsum)[2], uint32_t ks, uint32_t vs,
+                                          int N, float scale) {
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+        if (kt * TC_KEY_TILE >= N) continue;
+        float dp[2][4];
+        tc_dp_chunk<D, KT>(dp, ga, vs, kt);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                dp[h][e] = (p[2 * kt + h][e] * (dp[h][e] - dsum[e >> 1])) * scale;
+        uint32_t da[4];
+        tc_to_a(da, dp[0], dp[1]);
+        tc_mma_rows<D, KT>(dq, da, ks, kt * 16);
+    }
+}
+
+// Pass 2 for a warp's 16 key rows (rows rk of the k and v tiles ks, vs)
+// against the item's N queries (q and dO tiles qs, gs), from the query rows'
+// statistics row_mx, row_inv and row_d (shared memory, by query row): dk and
+// dv.
+template <int D, int KT>
+__device__ __forceinline__ void tc_bwd_kv(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
+                                          uint32_t qs, uint32_t ks, uint32_t vs, uint32_t gs,
+                                          int rk, const float* row_mx, const float* row_inv,
+                                          const float* row_d, int N, float scale) {
+    using S = TcShape<D, KT>;
+    const int lane = threadIdx.x & 31;
+    const int t2 = 2 * (lane & 3);
+    uint32_t ka[D / 16][4], va[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+        tc_ldsm(ka[kk], tc_a_addr(ks, S::ROW_BYTES, rk, kk * 16, lane));
+        tc_ldsm(va[kk], tc_a_addr(vs, S::ROW_BYTES, rk, kk * 16, lane));
+    }
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
+    // two chunks in flight: the registers the split's occupancy leaves (160
+    // of 255 at D 64) hold the second's scores while the first's products run
+#pragma unroll 2
+    for (int qt = 0; qt * TC_KEY_TILE < N; ++qt) {
+        // S^T and dP^T of the 16 keys against queries [16 qt, 16 qt + 16)
+        float st[2][4], dpt[2][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[0][e] = st[1][e] = dpt[0][e] = dpt[1][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t b[4];
+            tc_ldsm(b, tc_bnk_addr(qs, S::ROW_BYTES, qt * 16, kk * 16, lane));
+            tc_mma(st[0], ka[kk], b[0], b[1]);
+            tc_mma(st[1], ka[kk], b[2], b[3]);
+            tc_ldsm(b, tc_bnk_addr(gs, S::ROW_BYTES, qt * 16, kk * 16, lane));
+            tc_mma(dpt[0], va[kk], b[0], b[1]);
+            tc_mma(dpt[1], va[kk], b[2], b[3]);
+        }
+        // element e of n-tile h: key rk + g (+ 8 for e >= 2), query
+        // i = 16 qt + 8 h + 2 t + (e & 1)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int i = qt * 16 + 8 * h + t2;
+            const float2 m2 = *reinterpret_cast<const float2*>(row_mx + i);
+            const float2 s2 = *reinterpret_cast<const float2*>(row_inv + i);
+            const float2 d2 = *reinterpret_cast<const float2*>(row_d + i);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const bool odd = e & 1;
+                const bool live = i + odd < N;
+                const float pv = live ? expf(st[h][e] * scale - (odd ? m2.y : m2.x))
+                                            * (odd ? s2.y : s2.x)
+                                      : 0.f;
+                st[h][e] = pv;
+                dpt[h][e] = live ? (pv * (dpt[h][e] - (odd ? d2.y : d2.x))) * scale : 0.f;
+            }
+        }
+        uint32_t pa[4], da[4];
+        tc_to_a(pa, st[0], st[1]);
+        tc_to_a(da, dpt[0], dpt[1]);
+        tc_mma_rows<D, KT>(dv, pa, gs, qt * 16);
+        tc_mma_rows<D, KT>(dk, da, qs, qt * 16);
+    }
+}
+
 // The backward core of (group, head) items [blockIdx.x * ITEMS, + ITEMS):
 // q, k, v row stride ld, dO row stride ld_g; dq, dk, dv in bf16 (dqb, dkb,
 // dvb) and, where dqf, dkf, dvf are not null, fp32; row stride ld_out; head
-// h at column h * D.
-template <int D, int KT>
+// h at column h * D. With ATTN, pass 1 also writes attn = bf16(bf16(P) v)
+// (row stride ld_attn), the forward core's bits. The passes are
+// tc_bwd_p / tc_bwd_dq and tc_bwd_kv statement for statement, written out
+// here so that the flag-off instances (B3's, B5's, B8's) compile as they
+// did before the split kernels shared them.
+template <int D, int KT, bool ATTN = false>
 __global__ void __launch_bounds__(TC_THREADS, KT >= 8 ? 1 : 2)
 attn_tc_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, int ld, const bf16* __restrict__ g, int ld_g,
                    float* __restrict__ dqf, float* __restrict__ dkf, float* __restrict__ dvf,
                    bf16* __restrict__ dqb, bf16* __restrict__ dkb, bf16* __restrict__ dvb,
-                   int ld_out, int F, int J, int H, float scale, int temporal, int n_items) {
+                   int ld_out, int F, int J, int H, float scale, int temporal, int n_items,
+                   bf16* __restrict__ attn, int ld_attn) {
     using S = TcShape<D, KT>;
     extern __shared__ __align__(16) unsigned char tc_smem[];
     bf16* sm = reinterpret_cast<bf16*>(tc_smem);
@@ -431,6 +656,13 @@ attn_tc_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 row_inv[row] = inv[r];
                 row_d[row] = dsum[r];
             }
+        }
+        if constexpr (ATTN) {
+            int n, base, stride;
+            attention_group(gi / H, F, J, temporal, &n, &base, &stride);
+            float o[D / 8][4];
+            tc_pv<D, KT>(o, p, vs, N);
+            tc_store<D>(o, nullptr, attn, ld_attn, (gi % H) * D, r0, N, base, stride);
         }
         float dq[D / 8][4];
 #pragma unroll
@@ -526,6 +758,111 @@ attn_tc_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+// The split backward's query-major half: block b takes item b / SLICES and
+// its query rows from row0 = (b % SLICES) * TC_SLICE_ROWS, with the item's k
+// and v whole; each warp 16 of the rows, as pass 1 takes them. Writes dq
+// (bf16 to dqb; fp32 to dqf, row stride ld_out), attn = bf16(bf16(P) v)
+// (row stride ld_attn) and the rows' max, reciprocal sum and D to stats
+// ([item][3][N] fp32).
+template <int D, int KT>
+__global__ void __launch_bounds__(TC_SLICE_THREADS, 2)
+attn_tc_bwd_query_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, int ld, const bf16* __restrict__ g,
+                         int ld_g, float* __restrict__ dqf, bf16* __restrict__ dqb, int ld_out,
+                         bf16* __restrict__ attn, int ld_attn, float* __restrict__ stats, int F,
+                         int J, int H, float scale, int temporal) {
+    using S = TcShape<D, KT>;
+    using P = TcSplit<D, KT>;
+    extern __shared__ __align__(16) unsigned char tc_smem[];
+    bf16* sm = reinterpret_cast<bf16*>(tc_smem);
+    const int gi = blockIdx.x / P::SLICES, row0 = (blockIdx.x % P::SLICES) * TC_SLICE_ROWS;
+    int N, base, stride;
+    attention_group(gi / H, F, J, temporal, &N, &base, &stride);
+    const int col = (gi % H) * D;
+    // k and v whole, then the slice's q and dO rows
+    tc_load_rows<D, S::NP, TC_SLICE_THREADS>(sm, k, ld, 0, N, base, stride, col);
+    tc_load_rows<D, S::NP, TC_SLICE_THREADS>(sm + S::NP * S::LD, v, ld, 0, N, base, stride, col);
+    tc_load_rows<D, TC_SLICE_ROWS, TC_SLICE_THREADS>(sm + 2 * S::NP * S::LD, q, ld, row0, N,
+                                                     base, stride, col);
+    tc_load_rows<D, TC_SLICE_ROWS, TC_SLICE_THREADS>(
+        sm + (2 * S::NP + TC_SLICE_ROWS) * S::LD, g, ld_g, row0, N, base, stride, col);
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int rq = warp * TC_KEY_TILE, r0 = row0 + rq;
+    if (r0 >= N) return;
+    const uint32_t ks = tc_addr(sm), vs = ks + S::MAT_BYTES, qs = vs + S::MAT_BYTES,
+                   gs = qs + P::SLICE_BYTES;
+    float p[2 * KT][4], mx[2], inv[2], dsum[2];
+    uint32_t ga[D / 16][4];
+    tc_bwd_p<D, KT>(p, ga, mx, inv, dsum, qs, ks, vs, gs, rq, N, scale);
+    if ((lane & 3) == 0) {
+        float* st = stats + (size_t)gi * 3 * N;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = r0 + (lane >> 2) + 8 * r;
+            if (row < N) {
+                st[row] = mx[r];
+                st[N + row] = inv[r];
+                st[2 * N + row] = dsum[r];
+            }
+        }
+    }
+    float o[D / 8][4];
+    tc_pv<D, KT>(o, p, vs, N);
+    tc_store<D>(o, nullptr, attn, ld_attn, col, r0, N, base, stride);
+    float dq[D / 8][4];
+    tc_bwd_dq<D, KT>(dq, p, ga, dsum, ks, vs, N, scale);
+    tc_store<D>(dq, dqf, dqb, ld_out, col, r0, N, base, stride);
+}
+
+// The split backward's key-major half: block b takes item b / SLICES and its
+// key rows from row0, with the item's q and dO whole and its rows'
+// statistics from the query-major half; each warp 16 of the rows, as pass 2
+// takes them. Writes dk and dv (bf16, and fp32 where dkf, dvf are not null;
+// row stride ld_out).
+template <int D, int KT>
+__global__ void __launch_bounds__(TC_SLICE_THREADS, 2)
+attn_tc_bwd_key_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, int ld, const bf16* __restrict__ g, int ld_g,
+                       float* __restrict__ dkf, float* __restrict__ dvf,
+                       bf16* __restrict__ dkb, bf16* __restrict__ dvb, int ld_out,
+                       const float* __restrict__ stats, int F, int J, int H, float scale,
+                       int temporal) {
+    using S = TcShape<D, KT>;
+    using P = TcSplit<D, KT>;
+    extern __shared__ __align__(16) unsigned char tc_smem[];
+    bf16* sm = reinterpret_cast<bf16*>(tc_smem);
+    float* row_mx = reinterpret_cast<float*>(tc_smem + P::QUERY_SMEM);
+    const int gi = blockIdx.x / P::SLICES, row0 = (blockIdx.x % P::SLICES) * TC_SLICE_ROWS;
+    int N, base, stride;
+    attention_group(gi / H, F, J, temporal, &N, &base, &stride);
+    const int col = (gi % H) * D;
+    // q and dO whole, then the slice's k and v rows, then the statistics
+    tc_load_rows<D, S::NP, TC_SLICE_THREADS>(sm, q, ld, 0, N, base, stride, col);
+    tc_load_rows<D, S::NP, TC_SLICE_THREADS>(sm + S::NP * S::LD, g, ld_g, 0, N, base, stride,
+                                             col);
+    tc_load_rows<D, TC_SLICE_ROWS, TC_SLICE_THREADS>(sm + 2 * S::NP * S::LD, k, ld, row0, N,
+                                                     base, stride, col);
+    tc_load_rows<D, TC_SLICE_ROWS, TC_SLICE_THREADS>(
+        sm + (2 * S::NP + TC_SLICE_ROWS) * S::LD, v, ld, row0, N, base, stride, col);
+    const float* st = stats + (size_t)gi * 3 * N;
+    for (int i = threadIdx.x; i < 3 * N; i += TC_SLICE_THREADS)
+        row_mx[(i / N) * S::NP + i % N] = st[i];
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    const int warp = threadIdx.x >> 5;
+    const int rk = warp * TC_KEY_TILE, j0 = row0 + rk;
+    if (j0 >= N) return;
+    const uint32_t qs = tc_addr(sm), gs = qs + S::MAT_BYTES, ks = gs + S::MAT_BYTES,
+                   vs = ks + P::SLICE_BYTES;
+    float dk[D / 8][4], dv[D / 8][4];
+    tc_bwd_kv<D, KT>(dk, dv, qs, ks, vs, gs, rk, row_mx, row_mx + S::NP, row_mx + 2 * S::NP, N,
+                     scale);
+    tc_store<D>(dk, dkf, dkb, ld_out, col, j0, N, base, stride);
+    tc_store<D>(dv, dvf, dvb, ld_out, col, j0, N, base, stride);
+}
+
 // Key tiles of a group of N rows, a power of two; 0 when N is outside
 // [1, TC_MAX_KEYS].
 inline int tc_key_tiles(int N) {
@@ -547,12 +884,15 @@ size_t tc_smem_bytes(bool backward) {
 // Pointers and shapes of one core launch: q, k, v with row stride ld; the
 // forward's out (and, where not null, the token rows' max |out|, amax (M,)
 // fp32, zeroed by the caller), or the backward's dO (g, row stride ld_g) and
-// its outputs (the fp32 ones may be null), with row stride ld_out.
+// its outputs (the fp32 ones may be null), with row stride ld_out; the
+// backward with attn (launch_attention_tc_bwd_attn) writes attn to out with
+// row stride ld_out_attn, and the split one passes the row statistics
+// through stats (3 N floats an item).
 struct TcArgs {
     const void *q, *k, *v, *g;
     void *out, *dqf, *dkf, *dvf, *dqb, *dkb, *dvb;
-    float* amax;
-    int ld, ld_g, ld_out, B, F, J, C, H;
+    float *amax, *stats;
+    int ld, ld_g, ld_out, ld_out_attn, B, F, J, C, H;
     float scale;
     int temporal;
 };
@@ -591,7 +931,7 @@ cudaError_t tc_launch(const TcArgs& a, bool backward, cudaStream_t stream) {
             q, k, v, a.ld, static_cast<const bf16*>(a.g), a.ld_g, static_cast<float*>(a.dqf),
             static_cast<float*>(a.dkf), static_cast<float*>(a.dvf), static_cast<bf16*>(a.dqb),
             static_cast<bf16*>(a.dkb), static_cast<bf16*>(a.dvb), a.ld_out, a.F, a.J, a.H,
-            a.scale, a.temporal, n_items);
+            a.scale, a.temporal, n_items, nullptr, 0);
     } else {
         err = cudaFuncSetAttribute(attn_tc_fwd_kernel<D, KT>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -624,6 +964,91 @@ cudaError_t launch_attention_tc(const TcArgs& a, bool backward, cudaStream_t str
     if (D == 64) return tc_launch_d<64>(a, backward, stream);
     if (D == 32) return tc_launch_d<32>(a, backward, stream);
     return cudaErrorInvalidValue;
+}
+
+// Key tiles the split backward takes (one item a block in the one-launch
+// kernel).
+inline bool tc_splits(int kt) { return kt == 8 || kt == 16; }
+
+// The backward with attn's launches on args a: with split, the query-major
+// then the key-major half (KT 8 or 16); else the one-launch kernel with
+// ATTN. With grid not null, nothing is launched: grid gets the launch count,
+// then each launch's blocks and the blocks an SM holds of it (the occupancy
+// the runtime reports for its threads and shared memory).
+template <int D, int KT>
+cudaError_t tc_launch_bwd_attn(const TcArgs& a, bool split, cudaStream_t stream, int* grid) {
+    using S = TcShape<D, KT>;
+    const int n_items = (a.temporal ? a.B * a.J : a.B * a.F) * a.H;
+    const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
+               *v = static_cast<const bf16*>(a.v), *g = static_cast<const bf16*>(a.g);
+    cudaError_t err;
+    if (!split) {
+        const size_t smem = tc_smem_bytes<D, KT>(true);
+        const int blocks = (n_items + S::ITEMS - 1) / S::ITEMS;
+        auto kernel = attn_tc_bwd_kernel<D, KT, true>;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        if (grid != nullptr) {
+            grid[0] = 1;
+            grid[1] = blocks;
+            return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&grid[2], kernel, TC_THREADS,
+                                                                 smem);
+        }
+        kernel<<<blocks, TC_THREADS, smem, stream>>>(
+            q, k, v, a.ld, g, a.ld_g, static_cast<float*>(a.dqf), static_cast<float*>(a.dkf),
+            static_cast<float*>(a.dvf), static_cast<bf16*>(a.dqb), static_cast<bf16*>(a.dkb),
+            static_cast<bf16*>(a.dvb), a.ld_out, a.F, a.J, a.H, a.scale, a.temporal, n_items,
+            static_cast<bf16*>(a.out), a.ld_out_attn);
+        return cudaGetLastError();
+    }
+    if constexpr (KT == 8 || KT == 16) {
+        using P = TcSplit<D, KT>;
+        if ((long long)n_items * P::SLICES > 0x7fffffffLL) return cudaErrorInvalidValue;
+        const int blocks = n_items * P::SLICES;
+        auto query = attn_tc_bwd_query_kernel<D, KT>;
+        auto key = attn_tc_bwd_key_kernel<D, KT>;
+        err = cudaFuncSetAttribute(query, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)P::QUERY_SMEM);
+        if (err != cudaSuccess) return err;
+        err = cudaFuncSetAttribute(key, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)P::KEY_SMEM);
+        if (err != cudaSuccess) return err;
+        if (grid != nullptr) {
+            grid[0] = 2;
+            grid[1] = grid[3] = blocks;
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&grid[2], query,
+                                                                TC_SLICE_THREADS, P::QUERY_SMEM);
+            if (err != cudaSuccess) return err;
+            return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&grid[4], key, TC_SLICE_THREADS,
+                                                                 P::KEY_SMEM);
+        }
+        query<<<blocks, TC_SLICE_THREADS, P::QUERY_SMEM, stream>>>(
+            q, k, v, a.ld, g, a.ld_g, static_cast<float*>(a.dqf), static_cast<bf16*>(a.dqb),
+            a.ld_out, static_cast<bf16*>(a.out), a.ld_out_attn, a.stats, a.F, a.J, a.H, a.scale,
+            a.temporal);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+        key<<<blocks, TC_SLICE_THREADS, P::KEY_SMEM, stream>>>(
+            q, k, v, a.ld, g, a.ld_g, static_cast<float*>(a.dkf), static_cast<float*>(a.dvf),
+            static_cast<bf16*>(a.dkb), static_cast<bf16*>(a.dvb), a.ld_out, a.stats, a.F, a.J,
+            a.H, a.scale, a.temporal);
+        return cudaGetLastError();
+    }
+    return cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t tc_launch_bwd_attn_d(const TcArgs& a, bool split, cudaStream_t stream, int* grid) {
+    const int kt = tc_key_tiles(a.temporal ? a.F : a.J);
+    if (split && !tc_splits(kt)) return cudaErrorInvalidValue;
+    switch (kt) {
+        case 1: return tc_launch_bwd_attn<D, 1>(a, split, stream, grid);
+        case 2: return tc_launch_bwd_attn<D, 2>(a, split, stream, grid);
+        case 4: return tc_launch_bwd_attn<D, 4>(a, split, stream, grid);
+        case 8: return tc_launch_bwd_attn<D, 8>(a, split, stream, grid);
+        case 16: return tc_launch_bwd_attn<D, 16>(a, split, stream, grid);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace

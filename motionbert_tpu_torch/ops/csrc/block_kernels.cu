@@ -76,15 +76,29 @@
 //          the Hl = H / T local heads -> NT proj into fp32 (EPI_F32): the
 //          partial product, no bias, no residual
 //   B6_tp  ln_fwd_rows -> NT fc1 + GELU -> NT fc2 into fp32
-//   B5_tp  B5's chain at the shard widths up to the fp32 dh = dqkv Wqkv_r
-//          (NN, EPI_F32), with the LayerNorm row statistics out; no dbproj
-//   B7_tp  B7's chain at the shard widths up to dh = dz W1_r; no db2
+//   B5_tp  ln_fwd_rows (h, row stats) -> NT qkv -> NN dattn = bf16(g
+//          Wproj_r) -> core backward with attn (attention_tc.cuh: on
+//          243-frame groups the split query-major and key-major launches,
+//          else the one-launch kernel; attn = bf16(bf16(P) v) from the P
+//          pass 1 holds, so no forward core runs) -> dbqkv from the fp32
+//          dqkv -> TN dWqkv and dWproj in one round and one in-order pass
+//          (hg_weight_grad2) -> NN dh = dqkv Wqkv_r (EPI_F32); no dbproj
+//   B7_tp  ln_fwd_rows -> NT fc1 + GELU (bf16 a, fp32 z) -> {TN dW2 = g^T
+//          a, NN dz = bf16(g W2_r * GELU'(z))} in one launch -> db1 -> {TN
+//          dW1 = dz^T h, NN dh = dz W1_r} in one launch -> one in-order
+//          pass over both partial sets (reduce_partials); no db2. Each
+//          column sum runs right after its source is written, while the
+//          L2 holds some of it
+//          (hopper_gemm.cuh's hg_gemm_pair: a shard's TN round is 64 to 192
+//          blocks of the 264 the grid holds, and the NN product beside it
+//          fills the rest)
 //   ln_bwd from the summed dh: launch_ln_bwd, dx = bf16(LN-backward(dh) +
 //          g) with dln_w and dln_b, input_grad's call
 // The caller all-reduces the fp32 partials and dh over the model ranks and
 // adds the output bias and the residual, in fp32, before the one rounding
 // (x + proj and x + fc2 round where B1 rounds). At T = 1 each mode is the
-// non-TP chain's arithmetic launch for launch.
+// non-TP chain's arithmetic: the same bits, each tile and each core row
+// computed as the non-TP chain's launches compute it.
 //
 // Every entry point launches on the caller's stream, allocates nothing (the
 // caller passes every buffer) and returns 0 or the first CUDA error.
@@ -129,7 +143,7 @@ enum AttnTpSlot {
     // outputs
     AT_DWQKV, AT_DBQKV, AT_DWPROJ, AT_DH, AT_ST,
     // scratch
-    AT_H, AT_QKV, AT_ATTN, AT_DATTN, AT_DQKV, AT_DQKVB, AT_WORK,
+    AT_H, AT_QKV, AT_ATTN, AT_DATTN, AT_DQKV, AT_DQKVB, AT_CORE_ST, AT_WORK,
     AT_COUNT
 };
 
@@ -142,6 +156,73 @@ enum MlpTpSlot {
     MT_H, MT_Z, MT_A, MT_DZ, MT_WORK,
     MT_COUNT
 };
+
+// The backward core with attn (B5_tp's): dq, dk and dv as launch_attention_tc's
+// backward writes them, and attn = bf16(bf16(P) v), the forward core's bits,
+// to a.out with row stride a.ld_out_attn. split: the query-major and
+// key-major launches (key tiles 8 or 16; a.stats holds 3 N floats an item);
+// else the one-launch kernel. grid: see tc_launch_bwd_attn. Returns
+// cudaErrorInvalidValue on a shape the core does not take.
+cudaError_t launch_attention_tc_bwd_attn(const TcArgs& a, bool split, cudaStream_t stream,
+                                         int* grid = nullptr) {
+    if (a.H < 1 || a.C % a.H) return cudaErrorInvalidValue;
+    const int D = a.C / a.H;
+    if (D == 64) return tc_launch_bwd_attn_d<64>(a, split, stream, grid);
+    if (D == 32) return tc_launch_bwd_attn_d<32>(a, split, stream, grid);
+    return cudaErrorInvalidValue;
+}
+
+// Whether B5_tp's chain splits the core backward on groups of N rows: where
+// the one-launch kernel is one 256-key item a block (243 frames).
+inline bool tc_split_backward(int N) { return tc_key_tiles(N) == TC_MAX_KEYS / TC_KEY_TILE; }
+
+// out0[i] (i < n0) and out1[i - n0] (n0 <= i < n0 + n1), bf16: the sum over
+// the HG_TN_SPLITS chunks, in chunk order, of part[k (n0 + n1) + i], two
+// weight gradients' partials side by side (hg_partials). A thread an
+// element, as reduce_splits_kernel adds one gradient's: its bits.
+__global__ void __launch_bounds__(COL_THREADS)
+reduce_partials_kernel(const float* __restrict__ part, int n0, int n1,
+                       bf16* __restrict__ out0, bf16* __restrict__ out1) {
+    const int n = n0 + n1;
+    const int i = blockIdx.x * COL_THREADS + threadIdx.x;
+    if (i >= n) return;
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < HG_TN_SPLITS; ++k) s += part[(size_t)k * n + i];
+    const bf16 v = __float2bfloat16(s);
+    if (i < n0)
+        out0[i] = v;
+    else
+        out1[i - n0] = v;
+}
+
+// The in-order second pass over two weight gradients' partials side by side
+// (reduce_partials_kernel): one launch for both.
+cudaError_t reduce_partials(const float* work, int n0, int n1, void* out0, void* out1,
+                            cudaStream_t stream) {
+    reduce_partials_kernel<<<(n0 + n1 + COL_THREADS - 1) / COL_THREADS, COL_THREADS, 0,
+                             stream>>>(work, n0, n1, static_cast<bf16*>(out0),
+                                       static_cast<bf16*>(out1));
+    return cudaGetLastError();
+}
+
+// Two weight gradients as hg_weight_grad computes each, dW0 (rows0, cols0)
+// from dY0 and A0 and dW1 (rows1, cols1) from dY1 and A1 over the same M
+// rows: both TN products in one launch (hg_gemm_pair) and one in-order pass
+// (reduce_partials). work holds HG_TN_SPLITS * (rows0 cols0 + rows1 cols1)
+// floats.
+cudaError_t hg_weight_grad2(const void* dY0, const void* A0, int rows0, int cols0, void* out0,
+                            const void* dY1, const void* A1, int rows1, int cols1, void* out1,
+                            int M, float* work, cudaStream_t stream) {
+    const int n0 = rows0 * cols0, n1 = rows1 * cols1;
+    HgProduct<TN, EPI_PARTIAL> p0, p1;
+    cudaError_t err = hg_partials(p0, dY0, A0, M, rows0, cols0, work, 0, (size_t)n0 + n1);
+    if (err == cudaSuccess)
+        err = hg_partials(p1, dY1, A1, M, rows1, cols1, work, n0, (size_t)n0 + n1);
+    if (err == cudaSuccess) err = hg_gemm_pair(p0, p1, stream);
+    if (err != cudaSuccess) return err;
+    return reduce_partials(work, n0, n1, out0, out1, stream);
+}
 
 // out = bf16(A W^T + bias [+ R]) (M, N): the NT product of a block's last
 // layer, with the residual R unless it is null.
@@ -181,7 +262,9 @@ extern "C" int mbt_mlp_tp_bwd_slot_count() { return MT_COUNT; }
 
 // Floats of fp32 workspace the partials of a (rows, cols) weight gradient, of
 // a column sum over `rows` columns and of the LayerNorm backward over `cols`
-// columns need (rows 0: the LayerNorm backward alone, mbt_ln_bwd).
+// columns need (rows 0: the LayerNorm backward alone, mbt_ln_bwd). Two
+// gradients whose partials share the workspace (hg_weight_grad2,
+// reduce_partials) and have cols columns each pass their rows summed.
 extern "C" long long mbt_block_work_floats(int rows, int cols) {
     const long long a = (long long)HG_TN_SPLITS * rows * cols, b = (long long)COL_SPLITS * rows,
                     c = (long long)LN_SPLITS * 2 * cols;
@@ -355,8 +438,11 @@ extern "C" int mbt_attention_block_tp(
 // this rank's part of the gradient at the LayerNorm's output; st (M, 2) fp32,
 // the LayerNorm's row statistics (mean, rstd) for mbt_ln_bwd. Scratch: h
 // (M, C), attn, dattn (M, Ci), qkv, dqkvb (M, 3 Ci) bf16; dqkv (M, 3 Ci)
-// fp32; work mbt_block_work_floats(3 Ci, C). 12 device records (a weight
-// gradient and a column sum are two each).
+// fp32; core_st (3 Hl M) fp32, the split core's row statistics; work
+// mbt_block_work_floats(4 Ci, C). The core's backward writes attn (no
+// forward core launch), and dWqkv and dWproj run in one round: 10 device
+// records on 243-frame groups (the core's two halves), else 9 (a weight
+// gradient pair and a column sum are two each).
 extern "C" int mbt_attention_block_tp_bwd(void* const* p, int B, int F, int J, int C, int Ci,
                                           int Hl, float scale, int temporal,
                                           void* stream_ptr) {
@@ -364,32 +450,34 @@ extern "C" int mbt_attention_block_tp_bwd(void* const* p, int B, int F, int J, i
     const int M = B * F * J;
     float* work = static_cast<float*>(p[AT_WORK]);
 
-    // ---- forward recompute ----
+    // ---- forward recompute up to qkv ----
     CHECK(launch_ln_fwd_rows(p[AT_X], p[AT_LN_W], p[AT_LN_B], p[AT_H], p[AT_ST], M, C,
                              stream));
     CHECK((hg_gemm<NT, EPI_BIAS>(p[AT_H], p[AT_WQKV], p[AT_BQKV], nullptr, nullptr,
                                  p[AT_QKV], nullptr, M, 3 * Ci, C, stream)));
-    TcArgs core = tc_packed_args(p[AT_QKV], B, F, J, Ci, Hl, scale, temporal);
-    core.out = p[AT_ATTN];
-    core.ld_out = Ci;
-    CHECK(launch_attention_tc(core, false, stream));
 
     // ---- output projection backward (no bias: the caller sums g) ----
     CHECK((hg_gemm<NN, EPI_BF16>(p[AT_G], p[AT_WPROJ], nullptr, nullptr, nullptr, p[AT_DATTN],
                                  nullptr, M, Ci, C, stream)));
-    CHECK(hg_weight_grad(p[AT_G], p[AT_ATTN], M, C, Ci, work, p[AT_DWPROJ], stream));
 
-    // ---- attention core and qkv projection backward ----
+    // ---- attention core backward, attn with it ----
     float* dqkv = static_cast<float*>(p[AT_DQKV]);
     bf16* dqkvb = static_cast<bf16*>(p[AT_DQKVB]);
+    TcArgs core = tc_packed_args(p[AT_QKV], B, F, J, Ci, Hl, scale, temporal);
     core.g = p[AT_DATTN];
     core.ld_g = Ci;
     core.dqf = dqkv, core.dkf = dqkv + Ci, core.dvf = dqkv + 2 * Ci;
     core.dqb = dqkvb, core.dkb = dqkvb + Ci, core.dvb = dqkvb + 2 * Ci;
     core.ld_out = 3 * Ci;
-    CHECK(launch_attention_tc(core, true, stream));
-    CHECK(hg_weight_grad(dqkvb, p[AT_H], M, 3 * Ci, C, work, p[AT_DWQKV], stream));
+    core.out = p[AT_ATTN];
+    core.ld_out_attn = Ci;
+    core.stats = static_cast<float*>(p[AT_CORE_ST]);
+    CHECK(launch_attention_tc_bwd_attn(core, tc_split_backward(temporal ? F : J), stream));
     CHECK(column_sum<COL_F32>(dqkv, nullptr, M, 3 * Ci, work, p[AT_DBQKV], true, stream));
+
+    // ---- weight gradients in one round, then the qkv projection backward ----
+    CHECK(hg_weight_grad2(dqkvb, p[AT_H], 3 * Ci, C, p[AT_DWQKV], p[AT_G], p[AT_ATTN], C, Ci,
+                          p[AT_DWPROJ], M, work, stream));
     CHECK((hg_gemm<NN, EPI_F32>(dqkvb, p[AT_WQKV], nullptr, nullptr, nullptr, p[AT_DH],
                                 nullptr, M, C, 3 * Ci, stream)));
     return 0;
@@ -415,11 +503,15 @@ extern "C" int mbt_mlp_block_tp(
 // MT_COUNT device pointers in MlpTpSlot order. Outputs: dW1_r (hid_r, C),
 // db1_r (hid_r), dW2_r (C, hid_r) bf16; dh (M, C) fp32 and st (M, 2) fp32 as
 // for B5_tp. Scratch: h (M, C) bf16; z (M, hid_r) fp32; a, dz (M, hid_r)
-// bf16; work mbt_block_work_floats(hid_r, C). 10 device records.
+// bf16; work mbt_block_work_floats(2 hid_r, C). Each weight gradient's TN
+// round shares its launch with the NN product that reads the same operand
+// (dW2 with dz, both from g; dW1 with dh, both from dz), and one in-order
+// pass adds both gradients' partials. 7 device records.
 extern "C" int mbt_mlp_block_tp_bwd(void* const* p, int M, int C, int hidden,
                                     void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     float* work = static_cast<float*>(p[MT_WORK]);
+    const int n2 = C * hidden, n1 = hidden * C;
 
     // ---- forward recompute ----
     CHECK(launch_ln_fwd_rows(p[MT_X], p[MT_LN_W], p[MT_LN_B], p[MT_H], p[MT_ST], M, C,
@@ -427,16 +519,26 @@ extern "C" int mbt_mlp_block_tp_bwd(void* const* p, int M, int C, int hidden,
     CHECK((hg_gemm<NT, EPI_BIAS_GELU_Z>(p[MT_H], p[MT_W1], p[MT_B1], nullptr, nullptr, p[MT_A],
                                         p[MT_Z], M, hidden, C, stream)));
 
-    // ---- fc2 backward (no bias: the caller sums g) ----
-    CHECK(hg_weight_grad(p[MT_G], p[MT_A], M, C, hidden, work, p[MT_DW2], stream));
-    CHECK((hg_gemm<NN, EPI_DGELU>(p[MT_G], p[MT_W2], nullptr, nullptr, p[MT_Z], p[MT_DZ],
-                                  nullptr, M, hidden, C, stream)));
+    // ---- fc2 backward (no bias: the caller sums g): dW2 = g^T a beside dz ----
+    HgProduct<TN, EPI_PARTIAL> dw2, dw1;
+    HgProduct<NN, EPI_DGELU> dz;
+    HgProduct<NN, EPI_F32> dh;
+    CHECK(hg_partials(dw2, p[MT_G], p[MT_A], M, C, hidden, work, 0, (size_t)n2 + n1));
+    CHECK(hg_product(dz, p[MT_G], p[MT_W2], nullptr, nullptr, p[MT_Z], p[MT_DZ], nullptr, M,
+                     hidden, C));
+    CHECK((hg_gemm_pair<TN, EPI_PARTIAL, NN, EPI_DGELU>(dw2, dz, stream)));
+    // db1 while dz sits in the L2; its COL_SPLITS x hidden chunk partials
+    // in chunk 0's slot of dW1's partials (hidden x C floats, C >= 64), which
+    // the next launch writes
+    CHECK(column_sum<COL_BF16>(p[MT_DZ], nullptr, M, hidden, work + n2, p[MT_DB1], true,
+                               stream));
 
-    // ---- fc1 backward ----
-    CHECK(hg_weight_grad(p[MT_DZ], p[MT_H], M, hidden, C, work, p[MT_DW1], stream));
-    CHECK(column_sum<COL_BF16>(p[MT_DZ], nullptr, M, hidden, work, p[MT_DB1], true, stream));
-    CHECK((hg_gemm<NN, EPI_F32>(p[MT_DZ], p[MT_W1], nullptr, nullptr, nullptr, p[MT_DH],
-                                nullptr, M, C, hidden, stream)));
+    // ---- fc1 backward: dW1 = dz^T h beside dh = dz W1 ----
+    CHECK(hg_partials(dw1, p[MT_DZ], p[MT_H], M, hidden, C, work, n2, (size_t)n2 + n1));
+    CHECK(hg_product(dh, p[MT_DZ], p[MT_W1], nullptr, nullptr, nullptr, p[MT_DH], nullptr, M,
+                     C, hidden));
+    CHECK((hg_gemm_pair<TN, EPI_PARTIAL, NN, EPI_F32>(dw1, dh, stream)));
+    CHECK(reduce_partials(work, n2, n1, p[MT_DW2], p[MT_DW1], stream));
     return 0;
 }
 
@@ -528,4 +630,70 @@ extern "C" int mbt_hgemm_test(int layout, int epi, const void* A, const void* W,
         default: return (int)cudaErrorInvalidValue;
     }
 #undef HG_CASE
+}
+
+// Two products in one launch of the engine (hg_gemm_pair), for its tests:
+// (layout, epilogue) l0/e0 and l1/e1 of the pairs the TP chains group, each
+// with hg_gemm's arguments in p0 / p1 = {A, W, bias, R, Z, out, out_z} and
+// its (M, N, K), and hg_gemm_pair's lead (0: its rule). A TN product writes
+// its HG_TN_SPLITS partials alone, as hg_gemm's does. Any other pair
+// returns cudaErrorInvalidValue.
+extern "C" int mbt_hgemm_pair_test(int l0, int e0, void* const* p0, int M0, int N0, int K0,
+                                   int l1, int e1, void* const* p1, int M1, int N1, int K1,
+                                   int lead, void* stream_ptr) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+    if (l0 != TN || e0 != EPI_PARTIAL) return (int)cudaErrorInvalidValue;
+    HgProduct<TN, EPI_PARTIAL> a;
+    CHECK(hg_product(a, p0[0], p0[1], p0[2], p0[3], p0[4], p0[5], p0[6], M0, N0, K0));
+#define HG_PAIR_CASE(L, E)                                                                  \
+    if (l1 == L && e1 == E) {                                                               \
+        HgProduct<L, E> b;                                                                  \
+        CHECK(hg_product(b, p1[0], p1[1], p1[2], p1[3], p1[4], p1[5], p1[6], M1, N1, K1)); \
+        return (int)hg_gemm_pair(a, b, s, lead);                                            \
+    }
+    HG_PAIR_CASE(TN, EPI_PARTIAL)
+    HG_PAIR_CASE(NN, EPI_DGELU)
+    HG_PAIR_CASE(NN, EPI_F32)
+#undef HG_PAIR_CASE
+    return (int)cudaErrorInvalidValue;
+}
+
+// B5_tp's core backward alone, for its tests, on separate q, k, v and the
+// output gradient g (B*F*J rows of C, H heads): dq, dk, dv in fp32 (the
+// pointers may be null) and bf16, and attn, all (B*F*J, C);
+// stats 3 H B*F*J floats. split: the query-major and key-major launches
+// (groups of 129..256 or 65..128 rows), else the one-launch kernel with
+// attn.
+extern "C" int mbt_attn_core_bwd_attn_test(const void* q, const void* k, const void* v,
+                                           const void* g, void* dqf, void* dkf, void* dvf,
+                                           void* dqb, void* dkb, void* dvb, void* attn,
+                                           float* stats, int B, int F, int J, int C, int H,
+                                           float scale, int temporal, int split,
+                                           void* stream_ptr) {
+    TcArgs a{};
+    a.q = q, a.k = k, a.v = v, a.g = g;
+    a.dqf = dqf, a.dkf = dkf, a.dvf = dvf, a.dqb = dqb, a.dkb = dkb, a.dvb = dvb;
+    a.out = attn, a.stats = stats;
+    a.ld = C, a.ld_g = C, a.ld_out = C, a.ld_out_attn = C;
+    a.B = B, a.F = F, a.J = J, a.C = C, a.H = H;
+    a.scale = scale;
+    a.temporal = temporal;
+    return (int)launch_attention_tc_bwd_attn(a, split != 0,
+                                             static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The core backward's launches in B5_tp's chain at these shapes, launching
+// nothing: out[0] the launch count, then (blocks, blocks an SM holds) of
+// each launch; out[5] the device's SMs.
+extern "C" int mbt_attn_tp_bwd_core_grid(int B, int F, int J, int C, int H, int temporal,
+                                         int* out) {
+    TcArgs a{};
+    a.B = B, a.F = F, a.J = J, a.C = C, a.H = H;
+    a.temporal = temporal;
+    out[0] = out[1] = out[2] = out[3] = out[4] = 0;
+    CHECK(launch_attention_tc_bwd_attn(a, tc_split_backward(temporal ? F : J), nullptr, out));
+    int dev = 0;
+    CHECK(cudaGetDevice(&dev));
+    CHECK(cudaDeviceGetAttribute(&out[5], cudaDevAttrMultiProcessorCount, dev));
+    return 0;
 }

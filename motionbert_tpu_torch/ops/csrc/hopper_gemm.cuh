@@ -45,11 +45,23 @@
 // tile, one block an SM) was measured beside this one and lost on the GELU'
 // epilogue: four warps could not keep up with it.
 //
-// The pipeline (hg_gemm_body) is a template on an MMA policy, which says
-// what a stage holds and which wgmma consumes it, and an epilogue functor:
-// HgBf16 and HgEpilogue here, under hg_gemm_kernel; the int8 policy and the
+// The pipeline (hg_gemm_body: hg_load_tile and hg_mma_tile for each of a
+// block's tiles) is a template on an MMA policy, which says what a stage
+// holds and which wgmma consumes it, and an epilogue functor: HgBf16 and
+// HgEpilogue here, under hg_gemm_kernel; the int8 policy and the
 // dequantising epilogue of hopper_gemm_s8.cuh, under hg_gemm_s8_kernel. One
 // launcher (hg_launch) puts either on the persistent grid.
+//
+// Grouped rounds (hg_gemm_pair_kernel). A TN weight gradient at a tensor-
+// parallel shard's widths is a few tiles times HG_TN_SPLITS chunks: 64 to
+// 192 blocks of the 264 the grid holds, one long round (33 k-steps a tile
+// at 16524 rows) on part of the card. hg_gemm_pair walks two independent
+// products' tiles in one launch, each tile as its own launch computes it
+// (same k order, same epilogue, same bits): two TN gradients side by side
+// (block_kernels.cu's hg_weight_grad2: B5_tp's dWqkv and dWproj, then one
+// in-order pass over both partial sets, its reduce_partials), or a TN gradient
+// beside an NN product that reads the same operand (B7_tp's dW2 with dz, dW1
+// with dh), the NN tiles filling the blocks the TN round leaves free.
 //
 // Everything is in an anonymous namespace, like the other headers: each .cu
 // that includes this file builds its own copy.
@@ -249,6 +261,167 @@ struct HgEpilogue {
     }
 };
 
+// The grouped launch's pieces (hg_gemm_pair_kernel): hg_gemm_body's tile
+// walk, ring, loads and MMA + epilogue of one tile, statement for statement,
+// as functions a kernel can call for either of two products. hg_gemm_body
+// keeps its own text, so that the single-product kernels compile as they
+// did.
+//
+// A product's tile grid (see the layouts above): rows x cols is the
+// output's shape (M x N, or N x K for TN) and k_len the reduction's length
+// (K, or M for TN); TN reduces chunk z over [z * split, z * split + split).
+// Tile t of the tiles_x * tiles_y * chunks (n_tiles) has its column tile
+// fastest.
+struct HgShape {
+    int rows, cols, k_len, split, tiles_x, tiles_y, n_tiles;
+};
+
+// Tile t's first row and column, its k-steps [k0, k0 + nk) and its TN chunk.
+template <int LAYOUT, int BK>
+__device__ __forceinline__ void hg_tile_at(const HgShape& sh, int t, int& r0, int& c0, int& k0,
+                                           int& nk, int& chunk) {
+    const int per_chunk = sh.tiles_x * sh.tiles_y;
+    const int rest = t % per_chunk;
+    chunk = t / per_chunk;
+    r0 = (rest / sh.tiles_x) * HG_BM;
+    c0 = (rest % sh.tiles_x) * HG_BN;
+    int k_begin = 0, k_end = sh.k_len;
+    if (LAYOUT == TN) {
+        k_begin = chunk * sh.split;
+        k_end = min(sh.k_len, k_begin + sh.split);
+    }
+    k0 = k_begin;
+    nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+}
+
+// The ring in shared memory: HG_STAGES stages of tiles, their "full" and
+// "empty" mbarriers. hg_ring sets the barriers up (the whole block calls it).
+struct HgRing {
+    uint32_t tiles, full, empty;
+};
+
+__device__ __forceinline__ HgRing hg_ring() {
+    extern __shared__ unsigned char hg_smem_raw[];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(hg_smem_raw) + 1023) & ~uintptr_t(1023));
+    HgRing ring;
+    ring.tiles = smem_u32(smem);
+    ring.full = ring.tiles + HG_STAGES * HG_STAGE_BYTES;
+    ring.empty = ring.full + HG_STAGES * 8;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < HG_STAGES; ++s) {
+            mbar_init(ring.full + 8 * s, 1);
+            mbar_init(ring.empty + 8 * s, HG_CONSUMER_THREADS / 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    return ring;
+}
+
+// The producer's loads of tile t (one thread issues them); step, the ring's
+// running k-step, runs on across the block's tiles.
+template <int LAYOUT, class MMA>
+__device__ __forceinline__ void hg_load_tile(const CUtensorMap& tma_a, const CUtensorMap& tma_b,
+                                             const HgRing& ring, const HgShape& sh, int t,
+                                             int& step) {
+    constexpr bool A_MN = LAYOUT == TN;
+    constexpr bool B_MN = LAYOUT != NT;
+    constexpr int BK = MMA::BK;
+    int r0, c0, k0, nk, chunk;
+    hg_tile_at<LAYOUT, BK>(sh, t, r0, c0, k0, nk, chunk);
+    for (int k = 0; k < nk; ++k, ++step) {
+        const int s = step % HG_STAGES;
+        const uint32_t bar = ring.full + 8 * s;
+        mbar_wait(ring.empty + 8 * s, ((step / HG_STAGES) & 1) ^ 1);
+        mbar_expect_tx(bar, HG_STAGE_BYTES);
+        const uint32_t a = ring.tiles + s * HG_STAGE_BYTES, b = a + HG_A_BYTES;
+        const int kk = k0 + k * BK;
+        if (A_MN) {
+            tma_load(a, &tma_a, bar, r0, kk);
+            tma_load(a + HG_BOX_BYTES, &tma_a, bar, r0 + 64, kk);
+        } else {
+            tma_load(a, &tma_a, bar, kk, r0);
+        }
+        if (B_MN) {
+            tma_load(b, &tma_b, bar, c0, kk);
+            tma_load(b + HG_BOX_BYTES, &tma_b, bar, c0 + 64, kk);
+        } else {
+            tma_load(b, &tma_b, bar, kk, c0);
+        }
+    }
+}
+
+// The consumer warpgroups' products and epilogue of tile t: rows [cw * 64,
+// cw * 64 + 64) of it for warpgroup cw. epi(v, m, n, offset, chunk) takes
+// four consecutive columns of row m below rows and cols. An epilogue with
+// ROW_AMAX returns the largest |value| it wrote, and epi.row_amax(amax, m)
+// takes each row's largest over the tile's columns, once a row and tile (the
+// W8A8 pair on shards: hopper_gemm_s8.cuh).
+template <int LAYOUT, class MMA, class EPI>
+__device__ __forceinline__ void hg_mma_tile(const EPI& epi, const HgRing& ring,
+                                            const HgShape& sh, int t, int& step) {
+    constexpr bool A_MN = LAYOUT == TN;
+    constexpr bool B_MN = LAYOUT != NT;
+    constexpr int BK = MMA::BK;
+    using Acc = typename MMA::Acc;
+    const int cw = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+    int r0, c0, k0, nk, chunk;
+    hg_tile_at<LAYOUT, BK>(sh, t, r0, c0, k0, nk, chunk);
+    Acc acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
+    for (int k = 0; k < nk; ++k, ++step) {
+        const int s = step % HG_STAGES;
+        mbar_wait(ring.full + 8 * s, (step / HG_STAGES) & 1);
+        // K-major A: 64 rows of 128 B; MN-major A: the cw-th 64-wide box
+        const uint32_t a = ring.tiles + s * HG_STAGE_BYTES + cw * HG_BOX_BYTES;
+        const uint32_t b = ring.tiles + s * HG_STAGE_BYTES + HG_A_BYTES;
+        MMA::fence(acc);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        MMA::template stage<A_MN, B_MN>(acc, a, b);
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        MMA::fence(acc);
+        if (k > 0 && lane == 0) mbar_arrive(ring.empty + 8 * ((step - 1) % HG_STAGES));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    MMA::fence(acc);
+    if (nk > 0 && lane == 0) mbar_arrive(ring.empty + 8 * ((step - 1) % HG_STAGES));
+
+    // lanes 2p and 2p+1 swap halves so that each holds four consecutive
+    // columns of one row: the even lane row w*16 + t/4, the odd one that
+    // row + 8
+    const bool upper = lane & 1;
+    const int m = r0 + cw * 64 + warp * 16 + (lane >> 2) + (upper ? 8 : 0);
+    float amax = 0.f;
+#pragma unroll
+    for (int jn = 0; jn < HG_BN / 8; ++jn) {
+        const Acc s0 = upper ? acc[4 * jn] : acc[4 * jn + 2];
+        const Acc s1 = upper ? acc[4 * jn + 1] : acc[4 * jn + 3];
+        const Acc p0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+        const Acc p1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+        Acc v[4];
+        if (upper) {
+            v[0] = p0; v[1] = p1; v[2] = acc[4 * jn + 2]; v[3] = acc[4 * jn + 3];
+        } else {
+            v[0] = acc[4 * jn]; v[1] = acc[4 * jn + 1]; v[2] = p0; v[3] = p1;
+        }
+        const int n = c0 + jn * 8 + (lane & 2) * 2;
+        if (m >= sh.rows || n >= sh.cols) continue;
+        if constexpr (EPI::ROW_AMAX)
+            amax = fmaxf(amax, epi(v, m, n, (size_t)m * sh.cols + n, chunk));
+        else
+            epi(v, m, n, (size_t)m * sh.cols + n, chunk);
+    }
+    if constexpr (EPI::ROW_AMAX) {
+        // lanes lane and lane ^ 2 hold row m's two halves of the tile
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+        if (!(lane & 2) && m < sh.rows) epi.row_amax(amax, m);
+    }
+}
+
 // The engine's pipeline, for any MMA policy and epilogue functor (see the
 // layouts above; int8 takes NT only). rows x cols is the output's shape (M x
 // N, or N x K for TN) and k_len the reduction's length (K, or M for TN); TN
@@ -407,6 +580,50 @@ hg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                                  tiles_y, n_tiles);
 }
 
+// Two products in one persistent launch (hg_gemm_pair): their tiles in one
+// list, product 0's first (the longer-running tiles: the caller puts a TN
+// weight gradient there), each tile computed as its own product's launch
+// computes it. Block b of the grid's G takes product 0's tiles b, b + G, ...;
+// then, where the last round of those left it free (b >= rem = n0 % G),
+// `lead` of product 1's tiles (j = b - rem + i (G - rem)) in the time of one
+// of product 0's; then product 1's remaining tiles round robin from
+// lead * (G - rem). The ring runs on across both products' tiles.
+template <int L0, int E0, int L1, int E1>
+__global__ void __launch_bounds__(HG_THREADS, HG_MIN_BLOCKS)
+hg_gemm_pair_kernel(const __grid_constant__ CUtensorMap a0,
+                    const __grid_constant__ CUtensorMap b0,
+                    const __grid_constant__ CUtensorMap a1,
+                    const __grid_constant__ CUtensorMap b1,
+                    const __grid_constant__ HgEpilogue<E0> e0,
+                    const __grid_constant__ HgEpilogue<E1> e1,
+                    const __grid_constant__ HgShape s0,
+                    const __grid_constant__ HgShape s1, int lead) {
+    const HgRing ring = hg_ring();
+    const int G = gridDim.x, b = blockIdx.x, rem = s0.n_tiles % G;
+    const int first = b - rem, stride = G - rem, rest = lead * (G - rem) + b;
+    int step = 0;
+    if (threadIdx.x >= HG_CONSUMER_THREADS) {
+        if (threadIdx.x == HG_CONSUMER_THREADS) {
+            const CUtensorMap* maps[4] = {&a0, &b0, &a1, &b1};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                asm volatile("prefetch.tensormap [%0];"
+                             :: "l"(reinterpret_cast<uint64_t>(maps[i])) : "memory");
+            for (int t = b; t < s0.n_tiles; t += G)
+                hg_load_tile<L0, HgBf16>(a0, b0, ring, s0, t, step);
+            for (int i = 0, j = first; first >= 0 && i < lead && j < s1.n_tiles; ++i, j += stride)
+                hg_load_tile<L1, HgBf16>(a1, b1, ring, s1, j, step);
+            for (int j = rest; j < s1.n_tiles; j += G)
+                hg_load_tile<L1, HgBf16>(a1, b1, ring, s1, j, step);
+        }
+    } else {
+        for (int t = b; t < s0.n_tiles; t += G) hg_mma_tile<L0, HgBf16>(e0, ring, s0, t, step);
+        for (int i = 0, j = first; first >= 0 && i < lead && j < s1.n_tiles; ++i, j += stride)
+            hg_mma_tile<L1, HgBf16>(e1, ring, s1, j, step);
+        for (int j = rest; j < s1.n_tiles; j += G) hg_mma_tile<L1, HgBf16>(e1, ring, s1, j, step);
+    }
+}
+
 // cuTensorMapEncodeTiled, a driver-API function, fetched through the runtime
 // so that the library links against cudart alone
 typedef CUresult (*TensorMapEncodeFn)(
@@ -491,37 +708,100 @@ cudaError_t hg_launch(int n_tiles, cudaStream_t stream, Args... args) {
     return cudaGetLastError();
 }
 
-// The engine's launch: out = LAYOUT's product of A and W (M token rows, N
-// output columns, K the reduction of NT and NN; for TN, A is (M, N), W is
-// (M, K) and out HG_TN_SPLITS partial (N, K) fp32 tiles), then EPI with
-// bias, R and Z (out_z for EPI_BIAS_GELU_Z). Needs N % 64 == 0 and K % 64 ==
-// 0, 16-byte-aligned A and W; any M >= 1. Returns cudaErrorInvalidValue
-// when a tensor map cannot be built.
+// One product of the engine, ready to launch: LAYOUT's product of A and W
+// (M token rows, N output columns, K the reduction of NT and NN; for TN, A
+// is (M, N), W is (M, K) and out HG_TN_SPLITS partial (N, K) fp32 tiles,
+// chunk_stride floats apart), then EPI with bias, R and Z (out_z for
+// EPI_BIAS_GELU_Z).
 template <int LAYOUT, int EPI>
-cudaError_t hg_gemm(const void* A, const void* W, const void* bias, const void* R,
-                    const void* Z, void* out, void* out_z, int M, int N, int K,
-                    cudaStream_t stream) {
-    static_assert((LAYOUT == TN) == (EPI == EPI_PARTIAL), "TN writes partials, and only TN");
+struct HgProduct {
     CUtensorMap ta, tb;
+    HgEpilogue<EPI> epi;
+    HgShape shape;
+};
+
+// Builds p for hg_gemm's arguments; TN partials chunk_stride floats apart
+// (0: N * K, one product's partials alone). Needs N % 64 == 0 and K % 64 ==
+// 0, 16-byte-aligned A and W; any M >= 1. Returns cudaErrorInvalidValue when
+// a tensor map cannot be built.
+template <int LAYOUT, int EPI>
+cudaError_t hg_product(HgProduct<LAYOUT, EPI>& p, const void* A, const void* W,
+                       const void* bias, const void* R, const void* Z, void* out, void* out_z,
+                       int M, int N, int K, size_t chunk_stride = 0) {
+    static_assert((LAYOUT == TN) == (EPI == EPI_PARTIAL), "TN writes partials, and only TN");
     bool ok;
     int rows, cols, k_len, split = 0, chunks = 1;
     if (LAYOUT == TN) {
-        ok = tensor_map_2d(&ta, A, N, M, HG_BK) && tensor_map_2d(&tb, W, K, M, HG_BK);
+        ok = tensor_map_2d(&p.ta, A, N, M, HG_BK) && tensor_map_2d(&p.tb, W, K, M, HG_BK);
         rows = N, cols = K, k_len = M, split = hg_split_rows(M), chunks = HG_TN_SPLITS;
     } else {
-        ok = tensor_map_2d(&ta, A, K, M, HG_BM) &&
-             (LAYOUT == NT ? tensor_map_2d(&tb, W, K, N, HG_BN)
-                           : tensor_map_2d(&tb, W, N, K, HG_BK));
+        ok = tensor_map_2d(&p.ta, A, K, M, HG_BM) &&
+             (LAYOUT == NT ? tensor_map_2d(&p.tb, W, K, N, HG_BN)
+                           : tensor_map_2d(&p.tb, W, N, K, HG_BK));
         rows = M, cols = N, k_len = K;
     }
     if (!ok) return cudaErrorInvalidValue;
     const int tiles_x = (cols + HG_BN - 1) / HG_BN, tiles_y = (rows + HG_BM - 1) / HG_BM;
-    const int n_tiles = tiles_x * tiles_y * chunks;
-    const HgEpilogue<EPI> epi{static_cast<const bf16*>(bias), static_cast<const bf16*>(R),
-                              static_cast<const float*>(Z), out, static_cast<float*>(out_z),
-                              (size_t)rows * cols};
-    return hg_launch<hg_gemm_kernel<LAYOUT, EPI>>(n_tiles, stream, ta, tb, epi, rows, cols,
-                                                  k_len, split, tiles_x, tiles_y, n_tiles);
+    p.shape = HgShape{rows, cols, k_len, split, tiles_x, tiles_y, tiles_x * tiles_y * chunks};
+    p.epi = HgEpilogue<EPI>{static_cast<const bf16*>(bias), static_cast<const bf16*>(R),
+                            static_cast<const float*>(Z), out, static_cast<float*>(out_z),
+                            chunk_stride ? chunk_stride : (size_t)rows * cols};
+    return cudaSuccess;
+}
+
+// The engine's launch: out = LAYOUT's product of A and W, then EPI (see
+// HgProduct and hg_product).
+template <int LAYOUT, int EPI>
+cudaError_t hg_gemm(const void* A, const void* W, const void* bias, const void* R,
+                    const void* Z, void* out, void* out_z, int M, int N, int K,
+                    cudaStream_t stream) {
+    HgProduct<LAYOUT, EPI> p;
+    const cudaError_t err = hg_product(p, A, W, bias, R, Z, out, out_z, M, N, K);
+    if (err != cudaSuccess) return err;
+    const HgShape& s = p.shape;
+    return hg_launch<hg_gemm_kernel<LAYOUT, EPI>>(s.n_tiles, stream, p.ta, p.tb, p.epi, s.rows,
+                                                  s.cols, s.k_len, s.split, s.tiles_x,
+                                                  s.tiles_y, s.n_tiles);
+}
+
+// k-steps of one of a product's tiles (a TN chunk's, or the whole K).
+inline int hg_tile_steps(const HgShape& s) {
+    return ((s.split ? s.split : s.k_len) + HG_BK - 1) / HG_BK;
+}
+
+// The k-steps an epilogue adds to a tile's time, for hg_gemm_pair's lead:
+// GELU' reads a 64 KB fp32 tile of z and computes erf and exp per element,
+// about as long as 8 k-steps of products (measured at B7_tp's dz, where
+// leads 2-3 beat 4 and 1: PERF.md); the others store what they computed.
+template <int EPI>
+constexpr int hg_epilogue_steps() {
+    return EPI == EPI_DGELU ? 8 : 0;
+}
+
+// p0 and p1 in one launch of hg_gemm_pair_kernel on the persistent grid:
+// min(both products' tiles, the blocks the device holds at once) blocks.
+// lead is how many of p1's tiles a block takes where p0's last round left it
+// free; 0: p0's tile time in p1's tiles, each a tile's k-steps plus its
+// epilogue's (hg_epilogue_steps), rounded, at least 1.
+template <int L0, int E0, int L1, int E1>
+cudaError_t hg_gemm_pair(const HgProduct<L0, E0>& p0, const HgProduct<L1, E1>& p1,
+                         cudaStream_t stream, int lead = 0) {
+    const int k0 = hg_tile_steps(p0.shape) + hg_epilogue_steps<E0>();
+    const int k1 = hg_tile_steps(p1.shape) + hg_epilogue_steps<E1>();
+    if (lead <= 0) lead = k1 > 0 ? max(1, (k0 + k1 / 2) / k1) : 1;
+    return hg_launch<hg_gemm_pair_kernel<L0, E0, L1, E1>>(
+        p0.shape.n_tiles + p1.shape.n_tiles, stream, p0.ta, p0.tb, p1.ta, p1.tb, p0.epi,
+        p1.epi, p0.shape, p1.shape, lead);
+}
+
+// The TN product of a weight gradient dW (rows, cols) = sum_m dY[m, :rows]^T
+// A[m, :cols] whose HG_TN_SPLITS partials sit at work + offset, chunk_stride
+// floats apart: two gradients' partials side by side, chunk by chunk, for
+// one in-order pass over both (block_kernels.cu's reduce_partials).
+cudaError_t hg_partials(HgProduct<TN, EPI_PARTIAL>& p, const void* dY, const void* A, int M,
+                        int rows, int cols, float* work, size_t offset, size_t chunk_stride) {
+    return hg_product(p, dY, A, nullptr, nullptr, nullptr, work + offset, nullptr, M, rows,
+                      cols, chunk_stride);
 }
 
 // dW (rows, cols) bf16 = sum_m dY[m, :rows]^T A[m, :cols] on the engine:

@@ -27,7 +27,10 @@ three-stage mbarrier ring, 128 x 128 tiles, two blocks an SM, the bias,
 residual, GELU and GELU' epilogues applied to the register fragments. The
 port uses the exact erf (``erff`` on the card, ``torch.erf`` here).
 ``engine_gemm`` runs one engine launch alone, for its tests; its plain
-version is ``engine_gemm_plain``.
+version is ``engine_gemm_plain``. ``engine_gemm_pair`` runs two products in
+one grouped launch (``hg_gemm_pair``: a TN weight gradient first, then
+another or an NN product), each tile as its own launch computes it;
+``engine_pair_schedule`` mirrors the tiles each block of it walks.
 
 Tensor-parallel modes (``parallel/tensor.py``): a model rank holds a hidden
 slice of the MLP, w1 (hid_r, C) and w2 (C, hid_r). ``fused_mlp_block_tp``
@@ -35,7 +38,10 @@ runs B6's chain on it with the LayerNorm and returns the fp32 partial
 product (no b2, no residual), ``fused_mlp_block_tp_bwd`` B7's chain up to
 the fp32 gradient at the LayerNorm's output, with the row statistics
 (plain twins ``mlp_block_tp_plain``, ``mlp_block_tp_bwd_plain``); the
-LayerNorm backward is ``ops.attention.fused_ln_bwd``.
+LayerNorm backward is ``ops.attention.fused_ln_bwd``. At a shard's widths
+a TN weight gradient fills under half the card, so B7_tp runs dW2 in one
+grouped launch with dz and dW1 with dh, and adds both gradients' partials
+in one in-order pass.
 
 The hidden activation is rounded to x's dtype before fc2, as the kernels
 round it. Weights use nn.Linear's layout: w1 (hidden, C), w2 (C, hidden).
@@ -279,7 +285,7 @@ def _launch_tp_bwd(x, g, ln_w, ln_b, w1, b1, w2) -> tuple:
                  dw1=bf(hidden, C), db1=bf(hidden), dw2=bf(C, hidden),
                  dh=f32(*x.shape), st=f32(*x.shape[:-1], 2), h=bf(M, C),
                  z=f32(M, hidden), a=bf(M, hidden), dz=bf(M, hidden),
-                 work=f32(lib.mbt_block_work_floats(hidden, C)))
+                 work=f32(lib.mbt_block_work_floats(2 * hidden, C)))
         rc = lib.mbt_mlp_block_tp_bwd(
             slot_pointers(MLP_TP_BWD_SLOTS, t), M, C, hidden,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -473,14 +479,10 @@ def _engine_library(M: int):
     return lib
 
 
-def engine_gemm(layout: str, epi: str, a, w, bias=None, r=None, z=None):
-    """One launch of the GEMM engine on a CUDA tensor (the plain version on
-    a CPU tensor), with ``engine_gemm_plain``'s arguments and results. a and
-    w are 2-D, contiguous, bf16 and 16-byte aligned; N and K multiples of
-    64; bias (N,) bf16, r (M, N) bf16 and z (M, N) fp32 where the epilogue
-    reads them."""
-    if device_kind(a, "GEMM engine") == "cpu":
-        return engine_gemm_plain(layout, epi, a, w, bias, r, z)
+def _engine_launch(layout: str, epi: str, a, w, bias=None, r=None, z=None):
+    """A launch's checked arguments and allocated outputs: ((M, N, K),
+    its outputs (out, out_z or None), its pointer list (A, W, bias, R, Z,
+    out, out_z))."""
     if (layout, epi) not in ENGINE_CASES:
         raise ValueError(f"the engine's test entry has no {layout}/{epi}")
     dev, bf16 = a.device, torch.bfloat16
@@ -506,7 +508,6 @@ def engine_gemm(layout: str, epi: str, a, w, bias=None, r=None, z=None):
                 raise ValueError(f"{epi} reads {name}")
             check_tensor(name, t, shape, dt, dev)
             check_aligned(name, t)
-    lib = _engine_library(M)
     with torch.cuda.device(dev):
         if layout == "TN":
             out = torch.empty((ENGINE_TN_SPLITS, rows_, cols),
@@ -516,15 +517,110 @@ def engine_gemm(layout: str, epi: str, a, w, bias=None, r=None, z=None):
                               if epi == "f32" else bf16)
         out_z = torch.empty(out_shape, dtype=torch.float32, device=dev) \
             if epi == "bias_gelu_z" else None
+    ptrs = [a.data_ptr(), w.data_ptr(), data_ptr(bias), data_ptr(r),
+            data_ptr(z), out.data_ptr(), data_ptr(out_z)]
+    return (M, N, K), (out, out_z), ptrs
+
+
+def _engine_result(epi: str, outs: tuple):
+    return outs if epi == "bias_gelu_z" else outs[0]
+
+
+def engine_gemm(layout: str, epi: str, a, w, bias=None, r=None, z=None):
+    """One launch of the GEMM engine on a CUDA tensor (the plain version on
+    a CPU tensor), with ``engine_gemm_plain``'s arguments and results. a and
+    w are 2-D, contiguous, bf16 and 16-byte aligned; N and K multiples of
+    64; bias (N,) bf16, r (M, N) bf16 and z (M, N) fp32 where the epilogue
+    reads them."""
+    if device_kind(a, "GEMM engine") == "cpu":
+        return engine_gemm_plain(layout, epi, a, w, bias, r, z)
+    (M, N, K), outs, ptrs = _engine_launch(layout, epi, a, w, bias, r, z)
+    lib = _engine_library(M)
+    with torch.cuda.device(a.device):
         rc = lib.mbt_hgemm_test(
-            ENGINE_LAYOUTS[layout], ENGINE_EPILOGUES[epi], a.data_ptr(),
-            w.data_ptr(), data_ptr(bias), data_ptr(r), data_ptr(z),
-            out.data_ptr(), data_ptr(out_z), M, N, K,
-            torch.cuda.current_stream(dev).cuda_stream)
+            ENGINE_LAYOUTS[layout], ENGINE_EPILOGUES[epi], *ptrs, M, N, K,
+            torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"GEMM engine launch failed with CUDA error {rc}")
     engine_gemm.launches += 1
-    return (out, out_z) if epi == "bias_gelu_z" else out
+    return _engine_result(epi, outs)
 
 
 engine_gemm.launches = 0
+
+# the pairs of (layout, epilogue) the engine's grouped launch takes: a TN
+# weight gradient first, then another or the NN product beside it
+ENGINE_PAIRS = ((("TN", "partial"), ("TN", "partial")),
+                (("TN", "partial"), ("NN", "dgelu")),
+                (("TN", "partial"), ("NN", "f32")))
+
+
+# the k-steps an epilogue adds to a tile's time (hopper_gemm.cuh's
+# hg_epilogue_steps): GELU' reads z and computes erf and exp per element
+ENGINE_EPILOGUE_STEPS = {"dgelu": 8}
+
+
+def engine_pair_lead(steps0: int, steps1: int, epi0: str = "partial",
+                     epi1: str = "partial") -> int:
+    """hg_gemm_pair's lead: product 0's tile time in product 1's tiles,
+    each a tile's k-steps plus its epilogue's, rounded, at least 1."""
+    k0 = steps0 + ENGINE_EPILOGUE_STEPS.get(epi0, 0)
+    k1 = steps1 + ENGINE_EPILOGUE_STEPS.get(epi1, 0)
+    return max(1, (k0 + k1 // 2) // k1) if k1 > 0 else 1
+
+
+def engine_pair_schedule(n0: int, n1: int, grid: int, lead: int) -> list:
+    """The tiles each block of hg_gemm_pair_kernel's grid walks, in its
+    order, as (product, tile): product 0's round robin; then, on the blocks
+    product 0's last round left free (b >= n0 % grid), ``lead`` of product
+    1's tiles each; then product 1's remaining tiles round robin."""
+    rem = n0 % grid
+    blocks = []
+    for b in range(grid):
+        tiles = [(0, t) for t in range(b, n0, grid)]
+        if b >= rem:
+            tiles += [(1, j) for j in (b - rem + i * (grid - rem)
+                                       for i in range(lead)) if j < n1]
+        tiles += [(1, j) for j in range(lead * (grid - rem) + b, n1, grid)]
+        blocks.append(tiles)
+    return blocks
+
+
+def engine_gemm_pair(first: tuple, second: tuple, lead: int = 0) -> tuple:
+    """Two products in one grouped launch of the engine
+    (``hg_gemm_pair``) on CUDA tensors, each given as ``engine_gemm``'s
+    arguments (layout, epi, a, w[, bias, r, z]) and returned as
+    ``engine_gemm`` returns it: each tile computed as its own launch
+    computes it; ``lead`` the second product's tiles a block takes where
+    the first's last round left it free (0: ``engine_pair_lead``'s rule).
+    The two plain versions on CPU tensors. Counted in
+    ``engine_gemm_pair.launches``."""
+    if device_kind(first[2], "GEMM engine") == "cpu":
+        return engine_gemm_plain(*first), engine_gemm_plain(*second)
+    if (tuple(first[:2]), tuple(second[:2])) not in ENGINE_PAIRS:
+        raise ValueError(f"the engine's grouped launch has no "
+                         f"{first[:2]} + {second[:2]}")
+    launches = [_engine_launch(*case) for case in (first, second)]
+    lib = _engine_library(launches[0][0][0])
+    if lib.mbt_hgemm_pair_test.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.mbt_hgemm_pair_test.argtypes = (
+            [i, i, ctypes.POINTER(vp)] + [i] * 3) * 2 + [i, vp]
+        lib.mbt_hgemm_pair_test.restype = i
+    args = []
+    for case, (shape, _, ptrs) in zip((first, second), launches):
+        args += [ENGINE_LAYOUTS[case[0]], ENGINE_EPILOGUES[case[1]],
+                 (ctypes.c_void_p * 7)(*ptrs), *shape]
+    dev = first[2].device
+    with torch.cuda.device(dev):
+        rc = lib.mbt_hgemm_pair_test(
+            *args, int(lead), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped GEMM engine launch failed with CUDA "
+                           f"error {rc}")
+    engine_gemm_pair.launches += 1
+    return tuple(_engine_result(case[1], outs)
+                 for case, (_, outs, _) in zip((first, second), launches))
+
+
+engine_gemm_pair.launches = 0

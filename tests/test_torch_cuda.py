@@ -1648,6 +1648,27 @@ def test_tp_kernels_at_one_rank_are_the_block_chains_bitwise(cuda, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 3])
+def test_tp_backwards_at_a_few_rows_match_their_twins(cuda, F):
+    """B5_tp and B7_tp at 17 and 51 token rows, fewer than the column
+    sums' 64 chunks: every output against its twin, twice for bitwise
+    repeatability (the chains' scratch holds at any row count)."""
+    x, ap, mp, H = _block_inputs(cuda, F=F)
+    g = _grad_out(cuda, x.shape)
+    (a_args, m_args), heads = _tp_shard(ap, mp, 2), H // 2
+    scale = (x.shape[-1] // H) ** -0.5
+    for wrapper, plain, args in (
+            (at.fused_attention_block_tp_bwd, at.attention_block_tp_bwd_plain,
+             (x, g, *a_args, heads, scale, "temporal")),
+            (mlp.fused_mlp_block_tp_bwd, mlp.mlp_block_tp_bwd_plain,
+             (x, g, *m_args))):
+        got, again, want = wrapper(*args), wrapper(*args), plain(*args)
+        for i, (a, b, w) in enumerate(zip(got, again, want)):
+            assert torch.equal(a, b), (wrapper, i)
+            assert _rel(a, w) <= TOL, (wrapper, i, _rel(a, w))
+
+
+@pytest.mark.cuda
 def test_tp_kernels_raise_on_misaligned_shards_and_never_fall_back(cuda):
     x, ap, mp, H = _block_inputs(cuda, F=3)
     g = _grad_out(cuda, x.shape)
@@ -1669,6 +1690,90 @@ def test_tp_kernels_raise_on_misaligned_shards_and_never_fall_back(cuda):
     with pytest.raises(ValueError, match="head dim"):
         at.fused_attention_block_tp(x, *a_args, 3, 0.125, "temporal")
     assert [c.launches for c in _tp_counters()] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [243, 81])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("H,D", [(1, 64), (2, 64), (4, 64), (8, 64), (8, 32)])
+def test_split_core_backward_is_the_one_launch_core_bitwise(cuda, H, D, B, F):
+    """B5_tp's core backward with attn, split into its query-major and
+    key-major launches, against the one-launch backward (with attn, and the
+    B3 / B5 kernel without it) and the forward core, temporal groups of 243
+    and 81 frames: dq, dk, dv in fp32 and bf16 and attn, bit for bit; one
+    launch of the wrapper each."""
+    rs = np.random.RandomState(B * F + H)
+    q, k, v, g = (torch.from_numpy(rs.normal(size=(B, F, 17, H * D)).astype(
+        np.float32)).to(device=cuda, dtype=torch.bfloat16) for _ in range(4))
+    scale = D ** -0.5
+    before = at.attention_core_bwd_attn.launches
+    split = at.attention_core_bwd_attn(q, k, v, g, "temporal", H, scale, True)
+    one = at.attention_core_bwd_attn(q, k, v, g, "temporal", H, scale, False)
+    torch.cuda.synchronize()
+    assert at.attention_core_bwd_attn.launches == before + 2
+    for i, (a, b) in enumerate(zip(split[:7], one[:7])):
+        assert torch.equal(a, b), i
+    for a, b in zip(split[:3], fp.attention_core_bwd(q, k, v, g, "temporal",
+                                                     H, scale)):
+        assert torch.equal(a, b)
+    assert torch.equal(split[3], fp.attention_core(q, k, v, "temporal", H,
+                                                   scale))
+    for a, b in zip(split[:3], split[4:7]):
+        assert torch.equal(a, b.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,n", [("spatial", 17), ("temporal", 16),
+                                    ("temporal", 27)])
+def test_backward_attn_is_the_forward_cores_bitwise(cuda, mode, n):
+    """The one-launch backward with attn (spatial, the mesh's 16 frames and
+    4 key tiles) writes attn_tc_fwd_kernel's attn and the flag-off
+    kernel's dq, dk, dv, bit for bit; its split is refused outside 65..256
+    rows."""
+    rs = np.random.RandomState(n)
+    q, k, v, g = (torch.from_numpy(rs.normal(size=(2, n if mode == "temporal"
+                                                   else 7, 17, 512)).astype(
+        np.float32)).to(device=cuda, dtype=torch.bfloat16) for _ in range(4))
+    scale = 64 ** -0.5
+    got = at.attention_core_bwd_attn(q, k, v, g, mode, 8, scale, False)
+    assert torch.equal(got[3], fp.attention_core(q, k, v, mode, 8, scale))
+    for a, b in zip(got[:3], fp.attention_core_bwd(q, k, v, g, mode, 8,
+                                                   scale)):
+        assert torch.equal(a, b)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        at.attention_core_bwd_attn(q, k, v, g, mode, 8, scale, True)
+
+
+# the grouped engine launches at 16524 rows: B5_tp's and B7_tp's at shards
+# of 2 (Ci 256, hidden slice 512) and B3's widths (C 512, hidden 1024)
+PAIR_PRODUCTS = [
+    (("TN", "partial", 1536 // 2, 512), ("TN", "partial", 512, 512 // 2)),
+    (("TN", "partial", 512, 512), ("NN", "dgelu", 512, 512)),
+    (("TN", "partial", 512, 512), ("NN", "f32", 512, 512)),
+    (("TN", "partial", 1536, 512), ("TN", "partial", 512, 512)),
+    (("TN", "partial", 512, 1024), ("NN", "dgelu", 1024, 512)),
+    (("TN", "partial", 1024, 512), ("NN", "f32", 512, 1024))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first,second", PAIR_PRODUCTS)
+def test_grouped_engine_launch_is_its_two_launches_bitwise(cuda, first,
+                                                           second):
+    """hg_gemm_pair: two products in one launch, each output bit for bit
+    its own engine launch's, twice; one launch counted."""
+    M = 16524
+    cases = []
+    for i, (layout, epi, N, K) in enumerate((first, second)):
+        a, w, _, _, z = _engine_operands(cuda, layout, M, N, K,
+                                         seed=N + K + i)
+        cases.append((layout, epi, a, w, None, None,
+                      z if epi == "dgelu" else None))
+    before = mlp.engine_gemm_pair.launches
+    got = mlp.engine_gemm_pair(*cases)
+    again = mlp.engine_gemm_pair(*cases)
+    assert mlp.engine_gemm_pair.launches == before + 2
+    for a, b, case in zip(got, again, cases):
+        assert torch.equal(a, b) and torch.equal(a, mlp.engine_gemm(*case))
 
 
 @pytest.mark.cuda

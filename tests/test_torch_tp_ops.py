@@ -347,8 +347,9 @@ def _body(code: str, signature: str) -> str:
 
 def _launches(body: str) -> list:
     found = re.findall(
-        r"(hg_gemm<\w+, \w+>|hg_weight_grad|column_sum<\w+>|"
-        r"launch_ln_fwd_rows|launch_ln_bwd)\(|"
+        r"(hg_gemm<\w+, \w+>|hg_gemm_pair<\w+, \w+, \w+, \w+>|"
+        r"hg_weight_grad2|hg_weight_grad|reduce_partials|column_sum<\w+>|"
+        r"launch_ln_fwd_rows|launch_ln_bwd|launch_attention_tc_bwd_attn)\(|"
         r"(launch_attention_tc)\(core, (true|false)", body)
     return [a or f"{b}/{'bwd' if c == 'true' else 'fwd'}"
             for a, b, c in found]
@@ -358,18 +359,21 @@ TP_CHAINS = {
     "int mbt_attention_block_tp(": [
         "launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS>",
         "launch_attention_tc/fwd", "hg_gemm<NT, EPI_F32>"],
+    # attn from the core's backward (no forward core), dWqkv and dWproj in
+    # one round and one in-order pass
     "int mbt_attention_block_tp_bwd(": [
-        "launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS>",
-        "launch_attention_tc/fwd", "hg_gemm<NN, EPI_BF16>", "hg_weight_grad",
-        "launch_attention_tc/bwd", "hg_weight_grad", "column_sum<COL_F32>",
-        "hg_gemm<NN, EPI_F32>"],
+        "launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS>", "hg_gemm<NN, EPI_BF16>",
+        "launch_attention_tc_bwd_attn", "column_sum<COL_F32>",
+        "hg_weight_grad2", "hg_gemm<NN, EPI_F32>"],
     "int mbt_mlp_block_tp(": [
         "launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS_GELU>",
         "hg_gemm<NT, EPI_F32>"],
+    # each TN round beside the NN product that reads its operand, one
+    # in-order pass over both weight gradients' partials
     "int mbt_mlp_block_tp_bwd(": [
         "launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS_GELU_Z>",
-        "hg_weight_grad", "hg_gemm<NN, EPI_DGELU>", "hg_weight_grad",
-        "column_sum<COL_BF16>", "hg_gemm<NN, EPI_F32>"],
+        "hg_gemm_pair<TN, EPI_PARTIAL, NN, EPI_DGELU>", "column_sum<COL_BF16>",
+        "hg_gemm_pair<TN, EPI_PARTIAL, NN, EPI_F32>", "reduce_partials"],
     "int mbt_ln_bwd(": ["launch_ln_bwd"],
 }
 # the wrapper each TP chain is launched by
@@ -379,9 +383,16 @@ TP_WRAPPERS = {"int mbt_attention_block_tp(": "fused_attention_block_tp",
                "int mbt_mlp_block_tp(": "fused_mlp_block_tp",
                "int mbt_mlp_block_tp_bwd(": "fused_mlp_block_tp_bwd",
                "int mbt_ln_bwd(": "fused_ln_bwd"}
-# device records of each launcher: a weight gradient, a column sum and the
-# LayerNorm backward are fixed-chunk partials and an in-order pass
-LAUNCH_RECORDS = {"hg_weight_grad": 2, "column_sum": 2, "launch_ln_bwd": 2}
+# device records of each launcher: a weight gradient (or a pair of them),
+# a column sum and the LayerNorm backward are fixed-chunk partials and an
+# in-order pass; the core's backward with attn is the split's two launches
+# on 243-frame groups (chip_smoke's FRAMES) and one on a frame's joints
+LAUNCH_RECORDS = {"hg_weight_grad": 2, "hg_weight_grad2": 2, "column_sum": 2,
+                  "launch_ln_bwd": 2,
+                  "launch_attention_tc_bwd_attn": {"temporal": 2,
+                                                   "spatial": 1}}
+TP_RECORD_CASES = [(signature, mode) for signature in sorted(TP_CHAINS)
+                   for mode in chip_smoke.TP_RECORDS[TP_WRAPPERS[signature]]]
 
 
 @pytest.mark.parametrize("signature", sorted(TP_CHAINS))
@@ -392,14 +403,18 @@ def test_tp_chains_launch_what_their_mirrors_mirror(signature):
     assert _launches(_body(_code(), signature)) == TP_CHAINS[signature]
 
 
-@pytest.mark.parametrize("signature", sorted(TP_CHAINS))
-def test_tp_records_count_the_chain_launches(signature):
-    """chip_smoke's device-record counts of one TP call (TP_RECORDS, which
-    phase 30 holds each call's profile to) are its chain's launches in the
-    source."""
-    want = sum(LAUNCH_RECORDS.get(launch.split("<")[0].split("/")[0], 1)
-               for launch in _launches(_body(_code(), signature)))
-    assert chip_smoke.TP_RECORDS[TP_WRAPPERS[signature]] == want
+@pytest.mark.parametrize("signature,mode", TP_RECORD_CASES)
+def test_tp_records_count_the_chain_launches(signature, mode):
+    """chip_smoke's device-record counts of one TP call in each mode
+    (TP_RECORDS, which phase 30 holds each call's profile to) are its
+    chain's launches in the source; phase 30's FRAMES are 243, where the
+    core's backward splits."""
+    want = 0
+    for launch in _launches(_body(_code(), signature)):
+        n = LAUNCH_RECORDS.get(launch.split("<")[0].split("/")[0], 1)
+        want += n[mode] if isinstance(n, dict) else n
+    assert chip_smoke.FRAMES == at.MAX_FRAMES
+    assert chip_smoke.TP_RECORDS[TP_WRAPPERS[signature]][mode] == want
 
 
 def _tp_args(T: int, dtype=torch.bfloat16) -> dict:
@@ -430,14 +445,20 @@ def test_tp_attention_chains_mirror_the_twins(mode, T):
             heads, scale, mode)
     assert torch.equal(out.reshape(t["x"].shape),
                        at.attention_block_tp_plain(*args))
-    # backward: the same recompute, then the chain's products
+    # backward: the same recompute up to qkv, dattn, the core's backward
+    # halves with attn (the forward core's output, bit for bit), the weight
+    # gradients' partials, dh
     stats = at.ln_row_stats(x2)
-    dattn = engine_gemm_plain("NN", "bf16", g2, t["wproj"])
-    dwproj = engine_gemm_plain("TN", "partial", g2, attn).sum(0)
-    dq, dk, dv = at.st_attention_bwd_plain(q, k, v, dattn.reshape(B, F, J, ci),
-                                           mode, heads, scale)
+    dattn = engine_gemm_plain("NN", "bf16", g2, t["wproj"]).reshape(
+        B, F, J, ci)
+    dq, attn_b, core_st = at.st_attention_bwd_query_plain(q, k, v, dattn, mode,
+                                                          heads, scale)
+    dk, dv = at.st_attention_bwd_key_plain(q, k, v, dattn, core_st, mode,
+                                           heads, scale)
+    assert torch.equal(attn_b.reshape(-1, ci), attn)
     dqkvb = torch.cat([dq, dk, dv], -1).reshape(-1, 3 * ci)
     dwqkv = engine_gemm_plain("TN", "partial", dqkvb, h).sum(0)
+    dwproj = engine_gemm_plain("TN", "partial", g2, attn).sum(0)
     dh = engine_gemm_plain("NN", "f32", dqkvb, t["wqkv"])
     got = at.attention_block_tp_bwd_plain(args[0], t["g"], *args[1:])
     assert torch.equal(got[3], dh.reshape(t["x"].shape))
@@ -480,6 +501,133 @@ def test_tp_mlp_chains_mirror_the_twins(T):
     _rel_close(dln_w.numpy(), (got[3] * xhat).sum((0, 1, 2)).numpy(), 1e-6,
                "dln_w")
     assert dx.dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# B5_tp's core backward with attn, split into its query-major and key-major
+# halves (csrc/attention_tc.cuh), and the engine's grouped launch
+# (csrc/hopper_gemm.cuh hg_gemm_pair)
+# ---------------------------------------------------------------------------
+
+def _core(frames: int, mode: str, dtype, heads: int = 2, width: int = 128):
+    """q, k, v and the output gradient (1, frames, J, width), seeded."""
+    rs = np.random.RandomState(frames)
+    return [_t(rs.normal(size=(1, frames, J, width)).astype(np.float32),
+               dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("mode,frames", [("temporal", 81), ("temporal", 243),
+                                         ("spatial", 81)])
+def test_split_core_halves_are_the_plain_core_bitwise(mode, frames):
+    """bf16: the query-major half's dq and the key-major half's dk and dv,
+    from the query-major half's row statistics, are st_attention_bwd_plain's
+    bit for bit, and the query-major half's attn is st_attention_plain's;
+    the statistics are (B, groups, heads, 3, N), D = rowsum(dP * P) last;
+    attention_core_bwd_attn on a CPU tensor is the two halves."""
+    q, k, v, g = _core(frames, mode, torch.bfloat16)
+    heads, scale = 2, 64 ** -0.5
+    dq, attn, stats = at.st_attention_bwd_query_plain(q, k, v, g, mode, heads,
+                                                      scale)
+    dk, dv = at.st_attention_bwd_key_plain(q, k, v, g, stats, mode, heads,
+                                           scale)
+    for got, want in zip((dq, dk, dv), at.st_attention_bwd_plain(
+            q, k, v, g, mode, heads, scale)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(attn, at.st_attention_plain(q, k, v, mode, heads,
+                                                   scale))
+    groups, n = (J, frames) if mode == "temporal" else (frames, J)
+    assert stats.shape == (1, groups, heads, 3, n)
+    assert stats.dtype == torch.float32
+    got = at.attention_core_bwd_attn(q, k, v, g, mode, heads, scale, True)
+    for a, b in zip(got, (dq, dk, dv, attn, None, None, None, stats)):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode,frames", [("temporal", 81), ("temporal", 243),
+                                         ("spatial", 81)])
+def test_split_core_halves_match_jax_vjp(mode, frames):
+    """fp32: the halves' dq, dk, dv against jax.vjp of the JAX package's
+    XLA core (``_attention_xla``) for the same output gradient, BWD_TOL of
+    max|reference|, and attn against that core's output, FWD_TOL (the same
+    math, sums in another order); the statistics' D against the analytic
+    rowsum(dP * P) from the JAX core's softmax."""
+    q, k, v, g = _core(frames, mode, torch.float32)
+    heads, scale = 2, 64 ** -0.5
+    dq, attn, stats = at.st_attention_bwd_query_plain(q, k, v, g, mode, heads,
+                                                      scale)
+    dk, dv = at.st_attention_bwd_key_plain(q, k, v, g, stats, mode, heads,
+                                           scale)
+    jq, jk, jv, jg = (jnp.asarray(t.numpy()) for t in (q, k, v, g))
+    out, vjp = jax.vjp(lambda a, b, c: jat._attention_xla(a, b, c, heads,
+                                                          scale, mode),
+                       jq, jk, jv)
+    _rel_close(attn.numpy(), out, FWD_TOL, "attn")
+    for name, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), vjp(jg)):
+        _rel_close(a.numpy(), w, BWD_TOL, name)
+    qh, kh, vh, gh = (at.to_groups(t, mode, heads) for t in (q, k, v, g))
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, -1)
+    d = (torch.matmul(gh, vh.transpose(-1, -2)) * p).sum(-1)
+    _rel_close(stats[..., 2, :].numpy(), d.numpy(), 1e-6, "D")
+
+
+def _engine_case(rs, layout, epi, M, N, K):
+    """engine_gemm's arguments of one product, seeded, bf16 (fp32 z)."""
+    def bf(*shape):
+        return _t(rs.normal(size=shape).astype(np.float32), torch.bfloat16)
+    a = bf(M, N) if layout == "TN" else bf(M, K)
+    w = bf(M, K) if layout == "TN" else bf(K, N)
+    z = _t(rs.normal(size=(M, N)).astype(np.float32)) \
+        if epi == "dgelu" else None
+    return (layout, epi, a, w, None, None, z)
+
+
+@pytest.mark.parametrize("pair", mlp.ENGINE_PAIRS)
+def test_engine_pair_on_the_cpu_is_its_two_plain_products(pair):
+    """engine_gemm_pair on CPU tensors returns each product's
+    engine_gemm_plain, bit for bit, at 300 rows (not a multiple of a
+    tile or of the TN chunks' k-step)."""
+    rs = np.random.RandomState(5)
+    cases = [_engine_case(rs, *case, 300, 128, 192) for case in pair]
+    got = mlp.engine_gemm_pair(*cases)
+    for a, case in zip(got, cases):
+        assert torch.equal(a, engine_gemm_plain(*case))
+
+
+# (product 0's tiles, k-steps a tile and epilogue, product 1's, the grid,
+# the lead hg_gemm_pair picks): B5_tp's dWqkv + dWproj, B7_tp's dW2 + dz
+# and dW1 + dh at phase 30's shards (16524 rows, Ci 256, hidden slice 512,
+# 264 resident blocks), B3's dW2 + dz and dW1 + dh (C 512, hidden 1024), a
+# product 0 longer than the grid, and a grid smaller than the products
+PAIR_SHAPES = [((192, 33, "partial"), (64, 33, "partial"), 256, 1),
+               ((128, 33, "partial"), (520, 8, "dgelu"), 264, 2),
+               ((128, 33, "partial"), (520, 8, "f32"), 264, 4),
+               ((256, 33, "partial"), (1040, 8, "dgelu"), 264, 2),
+               ((256, 33, "partial"), (520, 16, "f32"), 264, 2),
+               ((600, 5, "partial"), (100, 9, "f32"), 264, 1),
+               ((1, 33, "partial"), (3, 8, "f32"), 4, 4)]
+
+
+@pytest.mark.parametrize("first,second,grid,lead", PAIR_SHAPES)
+def test_engine_pair_schedule_takes_every_tile_once(first, second, grid,
+                                                    lead):
+    """hg_gemm_pair_kernel's walk (engine_pair_schedule) at the lead
+    hg_gemm_pair's rule picks (engine_pair_lead: the tiles' k-steps, GELU'
+    counted 8 more): every tile of both products exactly once, each block's
+    product-0 tiles before its product-1 tiles, and a makespan, in k-steps
+    with the epilogues', no longer than the two products launched one
+    after the other."""
+    (n0, k0, e0), (n1, k1, e1) = first, second
+    assert mlp.engine_pair_lead(k0, k1, e0, e1) == lead
+    blocks = mlp.engine_pair_schedule(n0, n1, grid, lead)
+    tiles = [t for b in blocks for t in b]
+    assert sorted(tiles) == [(0, t) for t in range(n0)] + \
+        [(1, j) for j in range(n1)]
+    assert all(b == sorted(b) for b in blocks)
+    cost = {p: k + mlp.ENGINE_EPILOGUE_STEPS.get(e, 0)
+            for p, (k, e) in enumerate(((k0, e0), (k1, e1)))}
+    grouped = max(sum(cost[p] for p, _ in b) for b in blocks)
+    rounds = lambda n, k: -(-n // grid) * k
+    assert grouped <= rounds(n0, cost[0]) + rounds(n1, cost[1])
 
 
 # ---------------------------------------------------------------------------
