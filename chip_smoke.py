@@ -186,7 +186,10 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      rank 0's shards of 2 (Ci 256, 4 local heads, hidden slice 512) against
      their plain twins (phase 16/17's bars), twice for bitwise
      repeatability, with times (one call, back to back, device), bound,
-     the plain twin's time and a library yardstick on the same shards;
+     the plain twin's time and a library yardstick on the same shards; a
+     call's profile must hold its chain's records and kernels (B4_tp its
+     LayerNorm-in-product qkv, the split forward core on 243 frames and no
+     row pass), and the forward and backward cores' grids;
      (b) phase 8's flagship with the anchor weights on a 1 x 2 grid (two
      ranks, gloo, cuda:0), batch 2 x 243: the flip-TTA lift against world
      size 1's kernels (largest difference, share of elements that differ),
@@ -266,7 +269,9 @@ time by kernel beside; holds B9, B10 W8A8 and B9_tp (phase 31 (a)'s
 inputs) to the other build's outputs bit for bit and times B9_tp in turns
 too (an other checkout without the column-quantiser kernels quantises its
 weights with PyTorch's operators, as it did, and runs its own B9_tp
-entries); runs phase 8's train steps and phase 18's
+entries); with --phases tp instead, builds only that checkout's
+block library and holds B4_tp-B7_tp (phase 30 (a)'s inputs) to it bit for
+bit and times them in turns; runs phase 8's train steps and phase 18's
 drop-path steps in turns with the other build's pair or block library
 swapped in, then profiles one step of each; and times phase 4's lift and
 phase 11's W8A8 lift in turns the same way. The in-turn times join the
@@ -799,7 +804,9 @@ COL_QUANT_KERNELS = ("quant_cols_kernel", "col_amax_kernel",
 # (with the retired ones, which another checkout's build, under --baseline,
 # may still run)
 PROFILE_GROUPS = ("hg_gemm_kernel", "hg_gemm_s8_kernel", "hg_gemm_pair_kernel",
-                  "attn_tc_fwd_kernel", "attn_tc_bwd_kernel",
+                  "hg_ln_kernel",
+                  "attn_tc_fwd_kernel", "attn_tc_fwd_query_kernel",
+                  "attn_tc_bwd_kernel",
                   "attn_tc_bwd_query_kernel", "attn_tc_bwd_key_kernel",
                   "gemm_q8_kernel",
                   "dequant_ln_quant_rows_kernel", "ln_quant_rows_kernel",
@@ -2202,7 +2209,9 @@ MLP_FLAGS = ((False, False), (True, True))
 # tensor-core core, the LayerNorm forward rows and one-pass backward, the
 # bias column sums, the in-order passes, and PyTorch's fills (the zero
 # LayerNorm gradients without use_ln)
-BLOCK_KERNELS = ("hg_gemm_kernel", "hg_gemm_pair_kernel", "attn_tc_fwd_kernel",
+BLOCK_KERNELS = ("hg_gemm_kernel", "hg_gemm_pair_kernel", "hg_ln_kernel",
+                 "attn_tc_fwd_kernel",
+                 "attn_tc_fwd_query_kernel",
                  "attn_tc_bwd_kernel", "attn_tc_bwd_query_kernel",
                  "attn_tc_bwd_key_kernel", "ln_fwd_rows_kernel",
                  "ln_bwd_fused_kernel", "colsum_chunks_kernel",
@@ -4745,21 +4754,24 @@ TP_REPLACES = {
     "fused_ln_bwd": "motionbert_tpu/ops/attention.py:416",
 }
 # device records of one call by mode, from the chains in
-# csrc/block_kernels.cu at FRAMES frames (a weight gradient pair and a column
-# sum are two each; B5_tp's core backward is two launches on 243-frame
-# groups, one on a frame's joints; tests/test_torch_tp_ops.py reads the
-# chains)
-TP_RECORDS = {"fused_attention_block_tp": {"temporal": 4, "spatial": 4},
+# csrc/block_kernels.cu at FRAMES frames and the shard widths (a weight
+# gradient pair and a column sum are two each; B5_tp's core backward is two
+# launches on 243-frame groups, one on a frame's joints; B4_tp's LayerNorm
+# rides its qkv product and its core is one launch either way;
+# tests/test_torch_tp_ops.py reads the chains)
+TP_RECORDS = {"fused_attention_block_tp": {"temporal": 3, "spatial": 3},
               "fused_attention_block_tp_bwd": {"temporal": 10, "spatial": 9},
               "fused_mlp_block_tp": {"tokens": 3},
               "fused_mlp_block_tp_bwd": {"tokens": 7},
               "fused_ln_bwd": {"tokens": 2}}
 # the kernels a TP call's profile must hold, by mode, and those it must not
 TP_NEEDED = {
-    "fused_attention_block_tp": {"temporal": ["hg_gemm_kernel",
-                                              "attn_tc_fwd_kernel"],
-                                 "spatial": ["hg_gemm_kernel",
-                                             "attn_tc_fwd_kernel"]},
+    "fused_attention_block_tp": {"temporal": ["hg_ln_kernel",
+                                              "attn_tc_fwd_query_kernel",
+                                              "hg_gemm_kernel"],
+                                 "spatial": ["hg_ln_kernel",
+                                             "attn_tc_fwd_kernel",
+                                             "hg_gemm_kernel"]},
     "fused_attention_block_tp_bwd": {
         "temporal": ["hg_gemm_kernel", "hg_gemm_pair_kernel",
                      "attn_tc_bwd_query_kernel", "attn_tc_bwd_key_kernel"],
@@ -4769,7 +4781,11 @@ TP_NEEDED = {
     "fused_mlp_block_tp_bwd": {"tokens": ["hg_gemm_kernel",
                                           "hg_gemm_pair_kernel"]},
     "fused_ln_bwd": {"tokens": ["ln_bwd_fused_kernel", "chunk_sum_kernel"]}}
-TP_BARRED = {"fused_attention_block_tp_bwd": ["attn_tc_fwd_kernel"]}
+TP_BARRED = {"fused_attention_block_tp_bwd": ["attn_tc_fwd_kernel"],
+             # no row pass, and on 243-frame groups no one-launch core
+             "fused_attention_block_tp": ["ln_fwd_rows_kernel",
+                                          "attn_tc_fwd_kernel<64, 16>",
+                                          "attn_tc_fwd_kernel<32, 16>"]}
 
 
 def tp_counters() -> tuple:
@@ -4923,11 +4939,12 @@ def tp_kernel_case(name: str, wrapper, plain, args: tuple, mode: str,
         mbytes=nbytes / 1e6)
     if name == "fused_ln_bwd":
         rec["l2_ms"] = l2_protocol_ms({"kernel": call, "library": library})
-    if name == "fused_attention_block_tp_bwd":
+    if name in ("fused_attention_block_tp", "fused_attention_block_tp_bwd"):
         from motionbert_tpu_torch.ops import attention as at
 
-        rec["core_grid"] = at.attn_tp_bwd_core_grid(args[0].shape, heads,
-                                                    C // HEADS, mode)
+        grid = at.attn_tp_bwd_core_grid if name.endswith("_bwd") \
+            else at.attn_tp_fwd_core_grid
+        rec["core_grid"] = grid(args[0].shape, heads, C // HEADS, mode)
     log(f"tp (a) kernel {name}/{mode} (shards of {TP_T}): " + json.dumps(rec))
     return rec
 
@@ -6186,6 +6203,76 @@ def other_constant(root: str, module: str, name: str):
     fail(f"baseline: {module} of {root} has no {name}")
 
 
+def baseline_tp_forwards(other_block, results: dict) -> dict:
+    """B4_tp (both modes) and B6_tp at phase 30's shard shapes, this build
+    against the other's: the fp32 partials bit for bit (into results), and
+    timed in turns (other, this, this, other). The other calls take the
+    scratch the earlier chains need (the LayerNorm rows in B4_tp's attn,
+    hid and h for B6_tp), allocated here. Returns {name/mode: turns}."""
+    from motionbert_tpu_torch.ops import attention as at
+    from motionbert_tpu_torch.ops import fused_mlp as mlp
+
+    dev = torch.device("cuda")
+    scale, heads = (C // HEADS) ** -0.5, HEADS // TP_T
+    M, stream = B * FRAMES * J, lambda: torch.cuda.current_stream().cuda_stream
+    out = {}
+
+    def empty(n, dtype=torch.bfloat16):
+        return torch.empty(n, dtype=dtype, device=dev)
+
+    def held(name, mode, call, other_call, theirs):
+        ours = call()
+        other_call()
+        torch.cuda.synchronize()
+        results[f"{name}/{mode}"] = torch.equal(ours, theirs)
+        out[f"{name}/{mode}"] = in_turns(call, TP_RECORDS[name][mode],
+                                         "block_kernels", other_block,
+                                         other_call)
+        log(f"baseline: {name}/{mode} (shards of {TP_T}): bit for bit the "
+            f"other build's {results[f'{name}/{mode}']}; in turns "
+            + json.dumps(out[f"{name}/{mode}"]))
+
+    for mode in ("temporal", "spatial"):
+        p = tp_shards(pair_inputs(30 if mode == "temporal" else 31, False,
+                                  dev))
+        x = p["x"]
+        w = (p["ln1_w"], p["ln1_b"], p["wqkv"], p["bqkv"], p["wproj"])
+        ci = p["wqkv"].shape[0] // 3
+        qkv, attn = empty(M * 3 * ci), empty(M * max(C, ci))
+        theirs = empty(x.shape, torch.float32)
+
+        def other_call():
+            rc = other_block.mbt_attention_block_tp(
+                x.data_ptr(), theirs.data_ptr(), qkv.data_ptr(),
+                attn.data_ptr(), *(t.data_ptr() for t in w), B, FRAMES, J, C,
+                ci, heads, scale, int(mode == "temporal"), stream())
+            if rc != 0:
+                fail(f"baseline: the other build's B4_tp returned {rc}")
+
+        held("fused_attention_block_tp", mode,
+             lambda: at.fused_attention_block_tp(x, *w, heads, scale, mode),
+             other_call, theirs)
+        del p, x, w, qkv, attn, theirs
+    p = tp_shards(pair_inputs(30, False, dev))
+    x = p["x"]
+    m = (p["ln2_w"], p["ln2_b"], p["w1"], p["b1"], p["w2"])
+    hl = p["w1"].shape[0]
+    hid, theirs = empty(M * (hl + C)), empty(x.shape, torch.float32)
+
+    def other_mlp():
+        rc = other_block.mbt_mlp_block_tp(
+            x.data_ptr(), theirs.data_ptr(), hid.data_ptr(),
+            *(t.data_ptr() for t in m), M, C, hl, stream())
+        if rc != 0:
+            fail(f"baseline: the other build's B6_tp returned {rc}")
+
+    held("fused_mlp_block_tp", "tokens", lambda: mlp.fused_mlp_block_tp(x, *m),
+         other_mlp, theirs)
+    del p, x, m, hid, theirs
+    torch.cuda.empty_cache()
+    return out
+
+
 def baseline_tp_blocks(other_block, other_root: str, results: dict) -> dict:
     """B5_tp (both modes) and B7_tp at phase 30's shard shapes, this build
     against the other's: every output bit for bit (into results), and both
@@ -6193,19 +6280,19 @@ def baseline_tp_blocks(other_block, other_root: str, results: dict) -> dict:
     other checkout's pointer slots (read from its source; its scratch is a
     subset of this build's, sized here for both), B7_tp's runs this build's
     wrapper on the other library, whose slots are the same. Returns
-    {name/mode: turns}."""
+    {name/mode: turns}, with baseline_tp_forwards' (B4_tp, B6_tp)."""
     from motionbert_tpu_torch.ops import attention as at
     from motionbert_tpu_torch.ops import fused_mlp as mlp
 
     at.block_library()
     mlp._library()
     at.bind_block_library(other_block)
+    out = baseline_tp_forwards(other_block, results)
     slots = other_constant(other_root, "attention.py", "ATTN_TP_BWD_SLOTS")
     dev = torch.device("cuda")
     scale, heads = (C // HEADS) ** -0.5, HEADS // TP_T
     g = pair_inputs(5, False, dev)["x"]
     names = ("dwqkv", "dbqkv", "dwproj", "dh", "st")
-    out = {}
     for mode in ("temporal", "spatial"):
         p = tp_shards(pair_inputs(30 if mode == "temporal" else 31, False,
                                   dev))
@@ -6262,14 +6349,14 @@ def baseline_tp_blocks(other_block, other_root: str, results: dict) -> dict:
 
 def phase_baseline_tp(other_root: str) -> dict:
     """--phases tp's baseline: another checkout's block library built with
-    this one's nvcc flags, and B5_tp and B7_tp held to it bit for bit and
-    timed against it in turns (baseline_tp_blocks)."""
+    this one's nvcc flags, and B4_tp-B7_tp held to it bit for bit and timed
+    against it in turns (baseline_tp_blocks)."""
     csrc = os.path.join(other_root, "motionbert_tpu_torch", "ops", "csrc")
     with tempfile.TemporaryDirectory() as tmp:
         results = {}
         turns = baseline_tp_blocks(build_other(csrc, "block_kernels", tmp),
                                    other_root, results)
-        log(f"baseline ({other_root}): B5_tp and B7_tp bit for bit the other "
+        log(f"baseline ({other_root}): B4_tp-B7_tp bit for bit the other "
             f"build's: {json.dumps(results)}")
         if not all(results.values()):
             fail(f"baseline: outputs differ: {results}")
@@ -6945,8 +7032,8 @@ def main() -> int:
                              "2 and 20-23; mesh: only phases 1, 2 and 24-27; "
                              "dist: only phases 1, 2 and 28; render: only "
                              "phases 1, 2 and 29; tp: only phases 1, 2 and "
-                             "30; tp2: only phases 1, 2 and 31; none of them "
-                             "prints the last line")
+                             "30; tp2: only phases 1, 2 and 31; none of "
+                             "them prints the last line")
     parser.add_argument("--baseline", default=None, metavar="ROOT",
                         help="another checkout (the parent's, say): after the "
                              "build, hold this checkout's bf16 pairs and "
@@ -6987,7 +7074,8 @@ def main() -> int:
                                   r"attn_tc_bwd_kernel|hg_gemm_s8_kernel|"
                                   r"colsum_chunks_kernel|hg_gemm_pair_kernel|"
                                   r"attn_tc_bwd_query_kernel|"
-                                  r"attn_tc_bwd_key_kernel)"
+                                  r"attn_tc_bwd_key_kernel|hg_ln_kernel|"
+                                  r"attn_tc_fwd_query_kernel)"
                                   r"I((?:L[ib]\d+E)+)E", line)
                 kernel = "" if not found else f"{found[1]}<" + ", ".join(
                     re.findall(r"L[ib](\d+)E", found[2])) + ">: "

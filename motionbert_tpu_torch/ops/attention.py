@@ -63,7 +63,13 @@ query-major half (dq, attn and each row's max, reciprocal sum and D) and a
 key-major half (dk, dv), whose plain mirrors are
 ``st_attention_bwd_query_plain`` and ``st_attention_bwd_key_plain`` and
 whose test entry is ``attention_core_bwd_attn``; its two weight gradients
-run in one grouped launch of the engine.
+run in one grouped launch of the engine. B4_tp takes the LayerNorm inside
+its qkv product (``csrc/hopper_gemm.cuh`` ``hg_ln_gemm``: no h in device
+memory; twin ``fused_mlp.ln_engine_gemm_plain``) and on 243-frame groups a
+split forward core (64-row query slices, two blocks an SM;
+``st_attention_sliced_plain``, test entry ``attention_core_fwd``, grid
+``attn_tp_fwd_core_grid`` and its plan ``attn_tp_fwd_core_plan``): 3
+launches a call.
 
 The LayerNorm backward (``fused_ln_bwd``, and inside B3, B5 and B7) is one
 pass over the rows that writes dx and sums the parameter gradients into
@@ -487,6 +493,10 @@ def bind_block_library(lib: ctypes.CDLL) -> ctypes.CDLL:
             ("mbt_ln_bwd", [vp] * 9 + [i] * 2 + [vp]),
             ("mbt_attn_core_bwd_attn_test", [vp] * 12 + [i] * 5 + [f, i, i, vp]),
             ("mbt_attn_tp_bwd_core_grid", [i] * 6 + [ctypes.POINTER(i)]),
+            ("mbt_attn_tp_fwd_core_grid", [i] * 6 + [ctypes.POINTER(i)]),
+            ("mbt_attn_core_fwd_test", [vp] * 4 + [i] * 5 + [f, i, i, vp]),
+            ("mbt_ln_gemm_test", [vp] * 7 + [i] * 4 + [vp]),
+            ("mbt_ln_gemm_constant", [ctypes.c_char_p]),
             ("mbt_attention_bwd_slot_count", []),
             ("mbt_mlp_bwd_slot_count", []),
             ("mbt_attention_tp_bwd_slot_count", []),
@@ -495,8 +505,12 @@ def bind_block_library(lib: ctypes.CDLL) -> ctypes.CDLL:
         if fn is not None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    lib.mbt_block_work_floats.argtypes = [i, i]
-    lib.mbt_block_work_floats.restype = ctypes.c_longlong
+    for name, argtypes in (("mbt_block_work_floats", [i, i]),
+                           ("mbt_attention_block_tp_scratch", [i, i, i])):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -681,8 +695,10 @@ def _launch_tp(x, ln_w, ln_b, wqkv, bqkv, wproj, num_heads, scale,
     lib = block_library()
     with torch.cuda.device(x.device):
         qkv = torch.empty((M, 3 * Ci), dtype=x.dtype, device=x.device)
-        # the LayerNorm rows (M, C), then the core's output (M, Ci)
-        attn = torch.empty(M * max(C, Ci), dtype=x.dtype, device=x.device)
+        # the core's output (M, Ci); where the LayerNorm is a row pass, its
+        # rows (M, C) first
+        attn = torch.empty(lib.mbt_attention_block_tp_scratch(M, C, Ci),
+                           dtype=x.dtype, device=x.device)
         out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
         rc = lib.mbt_attention_block_tp(
             x.data_ptr(), out.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
@@ -1041,11 +1057,121 @@ def attn_tp_bwd_core_grid(x_shape, num_heads: int, head_dim: int,
         B, F, J, num_heads * head_dim, num_heads, int(mode == "temporal"), out)
     if rc != 0:
         raise RuntimeError(f"core grid query failed with CUDA error {rc}")
-    sms = out[5]
+    return _grid([(out[1 + 2 * i], out[2 + 2 * i]) for i in range(out[0])],
+                 out[5])
+
+
+# attention_tc.cuh's split kernels: blocks of TC_SLICE_WARPS warps of
+# TC_KEY_TILE query (or key) rows, on groups whose key tiles are 8 or 16
+# (65..256 rows), where the one-launch kernels are one item a block
+CORE_KEY_TILE = 16
+CORE_SLICE_ROWS = 4 * CORE_KEY_TILE
+
+
+def core_key_tiles(n: int) -> int:
+    """Key tiles of a group of n rows (attention_tc.cuh's tc_key_tiles): a
+    power of two, 0 outside 1..256."""
+    if not 1 <= n <= 256:
+        return 0
+    kt = 1
+    while kt * CORE_KEY_TILE < n:
+        kt *= 2
+    return kt
+
+
+def core_splits_forward(n: int) -> bool:
+    """Whether B4_tp's chain runs the split forward core on groups of n rows
+    (block_kernels.cu's tc_split_forward)."""
+    return core_key_tiles(n) in (8, 16)
+
+
+def st_attention_sliced_plain(q, k, v, mode: str, num_heads: int,
+                              scale: float) -> torch.Tensor:
+    """B4_tp's split forward core (``csrc/attention_tc.cuh``
+    ``attn_tc_fwd_query_kernel``) in plain PyTorch: each group's query rows
+    in slices of CORE_SLICE_ROWS against the group's keys whole, as the
+    kernel's blocks take them (groups of 65..256 rows; a smaller group is one
+    slice); bit for bit ``st_attention_plain``'s."""
+    qh, kh, vh = (wide(to_groups(t, mode, num_heads)) for t in (q, k, v))
+    n = qh.shape[-2]
+    step = CORE_SLICE_ROWS if core_splits_forward(n) else n
+    out = []
+    for r0 in range(0, n, step):
+        s = torch.matmul(qh[..., r0:r0 + step, :], kh.transpose(-1, -2)) * scale
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        out.append(torch.matmul(wide(p), vh).to(q.dtype))
+    return from_groups(torch.cat(out, -2), mode)
+
+
+def attention_core_fwd(q, k, v, mode: str, num_heads: int, scale: float,
+                       split: bool) -> torch.Tensor:
+    """B4_tp's forward core alone on (B, F, J, C) q, k, v: on CUDA tensors
+    one call of ``mbt_attn_core_fwd_test``, with split the split forward
+    (groups of 65..256 rows), else the one-launch kernel, counted in
+    ``attention_core_fwd.launches``; on CPU tensors
+    ``st_attention_sliced_plain`` (split) or ``st_attention_plain``."""
+    if device_kind(q, "attention core") == "cpu":
+        plain = st_attention_sliced_plain if split else st_attention_plain
+        return plain(q, k, v, mode, num_heads, scale)
+    row_stride = check_st_attention_args(q, k, v, num_heads, mode)
+    B, F, J, C = q.shape
+    if row_stride != C:
+        raise ValueError("attention_core_fwd takes contiguous q, k, v")
+    lib = block_library()
+    with torch.cuda.device(q.device):
+        out = torch.empty_like(q)
+        rc = lib.mbt_attn_core_fwd_test(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, F, J,
+            C, num_heads, float(scale), int(mode == "temporal"), int(split),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tensor-core attention forward launch failed with "
+                           f"CUDA error {rc}")
+    attention_core_fwd.launches += 1
+    return out
+
+
+attention_core_fwd.launches = 0
+
+
+def _grid(launches: list, sms: int) -> dict:
     return dict(sms=sms, launches=[
-        dict(blocks=out[1 + 2 * i], blocks_an_sm=out[2 + 2 * i],
-             waves=out[1 + 2 * i] / (out[2 + 2 * i] * sms))
-        for i in range(out[0])])
+        dict(blocks=b, blocks_an_sm=per_sm, waves=b / (per_sm * sms))
+        for b, per_sm in launches])
+
+
+def attn_tp_fwd_core_grid(x_shape, num_heads: int, head_dim: int,
+                          mode: str) -> dict:
+    """The forward core's launch in ``mbt_attention_block_tp`` at x_shape
+    (B, F, J, C) with num_heads local heads of head_dim: its blocks, the
+    blocks an SM holds of it (the runtime's occupancy) and its waves over
+    the device's SMs, as ``attn_tp_bwd_core_grid`` gives them. Launches
+    nothing."""
+    B, F, J, _ = x_shape
+    out = (ctypes.c_int * 4)()
+    rc = block_library().mbt_attn_tp_fwd_core_grid(
+        B, F, J, num_heads * head_dim, num_heads, int(mode == "temporal"), out)
+    if rc != 0:
+        raise RuntimeError(f"core grid query failed with CUDA error {rc}")
+    return _grid([(out[1], out[2])], out[3])
+
+
+def attn_tp_fwd_core_plan(x_shape, num_heads: int, mode: str,
+                          blocks_an_sm: int, sms: int) -> dict:
+    """``attn_tp_fwd_core_grid``'s blocks and waves from the shapes alone,
+    for a card of ``sms`` SMs that holds ``blocks_an_sm`` blocks of the
+    launch: (group, head) items times CORE_SLICE_ROWS-row query slices where
+    the forward splits, else items over the one-launch kernel's items a
+    block (8 / key tiles, at least 1)."""
+    B, F, J, _ = x_shape
+    n, groups = (F, B * J) if mode == "temporal" else (J, B * F)
+    items, kt = groups * num_heads, core_key_tiles(n)
+    if core_splits_forward(n):
+        blocks = items * (kt * CORE_KEY_TILE // CORE_SLICE_ROWS)
+    else:
+        per_block = max(1, 8 // kt)
+        blocks = -(-items // per_block)
+    return _grid([(blocks, blocks_an_sm)], sms)
 
 
 def coupled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -90,6 +90,14 @@
 // half's registers allow (8 warps an SM; a 96-row key-major slice would
 // run 816 blocks in 3.09 waves).
 //
+// The split forward (attn_tc_fwd_query_kernel, B4_tp's core on the same
+// groups) is the query-major half without dO and dq: the item's k and v
+// whole, a 64-row q slice, a warp a 16-row tile with the one-launch
+// forward's helpers and store, so out keeps its bits; q and k land in a
+// first cp.async group and v in a second, under the scores and the softmax.
+// 83 KB at D 64 and KT 16: two blocks an SM, 1088 blocks at 4 local heads
+// and batch 4.
+//
 // Bound. At (4, 243, 17, 512), 8 heads, the forward reads q, k, v (51 MB)
 // and writes the output (17 MB), 0.020 ms at 3.35 TB/s, against 8.2 GFLOP
 // (temporal; 0.6 spatial), 0.008 ms at 989 TFLOP/s: bytes bound it. The
@@ -137,6 +145,7 @@ struct TcSplit {
     static constexpr int SLICE_BYTES = TC_SLICE_ROWS * S::ROW_BYTES;
     static constexpr size_t QUERY_SMEM = 2 * (size_t)S::MAT_BYTES + 2 * SLICE_BYTES;
     static constexpr size_t KEY_SMEM = QUERY_SMEM + 3 * S::NP * sizeof(float);
+    static constexpr size_t FWD_SMEM = 2 * (size_t)S::MAT_BYTES + SLICE_BYTES;
 };
 
 __device__ __forceinline__ uint32_t tc_addr(const void* p) {
@@ -863,6 +872,49 @@ attn_tc_bwd_key_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc_store<D>(dv, dvf, dvb, ld_out, col, j0, N, base, stride);
 }
 
+// The split forward (see the note at the top; KT 8 or 16): block b takes
+// item b / SLICES and its query rows from row0 = (b % SLICES) *
+// TC_SLICE_ROWS, with the item's k and v whole; each warp 16 of the rows
+// with the one-launch kernel's helpers (tc_scores, tc_softmax, tc_pv) and its
+// store. At 4 local heads and batch 4 the one-launch kernel's 272 blocks, one
+// an SM, take 6 tile-times a warp; these 1088 blocks, two an SM, take 5.
+template <int D, int KT>
+__global__ void __launch_bounds__(TC_SLICE_THREADS, 2)
+attn_tc_fwd_query_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, int ld, bf16* __restrict__ out, int ld_out,
+                         int F, int J, int H, float scale, int temporal) {
+    using S = TcShape<D, KT>;
+    using P = TcSplit<D, KT>;
+    extern __shared__ __align__(16) unsigned char tc_smem[];
+    bf16* sm = reinterpret_cast<bf16*>(tc_smem);
+    const int gi = blockIdx.x / P::SLICES, row0 = (blockIdx.x % P::SLICES) * TC_SLICE_ROWS;
+    int N, base, stride;
+    attention_group(gi / H, F, J, temporal, &N, &base, &stride);
+    const int col = (gi % H) * D;
+    // [k | v | q slice]: k and the slice's q rows first, then v
+    tc_load_rows<D, S::NP, TC_SLICE_THREADS>(sm, k, ld, 0, N, base, stride, col);
+    tc_load_rows<D, TC_SLICE_ROWS, TC_SLICE_THREADS>(sm + 2 * S::NP * S::LD, q, ld, row0, N,
+                                                     base, stride, col);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    tc_load_rows<D, S::NP, TC_SLICE_THREADS>(sm + S::NP * S::LD, v, ld, 0, N, base, stride, col);
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;" ::: "memory");
+    __syncthreads();
+    const int warp = threadIdx.x >> 5;
+    const int rq = warp * TC_KEY_TILE, r0 = row0 + rq;
+    const uint32_t ks = tc_addr(sm), vs = ks + S::MAT_BYTES, qs = vs + S::MAT_BYTES;
+    float s[2 * KT][4], mx[2], inv[2];
+    if (r0 < N) {
+        tc_scores<D, KT>(s, qs, ks, rq, N, scale);
+        tc_softmax<KT>(s, mx, inv);
+    }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    if (r0 >= N) return;
+    float o[D / 8][4];
+    tc_pv<D, KT>(o, s, vs, N);
+    tc_store<D>(o, nullptr, out, ld_out, col, r0, N, base, stride);
+}
+
 // Key tiles of a group of N rows, a power of two; 0 when N is outside
 // [1, TC_MAX_KEYS].
 inline int tc_key_tiles(int N) {
@@ -1035,6 +1087,62 @@ cudaError_t tc_launch_bwd_attn(const TcArgs& a, bool split, cudaStream_t stream,
         return cudaGetLastError();
     }
     return cudaErrorInvalidValue;
+}
+
+// The forward on args a: with split, the split forward (KT 8 or 16); else
+// the one-launch kernel (tc_launch's). With grid not null, nothing is
+// launched: grid gets 1, the launch's blocks and the blocks an SM holds of it
+// (the runtime's occupancy for its threads and shared memory).
+template <int D, int KT>
+cudaError_t tc_launch_fwd(const TcArgs& a, bool split, cudaStream_t stream, int* grid) {
+    using S = TcShape<D, KT>;
+    const int n_items = (a.temporal ? a.B * a.J : a.B * a.F) * a.H;
+    cudaError_t err;
+    if (!split) {
+        if (grid == nullptr) return tc_launch<D, KT>(a, false, stream);
+        const size_t smem = tc_smem_bytes<D, KT>(false);
+        auto kernel = attn_tc_fwd_kernel<D, KT>;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        grid[0] = 1;
+        grid[1] = (n_items + S::ITEMS - 1) / S::ITEMS;
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&grid[2], kernel, TC_THREADS, smem);
+    }
+    if constexpr (KT == 8 || KT == 16) {
+        using P = TcSplit<D, KT>;
+        if ((long long)n_items * P::SLICES > 0x7fffffffLL) return cudaErrorInvalidValue;
+        const int blocks = n_items * P::SLICES;
+        auto kernel = attn_tc_fwd_query_kernel<D, KT>;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)P::FWD_SMEM);
+        if (err != cudaSuccess) return err;
+        if (grid != nullptr) {
+            grid[0] = 1;
+            grid[1] = blocks;
+            return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&grid[2], kernel,
+                                                                 TC_SLICE_THREADS, P::FWD_SMEM);
+        }
+        kernel<<<blocks, TC_SLICE_THREADS, P::FWD_SMEM, stream>>>(
+            static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+            static_cast<const bf16*>(a.v), a.ld, static_cast<bf16*>(a.out), a.ld_out, a.F, a.J,
+            a.H, a.scale, a.temporal);
+        return cudaGetLastError();
+    }
+    return cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t tc_launch_fwd_d(const TcArgs& a, bool split, cudaStream_t stream, int* grid) {
+    const int kt = tc_key_tiles(a.temporal ? a.F : a.J);
+    if (split && !tc_splits(kt)) return cudaErrorInvalidValue;
+    switch (kt) {
+        case 1: return tc_launch_fwd<D, 1>(a, split, stream, grid);
+        case 2: return tc_launch_fwd<D, 2>(a, split, stream, grid);
+        case 4: return tc_launch_fwd<D, 4>(a, split, stream, grid);
+        case 8: return tc_launch_fwd<D, 8>(a, split, stream, grid);
+        case 16: return tc_launch_fwd<D, 16>(a, split, stream, grid);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 template <int D>

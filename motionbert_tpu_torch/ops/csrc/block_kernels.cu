@@ -72,9 +72,16 @@
 // hidden slice of the MLP: W1_r (hid_r, C), W2_r (C, hid_r). The TP modes
 // run the same chains on those shards, always with the LayerNorm, and stop
 // where the ranks' parts must be summed:
-//   B4_tp  ln_fwd_rows (into attn) -> NT qkv + bias (M, 3 Ci) -> core on
-//          the Hl = H / T local heads -> NT proj into fp32 (EPI_F32): the
-//          partial product, no bias, no residual
+//   B4_tp  NT qkv + bias (M, 3 Ci) with the LayerNorm inside the product
+//          (hg_ln_gemm: hopper_gemm.cuh's hg_ln_kernel normalises a block's
+//          rows of x in shared memory, no h in device memory) -> core on
+//          the Hl = H / T local heads (on 243-frame groups the split
+//          forward, attention_tc.cuh's attn_tc_fwd_query_kernel, 64-row
+//          query slices of 4 warps, two blocks an SM; else the one-launch
+//          kernel) -> NT proj into fp32 (EPI_F32): the partial product, no
+//          bias, no residual. Where C is wider than hg_ln_kernel takes, the
+//          first product is ln_fwd_rows then NT, as the whole-width chains
+//          run it (ln_product)
 //   B6_tp  ln_fwd_rows -> NT fc1 + GELU -> NT fc2 into fp32
 //   B5_tp  ln_fwd_rows (h, row stats) -> NT qkv -> NN dattn = bf16(g
 //          Wproj_r) -> core backward with attn (attention_tc.cuh: on
@@ -175,6 +182,60 @@ cudaError_t launch_attention_tc_bwd_attn(const TcArgs& a, bool split, cudaStream
 // Whether B5_tp's chain splits the core backward on groups of N rows: where
 // the one-launch kernel is one 256-key item a block (243 frames).
 inline bool tc_split_backward(int N) { return tc_key_tiles(N) == TC_MAX_KEYS / TC_KEY_TILE; }
+
+// ---- the LayerNorm inside the qkv product: hopper_gemm.cuh's hg_ln_kernel ----
+
+// out (M, N) = bf16(LN(x)) W^T + bias: ln_fwd_rows -> hg_gemm<NT, EPI_BIAS>'s
+// bits in one launch (bf16 out). x (M, C) bf16, ln_w / ln_b (C) fp32, W
+// (N, C) bf16; N a multiple of 64, lng_takes(C); x, W and out 16-byte
+// aligned. Returns cudaErrorInvalidValue on any other shape.
+cudaError_t hg_ln_gemm(const void* x, const void* ln_w, const void* ln_b, const void* W,
+                       const void* bias, void* out, int M, int N, int C, cudaStream_t stream) {
+    if (!lng_takes(C) || N < HG_BK || N % HG_BK || M < 1) return cudaErrorInvalidValue;
+    CUtensorMap tx, tw, to;
+    if (!tensor_map_2d(&tx, x, C, M, LNG_ROWS_A_WARP) || !tensor_map_2d(&tw, W, C, N, HG_BN) ||
+        !tensor_map_2d(&to, out, N, M, LNG_OUT_ROWS))
+        return cudaErrorInvalidValue;
+    int dev = 0;
+    const cudaError_t err = hg_opt_in<hg_ln_kernel<EPI_BIAS>>(lng_smem_bytes(LNG_MAX_C), dev);
+    if (err != cudaSuccess) return err;
+    const int blocks = (M + LNG_BM - 1) / LNG_BM;
+    hg_ln_kernel<EPI_BIAS><<<blocks, LNG_THREADS, lng_smem_bytes(C), stream>>>(
+        tx, tw, to, static_cast<const bf16*>(bias), static_cast<const float*>(ln_w),
+        static_cast<const float*>(ln_b), M, N, C);
+    return cudaGetLastError();
+}
+
+// B4_tp's forward core: with split the split forward (attention_tc.cuh's
+// attn_tc_fwd_query_kernel, groups of 65..256 rows), else the one-launch
+// kernel; both give its bits. grid: see tc_launch_fwd. Returns
+// cudaErrorInvalidValue on a shape the core does not take.
+cudaError_t launch_attention_tc_sliced(const TcArgs& a, bool split, cudaStream_t stream,
+                                       int* grid = nullptr) {
+    if (a.H < 1 || a.C % a.H) return cudaErrorInvalidValue;
+    const int D = a.C / a.H;
+    if (D == 64) return tc_launch_fwd_d<64>(a, split, stream, grid);
+    if (D == 32) return tc_launch_fwd_d<32>(a, split, stream, grid);
+    return cudaErrorInvalidValue;
+}
+
+// Whether B4_tp's chain splits the forward core on groups of N rows: where
+// the one-launch kernel is one item a block (key tiles 8 and 16).
+inline bool tc_split_forward(int N) { return tc_splits(tc_key_tiles(N)); }
+
+// out (M, N) = bf16(LN(x)) W^T + bias, B4_tp's qkv product: the LayerNorm
+// inside the product (hg_ln_gemm) where it takes rows of C, else
+// ln_fwd_rows into h (M, C) and the engine's NT product. The rule is on C
+// alone (lng_takes: whole k-blocks, C <= LNG_MAX_C); the two routes give
+// the same bits.
+cudaError_t ln_product(const void* x, const void* ln_w, const void* ln_b, const void* W,
+                       const void* bias, void* out, void* h, int M, int N, int C,
+                       cudaStream_t stream) {
+    if (lng_takes(C)) return hg_ln_gemm(x, ln_w, ln_b, W, bias, out, M, N, C, stream);
+    const cudaError_t err = launch_ln_fwd_rows(x, ln_w, ln_b, h, nullptr, M, C, stream);
+    if (err != cudaSuccess) return err;
+    return hg_gemm<NT, EPI_BIAS>(h, W, bias, nullptr, nullptr, out, nullptr, M, N, C, stream);
+}
 
 // out0[i] (i < n0) and out1[i - n0] (n0 <= i < n0 + n1), bf16: the sum over
 // the HG_TN_SPLITS chunks, in chunk order, of part[k (n0 + n1) + i], two
@@ -411,25 +472,30 @@ extern "C" int mbt_mlp_block_bwd(void* const* p, int M, int C, int hidden, int u
 
 // B4_tp on x (B, F, J, C) bf16: out (M, C) fp32 = attention over the Hl local
 // heads of LN(x), projected through Wproj_r (C, Ci), without bias or
-// residual. Scratch: qkv (M, 3 Ci) and attn (M, max(C, Ci)) bf16 (attn holds
-// the LayerNorm rows until the core overwrites its first Ci columns of each
-// row). 4 device records. Alignment as for mbt_attention_block.
+// residual. Scratch: qkv (M, 3 Ci) and attn (mbt_attention_block_tp_scratch
+// bf16 elements: (M, Ci), or where the LayerNorm is a row pass (M, max(C,
+// Ci)), the LayerNorm rows until the core overwrites their first Ci columns).
+// 3 device records: the LayerNorm inside the qkv product, the core (split on
+// 243-frame groups), proj. Alignment as for mbt_attention_block.
 extern "C" int mbt_attention_block_tp(
     const void* x, void* out, void* qkv, void* attn, const void* ln_w, const void* ln_b,
     const void* wqkv, const void* bqkv, const void* wproj, int B, int F, int J, int C,
     int Ci, int Hl, float scale, int temporal, void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const int M = B * F * J;
-    CHECK(launch_ln_fwd_rows(x, ln_w, ln_b, attn, nullptr, M, C, stream));
-    CHECK((hg_gemm<NT, EPI_BIAS>(attn, wqkv, bqkv, nullptr, nullptr, qkv, nullptr, M, 3 * Ci,
-                                 C, stream)));
+    CHECK(ln_product(x, ln_w, ln_b, wqkv, bqkv, qkv, attn, M, 3 * Ci, C, stream));
     TcArgs core = tc_packed_args(qkv, B, F, J, Ci, Hl, scale, temporal);
     core.out = attn;
     core.ld_out = Ci;
-    CHECK(launch_attention_tc(core, false, stream));
+    CHECK(launch_attention_tc_sliced(core, tc_split_forward(temporal ? F : J), stream));
     CHECK((hg_gemm<NT, EPI_F32>(attn, wproj, nullptr, nullptr, nullptr, out, nullptr, M, C, Ci,
                                 stream)));
     return 0;
+}
+
+// bf16 elements of mbt_attention_block_tp's attn scratch at M token rows.
+extern "C" long long mbt_attention_block_tp_scratch(int M, int C, int Ci) {
+    return (long long)M * (lng_takes(C) ? Ci : (C > Ci ? C : Ci));
 }
 
 // B5_tp: B4_tp's gradients for the (replicated) output gradient g (M, C)
@@ -485,7 +551,12 @@ extern "C" int mbt_attention_block_tp_bwd(void* const* p, int B, int F, int J, i
 
 // B6_tp on x (M, C) bf16: out (M, C) fp32 = GELU(LN(x) W1_r^T + b1_r) W2_r^T
 // without bias or residual. Scratch: hid (M, hid_r) bf16 followed by h
-// (M, C) bf16: M * (hid_r + C) elements. 3 device records.
+// (M, C) bf16: M * (hid_r + C) elements. 3 device records. The LayerNorm
+// stays a row pass here: inside fc1 (hg_ln_kernel with the GELU epilogue)
+// it took 0.0534 ms on the H100 at 16524 rows, C 512 and a hidden slice of
+// 512, against 0.0153 + 0.0357 for ln_fwd_rows and fc1 (chip_smoke.py
+// --phases tp --baseline), and one kernel with hid in shared memory gained
+// under 1 %.
 extern "C" int mbt_mlp_block_tp(
     const void* x, void* out, void* hid, const void* ln_w, const void* ln_b, const void* w1,
     const void* b1, const void* w2, int M, int C, int hidden, void* stream_ptr) {
@@ -695,5 +766,59 @@ extern "C" int mbt_attn_tp_bwd_core_grid(int B, int F, int J, int C, int H, int 
     int dev = 0;
     CHECK(cudaGetDevice(&dev));
     CHECK(cudaDeviceGetAttribute(&out[5], cudaDevAttrMultiProcessorCount, dev));
+    return 0;
+}
+
+// The LayerNorm inside a product alone, for its tests: out (M, N) =
+// bf16(LN(x)) W^T + bias; fused: one launch of hg_ln_gemm
+// (cudaErrorInvalidValue where lng_takes(C) does not hold), else
+// ln_fwd_rows into h (M, C) and hg_gemm<NT, EPI_BIAS>.
+extern "C" int mbt_ln_gemm_test(const void* x, const void* ln_w, const void* ln_b, const void* W,
+                                const void* bias, void* out, void* h, int M, int N, int C,
+                                int fused, void* stream_ptr) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+    if (fused) return (int)hg_ln_gemm(x, ln_w, ln_b, W, bias, out, M, N, C, s);
+    CHECK(launch_ln_fwd_rows(x, ln_w, ln_b, h, nullptr, M, C, s));
+    return (int)hg_gemm<NT, EPI_BIAS>(h, W, bias, nullptr, nullptr, out, nullptr, M, N, C, s);
+}
+
+// The LayerNorm-in-product constants ops/fused_mlp.py names (LN_PRODUCT):
+// the widest row, the M tile, the weight ring; -1 for any other name.
+extern "C" int mbt_ln_gemm_constant(const char* name) {
+    static const struct { const char* name; int value; } table[] = {
+        {"max_c", LNG_MAX_C}, {"bm", LNG_BM}, {"stages", LNG_STAGES}};
+    for (const auto& entry : table)
+        if (strcmp(entry.name, name) == 0) return entry.value;
+    return -1;
+}
+
+// B4_tp's forward core alone, for its tests, on separate q, k, v (B*F*J rows
+// of C, H heads): out (B*F*J, C) = attn; split: the split forward (groups of
+// 65..256 rows), else the one-launch kernel.
+extern "C" int mbt_attn_core_fwd_test(const void* q, const void* k, const void* v, void* out,
+                                      int B, int F, int J, int C, int H, float scale,
+                                      int temporal, int split, void* stream_ptr) {
+    TcArgs a{};
+    a.q = q, a.k = k, a.v = v, a.out = out;
+    a.ld = C, a.ld_out = C;
+    a.B = B, a.F = F, a.J = J, a.C = C, a.H = H;
+    a.scale = scale;
+    a.temporal = temporal;
+    return (int)launch_attention_tc_sliced(a, split != 0, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The forward core's launch in B4_tp's chain at these shapes, launching
+// nothing: out[0] the launch count (1), out[1] its blocks, out[2] the blocks
+// an SM holds of it, out[3] the device's SMs.
+extern "C" int mbt_attn_tp_fwd_core_grid(int B, int F, int J, int C, int H, int temporal,
+                                         int* out) {
+    TcArgs a{};
+    a.B = B, a.F = F, a.J = J, a.C = C, a.H = H;
+    a.temporal = temporal;
+    out[0] = out[1] = out[2] = 0;
+    CHECK(launch_attention_tc_sliced(a, tc_split_forward(temporal ? F : J), nullptr, out));
+    int dev = 0;
+    CHECK(cudaGetDevice(&dev));
+    CHECK(cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, dev));
     return 0;
 }

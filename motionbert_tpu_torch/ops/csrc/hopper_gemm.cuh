@@ -11,9 +11,10 @@
 //       of the k-step each), every block writes its chunk's fp32 partial tile
 //       (EPI_PARTIAL) and the caller adds the partials in chunk order, so the
 //       result is the same bits on every run
-// No LayerNorm rides a TMA load: a chain that needs one runs
-// launch_ln_fwd_rows first (pair_bwd_common.cuh) and feeds its bf16 rows to
-// NT. hg_weight_grad, at the end, is TN with the in-order second pass
+// The whole-width chains run launch_ln_fwd_rows first (pair_bwd_common.cuh)
+// and feed its bf16 rows to NT; the attention block on shards takes the
+// LayerNorm inside its qkv product (hg_ln_kernel: the last section).
+// hg_weight_grad is TN with the in-order second pass
 // (pair_bwd_common.cuh's reduce_splits): the weight gradients of the pair
 // backward (pair_bwd_kernels.cu) and of the attention and MLP block
 // backwards (block_kernels.cu).
@@ -686,22 +687,31 @@ int hg_resident_blocks(int dev) {
     return sms * HG_MIN_BLOCKS;
 }
 
-// Launches KERNEL, an instantiation of the engine, on the persistent grid:
-// min(n_tiles, the blocks the device holds at once) blocks of HG_THREADS
-// with HG_SMEM of shared memory, opted in once per kernel and device.
-template <auto KERNEL, class... Args>
-cudaError_t hg_launch(int n_tiles, cudaStream_t stream, Args... args) {
+// Opts KERNEL in to `bytes` of dynamic shared memory on the current device,
+// once per kernel and device; dev receives the device.
+template <auto KERNEL>
+cudaError_t hg_opt_in(size_t bytes, int& dev) {
     static std::atomic<unsigned long long> smem_set{0};
-    int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     const unsigned long long bit = 1ull << (dev & 63);
     if (!(smem_set.load() & bit)) {
         err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   HG_SMEM);
+                                   (int)bytes);
         if (err != cudaSuccess) return err;
         smem_set.fetch_or(bit);
     }
+    return cudaSuccess;
+}
+
+// Launches KERNEL, an instantiation of the engine, on the persistent grid:
+// min(n_tiles, the blocks the device holds at once) blocks of HG_THREADS
+// with HG_SMEM of shared memory (hg_opt_in).
+template <auto KERNEL, class... Args>
+cudaError_t hg_launch(int n_tiles, cudaStream_t stream, Args... args) {
+    int dev = 0;
+    const cudaError_t err = hg_opt_in<KERNEL>(HG_SMEM, dev);
+    if (err != cudaSuccess) return err;
     const int resident = hg_resident_blocks(dev);
     if (resident == 0) return cudaErrorInvalidValue;
     KERNEL<<<min(n_tiles, resident), HG_THREADS, HG_SMEM, stream>>>(args...);
@@ -812,6 +822,366 @@ cudaError_t hg_weight_grad(const void* dY, const void* A, int M, int rows, int c
                                                nullptr, M, rows, cols, stream);
     if (err != cudaSuccess) return err;
     return reduce_splits(work, HG_TN_SPLITS, rows * cols, out, true, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The LayerNorm inside the first product
+// ---------------------------------------------------------------------------
+//
+// The attention block on shards (block_kernels.cu's B4_tp) starts with h =
+// bf16(LN(x)) and a product over h. Written by ln_fwd_rows and read back by
+// the engine, h costs a launch and a round trip of M x C bf16 through device
+// memory (16.9 MB at 16524 rows, C 512); the TPU kernel
+// (motionbert_tpu/ops/attention.py:_fused_block_kernel's _ln_rows -> _dot)
+// never writes it. Here a
+// block owns an M tile of x's rows whole (K = C, up to LNG_MAX_C): the
+// producer warp copies them by TMA into shared memory in the 128-byte swizzle
+// the engine's A tiles have (k-blocks of HG_BK columns, lng_offset), each
+// consumer warp's rows onto its own mbarrier; each warp normalises its rows in
+// place as soon as they land, with ln_fwd_rows_kernel's arithmetic, lane map
+// and order of sums, all its rows' chains interleaved (lng_normalise: h keeps
+// its bits), fences them for the async proxy, and every N tile of the block's
+// rows runs its wgmma k-steps over the resident rows in the engine's k order,
+// while the weight tiles stream through a ring of mbarrier stages as the
+// engine's do. Each output element is summed as hg_gemm<NT, EPI> sums it, so
+// the bits are those of ln_fwd_rows -> hg_gemm. One block an SM cannot hide
+// its epilogues behind another block's products, so a warpgroup writes its
+// tile's epilogue (epilogue4's statements) into a staging tile in shared
+// memory and one thread hands it to a TMA store, which drains while the next
+// tile's products run (LngStage, lng_store).
+// hg_ln_kernel, out = EPI(LN(x) W^T + bias), runs two consumer warpgroups,
+// each on 64 rows of the block's 128-row M tile, and one weight tile of 128
+// rows a stage, which both read. A block streams the whole weight once for
+// its LNG_BM rows (the engine streams each 128 x 128 tile's A and B), so the
+// weight bytes through L2 halve from 64-row to 128-row tiles.
+// block_kernels.cu launches it (hg_ln_gemm; this header's one launcher is
+// the engine's, hg_launch). Shapes it does not take (lng_takes) stay with
+// the row pass and the engine: block_kernels.cu's ln_product.
+
+constexpr int LNG_MAX_C = 512;          // widest x row a block keeps in shared memory
+constexpr int LNG_BM = 128;             // hg_ln_kernel's M tile: 64 rows a warpgroup
+constexpr int LNG_STAGES = 4;           // its weight ring
+constexpr int LNG_THREADS = 256 + 32;   // two consumer warpgroups, a producer warp
+constexpr int LNG_ROW_BYTES = HG_BK * 2;               // one swizzled row of a k-block
+constexpr int LNG_STAGE_BYTES = HG_BN * LNG_ROW_BYTES; // a 128 x 64 weight tile
+constexpr int LNG_OUT_ROWS = 64;                       // a staging tile's rows (and a box's)
+constexpr int LNG_ROWS_A_WARP = LNG_BM / 8;
+
+// Bytes of a warpgroup's 64 x 128 staging tile of elements `elem` bytes wide.
+__host__ __device__ constexpr int lng_out_bytes(int elem) { return LNG_OUT_ROWS * HG_BN * elem; }
+
+// Shared bytes of hg_ln_kernel at rows of C: x's rows (then h), the ring, a
+// bf16 staging tile a warpgroup, the ring's and x's mbarriers.
+constexpr size_t lng_smem_bytes(int C) {
+    return 1024 + (size_t)LNG_BM * C * 2 + (size_t)LNG_STAGES * LNG_STAGE_BYTES
+         + 2 * lng_out_bytes(2) + (2 * LNG_STAGES + 8) * 8;
+}
+
+static_assert(lng_smem_bytes(LNG_MAX_C) <= 232448, "hg_ln_kernel's shared memory");
+
+// Whether hg_ln_kernel takes rows of C (whole k-blocks that fit beside the
+// ring).
+inline bool lng_takes(int C) { return C >= HG_BK && C % HG_BK == 0 && C <= LNG_MAX_C; }
+
+// Byte offset of element (r, k) of a resident K-major tile of `rows` rows:
+// k-block k / HG_BK (rows 128-byte rows each), 16-byte chunks swizzled by
+// the row's place in its 1024-byte group, as the TMA writes a box and wgmma
+// reads it.
+__device__ __forceinline__ uint32_t lng_offset(int rows, int r, int k) {
+    const int c = k & (HG_BK - 1);
+    return (uint32_t)(k / HG_BK) * rows * LNG_ROW_BYTES + r * LNG_ROW_BYTES
+         + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
+}
+
+// R rows [r0, r0 + R) of the resident x tile h (`rows` rows of C,
+// lng_offset's layout), normalised in place by one warp: h = bf16(((x -
+// mean) * rstd) * w + b), ln_fwd_rows_kernel's statements for each row on its
+// lane map (the column pair 2 lane + 64 j of k-block j, summed in j's order,
+// then warp_sum), the R rows' chains interleaved so that their latencies
+// overlap; a lane's pair sits at the same offset of every k-block.
+template <int R>
+__device__ __forceinline__ void lng_normalise_rows(unsigned char* h, int rows, int C,
+                                                   const float* __restrict__ w,
+                                                   const float* __restrict__ b, int r0) {
+    const int lane = threadIdx.x & 31;
+    const int kb = C / HG_BK, kb_bytes = rows * LNG_ROW_BYTES;
+    uint32_t off[R];   // lng_offset(rows, r0 + i, 2 lane)
+    float s[R], ss[R], mean[R], rstd[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        off[i] = lng_offset(rows, r0 + i, lane * 2);
+        s[i] = ss[i] = 0.f;
+    }
+    for (int j = 0; j < kb; ++j) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            const float2 v = load_bf162(reinterpret_cast<const bf16*>(h + off[i] + j * kb_bytes));
+            s[i] += v.x + v.y;
+            ss[i] += v.x * v.x + v.y * v.y;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        s[i] = warp_sum(s[i]);
+        ss[i] = warp_sum(ss[i]);
+        mean[i] = s[i] / C;
+        const float var = ss[i] / C - mean[i] * mean[i];
+        rstd[i] = rsqrtf(var + LN_EPS);
+    }
+    for (int j = 0; j < kb; ++j) {
+        const int k = lane * 2 + 64 * j;
+        const float w0 = w[k], w1 = w[k + 1], b0 = b[k], b1 = b[k + 1];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            bf16* p = reinterpret_cast<bf16*>(h + off[i] + j * kb_bytes);
+            const float2 v = load_bf162(p);
+            const float h0 = ((v.x - mean[i]) * rstd[i]) * w0 + b0;
+            const float h1 = ((v.y - mean[i]) * rstd[i]) * w1 + b1;
+            *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(h0, h1);
+        }
+    }
+}
+
+// A warp's R rows [first, first + R) of the resident x tile, of which those
+// below `last` (the rows x has): all R at once, or one by one at the edge.
+template <int R>
+__device__ __forceinline__ void lng_normalise(unsigned char* h, int rows, int C,
+                                              const float* __restrict__ w,
+                                              const float* __restrict__ b, int first, int last) {
+    if (first + R <= last) {
+        lng_normalise_rows<R>(h, rows, C, w, b, first);
+        return;
+    }
+    for (int r = first; r < last; ++r) lng_normalise_rows<1>(h, rows, C, w, b, r);
+}
+
+// Rows written by the generic proxy, read next by wgmma or the TMA: fence,
+// then meet the other THREADS consumers at named barrier ID (an immediate,
+// so that a block holds only the barriers it names).
+template <int ID, int THREADS>
+__device__ __forceinline__ void lng_publish() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, %1;" :: "n"(ID), "n"(THREADS) : "memory");
+}
+
+template <int ID, int THREADS>
+__device__ __forceinline__ void lng_sync() {
+    asm volatile("bar.sync %0, %1;" :: "n"(ID), "n"(THREADS) : "memory");
+}
+
+// A warpgroup's 64 x 128 accumulator over nk k-steps: A's k-block k at
+// a + k * a_step (64 resident rows), B the ring stage's tile; each stage
+// released once the next step's group is committed, as hg_mma_tile releases
+// them (the same four wgmmas a step, the same k order).
+__device__ __forceinline__ void lng_mma(float (&acc)[64], uint32_t a, uint32_t a_step,
+                                        uint32_t tiles, uint32_t full, uint32_t empty, int nk,
+                                        int& step) {
+    constexpr int STAGES = LNG_STAGES;
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int k = 0; k < nk; ++k, ++step) {
+        const int s = step % STAGES;
+        mbar_wait(full + 8 * s, (step / STAGES) & 1);
+        fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        HgBf16::stage<false, false>(acc, a + k * a_step, tiles + s * LNG_STAGE_BYTES);
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        fence_acc(acc);
+        if (k > 0 && lane == 0) mbar_arrive(empty + 8 * ((step - 1) % STAGES));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(acc);
+    if (nk > 0 && lane == 0) mbar_arrive(empty + 8 * ((step - 1) % STAGES));
+}
+
+// The epilogue of a warpgroup's accumulator, rows row0 + [0, 64) and columns
+// col0 + [0, 128): four consecutive columns of one row at a time, as
+// hg_mma_tile hands them to its functor, masked at rows and cols (its loop,
+// kept apart so that the engine's kernels compile as they did).
+template <class EPI>
+__device__ __forceinline__ void lng_epilogue(const EPI& epi, float (&acc)[64], int row0,
+                                             int col0, int rows, int cols) {
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+    const bool upper = lane & 1;
+    const int m = row0 + warp * 16 + (lane >> 2) + (upper ? 8 : 0);
+#pragma unroll
+    for (int jn = 0; jn < HG_BN / 8; ++jn) {
+        const float s0 = upper ? acc[4 * jn] : acc[4 * jn + 2];
+        const float s1 = upper ? acc[4 * jn + 1] : acc[4 * jn + 3];
+        const float p0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+        const float p1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+        float v[4];
+        if (upper) {
+            v[0] = p0; v[1] = p1; v[2] = acc[4 * jn + 2]; v[3] = acc[4 * jn + 3];
+        } else {
+            v[0] = acc[4 * jn]; v[1] = acc[4 * jn + 1]; v[2] = p0; v[3] = p1;
+        }
+        const int n = col0 + jn * 8 + (lane & 2) * 2;
+        if (m >= rows || n >= cols) continue;
+        epi(v, m, n, (size_t)m * cols + n, 0);
+    }
+}
+
+// An epilogue into a warpgroup's staging tile of rows row0 + [0, 64) and
+// columns col0 + [0, 128): epilogue4<EPI>'s statements (EPI_BIAS,
+// EPI_BIAS_GELU: bf16), stored in boxes of 128 bytes by 64 rows in the
+// 128-byte swizzle, the layout lng_store's TMA stores read.
+template <int EPI>
+struct LngStage {
+    static constexpr int ELEM = 2;
+    static constexpr int PER = 128 / ELEM;   // columns a box row holds
+    const bf16* bias;
+    void* stage;   // the tile's generic address
+    int row0, col0;
+    __device__ __forceinline__ void operator()(float (&v)[4], int m, int n, size_t, int) const {
+        const int r = m - row0, c = n - col0;
+        const int byte = (c % PER) * ELEM;
+        const uint32_t o = (c / PER) * LNG_OUT_ROWS * 128 + r * 128
+                         + ((((byte >> 4) ^ (r & 7)) << 4) | (byte & 15));
+        epilogue4<EPI>(v, o / ELEM, n, bias, nullptr, nullptr, stage, nullptr, nullptr);
+    }
+};
+
+// One TMA store of a 2-D box from shared memory at src to the tensor map's
+// (c0, c1), in the bulk group the caller commits.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+    asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
+                 :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+                 : "memory");
+}
+
+// The warpgroup's epilogue through its staging tile (ID its named barrier):
+// wait until the TMA has read the previous tile's stage, write this tile's
+// (LngStage), publish it, and one thread stores its boxes (128 / PER of them)
+// at (col0, row0) and commits them; they drain under the next tile's
+// products.
+template <int EPI, int ID>
+__device__ __forceinline__ void lng_store(const CUtensorMap& tma_out, const bf16* bias,
+                                          unsigned char* stage, float (&acc)[64], int row0,
+                                          int col0, int rows, int cols) {
+    using St = LngStage<EPI>;
+    const bool leader = (threadIdx.x & 127) == 0;
+    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    lng_sync<ID, 128>();
+    lng_epilogue(St{bias, stage, row0, col0}, acc, row0, col0, rows, cols);
+    lng_publish<ID, 128>();
+    if (leader) {
+        for (int box = 0; box < HG_BN / St::PER; ++box)
+            tma_store(&tma_out, smem_u32(stage) + box * LNG_OUT_ROWS * 128, col0 + box * St::PER,
+                      row0);
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+}
+
+// The leader's wait, before its block exits, until the TMA has read every
+// staging tile it was given.
+__device__ __forceinline__ void lng_store_done() {
+    if ((threadIdx.x & 127) == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned char* lng_smem_base() {
+    extern __shared__ unsigned char hg_smem_raw[];
+    return reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(hg_smem_raw) + 1023) & ~uintptr_t(1023));
+}
+
+// The producer's copy of x's rows [m0, m0 + box) into the resident tile's
+// rows [r0, r0 + box) (`rows` rows of C): C / HG_BK boxes onto one mbarrier.
+__device__ __forceinline__ void lng_load_x(const CUtensorMap& tma_x, uint32_t h, uint32_t bar,
+                                           int rows, int r0, int box, int C, int m0) {
+    const int kb = C / HG_BK;
+    mbar_expect_tx(bar, kb * box * LNG_ROW_BYTES);
+    for (int k = 0; k < kb; ++k)
+        tma_load(h + (k * rows + r0) * LNG_ROW_BYTES, &tma_x, bar, k * HG_BK, m0);
+}
+
+// The producer's loads of the weight's tiles: n_tiles 128-row tiles, each
+// over k-blocks [0, kb) in the engine's k order.
+__device__ __forceinline__ void lng_load_w(const CUtensorMap& tma_w, uint32_t tiles,
+                                           uint32_t full, uint32_t empty, int n_tiles, int kb) {
+    constexpr int STAGES = LNG_STAGES;
+    int step = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+        for (int k = 0; k < kb; ++k, ++step) {
+            const int s = step % STAGES;
+            mbar_wait(empty + 8 * s, ((step / STAGES) & 1) ^ 1);
+            mbar_expect_tx(full + 8 * s, LNG_STAGE_BYTES);
+            tma_load(tiles + s * LNG_STAGE_BYTES, &tma_w, full + 8 * s, k * HG_BK, t * HG_BN);
+        }
+    }
+}
+
+// The ring's and x's mbarriers (the whole block calls it): full and empty of
+// each stage (an arrival of each consumer warp releases a stage), then one
+// for each consumer warp's rows of x.
+template <int STAGES, int WARPS>
+__device__ __forceinline__ void lng_barriers(uint32_t full) {
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(full + 8 * (STAGES + s), WARPS);
+        }
+        for (int i = 0; i < WARPS; ++i) mbar_init(full + 8 * (2 * STAGES + i), 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+}
+
+// out (M, N) = EPI(LN(x) W^T + bias), bf16, through tma_out: block b owns
+// x's rows [b LNG_BM, + LNG_BM) and every N tile of them (see the section's
+// note).
+template <int EPI>
+__global__ void __launch_bounds__(LNG_THREADS, 1)
+hg_ln_kernel(const __grid_constant__ CUtensorMap tma_x,
+             const __grid_constant__ CUtensorMap tma_w,
+             const __grid_constant__ CUtensorMap tma_out, const bf16* __restrict__ bias,
+             const float* __restrict__ ln_w, const float* __restrict__ ln_b, int M, int N,
+             int C) {
+    constexpr int RW = LNG_ROWS_A_WARP;
+    unsigned char* smem = lng_smem_base();
+    const uint32_t h = smem_u32(smem);
+    const uint32_t tiles = h + LNG_BM * C * 2;
+    const uint32_t stages = tiles + LNG_STAGES * LNG_STAGE_BYTES;
+    const uint32_t full = stages + 2 * lng_out_bytes(2);
+    const uint32_t empty = full + 8 * LNG_STAGES, xbar = empty + 8 * LNG_STAGES;
+    lng_barriers<LNG_STAGES, 8>(full);
+    const int m0 = blockIdx.x * LNG_BM, kb = C / HG_BK, n_tiles = (N + HG_BN - 1) / HG_BN;
+    int step = 0;
+    if (threadIdx.x >= 256) {
+        if (threadIdx.x == 256) {
+            const CUtensorMap* maps[3] = {&tma_x, &tma_w, &tma_out};
+#pragma unroll
+            for (int i = 0; i < 3; ++i)
+                asm volatile("prefetch.tensormap [%0];"
+                             :: "l"(reinterpret_cast<uint64_t>(maps[i])) : "memory");
+            // each consumer warp's rows onto its own barrier
+            for (int w = 0; w < 8; ++w)
+                lng_load_x(tma_x, h, xbar + 8 * w, LNG_BM, w * RW, RW, C, m0 + w * RW);
+            lng_load_w(tma_w, tiles, full, empty, n_tiles, kb);
+        }
+        return;
+    }
+    // warpgroup cw normalises and multiplies its own 64 rows, RW a warp
+    const int cw = threadIdx.x / 128, warp = threadIdx.x / 32;
+    mbar_wait(xbar + 8 * warp, 0);
+    lng_normalise<RW>(smem, LNG_BM, C, ln_w, ln_b, warp * RW, min(warp * RW + RW, M - m0));
+    unsigned char* stage = smem + (stages - h) + cw * lng_out_bytes(2);
+    if (cw == 0)
+        lng_publish<1, 128>();
+    else
+        lng_publish<2, 128>();
+    for (int t = 0; t < n_tiles; ++t) {
+        float acc[64];
+        lng_mma(acc, h + cw * 64 * LNG_ROW_BYTES, LNG_BM * LNG_ROW_BYTES, tiles, full, empty,
+                kb, step);
+        if (cw == 0)
+            lng_store<EPI, 1>(tma_out, bias, stage, acc, m0, t * HG_BN, M, N);
+        else
+            lng_store<EPI, 2>(tma_out, bias, stage, acc, m0 + 64, t * HG_BN, M, N);
+    }
+    lng_store_done();
 }
 
 }  // namespace

@@ -624,3 +624,65 @@ def engine_gemm_pair(first: tuple, second: tuple, lead: int = 0) -> tuple:
 
 
 engine_gemm_pair.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm inside the first product (csrc/block_kernels.cu hg_ln_gemm;
+# the test entry mbt_ln_gemm_test)
+# ---------------------------------------------------------------------------
+
+# hopper_gemm.cuh's LNG_* constants by mbt_ln_gemm_constant's names: the
+# widest row a block keeps in shared memory, hg_ln_gemm's M tile and weight
+# ring
+LN_PRODUCT = {"max_c": 512, "bm": 128, "stages": 4}
+
+
+def ln_product_takes(C: int) -> bool:
+    """Whether ``hg_ln_gemm`` takes rows of C (hopper_gemm.cuh's lng_takes):
+    whole 64-column k-blocks, at most LN_PRODUCT["max_c"]."""
+    return C >= ENGINE_BK and C % ENGINE_BK == 0 and C <= LN_PRODUCT["max_c"]
+
+
+def ln_engine_gemm_plain(x, ln_w, ln_b, w, bias) -> torch.Tensor:
+    """``hg_ln_gemm`` in plain PyTorch: each block's LN_PRODUCT["bm"] rows of
+    x normalised (``layer_norm``), then the engine's NT product with the
+    bias (``engine_gemm_plain``); bit for bit ``layer_norm`` then
+    ``engine_gemm_plain("NT", "bias", ...)`` over all rows."""
+    step = LN_PRODUCT["bm"]
+    return torch.cat([engine_gemm_plain("NT", "bias", layer_norm(
+        x[m:m + step], ln_w, ln_b), w, bias) for m in range(0, x.shape[0],
+                                                            step)])
+
+
+def ln_engine_gemm(x, ln_w, ln_b, w, bias, fused: bool = True) -> torch.Tensor:
+    """bf16 out (M, N) = bf16(LN(x)) w^T + bias for x (M, C), w (N, C),
+    bias (N,) bf16, ln_w / ln_b (C,) fp32: on CUDA tensors one call of
+    ``mbt_ln_gemm_test``, fused the LayerNorm inside the product (one
+    launch; C must satisfy ``ln_product_takes``), else ln_fwd_rows and the
+    engine's NT product, counted in ``ln_engine_gemm.launches``; on CPU
+    tensors ``ln_engine_gemm_plain``."""
+    if device_kind(x, "GEMM engine") == "cpu":
+        return ln_engine_gemm_plain(x, ln_w, ln_b, w, bias)
+    (M, N, C), (out, _), _ = _engine_launch("NT", "bias", x, w, bias)
+    check_ln_args(ln_w, ln_b, C, True, x.device)
+    lib = _library()
+    drift = {k: (v, lib.mbt_ln_gemm_constant(k.encode()))
+             for k, v in LN_PRODUCT.items()
+             if lib.mbt_ln_gemm_constant(k.encode()) != v}
+    if drift:
+        raise RuntimeError(f"LN_PRODUCT disagrees with the library's "
+                           f"(ours, the library's): {drift}")
+    with torch.cuda.device(x.device):
+        h = None if fused else torch.empty_like(x)
+        rc = lib.mbt_ln_gemm_test(
+            x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), data_ptr(h), M, N, C,
+            int(fused), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"LayerNorm-in-product launch failed with CUDA "
+                           f"error {rc}")
+    ln_engine_gemm.launches += 1
+    return out
+
+
+ln_engine_gemm.launches = 0

@@ -1744,6 +1744,115 @@ def test_backward_attn_is_the_forward_cores_bitwise(cuda, mode, n):
         at.attention_core_bwd_attn(q, k, v, g, mode, 8, scale, True)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [243, 81])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("H,D", [(1, 64), (2, 64), (4, 64), (8, 64), (8, 32)])
+def test_split_forward_core_is_the_one_launch_core_bitwise(cuda, H, D, B, F):
+    """B4_tp's split forward core (64-row query slices, k and v whole)
+    against the one-launch forward, temporal groups of 243 and 81 frames,
+    and against the chains' core (fp.attention_core): attn bit for bit,
+    twice; one launch of the test entry each."""
+    rs = np.random.RandomState(B * F + H + D)
+    q, k, v = (torch.from_numpy(rs.normal(size=(B, F, 17, H * D)).astype(
+        np.float32)).to(device=cuda, dtype=torch.bfloat16) for _ in range(3))
+    scale = D ** -0.5
+    before = at.attention_core_fwd.launches
+    split = at.attention_core_fwd(q, k, v, "temporal", H, scale, True)
+    again = at.attention_core_fwd(q, k, v, "temporal", H, scale, True)
+    one = at.attention_core_fwd(q, k, v, "temporal", H, scale, False)
+    torch.cuda.synchronize()
+    assert at.attention_core_fwd.launches == before + 3
+    assert torch.equal(split, again) and torch.equal(split, one)
+    assert torch.equal(split, fp.attention_core(q, k, v, "temporal", H,
+                                                scale))
+    assert _rel(split, at.st_attention_plain(q, k, v, "temporal", H,
+                                             scale)) <= TOL
+
+
+@pytest.mark.cuda
+def test_split_forward_grid_and_refusals(cuda):
+    """The forward core's grid in B4_tp's chain at phase 30's shape (4 local
+    heads of 64, batch 4, 243 frames) is the plain plan's at the runtime's
+    occupancy, two blocks an SM; the spatial core stays the one-launch
+    kernel; the split is refused outside 65..256 rows."""
+    grid = at.attn_tp_fwd_core_grid((4, 243, 17, 512), 4, 64, "temporal")
+    (launch,) = grid["launches"]
+    assert launch["blocks_an_sm"] == 2
+    assert grid == at.attn_tp_fwd_core_plan((4, 243, 17, 512), 4, "temporal",
+                                            2, grid["sms"])
+    assert launch["blocks"] == 1088
+    spatial = at.attn_tp_fwd_core_grid((4, 243, 17, 512), 4, 64, "spatial")
+    assert spatial["launches"][0]["blocks"] == at.attn_tp_fwd_core_plan(
+        (4, 243, 17, 512), 4, "spatial", 1, 1)["launches"][0]["blocks"]
+    rs = np.random.RandomState(3)
+    q = torch.from_numpy(rs.normal(size=(2, 27, 17, 256)).astype(
+        np.float32)).to(device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        at.attention_core_fwd(q, q, q, "temporal", 4, 0.125, True)
+
+
+def _ln_product_operands(device, M, N, C, seed):
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0, shift=0.0, dt=torch.bfloat16):
+        a = rs.normal(size=shape).astype(np.float32) * scale + shift
+        return torch.from_numpy(a).to(device=device, dtype=dt)
+
+    return (t(M, C, scale=2.0, shift=0.5),
+            t(C, scale=0.1, shift=1.0, dt=torch.float32),
+            t(C, scale=0.1, dt=torch.float32), t(N, C, scale=C ** -0.5),
+            t(N, scale=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C", [(768, 512), (512, 512), (192, 256),
+                                 (128, 64)])
+@pytest.mark.parametrize("M", [1, 17, 4131, 16524])
+def test_ln_in_product_is_ln_rows_then_the_engine_bitwise(cuda, M, N, C):
+    """hg_ln_gemm (the rows of x normalised in shared memory, every N tile
+    from them) against ln_fwd_rows into device memory then the engine's NT
+    product, at ragged row counts (a partial last M tile, fewer rows than
+    one): bit for bit, twice; and against the plain twin."""
+    x, ln_w, ln_b, w, b = _ln_product_operands(cuda, M, N, C, M + N + C)
+    before = mlp.ln_engine_gemm.launches
+    fused = mlp.ln_engine_gemm(x, ln_w, ln_b, w, b)
+    again = mlp.ln_engine_gemm(x, ln_w, ln_b, w, b)
+    rows = mlp.ln_engine_gemm(x, ln_w, ln_b, w, b, fused=False)
+    torch.cuda.synchronize()
+    assert mlp.ln_engine_gemm.launches == before + 3
+    assert torch.equal(fused, again) and torch.equal(fused, rows)
+    assert _rel(fused, mlp.ln_engine_gemm_plain(x, ln_w, ln_b, w, b)) <= TOL
+
+
+@pytest.mark.cuda
+def test_ln_in_product_constants_and_its_refusal(cuda):
+    """LN_PRODUCT is the library's; a row wider than LN_PRODUCT["max_c"]
+    is refused by the one-launch entry and taken by the row pass."""
+    lib = mlp._library()
+    for name, value in mlp.LN_PRODUCT.items():
+        assert lib.mbt_ln_gemm_constant(name.encode()) == value, name
+    x, ln_w, ln_b, w, b = _ln_product_operands(cuda, 300, 128, 640, 1)
+    assert not mlp.ln_product_takes(640) and mlp.ln_product_takes(512)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        mlp.ln_engine_gemm(x, ln_w, ln_b, w, b)
+    got = mlp.ln_engine_gemm(x, ln_w, ln_b, w, b, fused=False)
+    assert _rel(got, mlp.ln_engine_gemm_plain(x, ln_w, ln_b, w, b)) <= TOL
+
+
+@pytest.mark.cuda
+def test_tp_kernels_wider_than_the_shared_rows_take_the_row_pass(cuda):
+    """At C 640 the LayerNorm does not fit beside the ring: B4_tp runs
+    ln_fwd_rows and the engine (the rule on the shape, no fallback on an
+    error), against its twin."""
+    x, ap, mp, H = _block_inputs(cuda, C=640, H=10, F=9, hidden=1280)
+    a_args, heads = _tp_shard(ap, mp, 2)[0], 5
+    assert not mlp.ln_product_takes(640)
+    got = at.fused_attention_block_tp(x, *a_args, heads, 0.125, "temporal")
+    want = at.attention_block_tp_plain(x, *a_args, heads, 0.125, "temporal")
+    assert _rel(got, want) <= TOL
+
+
 # the grouped engine launches at 16524 rows: B5_tp's and B7_tp's at shards
 # of 2 (Ci 256, hidden slice 512) and B3's widths (C 512, hidden 1024)
 PAIR_PRODUCTS = [

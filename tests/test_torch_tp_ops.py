@@ -349,16 +349,19 @@ def _launches(body: str) -> list:
     found = re.findall(
         r"(hg_gemm<\w+, \w+>|hg_gemm_pair<\w+, \w+, \w+, \w+>|"
         r"hg_weight_grad2|hg_weight_grad|reduce_partials|column_sum<\w+>|"
-        r"launch_ln_fwd_rows|launch_ln_bwd|launch_attention_tc_bwd_attn)\(|"
+        r"launch_ln_fwd_rows|launch_ln_bwd|launch_attention_tc_bwd_attn|"
+        r"launch_attention_tc_sliced|ln_product|hg_ln_gemm)\(|"
         r"(launch_attention_tc)\(core, (true|false)", body)
     return [a or f"{b}/{'bwd' if c == 'true' else 'fwd'}"
             for a, b, c in found]
 
 
 TP_CHAINS = {
+    # the LayerNorm inside the qkv product, the core split on 243-frame
+    # groups, proj
     "int mbt_attention_block_tp(": [
-        "launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS>",
-        "launch_attention_tc/fwd", "hg_gemm<NT, EPI_F32>"],
+        "ln_product", "launch_attention_tc_sliced",
+        "hg_gemm<NT, EPI_F32>"],
     # attn from the core's backward (no forward core), dWqkv and dWproj in
     # one round and one in-order pass
     "int mbt_attention_block_tp_bwd(": [
@@ -386,11 +389,28 @@ TP_WRAPPERS = {"int mbt_attention_block_tp(": "fused_attention_block_tp",
 # device records of each launcher: a weight gradient (or a pair of them),
 # a column sum and the LayerNorm backward are fixed-chunk partials and an
 # in-order pass; the core's backward with attn is the split's two launches
-# on 243-frame groups (chip_smoke's FRAMES) and one on a frame's joints
+# on 243-frame groups (chip_smoke's FRAMES) and one on a frame's joints; the
+# first product on shards (ln_product) one launch where the LayerNorm rides
+# it, else the row pass and the engine (ROUTES)
 LAUNCH_RECORDS = {"hg_weight_grad": 2, "hg_weight_grad2": 2, "column_sum": 2,
                   "launch_ln_bwd": 2,
                   "launch_attention_tc_bwd_attn": {"temporal": 2,
                                                    "spatial": 1}}
+# the helpers that pick a route by the shape, and what each route launches
+ROUTES = {
+    "cudaError_t ln_product(": {
+        "one": ["hg_ln_gemm"],
+        "rows": ["launch_ln_fwd_rows", "hg_gemm<NT, EPI_BIAS>"]}}
+
+
+def _records(launch: str, mode: str, C: int, hidden: int) -> int:
+    """Device records of one launcher in a TP chain at rows of C and a
+    hidden slice of ``hidden`` (the routes' rules mirrored in Python)."""
+    name = launch.split("<")[0].split("/")[0]
+    if name == "ln_product":
+        return 1 if mlp.ln_product_takes(C) else 2
+    n = LAUNCH_RECORDS.get(name, 1)
+    return n[mode] if isinstance(n, dict) else n
 TP_RECORD_CASES = [(signature, mode) for signature in sorted(TP_CHAINS)
                    for mode in chip_smoke.TP_RECORDS[TP_WRAPPERS[signature]]]
 
@@ -409,10 +429,9 @@ def test_tp_records_count_the_chain_launches(signature, mode):
     (TP_RECORDS, which phase 30 holds each call's profile to) are its
     chain's launches in the source; phase 30's FRAMES are 243, where the
     core's backward splits."""
-    want = 0
-    for launch in _launches(_body(_code(), signature)):
-        n = LAUNCH_RECORDS.get(launch.split("<")[0].split("/")[0], 1)
-        want += n[mode] if isinstance(n, dict) else n
+    hidden = chip_smoke.HIDDEN // chip_smoke.TP_T
+    want = sum(_records(launch, mode, chip_smoke.C, hidden)
+               for launch in _launches(_body(_code(), signature)))
     assert chip_smoke.FRAMES == at.MAX_FRAMES
     assert chip_smoke.TP_RECORDS[TP_WRAPPERS[signature]][mode] == want
 
@@ -436,10 +455,12 @@ def test_tp_attention_chains_mirror_the_twins(mode, T):
     ci = C // T
     x2, g2 = t["x"].reshape(-1, C), t["g"].reshape(-1, C)
     h = at.layer_norm(x2, t["ln_w"], t["ln_b"])
-    qkv = engine_gemm_plain("NT", "bias", h, t["wqkv"], t["bqkv"])
+    qkv = mlp.ln_engine_gemm_plain(x2, t["ln_w"], t["ln_b"], t["wqkv"],
+                                   t["bqkv"])
     q, k, v = (qkv.reshape(B, F, J, 3 * ci)[..., i * ci:(i + 1) * ci]
                for i in range(3))
-    attn = at.st_attention_plain(q, k, v, mode, heads, scale).reshape(-1, ci)
+    attn = at.st_attention_sliced_plain(q, k, v, mode, heads,
+                                        scale).reshape(-1, ci)
     out = engine_gemm_plain("NT", "f32", attn, t["wproj"])
     args = (t["x"], t["ln_w"], t["ln_b"], t["wqkv"], t["bqkv"], t["wproj"],
             heads, scale, mode)
@@ -476,10 +497,11 @@ def test_tp_mlp_chains_mirror_the_twins(T):
     t = _tp_args(T)
     x2, g2 = t["x"].reshape(-1, C), t["g"].reshape(-1, C)
     h = at.layer_norm(x2, t["ln_w"], t["ln_b"])
+    args = (t["x"], t["ln_w"], t["ln_b"], t["w1"], t["b1"], t["w2"])
     a = engine_gemm_plain("NT", "bias_gelu", h, t["w1"], t["b1"])
     out = engine_gemm_plain("NT", "f32", a, t["w2"])
-    args = (t["x"], t["ln_w"], t["ln_b"], t["w1"], t["b1"], t["w2"])
-    assert torch.equal(out.reshape(t["x"].shape), mlp.mlp_block_tp_plain(*args))
+    assert torch.equal(out.reshape(t["x"].shape),
+                       mlp.mlp_block_tp_plain(*args))
     a, z = engine_gemm_plain("NT", "bias_gelu_z", h, t["w1"], t["b1"])
     dw2 = engine_gemm_plain("TN", "partial", g2, a).sum(0)
     dz = engine_gemm_plain("NN", "dgelu", g2, t["w2"], z=z)
@@ -501,6 +523,108 @@ def test_tp_mlp_chains_mirror_the_twins(T):
     _rel_close(dln_w.numpy(), (got[3] * xhat).sum((0, 1, 2)).numpy(), 1e-6,
                "dln_w")
     assert dx.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("signature", sorted(ROUTES))
+def test_routes_launch_what_their_mirrors_take(signature):
+    """The helpers that pick a route by the shape launch, route by route,
+    what _records counts, and pick it by the rule Python mirrors: the
+    LayerNorm inside the product where hopper_gemm.cuh's lng_takes(C)
+    holds."""
+    body = _body(_code(), signature)
+    routes = ROUTES[signature]
+    assert _launches(body) == [launch for launches in routes.values()
+                               for launch in launches]
+    assert body.index("lng_takes(C)") < body.index(routes["one"][0] + "(")
+
+
+def _header_constants(name: str, prefix: str) -> dict:
+    text = (CSRC / name).read_text()
+    return {k: int(v) for k, v in re.findall(
+        rf"constexpr int ({prefix}\w+) = (\d+);", text)}
+
+
+def test_ln_product_constants_and_rules_match_the_source():
+    """LN_PRODUCT is hopper_gemm.cuh's LNG_ constants; the Python rule
+    takes C where the source's does: whole 64-column k-blocks up to 512
+    (phase 30's shards and T = 1's C take the one-launch product)."""
+    k = _header_constants("hopper_gemm.cuh", "LNG_")
+    assert mlp.LN_PRODUCT == {"max_c": k["LNG_MAX_C"], "bm": k["LNG_BM"],
+                              "stages": k["LNG_STAGES"]}
+    assert [c for c in range(1, 1100) if mlp.ln_product_takes(c)] == \
+        list(range(64, 513, 64))
+
+
+@pytest.mark.parametrize("M", [1, 17, 300])
+def test_ln_product_twin_is_layer_norm_then_the_engine_bitwise(M):
+    """hg_ln_gemm's twin (each block's 128 rows normalised, then the NT
+    product with its bias) is layer_norm then engine_gemm_plain over
+    all rows, bit for bit, at a partial tile and fewer rows than one; the
+    CPU wrapper is the twin."""
+    rs = np.random.RandomState(M)
+    x = _t(rs.normal(size=(M, C)).astype(np.float32) * 2 + 0.5,
+           torch.bfloat16)
+    ln_w, ln_b = _t(_mk((C,), 1, 0.1, 1.0)), _t(_mk((C,), 2, 0.1))
+    w = _t(_mk((3 * C, C), 3, C ** -0.5), torch.bfloat16)
+    b = _t(_mk((3 * C,), 4, 0.1), torch.bfloat16)
+    want = engine_gemm_plain("NT", "bias", at.layer_norm(x, ln_w, ln_b), w,
+                             b)
+    got = mlp.ln_engine_gemm_plain(x, ln_w, ln_b, w, b)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert torch.equal(mlp.ln_engine_gemm(x, ln_w, ln_b, w, b), want)
+
+
+@pytest.mark.parametrize("mode,frames", [("temporal", 81), ("temporal", 243),
+                                         ("spatial", 81)])
+def test_sliced_forward_core_twin_is_the_plain_core_bitwise(mode, frames):
+    """bf16: the split forward's twin (64-row query slices of a group
+    against its keys whole) is st_attention_plain bit for bit, and so is
+    attention_core_fwd on CPU tensors, split or not."""
+    q, k, v, _ = _core(frames, mode, torch.bfloat16)
+    heads, scale = 2, 64 ** -0.5
+    want = at.st_attention_plain(q, k, v, mode, heads, scale)
+    got = at.st_attention_sliced_plain(q, k, v, mode, heads, scale)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    for split in (True, False):
+        assert torch.equal(at.attention_core_fwd(q, k, v, mode, heads, scale,
+                                                 split), want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_sliced_forward_core_twin_matches_the_jax_core(mode):
+    """fp32, a narrow 243-frame input (C 64, 2 heads of 32): the split
+    forward's twin against the JAX package's st_attention (its XLA path
+    below a 128-lane channel dim), FWD_TOL of max|reference| (the same
+    math, sums in another order)."""
+    rs = np.random.RandomState(243)
+    q, k, v = (rs.normal(size=(1, 243, J, 64)).astype(np.float32)
+               for _ in range(3))
+    want = jat.st_attention(*(jnp.asarray(a) for a in (q, k, v)), mode, 2,
+                            32 ** -0.5)
+    got = at.st_attention_sliced_plain(_t(q), _t(k), _t(v), mode, 2,
+                                       32 ** -0.5)
+    _rel_close(got.numpy(), want, FWD_TOL, mode)
+
+
+def test_split_forward_grid_plan_at_phase_30():
+    """The split forward's blocks at phase 30's shape (batch 4, 243 frames,
+    4 local heads of 64): 272 items x 4 query slices = 1088 blocks, 4.12
+    waves at two blocks an SM on 132 SMs, where the one-launch kernel's 272
+    blocks at one an SM take 2.06; the spatial core keeps its 4 items a
+    block; the slice is TC_SLICE_WARPS warps of TC_KEY_TILE rows."""
+    k = _header_constants("attention_tc.cuh", "TC_")
+    assert at.CORE_SLICE_ROWS == k["TC_SLICE_WARPS"] * k["TC_KEY_TILE"]
+    assert at.CORE_KEY_TILE == k["TC_KEY_TILE"]
+    shape = (chip_smoke.B, chip_smoke.FRAMES, J, chip_smoke.C)
+    heads = chip_smoke.HEADS // chip_smoke.TP_T
+    (split,) = at.attn_tp_fwd_core_plan(shape, heads, "temporal", 2,
+                                        132)["launches"]
+    assert split["blocks"] == 1088 and round(split["waves"], 2) == 4.12
+    assert at.core_splits_forward(243) and at.core_splits_forward(81)
+    assert not at.core_splits_forward(17) and not at.core_splits_forward(64)
+    (spatial,) = at.attn_tp_fwd_core_plan(shape, heads, "spatial", 2,
+                                          132)["launches"]
+    assert spatial["blocks"] == chip_smoke.B * chip_smoke.FRAMES * heads // 4
 
 
 # ---------------------------------------------------------------------------
