@@ -35,7 +35,11 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      a seeded (8, 243, 17, 3) batch and a smooth root-relative target; the
      first step's loss and gradients against the fp32 plain path (batch 4),
      then 10 AdamW steps through the kernels with the launch counts per step,
-     ms per step, clips/s, peak memory, and one step under torch.profiler.
+     ms per step, clips/s, peak memory, and one step under torch.profiler;
+     then 3 steps at the config's own batch of 32 (132,192 token rows
+     through B1-B3) from the anchor weights on one seeded batch: finite
+     losses, the batch's loss falls, the same launches a step, ms per step
+     on the device clock, peak memory, and one step under torch.profiler.
   9. driver: train_with_config on the synthetic smoke set at the flagship
      widths, 2 epochs with evaluation, then a resumed third epoch.
  10. q8 kernels: first the s8 engine alone (csrc/hopper_gemm_s8.cuh) at
@@ -230,6 +234,10 @@ Phases, each of which passes or ends the run with a non-zero exit code:
      bar; the launches of each (B9_tp and the TP modes, no B9 and no B10
      on the grid); (c) the 1 x 2 action checkpoint resumed at 1 x 1
      against the grid's own next step.
+ 32. anchor (only with --phases anchor): train.anchor's two phases, each a
+     process of its own: the flagship trained on the learnable synthetic
+     H36M mirror with the JAX anchor's recipe (batch 32, 60 epochs), stopped
+     after 20 and resumed, its trace held to data/anchors/anchor_trace.json.
 Phases 10-15 run after phase 6, phases 16-19 after phase 9, phases 20-23
 after phase 19, phases 24-27 after phase 23, phases 28-31 after phase 27.
 Then a JSON line of per-kernel numbers, the card's name and power limit,
@@ -245,11 +253,12 @@ and as the last line {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases render
     python3 chip_smoke.py --phases tp
     python3 chip_smoke.py --phases tp2
+    python3 chip_smoke.py --phases anchor [--epochs 60] [--mid 20]
 
 run only phases 1, 2, 3 and 24; 1, 2, the engine and core phases of 16, 7
 and 8; 1, 2 and 10-15; 1, 2 and 16-19; 1, 2 and 20-23; 1, 2 and 24-27;
-1, 2 and 28; 1, 2 and 29; 1, 2 and 30; or 1, 2 and 31 (while working on
-them), and print no last line.
+1, 2 and 28; 1, 2 and 29; 1, 2 and 30; 1, 2 and 31; or 1, 2 and 32 (while
+working on them), and print no last line.
 
     python3 chip_smoke.py --baseline ROOT [--phases ...]
 
@@ -361,6 +370,12 @@ def grad_tensor_tol(name: str) -> float:
 B, FRAMES, J, C, HEADS, HIDDEN = 4, 243, 17, 512, 8, 1024
 LIFT_BATCH = 8
 TRAIN_BATCH, REF_BATCH, TRAIN_STEPS = 8, 4, 10
+# steps at the training config's own batch (MB_train_h36m.yaml: 32)
+SHIPPED_STEPS = 3
+# a flagship train step's launches: 3 pairs and 1 gated pair a layer, each
+# forward once and backward once
+TRAIN_LAUNCHES = {"fused_pair_block": 15, "fused_gated_pair_block": 5,
+                  "fused_pair_block_bwd": 15, "fused_gated_pair_block_bwd": 5}
 
 
 def log(msg: str) -> None:
@@ -1931,10 +1946,8 @@ def phase_train(fp, fwd_records: list, bwd_records: list):
     after = eval_loss()
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     log(f"train: launches per step {json.dumps(per_step)}")
-    expect = {"fused_pair_block": 15, "fused_gated_pair_block": 5,
-              "fused_pair_block_bwd": 15, "fused_gated_pair_block_bwd": 5}
-    if per_step != expect:
-        fail(f"train step launched {per_step}, expected {expect}")
+    if per_step != TRAIN_LAUNCHES:
+        fail(f"train step launched {per_step}, expected {TRAIN_LAUNCHES}")
     losses = [v.item() for v in losses]
     log(f"train: ({TRAIN_BATCH}, {FRAMES}, 17, 3) AdamW steps: "
         f"{dt * 1e3:.2f} ms per step, {TRAIN_BATCH / dt:.3f} clips/s, peak "
@@ -1950,6 +1963,74 @@ def phase_train(fp, fwd_records: list, bwd_records: list):
         rec["launches"] = launches[rec["name"]]
 
     profile_step("train profile", step, x, y, column_sums=True)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    shipped_batch_steps(fp, args, sd, lambdas)
+
+
+def shipped_batch_steps(fp, args, sd, lambdas) -> None:
+    """SHIPPED_STEPS AdamW steps at the config's batch (32: 132,192 token
+    rows through B1-B3) from the anchor weights, on one fixed batch through
+    the kernels: finite losses, the batch's loss falls, phase 8's launches a
+    step; ms per step on the device clock and peak memory; then one more
+    step under the profiler."""
+    from motionbert_tpu_torch.losses.pose import pose3d_total_loss
+    from motionbert_tpu_torch.models.factory import load_backbone
+    from motionbert_tpu_torch.train.pose3d import (
+        make_train_step, preprocess_batch)
+    from motionbert_tpu_torch.train.state import make_adamw
+
+    batch = args.batch_size
+    model = load_backbone(args, device="cuda")
+    model.load_state_dict(sd, strict=True)
+    x, y = train_batch(batch)
+    opt = make_adamw(model.parameters(), args.learning_rate,
+                     args.weight_decay)
+    step = make_train_step(model, opt, lambdas, rootrel=args.rootrel,
+                           no_conf=args.no_conf, flip_aug=bool(args.flip),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(0))
+
+    def batch_loss():
+        with torch.no_grad():
+            xb, yb, _ = preprocess_batch(x, y, rootrel=True, no_conf=False)
+            return pose3d_total_loss(model(xb).float(), yb, lambdas)[0].item()
+
+    before = batch_loss()
+    counters = (fp.fused_pair_block, fp.fused_gated_pair_block,
+                fp.fused_pair_block_bwd, fp.fused_gated_pair_block_bwd)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(SHIPPED_STEPS):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        losses.append(step(x, y)["total"])
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {c.__name__: c.launches / SHIPPED_STEPS for c in counters}
+    after = batch_loss()
+    losses = [v.item() for v in losses]
+    clips_s = batch * 1e3 / statistics.mean(ms[1:])
+    log(f"train: shipped batch ({batch}, {FRAMES}, 17, 3), "
+        f"{batch * FRAMES * J} token rows: ms per step on the device clock "
+        + " ".join(f"{v:.2f}" for v in ms) + f" (the first warms the "
+        f"allocator and AdamW's state), {clips_s:.3f} clips/s after it, "
+        f"peak memory {peak / 2**30:.3f} GiB; launches "
+        f"per step {json.dumps(per_step)}; fixed-batch loss {before:.6f} "
+        f"before, {after:.6f} after {SHIPPED_STEPS} steps; step losses "
+        + " ".join(f"{v:.5f}" for v in losses))
+    if per_step != TRAIN_LAUNCHES:
+        fail(f"shipped-batch step launched {per_step}, expected "
+             f"{TRAIN_LAUNCHES}")
+    if not (np.isfinite(losses).all() and np.isfinite(after)
+            and after < before):
+        fail(f"shipped-batch loss did not fall: {before} -> {after}")
+    profile_step(f"train profile, batch {batch}", step, x, y)
     del model, opt, step
     torch.cuda.empty_cache()
 
@@ -2001,6 +2082,25 @@ def phase_driver():
             fail(f"driver: {role} missing from {roles}")
     if latest["epoch"] != 3:
         fail(f"driver: latest checkpoint records epoch {latest['epoch']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 32 (opt-in): the convergence witness
+# ---------------------------------------------------------------------------
+
+def phase_anchor(epochs: int, mid: int) -> None:
+    """train.anchor's two phases, each a process of its own, on a fresh
+    workdir: the flagship trained for ``epochs`` with the JAX anchor's recipe,
+    stopped after ``mid`` and resumed; fails when the module's checks do."""
+    cmd = [sys.executable, "-m", "motionbert_tpu_torch.train.anchor",
+           "--epochs", str(epochs), "--mid", str(mid)]
+    for phase, extra in (("1", ["--fresh"]), ("2", [])):
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd + ["--phase", phase] + extra, cwd=ROOT)
+        log(f"anchor: phase {phase} exit {done.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if done.returncode != 0:
+            fail(f"anchor phase {phase} exited {done.returncode}")
 
 
 # ---------------------------------------------------------------------------
@@ -7023,7 +7123,7 @@ def main() -> int:
     parser.add_argument("--phases",
                         choices=("all", "pairs", "train", "q8", "blocks",
                                  "action", "mesh", "dist", "render",
-                                 "tp", "tp2"),
+                                 "tp", "tp2", "anchor"),
                         default="all",
                         help="pairs: only phases 1, 2, 3 and 24; train: only "
                              "phases 1, 2, the engine and core phases, 7 and "
@@ -7032,8 +7132,9 @@ def main() -> int:
                              "2 and 20-23; mesh: only phases 1, 2 and 24-27; "
                              "dist: only phases 1, 2 and 28; render: only "
                              "phases 1, 2 and 29; tp: only phases 1, 2 and "
-                             "30; tp2: only phases 1, 2 and 31; none of "
-                             "them prints the last line")
+                             "30; tp2: only phases 1, 2 and 31; anchor: "
+                             "only phases 1, 2 and 32; none of them prints "
+                             "the last line")
     parser.add_argument("--baseline", default=None, metavar="ROOT",
                         help="another checkout (the parent's, say): after the "
                              "build, hold this checkout's bf16 pairs and "
@@ -7046,6 +7147,11 @@ def main() -> int:
                              "MLP backwards, the train, drop-path and mesh "
                              "steps, the lift and the W8A8 lift in turns "
                              "with that build's")
+    parser.add_argument("--epochs", type=int, default=60,
+                        help="--phases anchor: epochs in all (the JAX "
+                             "anchor's 60)")
+    parser.add_argument("--mid", type=int, default=20,
+                        help="--phases anchor: epochs of the first process")
     opts = parser.parse_args()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -7164,6 +7270,12 @@ def main() -> int:
         log(json.dumps({"kernels": records}))
         log(f"device: {smi}")
         log("partial run (--phases tp2): no result line")
+        return 0
+
+    if opts.phases == "anchor":
+        timed("anchor", phase_anchor, opts.epochs, opts.mid)
+        log(f"device: {smi}")
+        log("partial run (--phases anchor): no result line")
         return 0
 
     if opts.phases == "dist":

@@ -280,7 +280,9 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
     latest_epoch.ckpt when there is one. Data parallel over the process
     group (``parallel.mesh.init_distributed``). Returns {"e1": best P1,
     "history": one dict per epoch run (epoch, lr, mean loss terms of the
-    global batches, e1, e2)}."""
+    global batches, e1, e2, the 3D steps, the host seconds of the epoch's
+    training, and on the card the mean device ms of its train steps,
+    between CUDA events; None on the CPU)}."""
     from motionbert_tpu_torch.core.checkpoint import (
         CheckpointManager, is_port_checkpoint, load_checkpoint,
         load_state_dict)
@@ -396,11 +398,17 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         mask_T_ratio=args.get("mask_T_ratio", 0.0),
         flip_aug=bool(args.get("flip", False)), generator=generator)
 
-    def run_epoch(loader, losses, has_3d, has_gt):
+    def run_epoch(loader, losses, has_3d, has_gt, events):
         for batch_input, batch_gt in rank_batches(loader, dev):
-            terms = mean_over_ranks(train_step(batch_input, batch_gt,
-                                               has_3d=has_3d, has_gt=has_gt))
-            for k, v in terms.items():
+            if dev.type == "cuda":
+                events.append([torch.cuda.Event(enable_timing=True)
+                               for _ in range(2)])
+                events[-1][0].record()
+            terms = train_step(batch_input, batch_gt, has_3d=has_3d,
+                               has_gt=has_gt)
+            if dev.type == "cuda":
+                events[-1][1].record()
+            for k, v in mean_over_ranks(terms).items():
                 losses.setdefault(k, AverageMeter()).update(
                     float(v), len(batch_input) * data_size())
 
@@ -409,17 +417,26 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         print(f"Training epoch {epoch}.")
         start = time.time()
         losses: dict = {}
+        events: list = []
         train_loader.set_epoch(epoch)
         # curriculum: the 2D datasets join after pretrain_3d_curriculum epochs
         if loaders_2d and epoch >= args.get("pretrain_3d_curriculum", 0):
             for _, loader_2d, has_gt in loaders_2d:
                 loader_2d.set_epoch(epoch)
-                run_epoch(loader_2d, losses, has_3d=False, has_gt=has_gt)
-        run_epoch(train_loader, losses, has_3d=True, has_gt=True)
+                run_epoch(loader_2d, losses, has_3d=False, has_gt=has_gt,
+                          events=events)
+        run_epoch(train_loader, losses, has_3d=True, has_gt=True,
+                  events=events)
         elapsed = (time.time() - start) / 60.0
+        step_ms = None
+        if events:
+            torch.cuda.synchronize(dev)
+            step_ms = float(np.mean([a.elapsed_time(b) for a, b in events]))
         record = {"epoch": epoch, "lr": lr,
                   "losses": {k: m.avg for k, m in losses.items()},
-                  "e1": None, "e2": None}
+                  "e1": None, "e2": None,
+                  "steps": losses["3d_pos"].count // args.batch_size,
+                  "train_s": elapsed * 60.0, "step_ms": step_ms}
         if args.get("no_eval", False):
             print(f"[{epoch + 1}] time {elapsed:.2f} lr {lr:f} "
                   f"3d_train {losses['3d_pos'].avg:f}")

@@ -53,6 +53,8 @@ def test_port_imports_no_jax():
         "import motionbert_tpu_torch.parallel.mesh, "
         "motionbert_tpu_torch.viz.render, motionbert_tpu_torch.infer, "
         "motionbert_tpu_torch.data.amass\n"
+        "import motionbert_tpu_torch.train.anchor, "
+        "motionbert_tpu_torch.data.synthetic\n"
         "import runpy; runpy.run_module('motionbert_tpu_torch.train.pose3d', "
         "run_name='not_main')\n"
         "runpy.run_module('motionbert_tpu_torch.train.action', "
@@ -64,6 +66,8 @@ def test_port_imports_no_jax():
         "runpy.run_module('motionbert_tpu_torch.train.mesh', "
         "run_name='not_main')\n"
         "runpy.run_module('motionbert_tpu_torch.infer.wild_mesh', "
+        "run_name='not_main')\n"
+        "runpy.run_module('motionbert_tpu_torch.train.anchor', "
         "run_name='not_main')\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -97,7 +101,9 @@ def test_port_imports_no_jax():
               "motionbert_tpu_torch.parallel.mesh",
               "motionbert_tpu_torch.viz.render",
               "motionbert_tpu_torch.infer",
-              "motionbert_tpu_torch.data.amass"):
+              "motionbert_tpu_torch.data.amass",
+              "motionbert_tpu_torch.train.anchor",
+              "motionbert_tpu_torch.data.synthetic"):
         assert m in mods, m
     bad = [m for m in mods if _is_jax_package(m)]
     assert not bad, bad

@@ -656,6 +656,8 @@ def test_world2_driver_trains_the_world1_epoch(world2, task, tmp_path,
     one = run_driver(task, str(tmp_path / task), oneshot_pkl)
     assert len(one["history"]) == len(two["history"]) == 1
     for key, value in one["history"][0].items():
+        if key in ("train_s", "step_ms"):    # pose3d's timings, not results
+            continue
         if isinstance(value, dict):    # pose3d's loss terms
             for k, v in value.items():
                 np.testing.assert_allclose(two["history"][0][key][k], v,
