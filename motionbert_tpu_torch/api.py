@@ -19,6 +19,7 @@ import torch
 
 from motionbert_tpu_torch.core.checkpoint import load_state_dict
 from motionbert_tpu_torch.core.config import get_config
+from motionbert_tpu_torch.core.profiling import annotate
 from motionbert_tpu_torch.models.factory import load_backbone
 from motionbert_tpu_torch.train.pose3d import make_eval_step
 
@@ -73,7 +74,13 @@ class MotionBERT:
         if flip_tta not in self._lift_steps:
             self._lift_steps[flip_tta] = make_eval_step(
                 self.model, no_conf=False, flip_tta=flip_tta)
-        pred = self._lift_steps[flip_tta](self._check(x)).cpu().numpy()
-        if rootrel:
-            pred[:, :, 0, :] = 0
+        step = self._lift_steps[flip_tta]
+        with annotate("lift.h2d"):
+            x = self._check(x)
+        with annotate("lift.forward", device=True, rows=int(x.shape[0])):
+            pred = step(x)
+        with annotate("lift.d2h"):
+            pred = pred.cpu().numpy()
+            if rootrel:
+                pred[:, :, 0, :] = 0
         return pred

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from motionbert_tpu_torch.core.config import read_pkl
+from motionbert_tpu_torch.core.profiling import annotate
 from motionbert_tpu_torch.geometry.skeleton import posetrack2h36m
 from motionbert_tpu_torch.geometry.transforms import (
     crop_scale, crop_scale_3d, split_clips)
@@ -304,7 +305,9 @@ def device_prefetch(iterator, device, size: int = 2) -> Iterator:
     device each batch goes through pinned host memory and a non-blocking
     copy on a side stream; the consuming stream waits on the copy's event
     before it receives the batch, and the batch's memory is recorded on
-    that stream for the caching allocator. On the CPU the arrays become
+    that stream for the caching allocator; under a profiler each hand-over
+    is a ``data.feed`` span: the next host batch, its pinning and copy,
+    and the wait on the batch it yields. On the CPU the arrays become
     tensors sharing their memory."""
     device = torch.device(device)
     if device.type != "cuda":
@@ -313,6 +316,7 @@ def device_prefetch(iterator, device, size: int = 2) -> Iterator:
         return
     side = torch.cuda.Stream(device)
     ahead: deque = deque()
+    source, size = iter(iterator), max(size, 1)
 
     def load(host):
         pinned = torch.as_tensor(host).pin_memory()
@@ -325,11 +329,15 @@ def device_prefetch(iterator, device, size: int = 2) -> Iterator:
         _tree_map(lambda t: t.record_stream(consumer), batch)
         return batch
 
-    for host in iterator:
-        with torch.cuda.stream(side):
-            batch = _tree_map(load, host)
-            ahead.append((batch, side.record_event()))
-        if len(ahead) >= size:
-            yield hand_over()
-    while ahead:
-        yield hand_over()
+    while True:
+        with annotate("data.feed"):
+            for host in source:
+                with torch.cuda.stream(side):
+                    ahead.append((_tree_map(load, host),
+                                  side.record_event()))
+                if len(ahead) >= size:
+                    break
+            if not ahead:
+                return
+            batch = hand_over()
+        yield batch

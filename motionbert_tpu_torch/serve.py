@@ -12,6 +12,13 @@ Grouping is by exact clip length because temporal attention attends over
 every frame of the clip; padding the batch axis is free, so short groups are
 padded by repetition and the padding rows dropped on the way out.
 
+While a torch profiler runs (``core.profiling``) the collector records
+spans: ``serve.await`` for the first item, ``serve.hold`` for stragglers,
+and for each batch ``serve.dispatch`` around ``serve.stack``,
+``serve.model`` (on the device clock too), ``serve.unstack`` and
+``serve.resolve``; at the start of ``serve.model`` each request's wait
+since ``submit`` is a ``serve.queue_wait_s`` sample.
+
     server = BatchingServer(fn)                # fn: (B, T, J, C) -> result
     fut = server.submit(clip)                  # clip: (T, J, C)
     result = fut.result()                      # (T, J, C) numpy
@@ -22,6 +29,7 @@ padded by repetition and the padding rows dropped on the way out.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -31,6 +39,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from motionbert_tpu_torch.core import profiling
 from motionbert_tpu_torch.infer.batching import (
     fetch_result, stack_padded, unstack_result)
 
@@ -99,6 +108,8 @@ class BatchingServer:
         # item BEHIND the sentinel where the worker never sees it
         self._submit_lock = threading.Lock()
         self._plan_memo: dict = {}  # group size -> [(take, bucket), ...]
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
         self.stats = ServerStats()
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="mbt-torch-serving-collector")
@@ -118,7 +129,9 @@ class BatchingServer:
             raise ValueError(
                 f"clip must have a leading time axis; got shape {arr.shape}")
         fut: Future = Future()
-        item = (arr, fut)
+        # (clip, future, request id, submit time): the stamp is one clock
+        # read, taken always, for the queue wait that tracing samples
+        item = (arr, fut, next(self._request_ids), time.perf_counter_ns())
         while True:
             # put_nowait under the lock, sleep outside it: blocking on a
             # full queue while HOLDING the lock would serialize all
@@ -187,8 +200,10 @@ class BatchingServer:
     # The cost of one dispatch, in rows of device compute: splitting a group
     # beats padding it only when it saves more than this many padded rows
     # per extra dispatch. The value is the JAX package's (motionbert_tpu/
-    # serve.py), kept so both servers plan alike; it has not been measured
-    # for the port. With buckets (1,8,...,96,192), 105 waiting clips plan as
+    # serve.py), kept so both servers plan alike. On the H100 the
+    # serve.model spans of the Lite lifter measure 10-13 rows (PERF.md §7),
+    # and a batch of 1 costs what a batch of 8 costs: a later change is to
+    # plan from that. With buckets (1,8,...,96,192), 105 waiting clips plan as
     # 96+8+1 real rows; with (1,8,48) a 44-clip group still pads to one 48
     # batch rather than six 8s.
     DISPATCH_OVERHEAD_ROWS = 4
@@ -228,45 +243,63 @@ class BatchingServer:
     def _collect(self):
         """Block for one item, then gather more until the oldest item's
         deadline passes or the largest bucket fills. Returns (items, done)
-        where items is a list of (clip, future)."""
-        first = self._q.get()
+        where items are the queued (clip, future, request id, submit ns)."""
+        with profiling.annotate("serve.await"):
+            first = self._q.get()
         if first is None:
             return [], True
         items = [first]
         deadline = time.monotonic() + self._max_wait
-        while len(items) < self._buckets[-1]:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            try:
-                nxt = self._q.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if nxt is None:
-                return items, True
-            items.append(nxt)
+        with profiling.annotate("serve.hold"):
+            while len(items) < self._buckets[-1]:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    return items, True
+                items.append(nxt)
         return items, False
 
     def _dispatch_group(self, group):
         """Run one same-length group as bucket-padded device batches."""
         for take, bucket in self._plan_chunks(len(group)):
             chunk, group = group[:take], group[take:]
-            # everything from stacking on is guarded: a bad clip (e.g. same
-            # T but mismatched trailing shape) must fail its own futures,
-            # never the collector thread
-            try:
-                batch = stack_padded([c for c, _ in chunk], bucket)
+            with profiling.annotate("serve.dispatch",
+                                    batch=next(self._batch_ids),
+                                    rows=len(chunk), bucket=bucket):
+                self._dispatch_chunk(chunk, bucket)
+
+    def _dispatch_chunk(self, chunk, bucket: int):
+        # everything from stacking on is guarded: a bad clip (e.g. same T
+        # but mismatched trailing shape) must fail its own futures, never
+        # the collector thread
+        try:
+            with profiling.annotate("serve.stack"):
+                batch = stack_padded([item[0] for item in chunk], bucket)
+            with profiling.annotate("serve.model", device=True):
+                if profiling.tracing():
+                    now = time.perf_counter_ns()
+                    for _, _, request, submitted in chunk:
+                        profiling.observe("serve.queue_wait_s",
+                                          (now - submitted) * 1e-9,
+                                          request=request)
                 res = fetch_result(self._fn(batch))
+            with profiling.annotate("serve.unstack"):
                 results = [unstack_result(res, k) for k in range(len(chunk))]
-            except Exception as e:  # propagate to every caller in the batch
-                for _, fut in chunk:
-                    _resolve(fut, exc=e)
-                continue
-            self.stats.batches += 1
-            self.stats.padded_rows += bucket - len(chunk)
-            self.stats.batched_requests += len(chunk)
-            for (_, fut), out in zip(chunk, results):
-                _resolve(fut, result=out)
+        except Exception as e:  # propagate to every caller in the batch
+            for item in chunk:
+                _resolve(item[1], exc=e)
+            return
+        self.stats.batches += 1
+        self.stats.padded_rows += bucket - len(chunk)
+        self.stats.batched_requests += len(chunk)
+        with profiling.annotate("serve.resolve"):
+            for item, out in zip(chunk, results):
+                _resolve(item[1], result=out)
 
     def _run(self):
         done = False
@@ -277,21 +310,21 @@ class BatchingServer:
             self.stats.requests += len(items)
             try:
                 by_shape: dict = {}
-                for clip, fut in items:
+                for item in items:
                     # group by the FULL shape, not just clip length: a
                     # malformed clip (right length, wrong trailing shape)
                     # must form its own group and fail alone, never the
                     # well-formed requests it would otherwise co-batch with
-                    by_shape.setdefault(clip.shape, []).append((clip, fut))
+                    by_shape.setdefault(item[0].shape, []).append(item)
                 # largest groups first: best amortization while stragglers
                 # of other lengths keep queueing behind
                 for _, grp in sorted(by_shape.items(),
                                      key=lambda kv: -len(kv[1])):
                     self._dispatch_group(grp)
             except Exception as e:  # last-resort guard: the collector must
-                for _, fut in items:  # outlive any malformed request
-                    if not fut.done():
-                        _resolve(fut, exc=e)  # races with cancel(): tolerate
+                for item in items:  # outlive any malformed request
+                    if not item[1].done():
+                        _resolve(item[1], exc=e)  # races with cancel()
 
 
 class MotionBERTServer:

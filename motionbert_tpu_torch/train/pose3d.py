@@ -52,6 +52,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from motionbert_tpu_torch.core.profiling import annotate
 from motionbert_tpu_torch.data.augment import NoiseParams, augment2d
 from motionbert_tpu_torch.geometry.procrustes import mpjpe, p_mpjpe
 from motionbert_tpu_torch.geometry.skeleton import flip_data
@@ -110,8 +111,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         raise ValueError("use_noise needs noise_params")
     lambdas = {k: float(lambdas.get(k, 0.0)) for k in LAMBDA_KEYS}
 
-    def train_step(batch_input: torch.Tensor, batch_gt: torch.Tensor,
-                   has_3d: bool = True, has_gt: bool = True) -> dict:
+    def forward(batch_input, batch_gt, has_3d, has_gt):
         model.train()
         if flip_aug:
             do = rank_draw(uniform, (batch_input.shape[0], 1, 1, 1),
@@ -128,13 +128,20 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 mask_ratio=mask_ratio, mask_T_ratio=mask_T_ratio)
         pred = model(batch_input, generator=generator).float()
         if has_3d:
-            total, terms = pose3d_total_loss(pred, batch_gt.float(), lambdas)
-        else:
-            total = loss_2d_weighted(pred, batch_gt.float(), conf.float())
-            terms = {"2d_proj": total, "total": total}
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        optimizer.step()
+            return pose3d_total_loss(pred, batch_gt.float(), lambdas)
+        total = loss_2d_weighted(pred, batch_gt.float(), conf.float())
+        return total, {"2d_proj": total, "total": total}
+
+    def train_step(batch_input: torch.Tensor, batch_gt: torch.Tensor,
+                   has_3d: bool = True, has_gt: bool = True) -> dict:
+        with annotate("train.step", device=True):
+            with annotate("train.forward", device=True):
+                total, terms = forward(batch_input, batch_gt, has_3d, has_gt)
+            with annotate("train.backward", device=True):
+                optimizer.zero_grad(set_to_none=True)
+                total.backward()
+            with annotate("train.optimizer", device=True):
+                optimizer.step()
         return {k: v.detach() for k, v in terms.items()}
 
     return train_step

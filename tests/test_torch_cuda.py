@@ -1545,6 +1545,48 @@ def test_device_prefetch_moves_batches_to_the_card(cuda):
         np.testing.assert_array_equal(gy.cpu().numpy(), y["y"])
 
 
+@pytest.mark.cuda
+def test_device_prefetch_records_a_feed_span_a_batch_only_when_traced(cuda):
+    from motionbert_tpu_torch.core import profiling
+    from motionbert_tpu_torch.data.datasets import device_prefetch
+
+    batches = [np.full((8, 243, 17, 3), i, np.float32) for i in range(5)]
+    profiling.reset()
+    assert len(list(device_prefetch(iter(batches), cuda))) == 5
+    assert profiling.recorded()["spans"] == []
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        got = [float(x[0, 0, 0, 0]) for x in
+               device_prefetch(iter(batches), cuda, size=2)]
+    assert got == [0.0, 1.0, 2.0, 3.0, 4.0]
+    spans = profiling.recorded()["spans"]
+    profiling.reset()
+    # one a batch handed over, and the last resume that finds none left
+    assert [s["name"] for s in spans] == ["data.feed"] * 6
+    assert all(s["parent"] is None for s in spans)
+
+
+@pytest.mark.cuda
+def test_a_device_span_on_the_card_is_timed_by_events(cuda):
+    from motionbert_tpu_torch.core import profiling
+
+    x = torch.randn(2048, 2048, device=cuda)
+    torch.cuda.synchronize()
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        with profiling.annotate("card.span", device=True, rows=4):
+            for _ in range(20):
+                x = x @ x * 1e-3
+    rec = profiling.recorded()
+    profiling.reset()
+    (dev,) = rec["device"]
+    assert dev["name"] == "card.span" and dev["args"] == {"rows": 4}
+    assert 0.0 < dev["ms"] < 1e4
+
+
 # ---------------------------------------------------------------------------
 # the tensor-parallel modes of the block kernels (B4_tp-B7_tp) and the
 # LayerNorm backward (csrc/block_kernels.cu)
