@@ -49,11 +49,19 @@ H36M_ANGLE_PAIRS = (
 )
 
 
+# H36M_FLIP_PERM as an index tensor, one a device, made at its first use:
+# later flips copy nothing from the host, so a CUDA graph can capture them
+_FLIP_INDEX = {}
+
+
 def flip_data(data: torch.Tensor) -> torch.Tensor:
     """Horizontal flip of (..., 17, D) data: negate x (channel 0) and swap
     left/right joints. Returns a new tensor."""
     flipped = torch.cat([-data[..., :1], data[..., 1:]], dim=-1)
-    perm = torch.tensor(H36M_FLIP_PERM, device=data.device)
+    perm = _FLIP_INDEX.get(data.device)
+    if perm is None:
+        perm = _FLIP_INDEX[data.device] = torch.tensor(H36M_FLIP_PERM,
+                                                       device=data.device)
     return flipped.index_select(-2, perm)
 
 

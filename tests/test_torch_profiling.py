@@ -30,7 +30,7 @@ from motionbert_tpu_torch.train.state import make_adamw
 TINY = ConfigDict(dim_feat=32, dim_rep=32, depth=1, num_heads=2, mlp_ratio=2,
                   num_joints=17, maxlen=9)
 READERS = {"serve": ("serve_queue_wait_ms_p95", "serve_host_ms_per_batch",
-                     "lift_device_ms_per_clip"),
+                     "lift_device_ms_per_clip", "lift_graph_replay_pct"),
            "train": ("train_forward_ms_p50", "train_backward_ms_p50",
                      "train_feed_ms")}
 
@@ -215,7 +215,8 @@ def test_lift_spans_split_the_call():
     assert [s["name"] for s in rec["spans"]] == \
         ["lift.h2d", "lift.forward", "lift.d2h"]
     (fwd,) = rec["device"]
-    assert fwd["name"] == "lift.forward" and fwd["args"] == {"rows": 3}
+    assert fwd["name"] == "lift.forward" and \
+        fwd["args"] == {"rows": 3, "graph": 0}
     assert fwd["ms"] > 0
 
 
