@@ -9,7 +9,9 @@ in mm. A training clip is flipped with probability 1/2: the 2D and the
 thetas together (``flip_data_np``, ``flip_thetas_np``), drawn from the
 per-(epoch, index) RNG of ``EpochSeededRNG``, so a batch gathered by
 ``get_batch`` (which ``BatchLoader`` picks up) equals the same items taken
-one at a time.
+one at a time. A dataset made with ``skin_on_host=False`` hands over the 2D
+and theta alone, for a train step that skins the targets on the device
+(``train.mesh.mesh_targets``).
 """
 
 from __future__ import annotations
@@ -73,20 +75,23 @@ class SMPLDataset:
 
 class MotionSMPL(SMPLDataset, EpochSeededRNG):
     """Items (motion_2d (T, 17, 3), {"theta" (T, 82), "kp_3d" (T, 17, 3),
-    "verts" (T, V, 3)}), float32; ``args.flip`` turns the training flip
-    on."""
+    "verts" (T, V, 3)}), float32, or {"theta"} alone with
+    ``skin_on_host=False``; ``args.flip`` turns the training flip on."""
 
-    def __init__(self, args, data_split, dataset, smpl_model):
+    def __init__(self, args, data_split, dataset, smpl_model,
+                 skin_on_host: bool = True):
         super().__init__(args, data_split, dataset, smpl_model)
         self.flip = bool(args.get("flip", False))
+        self.skin_on_host = skin_on_host
 
     def __getitem__(self, index):
         x, gt = self.get_batch([index])
         return x[0], {k: v[0] for k, v in gt.items()}
 
-    def get_batch(self, indices):
-        """The items at ``indices``, stacked, with one SMPL forward over all
-        their frames."""
+    def get_inputs(self, indices) -> tuple:
+        """(motion_2d (B, T, 17, 3), theta (B, T, 72 + n_betas)), float32,
+        of the items at ``indices``, each clip flipped where its draw says
+        so (a training split with ``flip``)."""
         indices = np.asarray(indices)
         B = len(indices)
         motion_2d = self.motion_2d[indices].copy()           # (B, T, 17, 3)
@@ -99,17 +104,25 @@ class MotionSMPL(SMPLDataset, EpochSeededRNG):
                 if self.item_rng(int(idx)).random() > 0.5:
                     motion_2d[i] = flip_data_np(motion_2d[i])
                     pose[i] = flip_thetas_np(pose[i])
-        out = smpl_forward_np(self.smpl,
-                              shape.reshape(B * T, 10).astype(np.float32),
-                              pose.reshape(B * T, 72).astype(np.float32),
+        theta = np.concatenate([pose.reshape(B, T, 72).astype(np.float32),
+                                shape.astype(np.float32)], axis=-1)
+        return motion_2d.astype(np.float32), theta
+
+    def get_batch(self, indices):
+        """The items at ``indices``, stacked, with one SMPL forward over all
+        their frames (none with ``skin_on_host=False``)."""
+        motion_2d, theta = self.get_inputs(indices)
+        if not self.skin_on_host:
+            return motion_2d, {"theta": theta}
+        B, T = theta.shape[:2]
+        out = smpl_forward_np(self.smpl, theta[..., 72:].reshape(B * T, -1),
+                              theta[..., :72].reshape(B * T, 72),
                               dtype=np.float32)
         verts = out["vertices"] * 1000.0                      # mm
         kp = self.smpl.numpy("J_regressor_h36m") @ verts
         verts = verts - kp[:, :1, :]
         kp = kp - kp[:, :1, :]
-        theta = np.concatenate([pose.reshape(B, T, 72),
-                                shape.reshape(B, T, 10)], axis=-1)
-        return motion_2d.astype(np.float32), {
-            "theta": theta.astype(np.float32),
+        return motion_2d, {
+            "theta": theta,
             "kp_3d": kp.reshape(B, T, -1, 3).astype(np.float32),
             "verts": verts.reshape(B, T, -1, 3).astype(np.float32)}

@@ -16,6 +16,19 @@ from motionbert_tpu_torch.geometry.skeleton import H36M_ANGLE_PAIRS, H36M_LIMBS
 
 _LIMBS = torch.tensor(H36M_LIMBS)          # (16, 2)
 _ANGLES = torch.tensor(H36M_ANGLE_PAIRS)   # (18, 2)
+# the tables above per device: a copy from host memory would wait for all
+# the work queued on the card at every loss. Made outside inference mode,
+# so that a first call under it leaves an index that autograd may save.
+_ON_DEVICE = {}
+
+
+def _on(table: torch.Tensor, device) -> torch.Tensor:
+    key = (id(table), device)
+    out = _ON_DEVICE.get(key)
+    if out is None:
+        with torch.inference_mode(False):
+            out = _ON_DEVICE[key] = table.to(device)
+    return out
 
 
 def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -71,7 +84,7 @@ def loss_velocity(predicted: torch.Tensor, target: torch.Tensor) -> torch.Tensor
 
 def _limbs(x: torch.Tensor) -> torch.Tensor:
     """(N, T, 17, 3) -> (N, T, 16, 3) limb vectors."""
-    idx = _LIMBS.to(x.device)
+    idx = _on(_LIMBS, x.device)
     return x[:, :, idx[:, 0]] - x[:, :, idx[:, 1]]
 
 
@@ -98,7 +111,7 @@ def get_angles(x: torch.Tensor) -> torch.Tensor:
     to [-1 + 1e-7, 1 - 1e-7]."""
     eps = 1e-7
     limbs = _limbs(x)
-    idx = _ANGLES.to(x.device)
+    idx = _on(_ANGLES, x.device)
     a, b = limbs[:, :, idx[:, 0]], limbs[:, :, idx[:, 1]]
     na = safe_norm(a).clamp_min(1e-8)
     nb = safe_norm(b).clamp_min(1e-8)

@@ -8,7 +8,8 @@ a per-frame pose branch (dropout -> fc1 -> BatchNorm -> ReLU) and a
 time-pooled shape branch (mean over T -> dropout -> fc2 -> BatchNorm ->
 ReLU), residual heads over the body model's mean 24 x 6D pose and mean
 betas, 6D -> rotation matrices, the SMPL forward (fp32), vertices in mm,
-the 17 H36M joints through ``J_regressor_h36m``. Outputs: theta (the 72
+the 17 H36M joints through ``J_regressor_h36m`` (the SMPL forward and the
+joint regression are a ``mesh.smpl`` span). Outputs: theta (the 72
 axis-angle pose values and the betas), verts, kp_3d.
 
 The BatchNorms are ``models.action_heads.BatchNorm1d`` (flax's: the biased
@@ -37,6 +38,7 @@ import math
 import torch
 from torch import nn
 
+from motionbert_tpu_torch.core.profiling import annotate
 from motionbert_tpu_torch.geometry.rotations import (
     rot6d_to_rotmat, rotmat_to_angle_axis)
 from motionbert_tpu_torch.models.action_heads import (
@@ -86,9 +88,10 @@ class SMPLRegressor(nn.Module):
         pred_shape = self.head_shape(shape) + m.mean_shape
         pred_shape = pred_shape[:, None].expand(N, T, -1).reshape(N * T, -1)
         rotmat = rot6d_to_rotmat(pred_pose.reshape(N * T, 24, 6))
-        out = smpl_forward(m, pred_shape, rotmat, pose2rot=False)
-        verts = out["vertices"] * 1000.0
-        kp = torch.einsum("jv,bvc->bjc", m.J_regressor_h36m, verts)
+        with annotate("mesh.smpl", device=True):
+            out = smpl_forward(m, pred_shape, rotmat, pose2rot=False)
+            verts = out["vertices"] * 1000.0
+            kp = torch.einsum("jv,bvc->bjc", m.J_regressor_h36m, verts)
         pose_aa = rotmat_to_angle_axis(rotmat.reshape(-1, 3, 3)).reshape(
             N * T, 72)
         return {"theta": torch.cat([pose_aa, pred_shape], 1), "verts": verts,

@@ -142,15 +142,32 @@ class SMPLModel(nn.Module):
                    mean_shape=np.zeros(num_betas, np.float32))
 
 
+# each kinematic tree's parent index, per device: a copy from host memory
+# would wait for all the work queued on the card at every forward. Made
+# outside inference mode, so that a first call under it leaves an index
+# that autograd may save.
+_PARENT_INDEX = {}
+
+
+def _parent_index(parents: np.ndarray, device) -> torch.Tensor:
+    key = (parents.tobytes(), device)
+    up = _PARENT_INDEX.get(key)
+    if up is None:
+        with torch.inference_mode(False):
+            up = _PARENT_INDEX[key] = torch.as_tensor(parents[1:],
+                                                      device=device)
+    return up
+
+
 def _world_transforms(rotmats: torch.Tensor, joints: torch.Tensor,
                       parents: np.ndarray) -> tuple:
     """(posed joints (B, 24, 3), the (B, 24, 3, 4) top rows of each joint's
     world transform with the rest pose taken out)."""
     B = rotmats.shape[0]
-    up = torch.as_tensor(parents[1:], device=joints.device)
+    up = _parent_index(parents, joints.device)
     rel_j = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, up]], dim=1)
-    bottom = rotmats.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(B, NUM_JOINTS,
-                                                              1, 4)
+    bottom = torch.cat([rotmats.new_zeros(3), rotmats.new_ones(1)]).expand(
+        B, NUM_JOINTS, 1, 4)              # (0, 0, 0, 1), made on the device
     local = torch.cat([torch.cat([rotmats, rel_j[..., None]], -1), bottom],
                       -2)
     world = [local[:, 0]]

@@ -12,7 +12,11 @@ through the pair kernels (bf16 on the card), the head and the SMPL layer in
 fp32. The step: the ten
 weighted loss terms (``losses.mesh``), AdamW in two groups (backbone and
 head learning rates) decayed per epoch, the head's BatchNorm statistics
-updated in the step, and the train-time MPJPE / MPVE. Each epoch trains on
+updated in the step, and the train-time MPJPE / MPVE. The training
+loaders hand over the 2D clips and the SMPL parameters only; the step skins
+the ground-truth vertices and joints on the model's device
+(``mesh_targets``), and the loop keeps its meters there, reading them at
+each print and at the end of the epoch. Each epoch trains on
 h36m while epoch < warmup_h36m, on coco while epoch < warmup_coco and on
 3DPW when ``train_pw3d`` is set; it validates h36m (while in its warmup) and
 3DPW (always, when the config names it), with flip averaging in SMPL theta
@@ -34,7 +38,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from motionbert_tpu_torch.core.metrics import AverageMeter
+from motionbert_tpu_torch.core.metrics import AverageMeter, DeviceMeters
+from motionbert_tpu_torch.core.profiling import annotate
 from motionbert_tpu_torch.geometry.rotations import flip_thetas
 from motionbert_tpu_torch.geometry.skeleton import flip_data
 from motionbert_tpu_torch.losses.mesh import (
@@ -49,31 +54,62 @@ from motionbert_tpu_torch.parallel.mesh import (
 NO_METRIC = 9999.0
 
 
+def mesh_targets(smpl: SMPLModel, theta: torch.Tensor) -> dict:
+    """The ground truth of a batch from its SMPL parameters, on their
+    device: theta (N, T, 72 + n_betas) -> {"theta", "kp_3d" (N, T, 17, 3),
+    "verts" (N, T, V, 3)}, fp32, mm, both root-relative to the H36M root
+    joint. What ``MotionSMPL.get_batch`` builds on the host with the numpy
+    forward, here with ``smpl_forward`` and ``J_regressor_h36m`` of the
+    body model the network holds, under no gradient (a ``mesh.targets``
+    span)."""
+    with annotate("mesh.targets", device=True), torch.no_grad():
+        theta = theta.float()
+        N, T = theta.shape[:2]
+        out = smpl_forward(smpl, theta[..., 72:].reshape(N * T, -1),
+                           theta[..., :72].reshape(N * T, 72))
+        verts = out["vertices"] * 1000.0
+        kp = torch.einsum("jv,bvc->bjc", smpl.J_regressor_h36m, verts)
+        root = kp[:, :1]
+        return {"theta": theta, "kp_3d": (kp - root).reshape(N, T, -1, 3),
+                "verts": (verts - root).reshape(N, T, -1, 3)}
+
+
 def make_mesh_train_step(model: MeshRegressor,
                          optimizer: torch.optim.Optimizer, lambdas: dict,
                          loss_type: str = "L1",
                          generator: Optional[torch.Generator] = None
                          ) -> Callable:
-    """step(batch_input (N, T, 17, 3), batch_gt {"theta", "kp_3d", "verts"})
-    -> the loss terms, "total", "mpjpe" and "mpve" as 0-d fp32 tensors on
-    the device, after one update. The model runs in training mode: the
-    head's BatchNorms on the batch's statistics, updating their running
-    averages, and the dropout masks from ``generator``."""
+    """step(batch_input (N, T, 17, 3), batch_gt {"theta", "kp_3d", "verts"}
+    or {"theta"} alone, whose targets ``mesh_targets`` then skins on the
+    device) -> the loss terms, "total", "mpjpe" and "mpve" as 0-d fp32
+    tensors on the device, after one update. The model runs in training
+    mode: the head's BatchNorms on the batch's statistics, updating their
+    running averages, and the dropout masks from ``generator``. Under a
+    profiler the step is a ``train.step`` span holding ``train.forward``,
+    ``train.backward`` and ``train.optimizer``."""
+    smpl = getattr(model, "module", model).head.smpl
 
     def train_step(batch_input: torch.Tensor, batch_gt: dict) -> dict:
-        model.train()
-        out = model(batch_input, generator=generator)
-        total, terms = mesh_total_loss(out, batch_gt, lambdas, loss_type)
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        optimizer.step()
-        with torch.no_grad():   # root-relative, each to its own root
-            root = out["kp_3d"][:, :, 0:1]
-            groot = batch_gt["kp_3d"][:, :, 0:1]
-            for name, key in (("mpjpe", "kp_3d"), ("mpve", "verts")):
-                terms[name] = torch.linalg.norm(
-                    (out[key] - root) - (batch_gt[key] - groot),
-                    dim=-1).mean()
+        with annotate("train.step", device=True):
+            if "verts" not in batch_gt:
+                batch_gt = mesh_targets(smpl, batch_gt["theta"])
+            with annotate("train.forward", device=True):
+                model.train()
+                out = model(batch_input, generator=generator)
+                total, terms = mesh_total_loss(out, batch_gt, lambdas,
+                                               loss_type)
+            with annotate("train.backward", device=True):
+                optimizer.zero_grad(set_to_none=True)
+                total.backward()
+            with annotate("train.optimizer", device=True):
+                optimizer.step()
+            with torch.no_grad():   # root-relative, each to its own root
+                root = out["kp_3d"][:, :, 0:1]
+                groot = batch_gt["kp_3d"][:, :, 0:1]
+                for name, key in (("mpjpe", "kp_3d"), ("mpve", "verts")):
+                    terms[name] = torch.linalg.norm(
+                        (out[key] - root) - (batch_gt[key] - groot),
+                        dim=-1).mean()
         return {k: v.detach() for k, v in terms.items()}
 
     return train_step
@@ -168,12 +204,15 @@ def build_mesh_model(args, smpl_model: SMPLModel, device=None,
 
 def _loaders(args, smpl_model: SMPLModel, seed: int) -> dict:
     """name -> (train loader or None, test loader) for each dataset the
-    config names (dt_file_h36m, dt_file_coco, dt_file_pw3d)."""
+    config names (dt_file_h36m, dt_file_coco, dt_file_pw3d). The training
+    loaders leave the targets to the step (``mesh_targets``); the test
+    loaders skin them on the host, where the metrics read them."""
     from motionbert_tpu_torch.data.dataset_mesh import MotionSMPL
     from motionbert_tpu_torch.data.datasets import BatchLoader
 
     def pair(name, batch_size, train=True):
-        train_ld = BatchLoader(MotionSMPL(args, "train", name, smpl_model),
+        train_ld = BatchLoader(MotionSMPL(args, "train", name, smpl_model,
+                                          skin_on_host=False),
                                batch_size, shuffle=True, drop_last=True,
                                seed=seed) if train else None
         return train_ld, BatchLoader(
@@ -264,15 +303,13 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         args.get("loss_type", "L1"), generator)
     print_freq = int(getattr(opts, "print_freq", 100) or 100)
 
-    def run_train(loader, meters):
+    def run_train(loader, meters: DeviceMeters):
         for idx, (batch_input, batch_gt) in enumerate(
                 rank_batches(loader, dev)):
-            terms = mean_over_ranks(train_step(batch_input, batch_gt))
-            for k, v in terms.items():
-                meters.setdefault(k, AverageMeter()).update(
-                    float(v), len(batch_input) * data_size())
+            meters.update(mean_over_ranks(train_step(batch_input, batch_gt)),
+                          len(batch_input) * data_size())
             if (idx + 1) % print_freq == 0:
-                tm = meters["total"]
+                tm = meters.read()["total"]
                 print(f"[{idx + 1}/{len(loader)}]\tloss {tm.val:.4f} "
                       f"({tm.avg:.4f})", flush=True)
 
@@ -282,7 +319,7 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
         for train_ld, _ in loaders.values():
             if train_ld is not None:   # 3DPW may be evaluation only
                 train_ld.set_epoch(epoch)
-        meters: dict = {}
+        meters = DeviceMeters()
         lr = optimizer.param_groups[0]["lr"]
         record = {"epoch": epoch, "lr": lr,
                   "lr_head": optimizer.param_groups[1]["lr"]}
@@ -309,13 +346,14 @@ def train_with_config(args, opts, device=None, attn_impl=None) -> dict:
                 writer.add_scalar(tag, v, epoch + 1)
             record.update(pw3d_mpjpe=test_mpjpe, pw3d_pa_mpjpe=pa,
                           pw3d_mpve=ve)
-        for k, m in meters.items():
+        read = meters.read()
+        for k, m in read.items():
             writer.add_scalar(f"train_loss/{k}", m.avg, epoch + 1)
         scale_lr(optimizer, args.lr_decay)
         improved = test_mpjpe is not None and test_mpjpe < best_jpe
         if improved:
             best_jpe = test_mpjpe
-        loss = meters["total"].avg if "total" in meters else None
+        loss = read["total"].avg if "total" in read else None
         print(f"[{epoch + 1}] train_total {loss} test_mpjpe {test_mpjpe} "
               f"best {best_jpe}")
         record.update(loss=loss, best_jpe=best_jpe)
